@@ -1,0 +1,123 @@
+"""StreamPlan records: which kernel serves each stage, with block hints.
+
+Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
+``repro.core.stream_plan`` (the fields the port reads) and adds
+``plan_for``, which returns the plan the reference compiler (trace ->
+tiling DSE -> fusion -> lowering) selects for the dense RMSNorm/GQA/SwiGLU
+family.  The reference selects the same four kernels and blocks for
+llama3-8b and its reduced config at every token count and KV length the
+engine asks for; a test pins this table to the reference ``plan_for``.
+The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
+in a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+from ..configs.base import ModelConfig
+
+Blocks = Tuple[Tuple[str, int], ...]
+
+
+@dataclass(frozen=True)
+class KernelChoice:
+    """One stage's implementation plus its block-size hints."""
+    implementation: str          # kernel name in repro_torch.kernels, or "eager"
+    blocks: Blocks = ()
+
+    @property
+    def fused(self) -> bool:
+        return self.implementation != "eager"
+
+    @property
+    def kw(self) -> Dict[str, int]:
+        """Block hints as wrapper keyword arguments."""
+        return dict(self.blocks)
+
+
+EAGER = KernelChoice("eager")
+
+# The main-path stages this slice ports, in pipeline order.
+STAGES = ("qkv", "attention", "decode_attn", "ffn")
+
+
+@dataclass(frozen=True)
+class LayerPlan:
+    """Kernel choices for one layer kind."""
+    kind: str
+    qkv: KernelChoice = EAGER          # ln1 + Q/K/V projections
+    attention: KernelChoice = EAGER    # chunk attention
+    decode_attn: KernelChoice = EAGER  # single-token paged attention
+    ffn: KernelChoice = EAGER          # ln2 + MLP
+
+    def stages(self):
+        for name in STAGES:
+            yield name, getattr(self, name)
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """Per-layer-kind kernel choices for one (config, shape) pair."""
+    arch: str
+    tokens: int
+    kv_len: int
+    layers: Tuple[Tuple[str, LayerPlan], ...]
+
+    def layer(self, kind: str) -> LayerPlan:
+        for k, lp in self.layers:
+            if k == kind:
+                return lp
+        return LayerPlan(kind=kind)
+
+    def decode_page_size(self, default: int = 16) -> int:
+        """KV page size: the page size the plan's paged-attention choice
+        carries, or ``default`` when no layer plans a paged decode stage."""
+        for _, lp in self.layers:
+            if lp.decode_attn.fused:
+                return lp.decode_attn.kw.get("page_size", default)
+        return default
+
+    def prefill_chunk_size(self, page_size: int, default: int = 128) -> int:
+        """Chunked-prefill granule: the attention ``block_q`` rounded up to
+        whole KV pages, so chunk boundaries land on page boundaries."""
+        base = default
+        for _, lp in self.layers:
+            if lp.attention.fused:
+                base = int(lp.attention.kw.get("block_q", default))
+                break
+        ps = max(1, int(page_size))
+        return max(1, -(-int(base) // ps)) * ps
+
+
+# The reference compiler's selection for the dense RMSNorm / GQA / SwiGLU
+# family (repro.core.stream_plan.plan_for on llama3-8b and llama3-8b
+# reduced, tokens in {4, 64, 128, 512}, kv_len in {256, 2048, 4096}).
+_DENSE_RMSNORM_GLU = LayerPlan(
+    kind="attn",
+    qkv=KernelChoice("rmsnorm_matmul", (("block_t", 128), ("block_n", 128))),
+    attention=KernelChoice("flash_attention",
+                           (("block_q", 128), ("block_kv", 128))),
+    decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
+    ffn=KernelChoice("streamed_ffn",
+                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 1))),
+)
+
+
+def plan_for(cfg: ModelConfig, tokens: int,
+             kv_len: Optional[int] = None) -> Optional[StreamPlan]:
+    """The plan for ``cfg`` at ``tokens`` tokens over ``kv_len`` cached
+    positions, or None when ``cfg.use_fused_kernels`` is off (eager)."""
+    if not cfg.use_fused_kernels:
+        return None
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    if (kinds != {"attn"} or cfg.norm != "rmsnorm" or not cfg.gated_ffn
+            or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm or cfg.quant != "none"
+            or cfg.rope != "rope"):
+        raise NotImplementedError(
+            f"the port has no plan for {cfg.name!r} yet: only dense "
+            "RMSNorm/GQA/SwiGLU/RoPE stacks without quantization are ported")
+    return StreamPlan(arch=cfg.name, tokens=int(tokens),
+                      kv_len=int(kv_len or tokens),
+                      layers=(("attn", _DENSE_RMSNORM_GLU),))

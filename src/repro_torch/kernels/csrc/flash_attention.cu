@@ -1,0 +1,153 @@
+// Offset flash attention for chunked prefill: query row i of a chunk sits at
+// absolute position q_offset + i and attends causally to the first kv_len
+// cached positions.
+//   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
+//   h / kv_group -> out [Hq_, Sq, D].
+// Only what the llama3 main path runs is built here: causal, no sliding
+// window, D = 128; the wrapper refuses the rest on the card.
+//
+// Replaces the TPU kernel
+// src/repro/kernels/flash_attention.py::_flash_kernel_offset (the offset
+// branch of flash_attention_2d, pallas_call at :300).  There q_offset and
+// kv_len ride in as scalar-prefetch operands; here they are plain kernel
+// arguments.  Each block holds 16 query rows of one head (4 per warp) and
+// walks only the KV tiles that can be live: below kv_len and at or before
+// the block's last query position.  Per 32-key tile it
+// runs the reference's online softmax: QK products of the input dtype
+// summed in float32, then scaled; masked scores at -1e30; p rounded to the
+// v dtype before PV; the normaliser clamped at 1e-30.  The caller gathers
+// the live pages into dense K/V first (models/model.py), as the reference
+// does.
+// What bounds it: the QK and PV arithmetic (O(Sq * kv_len * D) per head),
+// done here on the CUDA cores; K/V are re-read from L2 by each q block.
+#include "common.cuh"
+
+using namespace repro;
+
+namespace {
+
+constexpr int BQ = 16;    // query rows per block
+constexpr int BKV = 32;   // keys per tile: one per lane
+constexpr int NWARP = 4;
+constexpr int RPW = BQ / NWARP;
+
+constexpr int D = 128;    // head dim
+
+template <typename T>
+__global__ void __launch_bounds__(NWARP * 32)
+flash_offset_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int sq,
+                    int skv, int kv_group, int q_offset, int kv_len,
+                    float scale) {
+  constexpr int DPL = D / 32;   // output dims per lane
+  __shared__ float q_s[BQ][D];
+  __shared__ float k_s[BKV][D + 1];
+  __shared__ float v_s[BKV][D];
+
+  const int h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int hk = h / kv_group;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* qh = q + (size_t)h * sq * D;
+  const T* kh = k + (size_t)hk * skv * D;
+  const T* vh = v + (size_t)hk * skv * D;
+
+  for (int i = tid; i < BQ * D; i += NWARP * 32) {
+    const int r = i / D, c = i % D;
+    q_s[r][c] = (q0 + r < sq) ? to_f(qh[(size_t)(q0 + r) * D + c]) : 0.f;
+  }
+
+  float m[RPW], l[RPW], acc[RPW][DPL];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
+  }
+
+  // Live KV range of this block (tiles outside it are wholly masked).
+  const int q_last = q_offset + min(q0 + BQ, sq) - 1;
+  const int kv_end = min(min(kv_len, skv), q_last + 1);
+
+  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+    __syncthreads();   // q_s written / previous tile consumed
+    for (int i = tid; i < BKV * D; i += NWARP * 32) {
+      const int r = i / D, c = i % D, kp = k0 + r;
+      const bool ok = kp < skv;
+      k_s[r][c] = ok ? to_f(kh[(size_t)kp * D + c]) : 0.f;
+      v_s[r][c] = ok ? to_f(vh[(size_t)kp * D + c]) : 0.f;
+    }
+    __syncthreads();
+    const int kp = k0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = warp * RPW + rr;
+      const int qpos = q_offset + q0 + r;
+      float s = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < D; ++c) s = fmaf(q_s[r][c], k_s[lane][c], s);
+      s *= scale;
+      const bool valid = kp < kv_len && kp < skv && q0 + r < sq && kp <= qpos;
+      s = valid ? s : kNegInf;
+      const float m_new = fmaxf(m[rr], warp_max(s));
+      const float p = valid ? expf(s - m_new) : 0.f;
+      const float corr = expf(m[rr] - m_new);
+      l[rr] = l[rr] * corr + warp_sum(p);
+      const float pr = round_to<T>(p);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[rr][i] *= corr;
+#pragma unroll 8
+      for (int j = 0; j < BKV; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pr, j);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i)
+          acc[rr][i] = fmaf(pj, v_s[j][lane + 32 * i], acc[rr][i]);
+      }
+      m[rr] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int r = warp * RPW + rr;
+    if (q0 + r >= sq) continue;
+    const float denom = fmaxf(l[rr], 1e-30f);
+    T* o = out + ((size_t)h * sq + q0 + r) * D;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) o[lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int hq,
+           int sq, int skv, int d, int kv_group, int q_offset, int kv_len,
+           float scale, cudaStream_t stream) {
+  if (d != D) return (int)cudaErrorInvalidValue;
+  dim3 grid(cdiv(sq, BQ), hq);
+  flash_offset_kernel<T><<<grid, NWARP * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, kv_group,
+      q_offset, kv_len, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_flash_offset_f32(const void* q, const void* k,
+                                      const void* v, void* out, int hq,
+                                      int sq, int skv, int d, int kv_group,
+                                      int q_offset, int kv_len, float scale,
+                                      void* stream) {
+  return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,
+                       kv_len, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_flash_offset_bf16(const void* q, const void* k,
+                                       const void* v, void* out, int hq,
+                                       int sq, int skv, int d, int kv_group,
+                                       int q_offset, int kv_len, float scale,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, hq, sq, skv, d, kv_group,
+                               q_offset, kv_len, scale,
+                               static_cast<cudaStream_t>(stream));
+}

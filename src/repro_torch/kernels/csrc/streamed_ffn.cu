@@ -1,0 +1,222 @@
+// streamed_ffn: out[T, D] = (silu(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, with the
+// pre-FFN RMSNorm folded in (xn = rms_norm(x) * (1 + s), rounded to the x
+// dtype).  Only what the llama3 main path runs is built here: SwiGLU with
+// the folded norm; the wrapper refuses other activations and a missing
+// norm scale on the card.
+//
+// Replaces the TPU kernel src/repro/kernels/streamed_ffn.py::_ffn_kernel
+// (pallas_call at :168).  The TPU kernel walks F as a sequential grid
+// dimension and carries a [bt, D] float32 accumulator in VMEM across it;
+// that is 2 MB at bt = 128, D = 4096 and cannot live in one Hopper block,
+// and Hopper blocks run in no order.  So F is split across blocks instead:
+//   phase 1: block (f, t) computes its [BT, BF] tile of h = silu(g) * u in
+//            shared memory (x tiles normalised on load, gate and up summed
+//            in float32, h rounded to the x dtype) — h never reaches HBM;
+//   phase 2: it multiplies that tile by Wd[BF, D] into a float32 partial
+//            [BT, D], written to a workspace [F / BF, T, D];
+//   pass 2 : a second kernel sums the partials in f-tile order (no float
+//            atomics: results repeat run to run).
+// Workspace: F/BF * T * D * 4 bytes (235 MB at T = 128, BF = 128).
+// What bounds it: at T = 4 the three weight matrices (memory bound); at
+// T = 128 the arithmetic, done here on the CUDA cores (float FMA).
+#include "common.cuh"
+
+using namespace repro;
+
+namespace {
+
+constexpr int BK = 8;
+constexpr int NT = 256;
+
+__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
+
+template <typename T, int BT, int BF, int TM1, int TN1, int BN2, int TM2,
+          int TN2>
+__global__ void __launch_bounds__(NT)
+streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
+                    const T* __restrict__ wg, const T* __restrict__ wu,
+                    const T* __restrict__ wd, float* __restrict__ part,
+                    int t, int d, int f, float eps) {
+  static_assert((BT / TM1) * (BF / TN1) == NT, "phase-1 thread layout");
+  static_assert((BT / TM2) * (BN2 / TN2) == NT, "phase-2 thread layout");
+  constexpr int P1 = BK * (BT + 1) + 2 * BK * BF;
+  constexpr int P2 = BK * BN2;
+  constexpr int BUF = P1 > P2 ? P1 : P2;
+  __shared__ float rstd_s[BT];
+  __shared__ float h_s[BF * BT];          // h tile, [BF][BT]
+  __shared__ float buf[BUF];              // phase-1 x/g/u tiles, then Wd
+  float* xs = buf;                        // [BK][BT + 1]
+  float* gs = buf + BK * (BT + 1);        // [BK][BF]
+  float* us = gs + BK * BF;               // [BK][BF]
+  float* ds = buf;                        // [BK][BN2]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f0 = blockIdx.x * BF, row0 = blockIdx.y * BT;
+
+  for (int r = warp; r < BT; r += NT / 32) {
+    const int gr = row0 + r;
+    float ss = 0.f;
+    if (gr < t) {
+      const T* xr = x + (size_t)gr * d;
+      for (int k = lane; k < d; k += 32) {
+        const float v = to_f(xr[k]);
+        ss += v * v;
+      }
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) rstd_s[r] = rsqrtf(ss / (float)d + eps);
+  }
+  __syncthreads();
+
+  // Phase 1: gate and up tiles [BT, BF], reduced over D.
+  {
+    const int tr = tid / (BF / TN1), tc = tid % (BF / TN1);
+    float g[TM1][TN1], u[TM1][TN1];
+#pragma unroll
+    for (int i = 0; i < TM1; ++i)
+#pragma unroll
+      for (int j = 0; j < TN1; ++j) g[i][j] = u[i][j] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += BK) {
+      for (int i = tid; i < BT * BK; i += NT) {
+        const int r = i / BK, kk = i % BK;
+        const int gr = row0 + r, gk = k0 + kk;
+        float v = 0.f;
+        if (gr < t && gk < d)
+          v = round_to<T>(to_f(x[(size_t)gr * d + gk]) * rstd_s[r] *
+                          (1.f + to_f(nscale[gk])));
+        xs[kk * (BT + 1) + r] = v;
+      }
+      for (int i = tid; i < BK * BF; i += NT) {
+        const int kk = i / BF, c = i % BF;
+        const int gk = k0 + kk, gc = f0 + c;
+        const bool ok = gk < d && gc < f;
+        const size_t off = (size_t)gk * f + gc;
+        gs[kk * BF + c] = ok ? to_f(wg[off]) : 0.f;
+        us[kk * BF + c] = ok ? to_f(wu[off]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[TM1], bg[TN1], bu[TN1];
+#pragma unroll
+        for (int i = 0; i < TM1; ++i) a[i] = xs[kk * (BT + 1) + tr * TM1 + i];
+#pragma unroll
+        for (int j = 0; j < TN1; ++j) {
+          bg[j] = gs[kk * BF + tc * TN1 + j];
+          bu[j] = us[kk * BF + tc * TN1 + j];
+        }
+#pragma unroll
+        for (int i = 0; i < TM1; ++i)
+#pragma unroll
+          for (int j = 0; j < TN1; ++j) {
+            g[i][j] = fmaf(a[i], bg[j], g[i][j]);
+            u[i][j] = fmaf(a[i], bu[j], u[i][j]);
+          }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM1; ++i)
+#pragma unroll
+      for (int j = 0; j < TN1; ++j) {
+        const int r = tr * TM1 + i, c = tc * TN1 + j;
+        const bool ok = row0 + r < t && f0 + c < f;
+        h_s[c * BT + r] =
+            ok ? round_to<T>(silu(g[i][j]) * u[i][j]) : 0.f;
+      }
+  }
+  __syncthreads();
+
+  // Phase 2: partial[BT, D] = h[BT, BF] @ Wd[f0:f0+BF, :].
+  const int tr = tid / (BN2 / TN2), tc = tid % (BN2 / TN2);
+  for (int c0 = 0; c0 < d; c0 += BN2) {
+    float acc[TM2][TN2];
+#pragma unroll
+    for (int i = 0; i < TM2; ++i)
+#pragma unroll
+      for (int j = 0; j < TN2; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < BF; k0 += BK) {
+      for (int i = tid; i < BK * BN2; i += NT) {
+        const int kk = i / BN2, c = i % BN2;
+        const int gf = f0 + k0 + kk, gc = c0 + c;
+        ds[kk * BN2 + c] =
+            (gf < f && gc < d) ? to_f(wd[(size_t)gf * d + gc]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[TM2], b[TN2];
+#pragma unroll
+        for (int i = 0; i < TM2; ++i) a[i] = h_s[(k0 + kk) * BT + tr * TM2 + i];
+#pragma unroll
+        for (int j = 0; j < TN2; ++j) b[j] = ds[kk * BN2 + tc * TN2 + j];
+#pragma unroll
+        for (int i = 0; i < TM2; ++i)
+#pragma unroll
+          for (int j = 0; j < TN2; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM2; ++i) {
+      const int gr = row0 + tr * TM2 + i;
+      if (gr >= t) continue;
+#pragma unroll
+      for (int j = 0; j < TN2; ++j) {
+        const int gc = c0 + tc * TN2 + j;
+        if (gc < d) part[((size_t)blockIdx.x * t + gr) * d + gc] = acc[i][j];
+      }
+    }
+  }
+}
+
+// Tile shapes; the Python wrapper mirrors BF to size the workspace.
+//   small (T <= 16): BT 8,  BF 64  (phase 1: 1 x 2, phase 2: 1 x 4 / thread)
+//   large          : BT 64, BF 128 (phase 1: 4 x 8, phase 2: 4 x 8 / thread)
+template <typename T>
+int launch(const void* x, const void* nscale, const void* wg, const void* wu,
+           const void* wd, void* out, void* part, int t, int d, int f,
+           int small, float eps, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* st = static_cast<const T*>(nscale);
+  const T* gt = static_cast<const T*>(wg);
+  const T* ut = static_cast<const T*>(wu);
+  const T* dt = static_cast<const T*>(wd);
+  float* p = static_cast<float*>(part);
+  int n_f;
+  if (small) {
+    n_f = cdiv(f, 64);
+    dim3 grid(n_f, cdiv(t, 8));
+    streamed_ffn_kernel<T, 8, 64, 1, 2, 128, 1, 4><<<grid, NT, 0, stream>>>(
+        xt, st, gt, ut, dt, p, t, d, f, eps);
+  } else {
+    n_f = cdiv(f, 128);
+    dim3 grid(n_f, cdiv(t, 64));
+    streamed_ffn_kernel<T, 64, 128, 4, 8, 128, 4, 8><<<grid, NT, 0, stream>>>(
+        xt, st, gt, ut, dt, p, t, d, f, eps);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  split_reduce<T>(p, static_cast<T*>(out), n_f, (size_t)t * d, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
+                                      const void* wg, const void* wu,
+                                      const void* wd, void* out, void* part,
+                                      int t, int d, int f, int small,
+                                      float eps, void* stream) {
+  return launch<float>(x, nscale, wg, wu, wd, out, part, t, d, f, small, eps,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
+                                       const void* wg, const void* wu,
+                                       const void* wd, void* out, void* part,
+                                       int t, int d, int f, int small,
+                                       float eps, void* stream) {
+  return launch<__nv_bfloat16>(x, nscale, wg, wu, wd, out, part, t, d, f,
+                               small, eps, static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,201 @@
+"""Parameter and cache schema of the port, mirroring ``repro.models.params``.
+
+Weights keep the reference layout (``x @ W`` with W ``[D_in, D_out]``) and
+leaf names (``model_defs``), so a reference tree converts leaf for leaf.
+One difference in structure: the reference stacks layers into pattern
+groups for ``lax.scan`` (``blocks`` [G, ...] + ``rest``); the port keeps a
+plain list ``layers`` of per-layer dicts and loops over it in Python.
+
+* ``init_params`` draws weights on the device from a ``torch.Generator``
+  with the reference's distributions (normal scaled by 1/sqrt(fan_in),
+  zero norm scales);
+* ``params_from_numpy`` bridges a reference tree (nested dicts/tuples of
+  numpy arrays) into that layout, cast once to the compute dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.common import DeviceLike, resolve_device
+
+Tree = Any
+
+VOCAB_PAD = 256
+
+
+def padded_vocab(v: int) -> int:
+    return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """bfloat16 under a bf16 config, else float32 (the reference ``_c``)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"        # normal | zeros
+    fan_in: Optional[int] = None
+
+
+def _mat(d_in: int, d_out: int) -> ParamDef:
+    return ParamDef((d_in, d_out), "normal", fan_in=d_in)
+
+
+def _vec(n: int) -> ParamDef:
+    return ParamDef((n,), "zeros")
+
+
+def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
+    """One attention layer: ln1, attn (wq/wk/wv/wo), ln2, mlp (wg/wu/wd)."""
+    if kind not in ("attn", "local_attn", "global_attn"):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    if cfg.norm != "rmsnorm" or cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name!r}: layernorm / qkv bias / qk-norm / MoE layers are "
+            "not ported yet")
+    d, dq, dkv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    mlp = {"wu": _mat(d, f), "wd": _mat(f, d)}
+    if cfg.gated_ffn:
+        mlp["wg"] = _mat(d, f)
+    return {
+        "ln1": {"scale": _vec(d)},
+        "attn": {"wq": _mat(d, dq), "wk": _mat(d, dkv), "wv": _mat(d, dkv),
+                 "wo": _mat(dq, d)},
+        "ln2": {"scale": _vec(d)},
+        "mlp": mlp,
+    }
+
+
+def model_defs(cfg: ModelConfig) -> Dict[str, Tree]:
+    if cfg.rope == "none":
+        raise NotImplementedError("learned position embeddings (rope='none')"
+                                  " are not ported yet")
+    vp = padded_vocab(cfg.vocab_size)
+    d = cfg.d_model
+    return {
+        "embed": ParamDef((vp, d), "normal", fan_in=d),
+        "layers": [block_defs(cfg, cfg.layer_kind(i))
+                   for i in range(cfg.num_layers)],
+        "final_norm": {"scale": _vec(d)},
+        "lm_head": ParamDef((d, vp), "normal", fan_in=d),
+    }
+
+
+def map_tree(fn: Callable, tree: Tree) -> Tree:
+    """Apply ``fn`` to every leaf of nested dicts / lists / tuples."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: DeviceLike = None,
+                dtype: Optional[torch.dtype] = None) -> Tree:
+    """Random weights drawn on ``device`` from ``generator`` (which must
+    live on that device): float32 normal draws scaled by 1/sqrt(fan_in)
+    and cast to ``dtype`` (default: the compute dtype), zero norm scales —
+    the reference ``_init_leaf`` distributions (its numbers differ: JAX
+    keys and torch generators draw different streams)."""
+    dev = resolve_device(device)
+    dtype = dtype or compute_dtype(cfg)
+
+    def leaf(pd: ParamDef) -> torch.Tensor:
+        if pd.init == "zeros":
+            return torch.zeros(pd.shape, dtype=dtype, device=dev)
+        w = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        w.mul_(1.0 / math.sqrt(pd.fan_in or pd.shape[0]))
+        return w.to(dtype)
+
+    return map_tree(leaf, model_defs(cfg))
+
+
+def params_from_numpy(tree: Tree, cfg: ModelConfig,
+                      device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Tree:
+    """Bridge a reference parameter tree to the port's layout.
+
+    ``tree`` is the reference ``init_params`` output converted leaf by leaf
+    to numpy (nested dicts / tuples).  The stacked ``blocks`` [G, ...]
+    leaves are unstacked into per-layer tensors (layer ``g * period + p``
+    is group ``g`` of pattern position ``p``; ``rest`` layers follow), and
+    float32 leaves are cast to the compute dtype once — the cast the
+    reference repeats on every call (``_cast_tree``)."""
+    dev = resolve_device(device)
+    dtype = dtype or compute_dtype(cfg)
+    period = len(cfg.layer_pattern)
+    groups = cfg.num_layers // period
+
+    def to_t(a) -> torch.Tensor:
+        t = torch.from_numpy(np.array(a, copy=True)).to(dev)
+        return t.to(dtype) if t.dtype == torch.float32 else t
+
+    layers = []
+    for g in range(groups):
+        for p in range(period):
+            layers.append(map_tree(lambda a: to_t(np.asarray(a)[g]),
+                                   tree["blocks"][p]))
+    for rest in tree["rest"]:
+        layers.append(map_tree(to_t, rest))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.num_layers}")
+    return {"embed": to_t(tree["embed"]), "layers": layers,
+            "final_norm": map_tree(to_t, tree["final_norm"]),
+            "lm_head": to_t(tree["lm_head"])}
+
+
+# --------------------------------------------------------------------- #
+# Cache-leaf schema
+# --------------------------------------------------------------------- #
+
+KV_CACHE_LEAVES = ("k", "v")                       # carry a sequence axis
+STATE_CACHE_LEAVES = ("ssm", "conv", "wkv", "tm_shift", "cm_shift")
+SCALE_CACHE_LEAVES = ("k_scale", "v_scale")
+
+
+def cache_leaf_kind(name: str) -> str:
+    """'kv' (paged / sequence-carrying), 'scale' (per-page dequant scales)
+    or 'state' (slot-contiguous); an unregistered leaf raises."""
+    if name in KV_CACHE_LEAVES:
+        return "kv"
+    if name in SCALE_CACHE_LEAVES:
+        return "scale"
+    if name in STATE_CACHE_LEAVES:
+        return "state"
+    raise ValueError(
+        f"unregistered cache leaf {name!r}: add it to KV_CACHE_LEAVES, "
+        "SCALE_CACHE_LEAVES or STATE_CACHE_LEAVES in models/params.py")
+
+
+def kv_seq_axis(layout: str) -> int:
+    """Sequence axis of a K/V cache leaf, counted from the end."""
+    return -2 if layout == "bhsd" else -3
+
+
+@dataclass(frozen=True)
+class CacheDef:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def attn_cache_defs(cfg: ModelConfig, batch: int,
+                    max_len: int) -> Dict[str, CacheDef]:
+    """Contiguous K/V leaves ``[L, B, S, Hkv, hd]`` ("bshd").  Storage
+    follows the compute dtype, as in the reference (``params.py:329``)."""
+    if cfg.kv_cache_layout != "bshd":
+        raise NotImplementedError("the 'bhsd' cache layout is not ported yet")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    dt = compute_dtype(cfg)
+    return {"k": CacheDef(shape, dt), "v": CacheDef(shape, dt)}

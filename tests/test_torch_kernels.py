@@ -1,0 +1,211 @@
+"""The port's kernels on the CPU: each plain PyTorch version against the
+reference Pallas kernel (interpret mode, the reference's CPU default) on
+the same numpy-seeded float32 inputs, at rtol = atol = 1e-5.
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+each against its plain version there.  Here the wrappers must take the
+plain path for a CPU tensor, count no launch, and refuse other devices.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import flash_attention as j_flash
+from repro.kernels import flash_attention_2d as j_flash_2d
+from repro.kernels import paged_decode_attention as j_paged
+from repro.kernels import rmsnorm_matmul as j_rmsnorm_matmul
+from repro.kernels import streamed_ffn as j_streamed_ffn
+from repro_torch import kernels as K
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import pick_block, resolve_device
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _close(got: torch.Tensor, want) -> None:
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               **TOL)
+
+
+@pytest.mark.parametrize("t,d,n", [(24, 64, 48), (4, 128, 96), (130, 32, 16)])
+def test_rmsnorm_matmul_matches_pallas(t, d, n):
+    rng = np.random.default_rng(0)
+    x, s, w = _rand(rng, t, d), _rand(rng, d, scale=0.1), \
+        _rand(rng, d, n, scale=d ** -0.5)
+    got = K.rmsnorm_matmul(torch.from_numpy(x), torch.from_numpy(s),
+                           torch.from_numpy(w))
+    want = j_rmsnorm_matmul(jnp.asarray(x), jnp.asarray(s), jnp.asarray(w),
+                            block_t=128, block_n=128)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu"])
+@pytest.mark.parametrize("fold_norm", [True, False])
+@pytest.mark.parametrize("t", [4, 40])
+def test_streamed_ffn_matches_pallas(activation, fold_norm, t):
+    rng = np.random.default_rng(1)
+    d, f = 64, 256
+    x = _rand(rng, t, d)
+    wg, wu = _rand(rng, d, f, scale=d ** -0.5), _rand(rng, d, f,
+                                                      scale=d ** -0.5)
+    wd = _rand(rng, f, d, scale=f ** -0.5)
+    s = _rand(rng, d, scale=0.1) if fold_norm else None
+    got = K.streamed_ffn(*(torch.from_numpy(a) for a in (x, wg, wu, wd)),
+                         activation=activation,
+                         norm_scale=None if s is None else torch.from_numpy(s))
+    want = j_streamed_ffn(*(jnp.asarray(a) for a in (x, wg, wu, wd)),
+                          activation=activation,
+                          norm_scale=None if s is None else jnp.asarray(s),
+                          block_t=128, block_f=128)
+    _close(got, want)
+
+
+# (heads q, heads kv, Sq, Skv, q_offset, kv_len, window): GQA, a chunk at a
+# nonzero offset, a partly filled extent (kv_len < Skv), a sliding window.
+FLASH_CASES = [
+    (4, 2, 16, 64, 0, 16, 0),
+    (4, 2, 16, 64, 32, 48, 0),
+    (8, 2, 32, 128, 64, 96, 0),
+    (4, 4, 16, 64, 32, 48, 24),
+    (6, 3, 8, 40, 16, 24, 0),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,sq,skv,q_off,kv_len,window", FLASH_CASES)
+def test_flash_offset_matches_pallas(hq, hkv, sq, skv, q_off, kv_len, window):
+    rng = np.random.default_rng(2)
+    d = 16
+    q, k, v = (_rand(rng, hq, sq, d), _rand(rng, hkv, skv, d),
+               _rand(rng, hkv, skv, d))
+    got = K.flash_attention_2d(*(torch.from_numpy(a) for a in (q, k, v)),
+                               q_offset=q_off, kv_len=kv_len, window=window,
+                               kv_group=hq // hkv, block_kv=16)
+    want = j_flash_2d(*(jnp.asarray(a) for a in (q, k, v)), q_offset=q_off,
+                      kv_len=kv_len, window=window, kv_group=hq // hkv,
+                      block_q=8, block_kv=16)
+    _close(got, want)
+
+
+def test_model_layout_flash_matches_pallas():
+    """The GQA kv-head-major flatten of ``ops.flash_attention``."""
+    rng = np.random.default_rng(3)
+    b, sq, skv, hq, hkv, d = 1, 16, 48, 4, 2, 16
+    q, k, v = (_rand(rng, b, sq, hq, d), _rand(rng, b, skv, hkv, d),
+               _rand(rng, b, skv, hkv, d))
+    got = K.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            q_offset=16, kv_len=32, block_kv=16)
+    want = j_flash(*(jnp.asarray(a) for a in (q, k, v)), q_offset=16,
+                   kv_len=32, block_q=16, block_kv=16)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(4, 2, 0), (8, 2, 0), (4, 4, 0),
+                                           (4, 2, 9)])
+def test_paged_decode_matches_pallas(hq, hkv, window):
+    rng = np.random.default_rng(4)
+    b, d, ps, maxp = 4, 16, 8, 6
+    pages = 1 + b * maxp
+    kp, vp = _rand(rng, pages, ps, hkv, d), _rand(rng, pages, ps, hkv, d)
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    table = table.astype(np.int32)
+    table[2, 3:] = 0                       # unallocated: the NULL page
+    lengths = np.array([41, 7, 20, 0], np.int32)   # slot 3 inactive
+    q = _rand(rng, b, 1, hq, d)
+    got = K.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)),
+        window=window)
+    want = j_paged(*(jnp.asarray(a) for a in (q, kp, vp, table, lengths)),
+                   window=window)
+    _close(got, want)
+    assert torch.count_nonzero(got[3]) == 0     # length 0 gives zeros
+
+
+def test_cpu_tensors_take_the_plain_path_without_a_launch():
+    K.reset_launches()
+    x = torch.randn(4, 32)
+    K.rmsnorm_matmul(x, torch.zeros(32), torch.randn(32, 8))
+    K.streamed_ffn(x, torch.randn(32, 16), torch.randn(32, 16),
+                   torch.randn(16, 32))
+    assert K.launch_counts() == {name: 0 for name in K.KERNELS}
+
+
+def _off_path_calls():
+    x, w_up, w_down = torch.randn(4, 32), torch.randn(32, 16), \
+        torch.randn(16, 32)
+    q, kv = torch.randn(4, 8, 128), torch.randn(2, 16, 128)
+    qd, pool = torch.randn(2, 1, 4, 128), torch.randn(5, 4, 2, 128)
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lengths = torch.tensor([5, 0], dtype=torch.int32)
+    return {
+        "ffn_gelu": ("streamed_ffn", lambda: K.streamed_ffn(
+            x, w_up, w_up, w_down, activation="gelu",
+            norm_scale=torch.zeros(32))),
+        "ffn_no_norm": ("streamed_ffn", lambda: K.streamed_ffn(
+            x, w_up, w_up, w_down)),
+        "flash_window": ("flash_attention", lambda: K.flash_attention_2d(
+            q, kv, kv, q_offset=8, kv_group=2, window=4)),
+        "flash_not_causal": ("flash_attention", lambda: K.flash_attention_2d(
+            q, kv, kv, q_offset=8, kv_group=2, causal=False)),
+        "flash_head_dim_64": ("flash_attention", lambda: K.flash_attention_2d(
+            *(t[..., :64].contiguous() for t in (q, kv, kv)), q_offset=8,
+            kv_group=2)),
+        "paged_window": ("paged_attention", lambda: K.paged_decode_attention(
+            qd, pool, pool, table, lengths, window=3)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_off_path_calls()))
+def test_cuda_path_refuses_cases_the_kernel_does_not_build(monkeypatch, case):
+    """The CUDA kernels build only the main path's cases; the wrappers
+    refuse the rest before any build or launch (the CPU tensors here stand
+    in for CUDA ones by forcing the wrapper's kernel route)."""
+    module, call = _off_path_calls()[case]
+    wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
+    monkeypatch.setattr(wrapper, "kernel_path", lambda t: "cuda")
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail(
+        f"{case}: reached the build"))
+    with pytest.raises(ValueError, match="the CUDA kernel runs"):
+        call()
+
+
+def test_other_devices_are_refused():
+    x = torch.empty(4, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.rmsnorm_matmul(x, torch.empty(32, device="meta"),
+                         torch.empty(32, 8, device="meta"))
+
+
+def test_shape_mismatch_raises():
+    with pytest.raises(ValueError):
+        K.rmsnorm_matmul(torch.randn(4, 32), torch.zeros(16),
+                         torch.randn(32, 8))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_device_none_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pick_block_matches_reference_policy():
+    from repro.kernels.common import pick_block as j_pick_block
+    for extent in (1, 16, 96, 128, 256, 384, 1000, 2048):
+        for target in (16, 128, 512):
+            assert pick_block(extent, target) == j_pick_block(extent, target)
