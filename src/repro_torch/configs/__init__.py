@@ -9,9 +9,11 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig
+from .gpt2 import CONFIG as GPT2
 from .llama3_8b import CONFIG as LLAMA3_8B
 
 ARCHS: Dict[str, ModelConfig] = {
+    "gpt2": GPT2,
     "llama3-8b": LLAMA3_8B,
 }
 

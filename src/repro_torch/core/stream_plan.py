@@ -3,10 +3,13 @@
 Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
 ``repro.core.stream_plan`` (the fields the port reads) and adds
 ``plan_for``, which returns the plan the reference compiler (trace ->
-tiling DSE -> fusion -> lowering) selects for the dense RMSNorm/GQA/SwiGLU
-family.  The reference selects the same four kernels and blocks for
-llama3-8b and its reduced config at every token count and KV length the
-engine asks for; a test pins this table to the reference ``plan_for``.
+tiling DSE -> fusion -> lowering) selects for the two ported families:
+dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b) and dense LayerNorm/MHA/GELU-MLP
+with learned positions (gpt2).  The reference selects the same kernels and
+blocks for each family's config and its reduced config at every token
+count, and at every KV length that is a multiple of the 16-token page
+(the engine asks for ``max_len``); a test pins this table to the reference
+``plan_for``.
 The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
 in a later slice.
 """
@@ -47,10 +50,10 @@ STAGES = ("qkv", "attention", "decode_attn", "ffn")
 class LayerPlan:
     """Kernel choices for one layer kind."""
     kind: str
-    qkv: KernelChoice = EAGER          # ln1 + Q/K/V projections
-    attention: KernelChoice = EAGER    # chunk attention
+    qkv: KernelChoice = EAGER          # (ln1 +) Q/K/V projections
+    attention: KernelChoice = EAGER    # chunk / whole-prompt attention
     decode_attn: KernelChoice = EAGER  # single-token paged attention
-    ffn: KernelChoice = EAGER          # ln2 + MLP
+    ffn: KernelChoice = EAGER          # (ln2 +) MLP
 
     def stages(self):
         for name in STAGES:
@@ -104,6 +107,33 @@ _DENSE_RMSNORM_GLU = LayerPlan(
                      (("block_t", 128), ("block_f", 128), ("fuse_norm", 1))),
 )
 
+# ... and for the dense LayerNorm / MHA / GELU-MLP / learned-position
+# family (gpt2 and gpt2 reduced, same token counts; kv_len in {256, 1024,
+# 2048}): the norms stay eager, so the projections and the MLP run the
+# plain tiled kernels.
+_DENSE_LAYERNORM_MLP = LayerPlan(
+    kind="attn",
+    qkv=KernelChoice("block_matmul", (("block_t", 128), ("block_n", 128))),
+    attention=KernelChoice("flash_attention",
+                           (("block_q", 128), ("block_kv", 128))),
+    decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
+    ffn=KernelChoice("streamed_mlp",
+                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 0))),
+)
+
+
+def _family_plan(cfg: ModelConfig) -> Optional[LayerPlan]:
+    """The ported family ``cfg`` belongs to, or None."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+    if (kinds != {"attn"} or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm
+            or cfg.quant != "none"):
+        return None
+    if cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope":
+        return _DENSE_RMSNORM_GLU
+    if cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none":
+        return _DENSE_LAYERNORM_MLP
+    return None
+
 
 def plan_for(cfg: ModelConfig, tokens: int,
              kv_len: Optional[int] = None) -> Optional[StreamPlan]:
@@ -111,13 +141,11 @@ def plan_for(cfg: ModelConfig, tokens: int,
     positions, or None when ``cfg.use_fused_kernels`` is off (eager)."""
     if not cfg.use_fused_kernels:
         return None
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if (kinds != {"attn"} or cfg.norm != "rmsnorm" or not cfg.gated_ffn
-            or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm or cfg.quant != "none"
-            or cfg.rope != "rope"):
+    lp = _family_plan(cfg)
+    if lp is None:
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
-            "RMSNorm/GQA/SwiGLU/RoPE stacks without quantization are ported")
+            "RMSNorm/GQA/SwiGLU/RoPE and LayerNorm/MHA/GELU-MLP/learned-"
+            "position stacks without quantization are ported")
     return StreamPlan(arch=cfg.name, tokens=int(tokens),
-                      kv_len=int(kv_len or tokens),
-                      layers=(("attn", _DENSE_RMSNORM_GLU),))
+                      kv_len=int(kv_len or tokens), layers=(("attn", lp),))

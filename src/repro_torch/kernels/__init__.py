@@ -7,17 +7,21 @@ PyTorch version a CPU tensor runs instead.
 """
 
 from . import ref
-from .flash_attention import flash_attention_2d
+from .block_matmul import block_matmul
+from .flash_attention import flash_attention_2d, flash_attention_static
 from .ops import flash_attention
 from .paged_attention import paged_decode_attention
 from .rmsnorm_matmul import rmsnorm_matmul
-from .streamed_ffn import streamed_ffn
+from .streamed_ffn import streamed_ffn, streamed_mlp
 
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
     "flash_attention": flash_attention_2d,
     "paged_attention": paged_decode_attention,
+    "block_matmul": block_matmul,
+    "streamed_mlp": streamed_mlp,
+    "flash_attention_static": flash_attention_static,
 }
 
 
@@ -32,7 +36,8 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "ref", "flash_attention", "flash_attention_2d", "paged_decode_attention",
-    "rmsnorm_matmul", "streamed_ffn", "KERNELS", "reset_launches",
+    "ref", "block_matmul", "flash_attention", "flash_attention_2d",
+    "flash_attention_static", "paged_decode_attention", "rmsnorm_matmul",
+    "streamed_ffn", "streamed_mlp", "KERNELS", "reset_launches",
     "launch_counts",
 ]

@@ -55,6 +55,28 @@ def pick_block(extent: int, target: int, align: int = 128) -> int:
     return best or extent
 
 
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# Mirrors the tile shapes of csrc/tiled_matmul.cuh (K3 and K5).
+_MATMUL_BK = 32
+_MATMUL_SMALL_T = 16      # T <= this: 8 x 128 tiles, else 64 x 64
+_MATMUL_TILES = {True: (8, 128), False: (64, 64)}
+
+
+def split_plan(t: int, d: int, n: int, sms: int):
+    """(small, k_per_split, splits) for the split-K tiled matmul: split K
+    across blocks until the grid holds about two blocks per SM, keeping
+    >= 4 K tiles per split."""
+    small = t <= _MATMUL_SMALL_T
+    bt, bn = _MATMUL_TILES[small]
+    tiles = cdiv(n, bn) * cdiv(t, bt)
+    want = max(1, min(cdiv(2 * sms, tiles), d // (4 * _MATMUL_BK)))
+    k_per_split = cdiv(cdiv(d, want), _MATMUL_BK) * _MATMUL_BK
+    return small, k_per_split, cdiv(d, k_per_split)
+
+
 def kernel_path(t: torch.Tensor) -> str:
     """'plain' for a CPU tensor, 'cuda' for a CUDA tensor; anything else
     (meta, mps, ...) is refused."""

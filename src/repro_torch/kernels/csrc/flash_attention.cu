@@ -1,16 +1,21 @@
-// Offset flash attention for chunked prefill: query row i of a chunk sits at
-// absolute position q_offset + i and attends causally to the first kv_len
-// cached positions.
+// Flash attention, two entry points over one kernel:
+//   offset (chunked prefill): query row i of a chunk sits at absolute
+//     position q_offset + i and attends causally to the first kv_len cached
+//     positions;
+//   static (whole-prompt prefill): query row i sits at position i, kv_len
+//     is fixed by the caller (the prompt length).
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
-// Only what the llama3 main path runs is built here: causal, no sliding
-// window, D = 128; the wrapper refuses the rest on the card.
+// Only what the main paths run is built here: causal, no sliding window,
+// D in {64, 128}; the wrapper refuses the rest on the card.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/flash_attention.py::_flash_kernel_offset (the offset
-// branch of flash_attention_2d, pallas_call at :300).  There q_offset and
-// kv_len ride in as scalar-prefetch operands; here they are plain kernel
-// arguments.  Each block holds 16 query rows of one head (4 per warp) and
+// Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
+// _flash_kernel_offset (the offset branch of flash_attention_2d,
+// pallas_call at :300) and _flash_kernel (its static branch, pallas_call
+// at :309).  The static kernel's arithmetic is the offset kernel's at
+// q_offset = 0, so both entry points launch the same device function.
+// There q_offset and kv_len ride in as scalar-prefetch operands; here they
+// are plain kernel arguments, and no S is assumed to divide a tile.  Each block holds 16 query rows of one head (4 per warp) and
 // walks only the KV tiles that can be live: below kv_len and at or before
 // the block's last query position.  Per 32-key tile it
 // runs the reference's online softmax: QK products of the input dtype
@@ -31,9 +36,7 @@ constexpr int BKV = 32;   // keys per tile: one per lane
 constexpr int NWARP = 4;
 constexpr int RPW = BQ / NWARP;
 
-constexpr int D = 128;    // head dim
-
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NWARP * 32)
 flash_offset_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int sq,
@@ -118,16 +121,29 @@ flash_offset_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int D>
+void launch_d(const void* q, const void* k, const void* v, void* out, int hq,
+              int sq, int skv, int kv_group, int q_offset, int kv_len,
+              float scale, cudaStream_t stream) {
+  dim3 grid(cdiv(sq, BQ), hq);
+  flash_offset_kernel<T, D><<<grid, NWARP * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, kv_group,
+      q_offset, kv_len, scale);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int hq,
            int sq, int skv, int d, int kv_group, int q_offset, int kv_len,
            float scale, cudaStream_t stream) {
-  if (d != D) return (int)cudaErrorInvalidValue;
-  dim3 grid(cdiv(sq, BQ), hq);
-  flash_offset_kernel<T><<<grid, NWARP * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, kv_group,
-      q_offset, kv_len, scale);
+  if (d == 64)
+    launch_d<T, 64>(q, k, v, out, hq, sq, skv, kv_group, q_offset, kv_len,
+                    scale, stream);
+  else if (d == 128)
+    launch_d<T, 128>(q, k, v, out, hq, sq, skv, kv_group, q_offset, kv_len,
+                     scale, stream);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -149,5 +165,23 @@ extern "C" int repro_flash_offset_bf16(const void* q, const void* k,
                                        void* stream) {
   return launch<__nv_bfloat16>(q, k, v, out, hq, sq, skv, d, kv_group,
                                q_offset, kv_len, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_flash_static_f32(const void* q, const void* k,
+                                      const void* v, void* out, int hq,
+                                      int sq, int skv, int d, int kv_group,
+                                      int kv_len, float scale, void* stream) {
+  return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len,
+                       scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_flash_static_bf16(const void* q, const void* k,
+                                       const void* v, void* out, int hq,
+                                       int sq, int skv, int d, int kv_group,
+                                       int kv_len, float scale,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, out, hq, sq, skv, d, kv_group, 0,
+                               kv_len, scale,
                                static_cast<cudaStream_t>(stream));
 }

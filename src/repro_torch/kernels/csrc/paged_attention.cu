@@ -3,8 +3,8 @@
 //   q [B, Hq, D]; pools [P, ps, Hkv, D]; table [B, maxp] int32 (always valid
 //   page ids: unallocated entries point at the NULL page 0); lengths [B]
 //   -> out [B, Hq, D].
-// Only what the llama3 main path runs is built here: no sliding window,
-// D = 128; the wrapper refuses the rest on the card.
+// Only what the main paths run is built here: no sliding window, D in
+// {64, 128} (gpt2, llama3); the wrapper refuses the rest on the card.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/paged_attention.py::_paged_decode_kernel (pallas_call
@@ -14,7 +14,7 @@
 // only over live positions (32 at a time, crossing page boundaries), so
 // pages past the length are never read.  The G query heads sharing KV head
 // h live in the same block (one warp each), so each K/V row is loaded into
-// shared memory once for all of them.  Numerics follow the reference:
+// shared memory once for all of them (gpt2 has G = 1: one busy warp).  Numerics follow the reference:
 // q * scale in float32 first, K/V in float32, float32 PV, online softmax
 // with masked scores at -1e30 and the normaliser clamped at 1e-30; a slot
 // of length 0 writes zeros.
@@ -31,9 +31,8 @@ constexpr int CH = 32;      // positions per step: one per lane
 constexpr int NWARP = 4;
 constexpr int MAXG = 8;     // query heads per KV head held in the block
 constexpr int HPW = MAXG / NWARP;
-constexpr int D = 128;      // head dim
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NWARP * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                     const T* __restrict__ vpool,
@@ -118,17 +117,32 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* table,
-           const void* lengths, void* out, int b, int hkv, int g, int d,
-           int ps, int maxp, float scale, cudaStream_t stream) {
-  if (g < 1 || g > MAXG || d != D) return (int)cudaErrorInvalidValue;
+template <typename T, int D>
+void launch_d(const void* q, const void* kp, const void* vp,
+              const void* table, const void* lengths, void* out, int b,
+              int hkv, int g, int ps, int maxp, float scale,
+              cudaStream_t stream) {
   dim3 grid(b, hkv);
-  paged_decode_kernel<T><<<grid, NWARP * 32, 0, stream>>>(
+  paged_decode_kernel<T, D><<<grid, NWARP * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(out), hkv, g, ps,
       maxp, scale);
+}
+
+template <typename T>
+int launch(const void* q, const void* kp, const void* vp, const void* table,
+           const void* lengths, void* out, int b, int hkv, int g, int d,
+           int ps, int maxp, float scale, cudaStream_t stream) {
+  if (g < 1 || g > MAXG) return (int)cudaErrorInvalidValue;
+  if (d == 64)
+    launch_d<T, 64>(q, kp, vp, table, lengths, out, b, hkv, g, ps, maxp,
+                    scale, stream);
+  else if (d == 128)
+    launch_d<T, 128>(q, kp, vp, table, lengths, out, b, hkv, g, ps, maxp,
+                     scale, stream);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

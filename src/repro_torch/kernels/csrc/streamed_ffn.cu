@@ -1,24 +1,30 @@
-// streamed_ffn: out[T, D] = (silu(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, with the
-// pre-FFN RMSNorm folded in (xn = rms_norm(x) * (1 + s), rounded to the x
-// dtype).  Only what the llama3 main path runs is built here: SwiGLU with
-// the folded norm; the wrapper refuses other activations and a missing
-// norm scale on the card.
+// streamed_ffn (K4) and streamed_mlp (K6), one kernel template:
+//   GLU  = true : out[T, D] = (silu(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, with
+//                 the pre-FFN RMSNorm folded in (xn = rms_norm(x) * (1 + s),
+//                 rounded to the x dtype) — the llama3 main path;
+//   GLU  = false: out[T, D] = gelu_tanh(x @ Wu).to(T) @ Wd, no folded norm —
+//                 the gpt2 main path (its LayerNorm stays outside).
+// Only those two cases are built; the wrappers refuse other activations and
+// norm settings on the card.
 //
-// Replaces the TPU kernel src/repro/kernels/streamed_ffn.py::_ffn_kernel
-// (pallas_call at :168).  The TPU kernel walks F as a sequential grid
-// dimension and carries a [bt, D] float32 accumulator in VMEM across it;
+// Replaces the TPU kernels src/repro/kernels/streamed_ffn.py::_ffn_kernel
+// (streamed_ffn, pallas_call at :168) and ::_mlp_kernel (streamed_mlp,
+// pallas_call at :277).  The TPU kernels walk F as a sequential grid
+// dimension and carry a [bt, D] float32 accumulator in VMEM across it;
 // that is 2 MB at bt = 128, D = 4096 and cannot live in one Hopper block,
 // and Hopper blocks run in no order.  So F is split across blocks instead:
-//   phase 1: block (f, t) computes its [BT, BF] tile of h = silu(g) * u in
-//            shared memory (x tiles normalised on load, gate and up summed
-//            in float32, h rounded to the x dtype) — h never reaches HBM;
+//   phase 1: block (f, t) computes its [BT, BF] tile of h in shared memory
+//            (up — and gate — products summed in float32, h rounded to the
+//            x dtype, as the reference's `.astype(x.dtype)`) — h never
+//            reaches HBM;
 //   phase 2: it multiplies that tile by Wd[BF, D] into a float32 partial
 //            [BT, D], written to a workspace [F / BF, T, D];
 //   pass 2 : a second kernel sums the partials in f-tile order (no float
 //            atomics: results repeat run to run).
-// Workspace: F/BF * T * D * 4 bytes (235 MB at T = 128, BF = 128).
-// What bounds it: at T = 4 the three weight matrices (memory bound); at
-// T = 128 the arithmetic, done here on the CUDA cores (float FMA).
+// Workspace: F/BF * T * D * 4 bytes (235 MB for llama3 at T = 128, BF =
+// 128; 16 MB for gpt2).
+// What bounds it: at T = 4 the weight matrices (memory bound); at T = 128
+// the arithmetic, done here on the CUDA cores (float FMA).
 #include "common.cuh"
 
 using namespace repro;
@@ -30,8 +36,14 @@ constexpr int NT = 256;
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
-template <typename T, int BT, int BF, int TM1, int TN1, int BN2, int TM2,
-          int TN2>
+// The tanh form, in float32: jax.nn.gelu(approximate=True) and
+// F.gelu(approximate="tanh").
+__device__ __forceinline__ float gelu_tanh(float v) {
+  return 0.5f * v * (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
+}
+
+template <typename T, bool GLU, int BT, int BF, int TM1, int TN1, int BN2,
+          int TM2, int TN2>
 __global__ void __launch_bounds__(NT)
 streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
                     const T* __restrict__ wg, const T* __restrict__ wu,
@@ -53,22 +65,24 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int f0 = blockIdx.x * BF, row0 = blockIdx.y * BT;
 
-  for (int r = warp; r < BT; r += NT / 32) {
-    const int gr = row0 + r;
-    float ss = 0.f;
-    if (gr < t) {
-      const T* xr = x + (size_t)gr * d;
-      for (int k = lane; k < d; k += 32) {
-        const float v = to_f(xr[k]);
-        ss += v * v;
+  if constexpr (GLU) {
+    for (int r = warp; r < BT; r += NT / 32) {
+      const int gr = row0 + r;
+      float ss = 0.f;
+      if (gr < t) {
+        const T* xr = x + (size_t)gr * d;
+        for (int k = lane; k < d; k += 32) {
+          const float v = to_f(xr[k]);
+          ss += v * v;
+        }
       }
+      ss = warp_sum(ss);
+      if (lane == 0) rstd_s[r] = rsqrtf(ss / (float)d + eps);
     }
-    ss = warp_sum(ss);
-    if (lane == 0) rstd_s[r] = rsqrtf(ss / (float)d + eps);
+    __syncthreads();
   }
-  __syncthreads();
 
-  // Phase 1: gate and up tiles [BT, BF], reduced over D.
+  // Phase 1: (gate and) up tiles [BT, BF], reduced over D.
   {
     const int tr = tid / (BF / TN1), tc = tid % (BF / TN1);
     float g[TM1][TN1], u[TM1][TN1];
@@ -81,9 +95,11 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
         const int r = i / BK, kk = i % BK;
         const int gr = row0 + r, gk = k0 + kk;
         float v = 0.f;
-        if (gr < t && gk < d)
-          v = round_to<T>(to_f(x[(size_t)gr * d + gk]) * rstd_s[r] *
-                          (1.f + to_f(nscale[gk])));
+        if (gr < t && gk < d) {
+          v = to_f(x[(size_t)gr * d + gk]);
+          if constexpr (GLU)
+            v = round_to<T>(v * rstd_s[r] * (1.f + to_f(nscale[gk])));
+        }
         xs[kk * (BT + 1) + r] = v;
       }
       for (int i = tid; i < BK * BF; i += NT) {
@@ -91,7 +107,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
         const int gk = k0 + kk, gc = f0 + c;
         const bool ok = gk < d && gc < f;
         const size_t off = (size_t)gk * f + gc;
-        gs[kk * BF + c] = ok ? to_f(wg[off]) : 0.f;
+        if constexpr (GLU) gs[kk * BF + c] = ok ? to_f(wg[off]) : 0.f;
         us[kk * BF + c] = ok ? to_f(wu[off]) : 0.f;
       }
       __syncthreads();
@@ -102,14 +118,14 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
         for (int i = 0; i < TM1; ++i) a[i] = xs[kk * (BT + 1) + tr * TM1 + i];
 #pragma unroll
         for (int j = 0; j < TN1; ++j) {
-          bg[j] = gs[kk * BF + tc * TN1 + j];
+          if constexpr (GLU) bg[j] = gs[kk * BF + tc * TN1 + j];
           bu[j] = us[kk * BF + tc * TN1 + j];
         }
 #pragma unroll
         for (int i = 0; i < TM1; ++i)
 #pragma unroll
           for (int j = 0; j < TN1; ++j) {
-            g[i][j] = fmaf(a[i], bg[j], g[i][j]);
+            if constexpr (GLU) g[i][j] = fmaf(a[i], bg[j], g[i][j]);
             u[i][j] = fmaf(a[i], bu[j], u[i][j]);
           }
       }
@@ -121,8 +137,12 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
       for (int j = 0; j < TN1; ++j) {
         const int r = tr * TM1 + i, c = tc * TN1 + j;
         const bool ok = row0 + r < t && f0 + c < f;
-        h_s[c * BT + r] =
-            ok ? round_to<T>(silu(g[i][j]) * u[i][j]) : 0.f;
+        float hv;
+        if constexpr (GLU)
+          hv = silu(g[i][j]) * u[i][j];
+        else
+          hv = gelu_tanh(u[i][j]);
+        h_s[c * BT + r] = ok ? round_to<T>(hv) : 0.f;
       }
   }
   __syncthreads();
@@ -170,10 +190,10 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
   }
 }
 
-// Tile shapes; the Python wrapper mirrors BF to size the workspace.
+// Tile shapes; the Python wrappers mirror BF to size the workspace.
 //   small (T <= 16): BT 8,  BF 64  (phase 1: 1 x 2, phase 2: 1 x 4 / thread)
 //   large          : BT 64, BF 128 (phase 1: 4 x 8, phase 2: 4 x 8 / thread)
-template <typename T>
+template <typename T, bool GLU>
 int launch(const void* x, const void* nscale, const void* wg, const void* wu,
            const void* wd, void* out, void* part, int t, int d, int f,
            int small, float eps, cudaStream_t stream) {
@@ -187,13 +207,13 @@ int launch(const void* x, const void* nscale, const void* wg, const void* wu,
   if (small) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 8));
-    streamed_ffn_kernel<T, 8, 64, 1, 2, 128, 1, 4><<<grid, NT, 0, stream>>>(
-        xt, st, gt, ut, dt, p, t, d, f, eps);
+    streamed_ffn_kernel<T, GLU, 8, 64, 1, 2, 128, 1, 4>
+        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
   } else {
     n_f = cdiv(f, 128);
     dim3 grid(n_f, cdiv(t, 64));
-    streamed_ffn_kernel<T, 64, 128, 4, 8, 128, 4, 8><<<grid, NT, 0, stream>>>(
-        xt, st, gt, ut, dt, p, t, d, f, eps);
+    streamed_ffn_kernel<T, GLU, 64, 128, 4, 8, 128, 4, 8>
+        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -208,8 +228,8 @@ extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
                                       const void* wd, void* out, void* part,
                                       int t, int d, int f, int small,
                                       float eps, void* stream) {
-  return launch<float>(x, nscale, wg, wu, wd, out, part, t, d, f, small, eps,
-                       static_cast<cudaStream_t>(stream));
+  return launch<float, true>(x, nscale, wg, wu, wd, out, part, t, d, f,
+                             small, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
@@ -217,6 +237,25 @@ extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
                                        const void* wd, void* out, void* part,
                                        int t, int d, int f, int small,
                                        float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, nscale, wg, wu, wd, out, part, t, d, f,
-                               small, eps, static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16, true>(x, nscale, wg, wu, wd, out, part, t, d,
+                                     f, small, eps,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_streamed_mlp_f32(const void* x, const void* wu,
+                                      const void* wd, void* out, void* part,
+                                      int t, int d, int f, int small,
+                                      void* stream) {
+  return launch<float, false>(x, nullptr, nullptr, wu, wd, out, part, t, d,
+                              f, small, 0.f,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_streamed_mlp_bf16(const void* x, const void* wu,
+                                       const void* wd, void* out, void* part,
+                                       int t, int d, int f, int small,
+                                       void* stream) {
+  return launch<__nv_bfloat16, false>(x, nullptr, nullptr, wu, wd, out, part,
+                                      t, d, f, small, 0.f,
+                                      static_cast<cudaStream_t>(stream));
 }

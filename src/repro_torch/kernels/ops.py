@@ -16,10 +16,12 @@ from .flash_attention import flash_attention_2d
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: int, kv_len: Optional[int] = None,
+                    q_offset: Optional[int] = None,
+                    kv_len: Optional[int] = None,
                     causal: bool = True, window: int = 0,
                     block_kv: int = 512) -> torch.Tensor:
-    """Model-layout chunk attention with GQA.
+    """Model-layout flash attention with GQA: the offset (chunked-prefill)
+    branch when ``q_offset`` is given, else the static one.
 
     q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D] -> [B, Sq, Hq, D].  Query heads
     are flattened kv-head-major, so flattened head ``b`` reads KV head

@@ -4,9 +4,9 @@
 tensor and runs ``ref.paged_decode_attention`` on a CPU tensor.
 ``paged_decode_attention.launches`` counts kernel launches.  The verify
 window kernel and the quantized twins come with their slices.  The CUDA
-kernel covers what the llama3 main path runs (no sliding window, head dim
-128); on the card the rest is refused until a slice whose config needs it
-adds it.  The plain version covers it all.
+kernel covers what the main paths run (no sliding window, head dim 64 for
+gpt2 or 128 for llama3); on the card the rest is refused until a slice
+whose config needs it adds it.  The plain version covers it all.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from . import _build, ref
 from .common import check_cuda_operands, check_launch, kernel_path
 
-HEAD_DIM = 128            # the CUDA kernel's head dim
+HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims
 MAX_GROUP = 8             # query heads per KV head the kernel holds
 
 
@@ -66,9 +66,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise TypeError("paged_decode_attention: page_table and lengths "
                         "must be int32")
     g = hq // hkv
-    if d != HEAD_DIM or g > MAX_GROUP or window:
+    if d not in HEAD_DIMS or g > MAX_GROUP or window:
         raise ValueError("paged_decode_attention: the CUDA kernel runs head "
-                         f"dim {HEAD_DIM}, groups up to {MAX_GROUP}, no "
+                         f"dims {HEAD_DIMS}, groups up to {MAX_GROUP}, no "
                          f"window; got head dim {d}, group {g}, window "
                          f"{window}")
     out = torch.empty_like(q)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four main-path kernels.
+"""Plain PyTorch versions of the ported kernels.
 
 Each function computes what its Hopper kernel computes, with the reference
 Pallas kernel's arithmetic: the same casts, the same places where float32
@@ -46,6 +46,12 @@ def rmsnorm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
     return torch.matmul(xn.float(), w.float()).to(x.dtype)
 
 
+def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [K, N] -> [M, N] in the x dtype, accumulated in float32
+    (``block_matmul.py:29-39``)."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
 def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                  wd: torch.Tensor, *, activation: str = "silu",
                  norm_scale: Optional[torch.Tensor] = None,
@@ -57,6 +63,19 @@ def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     xn = rms_rows(x, norm_scale, norm_eps) if norm_scale is not None else x
     x32 = xn.float()
     h = act(activation, x32 @ wg.float()) * (x32 @ wu.float())
+    return (h.to(x.dtype).float() @ wd.float()).to(x.dtype)
+
+
+def streamed_mlp(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
+                 activation: str = "gelu",
+                 norm_scale: Optional[torch.Tensor] = None,
+                 norm_eps: float = 1e-6) -> torch.Tensor:
+    """x [T, D]; wu [D, F]; wd [F, D] -> act(xn @ wu) @ wd.  As
+    ``_mlp_kernel`` (``streamed_ffn.py:181-202``): the up product
+    accumulates in float32, ``h`` is rounded to the x dtype before the down
+    product, which accumulates in float32."""
+    xn = rms_rows(x, norm_scale, norm_eps) if norm_scale is not None else x
+    h = act(activation, xn.float() @ wu.float())
     return (h.to(x.dtype).float() @ wd.float()).to(x.dtype)
 
 
@@ -103,6 +122,22 @@ def flash_attention_offset(q: torch.Tensor, k: torch.Tensor,
         acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, kv_len: int,
+                           kv_group: int = 1, scale: Optional[float] = None,
+                           causal: bool = True, window: int = 0,
+                           block_kv: int = 128) -> torch.Tensor:
+    """Full-sequence attention with a static ``kv_len``: query i sits at
+    position i.  ``_flash_kernel`` (``flash_attention.py:33-83``) is the
+    offset kernel's arithmetic at ``q_offset = 0``; its causal block skip
+    drops only blocks whose every score is masked, which leaves the online
+    softmax unchanged."""
+    return flash_attention_offset(q, k, v, q_offset=0, kv_len=kv_len,
+                                  kv_group=kv_group, scale=scale,
+                                  causal=causal, window=window,
+                                  block_kv=block_kv)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

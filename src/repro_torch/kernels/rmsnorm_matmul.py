@@ -13,27 +13,7 @@ import functools
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
-
-# Mirrors the tile shapes in csrc/rmsnorm_matmul.cu.
-_BK = 32
-_SMALL_T = 16            # T <= this: 8 x 128 tiles, else 64 x 64
-_TILES = {True: (8, 128), False: (64, 64)}
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def split_plan(t: int, d: int, n: int, sms: int):
-    """(small, k_per_split, splits): split K across blocks until the grid
-    holds about two blocks per SM, keeping >= 4 K tiles per split."""
-    small = t <= _SMALL_T
-    bt, bn = _TILES[small]
-    tiles = _cdiv(n, bn) * _cdiv(t, bt)
-    want = max(1, min(_cdiv(2 * sms, tiles), d // (4 * _BK)))
-    k_per_split = _cdiv(_cdiv(d, want), _BK) * _BK
-    return small, k_per_split, _cdiv(d, k_per_split)
+from .common import check_cuda_operands, check_launch, kernel_path, split_plan
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Raw ``y * scale + bias`` (not ``1 + scale``), population variance
+    (``layers.py:195``)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
 def rope_freqs(head_dim: int, theta: float,
                device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -54,6 +71,8 @@ def apply_positional(kind: str, x: torch.Tensor, positions: torch.Tensor,
                      theta: float) -> torch.Tensor:
     if kind == "rope":
         return apply_rope(x, positions, theta)
+    if kind == "none":               # learned positions, added at the embed
+        return x
     raise NotImplementedError(f"positional encoding {kind!r} is not ported")
 
 
@@ -150,18 +169,35 @@ def fused_norm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
     return y.reshape(b, s, w.shape[-1])
 
 
+def fused_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w through ``block_matmul``: x [B, S, D] -> [B, S, N]."""
+    b, s, d = x.shape
+    y = K.block_matmul(x.reshape(b * s, d).contiguous(), w)
+    return y.reshape(b, s, w.shape[-1])
+
+
 def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
               norm_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GLU FFN through ``streamed_ffn``; with ``norm_scale`` the pre-FFN
-    RMSNorm is folded into the kernel."""
-    if not gated:
-        raise NotImplementedError("the ungated streamed_mlp kernel is not "
-                                  "ported yet")
+    """GLU FFN through ``streamed_ffn``, or the ungated MLP through
+    ``streamed_mlp``; with ``norm_scale`` the pre-FFN RMSNorm is folded
+    into the kernel."""
     b, s, d = x.shape
-    y = K.streamed_ffn(x.reshape(b * s, d).contiguous(), p["wg"], p["wu"],
-                       p["wd"], activation=activation,
-                       norm_scale=norm_scale)
+    xf = x.reshape(b * s, d).contiguous()
+    if gated:
+        y = K.streamed_ffn(xf, p["wg"], p["wu"], p["wd"],
+                           activation=activation, norm_scale=norm_scale)
+    else:
+        y = K.streamed_mlp(xf, p["wu"], p["wd"], activation=activation,
+                           norm_scale=norm_scale)
     return y.reshape(b, s, d)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    block_kv: int = 512) -> torch.Tensor:
+    """Whole-sequence attention through the static flash kernel."""
+    return K.flash_attention(q, k, v, causal=causal, window=window,
+                             block_kv=block_kv)
 
 
 def fused_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,16 +1,17 @@
 """The language model's serving entry points: ``prefill_chunk`` and
-``decode_step`` against the paged KV cache.
+``decode_step`` against the paged KV cache, and the whole-prompt
+``prefill`` whose fresh cache the engine places into pages.
 
-Port of ``repro.models.model`` on the main path.  Layers run as a Python
+Port of ``repro.models.model`` on the main paths.  Layers run as a Python
 loop over ``params["layers"]`` (the reference scans over stacked pattern
 groups).  The paged pools are updated in place; both entry points return
 the cache object they were given, for symmetry with the reference, which
 returns the updated (donated) tree.  Quirks kept from the reference: the
-``x * sqrt(d_model)`` embedding scale, pad-vocab logits set to -1e30, and
-greedy argmax returning the first maximum.  The o-projection and the LM
-head are plain ``torch.matmul`` as the reference leaves them to XLA.
-Whole-prompt ``prefill`` needs the static flash kernel and comes with the
-gpt2 slice.
+``x * sqrt(d_model)`` embedding scale, learned positions added after that
+scale (pad rows of a final chunk included), pad-vocab logits set to
+-1e30, and greedy argmax returning the first maximum.  The o-projection
+and the LM head are plain ``torch.matmul`` as the reference leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -56,16 +57,21 @@ def _window(cfg: ModelConfig, i: int) -> int:
     return cfg.sliding_window if cfg.layer_kind(i) == "local_attn" else 0
 
 
-def _embed(cfg: ModelConfig, params: Tree,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embedding times sqrt(d_model), plus the learned position rows
+    at ``positions`` (broadcast against tokens) under ``rope="none"``."""
     x = params["embed"][tokens.long()]
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                            device=x.device)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                         device=x.device)
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][positions.long()]
+    return x
 
 
 def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head in float32, pad-vocab columns at -1e30."""
-    h = L.rms_norm(h, params["final_norm"]["scale"])
+    h = L.apply_norm(cfg.norm, h, params["final_norm"])
     logits = (h @ params["lm_head"]).float()
     pad = torch.arange(logits.shape[-1], device=logits.device) \
         >= cfg.vocab_size
@@ -75,34 +81,92 @@ def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
 def _project_qkv(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
                  lplan: Optional[LayerPlan]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """ln + Q/K/V projections, eager or through ``rmsnorm_matmul`` (three
-    launches, one per projection, as the reference)."""
+    """ln + Q/K/V projections, eager or through the plan's kernel (three
+    launches, one per projection, as the reference): ``rmsnorm_matmul``
+    folds the norm in; under ``block_matmul`` the norm stays eager."""
     choice = lplan.qkv if lplan is not None else None
     if choice is not None and choice.fused:
-        if choice.implementation != "rmsnorm_matmul":
+        if choice.implementation == "rmsnorm_matmul":
+            return tuple(L.fused_norm_matmul(x, ln_p["scale"], p[w])
+                         for w in ("wq", "wk", "wv"))
+        if choice.implementation != "block_matmul":
             raise NotImplementedError(
                 f"qkv kernel {choice.implementation!r} is not ported yet")
-        return tuple(L.fused_norm_matmul(x, ln_p["scale"], p[w])
-                     for w in ("wq", "wk", "wv"))
-    h = L.rms_norm(x, ln_p["scale"])
+        h = L.apply_norm(cfg.norm, x, ln_p)
+        return tuple(L.fused_matmul(h, p[w]) for w in ("wq", "wk", "wv"))
+    h = L.apply_norm(cfg.norm, x, ln_p)
     return h @ p["wq"], h @ p["wk"], h @ p["wv"]
 
 
 def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
                lplan: Optional[LayerPlan]) -> torch.Tensor:
-    """ln2 + FFN, eager or through ``streamed_ffn`` with the RMSNorm
-    folded into the kernel (``fuse_norm``)."""
+    """ln2 + FFN, eager or through ``streamed_ffn`` / ``streamed_mlp``;
+    ``fuse_norm`` folds the RMSNorm into the kernel, else the norm stays
+    eager."""
     choice = lplan.ffn if lplan is not None else None
     if choice is not None and choice.fused:
-        if (choice.implementation != "streamed_ffn"
-                or not choice.kw.get("fuse_norm", 0)):
+        if choice.implementation not in ("streamed_ffn", "streamed_mlp"):
             raise NotImplementedError(
-                f"ffn kernel {choice.implementation!r} with "
-                f"{choice.kw} is not ported yet")
-        return L.fused_ffn(x, p, activation=cfg.activation,
-                           gated=cfg.gated_ffn, norm_scale=ln_p["scale"])
-    return L.ffn(L.rms_norm(x, ln_p["scale"]), p, activation=cfg.activation,
-                 gated=cfg.gated_ffn)
+                f"ffn kernel {choice.implementation!r} is not ported yet")
+        if choice.kw.get("fuse_norm", 0):
+            return L.fused_ffn(x, p, activation=cfg.activation,
+                               gated=cfg.gated_ffn,
+                               norm_scale=ln_p["scale"])
+        return L.fused_ffn(L.apply_norm(cfg.norm, x, ln_p), p,
+                           activation=cfg.activation, gated=cfg.gated_ffn)
+    return L.ffn(L.apply_norm(cfg.norm, x, ln_p), p,
+                 activation=cfg.activation, gated=cfg.gated_ffn)
+
+
+def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
+                     positions: torch.Tensor, *, window: int,
+                     lplan: Optional[LayerPlan]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One attention block over whole sequences (``model.py:144-216``);
+    returns the block output and the layer's K/V for the decode cache."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    ap = p["attn"]
+    q, k, v = _project_qkv(cfg, ap, x, p["ln1"], lplan)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
+    k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
+    choice = lplan.attention if lplan is not None else None
+    if choice is not None and choice.fused:
+        o = L.fused_attention(q, k, v, causal=cfg.causal, window=window,
+                              block_kv=choice.kw["block_kv"])
+    elif window:
+        raise NotImplementedError("eager local attention (sliding window) "
+                                  "is not ported yet")
+    else:
+        o = L.streaming_attention(q, k, v, causal=cfg.causal)
+    x = x + o.reshape(b, s, hq * hd) @ ap["wo"]
+    return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan), k, v
+
+
+def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            plan: Optional[StreamPlan] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+    """Whole-prompt forward pass (``model.py:457``).
+
+    tokens [B, S] int32 -> (logits [B, 1, Vp] at the last position, a
+    fresh cache {"k", "v"} [L, B, S, Hkv, hd] of the prompt's K/V, which
+    ``serving.kv_cache.place_prefill`` writes into a slot's pages)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _embed(cfg, params, tokens, positions)
+    plan = resolve_plan(cfg, b * s, plan=plan)
+    ks, vs = [], []
+    for i, lp in enumerate(params["layers"]):
+        x, k, v = _attn_block_full(cfg, lp, x, positions,
+                                   window=_window(cfg, i),
+                                   lplan=_lplan(plan, cfg.layer_kind(i)))
+        ks.append(k)
+        vs.append(v)
+    logits = _logits(cfg, params, x[:, -1:])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
@@ -166,7 +230,8 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             f"chunked prefill unsupported for config {cfg.name!r}")
     b, c = tokens.shape
-    x = _embed(cfg, params, tokens)
+    positions = int(offset) + torch.arange(c, device=tokens.device)[None]
+    x = _embed(cfg, params, tokens, positions)
     kv_extent = int(table_row.shape[0]) * int(cache["k"].shape[2])
     plan = resolve_plan(cfg, b * c, kv_len=kv_extent, plan=plan)
     kv_len = int(offset) + c
@@ -226,7 +291,7 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
     cached; page_table [B, max_pages] int32.  Returns (next_tokens [B, 1]
     int32, logits [B, 1, Vp], cache)."""
     b = tokens.shape[0]
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, cache_pos[:, None])
     kv_extent = int(page_table.shape[1]) * int(cache["k"].shape[2])
     plan = resolve_plan(cfg, b, kv_len=kv_extent, plan=plan)
     for i, lp in enumerate(params["layers"]):

@@ -54,40 +54,54 @@ def _vec(n: int) -> ParamDef:
     return ParamDef((n,), "zeros")
 
 
+def _norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """``scale``, plus ``bias`` under LayerNorm (``params.py:64-69``)."""
+    out = {"scale": _vec(cfg.d_model)}
+    if cfg.norm == "layernorm":
+        out["bias"] = _vec(cfg.d_model)
+    return out
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
     """One attention layer: ln1, attn (wq/wk/wv/wo), ln2, mlp (wg/wu/wd)."""
     if kind not in ("attn", "local_attn", "global_attn"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    if cfg.norm != "rmsnorm" or cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
+    if cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name!r}: layernorm / qkv bias / qk-norm / MoE layers are "
-            "not ported yet")
+            f"{cfg.name!r}: qkv bias / qk-norm / MoE layers are not ported "
+            "yet")
+    if cfg.norm == "layernorm" and cfg.gated_ffn:
+        raise NotImplementedError(
+            f"{cfg.name!r}: a gated FFN under LayerNorm is not ported yet")
     d, dq, dkv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     mlp = {"wu": _mat(d, f), "wd": _mat(f, d)}
     if cfg.gated_ffn:
         mlp["wg"] = _mat(d, f)
     return {
-        "ln1": {"scale": _vec(d)},
+        "ln1": _norm_defs(cfg),
         "attn": {"wq": _mat(d, dq), "wk": _mat(d, dkv), "wv": _mat(d, dkv),
                  "wo": _mat(dq, d)},
-        "ln2": {"scale": _vec(d)},
+        "ln2": _norm_defs(cfg),
         "mlp": mlp,
     }
 
 
+POS_EMBED_ROWS = 32_768      # learned-position table (``params.py:194``)
+
+
 def model_defs(cfg: ModelConfig) -> Dict[str, Tree]:
-    if cfg.rope == "none":
-        raise NotImplementedError("learned position embeddings (rope='none')"
-                                  " are not ported yet")
     vp = padded_vocab(cfg.vocab_size)
     d = cfg.d_model
-    return {
-        "embed": ParamDef((vp, d), "normal", fan_in=d),
+    defs = {"embed": ParamDef((vp, d), "normal", fan_in=d)}
+    if cfg.rope == "none" and not cfg.rwkv:
+        defs["pos_embed"] = ParamDef((POS_EMBED_ROWS, d), "normal", fan_in=d)
+    defs.update({
         "layers": [block_defs(cfg, cfg.layer_kind(i))
                    for i in range(cfg.num_layers)],
-        "final_norm": {"scale": _vec(d)},
+        "final_norm": _norm_defs(cfg),
         "lm_head": ParamDef((d, vp), "normal", fan_in=d),
-    }
+    })
+    return defs
 
 
 def map_tree(fn: Callable, tree: Tree) -> Tree:
@@ -151,9 +165,13 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.num_layers}")
-    return {"embed": to_t(tree["embed"]), "layers": layers,
-            "final_norm": map_tree(to_t, tree["final_norm"]),
-            "lm_head": to_t(tree["lm_head"])}
+    out = {"embed": to_t(tree["embed"])}
+    if "pos_embed" in tree:
+        out["pos_embed"] = to_t(tree["pos_embed"])
+    out.update({"layers": layers,
+                "final_norm": map_tree(to_t, tree["final_norm"]),
+                "lm_head": to_t(tree["lm_head"])})
+    return out
 
 
 # --------------------------------------------------------------------- #

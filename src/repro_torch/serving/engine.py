@@ -1,10 +1,14 @@
-"""Serving engine: continuous batching with chunked prefill over paged KV.
+"""Serving engine: continuous batching over paged KV, with chunked or
+whole-prompt prefill.
 
-Port of ``repro.serving.engine`` on the paged, chunked path.  Requests are
+Port of ``repro.serving.engine`` on the paged paths.  Requests are
 admitted to cache slots one by one (FIFO) the moment a slot frees up.
-Prompts are prefilled in fixed-size, page-aligned chunks (the plan's
-attention ``block_q`` rounded to whole pages); a token-budget scheduler
-hands each pass prefill chunks, a decode block, or both.  A decode block
+With ``chunked`` (the default), prompts are prefilled in fixed-size,
+page-aligned chunks (the plan's attention ``block_q`` rounded to whole
+pages) and a token-budget scheduler hands each pass prefill chunks, a
+decode block, or both.  With ``chunked=False`` each admitted prompt is
+prefilled whole, at its own length, and its fresh K/V placed into the
+slot's pages before the slot joins decode.  A decode block
 runs ``decode_block`` steps for all slots with the sampled tokens kept on
 the device and read back once per block (the reference runs the block as
 one ``lax.scan``).  Idle slots and slots parked mid-prefill ride along in
@@ -28,9 +32,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.common import DeviceLike, resolve_device
-from ..models.model import (decode_step, prefill_chunk, resolve_plan,
-                            supports_chunked_prefill)
-from .kv_cache import PagedKVCache, stage_chunk
+from ..models.model import (decode_step, prefill, prefill_chunk,
+                            resolve_plan, supports_chunked_prefill)
+from .kv_cache import PagedKVCache, place_prefill, stage_chunk
 
 Tree = Any
 
@@ -78,11 +82,15 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Tree, *,
                  batch_slots: int = 4, max_len: int = 256,
-                 decode_block: int = 16, device: DeviceLike = None):
+                 decode_block: int = 16, chunked: Optional[bool] = None,
+                 device: DeviceLike = None):
         if not supports_chunked_prefill(cfg):
             raise NotImplementedError(
-                f"config {cfg.name!r} needs whole-prompt prefill, which is "
-                "not ported yet")
+                f"config {cfg.name!r} carries recurrent state or mrope "
+                "positions, whose layers are not ported yet")
+        # None: chunked whenever the config supports it (``engine.py:367``),
+        # which every config the port serves does.
+        self.chunked = True if chunked is None else bool(chunked)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -123,20 +131,21 @@ class ServingEngine:
         tok = np.zeros((self.slots, 1), np.int32)
 
         while pending or any(r is not None for r in active):
-            self._admit_pending(pending, active, decoding)
+            self._admit_pending(pending, active, decoding, pos, tok)
             if not any(r is not None for r in active):
                 break
             progressed = False
-            budget = self._prefill_budget(active, decoding)
-            for s in range(self.slots):
-                r = active[s]
-                if r is None or decoding[s]:
-                    continue
-                if progressed and budget < self.chunk:
-                    break           # budget spent; the rest wait a pass
-                self._dispatch_chunk(s, r, active, decoding, pos, tok)
-                budget -= self.chunk
-                progressed = True
+            if self.chunked:
+                budget = self._prefill_budget(active, decoding)
+                for s in range(self.slots):
+                    r = active[s]
+                    if r is None or decoding[s]:
+                        continue
+                    if progressed and budget < self.chunk:
+                        break       # budget spent; the rest wait a pass
+                    self._dispatch_chunk(s, r, active, decoding, pos, tok)
+                    budget -= self.chunk
+                    progressed = True
             if any(active[s] is not None and decoding[s]
                    for s in range(self.slots)):
                 self._decode_block(active, decoding, pos, tok)
@@ -172,10 +181,11 @@ class ServingEngine:
             return f"prompt length {plen} exceeds max_len {self.max_len}"
         return None
 
-    def _admit_pending(self, pending, active, decoding) -> None:
+    def _admit_pending(self, pending, active, decoding, pos, tok) -> None:
         """Fill every free slot from the queue in arrival order; invalid
-        prompts are failed and skipped.  Admission only assigns the slot:
-        prefill is scheduled chunk by chunk."""
+        prompts are failed and skipped.  Chunked admission only assigns
+        the slot (prefill is scheduled chunk by chunk); whole-prompt
+        admission prefills the prompt here."""
         for s in range(self.slots):
             while active[s] is None and pending:
                 r = pending.popleft()
@@ -188,9 +198,38 @@ class ServingEngine:
                     self.metrics["rejected"] += 1
                     continue
                 r.admitted_at = self.clock()
-                r.prefill_pos = 0
-                active[s] = r
-                decoding[s] = False
+                if self.chunked:
+                    r.prefill_pos = 0
+                    active[s] = r
+                    decoding[s] = False
+                    continue
+                self._admit(s, r, pos, tok)
+                if (len(r.out_tokens) >= r.max_new_tokens
+                        or pos[s] >= self.max_len):
+                    self._retire(s, r, active, decoding, pos, tok)
+                else:
+                    active[s] = r
+                    decoding[s] = True
+
+    def _admit(self, slot: int, r: Request, pos, tok) -> None:
+        """Whole-prompt prefill at the request's own length into the slot's
+        pages (``engine.py:969``); emits the first token."""
+        plen = int(r.prompt.shape[0])
+        dev = self.device
+        pages = torch.as_tensor(self.kv.ensure(slot, plen), device=dev)
+        logits, fresh = prefill(self.params, self.cfg,
+                                torch.as_tensor(r.prompt, device=dev)[None],
+                                plan=self.plan)
+        place_prefill(self.cache, fresh, pages,
+                      layout=self.cfg.kv_cache_layout)
+        t = int(logits[0, 0].argmax())              # reads back: syncs
+        r.out_tokens.append(t)
+        r.first_token_at = self.clock()
+        r.prefill_pos = plen
+        pos[slot] = plen
+        tok[slot, 0] = t
+        self.metrics["prefills"] += 1
+        self.metrics["generated"] += 1
 
     def _dispatch_chunk(self, slot: int, r: Request, active, decoding,
                         pos, tok) -> None:

@@ -25,14 +25,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.common import DeviceLike, resolve_device
+from ..kernels.common import DeviceLike, cdiv, resolve_device
 from ..models.params import CacheDef, attn_cache_defs, cache_leaf_kind
 
 NULL_PAGE = 0
-
-
-def cdiv(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def to_page_major(seq: torch.Tensor, layout: str) -> torch.Tensor:
@@ -105,6 +101,32 @@ def place_chunk_pages(pool: torch.Tensor, seq: torch.Tensor,
     chunks = x.reshape(c // page_size, page_size, h, hd)
     pool[chunk_pages.long()] = chunks.to(pool.dtype)
     return pool
+
+
+def place_prefill(cache: Dict[str, torch.Tensor],
+                  fresh: Dict[str, torch.Tensor], pages: torch.Tensor, *,
+                  layout: str) -> Dict[str, torch.Tensor]:
+    """Write one request's whole-prompt prefill cache into its pages, in
+    place (full-precision branch of ``kv_cache.py:399``).
+
+    fresh {"k", "v"} [L, 1, S, H, hd] ("bshd"); pages [n] int32 the slot's
+    physical pages from ``ensure(slot, S)``, n = cdiv(S, page_size).  The
+    last page is zero-padded past S.  Returns ``cache``."""
+    for name, small in fresh.items():
+        if cache_leaf_kind(name) != "kv":
+            raise NotImplementedError(f"placing cache leaf {name!r} is not "
+                                      "ported yet")
+        pool = cache[name]
+        page_size = pool.shape[2]
+        seq = to_page_major(small, layout)[:, 0]           # [L, S, H, hd]
+        layers, s, h, hd = seq.shape
+        n = pages.shape[0]
+        pad = n * page_size - s
+        if pad:
+            seq = torch.nn.functional.pad(seq, (0, 0, 0, 0, 0, pad))
+        pool[:, pages.long()] = seq.reshape(layers, n, page_size, h,
+                                            hd).to(pool.dtype)
+    return cache
 
 
 def stage_chunk(prompt: np.ndarray, off: int, chunk: int, row: np.ndarray,

@@ -15,11 +15,13 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels import block_matmul as j_block_matmul
 from repro.kernels import flash_attention as j_flash
 from repro.kernels import flash_attention_2d as j_flash_2d
 from repro.kernels import paged_decode_attention as j_paged
 from repro.kernels import rmsnorm_matmul as j_rmsnorm_matmul
 from repro.kernels import streamed_ffn as j_streamed_ffn
+from repro.kernels import streamed_mlp as j_streamed_mlp
 from repro_torch import kernels as K
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import pick_block, resolve_device
@@ -67,6 +69,125 @@ def test_streamed_ffn_matches_pallas(activation, fold_norm, t):
                           norm_scale=None if s is None else jnp.asarray(s),
                           block_t=128, block_f=128)
     _close(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 64, 64), (4, 64, 192), (37, 96, 32),
+                                   (130, 256, 48)])
+def test_block_matmul_matches_pallas(m, k, n):
+    rng = np.random.default_rng(6)
+    x, w = _rand(rng, m, k), _rand(rng, k, n, scale=k ** -0.5)
+    got = K.block_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    want = j_block_matmul(jnp.asarray(x), jnp.asarray(w), block_m=128,
+                          block_n=128)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "silu"])
+@pytest.mark.parametrize("fold_norm", [False, True])
+@pytest.mark.parametrize("t", [4, 40])
+def test_streamed_mlp_matches_pallas(activation, fold_norm, t):
+    rng = np.random.default_rng(7)
+    d, f = 64, 256
+    x = _rand(rng, t, d)
+    wu = _rand(rng, d, f, scale=d ** -0.5)
+    wd = _rand(rng, f, d, scale=f ** -0.5)
+    s = _rand(rng, d, scale=0.1) if fold_norm else None
+    got = K.streamed_mlp(*(torch.from_numpy(a) for a in (x, wu, wd)),
+                         activation=activation,
+                         norm_scale=None if s is None else torch.from_numpy(s))
+    want = j_streamed_mlp(*(jnp.asarray(a) for a in (x, wu, wd)),
+                          activation=activation,
+                          norm_scale=None if s is None else jnp.asarray(s),
+                          block_t=128, block_f=128)
+    _close(got, want)
+
+
+def test_streamed_mlp_rounds_h_to_the_input_dtype():
+    """The Pallas body rounds ``act(x @ Wu)`` to x's dtype before the down
+    product (``streamed_ffn.py:194-198``), which ``ref.mlp_ref`` does not:
+    in bfloat16 the plain version must differ from an unrounded chain."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(_rand(rng, 8, 64)).bfloat16()
+    wu = torch.from_numpy(_rand(rng, 64, 256, scale=0.125)).bfloat16()
+    wd = torch.from_numpy(_rand(rng, 256, 64, scale=0.0625)).bfloat16()
+    got = K.streamed_mlp(x, wu, wd)
+    h32 = torch.nn.functional.gelu(x.float() @ wu.float(), approximate="tanh")
+    rounded = (h32.bfloat16().float() @ wd.float()).bfloat16()
+    unrounded = (h32 @ wd.float()).bfloat16()
+    assert torch.equal(got, rounded)
+    assert not torch.equal(got, unrounded)
+
+
+# (heads q, heads kv, S, kv_len, causal, window, head dim): MHA and GQA,
+# causal and not, a sliding window, kv_len < S, a prompt length no tile
+# divides, the gpt2 head dim.
+FLASH_STATIC_CASES = [
+    (4, 4, 64, 64, True, 0, 16),
+    (4, 2, 64, 64, True, 0, 16),
+    (4, 2, 48, 48, False, 0, 16),
+    (4, 4, 64, 64, True, 24, 16),
+    (6, 3, 64, 40, True, 0, 16),
+    (4, 4, 37, 37, True, 0, 16),
+    (2, 2, 32, 32, True, 0, 64),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,s,kv_len,causal,window,d",
+                         FLASH_STATIC_CASES)
+def test_flash_static_matches_pallas(hq, hkv, s, kv_len, causal, window, d):
+    rng = np.random.default_rng(9)
+    q, k, v = (_rand(rng, hq, s, d), _rand(rng, hkv, s, d),
+               _rand(rng, hkv, s, d))
+    got = K.flash_attention_2d(*(torch.from_numpy(a) for a in (q, k, v)),
+                               kv_len=kv_len, causal=causal, window=window,
+                               kv_group=hq // hkv, block_kv=16)
+    want = j_flash_2d(*(jnp.asarray(a) for a in (q, k, v)), kv_len=kv_len,
+                      causal=causal, window=window, kv_group=hq // hkv,
+                      block_q=16, block_kv=16)
+    _close(got, want)
+
+
+def test_model_layout_static_flash_matches_pallas():
+    """``ops.flash_attention`` without ``q_offset``: the static branch."""
+    rng = np.random.default_rng(10)
+    b, s, hq, hkv, d = 2, 24, 4, 4, 16
+    q, k, v = (_rand(rng, b, s, hq, d), _rand(rng, b, s, hkv, d),
+               _rand(rng, b, s, hkv, d))
+    got = K.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            block_kv=8)
+    want = j_flash(*(jnp.asarray(a) for a in (q, k, v)), block_q=8,
+                   block_kv=8)
+    _close(got, want)
+
+
+def test_flash_offset_head_dim_64_matches_pallas():
+    """K2 at gpt2's head dim: MHA, a chunk at a nonzero offset."""
+    rng = np.random.default_rng(11)
+    h, sq, skv, d, q_off, kv_len = 4, 16, 64, 64, 32, 48
+    q, k, v = (_rand(rng, h, sq, d), _rand(rng, h, skv, d),
+               _rand(rng, h, skv, d))
+    got = K.flash_attention_2d(*(torch.from_numpy(a) for a in (q, k, v)),
+                               q_offset=q_off, kv_len=kv_len, block_kv=16)
+    want = j_flash_2d(*(jnp.asarray(a) for a in (q, k, v)), q_offset=q_off,
+                      kv_len=kv_len, block_q=16, block_kv=16)
+    _close(got, want)
+
+
+def test_paged_decode_head_dim_64_matches_pallas():
+    """K1 at gpt2's head dim and group size 1, with an idle slot."""
+    rng = np.random.default_rng(12)
+    b, h, d, ps, maxp = 4, 4, 64, 8, 5
+    pages = 1 + b * maxp
+    kp, vp = _rand(rng, pages, ps, h, d), _rand(rng, pages, ps, h, d)
+    table = (rng.permutation(pages - 1)[:b * maxp] + 1).reshape(b, maxp)
+    table = table.astype(np.int32)
+    lengths = np.array([37, 9, 1, 0], np.int32)
+    q = _rand(rng, b, 1, h, d)
+    got = K.paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)))
+    want = j_paged(*(jnp.asarray(a) for a in (q, kp, vp, table, lengths)))
+    _close(got, want)
+    assert torch.count_nonzero(got[3]) == 0
 
 
 # (heads q, heads kv, Sq, Skv, q_offset, kv_len, window): GQA, a chunk at a
@@ -135,6 +256,11 @@ def test_cpu_tensors_take_the_plain_path_without_a_launch():
     K.rmsnorm_matmul(x, torch.zeros(32), torch.randn(32, 8))
     K.streamed_ffn(x, torch.randn(32, 16), torch.randn(32, 16),
                    torch.randn(16, 32))
+    K.block_matmul(x, torch.randn(32, 8))
+    K.streamed_mlp(x, torch.randn(32, 16), torch.randn(16, 32))
+    q = torch.randn(2, 8, 16)
+    K.flash_attention_2d(q, q, q)
+    K.flash_attention_2d(q, q, q, q_offset=0)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
 
 
@@ -155,11 +281,29 @@ def _off_path_calls():
             q, kv, kv, q_offset=8, kv_group=2, window=4)),
         "flash_not_causal": ("flash_attention", lambda: K.flash_attention_2d(
             q, kv, kv, q_offset=8, kv_group=2, causal=False)),
-        "flash_head_dim_64": ("flash_attention", lambda: K.flash_attention_2d(
-            *(t[..., :64].contiguous() for t in (q, kv, kv)), q_offset=8,
+        "flash_head_dim_96": ("flash_attention", lambda: K.flash_attention_2d(
+            *(t[..., :96].contiguous() for t in (q, kv, kv)), q_offset=8,
             kv_group=2)),
         "paged_window": ("paged_attention", lambda: K.paged_decode_attention(
             qd, pool, pool, table, lengths, window=3)),
+        "paged_head_dim_96": ("paged_attention",
+                              lambda: K.paged_decode_attention(
+                                  *(t[..., :96].contiguous()
+                                    for t in (qd, pool, pool)),
+                                  table, lengths)),
+        "mlp_silu": ("streamed_ffn", lambda: K.streamed_mlp(
+            x, w_up, w_down, activation="silu")),
+        "mlp_folded_norm": ("streamed_ffn", lambda: K.streamed_mlp(
+            x, w_up, w_down, norm_scale=torch.zeros(32))),
+        "static_window": ("flash_attention", lambda: K.flash_attention_2d(
+            q, kv, kv, kv_group=2, window=4)),
+        "static_not_causal": ("flash_attention",
+                              lambda: K.flash_attention_2d(
+                                  q, kv, kv, kv_group=2, causal=False)),
+        "static_head_dim_96": ("flash_attention",
+                               lambda: K.flash_attention_2d(
+                                   *(t[..., :96].contiguous()
+                                     for t in (q, kv, kv)), kv_group=2)),
     }
 
 
