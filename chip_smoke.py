@@ -10,20 +10,28 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               of every CUDA kernel with nvcc for sm_90a from ``csrc/``;
 2. kernel   — each kernel against its plain PyTorch version at the main
               paths' shapes (llama3-8b and gpt2, gpt2's projections and
-              MLP also at whole-prompt lengths), in bfloat16 and float32:
-              max error against the stated tolerance, kernel / plain /
-              library times (CUDA events, L2 flushed between launches) and
-              the card's bound;
+              MLP also at whole-prompt lengths, the projections, FFNs and
+              the verify kernel also at a speculative verify dispatch of 4
+              slots x 5 rows), in bfloat16 and float32: max error against
+              the stated tolerance, kernel / plain / library times (CUDA
+              events, L2 flushed between launches) and the card's bound;
+              then two bit-for-bit checks: every row of the verify kernel
+              equals the decode kernel at that row's length, and the
+              projection and FFN kernels give a row the same bits at 4
+              rows (decode) as at 8, 12 and 20 (verify windows of 2, 3
+              and 5) — reported, not required, for the PyTorch calls on
+              the same path (``torch.matmul`` at the o-projection and
+              LM-head shapes, the eager norms);
 3. fused_vs_eager — llama3-8b at full width cut to 4 layers, float32: one
               mixed burst through ``ServingEngine`` with the kernel plan and
               with the eager plan must give the same greedy tokens;
 4. serve    — llama3-8b at full width and depth, bfloat16, random weights
               drawn on the card from a seed: a mixed burst of 8 prompts
               (37..1000 tokens, 32 new tokens each) through the paged,
-              chunked-prefill engine; the launch counts during it must be
-              > 0 for the llama3 kernels and 0 for the rest, and every
-              request complete; the first prompt served alone must repeat
-              its tokens from the burst;
+              chunked-prefill engine (prefix cache on, its default); the
+              launch counts during it must be > 0 for the llama3 kernels
+              and 0 for the rest, and every request complete; the first
+              prompt served alone must repeat its tokens from the burst;
 5. gpt2_fused_vs_eager — gpt2 at full width cut to 4 layers, float32,
               jittered weights: the kernel plan and the eager plan must
               give the same greedy tokens, with chunked and with
@@ -35,7 +43,21 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               launch counts (chunked: block_matmul, streamed_mlp,
               flash_attention, paged_attention; whole-prompt: the static
               flash kernel instead of the offset one);
-7. kernels  — one line listing every kernel, once per model and serving
+7. spec_fused_vs_eager — llama3-8b and gpt2 at full width cut to 4 layers,
+              float32, on the speculative burst (8 prompts sharing a
+              512-token prefix, two of them repeated verbatim, 32 new
+              tokens each): the plain engine (no prefix cache), the
+              default engine (prefix cache on), the speculative engine
+              (draft_len 4) with the kernel plan and with the eager plan
+              must all give the same greedy tokens;
+8. spec_serve — llama3-8b and gpt2 at full width and depth, bfloat16, the
+              speculative burst through the speculative engine with the
+              prefix cache on: every request completes, the verify kernel
+              launches and the decode kernel does not, prefix pages are
+              hit and drafts rolled back; the same burst through the plain
+              engine, with per-request token equality and first
+              divergence reported;
+9. kernels  — one line listing every kernel, once per model and serving
               path that runs it, with its check results and that path's
               own launch count.
 
@@ -77,6 +99,7 @@ TPU_KERNELS = {
     "block_matmul": "src/repro/kernels/block_matmul.py:29",
     "streamed_mlp": "src/repro/kernels/streamed_ffn.py:181",
     "flash_attention_static": "src/repro/kernels/flash_attention.py:33",
+    "paged_verify_attention": "src/repro/kernels/paged_attention.py:169",
 }
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -87,6 +110,7 @@ SOURCES = {
     "block_matmul": _CSRC + "block_matmul.cu",
     "streamed_mlp": _CSRC + "streamed_ffn.cu",
     "flash_attention_static": _CSRC + "flash_attention.cu",
+    "paged_verify_attention": _CSRC + "paged_attention.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 LLAMA_PATH = {"rmsnorm_matmul", "streamed_ffn", "flash_attention",
@@ -97,6 +121,17 @@ GPT2_PATHS = {
     "whole_prompt": {"block_matmul", "streamed_mlp",
                      "flash_attention_static", "paged_attention"},
 }
+# The speculative engine verifies every decode: K8, never K1.
+SPEC_PATHS = {
+    "llama3-8b": {"rmsnorm_matmul", "streamed_ffn", "flash_attention",
+                  "paged_verify_attention"},
+    "gpt2": {"block_matmul", "streamed_mlp", "flash_attention",
+             "paged_verify_attention"},
+}
+# A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
+# ladder's other rungs give 2 and 3 rows.
+SLOTS, WINDOW = 4, 5
+SPEC_T = SLOTS * WINDOW
 
 
 def emit(obj) -> None:
@@ -209,6 +244,37 @@ def _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev):
         flops=4 * hd * hq * sum(lens))
 
 
+def _verify_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev):
+    """Speculative verify: 4 slots, a 5-row window at offsets 1000, 517,
+    37 and 0, ``maxp`` 16-token pages of capacity each.  The bytes are the
+    live pages' K/V (through each slot's deepest row) plus q and out, as
+    the decode kernel's; the operations count each row's own extent."""
+    b, ps, w = SLOTS, 16, WINDOW
+    pool_pages = 1 + b * maxp
+    kp = randn(pool_pages, ps, hkv, hd)
+    vp = randn(pool_pages, ps, hkv, hd)
+    perm = torch.randperm(pool_pages - 1, generator=gen, device=dev) + 1
+    table = perm[:b * maxp].reshape(b, maxp).to(torch.int32).contiguous()
+    offs = [1000, 517, 37, 0]
+    q_off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    qv = randn(b, w, hq, hd)
+    rows = sum(o + i + 1 for o in offs for i in range(w))
+    return dict(
+        name="paged_verify_attention", head_dim=hd,
+        shape=(f"B={b},W={w},Hq={hq},Hkv={hkv},D={hd},ps={ps},"
+               f"q_off={offs}"),
+        kernel=lambda: K.paged_verify_attention(qv, kp, vp, table, q_off),
+        plain=lambda: ref.paged_verify_attention(qv, kp, vp, table, q_off),
+        library=None, cublas=None,
+        nbytes=(2 * b * w * hq * hd + 2 * sum(o + w for o in offs) * hkv * hd)
+        * isz + (b * maxp + b) * 4,
+        flops=4 * hd * hq * rows,
+        rows_vs_decode=lambda out: [
+            bool(torch.equal(out[:, i:i + 1], K.paged_decode_attention(
+                qv[:, i:i + 1].contiguous(), kp, vp, table, q_off + i + 1)))
+            for i in range(w)])
+
+
 def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """llama3-8b's kernel calls: name, shape label, kernel / plain /
     library call (one PyTorch call computing the same function, or None),
@@ -218,7 +284,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     randn = _randn(torch, gen, dtype, dev)
     cases = []
     d, f = 4096, 14336
-    for t in (128, 4):
+    for t in (128, 4, SPEC_T):
+        path = "speculative" if t == SPEC_T else None
         x = randn(t, d)
         s = randn(d, scale=0.1)
         xn = ref.rms_rows(x, s, 1e-6)
@@ -231,7 +298,7 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 library=None,
                 cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
                 nbytes=(t * d + d + d * n + t * n) * isz,
-                flops=2 * t * d * n))
+                flops=2 * t * d * n, path=path))
         wg = randn(d, f, scale=1 / math.sqrt(d))
         wu = randn(d, f, scale=1 / math.sqrt(d))
         wd = randn(f, d, scale=1 / math.sqrt(f))
@@ -244,7 +311,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             library=None,
             cublas=lambda xn=xn, a=wg, b=wu, c=wd: torch.matmul(
                 torch.nn.functional.silu(xn @ a) * (xn @ b), c),
-            nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f))
+            nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f,
+            path=path))
 
     # Offset flash attention: one 128-token chunk at offset 896 over the
     # slot's gathered 2048-position extent, 1024 of them live.
@@ -252,6 +320,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                              32, 8, 128, 128, 2048, 896, dev))
     cases.append(_paged_case(torch, K, ref, randn, isz, gen, 32, 8, 128, 128,
                              dev))
+    cases.append(_verify_case(torch, K, ref, randn, isz, gen, 32, 8, 128, 128,
+                              dev))
     return cases
 
 
@@ -267,8 +337,9 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     gelu = torch.nn.functional.gelu
     cases = []
     d, f = 1024, 4096
-    for t in (128, 4, 992, 37):
-        path = "whole_prompt" if t in (992, 37) else None
+    for t in (128, 4, 992, 37, SPEC_T):
+        path = ("whole_prompt" if t in (992, 37)
+                else "speculative" if t == SPEC_T else None)
         x = randn(t, d)
         w = randn(d, d, scale=1 / math.sqrt(d))
         cases.append(dict(
@@ -295,6 +366,8 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                              16, 16, 64, 128, 1024, 896, dev))
     cases.append(_paged_case(torch, K, ref, randn, isz, gen, 16, 16, 64, 64,
                              dev))
+    cases.append(_verify_case(torch, K, ref, randn, isz, gen, 16, 16, 64, 64,
+                              dev))
     cases.append(_flash_case(torch, K, ref, randn, isz,
                              "flash_attention_static", 16, 16, 64, 1000,
                              1000, None, dev))
@@ -320,12 +393,18 @@ def check_kernels(torch, timer):
             scale = want.float().abs().max().item()
             rel = err / max(scale, 1e-30)
             bound_ms, bound_by = bound(c["nbytes"], c["flops"], dname)
+            # Each verify row against the decode kernel at its length, bit
+            # for bit (comparison launches; no path's count).
+            same_rows = (c["rows_vs_decode"](out) if "rows_vs_decode" in c
+                         else None)
             row = {"phase": "kernel", "name": c["name"], "model": c["model"],
                    "head_dim": c.get("head_dim"), "path": c.get("path"),
                    "dtype": dname,
                    "shape": c["shape"], "max_abs_err": err,
                    "max_abs_ref": scale, "rel_err": rel, "tol": TOL[dname],
-                   "ok": bool(rel <= TOL[dname] and math.isfinite(err)),
+                   "ok": bool(rel <= TOL[dname] and math.isfinite(err)
+                              and (same_rows is None or all(same_rows))),
+                   "rows_equal_decode": same_rows,
                    "ms": timer(c["kernel"]), "plain_ms": timer(c["plain"]),
                    "library_ms": (timer(c["library"])
                                   if c["library"] is not None else None),
@@ -344,9 +423,75 @@ def check_kernels(torch, timer):
     if bad:
         raise AssertionError("kernels disagree with their plain versions: "
                              + "; ".join(f"{r['name']} {r['dtype']} "
-                                         f"{r['shape']} rel {r['rel_err']}"
+                                         f"{r['shape']} rel {r['rel_err']} "
+                                         f"rows {r['rows_equal_decode']}"
                                          for r in bad))
     return rows
+
+
+def check_row_invariance(torch):
+    """Bit-for-bit: rows 0..3 of each projection and FFN kernel at T rows
+    (8, 12, 20: verify windows of 2, 3 and 5 over 4 slots) against the
+    same call at T = 4 (a decode step), at llama3's and gpt2's shapes, in
+    bfloat16 and float32.  Exact acceptance needs the kernels to pass;
+    the PyTorch calls on the same path (``torch.matmul`` at the
+    o-projection and LM-head shapes, the eager norms) are reported beside
+    them, not required."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import padded_vocab
+    out, bad = [], []
+    widths = {"llama3-8b": (4096, 14336), "gpt2": (1024, 4096)}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        randn = _randn(torch, gen, dtype, "cuda")
+        for model, (d, f) in widths.items():
+            vocab = padded_vocab(get_config(model).vocab_size)
+            x = randn(SPEC_T, d)
+            s = randn(d, scale=0.1)
+            w_o = randn(d, d, scale=1 / math.sqrt(d))
+            w_k = randn(d, d // 4 if model == "llama3-8b" else d,
+                        scale=1 / math.sqrt(d))
+            wu = randn(d, f, scale=1 / math.sqrt(d))
+            wg = randn(d, f, scale=1 / math.sqrt(d))
+            wd = randn(f, d, scale=1 / math.sqrt(f))
+            head = randn(d, vocab, scale=1 / math.sqrt(d))
+            calls = {"o_proj torch.matmul": lambda a: torch.matmul(a, w_o),
+                     "lm_head torch.matmul": lambda a: torch.matmul(a, head)}
+            # The eager norms on the path (llama3's final RMSNorm, gpt2's
+            # LayerNorms): PyTorch reductions, also reported only.
+            if model == "llama3-8b":
+                calls["rms_norm torch"] = lambda a: L.rms_norm(a, s)
+            else:
+                calls["layer_norm torch"] = lambda a: L.layer_norm(a, s, s)
+            if model == "llama3-8b":
+                calls["rmsnorm_matmul N=4096"] = (
+                    lambda a: K.rmsnorm_matmul(a, s, w_o))
+                calls["rmsnorm_matmul N=1024"] = (
+                    lambda a: K.rmsnorm_matmul(a, s, w_k))
+                calls["streamed_ffn"] = (
+                    lambda a: K.streamed_ffn(a, wg, wu, wd, norm_scale=s))
+            else:
+                calls["block_matmul"] = lambda a: K.block_matmul(a, w_k)
+                calls["streamed_mlp"] = lambda a: K.streamed_mlp(a, wu, wd)
+            for name, fn in calls.items():
+                base = fn(x[:SLOTS].contiguous())
+                same = {t: bool(torch.equal(fn(x[:t].contiguous())[:SLOTS],
+                                            base))
+                        for t in (2 * SLOTS, 3 * SLOTS, SPEC_T)}
+                row = {"phase": "row_invariance", "model": model,
+                       "dtype": dname, "call": name,
+                       "equal_to_T4": same, "required": "torch" not in name}
+                emit(row)
+                out.append(row)
+                if row["required"] and not all(same.values()):
+                    bad.append(f"{model} {dname} {name} {same}")
+    if bad:
+        raise AssertionError("rows change with the row count: "
+                             + "; ".join(bad))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -459,6 +604,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     the kernels in ``expect`` must each launch, and no other."""
     from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import COUNTER_NAMES
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     rng = np.random.default_rng(2)
     lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
@@ -476,8 +622,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     _sync(torch, device)
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
-    burst_metrics = {k: v - before[k] for k, v in eng.metrics.items()
-                     if k not in ("kv_bytes_peak", "pages_in_use")}
+    burst_metrics = {k: eng.metrics[k] - before[k] for k in COUNTER_NAMES}
     solo = eng.generate([prompts[0]], max_new_tokens=new)[0].out_tokens
     generated = sum(len(r.out_tokens) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
@@ -546,6 +691,171 @@ def serve_gpt2(torch, cfg, device="cuda"):
     return rows
 
 
+# --------------------------------------------------------------------- #
+# Phases 7 and 8: speculative decoding over the prefix cache
+# --------------------------------------------------------------------- #
+
+def spec_burst(vocab: int):
+    """8 prompts for 4 slots: one shared 512-token prefix (four 128-token
+    chunks: the system prompt chat and agent traffic repeats) with distinct
+    random suffixes of 37..480 tokens (numpy seed 2), the last two
+    repeating the second and third verbatim; at most 992 tokens, so every
+    request gets 32 new tokens in gpt2's 1024-position context."""
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, vocab, 512).astype(np.int32)
+    lengths = [37, 480] + [int(n) for n in rng.integers(37, 481, 4)]
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, n)
+                               .astype(np.int32)]) for n in lengths]
+    return prompts + [prompts[1].copy(), prompts[2].copy()]
+
+
+def _first_divergence(a, b):
+    """Index of the first token where two outputs differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+SPEC_ENGINES = {
+    "plain": dict(prefix_cache=False),
+    "default": {},
+    "speculative": dict(speculative=True, draft_len=4),
+    "speculative_eager": dict(speculative=True, draft_len=4, fused=False),
+}
+
+
+def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, device="cuda",
+                        new=32):
+    """``cfg``: full width cut to 4 layers, float32, kernel plan.  The four
+    engines of ``SPEC_ENGINES`` must give the same greedy tokens on the
+    speculative burst."""
+    from repro_torch.serving import ServingEngine
+    params = _weights(torch, cfg, 1, jitter=jitter, device=device)
+    prompts = spec_burst(cfg.vocab_size)
+    row = {"phase": "spec_fused_vs_eager", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "prompts": [len(p) for p in prompts], "new_tokens": new}
+    tokens = {}
+    for name, kw in SPEC_ENGINES.items():
+        kw = dict(kw)
+        run_cfg = dataclasses.replace(cfg, use_fused_kernels=kw.pop(
+            "fused", True))
+        eng = ServingEngine(run_cfg, params, batch_slots=SLOTS,
+                            max_len=max_len, device=device, **kw)
+        t0 = time.perf_counter()
+        reqs = eng.generate(prompts, max_new_tokens=new)
+        _sync(torch, device)
+        tokens[name] = [r.out_tokens for r in reqs]
+        m = eng.metrics
+        row[name] = {"seconds": time.perf_counter() - t0,
+                     "equal_to_plain": tokens[name] == tokens["plain"],
+                     "first_divergence": [
+                         _first_divergence(a, b) for a, b in
+                         zip(tokens[name], tokens["plain"])],
+                     **{k: m[k] for k in (
+                         "prefix_hit_pages", "draft_tokens",
+                         "accepted_tokens", "verify_dispatches",
+                         "rollbacks", "dispatches")}}
+        del eng
+    row["plain_tokens"] = tokens["plain"]
+    emit(row)
+    del params
+    _free(torch, device)
+    bad = [n for n in SPEC_ENGINES if not row[n]["equal_to_plain"]]
+    if bad:
+        raise AssertionError(f"{cfg.name}: {bad} gave other greedy tokens "
+                             "than the plain engine")
+    return row
+
+
+def spec_serve(torch, cfg, expect, *, jitter, max_len, device="cuda",
+               new=32):
+    """``cfg``: full width and depth, bfloat16, kernel plan.  The
+    speculative burst through the speculative engine (prefix cache on),
+    then through the plain engine for per-request token equality."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import COUNTER_NAMES
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=jitter, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    prompts = spec_burst(cfg.vocab_size)
+    eng = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=max_len,
+                        speculative=True, draft_len=4, device=device)
+    eng.generate([prompts[2][:8]], max_new_tokens=2)       # warm-up
+    _sync(torch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = dict(eng.metrics)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    reqs = eng.generate(prompts, max_new_tokens=new)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    m = eng.metrics
+    burst_metrics = {k: m[k] - before[k] for k in COUNTER_NAMES}
+    kv_peak = m["kv_bytes_peak"]
+    mem_peak = (torch.cuda.max_memory_allocated() if device == "cuda"
+                else None)
+    del eng
+    _free(torch, device)
+    plain = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=max_len,
+                          prefix_cache=False, device=device)
+    t1 = time.perf_counter()
+    base = [r.out_tokens for r in plain.generate(prompts,
+                                                 max_new_tokens=new)]
+    _sync(torch, device)
+    plain_wall = time.perf_counter() - t1
+    del plain
+    generated = sum(len(r.out_tokens) for r in reqs)
+    ttft = [r.ttft_s for r in reqs]
+    tpot = [r.tpot_s for r in reqs]
+    bm = burst_metrics
+    row = {"phase": "spec_serve", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "init_s": init_s,
+           "slots": SLOTS, "max_len": max_len,
+           "prompt_lengths": [len(p) for p in prompts], "new_tokens": new,
+           "wall_s": wall, "generated": generated,
+           "tokens_per_s": generated / wall,
+           "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
+           "tpot_mean_ms": 1e3 * statistics.mean(tpot),
+           "accept_rate": bm["accepted_tokens"] / max(bm["draft_tokens"], 1),
+           "dispatches_per_token": (bm["verify_dispatches"]
+                                    / max(bm["spec_tokens"], 1)),
+           "prefix_hit_rate": (bm["prefix_hit_pages"]
+                               / max(bm["prompt_pages"], 1)),
+           "rollbacks": bm["rollbacks"], "kv_bytes_peak": kv_peak,
+           "device_mem_peak": mem_peak, "metrics": burst_metrics,
+           "launches": counts, "plain_wall_s": plain_wall,
+           "plain_tokens_per_s": generated / plain_wall,
+           "equal_to_plain": [r.out_tokens == b for r, b in zip(reqs, base)],
+           "first_divergence": [_first_divergence(r.out_tokens, b)
+                                for r, b in zip(reqs, base)]}
+    emit(row)
+    del params
+    _free(torch, device)
+    problems = []
+    for name, c in counts.items():
+        if (c > 0) != (name in expect):
+            problems.append(f"{name} launched {c} times")
+    for r in reqs:
+        if r.failed or not r.done or len(r.out_tokens) != new:
+            problems.append(f"request {r.rid}: done={r.done} failed="
+                            f"{r.failed} tokens={len(r.out_tokens)}")
+        if any(not 0 <= t < cfg.vocab_size for t in r.out_tokens):
+            problems.append(f"request {r.rid}: token outside the vocab")
+    if bm["prefix_hit_pages"] <= 0:
+        problems.append("no prefix page was hit")
+    if bm["rollbacks"] <= 0:
+        problems.append("no draft was rolled back")
+    if problems:
+        raise AssertionError(f"spec_serve {cfg.name}: " + "; ".join(problems))
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -604,6 +914,7 @@ def main(argv=None) -> int:
     results = {"device": smi, "name": name}
     rows = check_kernels(torch, Timer(torch))
     results["kernel_checks"] = rows
+    results["row_invariance"] = check_row_invariance(torch)
     results["fused_vs_eager"] = fused_vs_eager(
         torch, dataclasses.replace(llama, num_layers=4, dtype="float32"))
     results["serve"] = serve_llama(
@@ -612,12 +923,25 @@ def main(argv=None) -> int:
         torch, dataclasses.replace(gpt2, num_layers=4, dtype="float32"))
     results["gpt2_serve"] = serve_gpt2(
         torch, dataclasses.replace(gpt2, use_fused_kernels=True))
+    models = {"llama3-8b": (llama, False, 2048), "gpt2": (gpt2, True, 1024)}
+    results["spec_fused_vs_eager"] = {
+        m: spec_fused_vs_eager(
+            torch, dataclasses.replace(c, num_layers=4, dtype="float32",
+                                       use_fused_kernels=True),
+            jitter=jit, max_len=ml)
+        for m, (c, jit, ml) in models.items()}
+    results["spec_serve"] = {
+        m: spec_serve(torch, dataclasses.replace(c, use_fused_kernels=True),
+                      SPEC_PATHS[m], jitter=jit, max_len=ml)
+        for m, (c, jit, ml) in models.items()}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = [("llama3-8b", "chunked", LLAMA_PATH,
               results["serve"]["launches"])]
     paths += [("gpt2", mode, GPT2_PATHS[mode], r["launches"])
               for mode, r in results["gpt2_serve"].items()]
+    paths += [(m, "speculative", SPEC_PATHS[m], r["launches"])
+              for m, r in results["spec_serve"].items()]
     summary = []
     for kname in TPU_KERNELS:
         for model, path, expect, launches in paths:
@@ -626,8 +950,8 @@ def main(argv=None) -> int:
                     and r["path"] in (None, path)]
             if kname not in expect or not mine:
                 continue
-            # The path's own shape where it has one (a whole prompt), else
-            # the prefill-chunk / main decode shape.
+            # The path's own shape where it has one (a whole prompt, a
+            # verify dispatch), else the prefill-chunk / main decode shape.
             head = next((r for r in mine if r["path"] == path), mine[0])
             summary.append({
                 "name": kname, "route": "cuda", "source": SOURCES[kname],

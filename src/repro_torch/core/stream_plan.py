@@ -42,8 +42,8 @@ class KernelChoice:
 
 EAGER = KernelChoice("eager")
 
-# The main-path stages this slice ports, in pipeline order.
-STAGES = ("qkv", "attention", "decode_attn", "ffn")
+# The main-path stages the port runs, in pipeline order.
+STAGES = ("qkv", "attention", "decode_attn", "verify_attn", "ffn")
 
 
 @dataclass(frozen=True)
@@ -53,6 +53,7 @@ class LayerPlan:
     qkv: KernelChoice = EAGER          # (ln1 +) Q/K/V projections
     attention: KernelChoice = EAGER    # chunk / whole-prompt attention
     decode_attn: KernelChoice = EAGER  # single-token paged attention
+    verify_attn: KernelChoice = EAGER  # W-token speculative verify window
     ffn: KernelChoice = EAGER          # (ln2 +) MLP
 
     def stages(self):
@@ -82,6 +83,13 @@ class StreamPlan:
                 return lp.decode_attn.kw.get("page_size", default)
         return default
 
+    def verify_window(self, draft_len: int) -> int:
+        """Speculative verify-window rows (pending token + drafts) for a
+        requested draft length, clamped to the decode KV page granule: a
+        window never spans more than one page of fresh K/V, so a rejected
+        draft rolls back at most one freshly opened page."""
+        return max(2, min(int(draft_len) + 1, self.decode_page_size()))
+
     def prefill_chunk_size(self, page_size: int, default: int = 128) -> int:
         """Chunked-prefill granule: the attention ``block_q`` rounded up to
         whole KV pages, so chunk boundaries land on page boundaries."""
@@ -103,6 +111,7 @@ _DENSE_RMSNORM_GLU = LayerPlan(
     attention=KernelChoice("flash_attention",
                            (("block_q", 128), ("block_kv", 128))),
     decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
+    verify_attn=KernelChoice("verify_attention", (("page_size", 16),)),
     ffn=KernelChoice("streamed_ffn",
                      (("block_t", 128), ("block_f", 128), ("fuse_norm", 1))),
 )
@@ -117,6 +126,7 @@ _DENSE_LAYERNORM_MLP = LayerPlan(
     attention=KernelChoice("flash_attention",
                            (("block_q", 128), ("block_kv", 128))),
     decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
+    verify_attn=KernelChoice("verify_attention", (("page_size", 16),)),
     ffn=KernelChoice("streamed_mlp",
                      (("block_t", 128), ("block_f", 128), ("fuse_norm", 0))),
 )

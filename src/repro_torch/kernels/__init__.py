@@ -10,7 +10,7 @@ from . import ref
 from .block_matmul import block_matmul
 from .flash_attention import flash_attention_2d, flash_attention_static
 from .ops import flash_attention
-from .paged_attention import paged_decode_attention
+from .paged_attention import paged_decode_attention, paged_verify_attention
 from .rmsnorm_matmul import rmsnorm_matmul
 from .streamed_ffn import streamed_ffn, streamed_mlp
 
@@ -22,6 +22,7 @@ KERNELS = {
     "block_matmul": block_matmul,
     "streamed_mlp": streamed_mlp,
     "flash_attention_static": flash_attention_static,
+    "paged_verify_attention": paged_verify_attention,
 }
 
 
@@ -37,7 +38,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "ref", "block_matmul", "flash_attention", "flash_attention_2d",
-    "flash_attention_static", "paged_decode_attention", "rmsnorm_matmul",
+    "flash_attention_static", "paged_decode_attention",
+    "paged_verify_attention", "rmsnorm_matmul",
     "streamed_ffn", "streamed_mlp", "KERNELS", "reset_launches",
     "launch_counts",
 ]

@@ -63,15 +63,24 @@ def cdiv(a: int, b: int) -> int:
 _MATMUL_BK = 32
 _MATMUL_SMALL_T = 16      # T <= this: 8 x 128 tiles, else 64 x 64
 _MATMUL_TILES = {True: (8, 128), False: (64, 64)}
+# Rows up to which a kernel's per-row float32 summation order follows from
+# the weight shape alone: 4 slots x a 16-row verify window.  A speculative
+# verify dispatch (slots x W rows) then gives each row the bits a decode
+# step (slots rows) gives it, which exact acceptance needs.
+ROW_INVARIANT_T = 64
 
 
 def split_plan(t: int, d: int, n: int, sms: int):
     """(small, k_per_split, splits) for the split-K tiled matmul: split K
     across blocks until the grid holds about two blocks per SM, keeping
-    >= 4 K tiles per split."""
+    >= 4 K tiles per split.  Each output sums its K products in order
+    within a split, then the splits in order, whatever the tile shape; up
+    to ``ROW_INVARIANT_T`` rows the split is sized for one row tile, so
+    it depends on (d, n) alone."""
     small = t <= _MATMUL_SMALL_T
-    bt, bn = _MATMUL_TILES[small]
-    tiles = cdiv(n, bn) * cdiv(t, bt)
+    rows = 1 if t <= ROW_INVARIANT_T else t
+    bt, bn = _MATMUL_TILES[rows <= _MATMUL_SMALL_T]
+    tiles = cdiv(n, bn) * cdiv(rows, bt)
     want = max(1, min(cdiv(2 * sms, tiles), d // (4 * _MATMUL_BK)))
     k_per_split = cdiv(cdiv(d, want), _MATMUL_BK) * _MATMUL_BK
     return small, k_per_split, cdiv(d, k_per_split)

@@ -1,23 +1,40 @@
-// Paged decode attention: one query token per slot attends to the slot's
-// first `length` cached positions, read through its page-table row.
-//   q [B, Hq, D]; pools [P, ps, Hkv, D]; table [B, maxp] int32 (always valid
-//   page ids: unallocated entries point at the NULL page 0); lengths [B]
-//   -> out [B, Hq, D].
+// Paged attention over a window of W query rows per slot, read through the
+// slot's page-table row: the single-token decode kernel (K1) is the window
+// at W = 1, the speculative verify kernel (K8) the window at W > 1.  One
+// device function serves both, so every verify row is computed exactly as
+// the decode kernel computes that row at its own length.
+//   q [B, W, Hq, D]; pools [P, ps, Hkv, D]; table [B, maxp] int32 (always
+//   valid page ids: unallocated entries point at the NULL page 0);
+//   base [B] -> out [B, W, Hq, D].
+// Window row w of slot b attends to the slot's first
+//   len(b, w) = base[b] + w + extra
+// cached positions: decode passes lengths with extra = 0 (W = 1); verify
+// passes q_off with extra = 1 (row w attends through q_off + w).
 // Only what the main paths run is built here: no sliding window, D in
-// {64, 128} (gpt2, llama3); the wrapper refuses the rest on the card.
+// {64, 128} (gpt2, llama3), W * G up to 64 rows; the wrapper refuses the
+// rest on the card.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // src/repro/kernels/paged_attention.py::_paged_decode_kernel (pallas_call
-// in paged_decode_attention at :441).  There the page table and lengths
-// are scalar-prefetch operands feeding the BlockSpec index maps; here each
-// block (slot b, KV head h) loads its own table row and length, and loops
-// only over live positions (32 at a time, crossing page boundaries), so
-// pages past the length are never read.  The G query heads sharing KV head
-// h live in the same block (one warp each), so each K/V row is loaded into
-// shared memory once for all of them (gpt2 has G = 1: one busy warp).  Numerics follow the reference:
-// q * scale in float32 first, K/V in float32, float32 PV, online softmax
-// with masked scores at -1e30 and the normaliser clamped at 1e-30; a slot
-// of length 0 writes zeros.
+// in paged_decode_attention at :441) and ::_paged_verify_kernel
+// (pallas_call in paged_verify_attention at :364).  There the page table
+// and lengths are scalar-prefetch operands feeding the BlockSpec index
+// maps; here each block (slot b, KV head h) loads its own table row and
+// offsets, and walks positions 32 at a time (crossing page boundaries) up
+// to the window's deepest row, so pages past it are never read.  The
+// W x G query rows sharing KV head h live in the same block, RPW rows per
+// warp, so each K/V row is loaded into shared memory once for all of
+// them.  Numerics follow the reference: q * scale in float32 first, K/V in
+// float32, float32 PV, online softmax with masked scores at -1e30 and the
+// normaliser clamped at 1e-30; a row of length 0 writes zeros.
+// Exactness: a row skips every step that starts at or past its own length
+// (the warp-uniform exact no-op of the reference's p = 0, corr = 1), masks
+// the positions of its last step past its length (p = 0), and positions
+// past the window's deepest row load zeros, never stale pool contents.  The
+// row's sequence of float32 operations is then the one the W = 1 launch
+// performs at that length, so every verify row is bit-identical to the
+// decode kernel there: what lets speculative acceptance keep exactly the
+// tokens plain greedy decode produces.
 // What bounds it: the K/V bytes of the live pages (memory bound).  With
 // B * Hkv blocks (32 at 4 slots) most SMs stay idle; splitting a slot's
 // pages across blocks (flash-decoding) is left to a later change.
@@ -29,70 +46,87 @@ namespace {
 
 constexpr int CH = 32;      // positions per step: one per lane
 constexpr int NWARP = 4;
-constexpr int MAXG = 8;     // query heads per KV head held in the block
-constexpr int HPW = MAXG / NWARP;
+constexpr int MAX_ROWS = 64;  // W * G rows one block holds (RPW <= 16)
 
-template <typename T, int D>
+template <int D>
+constexpr size_t smem_bytes(int rows) {
+  // q_s [rows][D], k_s [CH][D + 1], v_s [CH][D], all float32.
+  return sizeof(float) * ((size_t)rows * D + CH * (D + 1) + CH * D);
+}
+
+template <typename T, int D, int RPW>
 __global__ void __launch_bounds__(NWARP * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+paged_window_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                     const T* __restrict__ vpool,
                     const int* __restrict__ table,
-                    const int* __restrict__ lengths, T* __restrict__ out,
-                    int hkv, int g, int ps, int maxp, float scale) {
+                    const int* __restrict__ base, T* __restrict__ out,
+                    int hkv, int g, int w, int extra, int ps, int maxp,
+                    float scale) {
   constexpr int DPL = D / 32;
-  __shared__ float q_s[MAXG][D];
-  __shared__ float k_s[CH][D + 1];
-  __shared__ float v_s[CH][D];
+  constexpr int ROWS = NWARP * RPW;
+  extern __shared__ float smem[];
+  float* q_s = smem;                       // [ROWS][D]
+  float* k_s = q_s + ROWS * D;             // [CH][D + 1]
+  float* v_s = k_s + CH * (D + 1);         // [CH][D]
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hq = hkv * g;
-  const int length = min(lengths[b], maxp * ps);
+  const int rows = w * g;
+  const int extent = maxp * ps;
+  const int b0 = base[b] + extra;
+  const int deepest = min(max(b0 + w - 1, 0), extent);
   const int* row = table + (size_t)b * maxp;
 
-  for (int i = tid; i < g * D; i += NWARP * 32) {
-    const int gi = i / D, c = i % D;
-    q_s[gi][c] = to_f(q[((size_t)b * hq + h * g + gi) * D + c]) * scale;
+  // Block row r = wi * G + gi: window slot wi, query head h * G + gi.
+  for (int i = tid; i < rows * D; i += NWARP * 32) {
+    const int r = i / D, c = i % D;
+    const int wi = r / g, gi = r % g;
+    q_s[r * D + c] =
+        to_f(q[(((size_t)b * w + wi) * hq + h * g + gi) * D + c]) * scale;
   }
 
-  float m[HPW], l[HPW], acc[HPW][DPL];
+  float m[RPW], l[RPW], acc[RPW][DPL];
+  int len[RPW];
 #pragma unroll
-  for (int hh = 0; hh < HPW; ++hh) {
+  for (int hh = 0; hh < RPW; ++hh) {
+    const int r = warp + NWARP * hh;
+    len[hh] = r < rows ? min(max(b0 + r / g, 0), extent) : 0;
     m[hh] = kNegInf;
     l[hh] = 0.f;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc[hh][i] = 0.f;
   }
 
-  for (int c0 = 0; c0 < length; c0 += CH) {
+  for (int c0 = 0; c0 < deepest; c0 += CH) {
     __syncthreads();   // q_s written / previous step consumed
     for (int i = tid; i < CH * D; i += NWARP * 32) {
       const int r = i / D, c = i % D, pos = c0 + r;
       float kv = 0.f, vv = 0.f;
-      if (pos < length) {
+      if (pos < deepest) {
         const size_t page = (size_t)row[pos / ps];
         const size_t off = ((page * ps + pos % ps) * hkv + h) * D + c;
         kv = to_f(kpool[off]);
         vv = to_f(vpool[off]);
       }
-      k_s[r][c] = kv;
-      v_s[r][c] = vv;
+      k_s[r * (D + 1) + c] = kv;
+      v_s[r * D + c] = vv;
     }
     __syncthreads();
     const int pos = c0 + lane;
-    const bool valid = pos < length;
 #pragma unroll
-    for (int hh = 0; hh < HPW; ++hh) {
-      const int gi = warp + NWARP * hh;
-      if (gi >= g) break;            // warp-uniform
+    for (int hh = 0; hh < RPW; ++hh) {
+      if (c0 >= len[hh]) continue;     // warp-uniform: nothing left to see
+      const float* qr = q_s + (warp + NWARP * hh) * D;
+      const bool valid = pos < len[hh];
       float s = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < D; ++c) s = fmaf(q_s[gi][c], k_s[lane][c], s);
+      for (int c = 0; c < D; ++c) s = fmaf(qr[c], k_s[lane * (D + 1) + c], s);
       s = valid ? s : kNegInf;
       const float m_new = fmaxf(m[hh], warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
       const float corr = expf(m[hh] - m_new);
-      l[hh] = l[hh] * corr + warp_sum(p);
+      l[hh] = fmaf(l[hh], corr, warp_sum(p));
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[hh][i] *= corr;
 #pragma unroll 8
@@ -100,69 +134,104 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          acc[hh][i] = fmaf(pj, v_s[j][lane + 32 * i], acc[hh][i]);
+          acc[hh][i] = fmaf(pj, v_s[j * D + lane + 32 * i], acc[hh][i]);
       }
       m[hh] = m_new;
     }
   }
 
 #pragma unroll
-  for (int hh = 0; hh < HPW; ++hh) {
-    const int gi = warp + NWARP * hh;
-    if (gi >= g) break;
+  for (int hh = 0; hh < RPW; ++hh) {
+    const int r = warp + NWARP * hh;
+    if (r >= rows) break;            // warp-uniform
+    const int wi = r / g, gi = r % g;
     const float denom = fmaxf(l[hh], 1e-30f);
-    T* o = out + ((size_t)b * hq + h * g + gi) * D;
+    T* o = out + (((size_t)b * w + wi) * hq + h * g + gi) * D;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) o[lane + 32 * i] = from_f<T>(acc[hh][i] / denom);
+    for (int i = 0; i < DPL; ++i)
+      o[lane + 32 * i] = from_f<T>(acc[hh][i] / denom);
   }
 }
 
-template <typename T, int D>
-void launch_d(const void* q, const void* kp, const void* vp,
-              const void* table, const void* lengths, void* out, int b,
-              int hkv, int g, int ps, int maxp, float scale,
-              cudaStream_t stream) {
+template <typename T, int D, int RPW>
+int launch_rpw(const void* q, const void* kp, const void* vp,
+               const void* table, const void* base, void* out, int b,
+               int hkv, int g, int w, int extra, int ps, int maxp,
+               float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>(NWARP * RPW);
+  auto kernel = paged_window_kernel<T, D, RPW>;
+  // Above 48 KB a block's shared memory must be opted into per kernel.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(b, hkv);
-  paged_decode_kernel<T, D><<<grid, NWARP * 32, 0, stream>>>(
+  kernel<<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<T*>(out), hkv, g, ps,
-      maxp, scale);
+      static_cast<const int*>(base), static_cast<T*>(out), hkv, g, w, extra,
+      ps, maxp, scale);
+  return (int)cudaGetLastError();
+}
+
+// Rows per warp: the fewest that hold the block's W * G rows.  The row's
+// arithmetic does not depend on it.
+template <typename T, int D>
+int launch_d(const void* q, const void* kp, const void* vp,
+             const void* table, const void* base, void* out, int b, int hkv,
+             int g, int w, int extra, int ps, int maxp, float scale,
+             cudaStream_t stream) {
+  const int rows = w * g;
+  if (rows <= NWARP)
+    return launch_rpw<T, D, 1>(q, kp, vp, table, base, out, b, hkv, g, w,
+                               extra, ps, maxp, scale, stream);
+  if (rows <= 2 * NWARP)
+    return launch_rpw<T, D, 2>(q, kp, vp, table, base, out, b, hkv, g, w,
+                               extra, ps, maxp, scale, stream);
+  if (rows <= 4 * NWARP)
+    return launch_rpw<T, D, 4>(q, kp, vp, table, base, out, b, hkv, g, w,
+                               extra, ps, maxp, scale, stream);
+  if (rows <= 8 * NWARP)
+    return launch_rpw<T, D, 8>(q, kp, vp, table, base, out, b, hkv, g, w,
+                               extra, ps, maxp, scale, stream);
+  return launch_rpw<T, D, 16>(q, kp, vp, table, base, out, b, hkv, g, w,
+                              extra, ps, maxp, scale, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
-           const void* lengths, void* out, int b, int hkv, int g, int d,
-           int ps, int maxp, float scale, cudaStream_t stream) {
-  if (g < 1 || g > MAXG) return (int)cudaErrorInvalidValue;
+           const void* base, void* out, int b, int hkv, int g, int w,
+           int extra, int d, int ps, int maxp, float scale,
+           cudaStream_t stream) {
+  if (g < 1 || w < 1 || w * g > MAX_ROWS) return (int)cudaErrorInvalidValue;
   if (d == 64)
-    launch_d<T, 64>(q, kp, vp, table, lengths, out, b, hkv, g, ps, maxp,
-                    scale, stream);
-  else if (d == 128)
-    launch_d<T, 128>(q, kp, vp, table, lengths, out, b, hkv, g, ps, maxp,
-                     scale, stream);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_d<T, 64>(q, kp, vp, table, base, out, b, hkv, g, w, extra,
+                           ps, maxp, scale, stream);
+  if (d == 128)
+    return launch_d<T, 128>(q, kp, vp, table, base, out, b, hkv, g, w, extra,
+                            ps, maxp, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int repro_paged_decode_f32(const void* q, const void* kp,
+// base: lengths (decode, extra = 0, w = 1) or q_off (verify, extra = 1).
+extern "C" int repro_paged_window_f32(const void* q, const void* kp,
                                       const void* vp, const void* table,
-                                      const void* lengths, void* out, int b,
-                                      int hkv, int g, int d, int ps,
-                                      int maxp, float scale, void* stream) {
-  return launch<float>(q, kp, vp, table, lengths, out, b, hkv, g, d, ps, maxp,
-                       scale, static_cast<cudaStream_t>(stream));
+                                      const void* base, void* out, int b,
+                                      int hkv, int g, int w, int extra,
+                                      int d, int ps, int maxp, float scale,
+                                      void* stream) {
+  return launch<float>(q, kp, vp, table, base, out, b, hkv, g, w, extra, d,
+                       ps, maxp, scale, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int repro_paged_decode_bf16(const void* q, const void* kp,
+extern "C" int repro_paged_window_bf16(const void* q, const void* kp,
                                        const void* vp, const void* table,
-                                       const void* lengths, void* out, int b,
-                                       int hkv, int g, int d, int ps,
-                                       int maxp, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, kp, vp, table, lengths, out, b, hkv, g, d,
-                               ps, maxp, scale,
+                                       const void* base, void* out, int b,
+                                       int hkv, int g, int w, int extra,
+                                       int d, int ps, int maxp, float scale,
+                                       void* stream) {
+  return launch<__nv_bfloat16>(q, kp, vp, table, base, out, b, hkv, g, w,
+                               extra, d, ps, maxp, scale,
                                static_cast<cudaStream_t>(stream));
 }

@@ -190,13 +190,19 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
   }
 }
 
-// Tile shapes; the Python wrappers mirror BF to size the workspace.
-//   small (T <= 16): BT 8,  BF 64  (phase 1: 1 x 2, phase 2: 1 x 4 / thread)
-//   large          : BT 64, BF 128 (phase 1: 4 x 8, phase 2: 4 x 8 / thread)
+// Tile classes; the Python wrappers mirror them (streamed_ffn.py::_TILES)
+// to size the workspace.
+//   0 (T <= 16): BT 8,  BF 64  (phase 1: 1 x 2, phase 2: 1 x 4 / thread)
+//   1 (T <= 64): BT 32, BF 64  (phase 1: 2 x 4, phase 2: 2 x 8 / thread)
+//   2 (larger) : BT 64, BF 128 (phase 1: 4 x 8, phase 2: 4 x 8 / thread)
+// Each output sums its BF-deep products in order, then the F / BF partials
+// in order, whatever BT: classes 0 and 1 share BF = 64, so a row's bits do
+// not depend on T up to 64 rows (a speculative verify dispatch of slots x
+// W rows gives each row what a decode step of slots rows gives it).
 template <typename T, bool GLU>
 int launch(const void* x, const void* nscale, const void* wg, const void* wu,
            const void* wd, void* out, void* part, int t, int d, int f,
-           int small, float eps, cudaStream_t stream) {
+           int tile, float eps, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(nscale);
   const T* gt = static_cast<const T*>(wg);
@@ -204,16 +210,23 @@ int launch(const void* x, const void* nscale, const void* wg, const void* wu,
   const T* dt = static_cast<const T*>(wd);
   float* p = static_cast<float*>(part);
   int n_f;
-  if (small) {
+  if (tile == 0) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 8));
     streamed_ffn_kernel<T, GLU, 8, 64, 1, 2, 128, 1, 4>
         <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
-  } else {
+  } else if (tile == 1) {
+    n_f = cdiv(f, 64);
+    dim3 grid(n_f, cdiv(t, 32));
+    streamed_ffn_kernel<T, GLU, 32, 64, 2, 4, 128, 2, 8>
+        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
+  } else if (tile == 2) {
     n_f = cdiv(f, 128);
     dim3 grid(n_f, cdiv(t, 64));
     streamed_ffn_kernel<T, GLU, 64, 128, 4, 8, 128, 4, 8>
         <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -226,36 +239,36 @@ int launch(const void* x, const void* nscale, const void* wg, const void* wu,
 extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
                                       const void* wg, const void* wu,
                                       const void* wd, void* out, void* part,
-                                      int t, int d, int f, int small,
+                                      int t, int d, int f, int tile,
                                       float eps, void* stream) {
   return launch<float, true>(x, nscale, wg, wu, wd, out, part, t, d, f,
-                             small, eps, static_cast<cudaStream_t>(stream));
+                             tile, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
                                        const void* wg, const void* wu,
                                        const void* wd, void* out, void* part,
-                                       int t, int d, int f, int small,
+                                       int t, int d, int f, int tile,
                                        float eps, void* stream) {
   return launch<__nv_bfloat16, true>(x, nscale, wg, wu, wd, out, part, t, d,
-                                     f, small, eps,
+                                     f, tile, eps,
                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_streamed_mlp_f32(const void* x, const void* wu,
                                       const void* wd, void* out, void* part,
-                                      int t, int d, int f, int small,
+                                      int t, int d, int f, int tile,
                                       void* stream) {
   return launch<float, false>(x, nullptr, nullptr, wu, wd, out, part, t, d,
-                              f, small, 0.f,
+                              f, tile, 0.f,
                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_streamed_mlp_bf16(const void* x, const void* wu,
                                        const void* wd, void* out, void* part,
-                                       int t, int d, int f, int small,
+                                       int t, int d, int f, int tile,
                                        void* stream) {
   return launch<__nv_bfloat16, false>(x, nullptr, nullptr, wu, wd, out, part,
-                                      t, d, f, small, 0.f,
+                                      t, d, f, tile, 0.f,
                                       static_cast<cudaStream_t>(stream));
 }

@@ -12,6 +12,11 @@
 // idle, so K is split across blocks (gridDim.z) into float32 partials that
 // a second pass sums in a fixed order: no atomics, so results repeat run to
 // run.  The Python wrappers size the split (common.py::split_plan).
+// Each output sums its K products in order inside its split, then the
+// splits in order, whatever the tile shape; up to 64 rows split_plan sizes
+// the split from the weight shape alone, so a row's bits do not depend on
+// how many rows share the call (a speculative verify dispatch gives each
+// row what a decode step gives it).
 #pragma once
 
 #include "common.cuh"

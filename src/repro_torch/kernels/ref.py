@@ -140,36 +140,61 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
                                   block_kv=block_kv)
 
 
-def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           lengths: torch.Tensor, *, window: int = 0,
+                           q_off: torch.Tensor, *, window: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """One-token GQA attention read through a page table.
+    """W-row speculative-verify attention read through a page table.
 
-    q [B, 1, Hq, D]; pools [P, ps, Hkv, D]; page_table [B, maxp] int32;
-    lengths [B] -> [B, 1, Hq, D].  As ``_paged_decode_kernel``
-    (``paged_attention.py:61-110``): ``q * scale`` in float32 first, K/V in
-    float32, float32 PV; a slot of length 0 gives zeros.
+    q [B, W, Hq, D]; pools [P, ps, Hkv, D]; page_table [B, maxp] int32;
+    q_off [B] the position of window row 0 -> [B, W, Hq, D].  The eager
+    ``verify_attention`` (``layers.py:447``) over the gathered pages: row
+    i sees the first ``q_off + i + 1`` positions, intersected with the
+    sliding window; with the Pallas kernels' arithmetic
+    (``paged_attention.py:169-229``): ``q * scale`` in float32 first, K/V
+    in float32, masked scores at -1e30, float32 PV, the normaliser
+    clamped at 1e-30, so a row of length 0 gives zeros.
     """
-    b, _, hq, d = q.shape
+    b, w, hq, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     maxp = page_table.shape[1]
     g = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.reshape(b, hkv, g, d).float() * scale
+    qg = q.reshape(b, w, hkv, g, d).float() * scale
     tbl = page_table.long()
-    k = k_pool[tbl].reshape(b, maxp * ps, hkv, d).float()
-    v = v_pool[tbl].reshape(b, maxp * ps, hkv, d).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
-    pos = torch.arange(maxp * ps, device=q.device)[None, :]
-    lens = lengths.to(q.device).long()[:, None]
-    valid = pos < lens
+    # [B, 1, Hkv, S, D]: the window rows are a batch dimension of both
+    # products, so each row's sums are the ones the W = 1 call takes.
+    k = k_pool[tbl].reshape(b, maxp * ps, hkv, d).float() \
+        .permute(0, 2, 1, 3)[:, None]
+    v = v_pool[tbl].reshape(b, maxp * ps, hkv, d).float() \
+        .permute(0, 2, 1, 3)[:, None]
+    s = torch.matmul(qg, k.transpose(-1, -2))           # [B, W, Hkv, G, S]
+    pos = torch.arange(maxp * ps, device=q.device)
+    qlen = (q_off.to(q.device).long()[:, None]
+            + torch.arange(w, device=q.device)[None] + 1)       # [B, W]
+    valid = pos[None, None] < qlen[..., None]                   # [B, W, S]
     if window:
-        valid = valid & (pos >= lens - window)
-    valid = valid[:, None, None, :]
+        valid = valid & (pos[None, None] >= qlen[..., None] - window)
+    valid = valid[:, :, None, None]
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v) / torch.clamp(l, min=1e-30)
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+    out = torch.matmul(p, v) / torch.clamp(l, min=1e-30)  # [B, W, Hkv, G, D]
+    return out.reshape(b, w, hq, d).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           lengths: torch.Tensor, *, window: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """One-token GQA attention read through a page table: the verify
+    window at W = 1 with row 0 at ``lengths - 1``.
+
+    q [B, 1, Hq, D]; pools [P, ps, Hkv, D]; page_table [B, maxp] int32;
+    lengths [B] -> [B, 1, Hq, D].  As ``_paged_decode_kernel``
+    (``paged_attention.py:61-110``); a slot of length 0 gives zeros.
+    """
+    return paged_verify_attention(q, k_pool, v_pool, page_table,
+                                  lengths.to(q.device).long() - 1,
+                                  window=window, scale=scale)

@@ -20,16 +20,25 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (ROW_INVARIANT_T, check_cuda_operands, check_launch,
+                     kernel_path)
 
-_SMALL_T = 16                     # mirrors csrc/streamed_ffn.cu
-_BF = {True: 64, False: 128}
+# Tile classes of csrc/streamed_ffn.cu: (largest T, BF).  Up to
+# ROW_INVARIANT_T rows every class has BF = 64, so each output row sums the
+# same F partials in the same order at any T there.
+_TILES = ((16, 64), (ROW_INVARIANT_T, 64), (None, 128))
 _ACTS = ("silu", "gelu")          # the plain versions'
+
+
+def tile_class(t: int) -> int:
+    """Index into ``_TILES`` of the kernel's tile shape for T rows."""
+    return next(i for i, (top, _) in enumerate(_TILES)
+                if top is None or t <= top)
 
 
 def workspace_shape(t: int, d: int, f: int):
     """Float32 partials [F / BF, T, D] the kernel sums in a second pass."""
-    bf = _BF[t <= _SMALL_T]
+    bf = _TILES[tile_class(t)][1]
     return (-(-f // bf), t, d)
 
 
@@ -81,7 +90,7 @@ def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     status = _entry("ffn", x.dtype)(
         x.data_ptr(), norm_scale.data_ptr(), wg.data_ptr(), wu.data_ptr(),
         wd.data_ptr(), out.data_ptr(), part.data_ptr(), t, d, f,
-        int(t <= _SMALL_T), float(norm_eps), stream)
+        tile_class(t), float(norm_eps), stream)
     check_launch("streamed_ffn", status)
     streamed_ffn.launches += 1
     return out
@@ -122,7 +131,7 @@ def streamed_mlp(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _entry("mlp", x.dtype)(
         x.data_ptr(), wu.data_ptr(), wd.data_ptr(), out.data_ptr(),
-        part.data_ptr(), t, d, f, int(t <= _SMALL_T), stream)
+        part.data_ptr(), t, d, f, tile_class(t), stream)
     check_launch("streamed_mlp", status)
     streamed_mlp.launches += 1
     return out

@@ -150,6 +150,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, q_off: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """W-token speculative-verify attention against a dense ("bshd")
+    cache (``layers.py:447``): q [B, W, Hq, D]; caches [B, S, Hkv, D];
+    q_off [B] the position of window row 0, so row i attends to the first
+    ``q_off + i + 1`` positions.  The W-row twin of ``decode_attention``:
+    scores, softmax and PV in float32, so row i computes what
+    ``decode_attention`` computes at length ``q_off + i + 1``."""
+    b, w, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qg = (q * (1.0 / math.sqrt(d))).reshape(b, w, hkv, g, d)
+    scores = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k_cache.float())
+    pos = torch.arange(s, device=q.device)
+    qlen = (q_off.reshape(-1, 1).long()
+            + torch.arange(w, device=q.device)[None] + 1)       # [B, W]
+    valid = pos[None, None] < qlen[..., None]                   # [B, W, S]
+    if window:
+        valid = valid & (pos[None, None] >= qlen[..., None] - window)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
+    return out.reshape(b, w, hq, d).to(q.dtype)
+
+
 def ffn(x: torch.Tensor, p: Params, *, activation: str,
         gated: bool) -> torch.Tensor:
     if gated:
@@ -216,3 +242,14 @@ def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Decode attention through the paged kernel (pools read in place)."""
     return K.paged_decode_attention(q.contiguous(), k_pool, v_pool,
                                     page_table, lengths, window=window)
+
+
+def fused_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           q_off: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """Speculative-verify attention through the paged verify kernel: one
+    launch scores every window row of every slot (``layers.py:1034``,
+    single device)."""
+    return K.paged_verify_attention(q.contiguous(), k_pool, v_pool,
+                                    page_table, q_off, window=window)

@@ -1,6 +1,7 @@
-"""The language model's serving entry points: ``prefill_chunk`` and
-``decode_step`` against the paged KV cache, and the whole-prompt
-``prefill`` whose fresh cache the engine places into pages.
+"""The language model's serving entry points: ``prefill_chunk``,
+``decode_step`` and the speculative ``verify_step`` against the paged KV
+cache, and the whole-prompt ``prefill`` whose fresh cache the engine
+places into pages.
 
 Port of ``repro.models.model`` on the main paths.  Layers run as a Python
 loop over ``params["layers"]`` (the reference scans over stacked pattern
@@ -296,6 +297,92 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
     plan = resolve_plan(cfg, b, kv_len=kv_extent, plan=plan)
     for i, lp in enumerate(params["layers"]):
         x = _attn_block_decode(cfg, lp, x, cache, i, cache_pos, lengths,
+                               page_table, window=_window(cfg, i),
+                               lplan=_lplan(plan, cfg.layer_kind(i)))
+    logits = _logits(cfg, params, x)
+    return logits.argmax(dim=-1).to(torch.int32), logits, cache
+
+
+# --------------------------------------------------------------------- #
+# Speculative verify (draft-then-verify decode, DESIGN.md §11)
+# --------------------------------------------------------------------- #
+
+def supports_speculative(cfg: ModelConfig) -> bool:
+    """Whether ``verify_step`` can serve ``cfg`` (``model.py:1009``): a
+    rejected draft must be undoable, which paged K/V is (a page-table
+    edit) and recurrent state is not; the rest are the chunked-prefill
+    conditions (causal masking scopes each window row to its own
+    prefix)."""
+    return supports_chunked_prefill(cfg)
+
+
+def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
+                       cache: Cache, layer: int, pos0: torch.Tensor,
+                       lengths: torch.Tensor, page_table: torch.Tensor, *,
+                       window: int, lplan: Optional[LayerPlan]
+                       ) -> torch.Tensor:
+    """One attention block over a W-token verify window (``model.py:1023``).
+
+    x [B, W, D]: the pending token plus W - 1 drafts per slot.  K/V rows
+    land at ``pos0 .. pos0 + W - 1`` and window row i attends through
+    ``pos0 + i``, the extent decode would see after consuming i accepted
+    tokens.  Rows past the accepted prefix leave stale K/V behind, beyond
+    every slot's length: the engine rolls them back and later writes
+    overwrite them."""
+    from ..serving.kv_cache import (gather_pages, live_page_table,
+                                    paged_append_window)
+    b, w, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    layout = cfg.kv_cache_layout
+    ap = p["attn"]
+    q, k, v = _project_qkv(cfg, ap, x, p["ln1"], lplan)
+    q = q.reshape(b, w, hq, hd)
+    k = k.reshape(b, w, hkv, hd)
+    v = v.reshape(b, w, hkv, hd)
+    pos = pos0[:, None] + torch.arange(w, device=x.device)[None]
+    q = L.apply_positional(cfg.rope, q, pos, cfg.rope_theta)
+    k = L.apply_positional(cfg.rope, k, pos, cfg.rope_theta)
+    kc, vc = cache["k"][layer], cache["v"][layer]
+    paged_append_window(kc, page_table, pos0, k, layout=layout)
+    paged_append_window(vc, page_table, pos0, v, layout=layout)
+    choice = lplan.verify_attn if lplan is not None else None
+    if choice is not None and choice.fused:
+        o = L.fused_verify_attention(q, kc, vc, page_table, lengths,
+                                     window=window)
+    else:
+        tbl_live = live_page_table(page_table, lengths + w, kc.shape[1])
+        kd = gather_pages(kc, tbl_live, layout=layout)
+        vd = gather_pages(vc, tbl_live, layout=layout)
+        o = L.verify_attention(q, kd, vd, lengths, window=window)
+    x = x + o.reshape(b, w, hq * hd) @ ap["wo"]
+    return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
+
+
+def verify_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Cache, cache_pos: torch.Tensor,
+                lengths: torch.Tensor, *, page_table: torch.Tensor,
+                plan: Optional[StreamPlan] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """Score a W-token speculative window in one dispatch (``:1117``).
+
+    tokens [B, W] int32: column 0 the pending input token, columns 1..W-1
+    the drafts; cache the paged pools, updated in place; cache_pos [B]
+    int32 the window's first write position; lengths [B] int32 tokens
+    already cached (== cache_pos on the serving path); page_table
+    [B, max_pages].  Returns (greedy [B, W] int32, logits [B, W, Vp],
+    cache): ``greedy[:, i]`` is the model's next token after
+    ``tokens[:, :i + 1]``, and every row's logits are the ones decode
+    would produce there."""
+    if not supports_speculative(cfg):
+        raise NotImplementedError(
+            f"speculative verify unsupported for config {cfg.name!r}")
+    b, w = tokens.shape
+    pos = cache_pos[:, None] + torch.arange(w, device=tokens.device)[None]
+    x = _embed(cfg, params, tokens, pos)
+    kv_extent = int(page_table.shape[1]) * int(cache["k"].shape[2])
+    plan = resolve_plan(cfg, b * w, kv_len=kv_extent, plan=plan)
+    for i, lp in enumerate(params["layers"]):
+        x = _attn_block_verify(cfg, lp, x, cache, i, cache_pos, lengths,
                                page_table, window=_window(cfg, i),
                                lplan=_lplan(plan, cfg.layer_kind(i)))
     logits = _logits(cfg, params, x)

@@ -8,18 +8,21 @@ Port of ``repro.serving.kv_cache`` on the main path:
   table extent land in it, so every indexed read and write is in bounds.
 * A page table ``[slots, max_pages]`` int32 maps a slot's logical page j to
   a physical page; it lives on the host and is uploaded per dispatch.
-* The host-side allocator hands out pages from a free list with refcounts
-  and returns them when a request retires.
+* The host-side allocator hands out pages from a free list with refcounts.
+  Several slots may reference one page (prefix sharing), the prefix tree
+  may keep a page cached after every slot let go of it, a shared page is
+  copied before a slot writes into it (copy-on-write), and a speculative
+  draft's freshly opened pages roll back.
 
 Where the reference's primitives return updated arrays from a donated jit,
 the port's update the pool tensors in place (``index_put_``), which is what
-donation bought there.  Prefix sharing, copy-on-write, rollback,
-quantized pools and mesh placement come with later slices.
+donation bought there.  Quantized pools and mesh placement come with later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +63,46 @@ def paged_append(pool: torch.Tensor, page_table: torch.Tensor,
     phys = torch.where(in_range, page_table[rows, posc // page_size].long(),
                        NULL_PAGE)
     pool[phys, posc % page_size] = tok.to(pool.dtype)
+    return pool
+
+
+def paged_append_window(pool: torch.Tensor, page_table: torch.Tensor,
+                        pos: torch.Tensor, new: torch.Tensor, *,
+                        layout: str) -> torch.Tensor:
+    """Scatter a W-token verify window per slot into its pages, in place.
+
+    new [B, W, H, hd] ("bshd") lands at positions ``pos[b] .. pos[b] + W -
+    1``; each row resolves its own physical page, and a row at or past the
+    table extent (or negative) routes to the NULL page, as in
+    ``paged_append`` (``kv_cache.py:266``).  Rows past the accepted prefix
+    are stale after acceptance: the engine rolls the extent back and later
+    writes overwrite them.  Returns ``pool``."""
+    page_size = pool.shape[1]
+    b = page_table.shape[0]
+    win = to_page_major(new, layout)                       # [B, W, H, hd]
+    w = win.shape[1]
+    extent = page_table.shape[1] * page_size
+    p = pos.long()[:, None] + torch.arange(w, device=pool.device)[None]
+    in_range = (p >= 0) & (p < extent)
+    pc = p.clamp(0, extent - 1)
+    rows = torch.arange(b, device=pool.device)[:, None]
+    phys = torch.where(in_range, page_table[rows, pc // page_size].long(),
+                       NULL_PAGE)
+    pool[phys, pc % page_size] = win.to(pool.dtype)
+    return pool
+
+
+def cow_copy_pool(pool: torch.Tensor, src: torch.Tensor,
+                  dst: torch.Tensor) -> torch.Tensor:
+    """Copy physical page(s) ``src`` onto ``dst`` inside a pool, in place:
+    the copy-on-write primitive (``kv_cache.py:162``).
+
+    pool [P, page_size, H, hd], or [L, P, page_size, H, hd] for every layer
+    at once; src/dst [N] page ids.  A shared page is duplicated into a
+    fresh one before the first divergent write, so the writer mutates its
+    private copy and every other referent keeps the original.  Slots with
+    nothing to copy pass NULL onto NULL, a no-op.  Returns ``pool``."""
+    pool[..., dst.long(), :, :, :] = pool[..., src.long(), :, :, :]
     return pool
 
 
@@ -165,10 +208,21 @@ def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
 class PagedKVCache:
     """Device page pools + host page table + refcounted allocator.
 
-    A page is free (on ``_free``, refs 0) or referenced (refs > 0 — the
-    number of slots whose table rows carry it).  ``ensure`` allocates
-    exclusively; ``release`` drops a slot's references exactly once.
-    ``assert_page_accounting`` checks that partition.
+    Page states (``kv_cache.py:567-589``):
+
+    * **free**: on ``_free``, refs 0, not tree-owned;
+    * **referenced**: refs = the number of slots whose table rows carry
+      the page; ``ensure`` allocates exclusively (refs 1), ``adopt_shared``
+      claims an existing page (refs + 1);
+    * **cached**: refs 0 but owned by the prefix tree (``mark_tree``): the
+      page keeps its K/V after every referencing slot exited and returns
+      through ``evict_page``, which the ``evictor`` hook drives when the
+      free list runs dry.
+
+    ``release`` drops a slot's references exactly once; a page goes back
+    to the free list only at refs 0 and not tree-owned.  A shared page
+    counts once in ``pages_in_use``.  ``assert_page_accounting`` checks
+    the partition.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
@@ -195,7 +249,11 @@ class PagedKVCache:
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._owned: List[List[int]] = [[] for _ in range(slots)]
         self._refs = np.zeros(self.num_pages, np.int64)
-        self._in_use = 0
+        self._in_use = 0            # distinct pages with refs > 0
+        self._tree: set = set()     # pages the prefix tree owns
+        # Called when the free list runs dry: reclaims >= 1 cached page
+        # (through ``evict_page``) and returns True, or returns False.
+        self.evictor: Optional[Callable[[], bool]] = None
         self.peak_pages = 0
 
     def init_cache(self) -> Dict[str, torch.Tensor]:
@@ -213,7 +271,19 @@ class PagedKVCache:
 
     @property
     def pages_in_use(self) -> int:
+        """Distinct physical pages referenced by slots: a page shared by k
+        slots counts once."""
         return self._in_use
+
+    @property
+    def pages_cached(self) -> int:
+        """Tree-owned pages no slot references: K/V kept warm for future
+        prefix hits, reclaimable by eviction."""
+        return sum(1 for p in self._tree if self._refs[p] == 0)
+
+    @property
+    def bytes_cached(self) -> int:
+        return self.pages_cached * self.page_bytes
 
     @property
     def peak_bytes_in_use(self) -> int:
@@ -230,6 +300,9 @@ class PagedKVCache:
     def slot_pages(self, slot: int) -> np.ndarray:
         return np.asarray(self._owned[slot], np.int32)
 
+    def page_refs(self, page: int) -> int:
+        return int(self._refs[page])
+
     def _ref(self, page: int) -> None:
         if self._refs[page] == 0:
             self._in_use += 1
@@ -241,13 +314,20 @@ class PagedKVCache:
         self._refs[page] -= 1
         if self._refs[page] == 0:
             self._in_use -= 1
-            self.free_page(page)
+            if page not in self._tree:
+                self.free_page(page)
 
     # ------------------------------------------------------- allocation
     def alloc_page(self) -> int:
-        if not self._free:
-            raise RuntimeError(
-                f"KV page pool exhausted ({self.num_pages - 1} pages)")
+        """Pop one free page, evicting cached prefix pages through the
+        ``evictor`` hook when the free list is dry.  Raises when every
+        page is referenced (a copy-on-write needs one transient extra
+        page, so a fully referenced pool can legally fail here; the
+        engine fails that one request)."""
+        while not self._free:
+            if self.evictor is None or not self.evictor():
+                raise RuntimeError(
+                    f"KV page pool exhausted ({self.num_pages - 1} pages)")
         return self._free.pop()
 
     def free_page(self, page: int) -> None:
@@ -258,7 +338,9 @@ class PagedKVCache:
 
     def ensure(self, slot: int, length: int) -> np.ndarray:
         """Allocate pages so ``slot`` can hold ``length`` tokens; returns
-        its physical pages.  ``length`` past ``max_len`` raises."""
+        its physical pages.  Pages already in the row (allocated earlier or
+        adopted from the prefix tree) are kept; only the tail is
+        allocated.  ``length`` past ``max_len`` raises."""
         if length > self.max_len:
             raise ValueError(
                 f"cannot ensure {length} tokens: slot capacity is "
@@ -273,9 +355,83 @@ class PagedKVCache:
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
         return self.slot_pages(slot)
 
+    def adopt_shared(self, slot: int, page: int) -> int:
+        """Claim an existing (tree-cached or other-slot) page as the slot's
+        next logical page: bump its refcount and write its id into the
+        table row.  Returns the logical index."""
+        owned = self._owned[slot]
+        logical = len(owned)
+        self._ref(page)
+        self._table[slot, logical] = page
+        owned.append(page)
+        self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        return logical
+
+    def cow_page(self, slot: int, logical: int) -> Tuple[int, int]:
+        """Copy-on-write swap: replace the slot's shared logical page with
+        a fresh exclusive one.  Returns ``(src, dst)`` for the page copy
+        (``cow_copy_pool``); the table row already points at ``dst``.  The
+        slot's reference moves: ``src`` drops one (staying cached when the
+        tree owns it), ``dst`` starts at one."""
+        src = self._owned[slot][logical]
+        dst = self.alloc_page()
+        self._ref(dst)
+        self._deref(src)
+        self._owned[slot][logical] = dst
+        self._table[slot, logical] = dst
+        self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        return src, dst
+
+    def rollback_extent(self, slot: int, length: int) -> int:
+        """Truncate a slot's extent to ``length`` tokens after a rejected
+        speculative draft, releasing the pages wholly past it exactly once;
+        returns how many.  A partial last page is kept (its stale rows are
+        masked by the slot's length and overwritten later).  Draft pages
+        are opened fresh each dispatch, so every truncated page must be
+        exclusive (refs 1) and not tree-owned: anything else raises before
+        the allocator is touched."""
+        keep = cdiv(max(length, 1), self.page_size)
+        owned = self._owned[slot]
+        for page in owned[keep:]:
+            if self._refs[page] != 1 or page in self._tree:
+                raise RuntimeError(
+                    f"rollback of slot {slot} would release page {page} "
+                    f"(refs {int(self._refs[page])}, tree "
+                    f"{page in self._tree}): draft pages must be exclusive "
+                    "and never tree-adopted")
+        dropped = 0
+        while len(owned) > keep:
+            page = owned.pop()
+            self._table[slot, len(owned)] = NULL_PAGE
+            self._deref(page)
+            dropped += 1
+        return dropped
+
+    # ------------------------------------------------- tree page custody
+    def mark_tree(self, page: int) -> None:
+        """Hand custody of a page to the prefix tree: at refcount 0 it
+        stays cached (not freed) until ``evict_page`` reclaims it."""
+        self._tree.add(page)
+
+    def evict_page(self, page: int) -> None:
+        """Tree eviction: reclaim a cached (refs 0, tree-owned) page."""
+        if page not in self._tree or self._refs[page] != 0:
+            raise RuntimeError(f"page {page} is not a cached page "
+                               f"(refs {int(self._refs[page])})")
+        self._tree.discard(page)
+        self.free_page(page)
+
+    def disown(self, page: int) -> None:
+        """Revoke tree custody without freeing: a pruned subtree's
+        still-referenced pages keep serving their slots and return to the
+        free list when their last reference drops."""
+        self._tree.discard(page)
+
     def release(self, slot: int) -> None:
         """Drop a slot's page references exactly once and point its table
-        row back at the NULL page.  A second release is a no-op."""
+        row back at the NULL page: exclusive pages return to the free list,
+        shared pages lose one reference, tree-owned pages stay cached.  A
+        second release is a no-op."""
         for page in reversed(self._owned[slot]):
             self._deref(page)
         self._owned[slot] = []
@@ -284,10 +440,11 @@ class PagedKVCache:
     # ------------------------------------------------------- invariants
     def assert_page_accounting(
             self, cache: Optional[Dict[str, torch.Tensor]] = None) -> None:
-        """Every physical page except NULL is free xor referenced; the
-        free list holds no duplicates; refcounts equal table occupancy;
-        table rows hold the owned pages then NULL.  With ``cache``, its
-        pools must match the definitions."""
+        """Every physical page except NULL is in exactly one state: free,
+        referenced, or cached (tree-owned at refs 0); the free list holds
+        no duplicates and nothing referenced or cached; refcounts equal
+        table occupancy; table rows hold the owned pages then NULL.  With
+        ``cache``, its pools must match the definitions."""
         free = list(self._free)
         free_set = set(free)
         if len(free) != len(free_set):
@@ -303,10 +460,13 @@ class PagedKVCache:
         referenced = {p for p in range(1, self.num_pages) if self._refs[p]}
         if self._in_use != len(referenced):
             raise AssertionError("in-use counter drifted")
+        cached = {p for p in self._tree if self._refs[p] == 0}
         if free_set & referenced:
             raise AssertionError("referenced page on the free list")
-        if free_set | referenced != set(range(1, self.num_pages)):
-            raise AssertionError("page leaked (neither free nor referenced)")
+        if free_set & cached:
+            raise AssertionError("cached page on the free list")
+        if free_set | referenced | cached != set(range(1, self.num_pages)):
+            raise AssertionError("page leaked (no state)")
         for slot, owned in enumerate(self._owned):
             if (list(self._table[slot, :len(owned)]) != owned
                     or np.any(self._table[slot, len(owned):] != NULL_PAGE)):

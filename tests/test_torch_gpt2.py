@@ -85,7 +85,8 @@ def test_plan_for_matches_reference(arch):
         base, j_base = base.reduced(), j_base.reduced()
     cfg = dataclasses.replace(base, use_fused_kernels=True)
     j_cfg = dataclasses.replace(j_base, use_fused_kernels=True)
-    for tokens, kv_len in ((4, 256), (128, 1024), (512, 2048)):
+    for tokens, kv_len in ((4, 256), (20, 1024), (128, 1024),
+                           (512, 2048)):
         mine, ref = plan_for(cfg, tokens, kv_len), j_plan_for(j_cfg, tokens,
                                                               kv_len)
         assert [k for k, _ in mine.layers] == [k for k, _ in ref.layers]
@@ -98,6 +99,9 @@ def test_plan_for_matches_reference(arch):
         ps = mine.decode_page_size()
         assert ps == ref.decode_page_size()
         assert mine.prefill_chunk_size(ps) == ref.prefill_chunk_size(ps)
+        for draft_len in (1, 4, 20):
+            assert (mine.verify_window(draft_len)
+                    == ref.verify_window(draft_len))
     assert plan_for(base, 4, 256) is None          # eager config
 
 

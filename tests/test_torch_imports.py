@@ -25,7 +25,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     import repro_torch
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
-    assert "repro_torch.serving.engine" in modules
+    assert {"repro_torch.serving.engine", "repro_torch.serving.prefix_cache",
+            "repro_torch.kernels.paged_attention"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"
