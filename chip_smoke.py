@@ -9,54 +9,58 @@ Phases, one JSON line each (numbers measured in this run, on this card):
 1. device   — the card's name and power limit (nvidia-smi), then the build
               of every CUDA kernel with nvcc for sm_90a from ``csrc/``;
 2. kernel   — each kernel against its plain PyTorch version at the main
-              paths' shapes (llama3-8b and gpt2, gpt2's projections and
-              MLP also at whole-prompt lengths, the projections, FFNs and
-              the verify kernel also at a speculative verify dispatch of 4
-              slots x 5 rows), in bfloat16 and float32: max error against
-              the stated tolerance, kernel / plain / library times (CUDA
-              events, L2 flushed between launches) and the card's bound;
-              then two bit-for-bit checks: every row of the verify kernel
-              equals the decode kernel at that row's length, and the
-              projection and FFN kernels give a row the same bits at 4
-              rows (decode) as at 8, 12 and 20 (verify windows of 2, 3
-              and 5) — reported, not required, for the PyTorch calls on
-              the same path (``torch.matmul`` at the o-projection and
-              LM-head shapes, the eager norms);
-3. fused_vs_eager — llama3-8b at full width cut to 4 layers, float32: one
-              mixed burst through ``ServingEngine`` with the kernel plan and
-              with the eager plan must give the same greedy tokens;
-4. serve    — llama3-8b at full width and depth, bfloat16, random weights
-              drawn on the card from a seed: a mixed burst of 8 prompts
-              (37..1000 tokens, 32 new tokens each) through the paged,
-              chunked-prefill engine (prefix cache on, its default); the
-              launch counts during it must be > 0 for the llama3 kernels
-              and 0 for the rest, and every request complete; the first
-              prompt served alone must repeat its tokens from the burst;
-5. gpt2_fused_vs_eager — gpt2 at full width cut to 4 layers, float32,
-              jittered weights: the kernel plan and the eager plan must
-              give the same greedy tokens, with chunked and with
-              whole-prompt admission;
-6. gpt2_serve — gpt2 at full width and depth, bfloat16, jittered weights
-              drawn on the card: the same kind of burst (prompts up to 992
-              tokens in its 1024-position context), once with chunked
-              and once with whole-prompt admission, each with its own
-              launch counts (chunked: block_matmul, streamed_mlp,
-              flash_attention, paged_attention; whole-prompt: the static
-              flash kernel instead of the offset one);
-7. spec_fused_vs_eager — llama3-8b and gpt2 at full width cut to 4 layers,
-              float32, on the speculative burst (8 prompts sharing a
-              512-token prefix, two of them repeated verbatim, 32 new
-              tokens each): the plain engine (no prefix cache), the
-              default engine (prefix cache on), the speculative engine
-              (draft_len 4) with the kernel plan and with the eager plan
-              must all give the same greedy tokens;
-8. spec_serve — llama3-8b and gpt2 at full width and depth, bfloat16, the
-              speculative burst through the speculative engine with the
-              prefix cache on: every request completes, the verify kernel
-              launches and the decode kernel does not, prefix pages are
-              hit and drafts rolled back; the same burst through the plain
-              engine, with per-request token equality and first
-              divergence reported;
+              paths' shapes (llama3-8b and gpt2: the projections, FFNs and
+              their int8 twins at a prefill chunk, decode and a verify
+              dispatch of 4 slots x 5 rows, gpt2's also at whole-prompt
+              lengths; the o-projection, the LM head over the padded
+              vocabulary and gpt2's LayerNorm rows; chunk, decode and
+              verify attention over full-precision, int8 and fp8 pools),
+              in bfloat16 and float32: max error against the stated
+              tolerance, kernel / plain / library times (CUDA events, L2
+              flushed between launches) and the card's bound; every row
+              of each verify kernel equals its decode kernel at that
+              row's length, bit for bit;
+3. row_invariance — every call on the kernel plan's path gives rows 0..3
+              the same bits at 4 rows (decode) as at 8, 12 and 20 (verify
+              windows of 2, 3 and 5): the projection and FFN kernels and
+              their int8 twins, the o-projection, the LM head and the
+              norms (required); the eager plan's PyTorch calls at those
+              shapes are reported beside them;
+4. fused_vs_eager, gpt2_fused_vs_eager — llama3-8b and gpt2 (jittered) at
+              full width cut to 4 layers, float32: a mixed burst through
+              ``ServingEngine`` with the kernel plan and with the eager
+              plan must give the same greedy tokens (gpt2: with chunked
+              and with whole-prompt admission);
+5. spec_fused_vs_eager — both models at 4 layers, float32, on the
+              speculative burst (8 prompts sharing a 512-token prefix, two
+              repeated verbatim, 32 new tokens each): the plain engine (no
+              prefix cache), the default engine (prefix cache on), the
+              speculative engine (draft_len 4) with the kernel plan and
+              with the eager plan must all give the same greedy tokens;
+6. quant_fused_vs_eager — both models at 4 layers, float32: under every
+              quant mode (kv_int8, kv_fp8, w8, w8_kv8) the kernel plan must
+              give the eager plan's tokens (weight modes: on the eager w8
+              reference weights), and under kv_int8 the speculative engine
+              the plain engine's;
+7. accuracy — both models at 4 layers, float32, jittered: the
+              teacher-forced gate of every quant mode against the
+              unquantized engine (max logit error, token equality; the
+              errors must be finite);
+8. serve, gpt2_serve, spec_serve, quant_serve, quant_spec_serve — each
+              model at full width and depth, bfloat16, random weights
+              drawn on the card from a seed (gpt2 jittered): a mixed burst
+              of 8 prompts (37..1000 tokens; gpt2 up to 992 in its
+              1024-position context; 32 new tokens each) through the
+              paged, chunked-prefill engine (gpt2 also whole-prompt); the
+              speculative burst through the speculative engine against
+              the plain engine, token for token (required: the path is
+              row-invariant); then both under w8_kv8 (speculative token
+              equality reported only: rejected draft rows leave their
+              pages' scale growth behind, as in the reference).  Each
+              burst must launch exactly its path's kernels (the quantized
+              twins, and never K1, K2 or K8, under KV quantization) and
+              complete every request; the first prompt served alone must
+              repeat its burst tokens;
 9. kernels  — one line listing every kernel, once per model and serving
               path that runs it, with its check results and that path's
               own launch count.
@@ -100,7 +104,17 @@ TPU_KERNELS = {
     "streamed_mlp": "src/repro/kernels/streamed_ffn.py:181",
     "flash_attention_static": "src/repro/kernels/flash_attention.py:33",
     "paged_verify_attention": "src/repro/kernels/paged_attention.py:169",
+    "paged_attention_q": "src/repro/kernels/paged_attention.py:113",
+    "paged_verify_attention_q": "src/repro/kernels/paged_attention.py:232",
+    "flash_attention_q": "src/repro/kernels/flash_attention.py:151",
+    "rmsnorm_matmul_w8": "src/repro/kernels/rmsnorm_matmul.py:38",
+    "streamed_ffn_w8": "src/repro/kernels/streamed_ffn.py:81",
+    "streamed_mlp_w8": "src/repro/kernels/streamed_ffn.py:205",
+    # Not a TPU kernel: the eager LayerNorm the reference leaves to XLA,
+    # made a kernel so that its rows do not depend on the row count.
+    "row_norm": "src/repro/models/layers.py:195",
 }
+HELPERS = {"row_norm"}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "rmsnorm_matmul": _CSRC + "rmsnorm_matmul.cu",
@@ -111,23 +125,59 @@ SOURCES = {
     "streamed_mlp": _CSRC + "streamed_ffn.cu",
     "flash_attention_static": _CSRC + "flash_attention.cu",
     "paged_verify_attention": _CSRC + "paged_attention.cu",
+    "paged_attention_q": _CSRC + "paged_attention.cu",
+    "paged_verify_attention_q": _CSRC + "paged_attention.cu",
+    "flash_attention_q": _CSRC + "flash_attention.cu",
+    "rmsnorm_matmul_w8": _CSRC + "rmsnorm_matmul.cu",
+    "streamed_ffn_w8": _CSRC + "streamed_ffn.cu",
+    "streamed_mlp_w8": _CSRC + "streamed_ffn.cu",
+    "row_norm": _CSRC + "row_norm.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
+# On the kernel plan the o-projection runs through block_matmul, llama3's
+# final norm and LM head through one rmsnorm_matmul, gpt2's LM head through
+# block_matmul and its LayerNorms through row_norm (row invariance).
 LLAMA_PATH = {"rmsnorm_matmul", "streamed_ffn", "flash_attention",
-              "paged_attention"}
+              "paged_attention", "block_matmul"}
 GPT2_PATHS = {
     "chunked": {"block_matmul", "streamed_mlp", "flash_attention",
-                "paged_attention"},
+                "paged_attention", "row_norm"},
     "whole_prompt": {"block_matmul", "streamed_mlp",
-                     "flash_attention_static", "paged_attention"},
+                     "flash_attention_static", "paged_attention",
+                     "row_norm"},
 }
 # The speculative engine verifies every decode: K8, never K1.
 SPEC_PATHS = {
     "llama3-8b": {"rmsnorm_matmul", "streamed_ffn", "flash_attention",
-                  "paged_verify_attention"},
+                  "paged_verify_attention", "block_matmul"},
     "gpt2": {"block_matmul", "streamed_mlp", "flash_attention",
-             "paged_verify_attention"},
+             "paged_verify_attention", "row_norm"},
 }
+# Under w8_kv8 the attention kernels read code pools (K9, never K1, K2 or
+# K8) and the w8 stages run their int8 twins (K10); the o-projection and
+# the LM head stay at full precision, as does gpt2's qkv block_matmul.
+# Whole-prompt admission attends over the fresh full-precision K/V (K7)
+# before placing it into the pools as codes.
+QUANT_MODE = "w8_kv8"
+QUANT_PATHS = {
+    ("llama3-8b", "chunked"): {"rmsnorm_matmul_w8", "streamed_ffn_w8",
+                               "flash_attention_q", "paged_attention_q",
+                               "block_matmul", "rmsnorm_matmul"},
+    ("gpt2", "chunked"): {"block_matmul", "streamed_mlp_w8",
+                          "flash_attention_q", "paged_attention_q",
+                          "row_norm"},
+    ("gpt2", "whole_prompt"): {"block_matmul", "streamed_mlp_w8",
+                               "flash_attention_static",
+                               "paged_attention_q", "row_norm"},
+    ("llama3-8b", "speculative"): {"rmsnorm_matmul_w8", "streamed_ffn_w8",
+                                   "flash_attention_q",
+                                   "paged_verify_attention_q",
+                                   "block_matmul", "rmsnorm_matmul"},
+    ("gpt2", "speculative"): {"block_matmul", "streamed_mlp_w8",
+                              "flash_attention_q",
+                              "paged_verify_attention_q", "row_norm"},
+}
+CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
 SLOTS, WINDOW = 4, 5
@@ -185,11 +235,35 @@ def _randn(torch, gen, dtype, dev):
     return randn
 
 
+def _code_dtype(torch, code):
+    """None (full precision), or the torch dtype of "int8" / "fp8" codes."""
+    return {None: None, "int8": torch.int8,
+            "fp8": torch.float8_e4m3fn}[code]
+
+
+def _encode(torch, x, code, page_axis):
+    """(codes, scales) of ``x`` [P, ps, H, D] (page_axis 0) or [H, S, D]
+    cut into 16-position pages: one float32 scale per (page, head), each
+    page's amax over qmax, as the pools hold them."""
+    from repro_torch.serving.kv_cache import kv_quant_qmax, quantize_kv
+    dt = _code_dtype(torch, code)
+    if page_axis == 0:
+        s = x.float().abs().amax(dim=(1, 3)) / kv_quant_qmax(dt)   # [P, H]
+        return quantize_kv(x, s[:, None, :, None], dt), s
+    h, n, d = x.shape
+    pages = x.reshape(h, n // 16, 16, d)
+    s = pages.float().abs().amax(dim=(2, 3)) / kv_quant_qmax(dt)  # [H, n/16]
+    pos = s.repeat_interleave(16, dim=1).contiguous()              # [H, S]
+    return quantize_kv(x, pos[..., None], dt), pos
+
+
 def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
-                q_off, dev):
+                q_off, dev, code=None):
     """A causal flash call and its SDPA yardstick: the offset branch over a
     gathered extent (``q_off`` set, kv_len = q_off + sq), or the static
-    branch over a whole prompt (``q_off`` None, sq == skv)."""
+    branch over a whole prompt (``q_off`` None, sq == skv); with ``code``
+    the offset branch over int8 / fp8 codes with per-position scales (no
+    single PyTorch call reads codes: no library yardstick)."""
     kv_len = skv if q_off is None else q_off + sq
     q = randn(hq, sq, hd)
     k = randn(hkv, skv, hd)
@@ -200,7 +274,20 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
     live_pairs = int(mask.sum()) * hq
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = hq // hkv
-    if q_off is None:
+    kv_bytes = 2 * hkv * kv_len * hd * isz
+    if code is not None:
+        (k, ks), (v, vs) = (_encode(torch, t.float(), code, 1) for t in (k, v))
+        kernel = lambda: K.flash_attention_2d_q(
+            q, k, v, k_scale=ks, v_scale=vs, q_offset=q_off, kv_len=kv_len,
+            kv_group=g)
+        plain = lambda: ref.flash_attention_offset(
+            q, k, v, q_offset=q_off, kv_len=kv_len, kv_group=g, k_scale=ks,
+            v_scale=vs)
+        library = None
+        kv_bytes = 2 * hkv * kv_len * (hd + 4)     # codes + f32 scales
+        shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
+                 f"q_offset={q_off},kv_len={kv_len},codes={code}")
+    elif q_off is None:
         kernel = lambda: K.flash_attention_2d(q, k, v, kv_group=g)
         plain = lambda: ref.flash_attention_static(q, k, v, kv_len=kv_len,
                                                    kv_group=g)
@@ -218,68 +305,133 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
                  f"q_offset={q_off},kv_len={kv_len}")
     return dict(name=name, head_dim=hd, shape=shape, kernel=kernel,
                 plain=plain, library=library, cublas=None,
-                nbytes=(2 * hq * sq * hd + 2 * hkv * kv_len * hd) * isz,
+                nbytes=2 * hq * sq * hd * isz + kv_bytes,
                 flops=4 * hd * live_pairs)
 
 
-def _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev):
-    """Paged decode: 4 slots, ``maxp`` 16-token pages of capacity each."""
-    b, ps = 4, 16
-    pool_pages = 1 + b * maxp
+def _paged_pools(torch, randn, gen, b, maxp, hkv, hd, code, dev):
+    """K/V pools of 1 + b * maxp 16-token pages (codes and [P, Hkv] scales
+    with ``code``), a shuffled page table, and the pool's bytes per KV
+    element (codes + amortized scales, or the dtype's)."""
+    ps, pool_pages = 16, 1 + b * maxp
     kp = randn(pool_pages, ps, hkv, hd)
     vp = randn(pool_pages, ps, hkv, hd)
+    scales = {}
+    if code is not None:
+        (kp, ks), (vp, vs) = (_encode(torch, t.float(), code, 0)
+                              for t in (kp, vp))
+        scales = dict(k_scale=ks, v_scale=vs)
     perm = torch.randperm(pool_pages - 1, generator=gen, device=dev) + 1
     table = perm[:b * maxp].reshape(b, maxp).to(torch.int32).contiguous()
+    per_elem = (1 + 4 / (ps * hd)) if code is not None else None
+    return kp, vp, scales, table, per_elem
+
+
+def _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev,
+                code=None):
+    """Paged decode: 4 slots, ``maxp`` 16-token pages of capacity each;
+    with ``code`` over int8 / fp8 code pools (K9a)."""
+    b, ps = 4, 16
+    kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b, maxp,
+                                               hkv, hd, code, dev)
     lens = [1000, 517, 37, 0]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     qd = randn(b, 1, hq, hd)
+    if code is None:
+        kernel = lambda: K.paged_decode_attention(qd, kp, vp, table, lengths)
+    else:
+        kernel = lambda: K.paged_decode_attention_q(qd, kp, vp, table,
+                                                    lengths, **sc)
     return dict(
-        name="paged_attention", head_dim=hd,
-        shape=f"B={b},Hq={hq},Hkv={hkv},D={hd},ps={ps},lengths={lens}",
-        kernel=lambda: K.paged_decode_attention(qd, kp, vp, table, lengths),
-        plain=lambda: ref.paged_decode_attention(qd, kp, vp, table, lengths),
+        name="paged_attention" if code is None else "paged_attention_q",
+        head_dim=hd,
+        shape=(f"B={b},Hq={hq},Hkv={hkv},D={hd},ps={ps},lengths={lens}"
+               + (f",codes={code}" if code else "")),
+        kernel=kernel,
+        plain=lambda: ref.paged_decode_attention(qd, kp, vp, table, lengths,
+                                                 **sc),
         library=None, cublas=None,
-        nbytes=(2 * b * hq * hd + 2 * sum(lens) * hkv * hd) * isz
-        + (b * maxp + b) * 4,
+        nbytes=2 * b * hq * hd * isz
+        + 2 * sum(lens) * hkv * hd * (per_elem or isz) + (b * maxp + b) * 4,
         flops=4 * hd * hq * sum(lens))
 
 
-def _verify_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev):
+def _verify_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev,
+                 code=None):
     """Speculative verify: 4 slots, a 5-row window at offsets 1000, 517,
-    37 and 0, ``maxp`` 16-token pages of capacity each.  The bytes are the
-    live pages' K/V (through each slot's deepest row) plus q and out, as
-    the decode kernel's; the operations count each row's own extent."""
+    37 and 0, ``maxp`` 16-token pages of capacity each (with ``code`` over
+    code pools, K9b).  The bytes are the live pages' K/V (through each
+    slot's deepest row) plus q and out, as the decode kernel's; the
+    operations count each row's own extent."""
     b, ps, w = SLOTS, 16, WINDOW
-    pool_pages = 1 + b * maxp
-    kp = randn(pool_pages, ps, hkv, hd)
-    vp = randn(pool_pages, ps, hkv, hd)
-    perm = torch.randperm(pool_pages - 1, generator=gen, device=dev) + 1
-    table = perm[:b * maxp].reshape(b, maxp).to(torch.int32).contiguous()
+    kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b, maxp,
+                                               hkv, hd, code, dev)
     offs = [1000, 517, 37, 0]
     q_off = torch.tensor(offs, dtype=torch.int32, device=dev)
     qv = randn(b, w, hq, hd)
     rows = sum(o + i + 1 for o in offs for i in range(w))
+    if code is None:
+        verify, decode = K.paged_verify_attention, K.paged_decode_attention
+    else:
+        verify, decode = K.paged_verify_attention_q, K.paged_decode_attention_q
     return dict(
-        name="paged_verify_attention", head_dim=hd,
+        name=("paged_verify_attention" if code is None
+              else "paged_verify_attention_q"), head_dim=hd,
         shape=(f"B={b},W={w},Hq={hq},Hkv={hkv},D={hd},ps={ps},"
-               f"q_off={offs}"),
-        kernel=lambda: K.paged_verify_attention(qv, kp, vp, table, q_off),
-        plain=lambda: ref.paged_verify_attention(qv, kp, vp, table, q_off),
+               f"q_off={offs}" + (f",codes={code}" if code else "")),
+        kernel=lambda: verify(qv, kp, vp, table, q_off, **sc),
+        plain=lambda: ref.paged_verify_attention(qv, kp, vp, table, q_off,
+                                                 **sc),
         library=None, cublas=None,
-        nbytes=(2 * b * w * hq * hd + 2 * sum(o + w for o in offs) * hkv * hd)
-        * isz + (b * maxp + b) * 4,
+        nbytes=2 * b * w * hq * hd * isz
+        + 2 * sum(o + w for o in offs) * hkv * hd * (per_elem or isz)
+        + (b * maxp + b) * 4,
         flops=4 * hd * hq * rows,
         rows_vs_decode=lambda out: [
-            bool(torch.equal(out[:, i:i + 1], K.paged_decode_attention(
-                qv[:, i:i + 1].contiguous(), kp, vp, table, q_off + i + 1)))
+            bool(torch.equal(out[:, i:i + 1], decode(
+                qv[:, i:i + 1].contiguous(), kp, vp, table, q_off + i + 1,
+                **sc)))
             for i in range(w)])
+
+
+def _attention_cases(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp,
+                     flash_skv, dev):
+    """The chunk, decode and verify attention calls at one model's widths,
+    over full-precision pools and over int8 and fp8 codes (K2/K1/K8 and
+    their twins K9c/K9a/K9b): a 128-token chunk at offset 896 over a
+    ``flash_skv``-position gathered extent; 4 slots of lengths 1000, 517,
+    37, 0; a 5-row verify window at those offsets."""
+    cases = []
+    for code in (None,) + CODES:
+        cases.append(_flash_case(
+            torch, K, ref, randn, isz,
+            "flash_attention" if code is None else "flash_attention_q",
+            hq, hkv, hd, 128, flash_skv, 896, dev, code))
+        cases.append(_paged_case(torch, K, ref, randn, isz, gen, hq, hkv,
+                                 hd, maxp, dev, code))
+        vc = _verify_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp,
+                          dev, code)
+        cases.append(dict(vc, path="speculative"))
+    return cases
+
+
+def _w8(torch, *ws):
+    """(codes, scales) of each weight, quantized per output channel."""
+    from repro_torch.models.layers import quantize_channelwise
+    return [quantize_channelwise(w) for w in ws]
 
 
 def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """llama3-8b's kernel calls: name, shape label, kernel / plain /
     library call (one PyTorch call computing the same function, or None),
-    a cuBLAS yardstick (the matmuls alone, on pre-normalised x, or None),
-    and the bytes and operations the call needs."""
+    a cuBLAS yardstick (the matmuls alone, on pre-normalised x and, for
+    the int8 twins, dequantized weights; or None), and the bytes and
+    operations the call needs.  The projections and the FFN at a prefill
+    chunk (T = 128), a decode step (4) and a verify dispatch (20), full
+    precision and int8; the o-projection (block_matmul) and the final norm
+    with the LM head over the padded vocabulary (rmsnorm_matmul) at one
+    prefill read-out row, decode and verify; the attention calls."""
+    from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
     randn = _randn(torch, gen, dtype, dev)
     cases = []
@@ -299,6 +451,26 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
                 nbytes=(t * d + d + d * n + t * n) * isz,
                 flops=2 * t * d * n, path=path))
+            (c, ws), = _w8(torch, w)
+            wq = (c.float() * ws).to(dtype)
+            cases.append(dict(
+                name="rmsnorm_matmul_w8", shape=f"T={t},D={d},N={n},int8",
+                kernel=lambda x=x, s=s, c=c, ws=ws: K.rmsnorm_matmul_w8(
+                    x, s, c, w_scale=ws),
+                plain=lambda x=x, s=s, c=c, ws=ws: ref.rmsnorm_matmul_w8(
+                    x, s, c, ws),
+                library=None,
+                cublas=lambda xn=xn, wq=wq: torch.matmul(xn, wq),
+                nbytes=(t * d + d + t * n) * isz + d * n + 4 * n,
+                flops=2 * t * d * n, path=path))
+        w_o = randn(d, d, scale=1 / math.sqrt(d))
+        cases.append(dict(
+            name="block_matmul", shape=f"o_proj M={t},K={d},N={d}",
+            kernel=lambda x=x, w=w_o: K.block_matmul(x, w),
+            plain=lambda x=x, w=w_o: ref.block_matmul(x, w),
+            library=lambda x=x, w=w_o: torch.matmul(x, w), cublas=None,
+            nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d,
+            path=path))
         wg = randn(d, f, scale=1 / math.sqrt(d))
         wu = randn(d, f, scale=1 / math.sqrt(d))
         wd = randn(f, d, scale=1 / math.sqrt(f))
@@ -313,25 +485,51 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 torch.nn.functional.silu(xn @ a) * (xn @ b), c),
             nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f,
             path=path))
-
-    # Offset flash attention: one 128-token chunk at offset 896 over the
-    # slot's gathered 2048-position extent, 1024 of them live.
-    cases.append(_flash_case(torch, K, ref, randn, isz, "flash_attention",
-                             32, 8, 128, 128, 2048, 896, dev))
-    cases.append(_paged_case(torch, K, ref, randn, isz, gen, 32, 8, 128, 128,
-                             dev))
-    cases.append(_verify_case(torch, K, ref, randn, isz, gen, 32, 8, 128, 128,
-                              dev))
-    return cases
+        (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+        wgq, wuq, wdq = ((c.float() * sc).to(dtype)
+                         for c, sc in ((cg, sg), (cu, su), (cd, sd)))
+        cases.append(dict(
+            name="streamed_ffn_w8", shape=f"T={t},D={d},F={f},int8",
+            kernel=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
+                K.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
+                                  wd_scale=q[5], norm_scale=s),
+            plain=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
+                ref.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
+                                    wd_scale=q[5], norm_scale=s),
+            library=None,
+            cublas=lambda xn=xn, a=wgq, b=wuq, c=wdq: torch.matmul(
+                torch.nn.functional.silu(xn @ a) * (xn @ b), c),
+            nbytes=(2 * t * d + d) * isz + 3 * d * f + 4 * (2 * f + d),
+            flops=6 * t * d * f, path=path))
+    vocab = padded_vocab(128256)
+    head = randn(d, vocab, scale=1 / math.sqrt(d))
+    for t in (1, 4, SPEC_T):
+        x = randn(t, d)
+        s = randn(d, scale=0.1)
+        xn = ref.rms_rows(x, s, 1e-6)
+        cases.append(dict(
+            name="rmsnorm_matmul", shape=f"lm_head T={t},D={d},N={vocab}",
+            kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
+            plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
+            library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+            nbytes=(t * d + d + d * vocab + t * vocab) * isz,
+            flops=2 * t * d * vocab,
+            path="speculative" if t == SPEC_T else None))
+    return cases + _attention_cases(torch, K, ref, randn, isz, gen, 32, 8,
+                                    128, 128, 2048, dev)
 
 
 def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
-    """gpt2's kernel calls, as ``kernel_cases``: the three projections
-    (K = N = 1024) and the MLP (D = 1024, F = 4096) at a prefill chunk, at
-    decode, and at whole prompts of the serve burst's longest (992 rows)
-    and shortest (37 rows: a partial tile, split K) lengths; attention at
-    head dim 64 with 16 query and 16 KV heads.  ``path`` tags the cases
-    only whole-prompt admission runs."""
+    """gpt2's kernel calls, as ``kernel_cases``: the projections (K = N =
+    1024; the o-projection has the same shape), the MLP (D = 1024, F =
+    4096, full precision and int8) and the LayerNorm rows at a prefill
+    chunk, at decode, at a verify dispatch and at whole prompts of the
+    serve burst's longest (992 rows) and shortest (37 rows: a partial
+    tile, split K) lengths; the LM head (block_matmul over the padded
+    vocabulary) at one row, decode and verify; attention at head dim 64
+    with 16 query and 16 KV heads.  ``path`` tags the cases only
+    whole-prompt admission or the speculative engine runs."""
+    from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
     randn = _randn(torch, gen, dtype, dev)
     gelu = torch.nn.functional.gelu
@@ -360,17 +558,46 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 gelu(x @ a, approximate="tanh"), b),
             nbytes=(2 * t * d + 2 * d * f) * isz, flops=4 * t * d * f,
             path=path))
-    # A 128-token chunk at offset 896 over a 1024-position extent; the
-    # whole-prompt branch over a 1000-token prompt.
-    cases.append(_flash_case(torch, K, ref, randn, isz, "flash_attention",
-                             16, 16, 64, 128, 1024, 896, dev))
-    cases.append(_paged_case(torch, K, ref, randn, isz, gen, 16, 16, 64, 64,
-                             dev))
-    cases.append(_verify_case(torch, K, ref, randn, isz, gen, 16, 16, 64, 64,
-                              dev))
-    cases.append(_flash_case(torch, K, ref, randn, isz,
-                             "flash_attention_static", 16, 16, 64, 1000,
-                             1000, None, dev))
+        (cu, su), (cd, sd) = _w8(torch, wu, wd)
+        wuq, wdq = ((c.float() * sc).to(dtype) for c, sc in ((cu, su),
+                                                            (cd, sd)))
+        cases.append(dict(
+            name="streamed_mlp_w8", shape=f"T={t},D={d},F={f},int8",
+            kernel=lambda x=x, q=(cu, cd, su, sd): K.streamed_mlp_w8(
+                x, q[0], q[1], wu_scale=q[2], wd_scale=q[3]),
+            plain=lambda x=x, q=(cu, cd, su, sd): ref.streamed_mlp_w8(
+                x, q[0], q[1], wu_scale=q[2], wd_scale=q[3]),
+            library=None,
+            cublas=lambda x=x, a=wuq, b=wdq: torch.matmul(
+                gelu(x @ a, approximate="tanh"), b),
+            nbytes=2 * t * d * isz + 2 * d * f + 4 * (f + d),
+            flops=4 * t * d * f, path=path))
+        sc, bi = randn(d), randn(d)
+        cases.append(dict(
+            name="row_norm", shape=f"T={t},D={d}",
+            kernel=lambda x=x, a=sc, b=bi: K.layer_norm_rows(x, a, b),
+            plain=lambda x=x, a=sc, b=bi: ref.layer_norm_rows(x, a, b),
+            library=lambda x=x, a=sc, b=bi: torch.nn.functional.layer_norm(
+                x, (d,), a, b, 1e-5), cublas=None,
+            nbytes=(2 * t * d + 2 * d) * isz, flops=8 * t * d, path=path))
+    vocab = padded_vocab(50257)
+    head = randn(d, vocab, scale=1 / math.sqrt(d))
+    for t in (1, 4, SPEC_T):
+        x = randn(t, d)
+        cases.append(dict(
+            name="block_matmul", shape=f"lm_head M={t},K={d},N={vocab}",
+            kernel=lambda x=x: K.block_matmul(x, head),
+            plain=lambda x=x: ref.block_matmul(x, head),
+            library=lambda x=x: torch.matmul(x, head), cublas=None,
+            nbytes=(t * d + d * vocab + t * vocab) * isz,
+            flops=2 * t * d * vocab,
+            path="speculative" if t == SPEC_T else None))
+    cases += _attention_cases(torch, K, ref, randn, isz, gen, 16, 16, 64, 64,
+                              1024, dev)
+    # The whole-prompt branch over a 1000-token prompt.
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", 16, 16, 64, 1000,
+                                  1000, None, dev), path="whole_prompt"))
     return cases
 
 
@@ -414,10 +641,10 @@ def check_kernels(torch, timer):
                    "bytes": c["nbytes"], "flops": c["flops"]}
             emit(row)
             rows.append(row)
-            if c["name"] == "paged_attention":
+            if c["name"] in ("paged_attention", "paged_attention_q"):
                 zero = out[3].float().abs().max().item()
                 if zero != 0.0:
-                    raise AssertionError("paged_attention: a length-0 slot "
+                    raise AssertionError(f"{c['name']}: a length-0 slot "
                                          f"gave |out| up to {zero}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -430,13 +657,15 @@ def check_kernels(torch, timer):
 
 
 def check_row_invariance(torch):
-    """Bit-for-bit: rows 0..3 of each projection and FFN kernel at T rows
-    (8, 12, 20: verify windows of 2, 3 and 5 over 4 slots) against the
-    same call at T = 4 (a decode step), at llama3's and gpt2's shapes, in
-    bfloat16 and float32.  Exact acceptance needs the kernels to pass;
-    the PyTorch calls on the same path (``torch.matmul`` at the
-    o-projection and LM-head shapes, the eager norms) are reported beside
-    them, not required."""
+    """Bit-for-bit: rows 0..3 of each call on the kernel plan's path at T
+    rows (8, 12, 20: verify windows of 2, 3 and 5 over 4 slots) against
+    the same call at T = 4 (a decode step), at llama3's and gpt2's shapes,
+    in bfloat16 and float32: the projection and FFN kernels and their int8
+    twins, the o-projection (block_matmul), the final norm with the LM head
+    (rmsnorm_matmul over the padded vocabulary; gpt2: block_matmul) and
+    gpt2's LayerNorm (row_norm).  Exact acceptance needs every one of them
+    to pass (required).  The eager plan's PyTorch calls at the same shapes
+    (``torch.matmul``, PyTorch's norms) are reported beside them."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
@@ -458,24 +687,41 @@ def check_row_invariance(torch):
             wg = randn(d, f, scale=1 / math.sqrt(d))
             wd = randn(f, d, scale=1 / math.sqrt(f))
             head = randn(d, vocab, scale=1 / math.sqrt(d))
-            calls = {"o_proj torch.matmul": lambda a: torch.matmul(a, w_o),
+            (ck, sk), (cg, sg), (cu, su), (cd, sd) = _w8(torch, w_k, wg, wu,
+                                                         wd)
+            calls = {"o_proj block_matmul": lambda a: K.block_matmul(a, w_o),
+                     "o_proj torch.matmul": lambda a: torch.matmul(a, w_o),
                      "lm_head torch.matmul": lambda a: torch.matmul(a, head)}
-            # The eager norms on the path (llama3's final RMSNorm, gpt2's
-            # LayerNorms): PyTorch reductions, also reported only.
             if model == "llama3-8b":
-                calls["rms_norm torch"] = lambda a: L.rms_norm(a, s)
+                calls.update({
+                    "lm_head rmsnorm_matmul": (
+                        lambda a: K.rmsnorm_matmul(a, s, head)),
+                    "final rms_norm torch": lambda a: L.rms_norm(a, s),
+                    "rmsnorm_matmul N=4096": (
+                        lambda a: K.rmsnorm_matmul(a, s, w_o)),
+                    "rmsnorm_matmul N=1024": (
+                        lambda a: K.rmsnorm_matmul(a, s, w_k)),
+                    "rmsnorm_matmul_w8 N=1024": (
+                        lambda a: K.rmsnorm_matmul_w8(a, s, ck, w_scale=sk)),
+                    "streamed_ffn": (
+                        lambda a: K.streamed_ffn(a, wg, wu, wd,
+                                                 norm_scale=s)),
+                    "streamed_ffn_w8": (
+                        lambda a: K.streamed_ffn_w8(
+                            a, cg, cu, cd, wg_scale=sg, wu_scale=su,
+                            wd_scale=sd, norm_scale=s))})
             else:
-                calls["layer_norm torch"] = lambda a: L.layer_norm(a, s, s)
-            if model == "llama3-8b":
-                calls["rmsnorm_matmul N=4096"] = (
-                    lambda a: K.rmsnorm_matmul(a, s, w_o))
-                calls["rmsnorm_matmul N=1024"] = (
-                    lambda a: K.rmsnorm_matmul(a, s, w_k))
-                calls["streamed_ffn"] = (
-                    lambda a: K.streamed_ffn(a, wg, wu, wd, norm_scale=s))
-            else:
-                calls["block_matmul"] = lambda a: K.block_matmul(a, w_k)
-                calls["streamed_mlp"] = lambda a: K.streamed_mlp(a, wu, wd)
+                calls.update({
+                    "lm_head block_matmul": (
+                        lambda a: K.block_matmul(a, head)),
+                    "layer_norm row_norm": (
+                        lambda a: K.layer_norm_rows(a, s, s)),
+                    "layer_norm torch": lambda a: L.layer_norm(a, s, s),
+                    "block_matmul": lambda a: K.block_matmul(a, w_k),
+                    "streamed_mlp": lambda a: K.streamed_mlp(a, wu, wd),
+                    "streamed_mlp_w8": (
+                        lambda a: K.streamed_mlp_w8(a, cu, cd, wu_scale=su,
+                                                    wd_scale=sd))})
             for name, fn in calls.items():
                 base = fn(x[:SLOTS].contiguous())
                 same = {t: bool(torch.equal(fn(x[:t].contiguous())[:SLOTS],
@@ -603,9 +849,9 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     """A mixed burst of 8 prompts through the engine with the kernel plan;
     the kernels in ``expect`` must each launch, and no other."""
     from repro_torch import kernels as K
+    from repro_torch.models.params import weight_bytes
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
-    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     rng = np.random.default_rng(2)
     lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
     prompts = burst(rng, cfg.vocab_size, lengths)
@@ -628,9 +874,11 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs]
     row = {"phase": phase, "config": cfg.name,
-           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "quant": cfg.quant,
            "admission": "chunked" if chunked else "whole_prompt",
-           "weight_bytes": weight_bytes, "init_s": init_s,
+           # Resident weights of the engine's tree: int8 codes and scales
+           # in place of the w8 stages' weights under a weight mode.
+           "weight_bytes": weight_bytes(eng.params), "init_s": init_s,
            "slots": 4, "max_len": max_len, "prompt_lengths": lengths,
            "new_tokens": new, "wall_s": wall, "generated": generated,
            "tokens_per_s": generated / wall,
@@ -638,6 +886,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
            "ttft_max_s": max(ttft),
            "tpot_mean_ms": 1e3 * statistics.mean(tpot),
            "kv_bytes_peak": eng.metrics["kv_bytes_peak"],
+           "kv_itemsize_effective": eng.metrics["kv_itemsize_effective"],
            "device_mem_peak": (torch.cuda.max_memory_allocated()
                                if device == "cuda" else None),
            "metrics": burst_metrics, "launches": counts,
@@ -659,36 +908,6 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
     return row
-
-
-def serve_llama(torch, cfg, device="cuda"):
-    """``cfg``: llama3-8b at full width and depth, bfloat16, kernel plan."""
-    t0 = time.perf_counter()
-    params = _weights(torch, cfg, 2, jitter=False, device=device)
-    _sync(torch, device)
-    row = serve(torch, cfg, params, LLAMA_PATH,
-                init_s=time.perf_counter() - t0, device=device)
-    del params
-    _free(torch, device)
-    return row
-
-
-def serve_gpt2(torch, cfg, device="cuda"):
-    """``cfg``: gpt2 at full width and depth, bfloat16, kernel plan; one
-    burst per admission mode, each with its own launch counts.  gpt2's
-    context is 1024 positions, so prompts stop at 1024 - 32 = 992 tokens
-    for every request to get its 32 new tokens."""
-    t0 = time.perf_counter()
-    params = _weights(torch, cfg, 2, jitter=True, device=device)
-    _sync(torch, device)
-    init_s = time.perf_counter() - t0
-    rows = {mode: serve(torch, cfg, params, GPT2_PATHS[mode], init_s=init_s,
-                        chunked=mode == "chunked", phase="gpt2_serve",
-                        device=device, max_len=1024, hi=992)
-            for mode in ("chunked", "whole_prompt")}
-    del params
-    _free(torch, device)
-    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -769,18 +988,21 @@ def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, device="cuda",
     return row
 
 
-def spec_serve(torch, cfg, expect, *, jitter, max_len, device="cuda",
+def spec_serve(torch, cfg, params, expect, *, init_s, max_len,
+               require_equal=True, phase="spec_serve", device="cuda",
                new=32):
     """``cfg``: full width and depth, bfloat16, kernel plan.  The
     speculative burst through the speculative engine (prefix cache on),
-    then through the plain engine for per-request token equality."""
+    then through the plain engine for per-request token equality, which
+    ``require_equal`` makes a condition of the run: every call on the
+    kernel plan's path is row-invariant, so verify rows reproduce decode
+    rows bit for bit.  Under KV quantization it is reported only: rejected
+    draft rows leave their pages' scale growth behind, as the reference
+    does (``kv_cache.py:848``), so later codes may differ from the plain
+    engine's."""
     from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
-    t0 = time.perf_counter()
-    params = _weights(torch, cfg, 2, jitter=jitter, device=device)
-    _sync(torch, device)
-    init_s = time.perf_counter() - t0
     prompts = spec_burst(cfg.vocab_size)
     eng = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=max_len,
                         speculative=True, draft_len=4, device=device)
@@ -810,11 +1032,12 @@ def spec_serve(torch, cfg, expect, *, jitter, max_len, device="cuda",
     _sync(torch, device)
     plain_wall = time.perf_counter() - t1
     del plain
+    _free(torch, device)
     generated = sum(len(r.out_tokens) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
     tpot = [r.tpot_s for r in reqs]
     bm = burst_metrics
-    row = {"phase": "spec_serve", "config": cfg.name,
+    row = {"phase": phase, "config": cfg.name, "quant": cfg.quant,
            "layers": cfg.num_layers, "dtype": cfg.dtype, "init_s": init_s,
            "slots": SLOTS, "max_len": max_len,
            "prompt_lengths": [len(p) for p in prompts], "new_tokens": new,
@@ -832,11 +1055,10 @@ def spec_serve(torch, cfg, expect, *, jitter, max_len, device="cuda",
            "launches": counts, "plain_wall_s": plain_wall,
            "plain_tokens_per_s": generated / plain_wall,
            "equal_to_plain": [r.out_tokens == b for r, b in zip(reqs, base)],
+           "equal_required": require_equal,
            "first_divergence": [_first_divergence(r.out_tokens, b)
                                 for r, b in zip(reqs, base)]}
     emit(row)
-    del params
-    _free(torch, device)
     problems = []
     for name, c in counts.items():
         if (c > 0) != (name in expect):
@@ -851,20 +1073,148 @@ def spec_serve(torch, cfg, expect, *, jitter, max_len, device="cuda",
         problems.append("no prefix page was hit")
     if bm["rollbacks"] <= 0:
         problems.append("no draft was rolled back")
+    if require_equal and not all(row["equal_to_plain"]):
+        problems.append("speculative tokens differ from the plain engine's "
+                        f"at {row['first_divergence']}")
     if problems:
-        raise AssertionError(f"spec_serve {cfg.name}: " + "; ".join(problems))
+        raise AssertionError(f"{phase} {cfg.name}: " + "; ".join(problems))
     return row
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# --------------------------------------------------------------------- #
+# Phases 9-11: quantized serving
+# --------------------------------------------------------------------- #
+
+def quant_fused_vs_eager(torch, cfg, *, jitter, device="cuda",
+                         lengths=(150, 40, 300, 9), new=8):
+    """``cfg``: full width cut to 4 layers, float32, kernel plan.  Under
+    every quant mode the kernel plan must give the eager plan's greedy
+    tokens; the eager plan of a weight mode runs on the eager w8 reference
+    (each w8 stage's weight quantized and dequantized back), since the
+    reference's eager plan keeps full-precision weights.  Under kv_int8 the
+    speculative engine (prefix cache on) must give the plain engine's
+    tokens."""
+    from repro_torch import kernels as K
+    from repro_torch.models.params import dequantize_weights, quantize_weights
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.accuracy import QUANT_MODES
+    params = _weights(torch, cfg, 1, jitter=jitter, device=device)
+    prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
+    eager_cfg = dataclasses.replace(cfg, use_fused_kernels=False)
+    kw = dict(batch_slots=SLOTS, max_len=512, device=device)
+    row = {"phase": "quant_fused_vs_eager", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "prompts": [len(p) for p in prompts], "new_tokens": new}
+    bad = []
+    for mode in QUANT_MODES:
+        qcfg = dataclasses.replace(cfg, quant=mode)
+        ref_params = dequantize_weights(qcfg, quantize_weights(qcfg, params))
+        K.reset_launches()
+        fused = [r.out_tokens for r in ServingEngine(
+            qcfg, params, **kw).generate(prompts, max_new_tokens=new)]
+        launches = {k: n for k, n in K.launch_counts().items() if n}
+        eager = [r.out_tokens for r in ServingEngine(
+            dataclasses.replace(eager_cfg, quant=mode), ref_params,
+            **kw).generate(prompts, max_new_tokens=new)]
+        del ref_params
+        row[mode] = {"tokens_equal": fused == eager, "fused_tokens": fused,
+                     "eager_tokens": eager, "launches": launches}
+        if fused != eager:
+            bad.append(f"{mode}: kernel plan != eager plan")
+        if mode == "kv_int8":
+            plain = [r.out_tokens for r in ServingEngine(
+                qcfg, params, prefix_cache=False, **kw).generate(
+                    prompts, max_new_tokens=new)]
+            spec = ServingEngine(qcfg, params, speculative=True, draft_len=4,
+                                 **kw)
+            spec_tokens = [r.out_tokens for r in spec.generate(
+                prompts, max_new_tokens=new)]
+            row[mode].update(
+                speculative_equal_plain=spec_tokens == plain,
+                speculative_first_divergence=[
+                    _first_divergence(a, b)
+                    for a, b in zip(spec_tokens, plain)],
+                draft_tokens=spec.metrics["draft_tokens"],
+                accepted_tokens=spec.metrics["accepted_tokens"],
+                rollbacks=spec.metrics["rollbacks"])
+            if spec_tokens != plain:
+                bad.append("kv_int8: speculative != plain")
+        _free(torch, device)
+    emit(row)
+    del params
+    _free(torch, device)
+    if bad:
+        raise AssertionError(f"quant_fused_vs_eager {cfg.name}: "
+                             + "; ".join(bad))
+    return row
+
+
+def accuracy(torch, cfg, *, jitter, device="cuda"):
+    """``cfg``: full width cut to 4 layers, float32.  The teacher-forced
+    accuracy gate (``serving/accuracy.py``) of every quant mode against
+    the unquantized engine on the kernel plan (weights jittered for gpt2
+    only, as in the other phases): reported beside the reference's largest
+    logit magnitude, and every logit error must be finite."""
+    from repro_torch.serving.accuracy import QUANT_MODES, run_accuracy
+    params = _weights(torch, cfg, 3, jitter=jitter, device=device)
+    t0 = time.perf_counter()
+    rep = run_accuracy(cfg, QUANT_MODES, params=params, fused=True,
+                       device=device)
+    row = {"phase": "accuracy", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": "float32",
+           "seconds": time.perf_counter() - t0,
+           "max_abs_logit": rep["none"]["max_abs_logit"],
+           **{m: {k: rep[m][k] for k in ("max_logit_err", "tokens_equal",
+                                         "kv_itemsize")}
+              for m in QUANT_MODES}}
+    emit(row)
+    del params
+    _free(torch, device)
+    bad = [m for m in QUANT_MODES
+           if not math.isfinite(rep[m]["max_logit_err"])]
+    if bad:
+        raise AssertionError(f"accuracy {cfg.name}: non-finite logit error "
+                             f"under {bad}")
+    return row
+
+
+def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
+    """``cfg``: full width and depth, bfloat16, kernel plan; weights drawn
+    once on the card (seed 2).  The mixed burst (``serve``; gpt2 under
+    chunked and whole-prompt admission), the speculative burst against
+    the plain engine (``spec_serve``, exact), then both again under
+    w8_kv8 (``quant_serve``, ``quant_spec_serve``).  Each burst launches
+    exactly its path's kernels."""
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=jitter, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    modes = ("chunked",) if model == "llama3-8b" else tuple(GPT2_PATHS)
+    qcfg = dataclasses.replace(cfg, quant=QUANT_MODE)
+    out = {"serve": {}, "quant_serve": {}}
+    for mode in modes:
+        expect = LLAMA_PATH if model == "llama3-8b" else GPT2_PATHS[mode]
+        out["serve"][mode] = serve(
+            torch, cfg, params, expect, init_s=init_s,
+            chunked=mode == "chunked", device=device, max_len=max_len, hi=hi,
+            phase="serve" if model == "llama3-8b" else "gpt2_serve")
+        _free(torch, device)
+    out["spec_serve"] = spec_serve(torch, cfg, params, SPEC_PATHS[model],
+                                   init_s=init_s, max_len=max_len,
+                                   device=device)
+    for mode in modes:
+        out["quant_serve"][mode] = serve(
+            torch, qcfg, params, QUANT_PATHS[(model, mode)], init_s=init_s,
+            chunked=mode == "chunked", device=device, max_len=max_len, hi=hi,
+            phase="quant_serve")
+        _free(torch, device)
+    out["quant_spec_serve"] = spec_serve(
+        torch, qcfg, params, QUANT_PATHS[(model, "speculative")],
+        init_s=init_s, max_len=max_len, require_equal=False,
+        phase="quant_spec_serve", device=device)
+    del params
+    _free(torch, device)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -915,47 +1265,57 @@ def main(argv=None) -> int:
     rows = check_kernels(torch, Timer(torch))
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
-    results["fused_vs_eager"] = fused_vs_eager(
-        torch, dataclasses.replace(llama, num_layers=4, dtype="float32"))
-    results["serve"] = serve_llama(
-        torch, dataclasses.replace(llama, use_fused_kernels=True))
-    results["gpt2_fused_vs_eager"] = gpt2_fused_vs_eager(
-        torch, dataclasses.replace(gpt2, num_layers=4, dtype="float32"))
-    results["gpt2_serve"] = serve_gpt2(
-        torch, dataclasses.replace(gpt2, use_fused_kernels=True))
-    models = {"llama3-8b": (llama, False, 2048), "gpt2": (gpt2, True, 1024)}
+    models = {"llama3-8b": (llama, False, 2048, 1000),
+              "gpt2": (gpt2, True, 1024, 992)}
+    small = {m: dataclasses.replace(c, num_layers=4, dtype="float32")
+             for m, (c, _, _, _) in models.items()}
+    results["fused_vs_eager"] = fused_vs_eager(torch, small["llama3-8b"])
+    results["gpt2_fused_vs_eager"] = gpt2_fused_vs_eager(torch, small["gpt2"])
     results["spec_fused_vs_eager"] = {
         m: spec_fused_vs_eager(
-            torch, dataclasses.replace(c, num_layers=4, dtype="float32",
-                                       use_fused_kernels=True),
+            torch, dataclasses.replace(small[m], use_fused_kernels=True),
             jitter=jit, max_len=ml)
-        for m, (c, jit, ml) in models.items()}
-    results["spec_serve"] = {
-        m: spec_serve(torch, dataclasses.replace(c, use_fused_kernels=True),
-                      SPEC_PATHS[m], jitter=jit, max_len=ml)
-        for m, (c, jit, ml) in models.items()}
+        for m, (_, jit, ml, _) in models.items()}
+    results["quant_fused_vs_eager"] = {
+        m: quant_fused_vs_eager(
+            torch, dataclasses.replace(small[m], use_fused_kernels=True),
+            jitter=jit)
+        for m, (_, jit, _, _) in models.items()}
+    results["accuracy"] = {m: accuracy(torch, small[m], jitter=jit)
+                           for m, (_, jit, _, _) in models.items()}
+    results["full_depth"] = {
+        m: full_depth(torch, dataclasses.replace(c, use_fused_kernels=True),
+                      m, jitter=jit, max_len=ml, hi=hi)
+        for m, (c, jit, ml, hi) in models.items()}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
-    paths = [("llama3-8b", "chunked", LLAMA_PATH,
-              results["serve"]["launches"])]
-    paths += [("gpt2", mode, GPT2_PATHS[mode], r["launches"])
-              for mode, r in results["gpt2_serve"].items()]
-    paths += [(m, "speculative", SPEC_PATHS[m], r["launches"])
-              for m, r in results["spec_serve"].items()]
+    paths = []
+    for m, fd in results["full_depth"].items():
+        for mode, r in fd["serve"].items():
+            paths.append((m, mode, r["launches"]))
+        paths.append((m, "speculative", fd["spec_serve"]["launches"]))
+        for mode, r in fd["quant_serve"].items():
+            paths.append((m, f"quant_{mode}", r["launches"]))
+        paths.append((m, "quant_speculative",
+                      fd["quant_spec_serve"]["launches"]))
     summary = []
     for kname in TPU_KERNELS:
-        for model, path, expect, launches in paths:
+        for model, path, launches in paths:
+            # Kernel rows carry the unquantized path's tag: a whole prompt
+            # or a verify dispatch has the same shapes under w8_kv8.
+            base = path.removeprefix("quant_")
             mine = [r for r in rows if r["name"] == kname
                     and r["model"] == model and r["dtype"] == "bfloat16"
-                    and r["path"] in (None, path)]
-            if kname not in expect or not mine:
+                    and r["path"] in (None, base)]
+            if not launches.get(kname) or not mine:
                 continue
             # The path's own shape where it has one (a whole prompt, a
             # verify dispatch), else the prefill-chunk / main decode shape.
-            head = next((r for r in mine if r["path"] == path), mine[0])
+            head = next((r for r in mine if r["path"] == base), mine[0])
             summary.append({
                 "name": kname, "route": "cuda", "source": SOURCES[kname],
-                "replaces": TPU_KERNELS[kname], "model": model,
+                "replaces": TPU_KERNELS[kname],
+                "helper": kname in HELPERS, "model": model,
                 "path": path, "head_dim": head["head_dim"],
                 "launches": launches[kname],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -965,6 +1325,9 @@ def main(argv=None) -> int:
                 "checks_ok": all(r["ok"] for r in rows
                                  if r["name"] == kname
                                  and r["model"] == model)})
+    missing = sorted(set(TPU_KERNELS) - {e["name"] for e in summary})
+    if missing:
+        raise AssertionError(f"kernels no burst launched: {missing}")
     emit({"kernels": summary})
     results["kernels"] = summary
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fh:

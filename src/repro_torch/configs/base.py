@@ -70,11 +70,17 @@ class ModelConfig:
 
     @property
     def kv_quant(self) -> Optional[str]:
+        """KV-pool storage format ("int8" | "fp8" | None)."""
         if self.quant in ("kv_int8", "w8_kv8"):
             return "int8"
         if self.quant == "kv_fp8":
             return "fp8"
         return None
+
+    @property
+    def weight_quant(self) -> bool:
+        """Weight-only int8 on the plan's matmul stages."""
+        return self.quant in ("w8", "w8_kv8")
 
     @property
     def head_dim_(self) -> int:

@@ -10,13 +10,19 @@ blocks for each family's config and its reduced config at every token
 count, and at every KV length that is a multiple of the 16-token page
 (the engine asks for ``max_len``); a test pins this table to the reference
 ``plan_for``.
+Under a weight-quantizing config (``w8``, ``w8_kv8``) the
+``rmsnorm_matmul`` and ``streamed_ffn`` / ``streamed_mlp`` stages carry the
+reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
+``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``
+never does, so gpt2's projections stay at full precision.  KV quantization
+changes no choice: the pools' dtype selects the attention twins.
 The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
 in a later slice.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 from ..configs.base import ModelConfig
@@ -68,6 +74,7 @@ class StreamPlan:
     tokens: int
     kv_len: int
     layers: Tuple[Tuple[str, LayerPlan], ...]
+    quant: str = "none"          # the config's quant mode
 
     def layer(self, kind: str) -> LayerPlan:
         for k, lp in self.layers:
@@ -135,8 +142,7 @@ _DENSE_LAYERNORM_MLP = LayerPlan(
 def _family_plan(cfg: ModelConfig) -> Optional[LayerPlan]:
     """The ported family ``cfg`` belongs to, or None."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if (kinds != {"attn"} or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm
-            or cfg.quant != "none"):
+    if kinds != {"attn"} or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm:
         return None
     if cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope":
         return _DENSE_RMSNORM_GLU
@@ -156,6 +162,12 @@ def plan_for(cfg: ModelConfig, tokens: int,
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
             "RMSNorm/GQA/SwiGLU/RoPE and LayerNorm/MHA/GELU-MLP/learned-"
-            "position stacks without quantization are ported")
+            "position stacks are ported")
+    if cfg.weight_quant:
+        w8 = (("w8", 1),)
+        lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
+        if lp.qkv.implementation == "rmsnorm_matmul":
+            lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
     return StreamPlan(arch=cfg.name, tokens=int(tokens),
-                      kv_len=int(kv_len or tokens), layers=(("attn", lp),))
+                      kv_len=int(kv_len or tokens), layers=(("attn", lp),),
+                      quant=cfg.quant)

@@ -8,12 +8,21 @@ PyTorch version a CPU tensor runs instead.
 
 from . import ref
 from .block_matmul import block_matmul
-from .flash_attention import flash_attention_2d, flash_attention_static
+from .flash_attention import (flash_attention_2d, flash_attention_2d_q,
+                              flash_attention_static)
 from .ops import flash_attention
-from .paged_attention import paged_decode_attention, paged_verify_attention
-from .rmsnorm_matmul import rmsnorm_matmul
-from .streamed_ffn import streamed_ffn, streamed_mlp
+from .paged_attention import (paged_decode_attention,
+                              paged_decode_attention_q,
+                              paged_verify_attention,
+                              paged_verify_attention_q)
+from .rmsnorm_matmul import rmsnorm_matmul, rmsnorm_matmul_w8
+from .row_norm import layer_norm_rows
+from .streamed_ffn import (streamed_ffn, streamed_ffn_w8, streamed_mlp,
+                           streamed_mlp_w8)
 
+# Every kernel, by the name its launch count goes under: K1-K8, the
+# quantized twins K9a-c (int8 / fp8 KV codes) and K10a-c (int8 weights),
+# and the row-norm helper.
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
@@ -23,6 +32,13 @@ KERNELS = {
     "streamed_mlp": streamed_mlp,
     "flash_attention_static": flash_attention_static,
     "paged_verify_attention": paged_verify_attention,
+    "paged_attention_q": paged_decode_attention_q,
+    "paged_verify_attention_q": paged_verify_attention_q,
+    "flash_attention_q": flash_attention_2d_q,
+    "rmsnorm_matmul_w8": rmsnorm_matmul_w8,
+    "streamed_ffn_w8": streamed_ffn_w8,
+    "streamed_mlp_w8": streamed_mlp_w8,
+    "row_norm": layer_norm_rows,
 }
 
 
@@ -38,8 +54,9 @@ def launch_counts() -> dict:
 
 __all__ = [
     "ref", "block_matmul", "flash_attention", "flash_attention_2d",
-    "flash_attention_static", "paged_decode_attention",
-    "paged_verify_attention", "rmsnorm_matmul",
-    "streamed_ffn", "streamed_mlp", "KERNELS", "reset_launches",
-    "launch_counts",
+    "flash_attention_2d_q", "flash_attention_static", "layer_norm_rows",
+    "paged_decode_attention", "paged_decode_attention_q",
+    "paged_verify_attention", "paged_verify_attention_q", "rmsnorm_matmul",
+    "rmsnorm_matmul_w8", "streamed_ffn", "streamed_ffn_w8", "streamed_mlp",
+    "streamed_mlp_w8", "KERNELS", "reset_launches", "launch_counts",
 ]

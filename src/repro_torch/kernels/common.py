@@ -14,6 +14,8 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+# The quantized kernels' code types and their entry-point suffixes.
+CODE_DTYPES = {torch.int8: "i8", torch.float8_e4m3fn: "fp8"}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -22,16 +22,16 @@ extern "C" int repro_block_matmul_f32(const void* x, const void* w,
                                       void* out, void* part, int m, int k,
                                       int n, int small, int k_per_split,
                                       int splits, void* stream) {
-  return tiled_matmul<float, false>(x, nullptr, w, out, part, m, k, n, small,
-                                    k_per_split, splits, 0.f,
-                                    static_cast<cudaStream_t>(stream));
+  return tiled_matmul<float, float, false>(
+      x, nullptr, w, nullptr, out, part, m, k, n, small, k_per_split, splits,
+      0.f, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_block_matmul_bf16(const void* x, const void* w,
                                        void* out, void* part, int m, int k,
                                        int n, int small, int k_per_split,
                                        int splits, void* stream) {
-  return tiled_matmul<__nv_bfloat16, false>(
-      x, nullptr, w, out, part, m, k, n, small, k_per_split, splits, 0.f,
-      static_cast<cudaStream_t>(stream));
+  return tiled_matmul<__nv_bfloat16, __nv_bfloat16, false>(
+      x, nullptr, w, nullptr, out, part, m, k, n, small, k_per_split, splits,
+      0.f, static_cast<cudaStream_t>(stream));
 }

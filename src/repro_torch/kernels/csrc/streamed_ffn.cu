@@ -5,12 +5,20 @@
 //   GLU  = false: out[T, D] = gelu_tanh(x @ Wu).to(T) @ Wd, no folded norm —
 //                 the gpt2 main path (its LayerNorm stays outside).
 // Only those two cases are built; the wrappers refuse other activations and
-// norm settings on the card.
+// norm settings on the card.  Each also has a weight-only int8 twin (K10b
+// streamed_ffn, K10c streamed_mlp; W = int8_t): the weights are int8 codes
+// loaded one byte each with float32 per-output-channel scales; the gate and
+// up scales multiply their sums before the activation, h stays float32
+// (not rounded to the x dtype), and the down scale multiplies each F
+// step's partial before the partials are summed — the reference's
+// `_ffn_kernel_w8` / `_mlp_kernel_w8`.
 //
 // Replaces the TPU kernels src/repro/kernels/streamed_ffn.py::_ffn_kernel
 // (streamed_ffn, pallas_call at :168) and ::_mlp_kernel (streamed_mlp,
-// pallas_call at :277).  The TPU kernels walk F as a sequential grid
-// dimension and carry a [bt, D] float32 accumulator in VMEM across it;
+// pallas_call at :277), and their int8 bodies ::_ffn_kernel_w8 and
+// ::_mlp_kernel_w8 (the same calls with the weight scales).  The TPU
+// kernels walk F as a sequential grid dimension and carry a [bt, D]
+// float32 accumulator in VMEM across it;
 // that is 2 MB at bt = 128, D = 4096 and cannot live in one Hopper block,
 // and Hopper blocks run in no order.  So F is split across blocks instead:
 //   phase 1: block (f, t) computes its [BT, BF] tile of h in shared memory
@@ -23,8 +31,11 @@
 //            atomics: results repeat run to run).
 // Workspace: F/BF * T * D * 4 bytes (235 MB for llama3 at T = 128, BF =
 // 128; 16 MB for gpt2).
-// What bounds it: at T = 4 the weight matrices (memory bound); at T = 128
-// the arithmetic, done here on the CUDA cores (float FMA).
+// What bounds it: at T = 4 the weight matrices (memory bound; int8 codes
+// halve their bytes against bf16); at T = 128 the arithmetic, done here on
+// the CUDA cores (float FMA).
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace repro;
@@ -42,13 +53,21 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.f + tanhf(0.7978845608f * (v + 0.044715f * v * v * v)));
 }
 
-template <typename T, bool GLU, int BT, int BF, int TM1, int TN1, int BN2,
-          int TM2, int TN2>
+// Weight scales of the int8 twins (null for weights of T): gate and up
+// [F], down [D].
+struct WScales {
+  const float *g, *u, *d;
+};
+
+template <typename T, typename W, bool GLU, int BT, int BF, int TM1, int TN1,
+          int BN2, int TM2, int TN2>
 __global__ void __launch_bounds__(NT)
 streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
-                    const T* __restrict__ wg, const T* __restrict__ wu,
-                    const T* __restrict__ wd, float* __restrict__ part,
-                    int t, int d, int f, float eps) {
+                    const W* __restrict__ wg, const W* __restrict__ wu,
+                    const W* __restrict__ wd, WScales ws,
+                    float* __restrict__ part, int t, int d, int f,
+                    float eps) {
+  constexpr bool W8 = std::is_same<W, int8_t>::value;
   static_assert((BT / TM1) * (BF / TN1) == NT, "phase-1 thread layout");
   static_assert((BT / TM2) * (BN2 / TN2) == NT, "phase-2 thread layout");
   constexpr int P1 = BK * (BT + 1) + 2 * BK * BF;
@@ -137,12 +156,20 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
       for (int j = 0; j < TN1; ++j) {
         const int r = tr * TM1 + i, c = tc * TN1 + j;
         const bool ok = row0 + r < t && f0 + c < f;
+        float gv = g[i][j], uv = u[i][j];
+        if constexpr (W8) {
+          if (ok) {
+            if constexpr (GLU) gv *= ws.g[f0 + c];
+            uv *= ws.u[f0 + c];
+          }
+        }
         float hv;
         if constexpr (GLU)
-          hv = silu(g[i][j]) * u[i][j];
+          hv = silu(gv) * uv;
         else
-          hv = gelu_tanh(u[i][j]);
-        h_s[c * BT + r] = ok ? round_to<T>(hv) : 0.f;
+          hv = gelu_tanh(uv);
+        if constexpr (!W8) hv = round_to<T>(hv);
+        h_s[c * BT + r] = ok ? hv : 0.f;
       }
   }
   __syncthreads();
@@ -184,7 +211,10 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
 #pragma unroll
       for (int j = 0; j < TN2; ++j) {
         const int gc = c0 + tc * TN2 + j;
-        if (gc < d) part[((size_t)blockIdx.x * t + gr) * d + gc] = acc[i][j];
+        if (gc >= d) continue;
+        float pv = acc[i][j];
+        if constexpr (W8) pv *= ws.d[gc];
+        part[((size_t)blockIdx.x * t + gr) * d + gc] = pv;
       }
     }
   }
@@ -199,39 +229,47 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
 // in order, whatever BT: classes 0 and 1 share BF = 64, so a row's bits do
 // not depend on T up to 64 rows (a speculative verify dispatch of slots x
 // W rows gives each row what a decode step of slots rows gives it).
-template <typename T, bool GLU>
+template <typename T, typename W, bool GLU>
 int launch(const void* x, const void* nscale, const void* wg, const void* wu,
-           const void* wd, void* out, void* part, int t, int d, int f,
-           int tile, float eps, cudaStream_t stream) {
+           const void* wd, WScales ws, void* out, void* part, int t, int d,
+           int f, int tile, float eps, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
-  const T* st = static_cast<const T*>(nscale);
-  const T* gt = static_cast<const T*>(wg);
-  const T* ut = static_cast<const T*>(wu);
-  const T* dt = static_cast<const T*>(wd);
+  const T* nt = static_cast<const T*>(nscale);
+  const W* gt = static_cast<const W*>(wg);
+  const W* ut = static_cast<const W*>(wu);
+  const W* dt = static_cast<const W*>(wd);
   float* p = static_cast<float*>(part);
   int n_f;
   if (tile == 0) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 8));
-    streamed_ffn_kernel<T, GLU, 8, 64, 1, 2, 128, 1, 4>
-        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
+    streamed_ffn_kernel<T, W, GLU, 8, 64, 1, 2, 128, 1, 4>
+        <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else if (tile == 1) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 32));
-    streamed_ffn_kernel<T, GLU, 32, 64, 2, 4, 128, 2, 8>
-        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
+    streamed_ffn_kernel<T, W, GLU, 32, 64, 2, 4, 128, 2, 8>
+        <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else if (tile == 2) {
     n_f = cdiv(f, 128);
     dim3 grid(n_f, cdiv(t, 64));
-    streamed_ffn_kernel<T, GLU, 64, 128, 4, 8, 128, 4, 8>
-        <<<grid, NT, 0, stream>>>(xt, st, gt, ut, dt, p, t, d, f, eps);
+    streamed_ffn_kernel<T, W, GLU, 64, 128, 4, 8, 128, 4, 8>
+        <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  split_reduce<T>(p, static_cast<T*>(out), n_f, (size_t)t * d, stream);
+  split_reduce<T>(p, static_cast<T*>(out), n_f, (size_t)t * d, st);
   return (int)cudaGetLastError();
+}
+
+const WScales kNoScales{nullptr, nullptr, nullptr};
+
+WScales scales(const void* g, const void* u, const void* d) {
+  return WScales{static_cast<const float*>(g), static_cast<const float*>(u),
+                 static_cast<const float*>(d)};
 }
 
 }  // namespace
@@ -241,8 +279,8 @@ extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
                                       const void* wd, void* out, void* part,
                                       int t, int d, int f, int tile,
                                       float eps, void* stream) {
-  return launch<float, true>(x, nscale, wg, wu, wd, out, part, t, d, f,
-                             tile, eps, static_cast<cudaStream_t>(stream));
+  return launch<float, float, true>(x, nscale, wg, wu, wd, kNoScales, out,
+                                    part, t, d, f, tile, eps, stream);
 }
 
 extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
@@ -250,25 +288,49 @@ extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
                                        const void* wd, void* out, void* part,
                                        int t, int d, int f, int tile,
                                        float eps, void* stream) {
-  return launch<__nv_bfloat16, true>(x, nscale, wg, wu, wd, out, part, t, d,
-                                     f, tile, eps,
-                                     static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16, __nv_bfloat16, true>(
+      x, nscale, wg, wu, wd, kNoScales, out, part, t, d, f, tile, eps,
+      stream);
 }
 
 extern "C" int repro_streamed_mlp_f32(const void* x, const void* wu,
                                       const void* wd, void* out, void* part,
                                       int t, int d, int f, int tile,
                                       void* stream) {
-  return launch<float, false>(x, nullptr, nullptr, wu, wd, out, part, t, d,
-                              f, tile, 0.f,
-                              static_cast<cudaStream_t>(stream));
+  return launch<float, float, false>(x, nullptr, nullptr, wu, wd, kNoScales,
+                                     out, part, t, d, f, tile, 0.f, stream);
 }
 
 extern "C" int repro_streamed_mlp_bf16(const void* x, const void* wu,
                                        const void* wd, void* out, void* part,
                                        int t, int d, int f, int tile,
                                        void* stream) {
-  return launch<__nv_bfloat16, false>(x, nullptr, nullptr, wu, wd, out, part,
-                                      t, d, f, tile, 0.f,
-                                      static_cast<cudaStream_t>(stream));
+  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+      x, nullptr, nullptr, wu, wd, kNoScales, out, part, t, d, f, tile, 0.f,
+      stream);
 }
+
+// The int8 twins: wg/wu/wd int8 codes; gs/us float32 [F], ds float32 [D].
+#define REPRO_STREAMED_FFN_W8(NAME, T)                                       \
+  extern "C" int NAME(const void* x, const void* nscale, const void* wg,    \
+                      const void* gs, const void* wu, const void* us,        \
+                      const void* wd, const void* ds, void* out, void* part, \
+                      int t, int d, int f, int tile, float eps,              \
+                      void* stream) {                                        \
+    return launch<T, int8_t, true>(x, nscale, wg, wu, wd,                    \
+                                   scales(gs, us, ds), out, part, t, d, f,   \
+                                   tile, eps, stream);                       \
+  }
+REPRO_STREAMED_FFN_W8(repro_streamed_ffn_w8_f32, float)
+REPRO_STREAMED_FFN_W8(repro_streamed_ffn_w8_bf16, __nv_bfloat16)
+
+#define REPRO_STREAMED_MLP_W8(NAME, T)                                       \
+  extern "C" int NAME(const void* x, const void* wu, const void* us,        \
+                      const void* wd, const void* ds, void* out, void* part, \
+                      int t, int d, int f, int tile, void* stream) {         \
+    return launch<T, int8_t, false>(x, nullptr, nullptr, wu, wd,             \
+                                    scales(nullptr, us, ds), out, part, t,   \
+                                    d, f, tile, 0.f, stream);                \
+  }
+REPRO_STREAMED_MLP_W8(repro_streamed_mlp_w8_f32, float)
+REPRO_STREAMED_MLP_W8(repro_streamed_mlp_w8_bf16, __nv_bfloat16)

@@ -1,7 +1,11 @@
-// Split-K tiled matmul shared by rmsnorm_matmul (K3, NORM = true) and
-// block_matmul (K5, NORM = false):
+// Split-K tiled matmul shared by rmsnorm_matmul (K3, NORM = true),
+// block_matmul (K5, NORM = false) and rmsnorm_matmul's weight-only int8
+// twin (K10a, NORM = true, W = int8_t):
 //   out[T, N] = xn @ W[D, N], xn = (rms_norm(x) * (1 + scale)).to(T) under
 //   NORM, else x itself; products summed in float32, out in x's dtype.
+//   With int8 codes W the normalised x stays float32 (not rounded to T),
+//   codes load one byte each, and the column's float32 scale multiplies
+//   the sum after the whole K reduction (the reference's `_kernel_w8`).
 // Each block
 //   1. (NORM only) computes every row's rsqrt(mean(x^2) + eps) in a first
 //      pass over the row (x is small and read from L2),
@@ -19,18 +23,21 @@
 // row what a decode step gives it).
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro {
 
 constexpr int kMatmulBK = 32;
 
-template <typename T, bool NORM, int BT, int BN, int TM, int TN>
+template <typename T, typename W, bool NORM, int BT, int BN, int TM, int TN>
 __global__ void __launch_bounds__((BT / TM) * (BN / TN))
 tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                    const T* __restrict__ w, T* __restrict__ out,
-                    float* __restrict__ part, int t, int d, int n,
-                    int k_per_split, float eps) {
+                    const W* __restrict__ w, const float* __restrict__ wscale,
+                    T* __restrict__ out, float* __restrict__ part, int t,
+                    int d, int n, int k_per_split, float eps) {
+  constexpr bool W8 = std::is_same<W, int8_t>::value;
   constexpr int BK = kMatmulBK;
   constexpr int NT = (BT / TM) * (BN / TN);
   constexpr int NW = NT / 32;
@@ -76,8 +83,10 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       float v = 0.f;
       if (gr < t && gk < k_end) {
         v = to_f(x[(size_t)gr * d + gk]);
-        if constexpr (NORM)
-          v = round_to<T>(v * rstd_s[r] * (1.f + to_f(scale[gk])));
+        if constexpr (NORM) {
+          v = v * rstd_s[r] * (1.f + to_f(scale[gk]));
+          if constexpr (!W8) v = round_to<T>(v);
+        }
       }
       xs[kk][r] = v;
     }
@@ -112,6 +121,8 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       if (gc >= n) continue;
       if (part != nullptr)
         part[((size_t)blockIdx.z * t + gr) * n + gc] = acc[i][j];
+      else if constexpr (W8)
+        out[(size_t)gr * n + gc] = from_f<T>(acc[i][j] * wscale[gc]);
       else
         out[(size_t)gr * n + gc] = from_f<T>(acc[i][j]);
     }
@@ -121,27 +132,31 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 // Tile shapes; the Python wrappers mirror them to size the split.
 //   small (T <= 16): 8 x 128 tile, 1 x 4 outputs per thread
 //   large          : 64 x 64 tile, 4 x 4 outputs per thread
-template <typename T, bool NORM>
-int tiled_matmul(const void* x, const void* scale, const void* w, void* out,
-                 void* part, int t, int d, int n, int small, int k_per_split,
-                 int splits, float eps, cudaStream_t stream) {
+// W: T, or int8_t codes with per-column float32 scales `wscale` [N].
+template <typename T, typename W, bool NORM>
+int tiled_matmul(const void* x, const void* scale, const void* w,
+                 const void* wscale, void* out, void* part, int t, int d,
+                 int n, int small, int k_per_split, int splits, float eps,
+                 cudaStream_t stream) {
   float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
-  const T* wt = static_cast<const T*>(w);
+  const W* wt = static_cast<const W*>(w);
+  const float* wst = static_cast<const float*>(wscale);
   T* ot = static_cast<T*>(out);
   if (small) {
     dim3 grid(cdiv(n, 128), cdiv(t, 8), splits);
-    tiled_matmul_kernel<T, NORM, 8, 128, 1, 4><<<grid, 256, 0, stream>>>(
-        xt, st, wt, ot, p, t, d, n, k_per_split, eps);
+    tiled_matmul_kernel<T, W, NORM, 8, 128, 1, 4><<<grid, 256, 0, stream>>>(
+        xt, st, wt, wst, ot, p, t, d, n, k_per_split, eps);
   } else {
     dim3 grid(cdiv(n, 64), cdiv(t, 64), splits);
-    tiled_matmul_kernel<T, NORM, 64, 64, 4, 4><<<grid, 256, 0, stream>>>(
-        xt, st, wt, ot, p, t, d, n, k_per_split, eps);
+    tiled_matmul_kernel<T, W, NORM, 64, 64, 4, 4><<<grid, 256, 0, stream>>>(
+        xt, st, wt, wst, ot, p, t, d, n, k_per_split, eps);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (p != nullptr) split_reduce<T>(p, ot, splits, (size_t)t * n, stream);
+  if (p != nullptr)
+    split_reduce<T>(p, ot, splits, (size_t)t * n, stream, wst, n);
   return (int)cudaGetLastError();
 }
 

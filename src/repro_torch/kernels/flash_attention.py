@@ -1,5 +1,6 @@
-"""Flash attention: the offset branch for chunked prefill and the static
-branch for whole-prompt prefill (the plan's ``attention``).
+"""Flash attention: the offset branch for chunked prefill, its twin over
+quantized K/V, and the static branch for whole-prompt prefill (the plan's
+``attention``).
 
 ``flash_attention_2d`` takes the offset branch when ``q_offset`` is given
 and the static branch (``flash_attention_static``) when it is None, as the
@@ -7,7 +8,10 @@ reference wrapper does.  Each launches its entry point in
 ``csrc/flash_attention.cu`` on a CUDA tensor and runs its plain version
 (``ref.flash_attention_offset`` / ``ref.flash_attention_static``) on a CPU
 tensor; ``flash_attention_2d.launches`` counts offset launches and
-``flash_attention_static.launches`` static ones.  The CUDA kernel covers
+``flash_attention_static.launches`` static ones.  ``flash_attention_2d_q``
+is the offset branch over int8 / fp8-e4m3 codes with per-position scales
+(its own entry points and count; plain version
+``ref.flash_attention_offset`` with scales).  The CUDA kernel covers
 what the main paths run (causal, no sliding window, head dim 64 or 128);
 on the card the rest is refused until a slice whose config needs it adds
 it.  The plain versions cover it all.
@@ -23,20 +27,24 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
+                     kernel_path)
 
 HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(branch: str, dtype: torch.dtype):
-    """``branch``: "offset" or "static"."""
+def _entry(branch: str, dtype: torch.dtype, code: str = ""):
+    """``branch``: "offset", "static" or "offset_q" (``code`` "i8" or
+    "fp8")."""
     lib = _build.load("flash_attention")
     sym = (f"repro_flash_{branch}_"
-           + ("bf16" if dtype == torch.bfloat16 else "f32"))
+           + ("bf16" if dtype == torch.bfloat16 else "f32")
+           + (f"_{code}" if code else ""))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ints = [i] * (7 if branch == "offset" else 6)
-    return _build.declare(lib, sym, [vp] * 4 + ints + [ctypes.c_float, vp])
+    ints = [i] * (6 if branch == "static" else 7)
+    ptrs = 6 if branch == "offset_q" else 4
+    return _build.declare(lib, sym, [vp] * ptrs + ints + [ctypes.c_float, vp])
 
 
 def _check(name: str, q, k, v, kv_group: int) -> None:
@@ -47,10 +55,15 @@ def _check(name: str, q, k, v, kv_group: int) -> None:
                          f"v {tuple(v.shape)}, kv_group {kv_group}")
 
 
-def _check_cuda(name: str, q, k, v, causal: bool, window: int) -> None:
-    check_cuda_operands(name, q.dtype, q, k, v)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must share a dtype")
+def _check_cuda(name: str, q, k, v, causal: bool, window: int,
+                code: Optional[torch.dtype] = None, scales=()) -> None:
+    """``code``: the K/V dtype, q's unless K/V hold codes (with their
+    ``scales``)."""
+    check_cuda_operands(name, q.dtype, q, k, v, *scales)
+    code = q.dtype if code is None else code
+    if k.dtype != code or v.dtype != code:
+        raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
+                        f"{v.dtype}")
     d = q.shape[-1]
     if d not in HEAD_DIMS or not causal or window:
         raise ValueError(f"{name}: the CUDA kernel runs causal attention "
@@ -126,5 +139,49 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def flash_attention_2d_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, k_scale: torch.Tensor, v_scale: torch.Tensor,
+                         q_offset: int, kv_len: Optional[int] = None,
+                         causal: bool = True, window: int = 0,
+                         scale: Optional[float] = None, kv_group: int = 1,
+                         block_kv: int = 512) -> torch.Tensor:
+    """The offset branch over quantized K/V (K9c): q [Hq_, Sq, D]; k/v
+    [Hkv_, Skv, D] int8 or float8_e4m3fn codes; ``k_scale``/``v_scale``
+    [Hkv_, Skv] float32 per-position scales (each position carries its
+    page's scale) -> [Hq_, Sq, D] in q's dtype."""
+    _check("flash_attention_2d_q", q, k, v, kv_group)
+    h, sq, d = q.shape
+    hk, skv, _ = k.shape
+    if (tuple(k_scale.shape) != (hk, skv)
+            or tuple(v_scale.shape) != (hk, skv)):
+        raise ValueError(f"flash_attention_2d_q: scales "
+                         f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)} "
+                         f"for K/V {tuple(k.shape)}")
+    kv_len = skv if kv_len is None else int(kv_len)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if kernel_path(q) == "plain":
+        return ref.flash_attention_offset(
+            q, k, v, q_offset=int(q_offset), kv_len=kv_len,
+            kv_group=kv_group, scale=scale, causal=causal, window=window,
+            block_kv=block_kv, k_scale=k_scale, v_scale=v_scale)
+    if k.dtype not in CODE_DTYPES:
+        raise TypeError("flash_attention_2d_q: K/V must be int8 or "
+                        f"float8_e4m3fn codes, got {k.dtype}")
+    _check_cuda("flash_attention_2d_q", q, k, v, causal, window, k.dtype,
+                (k_scale, v_scale))
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError("flash_attention_2d_q: scales must be float32")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = _entry("offset_q", q.dtype, CODE_DTYPES[k.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(), h, sq, skv, d, kv_group,
+        int(q_offset), kv_len, float(scale), stream)
+    check_launch("flash_attention_2d_q", status)
+    flash_attention_2d_q.launches += 1
+    return out
+
+
 flash_attention_2d.launches = 0
 flash_attention_static.launches = 0
+flash_attention_2d_q.launches = 0

@@ -1,15 +1,16 @@
 """Paged attention: single-token decode (the plan's ``decode_attn``) and
-the speculative verify window (``verify_attn``).
+the speculative verify window (``verify_attn``), over full-precision pools
+or over int8 / fp8-e4m3 code pools with per-(page, KV head) scales.
 
-Both wrappers launch the one window kernel in ``csrc/paged_attention.cu``
-on a CUDA tensor (decode is the window at W = 1) and run their plain
-versions (``ref.paged_decode_attention`` / ``ref.paged_verify_attention``)
-on a CPU tensor; ``.launches`` on each counts its own kernel launches.
-The CUDA kernel covers what the main paths run (no sliding window, head
-dim 64 for gpt2 or 128 for llama3, up to ``MAX_ROWS`` window rows per KV
-head); on the card the rest is refused until a slice whose config needs
-it adds it.  The plain versions cover it all.  The quantized twins come
-with their slice.
+Every wrapper launches the one window kernel in ``csrc/paged_attention.cu``
+on a CUDA tensor (decode is the window at W = 1; the ``_q`` twins read
+code pools) and runs its plain version (``ref.paged_decode_attention`` /
+``ref.paged_verify_attention``, with scales for the twins) on a CPU
+tensor; ``.launches`` on each counts its own kernel launches.  The CUDA
+kernel covers what the main paths run (no sliding window, head dim 64 for
+gpt2 or 128 for llama3, up to ``MAX_ROWS`` window rows per KV head); on
+the card the rest is refused until a slice whose config needs it adds it.
+The plain versions cover it all.
 """
 
 from __future__ import annotations
@@ -22,20 +23,26 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
+                     kernel_path)
 
 HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims
 MAX_ROWS = 64             # window rows x query heads per KV head it holds
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
+def _entry(dtype: torch.dtype, code: Optional[torch.dtype] = None):
+    """``code``: None for full-precision pools, else the pools' code type."""
     lib = _build.load("paged_attention")
-    sym = ("repro_paged_window_bf16" if dtype == torch.bfloat16
-           else "repro_paged_window_f32")
+    tname = "bf16" if dtype == torch.bfloat16 else "f32"
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                     i, i, i, ctypes.c_float, vp])
+    ints = [i] * 8 + [ctypes.c_float, vp]
+    if code is None:
+        return _build.declare(lib, f"repro_paged_window_{tname}",
+                              [vp] * 6 + ints)
+    return _build.declare(
+        lib, f"repro_paged_window_q_{tname}_{CODE_DTYPES[code]}",
+        [vp] * 8 + ints)
 
 
 def _check_shapes(name, q, k_pool, v_pool, page_table, base) -> None:
@@ -51,12 +58,27 @@ def _check_shapes(name, q, k_pool, v_pool, page_table, base) -> None:
 
 
 def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
-            window: int, scale: float) -> torch.Tensor:
+            window: int, scale: float, k_scale=None,
+            v_scale=None) -> torch.Tensor:
     """Launch the window kernel: row w of slot b sees ``base[b] + w +
-    extra`` positions."""
-    check_cuda_operands(name, q.dtype, q, k_pool, v_pool, page_table, base)
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"{name}: q and pools must share a dtype")
+    extra`` positions.  With ``k_scale``/``v_scale`` the pools hold codes."""
+    quant = k_scale is not None
+    scales = (k_scale, v_scale) if quant else ()
+    check_cuda_operands(name, q.dtype, q, k_pool, v_pool, page_table, base,
+                        *scales)
+    code = k_pool.dtype if quant else q.dtype
+    if quant and (code not in CODE_DTYPES
+                  or k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32
+                  or tuple(k_scale.shape) != tuple(k_pool.shape[::2])
+                  or tuple(v_scale.shape) != tuple(k_pool.shape[::2])):
+        raise TypeError(f"{name}: code pools must be int8 or float8_e4m3fn "
+                        "with float32 scales [P, Hkv]; got "
+                        f"{k_pool.dtype}, scales {k_scale.dtype} "
+                        f"{tuple(k_scale.shape)}")
+    if k_pool.dtype != code or v_pool.dtype != code:
+        raise TypeError(f"{name}: the K and V pools must share a dtype"
+                        + ("" if quant else " with q"))
     if page_table.dtype != torch.int32 or base.dtype != torch.int32:
         raise TypeError(f"{name}: page_table and the per-slot operand must "
                         "be int32")
@@ -70,10 +92,12 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
                          f"{w} x {g} rows, window {window}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _entry(q.dtype)(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), base.data_ptr(), out.data_ptr(), b, hkv, g,
-        w, extra, d, ps, page_table.shape[1], float(scale), stream)
+    ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
+    ptrs += [t.data_ptr() for t in scales]
+    ptrs += [page_table.data_ptr(), base.data_ptr(), out.data_ptr()]
+    status = _entry(q.dtype, code if quant else None)(
+        *ptrs, b, hkv, g, w, extra, d, ps, page_table.shape[1],
+        float(scale), stream)
     check_launch(name, status)
     return out
 
@@ -129,3 +153,60 @@ def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_verify_attention.launches = 0
+
+
+def paged_decode_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, page_table: torch.Tensor,
+                             lengths: torch.Tensor, *,
+                             k_scale: torch.Tensor, v_scale: torch.Tensor,
+                             window: int = 0,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """``paged_decode_attention`` over quantized pools (K9a): k/v pools
+    [P, ps, Hkv, D] int8 or float8_e4m3fn codes, ``k_scale``/``v_scale``
+    [P, Hkv] float32; each page is dequantized at its scale before the
+    products."""
+    _check_shapes("paged_decode_attention_q", q, k_pool, v_pool, page_table,
+                  lengths)
+    if q.shape[1] != 1:
+        raise ValueError("paged_decode_attention_q: q must hold one token "
+                         f"per slot, got {tuple(q.shape)}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if kernel_path(q) == "plain":
+        return ref.paged_decode_attention(q, k_pool, v_pool, page_table,
+                                          lengths, window=window,
+                                          scale=scale, k_scale=k_scale,
+                                          v_scale=v_scale)
+    out = _launch("paged_decode_attention_q", q, k_pool, v_pool, page_table,
+                  lengths, extra=0, window=window, scale=scale,
+                  k_scale=k_scale, v_scale=v_scale)
+    paged_decode_attention_q.launches += 1
+    return out
+
+
+paged_decode_attention_q.launches = 0
+
+
+def paged_verify_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, page_table: torch.Tensor,
+                             q_off: torch.Tensor, *, k_scale: torch.Tensor,
+                             v_scale: torch.Tensor, window: int = 0,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """``paged_verify_attention`` over quantized pools (K9b), with the
+    pools and scales of ``paged_decode_attention_q``.  Row i equals
+    ``paged_decode_attention_q`` at length ``q_off + i + 1``: bit for bit
+    on the card, where both run one device function."""
+    _check_shapes("paged_verify_attention_q", q, k_pool, v_pool, page_table,
+                  q_off)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if kernel_path(q) == "plain":
+        return ref.paged_verify_attention(q, k_pool, v_pool, page_table,
+                                          q_off, window=window, scale=scale,
+                                          k_scale=k_scale, v_scale=v_scale)
+    out = _launch("paged_verify_attention_q", q, k_pool, v_pool, page_table,
+                  q_off, extra=1, window=window, scale=scale,
+                  k_scale=k_scale, v_scale=v_scale)
+    paged_verify_attention_q.launches += 1
+    return out
+
+
+paged_verify_attention_q.launches = 0

@@ -11,7 +11,7 @@ with the distributed slice).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -19,6 +19,10 @@ from .. import kernels as K
 from ..kernels.ref import NEG_INF, act
 
 Params = Dict[str, Any]
+# A weight on a w8 stage: the tensor itself (quantized at each call, as the
+# reference does) or its cached (int8 codes, float32 scales) pair
+# (``params.quantize_weights``).
+W8Weight = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -44,6 +48,32 @@ def apply_norm(kind: str, x: torch.Tensor, p: Params) -> torch.Tensor:
     if kind == "rmsnorm":
         return rms_norm(x, p["scale"])
     return layer_norm(x, p["scale"], p["bias"])
+
+
+# --------------------------------------------------------------------- #
+# Weight-only int8 (DESIGN.md §14)
+# --------------------------------------------------------------------- #
+
+def quantize_channelwise(w: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 (``layers.py:216``): w [D, N] ->
+    (codes int8, scales [N] float32 = amax|column| / 127).  An all-zero
+    column encodes to zero codes with scale 0."""
+    w32 = w.float()
+    scales = w32.abs().amax(dim=0) / 127.0
+    safe = torch.where(scales > 0.0, scales, 1.0)
+    codes = torch.clamp(torch.round(w32 / safe), -127.0, 127.0)
+    return codes.to(torch.int8), scales
+
+
+def dequantize_channelwise(codes: torch.Tensor, scales: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    return (codes.float() * scales[None, :]).to(dtype)
+
+
+def w8_codes(w: W8Weight) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(codes, scales) of a w8 stage's weight, cached or quantized now."""
+    return w if isinstance(w, tuple) else quantize_channelwise(w)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -187,12 +217,19 @@ def ffn(x: torch.Tensor, p: Params, *, activation: str,
 # Fused wrappers (the plan's kernels)
 # --------------------------------------------------------------------- #
 
-def fused_norm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
-                      *, eps: float = 1e-6) -> torch.Tensor:
-    """rms_norm(x) @ w through ``rmsnorm_matmul``: x [B, S, D] -> [B, S, N]."""
+def fused_norm_matmul(x: torch.Tensor, scale: torch.Tensor, w: W8Weight,
+                      *, eps: float = 1e-6, w8: int = 0) -> torch.Tensor:
+    """rms_norm(x) @ w through ``rmsnorm_matmul``: x [B, S, D] -> [B, S, N].
+    ``w8`` (the plan's block flag): weight-only int8 through the
+    ``rmsnorm_matmul_w8`` twin (``layers.py:725``)."""
     b, s, d = x.shape
-    y = K.rmsnorm_matmul(x.reshape(b * s, d).contiguous(), scale, w, eps=eps)
-    return y.reshape(b, s, w.shape[-1])
+    xf = x.reshape(b * s, d).contiguous()
+    if w8:
+        codes, ws = w8_codes(w)
+        y = K.rmsnorm_matmul_w8(xf, scale, codes, w_scale=ws, eps=eps)
+    else:
+        y = K.rmsnorm_matmul(xf, scale, w, eps=eps)
+    return y.reshape(b, s, y.shape[-1])
 
 
 def fused_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -202,19 +239,39 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, s, w.shape[-1])
 
 
+def fused_norm(kind: str, x: torch.Tensor, p: Params) -> torch.Tensor:
+    """``apply_norm`` on the kernel plan: LayerNorm through the row-norm
+    kernel, whose rows do not depend on the row count; RMSNorm stays
+    eager (the llama3 plan folds every one of them into a kernel)."""
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    b, s, d = x.shape
+    y = K.layer_norm_rows(x.reshape(b * s, d).contiguous(), p["scale"],
+                          p["bias"])
+    return y.reshape(b, s, d)
+
+
 def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
-              norm_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+              norm_scale: Optional[torch.Tensor] = None,
+              w8: int = 0) -> torch.Tensor:
     """GLU FFN through ``streamed_ffn``, or the ungated MLP through
     ``streamed_mlp``; with ``norm_scale`` the pre-FFN RMSNorm is folded
-    into the kernel."""
+    into the kernel.  ``w8``: weight-only int8 on every projection through
+    the ``_w8`` twins (``layers.py:795``)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d).contiguous()
-    if gated:
-        y = K.streamed_ffn(xf, p["wg"], p["wu"], p["wd"],
-                           activation=activation, norm_scale=norm_scale)
+    names = ("wg", "wu", "wd") if gated else ("wu", "wd")
+    if w8:
+        codes, scales = {}, {}
+        for n in names:
+            codes[n], scales[n + "_scale"] = w8_codes(p[n])
+        fn = K.streamed_ffn_w8 if gated else K.streamed_mlp_w8
+        y = fn(xf, *(codes[n] for n in names), activation=activation,
+               norm_scale=norm_scale, **scales)
     else:
-        y = K.streamed_mlp(xf, p["wu"], p["wd"], activation=activation,
-                           norm_scale=norm_scale)
+        fn = K.streamed_ffn if gated else K.streamed_mlp
+        y = fn(xf, *(p[n] for n in names), activation=activation,
+               norm_scale=norm_scale)
     return y.reshape(b, s, d)
 
 
@@ -228,28 +285,49 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def fused_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: int, kv_len: int, *, causal: bool = True,
-                          window: int = 0,
-                          block_kv: int = 512) -> torch.Tensor:
-    """Chunked-prefill attention through the offset flash kernel."""
+                          window: int = 0, block_kv: int = 512,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Chunked-prefill attention through the offset flash kernel; with
+    ``k_scale``/``v_scale`` [B, Skv, Hkv] (per-position scales) k/v are
+    codes and its quantized twin runs (``layers.py:949``)."""
     return K.flash_attention(q, k, v, q_offset=q_offset, kv_len=kv_len,
-                             causal=causal, window=window, block_kv=block_kv)
+                             causal=causal, window=window, block_kv=block_kv,
+                             k_scale=k_scale, v_scale=v_scale)
 
 
 def fused_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, page_table: torch.Tensor,
-                          lengths: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
-    """Decode attention through the paged kernel (pools read in place)."""
+                          lengths: torch.Tensor, *, window: int = 0,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Decode attention through the paged kernel (pools read in place);
+    with ``k_scale``/``v_scale`` [P, Hkv] the pools hold codes and the
+    quantized twin runs (``layers.py:993``)."""
+    if k_scale is not None:
+        return K.paged_decode_attention_q(q.contiguous(), k_pool, v_pool,
+                                          page_table, lengths,
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          window=window)
     return K.paged_decode_attention(q.contiguous(), k_pool, v_pool,
                                     page_table, lengths, window=window)
 
 
 def fused_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           q_off: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
+                           q_off: torch.Tensor, *, window: int = 0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Speculative-verify attention through the paged verify kernel: one
     launch scores every window row of every slot (``layers.py:1034``,
-    single device)."""
+    single device); quantized pools as ``fused_paged_attention``."""
+    if k_scale is not None:
+        return K.paged_verify_attention_q(q.contiguous(), k_pool, v_pool,
+                                          page_table, q_off,
+                                          k_scale=k_scale, v_scale=v_scale,
+                                          window=window)
     return K.paged_verify_attention(q.contiguous(), k_pool, v_pool,
                                     page_table, q_off, window=window)

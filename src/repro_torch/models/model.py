@@ -10,9 +10,22 @@ the cache object they were given, for symmetry with the reference, which
 returns the updated (donated) tree.  Quirks kept from the reference: the
 ``x * sqrt(d_model)`` embedding scale, learned positions added after that
 scale (pad rows of a final chunk included), pad-vocab logits set to
--1e30, and greedy argmax returning the first maximum.  The o-projection
-and the LM head are plain ``torch.matmul`` as the reference leaves them to
-XLA.
+-1e30, and greedy argmax returning the first maximum.
+
+On the kernel plan every call on the path gives a row the same bits at any
+row count up to 64 (a speculative verify dispatch of slots x W rows must
+reproduce a decode step of slots rows): besides the plan's stages, the
+o-projection and the LM head run through ``block_matmul`` (K5), the final
+RMSNorm and the LM head through one ``rmsnorm_matmul`` (K3) call, and the
+LayerNorms through the row-norm kernel, where the reference leaves them
+to XLA and the eager plan keeps ``torch.matmul`` and PyTorch's norms.
+Under a weight-quantizing config the o-projection and LM head stay at full
+precision, as in the reference.
+
+Quantized KV pools (a ``k_scale`` leaf in the cache) take the reference's
+quantized branches: codes written through the quantize-on-write
+primitives, read by the kernels' quantized twins on the kernel plan or
+dequantized densely (``gather_pages_dequant``) on the eager plan.
 """
 
 from __future__ import annotations
@@ -70,10 +83,22 @@ def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
     return x
 
 
-def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head in float32, pad-vocab columns at -1e30."""
-    h = L.apply_norm(cfg.norm, h, params["final_norm"])
-    logits = (h @ params["lm_head"]).float()
+def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor,
+            plan: Optional[StreamPlan]) -> torch.Tensor:
+    """Final norm + LM head in float32, pad-vocab columns at -1e30.  On the
+    kernel plan: one ``rmsnorm_matmul`` over the padded vocabulary (the
+    normalised row rounded to h's dtype before the product, as
+    ``apply_norm`` then ``@``), or the row-norm kernel then
+    ``block_matmul``."""
+    fn = params["final_norm"]
+    if plan is None:
+        logits = L.apply_norm(cfg.norm, h, fn) @ params["lm_head"]
+    elif cfg.norm == "rmsnorm":
+        logits = L.fused_norm_matmul(h, fn["scale"], params["lm_head"])
+    else:
+        logits = L.fused_matmul(L.fused_norm(cfg.norm, h, fn),
+                                params["lm_head"])
+    logits = logits.float()
     pad = torch.arange(logits.shape[-1], device=logits.device) \
         >= cfg.vocab_size
     return logits.masked_fill(pad, L.NEG_INF)
@@ -88,12 +113,13 @@ def _project_qkv(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
     choice = lplan.qkv if lplan is not None else None
     if choice is not None and choice.fused:
         if choice.implementation == "rmsnorm_matmul":
-            return tuple(L.fused_norm_matmul(x, ln_p["scale"], p[w])
+            w8 = choice.kw.get("w8", 0)
+            return tuple(L.fused_norm_matmul(x, ln_p["scale"], p[w], w8=w8)
                          for w in ("wq", "wk", "wv"))
         if choice.implementation != "block_matmul":
             raise NotImplementedError(
                 f"qkv kernel {choice.implementation!r} is not ported yet")
-        h = L.apply_norm(cfg.norm, x, ln_p)
+        h = L.fused_norm(cfg.norm, x, ln_p)
         return tuple(L.fused_matmul(h, p[w]) for w in ("wq", "wk", "wv"))
     h = L.apply_norm(cfg.norm, x, ln_p)
     return h @ p["wq"], h @ p["wk"], h @ p["wv"]
@@ -109,14 +135,32 @@ def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
         if choice.implementation not in ("streamed_ffn", "streamed_mlp"):
             raise NotImplementedError(
                 f"ffn kernel {choice.implementation!r} is not ported yet")
+        w8 = choice.kw.get("w8", 0)
         if choice.kw.get("fuse_norm", 0):
             return L.fused_ffn(x, p, activation=cfg.activation,
                                gated=cfg.gated_ffn,
-                               norm_scale=ln_p["scale"])
-        return L.fused_ffn(L.apply_norm(cfg.norm, x, ln_p), p,
-                           activation=cfg.activation, gated=cfg.gated_ffn)
+                               norm_scale=ln_p["scale"], w8=w8)
+        return L.fused_ffn(L.fused_norm(cfg.norm, x, ln_p), p,
+                           activation=cfg.activation, gated=cfg.gated_ffn,
+                           w8=w8)
     return L.ffn(L.apply_norm(cfg.norm, x, ln_p), p,
                  activation=cfg.activation, gated=cfg.gated_ffn)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor,
+              lplan: Optional[LayerPlan]) -> torch.Tensor:
+    """The attention output projection: ``block_matmul`` on the kernel
+    plan (its split depends on the weight shape alone), else ``@``."""
+    return L.fused_matmul(o, wo) if lplan is not None else o @ wo
+
+
+def _layer_pools(cache: Cache, layer: int):
+    """(k, v, k_scale, v_scale) pools of one layer, views updated in place;
+    the scales are None for full-precision pools."""
+    if "k_scale" in cache:
+        return (cache["k"][layer], cache["v"][layer],
+                cache["k_scale"][layer], cache["v_scale"][layer])
+    return cache["k"][layer], cache["v"][layer], None, None
 
 
 def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
@@ -143,7 +187,7 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                                   "is not ported yet")
     else:
         o = L.streaming_attention(q, k, v, causal=cfg.causal)
-    x = x + o.reshape(b, s, hq * hd) @ ap["wo"]
+    x = x + _out_proj(o.reshape(b, s, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan), k, v
 
 
@@ -166,7 +210,7 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
                                    lplan=_lplan(plan, cfg.layer_kind(i)))
         ks.append(k)
         vs.append(v)
-    logits = _logits(cfg, params, x[:, -1:])
+    logits = _logits(cfg, params, x[:, -1:], plan)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -178,11 +222,13 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     """One attention block over a prompt chunk against the paged cache
     (``model.py:517``): the chunk's K/V are written into their pages
     first, then attention gathers the slot's pages (dead pages re-routed
-    to NULL) and masks at absolute positions and ``kv_len``."""
+    to NULL) and masks at absolute positions and ``kv_len``.  Quantized
+    pools (``model.py:566-619``): the kernel reads the gathered codes with
+    per-position scales, the eager path dense dequantized K/V."""
     # Function-local: serving imports models at module load (as in the
     # reference, the page primitives live beside the allocator).
     from ..serving.kv_cache import (gather_pages, live_page_table,
-                                    place_chunk_pages)
+                                    place_chunk_pages, place_chunk_pages_q)
     b, c, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     layout = cfg.kv_cache_layout
@@ -194,22 +240,34 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     positions = offset + torch.arange(c, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
-    kc, vc = cache["k"][layer], cache["v"][layer]
-    place_chunk_pages(kc, k, chunk_pages, layout=layout)
-    place_chunk_pages(vc, v, chunk_pages, layout=layout)
+    kc, vc, ks, vs = _layer_pools(cache, layer)
+    quant = ks is not None
+    if quant:
+        place_chunk_pages_q(kc, ks, k, chunk_pages, layout=layout)
+        place_chunk_pages_q(vc, vs, v, chunk_pages, layout=layout)
+    else:
+        place_chunk_pages(kc, k, chunk_pages, layout=layout)
+        place_chunk_pages(vc, v, chunk_pages, layout=layout)
     row_live = live_page_table(table_row, kv_len, kc.shape[1])
-    kseq = gather_pages(kc, row_live[None], layout=layout)
-    vseq = gather_pages(vc, row_live[None], layout=layout)
     choice = lplan.attention if lplan is not None else None
     if choice is not None and choice.fused:
+        kseq = gather_pages(kc, row_live[None], layout=layout)
+        vseq = gather_pages(vc, row_live[None], layout=layout)
+        # Codes: each position carries its page's scale (``:606``).
+        scl = {}
+        if quant:
+            ps, live = kc.shape[1], row_live.long()
+            scl = {"k_scale": ks[live].repeat_interleave(ps, 0)[None],
+                   "v_scale": vs[live].repeat_interleave(ps, 0)[None]}
         o = L.fused_attention_chunk(q, kseq, vseq, offset, kv_len,
                                     causal=cfg.causal, window=window,
-                                    block_kv=choice.kw["block_kv"])
+                                    block_kv=choice.kw["block_kv"], **scl)
     else:
+        kseq, vseq = _dense_kv(kc, vc, ks, vs, row_live[None], layout)
         o = L.streaming_attention(q, kseq, vseq, causal=cfg.causal,
                                   q_offset=offset, window=window,
                                   kv_len=kv_len)
-    x = x + o.reshape(b, c, hq * hd) @ ap["wo"]
+    x = x + _out_proj(o.reshape(b, c, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
 
 
@@ -240,7 +298,7 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
         x = _attn_block_chunk(cfg, lp, x, cache, i, table_row, chunk_pages,
                               int(offset), kv_len, window=_window(cfg, i),
                               lplan=_lplan(plan, cfg.layer_kind(i)))
-    logits = _logits(cfg, params, x[:, last_idx:last_idx + 1])
+    logits = _logits(cfg, params, x[:, last_idx:last_idx + 1], plan)
     return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
 
@@ -251,9 +309,11 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                        ) -> torch.Tensor:
     """One attention block for one token per slot (paged branch of
     ``model.py:752``): append the token's K/V through the page table, then
-    attend through the paged kernel or the gather-pages eager path."""
-    from ..serving.kv_cache import (gather_pages, live_page_table,
-                                    paged_append)
+    attend through the paged kernel or the gather-pages eager path; over
+    quantized pools through the quantize-on-write append and the kernel's
+    quantized twin or dense dequantized K/V (``model.py:793-848``)."""
+    from ..serving.kv_cache import (live_page_table, paged_append,
+                                    paged_append_q)
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     layout = cfg.kv_cache_layout
@@ -264,20 +324,34 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     v = v.reshape(b, 1, hkv, hd)
     q = L.apply_positional(cfg.rope, q, pos[:, None], cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos[:, None], cfg.rope_theta)
-    kc, vc = cache["k"][layer], cache["v"][layer]
-    paged_append(kc, page_table, pos, k, layout=layout)
-    paged_append(vc, page_table, pos, v, layout=layout)
+    kc, vc, ks, vs = _layer_pools(cache, layer)
+    if ks is not None:
+        paged_append_q(kc, ks, page_table, pos, k, layout=layout)
+        paged_append_q(vc, vs, page_table, pos, v, layout=layout)
+    else:
+        paged_append(kc, page_table, pos, k, layout=layout)
+        paged_append(vc, page_table, pos, v, layout=layout)
     choice = lplan.decode_attn if lplan is not None else None
     if choice is not None and choice.fused:
         o = L.fused_paged_attention(q, kc, vc, page_table, lengths + 1,
-                                    window=window)
+                                    window=window, k_scale=ks, v_scale=vs)
     else:
         tbl_live = live_page_table(page_table, lengths + 1, kc.shape[1])
-        kd = gather_pages(kc, tbl_live, layout=layout)
-        vd = gather_pages(vc, tbl_live, layout=layout)
+        kd, vd = _dense_kv(kc, vc, ks, vs, tbl_live, layout)
         o = L.decode_attention(q, kd, vd, lengths + 1, window=window)
-    x = x + o.reshape(b, 1, hq * hd) @ ap["wo"]
+    x = x + _out_proj(o.reshape(b, 1, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
+
+
+def _dense_kv(kc, vc, ks, vs, table, layout):
+    """The eager plan's dense per-slot K/V: gathered pages, dequantized to
+    float32 for code pools."""
+    from ..serving.kv_cache import gather_pages, gather_pages_dequant
+    if ks is None:
+        return (gather_pages(kc, table, layout=layout),
+                gather_pages(vc, table, layout=layout))
+    return (gather_pages_dequant(kc, ks, table, layout=layout),
+            gather_pages_dequant(vc, vs, table, layout=layout))
 
 
 def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -299,7 +373,7 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
         x = _attn_block_decode(cfg, lp, x, cache, i, cache_pos, lengths,
                                page_table, window=_window(cfg, i),
                                lplan=_lplan(plan, cfg.layer_kind(i)))
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, plan)
     return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
 
@@ -328,9 +402,10 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     ``pos0 + i``, the extent decode would see after consuming i accepted
     tokens.  Rows past the accepted prefix leave stale K/V behind, beyond
     every slot's length: the engine rolls them back and later writes
-    overwrite them."""
-    from ..serving.kv_cache import (gather_pages, live_page_table,
-                                    paged_append_window)
+    overwrite them.  Quantized pools as in decode (``model.py:1045-1097``);
+    the rejected rows' scale growth stays, as in the reference."""
+    from ..serving.kv_cache import (live_page_table, paged_append_window,
+                                    paged_append_window_q)
     b, w, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     layout = cfg.kv_cache_layout
@@ -342,19 +417,22 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     pos = pos0[:, None] + torch.arange(w, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, pos, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos, cfg.rope_theta)
-    kc, vc = cache["k"][layer], cache["v"][layer]
-    paged_append_window(kc, page_table, pos0, k, layout=layout)
-    paged_append_window(vc, page_table, pos0, v, layout=layout)
+    kc, vc, ks, vs = _layer_pools(cache, layer)
+    if ks is not None:
+        paged_append_window_q(kc, ks, page_table, pos0, k, layout=layout)
+        paged_append_window_q(vc, vs, page_table, pos0, v, layout=layout)
+    else:
+        paged_append_window(kc, page_table, pos0, k, layout=layout)
+        paged_append_window(vc, page_table, pos0, v, layout=layout)
     choice = lplan.verify_attn if lplan is not None else None
     if choice is not None and choice.fused:
         o = L.fused_verify_attention(q, kc, vc, page_table, lengths,
-                                     window=window)
+                                     window=window, k_scale=ks, v_scale=vs)
     else:
         tbl_live = live_page_table(page_table, lengths + w, kc.shape[1])
-        kd = gather_pages(kc, tbl_live, layout=layout)
-        vd = gather_pages(vc, tbl_live, layout=layout)
+        kd, vd = _dense_kv(kc, vc, ks, vs, tbl_live, layout)
         o = L.verify_attention(q, kd, vd, lengths, window=window)
-    x = x + o.reshape(b, w, hq * hd) @ ap["wo"]
+    x = x + _out_proj(o.reshape(b, w, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
 
 
@@ -385,5 +463,5 @@ def verify_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
         x = _attn_block_verify(cfg, lp, x, cache, i, cache_pos, lengths,
                                page_table, window=_window(cfg, i),
                                lplan=_lplan(plan, cfg.layer_kind(i)))
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, plan)
     return logits.argmax(dim=-1).to(torch.int32), logits, cache

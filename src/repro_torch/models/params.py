@@ -10,7 +10,10 @@ plain list ``layers`` of per-layer dicts and loops over it in Python.
   with the reference's distributions (normal scaled by 1/sqrt(fan_in),
   zero norm scales);
 * ``params_from_numpy`` bridges a reference tree (nested dicts/tuples of
-  numpy arrays) into that layout, cast once to the compute dtype.
+  numpy arrays) into that layout, cast once to the compute dtype;
+* ``quantize_weights`` replaces the weights of the plan's weight-only int8
+  stages by their (codes, scales) once per tree, where the reference
+  quantizes inside every fused call (the same deterministic codes).
 """
 
 from __future__ import annotations
@@ -172,6 +175,65 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
                 "final_norm": map_tree(to_t, tree["final_norm"]),
                 "lm_head": to_t(tree["lm_head"])})
     return out
+
+
+# The weights each w8 stage of the plan quantizes: (stage, sub-dict, names).
+W8_STAGES = (("qkv", "attn", ("wq", "wk", "wv")),
+             ("ffn", "mlp", ("wg", "wu", "wd")))
+
+
+def quantize_weights(cfg: ModelConfig, params: Tree) -> Tree:
+    """A tree in which every weight of a stage the kernel plan flags
+    ``w8`` is its ``quantize_channelwise`` (int8 codes, float32 scales)
+    pair; every other leaf is shared with ``params``.  Unchanged when the
+    config has no weight quantization or runs the eager plan (which keeps
+    full-precision weights, as the reference's does)."""
+    from ..core.stream_plan import plan_for
+    from .layers import quantize_channelwise
+    plan = plan_for(cfg, 1) if cfg.weight_quant else None
+    if plan is None:
+        return params
+    layers = []
+    for i, lp in enumerate(params["layers"]):
+        choices = plan.layer(cfg.layer_kind(i))
+        new = dict(lp)
+        for stage, sub, names in W8_STAGES:
+            if getattr(choices, stage).kw.get("w8"):
+                new[sub] = {n: (quantize_channelwise(w)
+                                if n in names and not isinstance(w, tuple)
+                                else w)
+                            for n, w in lp[sub].items()}
+        layers.append(new)
+    return {**params, "layers": layers}
+
+
+def dequantize_weights(cfg: ModelConfig, params: Tree) -> Tree:
+    """The eager w8 reference of a ``quantize_weights`` tree: each (codes,
+    scales) pair dequantized back to the compute dtype (the forward value
+    of the reference's ``_w8_ste``)."""
+    from .layers import dequantize_channelwise
+    dtype = compute_dtype(cfg)
+
+    def sub(d):
+        return {n: (dequantize_channelwise(*w, dtype)
+                    if isinstance(w, tuple) else w) for n, w in d.items()}
+
+    layers = [{k: sub(v) if k in ("attn", "mlp") else v
+               for k, v in lp.items()} for lp in params["layers"]]
+    return {**params, "layers": layers}
+
+
+def weight_bytes(params: Tree) -> int:
+    """Resident bytes of a parameter tree (codes and scales included)."""
+    total = 0
+
+    def add(t):
+        nonlocal total
+        total += t.numel() * t.element_size()
+        return t
+
+    map_tree(add, params)
+    return total
 
 
 # --------------------------------------------------------------------- #

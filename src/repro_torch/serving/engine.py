@@ -35,16 +35,21 @@ Idle slots and slots parked mid-prefill ride along in decode and verify
 with their write position at the table extent (their writes go to the
 NULL page) and length 0; their outputs are discarded.
 
+Quantized serving (DESIGN.md §14): ``quant=`` replaces the config's quant
+mode for this engine.  KV modes store the page pools as int8 / fp8 codes
+with per-(page, KV head) scales; weight modes run the kernel plan's w8
+stages on int8 weights, quantized once when the engine is built.
+
 Left for later slices: telemetry, trace probes, autotuning, plan
-verification, ``adaptive_decode_block``, quantized pools, meshes, the
-contiguous cache and the ``bhsd`` layout.
+verification, ``adaptive_decode_block``, meshes, the contiguous cache and
+the ``bhsd`` layout.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,11 +57,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.common import DeviceLike, resolve_device
+from ..kernels.ref import code_view
 from ..models.model import (decode_step, prefill, prefill_chunk,
                             resolve_plan, supports_chunked_prefill,
                             supports_speculative, verify_step)
-from .kv_cache import (NULL_PAGE, PagedKVCache, cow_copy_pool, place_prefill,
-                       stage_chunk)
+from ..models.params import quantize_weights
+from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
 Tree = Any
@@ -72,7 +78,7 @@ COUNTER_NAMES = (
 # Gauges (point in time) and lifetime rates.
 GAUGE_NAMES = ("kv_bytes_peak", "pages_in_use", "prefix_cached_pages",
                "kv_bytes_cached", "prefix_hit_rate", "accept_rate",
-               "dispatches_per_token")
+               "dispatches_per_token", "kv_itemsize_effective")
 METRIC_NAMES = COUNTER_NAMES + GAUGE_NAMES
 ADMISSION = ("fifo", "sjf", "prefix")
 
@@ -139,7 +145,11 @@ class ServingEngine:
                  prefix_cache: Optional[bool] = None,
                  prefix_bootstrap: bool = False, admission: str = "fifo",
                  speculative: bool = False, draft_len: int = 4,
-                 device: DeviceLike = None):
+                 quant: Optional[str] = None, device: DeviceLike = None):
+        # ``quant`` replaces the config's quant mode for this engine
+        # (``engine.py:256-267``); the plan and the pool dtypes follow it.
+        if quant is not None and quant != cfg.quant:
+            cfg = replace(cfg, quant=quant)
         if not supports_chunked_prefill(cfg):
             raise NotImplementedError(
                 f"config {cfg.name!r} carries recurrent state or mrope "
@@ -153,7 +163,8 @@ class ServingEngine:
         self.chunked = True if chunked is None else bool(chunked)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        # The plan's w8 stages read int8 codes quantized here, once.
+        self.params = quantize_weights(cfg, params)
         self.slots = batch_slots
         self.max_len = max_len
         self.decode_block = max(1, decode_block)
@@ -219,7 +230,9 @@ class ServingEngine:
         # Pending copy-on-write per slot: the logical page whose next
         # write must swap in a private copy.
         self._cow: List[Optional[int]] = [None] * batch_slots
-        self.metrics: Dict[str, float] = {name: 0 for name in METRIC_NAMES}
+        self.metrics: Dict[str, Any] = {name: 0 for name in METRIC_NAMES}
+        self.metrics["quant"] = cfg.quant
+        self.metrics["kv_itemsize_effective"] = self.kv.kv_itemsize_effective
 
     # -------------------------------------------------------------- API
     @torch.no_grad()
@@ -496,14 +509,16 @@ class ServingEngine:
 
     def _copy_on_write(self, cow_src: np.ndarray, cow_dst: np.ndarray
                        ) -> None:
-        """Duplicate each shared page onto its private copy in every pool
-        before the dispatch writes (the table already points at dst)."""
+        """Duplicate each shared page onto its private copy in every pool,
+        scale pools included, before the dispatch writes (the table already
+        points at dst; ``engine.py:497``)."""
         if not (cow_dst != NULL_PAGE).any():
             return
-        src = torch.as_tensor(cow_src, device=self.device)
-        dst = torch.as_tensor(cow_dst, device=self.device)
-        for pool in self.cache.values():
-            cow_copy_pool(pool, src, dst)
+        src = torch.as_tensor(cow_src, device=self.device).long()
+        dst = torch.as_tensor(cow_dst, device=self.device).long()
+        for pool in self.cache.values():            # [L, P, ...]
+            raw = code_view(pool)
+            raw[:, dst] = raw[:, src]
 
     def _decode_block(self, active, decoding, pos, tok) -> None:
         """``decode_block`` steps across all slots, each at its own

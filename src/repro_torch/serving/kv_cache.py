@@ -14,10 +14,17 @@ Port of ``repro.serving.kv_cache`` on the main path:
   copied before a slot writes into it (copy-on-write), and a speculative
   draft's freshly opened pages roll back.
 
+Quantized pools (DESIGN.md §14): under a KV quant mode each K/V pool
+stores int8 or fp8-e4m3 codes, ``value ≈ code * scale``, with one float32
+scale per (physical page, KV head) in a sibling ``<name>_scale`` pool
+``[L, P, Hkv]`` indexed by the same page ids.  Whole pages (prefill chunks,
+whole-prompt placement) set their scale from their own amax; appends fold
+it in monotonically (``max(old, amax / qmax)``) and re-encode the page's
+earlier rows when it grows.
+
 Where the reference's primitives return updated arrays from a donated jit,
 the port's update the pool tensors in place (``index_put_``), which is what
-donation bought there.  Quantized pools and mesh placement come with later
-slices.
+donation bought there.  Mesh placement comes with a later slice.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.common import DeviceLike, cdiv, resolve_device
+from ..kernels.ref import code_view
 from ..models.params import CacheDef, attn_cache_defs, cache_leaf_kind
 
 NULL_PAGE = 0
@@ -41,6 +49,62 @@ def to_page_major(seq: torch.Tensor, layout: str) -> torch.Tensor:
 
 def from_page_major(seq: torch.Tensor, layout: str) -> torch.Tensor:
     return seq.transpose(-3, -2) if layout == "bhsd" else seq
+
+
+# --------------------------------------------------------------------- #
+# KV quantization (``kv_cache.py:106-160``)
+# --------------------------------------------------------------------- #
+
+def kv_quant_dtype(kind: Optional[str]) -> Optional[torch.dtype]:
+    """Pool storage dtype for a ``ModelConfig.kv_quant`` kind."""
+    if kind is None:
+        return None
+    if kind == "int8":
+        return torch.int8
+    if kind == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"unknown kv quant kind {kind!r}")
+
+
+def kv_quant_qmax(dtype: torch.dtype) -> float:
+    """Largest representable code magnitude (amax maps onto it)."""
+    return 127.0 if dtype == torch.int8 else 448.0   # e4m3fn finite max
+
+
+def quantize_kv(x: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Encode values as codes at ``scale`` (broadcastable): ``x / scale``
+    (zero where the scale is zero), clipped to the code range, then rounded
+    half to even (int8) or cast (fp8, which rounds)."""
+    qmax = kv_quant_qmax(dtype)
+    v = torch.where(scale > 0, x.float() / torch.clamp(scale, min=1e-30),
+                    0.0)
+    v = torch.clamp(v, -qmax, qmax)
+    if dtype == torch.int8:
+        return torch.round(v).to(torch.int8)
+    return v.to(dtype)
+
+
+def _requant_codes(codes: torch.Tensor, old_scale: torch.Tensor,
+                   new_scale: torch.Tensor) -> torch.Tensor:
+    """Re-encode a page's codes after its scale grew: ``code * old / new``.
+    At an unchanged scale the ratio is exactly 1.0, an identity."""
+    ratio = torch.where(new_scale > 0,
+                        old_scale / torch.clamp(new_scale, min=1e-30), 0.0)
+    v = codes.float() * ratio
+    if codes.dtype == torch.int8:
+        return torch.round(v).to(torch.int8)
+    return v.to(codes.dtype)
+
+
+def _take(pool: torch.Tensor, idx) -> torch.Tensor:
+    """``pool[idx]``, through the bytes for fp8 codes."""
+    return code_view(pool)[idx].view(pool.dtype)
+
+
+def _put(pool: torch.Tensor, idx, vals: torch.Tensor) -> None:
+    """``pool[idx] = vals`` in place, through the bytes for fp8 codes."""
+    code_view(pool)[idx] = code_view(vals.to(pool.dtype))
 
 
 def paged_append(pool: torch.Tensor, page_table: torch.Tensor,
@@ -92,6 +156,58 @@ def paged_append_window(pool: torch.Tensor, page_table: torch.Tensor,
     return pool
 
 
+def _append_row_q(pool: torch.Tensor, scale: torch.Tensor,
+                  page_table: torch.Tensor, pos: torch.Tensor,
+                  tok: torch.Tensor) -> None:
+    """Quantize-on-write of one page-major token row per slot, in place
+    (``kv_cache.py:216``): pool [P, ps, H, hd] codes, scale [P, H] float32,
+    tok [B, H, hd].  The page's scale becomes ``max(old, amax(tok) /
+    qmax)``; the page's codes are re-encoded at it (an identity when it did
+    not grow) and the row written.  Out-of-range positions route to the
+    NULL page, as in ``paged_append``."""
+    page_size = pool.shape[1]
+    b = page_table.shape[0]
+    extent = page_table.shape[1] * page_size
+    pos = pos.long()
+    in_range = (pos >= 0) & (pos < extent)
+    posc = pos.clamp(0, extent - 1)
+    rows = torch.arange(b, device=pool.device)
+    phys = torch.where(in_range, page_table[rows, posc // page_size].long(),
+                       NULL_PAGE)
+    qmax = kv_quant_qmax(pool.dtype)
+    amax = tok.float().abs().amax(dim=-1)                   # [B, H]
+    old = scale[phys]
+    new = torch.maximum(old, amax / qmax)
+    page = _requant_codes(_take(pool, phys), old[:, None, :, None],
+                          new[:, None, :, None])
+    row = quantize_kv(tok, new[..., None], pool.dtype)
+    _put(pool, phys, page)
+    _put(pool, (phys, posc % page_size), row)
+    scale[phys] = new
+
+
+def paged_append_q(pool: torch.Tensor, scale: torch.Tensor,
+                   page_table: torch.Tensor, pos: torch.Tensor,
+                   new: torch.Tensor, *, layout: str) -> None:
+    """Quantized twin of ``paged_append`` (``kv_cache.py:249``): one decode
+    token per slot written as codes, its magnitude folded into the page's
+    scale; pool and scale updated in place."""
+    _append_row_q(pool, scale, page_table, pos,
+                  to_page_major(new, layout)[:, 0])
+
+
+def paged_append_window_q(pool: torch.Tensor, scale: torch.Tensor,
+                          page_table: torch.Tensor, pos: torch.Tensor,
+                          new: torch.Tensor, *, layout: str) -> None:
+    """Quantized twin of ``paged_append_window`` (``kv_cache.py:305``): the
+    W rows are appended one after another through ``_append_row_q``, so a
+    window that grows a page's scale re-encodes earlier rows exactly as
+    single-token decode would."""
+    win = to_page_major(new, layout)                       # [B, W, H, hd]
+    for i in range(win.shape[1]):
+        _append_row_q(pool, scale, page_table, pos + i, win[:, i])
+
+
 def cow_copy_pool(pool: torch.Tensor, src: torch.Tensor,
                   dst: torch.Tensor) -> torch.Tensor:
     """Copy physical page(s) ``src`` onto ``dst`` inside a pool, in place:
@@ -127,9 +243,46 @@ def gather_pages(pool: torch.Tensor, page_table: torch.Tensor, *,
                  layout: str) -> torch.Tensor:
     """Per-slot contiguous K/V from the pool: [P, ps, H, hd] ->
     [B, max_pages * ps, H, hd] ("bshd")."""
-    pages = pool[page_table.long()]               # [B, max_pages, ps, H, hd]
+    pages = _take(pool, page_table.long())        # [B, max_pages, ps, H, hd]
     b, n, ps, h, hd = pages.shape
     return from_page_major(pages.reshape(b, n * ps, h, hd), layout)
+
+
+def gather_pages_dequant(pool: torch.Tensor, scale: torch.Tensor,
+                         page_table: torch.Tensor, *,
+                         layout: str) -> torch.Tensor:
+    """Quantized twin of ``gather_pages`` (``kv_cache.py:351``): dense
+    float32 K/V, each gathered page's codes times its (page, head) scale."""
+    pages = _take(pool, page_table.long()).float()   # [B, n, ps, H, hd]
+    s = scale[page_table.long()]                     # [B, n, H]
+    pages = pages * s[:, :, None, :, None]
+    b, n, ps, h, hd = pages.shape
+    return from_page_major(pages.reshape(b, n * ps, h, hd), layout)
+
+
+def _encode_pages(chunks: torch.Tensor, dtype: torch.dtype,
+                  page_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codes and per-(page, head) scales of whole pages ``[..., n, ps, H,
+    hd]`` (page axis ``page_axis``): each page's scale is its own amax over
+    positions and head dim, over qmax."""
+    amax = chunks.float().abs().amax(dim=(page_axis + 1, page_axis + 3))
+    new = amax / kv_quant_qmax(dtype)                # [..., n, H]
+    return quantize_kv(chunks, new.unsqueeze(-2).unsqueeze(-1), dtype), new
+
+
+def place_chunk_pages_q(pool: torch.Tensor, scale: torch.Tensor,
+                        seq: torch.Tensor, chunk_pages: torch.Tensor, *,
+                        layout: str) -> None:
+    """Quantized twin of ``place_chunk_pages`` (``kv_cache.py:325``): whole
+    pages are encoded at scales from their own content, so the scale is
+    set, not folded; pool and scale updated in place."""
+    page_size = pool.shape[1]
+    x = to_page_major(seq, layout)[0]                      # [C, H, hd]
+    c, h, hd = x.shape
+    codes, new = _encode_pages(x.reshape(c // page_size, page_size, h, hd),
+                               pool.dtype, 0)
+    _put(pool, chunk_pages.long(), codes)
+    scale[chunk_pages.long()] = new
 
 
 def place_chunk_pages(pool: torch.Tensor, seq: torch.Tensor,
@@ -150,11 +303,13 @@ def place_prefill(cache: Dict[str, torch.Tensor],
                   fresh: Dict[str, torch.Tensor], pages: torch.Tensor, *,
                   layout: str) -> Dict[str, torch.Tensor]:
     """Write one request's whole-prompt prefill cache into its pages, in
-    place (full-precision branch of ``kv_cache.py:399``).
+    place (``kv_cache.py:399``).
 
     fresh {"k", "v"} [L, 1, S, H, hd] ("bshd"); pages [n] int32 the slot's
     physical pages from ``ensure(slot, S)``, n = cdiv(S, page_size).  The
-    last page is zero-padded past S.  Returns ``cache``."""
+    last page is zero-padded past S.  Quantized pools (a ``<name>_scale``
+    sibling in ``cache``) get each page's codes at its own scale, and the
+    scale rows are set.  Returns ``cache``."""
     for name, small in fresh.items():
         if cache_leaf_kind(name) != "kv":
             raise NotImplementedError(f"placing cache leaf {name!r} is not "
@@ -167,8 +322,14 @@ def place_prefill(cache: Dict[str, torch.Tensor],
         pad = n * page_size - s
         if pad:
             seq = torch.nn.functional.pad(seq, (0, 0, 0, 0, 0, pad))
-        pool[:, pages.long()] = seq.reshape(layers, n, page_size, h,
-                                            hd).to(pool.dtype)
+        chunks = seq.reshape(layers, n, page_size, h, hd)
+        sname = name + "_scale"
+        if sname in cache:
+            codes, new = _encode_pages(chunks, pool.dtype, 1)
+            _put(pool, (slice(None), pages.long()), codes)
+            cache[sname][:, pages.long()] = new
+        else:
+            pool[:, pages.long()] = chunks.to(pool.dtype)
     return cache
 
 
@@ -193,15 +354,19 @@ def stage_chunk(prompt: np.ndarray, off: int, chunk: int, row: np.ndarray,
 def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
                      page_size: int) -> Dict[str, CacheDef]:
     """K/V page pools ``[L, 1 + slots * cdiv(max_len, ps), ps, Hkv, hd]``
-    (+1: the NULL page)."""
-    if cfg.kv_quant is not None:
-        raise NotImplementedError("quantized KV pools are not ported yet")
+    (+1: the NULL page).  Under a KV quant mode the pools hold int8 / fp8
+    codes and each gains a ``<name>_scale`` pool ``[L, P, Hkv]`` float32
+    (``kv_cache.py:523-554``)."""
     num_pages = 1 + slots * cdiv(max_len, page_size)
+    qdtype = kv_quant_dtype(cfg.kv_quant)
     out = {}
     for name, cd in attn_cache_defs(cfg, slots, max_len).items():
         layers, _, _, hkv, hd = cd.shape
         out[name] = CacheDef((layers, num_pages, page_size, hkv, hd),
-                             cd.dtype)
+                             qdtype or cd.dtype)
+        if qdtype is not None:
+            out[name + "_scale"] = CacheDef((layers, num_pages, hkv),
+                                            torch.float32)
     return out
 
 
@@ -238,13 +403,17 @@ class PagedKVCache:
         self.num_pages = 1 + slots * self.pages_per_slot
         self._defs = paged_cache_defs(cfg, slots, max_len, self.page_size)
         # Bytes of ONE physical page summed over every pool leaf (all
-        # layers): the unit of the bytes-in-use accounting.
+        # layers, scale pools included), each at its own dtype's size: the
+        # unit of the bytes-in-use accounting (``kv_cache.py:642-660``).
         self.page_bytes = 0
+        self._kv_elems_per_page = 0
         for name, cd in self._defs.items():
-            cache_leaf_kind(name)            # raises on an unknown leaf
+            kind = cache_leaf_kind(name)     # raises on an unknown leaf
             per_page = int(np.prod(cd.shape)) // cd.shape[1]
             self.page_bytes += per_page * torch.empty(
                 (), dtype=cd.dtype).element_size()
+            if kind == "kv":
+                self._kv_elems_per_page += per_page
         self._table = np.zeros((slots, self.pages_per_slot), np.int32)
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._owned: List[List[int]] = [[] for _ in range(slots)]
@@ -257,12 +426,15 @@ class PagedKVCache:
         self.peak_pages = 0
 
     def init_cache(self) -> Dict[str, torch.Tensor]:
-        """Fresh zeroed pools on the device.  The engine owns them and the
-        model updates them in place; this object tracks which page is
-        whose."""
-        return {name: torch.zeros(cd.shape, dtype=cd.dtype,
-                                  device=self.device)
-                for name, cd in self._defs.items()}
+        """Fresh zeroed pools on the device (fp8 codes zeroed through their
+        bytes: 0x00 is +0.0).  The engine owns them and the model updates
+        them in place; this object tracks which page is whose."""
+        def zeros(cd: CacheDef) -> torch.Tensor:
+            raw = torch.uint8 if cd.dtype == torch.float8_e4m3fn else cd.dtype
+            return torch.zeros(cd.shape, dtype=raw,
+                               device=self.device).view(cd.dtype)
+
+        return {name: zeros(cd) for name, cd in self._defs.items()}
 
     # ------------------------------------------------------------ state
     @property
@@ -288,6 +460,13 @@ class PagedKVCache:
     @property
     def peak_bytes_in_use(self) -> int:
         return self.peak_pages * self.page_bytes
+
+    @property
+    def kv_itemsize_effective(self) -> float:
+        """Stored bytes per K/V element with the scale pools amortized in
+        (bf16 2.0; int8 with per-page, per-head float32 scales a little
+        above 1.0; ``kv_cache.py:745``)."""
+        return self.page_bytes / self._kv_elems_per_page
 
     @property
     def extent(self) -> int:
@@ -472,7 +651,28 @@ class PagedKVCache:
                     or np.any(self._table[slot, len(owned):] != NULL_PAGE)):
                 raise AssertionError(f"table row {slot} out of step with "
                                      "its pages")
+        # Value / scale pool lockstep (``kv_cache.py:962-982``).
+        qdtype = kv_quant_dtype(self.cfg.kv_quant)
+        for name, cd in self._defs.items():
+            if cache_leaf_kind(name) != "kv":
+                continue
+            scd = self._defs.get(name + "_scale")
+            if qdtype is None:
+                if scd is not None:
+                    raise AssertionError(f"unexpected scale pool {name}_scale "
+                                         "without kv quant")
+                continue
+            if scd is None:
+                raise AssertionError(f"missing scale pool {name}_scale")
+            if (scd.shape != (cd.shape[0], cd.shape[1], cd.shape[3])
+                    or scd.dtype != torch.float32 or cd.dtype != qdtype):
+                raise AssertionError(
+                    f"{name}_scale {scd.shape}/{scd.dtype} out of lockstep "
+                    f"with {name} {cd.shape}/{cd.dtype}")
         if cache is not None:
+            if set(cache) != set(self._defs):
+                raise AssertionError(f"cache leaves {sorted(cache)} vs "
+                                     f"definitions {sorted(self._defs)}")
             for name, cd in self._defs.items():
                 leaf = cache[name]
                 if tuple(leaf.shape) != cd.shape or leaf.dtype != cd.dtype:

@@ -271,6 +271,15 @@ def _off_path_calls():
     qd, pool = torch.randn(2, 1, 4, 128), torch.randn(5, 4, 2, 128)
     table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
     lengths = torch.tensor([5, 0], dtype=torch.int32)
+    # The int8 twins' operands: codes and float32 scales.
+    w8_ffn = (torch.zeros(32, 16, dtype=torch.int8),
+              torch.zeros(32, 16, dtype=torch.int8),
+              torch.zeros(16, 32, dtype=torch.int8))
+    w8_ffn_scales = dict(wg_scale=torch.ones(16), wu_scale=torch.ones(16),
+                         wd_scale=torch.ones(32))
+    code_pool = pool.to(torch.int8)
+    pool_scale = torch.ones(5, 2)
+    kv_scale = torch.ones(2, 16)
     return {
         "ffn_gelu": ("streamed_ffn", lambda: K.streamed_ffn(
             x, w_up, w_up, w_down, activation="gelu",
@@ -304,6 +313,21 @@ def _off_path_calls():
                                lambda: K.flash_attention_2d(
                                    *(t[..., :96].contiguous()
                                      for t in (q, kv, kv)), kv_group=2)),
+        "ffn_w8_gelu": ("streamed_ffn", lambda: K.streamed_ffn_w8(
+            x, *w8_ffn, activation="gelu", norm_scale=torch.zeros(32),
+            **w8_ffn_scales)),
+        "mlp_w8_folded_norm": ("streamed_ffn", lambda: K.streamed_mlp_w8(
+            x, w8_ffn[1], w8_ffn[2], norm_scale=torch.zeros(32),
+            wu_scale=w8_ffn_scales["wu_scale"],
+            wd_scale=w8_ffn_scales["wd_scale"])),
+        "paged_q_window": ("paged_attention",
+                           lambda: K.paged_decode_attention_q(
+                               qd, code_pool, code_pool, table, lengths,
+                               k_scale=pool_scale, v_scale=pool_scale,
+                               window=3)),
+        "flash_q_window": ("flash_attention", lambda: K.flash_attention_2d_q(
+            q, kv.to(torch.int8), kv.to(torch.int8), k_scale=kv_scale,
+            v_scale=kv_scale, q_offset=8, kv_group=2, window=4)),
     }
 
 

@@ -172,13 +172,12 @@ def test_plan_for_matches_reference(arch):
 
 
 def test_plan_for_refuses_unported_family():
-    """Families still unported: qk-norm, qkv bias, quantization, a gated
-    FFN under LayerNorm, an ungated MLP under RMSNorm."""
+    """Families still unported: qk-norm, qkv bias, a gated FFN under
+    LayerNorm, an ungated MLP under RMSNorm."""
     llama = get_config("llama3-8b").reduced()
     gpt2 = get_config("gpt2").reduced()
     for base, change in ((llama, dict(qk_norm=True)),
                          (llama, dict(qkv_bias=True)),
-                         (llama, dict(quant="kv_int8")),
                          (gpt2, dict(gated_ffn=True)),
                          (llama, dict(gated_ffn=False))):
         cfg = dataclasses.replace(base, use_fused_kernels=True, **change)
