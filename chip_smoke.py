@@ -14,7 +14,10 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               dispatch of 4 slots x 5 rows, gpt2's also at whole-prompt
               lengths; the o-projection, the LM head over the padded
               vocabulary and gpt2's LayerNorm rows; chunk, decode and
-              verify attention over full-precision, int8 and fp8 pools),
+              verify attention over full-precision, int8 and fp8 pools;
+              the training path's static attention and streamed
+              cross-entropy at a training step's tokens: gpt2 8 x 1024,
+              llama3-8b 2 x 2048 with GQA),
               in bfloat16 and float32: max error against the stated
               tolerance, kernel / plain / library times (CUDA events, L2
               flushed between launches) and the card's bound; every row
@@ -61,9 +64,26 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               twins, and never K1, K2 or K8, under KV quantization) and
               complete every request; the first prompt served alone must
               repeat its burst tokens;
-9. kernels  — one line listing every kernel, once per model and serving
-              path that runs it, with its check results and that path's
-              own launch count.
+9. train_fused_vs_eager — both models at full width cut to 4 layers,
+              float32, B = 2, S = 256: the kernel plan's ``forward_train``
+              loss against the eager plan's (relative 1e-5) and every
+              gradient leaf (1e-4), 3 ``make_train_step`` steps on each plan
+              (losses within 1e-4), and the kernel plan's launches per step
+              equal to the plan's (the forward, the re-run of each layer
+              under remat, the loss once);
+10. train   — ``Trainer.run()`` on the kernel plan, bfloat16 compute over
+              float32 master weights and AdamW state: gpt2 at full width
+              and depth (B = 8, S = 1024) for 6 steps with a checkpoint
+              every 3, then a second trainer resuming from step 3 and
+              replaying steps 4-6 (losses equal at relative 1e-3, bit
+              equality reported); llama3-8b at full width cut to 4 layers
+              (B = 2, S = 2048; the full depth does not fit one card) for
+              3 steps and a timed restore.  Losses finite and falling,
+              launches the plan's; step time, tokens/s, peak memory and
+              checkpoint seconds reported;
+11. kernels — one line listing every kernel, once per model and path
+              (serving or training) that runs it, with its check results
+              and that path's own launch count.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside this script, it exits non-zero and prints
@@ -113,6 +133,7 @@ TPU_KERNELS = {
     # Not a TPU kernel: the eager LayerNorm the reference leaves to XLA,
     # made a kernel so that its rows do not depend on the row count.
     "row_norm": "src/repro/models/layers.py:195",
+    "streamed_xent": "src/repro/kernels/streamed_xent.py:35",
 }
 HELPERS = {"row_norm"}
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -132,6 +153,7 @@ SOURCES = {
     "streamed_ffn_w8": _CSRC + "streamed_ffn.cu",
     "streamed_mlp_w8": _CSRC + "streamed_ffn.cu",
     "row_norm": _CSRC + "row_norm.cu",
+    "streamed_xent": _CSRC + "streamed_xent.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 # On the kernel plan the o-projection runs through block_matmul, llama3's
@@ -177,6 +199,20 @@ QUANT_PATHS = {
                               "flash_attention_q",
                               "paged_verify_attention_q", "row_norm"},
 }
+# The training path on the kernel plan: each layer's forward launches, the
+# static flash kernel for attention; under remat the backward runs every
+# layer's forward again (the eager backward itself launches nothing); the
+# loss kernel once per step.  The o-projection, the norms outside the
+# kernels and every backward are PyTorch ops.
+TRAIN_LAYER_LAUNCHES = {
+    "llama3-8b": {"rmsnorm_matmul": 3, "streamed_ffn": 1,
+                  "flash_attention_static": 1},
+    "gpt2": {"block_matmul": 3, "streamed_mlp": 1,
+             "flash_attention_static": 1},
+}
+# Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
+# llama3-8b at 2 x 2048.
+TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -186,6 +222,15 @@ SPEC_T = SLOTS * WINDOW
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def train_step_launches(model: str, layers: int, remat: bool = True):
+    """Each kernel's launches in one training step on the kernel plan."""
+    runs = 2 if remat else 1
+    out = {k: runs * n * layers
+           for k, n in TRAIN_LAYER_LAUNCHES[model].items()}
+    out["streamed_xent"] = 1
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -515,8 +560,40 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             nbytes=(t * d + d + d * vocab + t * vocab) * isz,
             flops=2 * t * d * vocab,
             path="speculative" if t == SPEC_T else None))
-    return cases + _attention_cases(torch, K, ref, randn, isz, gen, 32, 8,
-                                    128, 128, 2048, dev)
+    cases += _attention_cases(torch, K, ref, randn, isz, gen, 32, 8, 128,
+                              128, 2048, dev)
+    # The training path at a step's 2 x 2048 tokens: the projections and
+    # the FFN (their forward; the backward is PyTorch's) ...
+    b, s = TRAIN_SHAPES["llama3-8b"]
+    t = b * s
+    x = randn(t, d)
+    sc = randn(d, scale=0.1)
+    xn = ref.rms_rows(x, sc, 1e-6)
+    for n in (4096, 1024):
+        w = randn(d, n, scale=1 / math.sqrt(d))
+        cases.append(dict(
+            name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}", path="train",
+            kernel=lambda x=x, w=w: K.rmsnorm_matmul(x, sc, w),
+            plain=lambda x=x, w=w: ref.rmsnorm_matmul(x, sc, w),
+            library=None, cublas=lambda w=w: torch.matmul(xn, w),
+            nbytes=(t * d + d + d * n + t * n) * isz, flops=2 * t * d * n))
+    wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    cases.append(dict(
+        name="streamed_ffn", shape=f"T={t},D={d},F={f}", path="train",
+        kernel=lambda: K.streamed_ffn(x, wg, wu, wd, norm_scale=sc),
+        plain=lambda: ref.streamed_ffn(x, wg, wu, wd, norm_scale=sc),
+        library=None,
+        cublas=lambda: torch.matmul(
+            torch.nn.functional.silu(xn @ wg) * (xn @ wu), wd),
+        nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f))
+    # ... and the attention: the 2 sequences folded into the heads (64
+    # query heads over 16 KV heads, GQA group 4), as
+    # ``ops.flash_attention`` flattens them.
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", b * 32, b * 8,
+                                  128, s, s, None, dev), path="train"))
+    return cases
 
 
 def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
@@ -598,7 +675,79 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     cases.append(dict(_flash_case(torch, K, ref, randn, isz,
                                   "flash_attention_static", 16, 16, 64, 1000,
                                   1000, None, dev), path="whole_prompt"))
+    # The training path at a step's 8 x 1024 tokens: the projections, the
+    # MLP and the attention (the 8 sequences folded into 128 heads).
+    b, s = TRAIN_SHAPES["gpt2"]
+    t = b * s
+    x = randn(t, d)
+    w = randn(d, d, scale=1 / math.sqrt(d))
+    cases.append(dict(
+        name="block_matmul", shape=f"M={t},K={d},N={d}", path="train",
+        kernel=lambda: K.block_matmul(x, w),
+        plain=lambda: ref.block_matmul(x, w),
+        library=lambda: torch.matmul(x, w), cublas=None,
+        nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d))
+    wu = randn(d, f, scale=1 / math.sqrt(d))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    cases.append(dict(
+        name="streamed_mlp", shape=f"T={t},D={d},F={f}", path="train",
+        kernel=lambda: K.streamed_mlp(x, wu, wd),
+        plain=lambda: ref.streamed_mlp(x, wu, wd),
+        library=None,
+        cublas=lambda: torch.matmul(gelu(x @ wu, approximate="tanh"), wd),
+        nbytes=(2 * t * d + 2 * d * f) * isz, flops=4 * t * d * f))
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", b * 16, b * 16,
+                                  64, s, s, None, dev), path="train"))
     return cases
+
+
+def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """K11 at the training paths' shapes: gpt2 (T = 8 x 1024 tokens, D =
+    1024, Vp = 50432 over its 50257-token vocabulary) and llama3-8b (T =
+    2 x 2048, D = 4096, Vp = vocab = 128256).  About 10% of the labels are
+    ignored; the kernel gets them clamped to 0, as ``streamed_xent_loss``
+    passes them.  The library yardstick is the cuBLAS chain ``h @ W``,
+    ``torch.logsumexp`` and ``gather``."""
+    from repro_torch.models.params import padded_vocab
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+
+    def library(h, w, y, vocab):
+        logits = (h @ w)[:, :vocab].float()
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(1, y.long()[:, None])[:, 0])
+
+    cases = []
+    for model, d, vocab in (("gpt2", 1024, 50257),
+                            ("llama3-8b", 4096, 128256)):
+        b, s = TRAIN_SHAPES[model]
+        t, vp = b * s, padded_vocab(vocab)
+        h = randn(t, d)
+        w = randn(d, vp, scale=1 / math.sqrt(d))
+        y = torch.randint(0, vocab, (t,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        ignored = torch.rand(t, generator=gen, device=dev) < 0.1
+        y = torch.where(ignored, 0, y).to(torch.int32)
+        cases.append(dict(
+            name="streamed_xent", model=model, path="train", head_dim=None,
+            shape=f"T={t},D={d},Vp={vp},vocab={vocab},ignored=10%",
+            kernel=lambda h=h, w=w, y=y, v=vocab: K.streamed_xent_parts(
+                h, w, y, vocab_size=v),
+            plain=lambda h=h, w=w, y=y, v=vocab: ref.xent_parts_ref(
+                h, w, y, v),
+            library=lambda h=h, w=w, y=y, v=vocab: library(h, w, y, v),
+            cublas=None, nbytes=(t * d + d * vp) * isz + 3 * t * 4,
+            flops=2 * t * d * vp))
+    return cases
+
+
+def _flat(torch, out):
+    """A kernel's output, its parts concatenated when it has several
+    (streamed_xent: lse and gold)."""
+    if isinstance(out, tuple):
+        return torch.cat([o.reshape(-1) for o in out])
+    return out
 
 
 def check_kernels(torch, timer):
@@ -612,10 +761,11 @@ def check_kernels(torch, timer):
                  for c in kernel_cases(torch, K, ref, dtype, gen)]
         cases += [dict(c, model="gpt2")
                   for c in gpt2_kernel_cases(torch, K, ref, dtype, gen)]
+        cases += xent_cases(torch, K, ref, dtype, gen)
         for c in cases:
-            out = c["kernel"]()
+            out = _flat(torch, c["kernel"]())
             torch.cuda.synchronize()
-            want = c["plain"]()
+            want = _flat(torch, c["plain"]())
             err = (out.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
             rel = err / max(scale, 1e-30)
@@ -1218,6 +1368,257 @@ def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
 
 
 # --------------------------------------------------------------------- #
+# Training
+# --------------------------------------------------------------------- #
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want| (float64)."""
+    d = (got.double() - want.double()).abs().max().item()
+    return d / max(want.double().abs().max().item(), 1e-30)
+
+
+def _train_counts(torch, K, expect):
+    """The launch counts since the last reset, and what differs from
+    ``expect`` (every other kernel must stay at 0)."""
+    counts = {k: n for k, n in K.launch_counts().items() if n}
+    bad = {k: (counts.get(k, 0), expect.get(k, 0))
+           for k in set(counts) | set(expect)
+           if counts.get(k, 0) != expect.get(k, 0)}
+    return counts, bad
+
+
+def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
+                         steps=3):
+    """``cfg``: full width cut to 4 layers, float32.  On one batch (B = 2,
+    S = 256, from the token pipeline) the kernel plan's ``forward_train``
+    loss must equal the eager plan's at relative 1e-5 and every gradient
+    leaf agree at relative 1e-4 (max |d| over max |eager|); then 3
+    ``make_train_step`` steps from the same weights on each plan must give
+    losses within relative 1e-4.  The kernel plan's launches in each step
+    must be the plan's: the forward, the re-run of each layer under remat,
+    the loss once (``train_step_launches``)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import (AdamWConfig, init_opt_state,
+                                         make_train_step)
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.serving.accuracy import jitter_params
+    params0 = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                          device=device, dtype=torch.float32)
+    if jitter:
+        params0 = jitter_params(
+            params0, torch.Generator(device=device).manual_seed(11))
+    pipe = TokenPipeline(cfg, ShapeConfig("smoke", 256, 2, "train"), seed=0)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in pipe.batch_at(0).items()}
+    expect = train_step_launches(model, cfg.num_layers)
+    leaves = tree_leaves(params0)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, grads = {}, {}
+    for fused in (True, False):
+        K.reset_launches()
+        out = forward_train(params0, dataclasses.replace(
+            cfg, use_fused_kernels=fused), batch)
+        grads[fused] = torch.autograd.grad(out, leaves)
+        _sync(torch, device)
+        loss[fused] = float(out.detach())
+        if fused:
+            grad_counts, grad_bad = _train_counts(torch, K, expect)
+    grad_rel = max(_rel(a, b) for a, b in zip(grads[True], grads[False]))
+    del grads
+    _free(torch, device)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    losses, step_bad = {}, []
+    for fused in (True, False):
+        run_cfg = dataclasses.replace(cfg, use_fused_kernels=fused)
+        params = map_tree(lambda t: t.detach().clone(), params0)
+        opt = init_opt_state(params)
+        step_fn = make_train_step(run_cfg, opt_cfg, device=device)
+        losses[fused] = []
+        for i in range(steps):
+            K.reset_launches()
+            params, opt, m = step_fn(params, opt, pipe.batch_at(i))
+            losses[fused].append(float(m["loss"]))
+            if fused:
+                _, bad = _train_counts(torch, K, expect)
+                if bad:
+                    step_bad.append((i, bad))
+        del params, opt
+        _free(torch, device)
+    step_rel = [abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                    losses[False])]
+    row = {"phase": "train_fused_vs_eager", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": 2,
+           "seq_len": 256, "loss_fused": loss[True],
+           "loss_eager": loss[False],
+           "loss_rel": abs(loss[True] - loss[False]) / abs(loss[False]),
+           "grad_rel_max": grad_rel, "step_losses_fused": losses[True],
+           "step_losses_eager": losses[False], "step_loss_rel": step_rel,
+           "launches_per_step": grad_counts, "expected_per_step": expect}
+    emit(row)
+    del params0, leaves
+    _free(torch, device)
+    problems = []
+    if not row["loss_rel"] <= 1e-5:
+        problems.append(f"loss rel {row['loss_rel']}")
+    if not grad_rel <= 1e-4:
+        problems.append(f"gradient rel {grad_rel}")
+    if not all(r <= 1e-4 for r in step_rel):
+        problems.append(f"step losses rel {step_rel}")
+    if grad_bad or step_bad:
+        problems.append(f"launches off the plan's: {grad_bad} {step_bad}")
+    if problems:
+        raise AssertionError(f"train_fused_vs_eager {cfg.name}: "
+                             + "; ".join(problems))
+    return row
+
+
+# Device time by kernel name: the repository's kernels (name fragment ->
+# what runs it on the training path), the rest is PyTorch's (cuBLAS for
+# the eager backward and the o-projection, elementwise, norms, AdamW).
+OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
+               ("split_reduce_kernel", "projections (K3/K5)"),
+               ("streamed_ffn_kernel", "FFN (K4/K6)"),
+               ("flash_offset_kernel", "attention (K7)"),
+               ("xent_", "loss (K11)"))
+
+
+def profile_step(torch, tr):
+    """One more step of trainer ``tr`` under ``torch.profiler``: device
+    milliseconds of the repository's kernels by stage and of PyTorch's
+    kernels (cuBLAS gemms apart), and the step's wall under the profiler.
+    None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr.pipeline.batch_at(tr.step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.params, tr.opt_state, m = tr.step_fn(tr.params, tr.opt_state,
+                                                batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    ms: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        stage = next((v for k, v in OWN_KERNELS if k in e.name), None)
+        if stage is None:
+            stage = ("PyTorch gemm" if any(
+                k in e.name.lower() for k in ("gemm", "xmma", "cutlass"))
+                else "PyTorch other")
+        ms[stage] = ms.get(stage, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not ms:
+        return None
+    return {"device_ms": ms, "busy_ms": sum(ms.values()),
+            "profiled_wall_ms": wall * 1e3}
+
+
+def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
+          device="cuda"):
+    """``cfg``: full width (gpt2 also full depth), bfloat16 compute, kernel
+    plan, through ``Trainer.run()``: float32 master weights and AdamW
+    state drawn by the trainer (seed 0), token-pipeline batches of
+    ``TRAIN_SHAPES[model]``, a checkpoint every ``ckpt_every`` steps
+    (under ``build/train_ckpt/``, removed after).  With ``replay_from`` a
+    second trainer resumes from that step's checkpoint and replays the
+    steps after it; its losses must equal the first run's at relative
+    1e-3 (bit equality is reported: the embedding's backward accumulates
+    with atomics).  Every loss must be finite and the last below the
+    first; the launches must be ``steps`` times the plan's per step."""
+    import shutil
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    b, s = TRAIN_SHAPES[model]
+    shape = ShapeConfig("train", s, b, "train")
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    first, second = (os.path.join(root, n) for n in ("run", "replay"))
+    opt = AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
+    tcfg = dict(total_steps=steps, checkpoint_every=ckpt_every,
+                log_every=10**9)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=first, **tcfg),
+                 opt, device=device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    tr.run()
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    per_step = train_step_launches(model, cfg.num_layers)
+    counts, bad = _train_counts(
+        torch, K, {k: n * steps for k, n in per_step.items()})
+    losses = [l for _, l in tr.history]
+    step_s = statistics.median(tr.step_s[1:])
+    row = {"phase": "train", "config": cfg.name, "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "master": "float32", "batch": b,
+           "seq_len": s, "steps": steps, "lr": lr, "note": note,
+           "losses": losses, "step_s": tr.step_s,
+           "step_s_median_after_first": step_s,
+           "tokens_per_s": b * s / step_s, "wall_s": wall,
+           "device_mem_peak": torch.cuda.max_memory_allocated(),
+           "ckpt_snapshot_s": tr.ckpt.snapshot_s,
+           "ckpt_write_s": tr.ckpt.write_s,
+           "disk_free_bytes": shutil.disk_usage(
+               os.path.join(ROOT, "build")).free,
+           "launches": counts, "launches_per_step_expected": per_step}
+    # Where a step's time goes (one more step, after the counted run); the
+    # idle share against the unprofiled median step.
+    prof = profile_step(torch, tr)
+    if prof is not None:
+        prof["idle_share"] = 1 - prof["busy_ms"] / (1e3 * step_s)
+    row["profile"] = prof
+    del tr
+    _free(torch, device)
+    problems = []
+    if replay_from:
+        os.makedirs(second)
+        name = f"step-{replay_from:08d}"
+        os.replace(os.path.join(first, name), os.path.join(second, name))
+        shutil.rmtree(first)
+        tr2 = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=second,
+                                                **tcfg), opt, device=device)
+        if not tr2.resume() or tr2.step != replay_from:
+            problems.append(f"no resume at step {replay_from}")
+        tr2.run()
+        _sync(torch, device)
+        replay = [l for _, l in tr2.history]
+        row.update(restore_s=tr2.restore_s, replay_losses=replay,
+                   replay_rel=[abs(a - b) / abs(b) for a, b in
+                               zip(replay, losses[replay_from:])],
+                   replay_bit_equal=replay == losses[replay_from:])
+        if len(replay) != steps - replay_from or not all(
+                r <= 1e-3 for r in row["replay_rel"]):
+            problems.append(f"replayed losses {replay} against "
+                            f"{losses[replay_from:]}")
+        del tr2
+    else:
+        # Time a restore of the last checkpoint (no replay).
+        from repro_torch.train import latest_checkpoint, restore_checkpoint
+        t1 = time.perf_counter()
+        restored = restore_checkpoint(latest_checkpoint(first), cfg,
+                                      device=device)
+        _sync(torch, device)
+        row["restore_s"] = time.perf_counter() - t1
+        del restored
+    _free(torch, device)
+    shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+    if not all(math.isfinite(l) for l in losses) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}: not finite or not falling")
+    if bad:
+        problems.append(f"launches off the plan's: {bad}")
+    if problems:
+        raise AssertionError(f"train {cfg.name}: " + "; ".join(problems))
+    return row
+
+
+# --------------------------------------------------------------------- #
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1251,8 +1652,9 @@ def main(argv=None) -> int:
         return 1
     t0 = time.perf_counter()
     built = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": built, "nvcc": _build.find_nvcc()})
+    build = {"phase": "build", "seconds": time.perf_counter() - t0,
+             "built": built, "nvcc": _build.find_nvcc()}
+    emit(build)
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as fh:
@@ -1261,7 +1663,7 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config
     llama, gpt2 = get_config("llama3-8b"), get_config("gpt2")
-    results = {"device": smi, "name": name}
+    results = {"device": smi, "name": name, "build": build}
     rows = check_kernels(torch, Timer(torch))
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
@@ -1287,6 +1689,20 @@ def main(argv=None) -> int:
         m: full_depth(torch, dataclasses.replace(c, use_fused_kernels=True),
                       m, jitter=jit, max_len=ml, hi=hi)
         for m, (c, jit, ml, hi) in models.items()}
+    results["train_fused_vs_eager"] = {
+        m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
+        for m, (_, jit, _, _) in models.items()}
+    results["train"] = {
+        "gpt2": train(torch, dataclasses.replace(gpt2, use_fused_kernels=True),
+                      "gpt2", steps=6, ckpt_every=3, replay_from=3, lr=1e-3,
+                      note="full width and depth"),
+        "llama3-8b": train(
+            torch, dataclasses.replace(llama, num_layers=4,
+                                       use_fused_kernels=True),
+            "llama3-8b", steps=3, ckpt_every=3, replay_from=0, lr=3e-5,
+            note="full width cut to 4 layers: float32 weights, gradients "
+                 "and two AdamW moments of all 32 layers take 128 GB, the "
+                 "card has 80")}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -1298,6 +1714,8 @@ def main(argv=None) -> int:
             paths.append((m, f"quant_{mode}", r["launches"]))
         paths.append((m, "quant_speculative",
                       fd["quant_spec_serve"]["launches"]))
+    for m, r in results["train"].items():
+        paths.append((m, "train", r["launches"]))
     summary = []
     for kname in TPU_KERNELS:
         for model, path, launches in paths:

@@ -1,7 +1,8 @@
 """Architecture configuration dataclass (copy of ``repro.configs.base``).
 
-Only what the port's slice reads is kept: the ``ModelConfig`` fields, the
-derived head/width accessors, the layer-pattern helpers and ``reduced()``.
+Only what the port's slices read is kept: the ``ModelConfig`` fields, the
+derived head/width accessors, the layer-pattern helpers and ``reduced()``,
+and ``ShapeConfig`` (``configs/base.py:250``), the training batch shape.
 Field names and defaults match the reference so a config converts between
 the two packages field by field.
 """
@@ -147,3 +148,16 @@ class ModelConfig:
             shared_attn_every=2 if self.shared_attn_every else 0,
             max_seq_len=512,
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length, global batch and kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"

@@ -16,6 +16,9 @@ reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
 ``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``
 never does, so gpt2's projections stay at full precision.  KV quantization
 changes no choice: the pools' dtype selects the attention twins.
+The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
+is ``streamed_xent`` for both families, with the reference's blocks at
+every token count.
 The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
 in a later slice.
 """
@@ -75,6 +78,7 @@ class StreamPlan:
     kv_len: int
     layers: Tuple[Tuple[str, LayerPlan], ...]
     quant: str = "none"          # the config's quant mode
+    lm_head: KernelChoice = EAGER  # final norm + LM head + loss (training)
 
     def layer(self, kind: str) -> LayerPlan:
         for k, lp in self.layers:
@@ -139,6 +143,12 @@ _DENSE_LAYERNORM_MLP = LayerPlan(
 )
 
 
+# The training loss of both families (the reference's ``lm_head`` choice
+# at token counts 64..8192, full and reduced configs).
+_STREAMED_XENT = KernelChoice("streamed_xent",
+                              (("block_t", 128), ("block_v", 512)))
+
+
 def _family_plan(cfg: ModelConfig) -> Optional[LayerPlan]:
     """The ported family ``cfg`` belongs to, or None."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
@@ -170,4 +180,4 @@ def plan_for(cfg: ModelConfig, tokens: int,
             lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
     return StreamPlan(arch=cfg.name, tokens=int(tokens),
                       kv_len=int(kv_len or tokens), layers=(("attn", lp),),
-                      quant=cfg.quant)
+                      quant=cfg.quant, lm_head=_STREAMED_XENT)

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the main serving path.
+"""Hand-written Hopper kernels for the serving and training paths.
 
 Every kernel: ``csrc/<name>.cu`` holds the CUDA C++ (built by ``_build.py``
 with nvcc for sm_90a, loaded with ctypes), ``<name>.py`` the wrapper that
@@ -19,10 +19,11 @@ from .rmsnorm_matmul import rmsnorm_matmul, rmsnorm_matmul_w8
 from .row_norm import layer_norm_rows
 from .streamed_ffn import (streamed_ffn, streamed_ffn_w8, streamed_mlp,
                            streamed_mlp_w8)
+from .streamed_xent import streamed_xent_loss, streamed_xent_parts
 
 # Every kernel, by the name its launch count goes under: K1-K8, the
 # quantized twins K9a-c (int8 / fp8 KV codes) and K10a-c (int8 weights),
-# and the row-norm helper.
+# the row-norm helper and the training loss K11.
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
@@ -39,6 +40,7 @@ KERNELS = {
     "streamed_ffn_w8": streamed_ffn_w8,
     "streamed_mlp_w8": streamed_mlp_w8,
     "row_norm": layer_norm_rows,
+    "streamed_xent": streamed_xent_parts,
 }
 
 
@@ -58,5 +60,6 @@ __all__ = [
     "paged_decode_attention", "paged_decode_attention_q",
     "paged_verify_attention", "paged_verify_attention_q", "rmsnorm_matmul",
     "rmsnorm_matmul_w8", "streamed_ffn", "streamed_ffn_w8", "streamed_mlp",
-    "streamed_mlp_w8", "KERNELS", "reset_launches", "launch_counts",
+    "streamed_mlp_w8", "streamed_xent_loss", "streamed_xent_parts",
+    "KERNELS", "reset_launches", "launch_counts",
 ]

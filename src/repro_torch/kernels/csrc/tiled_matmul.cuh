@@ -1,6 +1,8 @@
 // Split-K tiled matmul shared by rmsnorm_matmul (K3, NORM = true),
 // block_matmul (K5, NORM = false) and rmsnorm_matmul's weight-only int8
-// twin (K10a, NORM = true, W = int8_t):
+// twin (K10a, NORM = true, W = int8_t); its tile product
+// (`tile_accumulate`) also computes the logits tiles of streamed_xent
+// (K11):
 //   out[T, N] = xn @ W[D, N], xn = (rms_norm(x) * (1 + scale)).to(T) under
 //   NORM, else x itself; products summed in float32, out in x's dtype.
 //   With int8 codes W the normalised x stays float32 (not rounded to T),
@@ -31,51 +33,30 @@ namespace repro {
 
 constexpr int kMatmulBK = 32;
 
+// One thread's TM x TN outputs of the BT x BN tile at (row0, col0) of
+// xn[:, k_begin:k_end] @ W[k_begin:k_end, :], summed in float32 in K
+// order: 32-deep K tiles of x and W stream through the shared tiles `xs`
+// and `ws` (x normalised with `rstd_s` and rounded to T on load under
+// NORM, except for int8 codes W, whose x stays float32).  Every thread of
+// the block takes part (it synchronises); rows past t and columns past n
+// load as zeros.
 template <typename T, typename W, bool NORM, int BT, int BN, int TM, int TN>
-__global__ void __launch_bounds__((BT / TM) * (BN / TN))
-tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                    const W* __restrict__ w, const float* __restrict__ wscale,
-                    T* __restrict__ out, float* __restrict__ part, int t,
-                    int d, int n, int k_per_split, float eps) {
+__device__ __forceinline__ void tile_accumulate(
+    const T* __restrict__ x, const T* __restrict__ scale,
+    const W* __restrict__ w, const float* rstd_s,
+    float (&xs)[kMatmulBK][BT + 1], float (&ws)[kMatmulBK][BN], int t,
+    int d, int n, int row0, int col0, int k_begin, int k_end,
+    float (&acc)[TM][TN]) {
   constexpr bool W8 = std::is_same<W, int8_t>::value;
   constexpr int BK = kMatmulBK;
   constexpr int NT = (BT / TM) * (BN / TN);
-  constexpr int NW = NT / 32;
-  __shared__ float rstd_s[BT];
-  __shared__ float xs[BK][BT + 1];
-  __shared__ float ws[BK][BN];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.y * BT, col0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(d, k_begin + k_per_split);
-
-  if constexpr (NORM) {
-    // Pass 1: per-row inverse RMS over the whole row.
-    for (int r = warp; r < BT; r += NW) {
-      const int gr = row0 + r;
-      float ss = 0.f;
-      if (gr < t) {
-        const T* xr = x + (size_t)gr * d;
-        for (int k = lane; k < d; k += 32) {
-          const float v = to_f(xr[k]);
-          ss += v * v;
-        }
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) rstd_s[r] = rsqrtf(ss / (float)d + eps);
-    }
-    __syncthreads();
-  }
-
+  const int tid = threadIdx.x;
   const int tr = tid / (BN / TN), tc = tid % (BN / TN);
-  float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  // Pass 2: stream K tiles (x normalised on load under NORM).
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     for (int i = tid; i < BT * BK; i += NT) {
       const int r = i / BK, kk = i % BK;
@@ -110,6 +91,50 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
     }
     __syncthreads();
   }
+}
+
+template <typename T, typename W, bool NORM, int BT, int BN, int TM, int TN>
+__global__ void __launch_bounds__((BT / TM) * (BN / TN))
+tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                    const W* __restrict__ w, const float* __restrict__ wscale,
+                    T* __restrict__ out, float* __restrict__ part, int t,
+                    int d, int n, int k_per_split, float eps) {
+  constexpr bool W8 = std::is_same<W, int8_t>::value;
+  constexpr int NT = (BT / TM) * (BN / TN);
+  constexpr int NW = NT / 32;
+  __shared__ float rstd_s[BT];
+  __shared__ float xs[kMatmulBK][BT + 1];
+  __shared__ float ws[kMatmulBK][BN];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.y * BT, col0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(d, k_begin + k_per_split);
+
+  if constexpr (NORM) {
+    // Pass 1: per-row inverse RMS over the whole row.
+    for (int r = warp; r < BT; r += NW) {
+      const int gr = row0 + r;
+      float ss = 0.f;
+      if (gr < t) {
+        const T* xr = x + (size_t)gr * d;
+        for (int k = lane; k < d; k += 32) {
+          const float v = to_f(xr[k]);
+          ss += v * v;
+        }
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) rstd_s[r] = rsqrtf(ss / (float)d + eps);
+    }
+    __syncthreads();
+  }
+
+  // Pass 2: stream K tiles (x normalised on load under NORM).
+  const int tr = tid / (BN / TN), tc = tid % (BN / TN);
+  float acc[TM][TN];
+  tile_accumulate<T, W, NORM, BT, BN, TM, TN>(x, scale, w, rstd_s, xs, ws, t,
+                                               d, n, row0, col0, k_begin,
+                                               k_end, acc);
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {

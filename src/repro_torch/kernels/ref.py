@@ -295,3 +295,35 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                   lengths.to(q.device).long() - 1,
                                   window=window, scale=scale,
                                   k_scale=k_scale, v_scale=v_scale)
+
+
+def xent_parts_ref(hidden: torch.Tensor, head: torch.Tensor,
+                   labels: torch.Tensor, vocab_size: int):
+    """hidden [T, D], head [D, Vp], labels [T] in [0, Vp) -> (lse [T],
+    gold [T]) float32 (``ref.py:73``): logits from the float32 upcast
+    operands, pad-vocab columns (``v >= vocab_size``) at -1e30, ``lse`` by
+    logsumexp and ``gold`` the label's (masked) logit."""
+    logits = torch.matmul(hidden.float(), head.float())
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab_size
+    logits = logits.masked_fill(pad, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    return lse, gold
+
+
+def xent_nll_mean(lse: torch.Tensor, gold: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean of ``lse - gold`` over ``labels >= 0`` (the reference's
+    ``streamed_xent_loss`` tail): 0 for a batch with no valid label."""
+    valid = labels >= 0
+    nll = torch.where(valid, lse - gold, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def xent_loss_ref(hidden: torch.Tensor, head: torch.Tensor,
+                  labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy over ``labels >= 0`` (``ref.py:82``); ignored
+    labels (-100) are clamped to 0 before the gather."""
+    lse, gold = xent_parts_ref(hidden, head, torch.clamp(labels, min=0),
+                               vocab_size)
+    return xent_nll_mean(lse, gold, labels)

@@ -6,17 +6,25 @@ float32, matmuls in the compute dtype, attention scores accumulated in
 float32.  The ``fused_*`` wrappers reshape model-layout tensors for the
 kernels the StreamPlan selected (single device; the sharded dispatch comes
 with the distributed slice).
+
+Gradients (``_kernel_fwd_eager_bwd``, the reference's
+``_pallas_fwd_eager_bwd``): where an input requires grad and grad mode is
+on, a wrapper runs its kernel for the forward value and recomputes the
+backward through the eager formulation it replaces, from the saved
+inputs; there is no backward kernel, as the reference has none.  Serving
+runs under ``torch.no_grad()`` and calls the kernel directly, with no
+autograd node.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from .. import kernels as K
-from ..kernels.ref import NEG_INF, act
+from ..kernels.ref import NEG_INF, act, xent_nll_mean
 
 Params = Dict[str, Any]
 # A weight on a w8 stage: the tensor itself (quantized at each call, as the
@@ -214,40 +222,105 @@ def ffn(x: torch.Tensor, p: Params, *, activation: str,
 
 
 # --------------------------------------------------------------------- #
+# Kernel forward, eager backward (``layers.py:697-716``)
+# --------------------------------------------------------------------- #
+
+class _KernelFwdEagerBwd(torch.autograd.Function):
+    """The kernel computes the forward value (grad mode is off inside);
+    the backward reruns ``eager`` on detached copies of the saved inputs
+    with grad on and returns ``torch.autograd.grad`` of it.  Inputs that
+    need no gradient (integer labels, frozen tensors) get None."""
+
+    @staticmethod
+    def forward(ctx, fused: Callable, eager: Callable, *args):
+        ctx.eager = eager
+        ctx.save_for_backward(*args)
+        return fused(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        wants = ctx.needs_input_grad[2:]
+        inputs = [a.detach().requires_grad_(w)
+                  for a, w in zip(ctx.saved_tensors, wants)]
+        with torch.enable_grad():
+            out = ctx.eager(*inputs)
+        diff = [a for a, w in zip(inputs, wants) if w]
+        got = iter(torch.autograd.grad(out, diff, grads, allow_unused=True)
+                   if diff else ())
+        return (None, None) + tuple(next(got) if w else None for w in wants)
+
+
+def _kernel_fwd_eager_bwd(fused: Callable, eager: Callable) -> Callable:
+    """``fused`` with ``eager``'s gradient.  Without grad mode, or when no
+    input requires grad (serving), ``fused`` runs as it is."""
+    def apply(*args):
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            return _KernelFwdEagerBwd.apply(fused, eager, *args)
+        return fused(*args)
+    return apply
+
+
+def _refuse_w8_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "weight-only int8 stages have no gradient yet: the reference's "
+            "straight-through _w8_ste (layers.py:233) comes with quantized "
+            "training")
+
+
+# --------------------------------------------------------------------- #
 # Fused wrappers (the plan's kernels)
 # --------------------------------------------------------------------- #
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] -> [B * S, D], contiguous, for the token-major kernels."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
 def fused_norm_matmul(x: torch.Tensor, scale: torch.Tensor, w: W8Weight,
                       *, eps: float = 1e-6, w8: int = 0) -> torch.Tensor:
-    """rms_norm(x) @ w through ``rmsnorm_matmul``: x [B, S, D] -> [B, S, N].
-    ``w8`` (the plan's block flag): weight-only int8 through the
-    ``rmsnorm_matmul_w8`` twin (``layers.py:725``)."""
-    b, s, d = x.shape
-    xf = x.reshape(b * s, d).contiguous()
+    """rms_norm(x) @ w through ``rmsnorm_matmul``: x [B, S, D] -> [B, S, N]
+    (``layers.py:725``).  ``w8`` (the plan's block flag): weight-only int8
+    through the ``rmsnorm_matmul_w8`` twin (serving only)."""
+    b, s, _ = x.shape
     if w8:
+        _refuse_w8_grad(x, scale, w)
         codes, ws = w8_codes(w)
-        y = K.rmsnorm_matmul_w8(xf, scale, codes, w_scale=ws, eps=eps)
-    else:
-        y = K.rmsnorm_matmul(xf, scale, w, eps=eps)
-    return y.reshape(b, s, y.shape[-1])
+        y = K.rmsnorm_matmul_w8(_rows(x), scale, codes, w_scale=ws, eps=eps)
+        return y.reshape(b, s, y.shape[-1])
+
+    def fused(x, scale, w):
+        return K.rmsnorm_matmul(_rows(x), scale, w, eps=eps).reshape(
+            b, s, w.shape[-1])
+
+    def eager(x, scale, w):
+        return rms_norm(x, scale, eps) @ w
+
+    return _kernel_fwd_eager_bwd(fused, eager)(x, scale, w)
 
 
 def fused_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w through ``block_matmul``: x [B, S, D] -> [B, S, N]."""
-    b, s, d = x.shape
-    y = K.block_matmul(x.reshape(b * s, d).contiguous(), w)
-    return y.reshape(b, s, w.shape[-1])
+    """x @ w through ``block_matmul``: x [B, S, D] -> [B, S, N]
+    (``layers.py:772``)."""
+    b, s, _ = x.shape
+
+    def fused(x, w):
+        return K.block_matmul(_rows(x), w).reshape(b, s, w.shape[-1])
+
+    return _kernel_fwd_eager_bwd(fused, lambda x, w: x @ w)(x, w)
 
 
 def fused_norm(kind: str, x: torch.Tensor, p: Params) -> torch.Tensor:
-    """``apply_norm`` on the kernel plan: LayerNorm through the row-norm
-    kernel, whose rows do not depend on the row count; RMSNorm stays
-    eager (the llama3 plan folds every one of them into a kernel)."""
+    """``apply_norm`` on the kernel plan's serving path: LayerNorm through
+    the row-norm kernel, whose rows do not depend on the row count;
+    RMSNorm stays eager (the llama3 plan folds every one of them into a
+    kernel).  Serving only: training keeps ``apply_norm``, as the
+    reference leaves the norm to XLA."""
     if kind == "rmsnorm":
         return rms_norm(x, p["scale"])
     b, s, d = x.shape
-    y = K.layer_norm_rows(x.reshape(b * s, d).contiguous(), p["scale"],
-                          p["bias"])
+    y = K.layer_norm_rows(_rows(x), p["scale"], p["bias"])
     return y.reshape(b, s, d)
 
 
@@ -256,31 +329,92 @@ def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
               w8: int = 0) -> torch.Tensor:
     """GLU FFN through ``streamed_ffn``, or the ungated MLP through
     ``streamed_mlp``; with ``norm_scale`` the pre-FFN RMSNorm is folded
-    into the kernel.  ``w8``: weight-only int8 on every projection through
-    the ``_w8`` twins (``layers.py:795``)."""
+    into the kernel (``layers.py:795``).  ``w8``: weight-only int8 on
+    every projection through the ``_w8`` twins (serving only)."""
     b, s, d = x.shape
-    xf = x.reshape(b * s, d).contiguous()
     names = ("wg", "wu", "wd") if gated else ("wu", "wd")
     if w8:
+        _refuse_w8_grad(x, norm_scale, *(p[n] for n in names))
         codes, scales = {}, {}
         for n in names:
             codes[n], scales[n + "_scale"] = w8_codes(p[n])
         fn = K.streamed_ffn_w8 if gated else K.streamed_mlp_w8
-        y = fn(xf, *(codes[n] for n in names), activation=activation,
+        y = fn(_rows(x), *(codes[n] for n in names), activation=activation,
                norm_scale=norm_scale, **scales)
-    else:
-        fn = K.streamed_ffn if gated else K.streamed_mlp
-        y = fn(xf, *(p[n] for n in names), activation=activation,
-               norm_scale=norm_scale)
-    return y.reshape(b, s, d)
+        return y.reshape(b, s, d)
+    kernel = K.streamed_ffn if gated else K.streamed_mlp
+    args = (x,) + tuple(p[n] for n in names)
+    if norm_scale is not None:
+        args += (norm_scale,)
+
+    def split(args):
+        ws = args[1:1 + len(names)]
+        norm = args[1 + len(names)] if norm_scale is not None else None
+        return args[0], ws, norm
+
+    def fused(*args):
+        x, ws, norm = split(args)
+        return kernel(_rows(x), *ws, activation=activation,
+                      norm_scale=norm).reshape(b, s, d)
+
+    def eager(*args):
+        x, ws, norm = split(args)
+        h = rms_norm(x, norm) if norm is not None else x
+        return ffn(h, dict(zip(names, ws)), activation=activation,
+                   gated=gated)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(*args)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_kv: int = 512) -> torch.Tensor:
-    """Whole-sequence attention through the static flash kernel."""
-    return K.flash_attention(q, k, v, causal=causal, window=window,
-                             block_kv=block_kv)
+    """Whole-sequence attention through the static flash kernel
+    (``layers.py:915``); its backward recomputes ``streaming_attention``."""
+
+    def fused(q, k, v):
+        return K.flash_attention(q, k, v, causal=causal, window=window,
+                                 block_kv=block_kv)
+
+    def eager(q, k, v):
+        if window:
+            raise NotImplementedError("eager local attention (sliding "
+                                      "window) is not ported yet")
+        return streaming_attention(q, k, v, causal=causal)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(q, k, v)
+
+
+def fused_streamed_xent(hidden: torch.Tensor, head: torch.Tensor,
+                        labels: torch.Tensor, vocab_size: int, *,
+                        block_t: int = 128,
+                        block_v: int = 512) -> torch.Tensor:
+    """Mean cross-entropy through ``streamed_xent`` (``layers.py:1124``,
+    single device): hidden [B, S, D], head [D, Vp], labels [B, S] with
+    negative labels ignored.  The forward never holds the [T, Vp] logits;
+    the backward recomputes them through the eager formulation, which
+    rounds ``hidden @ head`` to the compute dtype before the float32 cast
+    (the kernel does not), as the reference does.  ``block_t`` and
+    ``block_v`` are the plan's hints; the kernel picks its own tiles."""
+    del block_t, block_v
+    b, s, d = hidden.shape
+
+    def fused(hidden, head, labels):
+        return K.streamed_xent_loss(_rows(hidden), head, labels.reshape(-1),
+                                    vocab_size=vocab_size)
+
+    def eager(hidden, head, labels):
+        logits = (hidden.reshape(b * s, d) @ head).float()
+        pad = torch.arange(logits.shape[-1],
+                           device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+        lf = labels.reshape(-1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, 1,
+                            torch.clamp(lf, min=0).long()[:, None])[:, 0]
+        return xent_nll_mean(lse, gold, lf)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(hidden, head, labels)
 
 
 def fused_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

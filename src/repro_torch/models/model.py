@@ -1,7 +1,8 @@
-"""The language model's serving entry points: ``prefill_chunk``,
+"""The language model's entry points: for serving, ``prefill_chunk``,
 ``decode_step`` and the speculative ``verify_step`` against the paged KV
 cache, and the whole-prompt ``prefill`` whose fresh cache the engine
-places into pages.
+places into pages; for training, ``forward_hidden`` and ``forward_train``
+(the streamed cross-entropy loss, ``model.py:349-447``).
 
 Port of ``repro.models.model`` on the main paths.  Layers run as a Python
 loop over ``params["layers"]`` (the reference scans over stacked pattern
@@ -26,6 +27,17 @@ Quantized KV pools (a ``k_scale`` leaf in the cache) take the reference's
 quantized branches: codes written through the quantize-on-write
 primitives, read by the kernels' quantized twins on the kernel plan or
 dequantized densely (``gather_pages_dequant``) on the eager plan.
+
+Training keeps that routing for the serving entry points only.  On the
+training path the plan's stages run their kernels with the eager backward
+(``layers._kernel_fwd_eager_bwd``), and what the reference leaves to XLA
+stays PyTorch ops with autograd: the o-projection ``@``, gpt2's
+LayerNorms and the final norm (row invariance is a serving concern).
+float32 master weights are cast to the compute dtype inside the forward
+(the reference's ``_cast_tree``), so gradients flow back to the float32
+leaves; ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
+scan body), which runs its kernels a second time.
 """
 
 from __future__ import annotations
@@ -34,10 +46,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.stream_plan import LayerPlan, StreamPlan, plan_for
 from . import layers as L
+from .params import compute_dtype, map_tree
 
 Tree = Any
 Cache = Dict[str, torch.Tensor]
@@ -104,12 +118,19 @@ def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor,
     return logits.masked_fill(pad, L.NEG_INF)
 
 
+def _plan_norm(train: bool):
+    """The norm in front of a kernel that does not fold it: the row-norm
+    kernel when serving, PyTorch's when training (the reference's XLA
+    norm, with autograd)."""
+    return L.apply_norm if train else L.fused_norm
+
+
 def _project_qkv(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
-                 lplan: Optional[LayerPlan]
+                 lplan: Optional[LayerPlan], train: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ln + Q/K/V projections, eager or through the plan's kernel (three
     launches, one per projection, as the reference): ``rmsnorm_matmul``
-    folds the norm in; under ``block_matmul`` the norm stays eager."""
+    folds the norm in; under ``block_matmul`` the norm stays outside."""
     choice = lplan.qkv if lplan is not None else None
     if choice is not None and choice.fused:
         if choice.implementation == "rmsnorm_matmul":
@@ -119,17 +140,18 @@ def _project_qkv(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
         if choice.implementation != "block_matmul":
             raise NotImplementedError(
                 f"qkv kernel {choice.implementation!r} is not ported yet")
-        h = L.fused_norm(cfg.norm, x, ln_p)
+        h = _plan_norm(train)(cfg.norm, x, ln_p)
         return tuple(L.fused_matmul(h, p[w]) for w in ("wq", "wk", "wv"))
     h = L.apply_norm(cfg.norm, x, ln_p)
     return h @ p["wq"], h @ p["wk"], h @ p["wv"]
 
 
 def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
-               lplan: Optional[LayerPlan]) -> torch.Tensor:
+               lplan: Optional[LayerPlan], train: bool = False
+               ) -> torch.Tensor:
     """ln2 + FFN, eager or through ``streamed_ffn`` / ``streamed_mlp``;
     ``fuse_norm`` folds the RMSNorm into the kernel, else the norm stays
-    eager."""
+    outside."""
     choice = lplan.ffn if lplan is not None else None
     if choice is not None and choice.fused:
         if choice.implementation not in ("streamed_ffn", "streamed_mlp"):
@@ -140,7 +162,7 @@ def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
             return L.fused_ffn(x, p, activation=cfg.activation,
                                gated=cfg.gated_ffn,
                                norm_scale=ln_p["scale"], w8=w8)
-        return L.fused_ffn(L.fused_norm(cfg.norm, x, ln_p), p,
+        return L.fused_ffn(_plan_norm(train)(cfg.norm, x, ln_p), p,
                            activation=cfg.activation, gated=cfg.gated_ffn,
                            w8=w8)
     return L.ffn(L.apply_norm(cfg.norm, x, ln_p), p,
@@ -148,10 +170,14 @@ def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor,
-              lplan: Optional[LayerPlan]) -> torch.Tensor:
+              lplan: Optional[LayerPlan], train: bool = False
+              ) -> torch.Tensor:
     """The attention output projection: ``block_matmul`` on the kernel
-    plan (its split depends on the weight shape alone), else ``@``."""
-    return L.fused_matmul(o, wo) if lplan is not None else o @ wo
+    plan's serving path (its split depends on the weight shape alone),
+    else ``@`` (the reference's, ``model.py:167``)."""
+    if lplan is not None and not train:
+        return L.fused_matmul(o, wo)
+    return o @ wo
 
 
 def _layer_pools(cache: Cache, layer: int):
@@ -165,14 +191,15 @@ def _layer_pools(cache: Cache, layer: int):
 
 def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                      positions: torch.Tensor, *, window: int,
-                     lplan: Optional[LayerPlan]
+                     lplan: Optional[LayerPlan], train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One attention block over whole sequences (``model.py:144-216``);
-    returns the block output and the layer's K/V for the decode cache."""
+    returns the block output and the layer's K/V for the decode cache.
+    ``train``: the training path's routing (module docstring)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     ap = p["attn"]
-    q, k, v = _project_qkv(cfg, ap, x, p["ln1"], lplan)
+    q, k, v = _project_qkv(cfg, ap, x, p["ln1"], lplan, train)
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
@@ -187,8 +214,8 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                                   "is not ported yet")
     else:
         o = L.streaming_attention(q, k, v, causal=cfg.causal)
-    x = x + _out_proj(o.reshape(b, s, hq * hd), ap["wo"], lplan)
-    return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan), k, v
+    x = x + _out_proj(o.reshape(b, s, hq * hd), ap["wo"], lplan, train)
+    return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan, train), k, v
 
 
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -212,6 +239,90 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
         vs.append(v)
     logits = _logits(cfg, params, x[:, -1:], plan)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# --------------------------------------------------------------------- #
+# Training: hidden states and the streamed cross-entropy loss
+# --------------------------------------------------------------------- #
+
+def _cast_tree(cfg: ModelConfig, params: Tree) -> Tree:
+    """float32 leaves cast to the compute dtype (``model.py:89``); the cast
+    is differentiable, so gradients reach float32 master weights."""
+    dt = compute_dtype(cfg)
+    return map_tree(lambda a: a.to(dt) if a.dtype == torch.float32 else a,
+                    params)
+
+
+def _chunk_of(n: int, want: int) -> int:
+    """The largest chunk <= ``want`` dividing ``n`` (``model.py:94``)."""
+    c = min(want, n)
+    while n % c:
+        c = math.gcd(n, c)
+    return max(1, c)
+
+
+def forward_hidden(params: Tree, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor], *, remat: bool = True,
+                   plan: Optional[StreamPlan] = None) -> torch.Tensor:
+    """Embedding + every block + final norm -> hidden states [B, S, D]
+    (``model.py:349``).  ``batch["tokens"]`` [B, S] int; ``remat`` wraps
+    each layer in ``torch.utils.checkpoint`` (non-reentrant), so its
+    activations are recomputed in the backward."""
+    params = _cast_tree(cfg, params)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _embed(cfg, params, tokens, positions)
+    plan = resolve_plan(cfg, b * s, plan=plan)
+    for i, lp in enumerate(params["layers"]):
+        def block(x, lp=lp, i=i):
+            return _attn_block_full(cfg, lp, x, positions,
+                                    window=_window(cfg, i),
+                                    lplan=_lplan(plan, cfg.layer_kind(i)),
+                                    train=True)[0]
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    return L.apply_norm(cfg.norm, x, params["final_norm"])
+
+
+def streamed_xent(hidden: torch.Tensor, head: torch.Tensor,
+                  labels: torch.Tensor, vocab_size: int,
+                  chunk: int = 256) -> torch.Tensor:
+    """Mean cross-entropy over ``labels >= 0``, chunked over the sequence
+    (the eager plan's loss, ``model.py:403``): hidden [B, S, D], head
+    [D, Vp], labels [B, S] with -100 = ignore.  Each chunk's logits are
+    ``hidden @ head`` in the compute dtype, then float32."""
+    s = hidden.shape[1]
+    c = _chunk_of(s, chunk)
+    pad = torch.arange(head.shape[-1], device=hidden.device) >= vocab_size
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(0, s, c):
+        y = labels[:, i:i + c]
+        logits = (hidden[:, i:i + c] @ head).float().masked_fill(pad,
+                                                                  L.NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(y, min=0).long()[..., None])[..., 0]
+        valid = y >= 0
+        tot = tot + torch.where(valid, lse - gold, 0.0).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1)
+
+
+def forward_train(params: Tree, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor], *, remat: bool = True,
+                  plan: Optional[StreamPlan] = None) -> torch.Tensor:
+    """The streamed cross-entropy training loss (``model.py:435``): batch
+    ``{"tokens", "labels"}`` [B, S] int, -100 = ignore.  On the kernel
+    plan the loss runs through ``streamed_xent`` (K11), else eagerly."""
+    labels = batch["labels"]
+    plan = resolve_plan(cfg, labels.numel(), plan=plan)
+    hidden = forward_hidden(params, cfg, batch, remat=remat, plan=plan)
+    head = params["lm_head"].to(compute_dtype(cfg))
+    if plan is not None and plan.lm_head.fused:
+        return L.fused_streamed_xent(hidden, head, labels, cfg.vocab_size,
+                                     **plan.lm_head.kw)
+    return streamed_xent(hidden, head, labels, cfg.vocab_size)
 
 
 def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,

@@ -10,7 +10,10 @@ plain list ``layers`` of per-layer dicts and loops over it in Python.
   with the reference's distributions (normal scaled by 1/sqrt(fan_in),
   zero norm scales);
 * ``params_from_numpy`` bridges a reference tree (nested dicts/tuples of
-  numpy arrays) into that layout, cast once to the compute dtype;
+  numpy arrays) into that layout, cast once to the compute dtype (float32
+  master weights for training with ``dtype=torch.float32``), and
+  ``params_to_numpy`` writes a port tree (weights, gradients, AdamW
+  moments) back into the reference's stacked layout;
 * ``quantize_weights`` replaces the weights of the plan's weight-only int8
   stages by their (codes, scales) once per tree, where the reference
   quantizes inside every fused call (the same deterministic codes).
@@ -116,6 +119,13 @@ def map_tree(fn: Callable, tree: Tree) -> Tree:
     return fn(tree)
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a tree, in ``map_tree``'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Tree:
@@ -163,7 +173,7 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
         for p in range(period):
             layers.append(map_tree(lambda a: to_t(np.asarray(a)[g]),
                                    tree["blocks"][p]))
-    for rest in tree["rest"]:
+    for rest in tree.get("rest", ()):
         layers.append(map_tree(to_t, rest))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
@@ -174,6 +184,46 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
     out.update({"layers": layers,
                 "final_norm": map_tree(to_t, tree["final_norm"]),
                 "lm_head": to_t(tree["lm_head"])})
+    return out
+
+
+def _stack(trees) -> Tree:
+    """Stack the leaves of same-shaped trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def params_to_numpy(params: Tree, cfg: ModelConfig) -> Tree:
+    """The inverse of ``params_from_numpy``: a port tree (per-layer list
+    ``layers``) as the reference's tree of numpy arrays, layers stacked
+    into pattern groups (``blocks``: one dict per pattern position with
+    leaves [G, ...]; ``rest``: the remainder layers).  bfloat16 leaves
+    come back as float32 (numpy has no bfloat16; the widening is exact)."""
+    period = len(cfg.layer_pattern)
+    groups = cfg.num_layers // period
+
+    def to_np(t: torch.Tensor) -> np.ndarray:
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    layers = [map_tree(to_np, lp) for lp in params["layers"]]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.num_layers}")
+    out = {"embed": to_np(params["embed"])}
+    if "pos_embed" in params:
+        out["pos_embed"] = to_np(params["pos_embed"])
+    out.update({
+        "blocks": tuple(_stack(layers[p:groups * period:period])
+                        for p in range(period)) if groups else (),
+        "rest": tuple(layers[groups * period:]),
+        "final_norm": map_tree(to_np, params["final_norm"]),
+        "lm_head": to_np(params["lm_head"]),
+    })
     return out
 
 

@@ -26,7 +26,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert {"repro_torch.serving.engine", "repro_torch.serving.prefix_cache",
-            "repro_torch.kernels.paged_attention"} <= set(modules)
+            "repro_torch.kernels.paged_attention",
+            "repro_torch.train.trainer", "repro_torch.distributed.optimizer",
+            "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.kernels.streamed_xent"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"

@@ -168,6 +168,17 @@ def test_plan_for_matches_reference(arch):
         for draft_len in (1, 4, 20):
             assert (mine.verify_window(draft_len)
                     == ref.verify_window(draft_len))
+    # A training step's tokens (``forward_train``: no KV length): the
+    # stages it runs, and the loss (final norm + LM head + streamed xent).
+    for tokens in (64, 512, 4096):
+        mine, ref = plan_for(cfg, tokens), j_plan_for(j_cfg, tokens)
+        for stage in ("qkv", "attention", "ffn"):
+            got = getattr(mine.layer("attn"), stage)
+            want = getattr(ref.layer("attn"), stage)
+            assert (got.implementation, got.blocks) == (
+                want.implementation, want.blocks), stage
+        assert (mine.lm_head.implementation, mine.lm_head.blocks) == (
+            ref.lm_head.implementation, ref.lm_head.blocks)
     assert plan_for(base, 4, 256) is None          # eager config
 
 
