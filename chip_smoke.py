@@ -17,44 +17,56 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               verify attention over full-precision, int8 and fp8 pools;
               the training path's static attention and streamed
               cross-entropy at a training step's tokens: gpt2 8 x 1024,
-              llama3-8b 2 x 2048 with GQA),
+              llama3-8b 2 x 2048 with GQA; granite-moe-3b's MoE experts
+              (K12), router product, ln2 rows, projections and attention
+              at decode, verify, a prefill chunk and a whole prompt, and
+              granite-moe-1b's experts, projections, attention and loss
+              at a training step's 2 x 2048 tokens),
               in bfloat16 and float32: max error against the stated
               tolerance, kernel / plain / library times (CUDA events, L2
               flushed between launches) and the card's bound; every row
               of each verify kernel equals its decode kernel at that
-              row's length, bit for bit;
+              row's length, bit for bit; K12's bound counts the experts
+              and (token, expert) pairs its gates keep, the dense-gather
+              bound beside it;
 3. row_invariance — every call on the kernel plan's path gives rows 0..3
               the same bits at 4 rows (decode) as at 8, 12 and 20 (verify
               windows of 2, 3 and 5): the projection and FFN kernels and
               their int8 twins, the o-projection, the LM head and the
-              norms (required); the eager plan's PyTorch calls at those
+              norms, and granite-moe-3b's MoE stage at 1, 8, 12, 20 and
+              64 rows (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
-4. fused_vs_eager, gpt2_fused_vs_eager — llama3-8b and gpt2 (jittered) at
-              full width cut to 4 layers, float32: a mixed burst through
+4. fused_vs_eager, gpt2_fused_vs_eager, granite_fused_vs_eager —
+              llama3-8b, gpt2 (jittered) and granite-moe-3b at full width
+              cut to 4 layers, float32: a mixed burst through
               ``ServingEngine`` with the kernel plan and with the eager
-              plan must give the same greedy tokens (gpt2: with chunked
-              and with whole-prompt admission);
-5. spec_fused_vs_eager — both models at 4 layers, float32, on the
+              plan must give the same greedy tokens (gpt2 and granite:
+              with chunked and with whole-prompt admission, the kernel
+              plan launching exactly its path's kernels);
+5. spec_fused_vs_eager — the three models at 4 layers, float32, on the
               speculative burst (8 prompts sharing a 512-token prefix, two
               repeated verbatim, 32 new tokens each): the plain engine (no
               prefix cache), the default engine (prefix cache on), the
               speculative engine (draft_len 4) with the kernel plan and
-              with the eager plan must all give the same greedy tokens;
-6. quant_fused_vs_eager — both models at 4 layers, float32: under every
+              with the eager plan must all give the same greedy tokens,
+              the speculative one launching exactly its path's kernels;
+6. quant_fused_vs_eager — the three models at 4 layers, float32: under every
               quant mode (kv_int8, kv_fp8, w8, w8_kv8) the kernel plan must
               give the eager plan's tokens (weight modes: on the eager w8
               reference weights), and under kv_int8 the speculative engine
               the plain engine's;
-7. accuracy — both models at 4 layers, float32, jittered: the
+7. accuracy — the three models at 4 layers, float32 (gpt2 jittered): the
               teacher-forced gate of every quant mode against the
               unquantized engine (max logit error, token equality; the
               errors must be finite);
-8. serve, gpt2_serve, spec_serve, quant_serve, quant_spec_serve — each
-              model at full width and depth, bfloat16, random weights
+8. serve, gpt2_serve, granite_serve, spec_serve, quant_serve,
+              quant_spec_serve — llama3-8b, gpt2 and granite-moe-3b at
+              full width and depth, bfloat16, random weights
               drawn on the card from a seed (gpt2 jittered): a mixed burst
               of 8 prompts (37..1000 tokens; gpt2 up to 992 in its
               1024-position context; 32 new tokens each) through the
-              paged, chunked-prefill engine (gpt2 also whole-prompt); the
+              paged, chunked-prefill engine (gpt2 and granite also
+              whole-prompt); the
               speculative burst through the speculative engine against
               the plain engine, token for token (required: the path is
               row-invariant); then both under w8_kv8 (speculative token
@@ -64,7 +76,7 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               twins, and never K1, K2 or K8, under KV quantization) and
               complete every request; the first prompt served alone must
               repeat its burst tokens;
-9. train_fused_vs_eager — both models at full width cut to 4 layers,
+9. train_fused_vs_eager — the three models at full width cut to 4 layers,
               float32, B = 2, S = 256: the kernel plan's ``forward_train``
               loss against the eager plan's (relative 1e-5) and every
               gradient leaf (1e-4), 3 ``make_train_step`` steps on each plan
@@ -76,9 +88,11 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               and depth (B = 8, S = 1024) for 6 steps with a checkpoint
               every 3, then a second trainer resuming from step 3 and
               replaying steps 4-6 (losses equal at relative 1e-3, bit
-              equality reported); llama3-8b at full width cut to 4 layers
+              equality reported); llama3-8b at full width cut to 2 layers
               (B = 2, S = 2048; the full depth does not fit one card) for
-              3 steps and a timed restore.  Losses finite and falling,
+              3 steps and a timed restore; granite-moe-1b at full width
+              and depth (B = 2, S = 2048, lr 3e-5) for 3 steps, no
+              checkpoint.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
@@ -134,8 +148,12 @@ TPU_KERNELS = {
     # made a kernel so that its rows do not depend on the row count.
     "row_norm": "src/repro/models/layers.py:195",
     "streamed_xent": "src/repro/kernels/streamed_xent.py:35",
+    "moe_experts": "src/repro/kernels/moe_experts.py:35",
+    # The row-norm helper's RMSNorm mode: the eager RMSNorm the reference
+    # leaves to XLA in front of the MoE router and experts.
+    "rms_norm_rows": "src/repro/models/layers.py:187",
 }
-HELPERS = {"row_norm"}
+HELPERS = {"row_norm", "rms_norm_rows"}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "rmsnorm_matmul": _CSRC + "rmsnorm_matmul.cu",
@@ -154,6 +172,8 @@ SOURCES = {
     "streamed_mlp_w8": _CSRC + "streamed_ffn.cu",
     "row_norm": _CSRC + "row_norm.cu",
     "streamed_xent": _CSRC + "streamed_xent.cu",
+    "moe_experts": _CSRC + "moe_experts.cu",
+    "rms_norm_rows": _CSRC + "row_norm.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 # On the kernel plan the o-projection runs through block_matmul, llama3's
@@ -168,12 +188,26 @@ GPT2_PATHS = {
                      "flash_attention_static", "paged_attention",
                      "row_norm"},
 }
+# granite-moe: llama3's attention kernels (at head dim 64), its final norm
+# and LM head through rmsnorm_matmul; ln2 through the row-norm kernel's
+# RMSNorm mode, the router product through block_matmul (besides the
+# o-projection), the experts through moe_experts.
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_TRAIN = "granite-moe-1b-a400m"
+_GRANITE = {"rmsnorm_matmul", "block_matmul", "rms_norm_rows", "moe_experts"}
+GRANITE_PATHS = {
+    "chunked": _GRANITE | {"flash_attention", "paged_attention"},
+    "whole_prompt": _GRANITE | {"flash_attention_static", "paged_attention"},
+}
+SERVE_PATHS = {"llama3-8b": {"chunked": LLAMA_PATH}, "gpt2": GPT2_PATHS,
+               GRANITE: GRANITE_PATHS}
 # The speculative engine verifies every decode: K8, never K1.
 SPEC_PATHS = {
     "llama3-8b": {"rmsnorm_matmul", "streamed_ffn", "flash_attention",
                   "paged_verify_attention", "block_matmul"},
     "gpt2": {"block_matmul", "streamed_mlp", "flash_attention",
              "paged_verify_attention", "row_norm"},
+    GRANITE: _GRANITE | {"flash_attention", "paged_verify_attention"},
 }
 # Under w8_kv8 the attention kernels read code pools (K9, never K1, K2 or
 # K8) and the w8 stages run their int8 twins (K10); the o-projection and
@@ -198,6 +232,17 @@ QUANT_PATHS = {
     ("gpt2", "speculative"): {"block_matmul", "streamed_mlp_w8",
                               "flash_attention_q",
                               "paged_verify_attention_q", "row_norm"},
+    # granite: qkv through the int8 twin, the experts at full precision
+    # (K12 has no int8 twin), the LM head rmsnorm_matmul as llama3's.
+    (GRANITE, "chunked"): _GRANITE | {"rmsnorm_matmul_w8",
+                                      "flash_attention_q",
+                                      "paged_attention_q"},
+    (GRANITE, "whole_prompt"): _GRANITE | {"rmsnorm_matmul_w8",
+                                           "flash_attention_static",
+                                           "paged_attention_q"},
+    (GRANITE, "speculative"): _GRANITE | {"rmsnorm_matmul_w8",
+                                          "flash_attention_q",
+                                          "paged_verify_attention_q"},
 }
 # The training path on the kernel plan: each layer's forward launches, the
 # static flash kernel for attention; under remat the backward runs every
@@ -209,10 +254,14 @@ TRAIN_LAYER_LAUNCHES = {
                   "flash_attention_static": 1},
     "gpt2": {"block_matmul": 3, "streamed_mlp": 1,
              "flash_attention_static": 1},
+    GRANITE_TRAIN: {"rmsnorm_matmul": 3, "moe_experts": 1,
+                    "flash_attention_static": 1},
 }
+TRAIN_LAYER_LAUNCHES[GRANITE] = TRAIN_LAYER_LAUNCHES[GRANITE_TRAIN]
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
-# llama3-8b at 2 x 2048.
-TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048)}
+# llama3-8b and granite-moe-1b-a400m at 2 x 2048.
+TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
+                GRANITE_TRAIN: (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -704,8 +753,9 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
 
 def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """K11 at the training paths' shapes: gpt2 (T = 8 x 1024 tokens, D =
-    1024, Vp = 50432 over its 50257-token vocabulary) and llama3-8b (T =
-    2 x 2048, D = 4096, Vp = vocab = 128256).  About 10% of the labels are
+    1024, Vp = 50432 over its 50257-token vocabulary), llama3-8b (T =
+    2 x 2048, D = 4096, Vp = vocab = 128256) and granite-moe-1b-a400m (T =
+    2 x 2048, D = 1024, Vp = 49408 over 49155).  About 10% of the labels are
     ignored; the kernel gets them clamped to 0, as ``streamed_xent_loss``
     passes them.  The library yardstick is the cuBLAS chain ``h @ W``,
     ``torch.logsumexp`` and ``gather``."""
@@ -720,7 +770,8 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
 
     cases = []
     for model, d, vocab in (("gpt2", 1024, 50257),
-                            ("llama3-8b", 4096, 128256)):
+                            ("llama3-8b", 4096, 128256),
+                            (GRANITE_TRAIN, 1024, 49155)):
         b, s = TRAIN_SHAPES[model]
         t, vp = b * s, padded_vocab(vocab)
         h = randn(t, d)
@@ -739,6 +790,148 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
             library=lambda h=h, w=w, y=y, v=vocab: library(h, w, y, v),
             cublas=None, nbytes=(t * d + d * vp) * isz + 3 * t * 4,
             flops=2 * t * d * vp))
+    return cases
+
+
+def _moe_inputs(torch, randn, t, d, f, e, top_k, dtype):
+    """x [T, D], the real router's gates for it (top-k of softmax(x @ wr),
+    renormalised: ``layers.gates_from_logits``) and the expert stacks."""
+    from repro_torch.models.layers import gates_from_logits
+    x = randn(t, d)
+    wr = randn(d, e, scale=1 / math.sqrt(d))
+    gates = gates_from_logits(x.float() @ wr.float(), top_k, dtype)
+    wg, wu = (randn(e, d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+    wd = randn(e, f, d, scale=1 / math.sqrt(f))
+    return x, wr, gates, wg, wu, wd
+
+
+def _moe_library(torch, x, g, wg, wu, wd):
+    """The same dense-gather work as cuBLAS calls: three batched products
+    over the experts and the gate-weighted sum."""
+    xe = x.expand(wg.shape[0], -1, -1)
+    h = torch.nn.functional.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    return torch.einsum("etd,te->td", torch.bmm(h, wd), g)
+
+
+def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """granite-moe's kernel calls (``model`` set per case): K12 at
+    granite-3b's widths (D 1536, F 512, 40 experts, gates from a real
+    router's top-8) at a decode step (T = 4), a verify dispatch (20), a
+    prefill chunk (128) and a whole prompt (1000), and at granite-1b's (D
+    1024, 32 experts) at a training step's 2 x 2048 tokens; the router
+    product (block_matmul, N = 40) and ln2 (the row-norm kernel's RMSNorm
+    mode) at the serving shapes; the qkv and LM-head rmsnorm_matmul calls
+    (N = 1536 for q, 512 for k and v, 49408 for the padded vocabulary);
+    attention at head dim 64 with 24 query and 8 KV heads (3b), its
+    whole-prompt branch, and the training path's attention, qkv and loss
+    at granite-1b's widths."""
+    from repro_torch.models.params import padded_vocab
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cases = []
+    d, f, e, top_k = 1536, 512, 40, 8
+
+    def moe_case(model, t, d, e, path):
+        x, wr, g, wg, wu, wd = _moe_inputs(torch, randn, t, d, f, e, top_k,
+                                           dtype)
+        # The bound counts what this router's gates need: the experts
+        # some token kept, read once, and 6 D F operations per kept
+        # (token, expert) pair.  The dense-gather work K12 and the library
+        # chain do (every expert for every token) is reported beside it.
+        kept = g != 0
+        pairs, touched = int(kept.sum()), int(kept.any(0).sum())
+        return x, wr, dict(
+            name="moe_experts", model=model, path=path,
+            shape=f"T={t},D={d},F={f},E={e},top_k={top_k}",
+            kernel=lambda: K.moe_experts(x, g, wg, wu, wd),
+            plain=lambda: ref.moe_experts(x, g, wg, wu, wd),
+            library=lambda: _moe_library(torch, x, g, wg, wu, wd),
+            cublas=None,
+            nbytes=(2 * t * d + t * e + 3 * touched * d * f) * isz,
+            flops=6 * d * f * pairs,
+            dense=dict(gate_pairs=pairs, experts_touched=touched,
+                       dense_bytes=(2 * t * d + t * e + 3 * e * d * f) * isz,
+                       dense_flops=6 * t * d * f * e))
+
+    for t in (4, SPEC_T, 128, 1000):
+        path = {SPEC_T: "speculative", 1000: "whole_prompt"}.get(t)
+        x, wr, case = moe_case(GRANITE, t, d, e, path)
+        cases.append(case)
+        cases.append(dict(
+            name="block_matmul", model=GRANITE, path=path,
+            shape=f"router M={t},K={d},N={e}",
+            kernel=lambda x=x, w=wr: K.block_matmul(x, w),
+            plain=lambda x=x, w=wr: ref.block_matmul(x, w),
+            library=lambda x=x, w=wr: torch.matmul(x, w), cublas=None,
+            nbytes=(t * d + d * e + t * e) * isz, flops=2 * t * d * e))
+        s = randn(d, scale=0.1)
+        w1 = (1.0 + s.float()).to(dtype)
+        cases.append(dict(
+            name="rms_norm_rows", model=GRANITE, path=path,
+            shape=f"T={t},D={d}",
+            kernel=lambda x=x, s=s: K.rms_norm_rows(x, s),
+            plain=lambda x=x, s=s: ref.rms_rows(x, s, 1e-6),
+            library=lambda x=x, w1=w1: torch.nn.functional.rms_norm(
+                x, (d,), w1, 1e-6),
+            cublas=None, nbytes=(2 * t * d + d) * isz, flops=4 * t * d))
+        if t == 1000:
+            continue
+        xn = ref.rms_rows(x, s, 1e-6)
+        for n in (1536, 512):
+            w = randn(d, n, scale=1 / math.sqrt(d))
+            cases.append(dict(
+                name="rmsnorm_matmul", model=GRANITE, path=path,
+                shape=f"T={t},D={d},N={n}",
+                kernel=lambda x=x, s=s, w=w: K.rmsnorm_matmul(x, s, w),
+                plain=lambda x=x, s=s, w=w: ref.rmsnorm_matmul(x, s, w),
+                library=None,
+                cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
+                nbytes=(t * d + d + d * n + t * n) * isz,
+                flops=2 * t * d * n))
+    vocab = padded_vocab(49155)
+    head = randn(d, vocab, scale=1 / math.sqrt(d))
+    for t in (1, 4, SPEC_T):
+        x = randn(t, d)
+        s = randn(d, scale=0.1)
+        xn = ref.rms_rows(x, s, 1e-6)
+        cases.append(dict(
+            name="rmsnorm_matmul", model=GRANITE,
+            path="speculative" if t == SPEC_T else None,
+            shape=f"lm_head T={t},D={d},N={vocab}",
+            kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
+            plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
+            library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+            nbytes=(t * d + d + d * vocab + t * vocab) * isz,
+            flops=2 * t * d * vocab))
+    cases += [dict(c, model=GRANITE) for c in _attention_cases(
+        torch, K, ref, randn, isz, gen, 24, 8, 64, 128, 2048, dev)]
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", 24, 8, 64, 1000,
+                                  1000, None, dev),
+                      model=GRANITE, path="whole_prompt"))
+    # granite-1b's training step (2 x 2048 tokens): the experts, the qkv
+    # projections (N = 1024 for q, 512 for k and v) and the attention
+    # (2 sequences folded into 32 query heads over 16 KV heads).
+    b, sl = TRAIN_SHAPES[GRANITE_TRAIN]
+    t, d1 = b * sl, 1024
+    x, _, case = moe_case(GRANITE_TRAIN, t, d1, 32, "train")
+    cases.append(case)
+    sc = randn(d1, scale=0.1)
+    xn = ref.rms_rows(x, sc, 1e-6)
+    for n in (1024, 512):
+        w = randn(d1, n, scale=1 / math.sqrt(d1))
+        cases.append(dict(
+            name="rmsnorm_matmul", model=GRANITE_TRAIN, path="train",
+            shape=f"T={t},D={d1},N={n}",
+            kernel=lambda w=w: K.rmsnorm_matmul(x, sc, w),
+            plain=lambda w=w: ref.rmsnorm_matmul(x, sc, w),
+            library=None, cublas=lambda w=w: torch.matmul(xn, w),
+            nbytes=(t * d1 + d1 + d1 * n + t * n) * isz,
+            flops=2 * t * d1 * n))
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", b * 16, b * 8,
+                                  64, sl, sl, None, dev),
+                      model=GRANITE_TRAIN, path="train"))
     return cases
 
 
@@ -762,6 +955,7 @@ def check_kernels(torch, timer):
         cases += [dict(c, model="gpt2")
                   for c in gpt2_kernel_cases(torch, K, ref, dtype, gen)]
         cases += xent_cases(torch, K, ref, dtype, gen)
+        cases += granite_kernel_cases(torch, K, ref, dtype, gen)
         for c in cases:
             out = _flat(torch, c["kernel"]())
             torch.cuda.synchronize()
@@ -789,6 +983,10 @@ def check_kernels(torch, timer):
                                  if c["cublas"] is not None else None),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bytes": c["nbytes"], "flops": c["flops"]}
+            if "dense" in c:
+                row.update(c["dense"], dense_bound_ms=bound(
+                    c["dense"]["dense_bytes"], c["dense"]["dense_flops"],
+                    dname)[0])
             emit(row)
             rows.append(row)
             if c["name"] in ("paged_attention", "paged_attention_q"):
@@ -806,6 +1004,20 @@ def check_kernels(torch, timer):
     return rows
 
 
+def _same_rows(torch, fn, x, model, dname, name, counts):
+    """Whether ``fn`` gives rows 0..3 (row 0 at a count of 1) the bits it
+    gives them at 4 rows, at each row count; emitted as a row."""
+    base = fn(x[:SLOTS].contiguous())
+    same = {t: bool(torch.equal(fn(x[:t].contiguous())[:min(t, SLOTS)],
+                                base[:min(t, SLOTS)]))
+            for t in counts}
+    row = {"phase": "row_invariance", "model": model, "dtype": dname,
+           "call": name, "equal_to_T4": same,
+           "required": "torch" not in name}
+    emit(row)
+    return row
+
+
 def check_row_invariance(torch):
     """Bit-for-bit: rows 0..3 of each call on the kernel plan's path at T
     rows (8, 12, 20: verify windows of 2, 3 and 5 over 4 slots) against
@@ -813,9 +1025,12 @@ def check_row_invariance(torch):
     in bfloat16 and float32: the projection and FFN kernels and their int8
     twins, the o-projection (block_matmul), the final norm with the LM head
     (rmsnorm_matmul over the padded vocabulary; gpt2: block_matmul) and
-    gpt2's LayerNorm (row_norm).  Exact acceptance needs every one of them
-    to pass (required).  The eager plan's PyTorch calls at the same shapes
-    (``torch.matmul``, PyTorch's norms) are reported beside them."""
+    gpt2's LayerNorm (row_norm); and granite-moe-3b's MoE stage at 1, 8,
+    12, 20 and 64 rows (its parts and the whole).  Exact acceptance needs
+    every one of them to pass (required; the MoE gate arithmetic is
+    PyTorch's but on the path, so required too).  The eager plan's
+    PyTorch calls at the same shapes (``torch.matmul``, PyTorch's norms)
+    are reported beside them."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
@@ -873,17 +1088,42 @@ def check_row_invariance(torch):
                         lambda a: K.streamed_mlp_w8(a, cu, cd, wu_scale=su,
                                                     wd_scale=sd))})
             for name, fn in calls.items():
-                base = fn(x[:SLOTS].contiguous())
-                same = {t: bool(torch.equal(fn(x[:t].contiguous())[:SLOTS],
-                                            base))
-                        for t in (2 * SLOTS, 3 * SLOTS, SPEC_T)}
-                row = {"phase": "row_invariance", "model": model,
-                       "dtype": dname, "call": name,
-                       "equal_to_T4": same, "required": "torch" not in name}
-                emit(row)
+                row = _same_rows(torch, fn, x, model, dname, name,
+                                 (2 * SLOTS, 3 * SLOTS, SPEC_T))
                 out.append(row)
-                if row["required"] and not all(same.values()):
-                    bad.append(f"{model} {dname} {name} {same}")
+                if row["required"] and not all(row["equal_to_T4"].values()):
+                    bad.append(f"{model} {dname} {name} "
+                               f"{row['equal_to_T4']}")
+        # granite-moe-3b's MoE stage at 1..64 rows: ln2 (the row-norm
+        # kernel's RMSNorm mode), the router product (block_matmul), the
+        # gate arithmetic (PyTorch's softmax, top-k threshold and row sum),
+        # the experts (K12, on fixed gates) and the whole stage.
+        from repro_torch.models.layers import gates_from_logits
+        d, f, e = 1536, 512, 40
+        x, wr, g, wg, wu, wd = _moe_inputs(torch, randn, 64, d, f, e, 8,
+                                           dtype)
+        s = randn(d, scale=0.1)
+
+        def stage(a):
+            h = K.rms_norm_rows(a, s)
+            return K.moe_experts(h, gates_from_logits(
+                K.block_matmul(h, wr), 8, a.dtype), wg, wu, wd)
+
+        calls = {
+            "rms_norm_rows": lambda a: K.rms_norm_rows(a, s),
+            "router block_matmul": lambda a: K.block_matmul(a, wr),
+            "moe gates (PyTorch ops)": lambda a: gates_from_logits(
+                K.block_matmul(a, wr), 8, a.dtype),
+            "moe_experts": lambda a: K.moe_experts(
+                a, g[:a.shape[0]].contiguous(), wg, wu, wd),
+            "moe stage": stage,
+            "rms_norm torch": lambda a: L.rms_norm(a, s)}
+        for name, fn in calls.items():
+            row = _same_rows(torch, fn, x, GRANITE, dname, name,
+                             (1, 2 * SLOTS, 3 * SLOTS, SPEC_T, 64))
+            out.append(row)
+            if row["required"] and not all(row["equal_to_T4"].values()):
+                bad.append(f"{GRANITE} {dname} {name} {row['equal_to_T4']}")
     if bad:
         raise AssertionError("rows change with the row count: "
                              + "; ".join(bad))
@@ -919,19 +1159,23 @@ def _weights(torch, cfg, seed: int, jitter: bool, device="cuda"):
 
 def _fused_eager(torch, cfg, params, prompts, chunked, device="cuda"):
     """One burst with the kernel plan and one with the eager plan:
-    ({fused: tokens}, {fused: seconds})."""
+    ({fused: tokens}, {fused: seconds}, the kernel plan's launches)."""
+    from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
     tokens, seconds = {}, {}
     for fused in (True, False):
         eng = ServingEngine(
             dataclasses.replace(cfg, use_fused_kernels=fused), params,
             batch_slots=4, max_len=512, chunked=chunked, device=device)
+        K.reset_launches()
         t0 = time.perf_counter()
         reqs = eng.generate(prompts, max_new_tokens=8)
         _sync(torch, device)
         seconds[fused] = time.perf_counter() - t0
         tokens[fused] = [r.out_tokens for r in reqs]
-    return tokens, seconds
+        if fused:
+            launches = {k: n for k, n in K.launch_counts().items() if n}
+    return tokens, seconds, launches
 
 
 def _free(torch, device):
@@ -943,8 +1187,8 @@ def fused_vs_eager(torch, cfg, device="cuda", lengths=(150, 40, 300, 9)):
     """``cfg``: llama3-8b cut to 4 layers, float32."""
     params = _weights(torch, cfg, 1, jitter=False, device=device)
     prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
-    tokens, seconds = _fused_eager(torch, cfg, params, prompts, True,
-                                   device)
+    tokens, seconds, _ = _fused_eager(torch, cfg, params, prompts, True,
+                                      device)
     equal = tokens[True] == tokens[False]
     row = {"phase": "fused_vs_eager", "config": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype,
@@ -961,35 +1205,40 @@ def fused_vs_eager(torch, cfg, device="cuda", lengths=(150, 40, 300, 9)):
     return row
 
 
-def gpt2_fused_vs_eager(torch, cfg, device="cuda",
-                        lengths=(150, 40, 300, 9)):
-    """``cfg``: gpt2 cut to 4 layers, float32; jittered weights.  Fused and
-    eager tokens must agree under each admission mode.  Whether chunked
-    and whole-prompt tokens agree is reported, not required: the two sum
+def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
+                             device="cuda", lengths=(150, 40, 300, 9)):
+    """``cfg``: a model with both admission paths (gpt2 with jittered
+    weights, granite-moe-3b) cut to 4 layers, float32.  Fused and eager
+    tokens must agree under each admission mode, and the kernel plan's
+    burst must launch exactly ``expect[mode]``.  Whether chunked and
+    whole-prompt tokens agree is reported, not required: the two sum
     attention in different orders."""
-    params = _weights(torch, cfg, 1, jitter=True, device=device)
+    params = _weights(torch, cfg, 1, jitter=jitter, device=device)
     prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
-    row = {"phase": "gpt2_fused_vs_eager", "config": cfg.name,
+    row = {"phase": phase, "config": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype,
            "prompts": [len(p) for p in prompts], "new_tokens": 8}
-    fused_tokens = {}
+    fused_tokens, bad = {}, []
     for mode, chunked in (("chunked", True), ("whole_prompt", False)):
-        tokens, seconds = _fused_eager(torch, cfg, params, prompts, chunked,
-                                       device)
+        tokens, seconds, launches = _fused_eager(
+            torch, cfg, params, prompts, chunked, device)
         row[mode] = {"tokens_equal": tokens[True] == tokens[False],
                      "fused_s": seconds[True], "eager_s": seconds[False],
                      "fused_tokens": tokens[True],
-                     "eager_tokens": tokens[False]}
+                     "eager_tokens": tokens[False], "launches": launches}
         fused_tokens[mode] = tokens[True]
+        if not row[mode]["tokens_equal"]:
+            bad.append(f"{mode}: kernel plan != eager plan")
+        if set(launches) != expect[mode]:
+            bad.append(f"{mode}: launched {sorted(launches)}, expected "
+                       f"{sorted(expect[mode])}")
     row["chunked_equals_whole_prompt"] = (fused_tokens["chunked"]
                                           == fused_tokens["whole_prompt"])
     emit(row)
     del params
     _free(torch, device)
-    bad = [m for m in GPT2_PATHS if not row[m]["tokens_equal"]]
     if bad:
-        raise AssertionError(f"gpt2 fused and eager plans gave different "
-                             f"greedy tokens under {bad} admission")
+        raise AssertionError(f"{phase} {cfg.name}: " + "; ".join(bad))
     return row
 
 
@@ -1094,11 +1343,13 @@ SPEC_ENGINES = {
 }
 
 
-def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, device="cuda",
-                        new=32):
+def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, expect,
+                        device="cuda", new=32):
     """``cfg``: full width cut to 4 layers, float32, kernel plan.  The four
     engines of ``SPEC_ENGINES`` must give the same greedy tokens on the
-    speculative burst."""
+    speculative burst, and the speculative engine on the kernel plan must
+    launch exactly the kernels of ``expect``."""
+    from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
     params = _weights(torch, cfg, 1, jitter=jitter, device=device)
     prompts = spec_burst(cfg.vocab_size)
@@ -1112,12 +1363,15 @@ def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, device="cuda",
             "fused", True))
         eng = ServingEngine(run_cfg, params, batch_slots=SLOTS,
                             max_len=max_len, device=device, **kw)
+        K.reset_launches()
         t0 = time.perf_counter()
         reqs = eng.generate(prompts, max_new_tokens=new)
         _sync(torch, device)
         tokens[name] = [r.out_tokens for r in reqs]
         m = eng.metrics
         row[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": {k: n for k, n in K.launch_counts().items()
+                                  if n},
                      "equal_to_plain": tokens[name] == tokens["plain"],
                      "first_divergence": [
                          _first_divergence(a, b) for a, b in
@@ -1135,6 +1389,11 @@ def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, device="cuda",
     if bad:
         raise AssertionError(f"{cfg.name}: {bad} gave other greedy tokens "
                              "than the plain engine")
+    spec_launches = set(row["speculative"]["launches"])
+    if spec_launches != expect:
+        raise AssertionError(f"{cfg.name}: the speculative engine launched "
+                             f"{sorted(spec_launches)}, expected "
+                             f"{sorted(expect)}")
     return row
 
 
@@ -1330,24 +1589,25 @@ def accuracy(torch, cfg, *, jitter, device="cuda"):
 
 def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
     """``cfg``: full width and depth, bfloat16, kernel plan; weights drawn
-    once on the card (seed 2).  The mixed burst (``serve``; gpt2 under
-    chunked and whole-prompt admission), the speculative burst against
-    the plain engine (``spec_serve``, exact), then both again under
-    w8_kv8 (``quant_serve``, ``quant_spec_serve``).  Each burst launches
-    exactly its path's kernels."""
+    once on the card (seed 2).  The mixed burst (``serve``; gpt2 and
+    granite under chunked and whole-prompt admission), the speculative
+    burst against the plain engine (``spec_serve``, exact), then both
+    again under w8_kv8 (``quant_serve``, ``quant_spec_serve``).  Each
+    burst launches exactly its path's kernels."""
     t0 = time.perf_counter()
     params = _weights(torch, cfg, 2, jitter=jitter, device=device)
     _sync(torch, device)
     init_s = time.perf_counter() - t0
-    modes = ("chunked",) if model == "llama3-8b" else tuple(GPT2_PATHS)
+    modes = tuple(SERVE_PATHS[model])
     qcfg = dataclasses.replace(cfg, quant=QUANT_MODE)
     out = {"serve": {}, "quant_serve": {}}
+    phase = {"llama3-8b": "serve", "gpt2": "gpt2_serve"}.get(
+        model, "granite_serve")
     for mode in modes:
-        expect = LLAMA_PATH if model == "llama3-8b" else GPT2_PATHS[mode]
         out["serve"][mode] = serve(
-            torch, cfg, params, expect, init_s=init_s,
+            torch, cfg, params, SERVE_PATHS[model][mode], init_s=init_s,
             chunked=mode == "chunked", device=device, max_len=max_len, hi=hi,
-            phase="serve" if model == "llama3-8b" else "gpt2_serve")
+            phase=phase)
         _free(torch, device)
     out["spec_serve"] = spec_serve(torch, cfg, params, SPEC_PATHS[model],
                                    init_s=init_s, max_len=max_len,
@@ -1480,8 +1740,9 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
 # what runs it on the training path), the rest is PyTorch's (cuBLAS for
 # the eager backward and the o-projection, elementwise, norms, AdamW).
 OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
-               ("split_reduce_kernel", "projections (K3/K5)"),
+               ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
                ("streamed_ffn_kernel", "FFN (K4/K6)"),
+               ("moe_", "MoE experts (K12)"),
                ("flash_offset_kernel", "attention (K7)"),
                ("xent_", "loss (K11)"))
 
@@ -1540,7 +1801,9 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
     shutil.rmtree(root, ignore_errors=True)
     first, second = (os.path.join(root, n) for n in ("run", "replay"))
     opt = AdamWConfig(lr=lr, warmup_steps=1, total_steps=steps)
-    tcfg = dict(total_steps=steps, checkpoint_every=ckpt_every,
+    # ckpt_every None: no checkpoint at all (the trainer writes one only
+    # every ``checkpoint_every`` steps).
+    tcfg = dict(total_steps=steps, checkpoint_every=ckpt_every or 10**9,
                 log_every=10**9)
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=first, **tcfg),
@@ -1597,7 +1860,7 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
             problems.append(f"replayed losses {replay} against "
                             f"{losses[replay_from:]}")
         del tr2
-    else:
+    elif ckpt_every:
         # Time a restore of the last checkpoint (no replay).
         from repro_torch.train import latest_checkpoint, restore_checkpoint
         t1 = time.perf_counter()
@@ -1668,15 +1931,21 @@ def main(argv=None) -> int:
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
     models = {"llama3-8b": (llama, False, 2048, 1000),
-              "gpt2": (gpt2, True, 1024, 992)}
+              "gpt2": (gpt2, True, 1024, 992),
+              GRANITE: (get_config(GRANITE), False, 2048, 1000)}
     small = {m: dataclasses.replace(c, num_layers=4, dtype="float32")
              for m, (c, _, _, _) in models.items()}
     results["fused_vs_eager"] = fused_vs_eager(torch, small["llama3-8b"])
-    results["gpt2_fused_vs_eager"] = gpt2_fused_vs_eager(torch, small["gpt2"])
+    results["gpt2_fused_vs_eager"] = admission_fused_vs_eager(
+        torch, small["gpt2"], jitter=True, phase="gpt2_fused_vs_eager",
+        expect=GPT2_PATHS)
+    results["granite_fused_vs_eager"] = admission_fused_vs_eager(
+        torch, small[GRANITE], jitter=False, phase="granite_fused_vs_eager",
+        expect=GRANITE_PATHS)
     results["spec_fused_vs_eager"] = {
         m: spec_fused_vs_eager(
             torch, dataclasses.replace(small[m], use_fused_kernels=True),
-            jitter=jit, max_len=ml)
+            jitter=jit, max_len=ml, expect=SPEC_PATHS[m])
         for m, (_, jit, ml, _) in models.items()}
     results["quant_fused_vs_eager"] = {
         m: quant_fused_vs_eager(
@@ -1697,12 +1966,19 @@ def main(argv=None) -> int:
                       "gpt2", steps=6, ckpt_every=3, replay_from=3, lr=1e-3,
                       note="full width and depth"),
         "llama3-8b": train(
-            torch, dataclasses.replace(llama, num_layers=4,
+            torch, dataclasses.replace(llama, num_layers=2,
                                        use_fused_kernels=True),
             "llama3-8b", steps=3, ckpt_every=3, replay_from=0, lr=3e-5,
-            note="full width cut to 4 layers: float32 weights, gradients "
+            note="full width cut to 2 layers: float32 weights, gradients "
                  "and two AdamW moments of all 32 layers take 128 GB, the "
-                 "card has 80")}
+                 "card has 80, and 2 layers keep the whole run within "
+                 "about 600 s"),
+        GRANITE_TRAIN: train(
+            torch, dataclasses.replace(get_config(GRANITE_TRAIN),
+                                       use_fused_kernels=True),
+            GRANITE_TRAIN, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+            note="full width and depth; no checkpoint (the CPU tests hold "
+                 "MoE checkpoints to the reference)")}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []

@@ -3,21 +3,23 @@
 Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
 ``repro.core.stream_plan`` (the fields the port reads) and adds
 ``plan_for``, which returns the plan the reference compiler (trace ->
-tiling DSE -> fusion -> lowering) selects for the two ported families:
-dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b) and dense LayerNorm/MHA/GELU-MLP
-with learned positions (gpt2).  The reference selects the same kernels and
-blocks for each family's config and its reduced config at every token
-count, and at every KV length that is a multiple of the 16-token page
+tiling DSE -> fusion -> lowering) selects for the three ported families:
+dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b), its MoE variant (granite-moe)
+and dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2).  The
+reference selects the same kernels and blocks for each family's config
+and its reduced config at every token count, and at every KV length that
+is a multiple of the 16-token page
 (the engine asks for ``max_len``); a test pins this table to the reference
 ``plan_for``.
 Under a weight-quantizing config (``w8``, ``w8_kv8``) the
 ``rmsnorm_matmul`` and ``streamed_ffn`` / ``streamed_mlp`` stages carry the
 reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
 ``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``
-never does, so gpt2's projections stay at full precision.  KV quantization
-changes no choice: the pools' dtype selects the attention twins.
+and ``moe_experts`` never do, so gpt2's projections and the MoE experts
+stay at full precision.  KV quantization changes no choice: the pools'
+dtype selects the attention twins.
 The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
-is ``streamed_xent`` for both families, with the reference's blocks at
+is ``streamed_xent`` for every family, with the reference's blocks at
 every token count.
 The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
 in a later slice.
@@ -143,7 +145,22 @@ _DENSE_LAYERNORM_MLP = LayerPlan(
 )
 
 
-# The training loss of both families (the reference's ``lm_head`` choice
+# ... and for the MoE RMSNorm / GQA / SwiGLU-experts / RoPE family
+# (granite-moe-1b-a400m, granite-moe-3b-a800m and their reduced configs,
+# tokens in {4, 20, 128, 2048}, kv_len 2048): llama3's attention stages,
+# the experts through ``moe_experts`` with ln2 eager in front (the
+# reference applies it, then calls ``fused_moe_ffn``).
+_MOE_RMSNORM_GLU = LayerPlan(
+    kind="attn",
+    qkv=_DENSE_RMSNORM_GLU.qkv,
+    attention=_DENSE_RMSNORM_GLU.attention,
+    decode_attn=_DENSE_RMSNORM_GLU.decode_attn,
+    verify_attn=_DENSE_RMSNORM_GLU.verify_attn,
+    ffn=KernelChoice("moe_experts", (("block_t", 128),)),
+)
+
+
+# The training loss of every family (the reference's ``lm_head`` choice
 # at token counts 64..8192, full and reduced configs).
 _STREAMED_XENT = KernelChoice("streamed_xent",
                               (("block_t", 128), ("block_v", 512)))
@@ -152,11 +169,12 @@ _STREAMED_XENT = KernelChoice("streamed_xent",
 def _family_plan(cfg: ModelConfig) -> Optional[LayerPlan]:
     """The ported family ``cfg`` belongs to, or None."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if kinds != {"attn"} or cfg.is_moe or cfg.qkv_bias or cfg.qk_norm:
+    if kinds != {"attn"} or cfg.qkv_bias or cfg.qk_norm:
         return None
     if cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope":
-        return _DENSE_RMSNORM_GLU
-    if cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none":
+        return _MOE_RMSNORM_GLU if cfg.is_moe else _DENSE_RMSNORM_GLU
+    if (cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none"
+            and not cfg.is_moe):
         return _DENSE_LAYERNORM_MLP
     return None
 
@@ -171,11 +189,12 @@ def plan_for(cfg: ModelConfig, tokens: int,
     if lp is None:
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
-            "RMSNorm/GQA/SwiGLU/RoPE and LayerNorm/MHA/GELU-MLP/learned-"
-            "position stacks are ported")
+            "RMSNorm/GQA/SwiGLU/RoPE (and its MoE variant) and LayerNorm/"
+            "MHA/GELU-MLP/learned-position stacks are ported")
     if cfg.weight_quant:
         w8 = (("w8", 1),)
-        lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
+        if lp.ffn.implementation != "moe_experts":      # K12 has no w8 twin
+            lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
         if lp.qkv.implementation == "rmsnorm_matmul":
             lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
     return StreamPlan(arch=cfg.name, tokens=int(tokens),

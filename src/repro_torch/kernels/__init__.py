@@ -10,20 +10,22 @@ from . import ref
 from .block_matmul import block_matmul
 from .flash_attention import (flash_attention_2d, flash_attention_2d_q,
                               flash_attention_static)
+from .moe_experts import moe_experts
 from .ops import flash_attention
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_q,
                               paged_verify_attention,
                               paged_verify_attention_q)
 from .rmsnorm_matmul import rmsnorm_matmul, rmsnorm_matmul_w8
-from .row_norm import layer_norm_rows
+from .row_norm import layer_norm_rows, rms_norm_rows
 from .streamed_ffn import (streamed_ffn, streamed_ffn_w8, streamed_mlp,
                            streamed_mlp_w8)
 from .streamed_xent import streamed_xent_loss, streamed_xent_parts
 
 # Every kernel, by the name its launch count goes under: K1-K8, the
 # quantized twins K9a-c (int8 / fp8 KV codes) and K10a-c (int8 weights),
-# the row-norm helper and the training loss K11.
+# the row-norm helper (LayerNorm and RMSNorm modes), the training loss K11
+# and the MoE experts K12.
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
@@ -41,6 +43,8 @@ KERNELS = {
     "streamed_mlp_w8": streamed_mlp_w8,
     "row_norm": layer_norm_rows,
     "streamed_xent": streamed_xent_parts,
+    "moe_experts": moe_experts,
+    "rms_norm_rows": rms_norm_rows,
 }
 
 
@@ -57,6 +61,7 @@ def launch_counts() -> dict:
 __all__ = [
     "ref", "block_matmul", "flash_attention", "flash_attention_2d",
     "flash_attention_2d_q", "flash_attention_static", "layer_norm_rows",
+    "moe_experts", "rms_norm_rows",
     "paged_decode_attention", "paged_decode_attention_q",
     "paged_verify_attention", "paged_verify_attention_q", "rmsnorm_matmul",
     "rmsnorm_matmul_w8", "streamed_ffn", "streamed_ffn_w8", "streamed_mlp",

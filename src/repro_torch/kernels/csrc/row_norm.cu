@@ -1,19 +1,25 @@
-// Row-wise LayerNorm: out[T, D] = ((x - mean) * rsqrt(var + eps) * scale
-// + bias).to(T), mean and population variance over each row in float32 —
-// the eager `layer_norm` of the LayerNorm configs (models/layers.py), with
-// the raw `scale` (not 1 + scale).
+// Row-wise norms with one block per row:
+//   LayerNorm (RMS = false): out[T, D] = ((x - mean) * rsqrt(var + eps) *
+//     scale + bias).to(T), mean and population variance over each row in
+//     float32 — the eager `layer_norm` of the LayerNorm configs
+//     (models/layers.py), with the raw `scale` (not 1 + scale);
+//   RMSNorm (RMS = true): out[T, D] = (x * rsqrt(mean(x^2) + eps) *
+//     (1 + scale)).to(T) in float32 — the eager `rms_norm`, for the
+//     RMSNorm that a plan does not fold into a kernel (the MoE family's
+//     ln2 in front of the router and the experts).
 //
 // Not the port of a TPU kernel: the reference leaves these norms to XLA.
 // It exists so that a row's bits do not depend on how many rows share the
 // call (row invariance): a speculative verify dispatch of slots x W rows
 // must give each row exactly what a decode step of slots rows gives it, and
-// PyTorch's own LayerNorm picks its reduction by shape.  One block per row
+// PyTorch's own norms pick their reductions by shape.  One block per row
 // reduces in a fixed order (each thread sums a fixed strided subset, warps
 // by xor shuffles, then warp 0's partials in warp order), so the result is
-// row-invariant by construction; two passes (mean, then the squared
-// deviations), as the eager `var`.
+// row-invariant by construction; LayerNorm takes two passes (mean, then the
+// squared deviations), as the eager `var`.
 // What bounds it: the bytes of x and out (memory bound); rows are short (D
-// = 1024 for gpt2) and read from L2 on the second and third pass.
+// = 1024 for gpt2, 1536 for granite-3b) and read from L2 on the later
+// passes.
 #include "common.cuh"
 
 using namespace repro;
@@ -36,14 +42,25 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
-template <typename T>
+template <typename T, bool RMS>
 __global__ void __launch_bounds__(NT)
-layer_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                       const T* __restrict__ bias, T* __restrict__ out,
-                       int d, float eps) {
+row_norm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                const T* __restrict__ bias, T* __restrict__ out, int d,
+                float eps) {
   __shared__ float red[NWARP];
   const T* xr = x + (size_t)blockIdx.x * d;
   T* orow = out + (size_t)blockIdx.x * d;
+  if constexpr (RMS) {
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < d; k += NT) {
+      const float v = to_f(xr[k]);
+      ss += v * v;
+    }
+    const float rstd = rsqrtf(block_sum(ss, red) / (float)d + eps);
+    for (int k = threadIdx.x; k < d; k += NT)
+      orow[k] = from_f<T>(to_f(xr[k]) * rstd * (1.f + to_f(scale[k])));
+    return;
+  }
   float s = 0.f;
   for (int k = threadIdx.x; k < d; k += NT) s += to_f(xr[k]);
   const float mean = block_sum(s, red) / (float)d;
@@ -60,11 +77,11 @@ layer_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
-template <typename T>
+template <typename T, bool RMS>
 int launch(const void* x, const void* scale, const void* bias, void* out,
            int t, int d, float eps, void* stream) {
   if (t < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  layer_norm_rows_kernel<T><<<t, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+  row_norm_kernel<T, RMS><<<t, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<T*>(out), d, eps);
   return (int)cudaGetLastError();
@@ -75,11 +92,25 @@ int launch(const void* x, const void* scale, const void* bias, void* out,
 extern "C" int repro_layer_norm_rows_f32(const void* x, const void* scale,
                                          const void* bias, void* out, int t,
                                          int d, float eps, void* stream) {
-  return launch<float>(x, scale, bias, out, t, d, eps, stream);
+  return launch<float, false>(x, scale, bias, out, t, d, eps, stream);
 }
 
 extern "C" int repro_layer_norm_rows_bf16(const void* x, const void* scale,
                                           const void* bias, void* out, int t,
                                           int d, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, scale, bias, out, t, d, eps, stream);
+  return launch<__nv_bfloat16, false>(x, scale, bias, out, t, d, eps, stream);
+}
+
+// RMSNorm: `bias` is unused (pass the scale).
+extern "C" int repro_rms_norm_rows_f32(const void* x, const void* scale,
+                                       void* out, int t, int d, float eps,
+                                       void* stream) {
+  return launch<float, true>(x, scale, scale, out, t, d, eps, stream);
+}
+
+extern "C" int repro_rms_norm_rows_bf16(const void* x, const void* scale,
+                                        void* out, int t, int d, float eps,
+                                        void* stream) {
+  return launch<__nv_bfloat16, true>(x, scale, scale, out, t, d, eps,
+                                     stream);
 }

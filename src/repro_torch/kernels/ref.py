@@ -101,6 +101,24 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def moe_experts(x: torch.Tensor, gates: torch.Tensor, wg: torch.Tensor,
+                wu: torch.Tensor, wd: torch.Tensor,
+                activation: str = "silu") -> torch.Tensor:
+    """Dense-gather MoE experts (``moe_experts.py:35``): x [T, D], gates
+    [T, E] (zero off the top-k), wg/wu [E, D, F], wd [E, F, D] -> [T, D]
+    in the x dtype.  For each expert in order: ``h = act(x @ wg[e]) *
+    (x @ wu[e])`` summed in float32 and rounded to the x dtype, then ``h @
+    wd[e]`` in float32 scaled by the expert's gate column and added to a
+    float32 accumulator; experts with a zero gate are computed too."""
+    x32 = x.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(wg.shape[0]):
+        h = (act(activation, x32 @ wg[e].float())
+             * (x32 @ wu[e].float())).to(x.dtype)
+        acc = acc + (h.float() @ wd[e].float()) * gates[:, e:e + 1].float()
+    return acc.to(x.dtype)
+
+
 def streamed_mlp(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
                  activation: str = "gelu",
                  norm_scale: Optional[torch.Tensor] = None,

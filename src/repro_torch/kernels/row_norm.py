@@ -1,12 +1,14 @@
-"""Row-wise LayerNorm for the kernel plan of the LayerNorm configs (gpt2's
-ln1, ln2 and final norm).
+"""Row-wise norms for the kernel plan's serving path: LayerNorm for the
+LayerNorm configs (gpt2's ln1, ln2 and final norm), RMSNorm where the plan
+folds it into no kernel (the MoE family's ln2).
 
-``layer_norm_rows`` launches ``csrc/row_norm.cu`` on a CUDA tensor and runs
-``ref.layer_norm_rows`` on a CPU tensor; ``.launches`` counts kernel
-launches.  Not the port of a TPU kernel (the reference leaves the norm to
-XLA): one block per row reducing in a fixed order makes a row's bits
-independent of how many rows share the call, which exact speculative
-acceptance needs (PyTorch's own LayerNorm picks its reduction by shape).
+``layer_norm_rows`` and ``rms_norm_rows`` launch ``csrc/row_norm.cu`` on a
+CUDA tensor and run ``ref.layer_norm_rows`` / ``ref.rms_rows`` on a CPU
+tensor; ``.launches`` on each counts its kernel launches.  Not the port of
+a TPU kernel (the reference leaves the norms to XLA): one block per row
+reducing in a fixed order makes a row's bits independent of how many rows
+share the call, which exact speculative acceptance needs (PyTorch's own
+norms pick their reductions by shape).
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from .common import check_cuda_operands, check_launch, kernel_path
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
+def _entry(kind: str, dtype: torch.dtype):
+    """``kind``: "layer" or "rms"."""
     lib = _build.load("row_norm")
-    sym = ("repro_layer_norm_rows_bf16" if dtype == torch.bfloat16
-           else "repro_layer_norm_rows_f32")
+    sym = (f"repro_{kind}_norm_rows_"
+           + ("bf16" if dtype == torch.bfloat16 else "f32"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp] * 4 + [i, i, ctypes.c_float, vp])
+    ptrs = 4 if kind == "layer" else 3
+    return _build.declare(lib, sym, [vp] * ptrs + [i, i, ctypes.c_float, vp])
 
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -49,11 +53,39 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if t == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry(x.dtype)(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                             out.data_ptr(), t, d, float(eps), stream)
+    status = _entry("layer", x.dtype)(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), t, d,
+        float(eps), stream)
     check_launch("layer_norm_rows", status)
     layer_norm_rows.launches += 1
     return out
 
 
 layer_norm_rows.launches = 0
+
+
+def rms_norm_rows(x: torch.Tensor, scale: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x [T, D]; scale [D] -> RMSNorm of each row [T, D] (x dtype):
+    ``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in float32."""
+    if x.dim() != 2 or tuple(scale.shape) != (x.shape[1],):
+        raise ValueError(f"rms_norm_rows: x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}")
+    if kernel_path(x) == "plain":
+        return ref.rms_rows(x, scale, eps)
+    check_cuda_operands("rms_norm_rows", x.dtype, x, scale)
+    if scale.dtype != x.dtype:
+        raise TypeError("rms_norm_rows: x and scale must share a dtype")
+    t, d = x.shape
+    out = torch.empty_like(x)
+    if t == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _entry("rms", x.dtype)(x.data_ptr(), scale.data_ptr(),
+                                    out.data_ptr(), t, d, float(eps), stream)
+    check_launch("rms_norm_rows", status)
+    rms_norm_rows.launches += 1
+    return out
+
+
+rms_norm_rows.launches = 0

@@ -221,6 +221,49 @@ def ffn(x: torch.Tensor, p: Params, *, activation: str,
     return act(activation, x @ p["wu"]) @ p["wd"]
 
 
+def gates_from_logits(logits: torch.Tensor, top_k: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Renormalised top-k gate weights [..., E] from router logits
+    (``layers.py:509-517``): softmax in float32, the k-th largest
+    probability as the threshold, every expert at or above it kept (ties
+    keep more than k), renormalised with a 1e-9 floor, cast to ``dtype``.
+    ``topk`` gives only the threshold value, never indices."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    thresh = torch.topk(probs, top_k, dim=-1).values[..., -1:]
+    gates = torch.where(probs >= thresh, probs, 0.0)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return gates.to(dtype)
+
+
+def moe_gates(x: torch.Tensor, wr: torch.Tensor,
+              top_k: int) -> torch.Tensor:
+    """Router: ``x @ wr`` in x's dtype, then ``gates_from_logits``
+    (``layers.py:509``)."""
+    return gates_from_logits(x @ wr, top_k, x.dtype)
+
+
+def moe_experts_eager(x: torch.Tensor, gates: torch.Tensor,
+                      wg: Optional[torch.Tensor], wu: torch.Tensor,
+                      wd: torch.Tensor, *, activation: str) -> torch.Tensor:
+    """Every expert on every token, gate-weighted and summed (the
+    dense-gather formulation, ``layers.py:533-541``): x [..., D], gates
+    [..., E], wg/wu [E, D, F] (wg None: ungated), wd [E, F, D]."""
+    up = torch.einsum("...d,edf->...ef", x, wu)
+    h = (act(activation, torch.einsum("...d,edf->...ef", x, wg)) * up
+         if wg is not None else act(activation, up))
+    y = torch.einsum("...ef,efd->...ed", h, wd)
+    return torch.einsum("...ed,...e->...d", y, gates)
+
+
+def moe_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
+            top_k: int) -> torch.Tensor:
+    """Dense-gather MoE (``layers.py:520``): the router's gates, then
+    ``moe_experts_eager``."""
+    return moe_experts_eager(x, moe_gates(x, p["wr"], top_k),
+                             p["wg"] if gated else None, p["wu"], p["wd"],
+                             activation=activation)
+
+
 # --------------------------------------------------------------------- #
 # Kernel forward, eager backward (``layers.py:697-716``)
 # --------------------------------------------------------------------- #
@@ -312,15 +355,15 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fused_norm(kind: str, x: torch.Tensor, p: Params) -> torch.Tensor:
-    """``apply_norm`` on the kernel plan's serving path: LayerNorm through
-    the row-norm kernel, whose rows do not depend on the row count;
-    RMSNorm stays eager (the llama3 plan folds every one of them into a
-    kernel).  Serving only: training keeps ``apply_norm``, as the
-    reference leaves the norm to XLA."""
-    if kind == "rmsnorm":
-        return rms_norm(x, p["scale"])
+    """``apply_norm`` on the kernel plan's serving path, through the
+    row-norm kernel, whose rows do not depend on the row count (its
+    LayerNorm or RMSNorm mode).  Serving only: training keeps
+    ``apply_norm``, as the reference leaves the norm to XLA."""
     b, s, d = x.shape
-    y = K.layer_norm_rows(_rows(x), p["scale"], p["bias"])
+    if kind == "rmsnorm":
+        y = K.rms_norm_rows(_rows(x), p["scale"])
+    else:
+        y = K.layer_norm_rows(_rows(x), p["scale"], p["bias"])
     return y.reshape(b, s, d)
 
 
@@ -364,6 +407,33 @@ def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
                    gated=gated)
 
     return _kernel_fwd_eager_bwd(fused, eager)(*args)
+
+
+def fused_moe_ffn(x: torch.Tensor, p: Params, *, activation: str,
+                  top_k: int, block_t: int = 128,
+                  router_kernel: bool = True) -> torch.Tensor:
+    """The router outside the kernel, the experts through ``moe_experts``
+    (K12; ``layers.py:872``, single device): x [B, S, D] -> [B, S, D].
+    ``router_kernel``: the router product through ``block_matmul`` (the
+    serving path, whose rows must not depend on the row count), else
+    ``@`` (training, as the reference).  The eager backward recomputes
+    ``moe_experts_eager`` from (x, gates, wg, wu, wd); the router's
+    gradient flows through ``gates`` eagerly.  ``block_t`` is the plan's
+    hint; the kernel picks its own tiles."""
+    del block_t
+    b, s, d = x.shape
+    logits = fused_matmul(x, p["wr"]) if router_kernel else x @ p["wr"]
+    gates = gates_from_logits(logits, top_k, x.dtype)
+
+    def fused(x, gates, wg, wu, wd):
+        return K.moe_experts(_rows(x), _rows(gates), wg, wu, wd,
+                             activation=activation).reshape(b, s, d)
+
+    def eager(x, gates, wg, wu, wd):
+        return moe_experts_eager(x, gates, wg, wu, wd, activation=activation)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(x, gates, p["wg"], p["wu"],
+                                              p["wd"])
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

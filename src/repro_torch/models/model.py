@@ -18,8 +18,10 @@ row count up to 64 (a speculative verify dispatch of slots x W rows must
 reproduce a decode step of slots rows): besides the plan's stages, the
 o-projection and the LM head run through ``block_matmul`` (K5), the final
 RMSNorm and the LM head through one ``rmsnorm_matmul`` (K3) call, and the
-LayerNorms through the row-norm kernel, where the reference leaves them
-to XLA and the eager plan keeps ``torch.matmul`` and PyTorch's norms.
+LayerNorms and the MoE family's ln2 RMSNorm through the row-norm kernel,
+and the MoE router product through ``block_matmul``, where the reference
+leaves them to XLA and the eager plan keeps ``torch.matmul`` and
+PyTorch's norms.
 Under a weight-quantizing config the o-projection and LM head stay at full
 precision, as in the reference.
 
@@ -32,7 +34,8 @@ Training keeps that routing for the serving entry points only.  On the
 training path the plan's stages run their kernels with the eager backward
 (``layers._kernel_fwd_eager_bwd``), and what the reference leaves to XLA
 stays PyTorch ops with autograd: the o-projection ``@``, gpt2's
-LayerNorms and the final norm (row invariance is a serving concern).
+LayerNorms, the MoE family's ln2 and router product, and the final norm
+(row invariance is a serving concern).
 float32 master weights are cast to the compute dtype inside the forward
 (the reference's ``_cast_tree``), so gradients flow back to the float32
 leaves; ``remat`` recomputes each layer in the backward
@@ -151,9 +154,15 @@ def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
                ) -> torch.Tensor:
     """ln2 + FFN, eager or through ``streamed_ffn`` / ``streamed_mlp``;
     ``fuse_norm`` folds the RMSNorm into the kernel, else the norm stays
-    outside."""
+    outside.  MoE (``model.py:176-194``): ln2 outside, then the router and
+    the experts (``moe_experts`` on the kernel plan)."""
     choice = lplan.ffn if lplan is not None else None
     if choice is not None and choice.fused:
+        if choice.implementation == "moe_experts":
+            return L.fused_moe_ffn(_plan_norm(train)(cfg.norm, x, ln_p), p,
+                                   activation=cfg.activation,
+                                   top_k=cfg.top_k, router_kernel=not train,
+                                   **choice.kw)
         if choice.implementation not in ("streamed_ffn", "streamed_mlp"):
             raise NotImplementedError(
                 f"ffn kernel {choice.implementation!r} is not ported yet")
@@ -165,8 +174,11 @@ def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
         return L.fused_ffn(_plan_norm(train)(cfg.norm, x, ln_p), p,
                            activation=cfg.activation, gated=cfg.gated_ffn,
                            w8=w8)
-    return L.ffn(L.apply_norm(cfg.norm, x, ln_p), p,
-                 activation=cfg.activation, gated=cfg.gated_ffn)
+    h = L.apply_norm(cfg.norm, x, ln_p)
+    if cfg.is_moe:
+        return L.moe_ffn(h, p, activation=cfg.activation,
+                         gated=cfg.gated_ffn, top_k=cfg.top_k)
+    return L.ffn(h, p, activation=cfg.activation, gated=cfg.gated_ffn)
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor,

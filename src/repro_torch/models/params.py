@@ -68,27 +68,43 @@ def _norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
+def _ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The MLP, or under MoE the router ``wr`` [D, E] and the expert
+    stacks ``wu``/``wg`` [E, D, F], ``wd`` [E, F, D] (``params.py:96``,
+    fan-ins D and F, the reference's leaf order)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.is_moe:
+        e = cfg.num_experts
+        out = {"wr": _mat(d, e),
+               "wu": ParamDef((e, d, f), "normal", fan_in=d),
+               "wd": ParamDef((e, f, d), "normal", fan_in=f)}
+        if cfg.gated_ffn:
+            out["wg"] = ParamDef((e, d, f), "normal", fan_in=d)
+        return out
+    out = {"wu": _mat(d, f), "wd": _mat(f, d)}
+    if cfg.gated_ffn:
+        out["wg"] = _mat(d, f)
+    return out
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
-    """One attention layer: ln1, attn (wq/wk/wv/wo), ln2, mlp (wg/wu/wd)."""
+    """One attention layer: ln1, attn (wq/wk/wv/wo), ln2, mlp (wg/wu/wd,
+    or the MoE router and expert stacks)."""
     if kind not in ("attn", "local_attn", "global_attn"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    if cfg.qkv_bias or cfg.qk_norm or cfg.is_moe:
+    if cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError(
-            f"{cfg.name!r}: qkv bias / qk-norm / MoE layers are not ported "
-            "yet")
+            f"{cfg.name!r}: qkv bias / qk-norm layers are not ported yet")
     if cfg.norm == "layernorm" and cfg.gated_ffn:
         raise NotImplementedError(
             f"{cfg.name!r}: a gated FFN under LayerNorm is not ported yet")
-    d, dq, dkv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    mlp = {"wu": _mat(d, f), "wd": _mat(f, d)}
-    if cfg.gated_ffn:
-        mlp["wg"] = _mat(d, f)
+    d, dq, dkv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     return {
         "ln1": _norm_defs(cfg),
         "attn": {"wq": _mat(d, dq), "wk": _mat(d, dkv), "wv": _mat(d, dkv),
                  "wo": _mat(dq, d)},
         "ln2": _norm_defs(cfg),
-        "mlp": mlp,
+        "mlp": _ffn_defs(cfg),
     }
 
 

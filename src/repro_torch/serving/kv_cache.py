@@ -20,7 +20,10 @@ scale per (physical page, KV head) in a sibling ``<name>_scale`` pool
 ``[L, P, Hkv]`` indexed by the same page ids.  Whole pages (prefill chunks,
 whole-prompt placement) set their scale from their own amax; appends fold
 it in monotonically (``max(old, amax / qmax)``) and re-encode the page's
-earlier rows when it grows.
+earlier rows when it grows.  A page that ``ensure`` hands out starts at
+scale 0, as every page of a fresh pool does: the reference keeps whatever
+scale the page's previous owner left (``kv_cache.py:239``), so there a
+request's tokens depend on the traffic served before it.
 
 Where the reference's primitives return updated arrays from a donated jit,
 the port's update the pool tensors in place (``index_put_``), which is what
@@ -424,17 +427,22 @@ class PagedKVCache:
         # (through ``evict_page``) and returns True, or returns False.
         self.evictor: Optional[Callable[[], bool]] = None
         self.peak_pages = 0
+        self._scales: List[torch.Tensor] = []   # init_cache's scale pools
 
     def init_cache(self) -> Dict[str, torch.Tensor]:
         """Fresh zeroed pools on the device (fp8 codes zeroed through their
         bytes: 0x00 is +0.0).  The engine owns them and the model updates
-        them in place; this object tracks which page is whose."""
+        them in place; this object tracks which page is whose, and zeroes
+        the scale rows of each page ``ensure`` hands out."""
         def zeros(cd: CacheDef) -> torch.Tensor:
             raw = torch.uint8 if cd.dtype == torch.float8_e4m3fn else cd.dtype
             return torch.zeros(cd.shape, dtype=raw,
                                device=self.device).view(cd.dtype)
 
-        return {name: zeros(cd) for name, cd in self._defs.items()}
+        cache = {name: zeros(cd) for name, cd in self._defs.items()}
+        self._scales = [t for name, t in cache.items()
+                        if name.endswith("_scale")]
+        return cache
 
     # ------------------------------------------------------------ state
     @property
@@ -526,11 +534,19 @@ class PagedKVCache:
                 f"max_len={self.max_len}")
         need = cdiv(max(length, 1), self.page_size)
         owned = self._owned[slot]
+        new = []
         while len(owned) < need:
             page = self.alloc_page()
             self._ref(page)
             self._table[slot, len(owned)] = page
             owned.append(page)
+            new.append(page)
+        if new and self._scales:
+            # A reused page must not keep its previous owner's scale; its
+            # stale codes re-encode to 0 at the first append.
+            idx = torch.as_tensor(new, device=self.device)
+            for scale in self._scales:
+                scale[:, idx] = 0.0
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
         return self.slot_pages(slot)
 

@@ -29,7 +29,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.paged_attention",
             "repro_torch.train.trainer", "repro_torch.distributed.optimizer",
             "repro_torch.data.pipeline", "repro_torch.launch.train",
-            "repro_torch.kernels.streamed_xent"} <= set(modules)
+            "repro_torch.kernels.streamed_xent",
+            "repro_torch.kernels.moe_experts",
+            "repro_torch.configs.granite_moe_1b",
+            "repro_torch.configs.granite_moe_3b"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"
