@@ -21,7 +21,12 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               (K12), router product, ln2 rows, projections and attention
               at decode, verify, a prefill chunk and a whole prompt, and
               granite-moe-1b's experts, projections, attention and loss
-              at a training step's 2 x 2048 tokens),
+              at a training step's 2 x 2048 tokens; zamba2-2.7b's SSD
+              scan (K13) at whole prompts of 1000, 999, 37 and 128 tokens
+              and a training step's 2 x 2048, its shared block's GELU GLU
+              without a folded norm (K4, K10b), decode attention (K1, K9a)
+              and static attention (K7) at head dim 80, projections,
+              ln2 rows, LM head and loss),
               in bfloat16 and float32: max error against the stated
               tolerance, kernel / plain / library times (CUDA events, L2
               flushed between launches) and the card's bound; every row
@@ -34,7 +39,8 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               windows of 2, 3 and 5): the projection and FFN kernels and
               their int8 twins, the o-projection, the LM head and the
               norms, and granite-moe-3b's MoE stage at 1, 8, 12, 20 and
-              64 rows (required); the eager plan's PyTorch calls at those
+              64 rows (required), and zamba2's GELU GLU and its int8 twin
+              (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
 4. fused_vs_eager, gpt2_fused_vs_eager, granite_fused_vs_eager —
               llama3-8b, gpt2 (jittered) and granite-moe-3b at full width
@@ -76,6 +82,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               twins, and never K1, K2 or K8, under KV quantization) and
               complete every request; the first prompt served alone must
               repeat its burst tokens;
+   zamba_fused_vs_eager, zamba accuracy — zamba2-2.7b at full width
+              cut to 6 layers (one period: the shared block runs once),
+              float32, whole-prompt admission: kernel plan tokens equal to
+              the eager plan's, launches exactly ``zamba_launches``; the
+              accuracy gate of every quant mode;
+   zamba_serve, zamba_quant_serve — zamba2-2.7b at full width and
+              depth, bfloat16, the mixed burst with whole-prompt admission,
+              plain and under w8_kv8: every request completes, the solo
+              request repeats its burst, the launches are exactly K13 54
+              per prefill, K3 (x3), K7 and K4 9 per prefill, K1 or K9a and
+              K4 or K10b 9 per decode step, K5 and the RMSNorm rows 9 per
+              call, K3 once per call for the LM head; state bytes
+              reported beside the KV bytes;
 9. train_fused_vs_eager — the three models at full width cut to 4 layers,
               float32, B = 2, S = 256: the kernel plan's ``forward_train``
               loss against the eager plan's (relative 1e-5) and every
@@ -90,9 +109,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               replaying steps 4-6 (losses equal at relative 1e-3, bit
               equality reported); llama3-8b at full width cut to 2 layers
               (B = 2, S = 2048; the full depth does not fit one card) for
-              3 steps and a timed restore; granite-moe-1b at full width
-              and depth (B = 2, S = 2048, lr 3e-5) for 3 steps, no
-              checkpoint.  Losses finite and falling,
+              3 steps and a timed restore; granite-moe-1b and zamba2-2.7b
+              at full width and depth (B = 2, S = 2048, lr 3e-5) for 3
+              steps, no checkpoint.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
@@ -152,6 +171,7 @@ TPU_KERNELS = {
     # The row-norm helper's RMSNorm mode: the eager RMSNorm the reference
     # leaves to XLA in front of the MoE router and experts.
     "rms_norm_rows": "src/repro/models/layers.py:187",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan.py:34",
 }
 HELPERS = {"row_norm", "rms_norm_rows"}
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -174,6 +194,7 @@ SOURCES = {
     "streamed_xent": _CSRC + "streamed_xent.cu",
     "moe_experts": _CSRC + "moe_experts.cu",
     "rms_norm_rows": _CSRC + "row_norm.cu",
+    "mamba2_scan": _CSRC + "mamba2_scan.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 # On the kernel plan the o-projection runs through block_matmul, llama3's
@@ -244,6 +265,41 @@ QUANT_PATHS = {
                                           "flash_attention_q",
                                           "paged_verify_attention_q"},
 }
+# zamba2 (whole-prompt admission only): K13 in every layer, the shared
+# block's kernels in each of its applications: qkv through rmsnorm_matmul,
+# the static flash kernel at head dim 80, ln2 through the row-norm
+# kernel's RMSNorm mode, the GELU GLU through streamed_ffn without a
+# folded norm, the o-projection through block_matmul, decode through K1;
+# the final norm and LM head through rmsnorm_matmul.  Under w8_kv8 the
+# qkv and FFN run their int8 twins and decode reads int8 pages (K9a).
+ZAMBA = "zamba2-2.7b"
+ZAMBA_LAYERS = 54
+
+
+def zamba_launches(prefills: int, steps: int, quant: str = "none",
+                   layers: int = ZAMBA_LAYERS, every: int = 6) -> dict:
+    """Every kernel's exact launches in a zamba2 burst of ``prefills``
+    whole-prompt prefills and ``steps`` decode steps: K13 once per layer
+    per prefill; per shared-block application q, k and v (rmsnorm_matmul),
+    ln2, the FFN and the o-projection in every prefill and decode step,
+    attention through the static flash kernel in prefill and the paged
+    kernel in decode; the final norm and LM head once per call.  The
+    shared block runs after every ``every``-th layer."""
+    shared = layers // every
+    calls = prefills + steps
+    w8 = quant in ("w8", "w8_kv8")
+    out = {"mamba2_scan": layers * prefills,
+           "flash_attention_static": shared * prefills,
+           ("paged_attention_q" if quant in ("kv_int8", "kv_fp8", "w8_kv8")
+            else "paged_attention"): shared * steps,
+           "streamed_ffn_w8" if w8 else "streamed_ffn": shared * calls,
+           "block_matmul": shared * calls, "rms_norm_rows": shared * calls,
+           "rmsnorm_matmul": calls + (0 if w8 else 3 * shared * calls)}
+    if w8:
+        out["rmsnorm_matmul_w8"] = 3 * shared * calls
+    return {k: n for k, n in out.items() if n}
+
+
 # The training path on the kernel plan: each layer's forward launches, the
 # static flash kernel for attention; under remat the backward runs every
 # layer's forward again (the eager backward itself launches nothing); the
@@ -258,10 +314,14 @@ TRAIN_LAYER_LAUNCHES = {
                     "flash_attention_static": 1},
 }
 TRAIN_LAYER_LAUNCHES[GRANITE] = TRAIN_LAYER_LAUNCHES[GRANITE_TRAIN]
+# zamba2: per shared-block application (K13 per layer apart).
+TRAIN_LAYER_LAUNCHES[ZAMBA] = {"rmsnorm_matmul": 3,
+                                       "streamed_ffn": 1,
+                                       "flash_attention_static": 1}
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
-# llama3-8b and granite-moe-1b-a400m at 2 x 2048.
+# llama3-8b, granite-moe-1b-a400m and zamba2-2.7b at 2 x 2048.
 TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
-                GRANITE_TRAIN: (2, 2048)}
+                GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -274,10 +334,17 @@ def emit(obj) -> None:
 
 
 def train_step_launches(model: str, layers: int, remat: bool = True):
-    """Each kernel's launches in one training step on the kernel plan."""
+    """Each kernel's launches in one training step on the kernel plan
+    (zamba2: K13 in every layer, the shared block's kernels in each of its
+    ``layers // 6`` applications)."""
     runs = 2 if remat else 1
-    out = {k: runs * n * layers
-           for k, n in TRAIN_LAYER_LAUNCHES[model].items()}
+    if model == ZAMBA:
+        out = {"mamba2_scan": runs * layers}
+        out.update({k: runs * n * (layers // 6)
+                    for k, n in TRAIN_LAYER_LAUNCHES[model].items()})
+    else:
+        out = {k: runs * n * layers
+               for k, n in TRAIN_LAYER_LAUNCHES[model].items()}
     out["streamed_xent"] = 1
     return out
 
@@ -754,8 +821,9 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
 def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """K11 at the training paths' shapes: gpt2 (T = 8 x 1024 tokens, D =
     1024, Vp = 50432 over its 50257-token vocabulary), llama3-8b (T =
-    2 x 2048, D = 4096, Vp = vocab = 128256) and granite-moe-1b-a400m (T =
-    2 x 2048, D = 1024, Vp = 49408 over 49155).  About 10% of the labels are
+    2 x 2048, D = 4096, Vp = vocab = 128256), granite-moe-1b-a400m (T =
+    2 x 2048, D = 1024, Vp = 49408 over 49155) and zamba2-2.7b (T = 2 x
+    2048, D = 2560, Vp = vocab = 32000).  About 10% of the labels are
     ignored; the kernel gets them clamped to 0, as ``streamed_xent_loss``
     passes them.  The library yardstick is the cuBLAS chain ``h @ W``,
     ``torch.logsumexp`` and ``gather``."""
@@ -771,7 +839,8 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     cases = []
     for model, d, vocab in (("gpt2", 1024, 50257),
                             ("llama3-8b", 4096, 128256),
-                            (GRANITE_TRAIN, 1024, 49155)):
+                            (GRANITE_TRAIN, 1024, 49155),
+                            (ZAMBA, 2560, 32000)):
         b, s = TRAIN_SHAPES[model]
         t, vp = b * s, padded_vocab(vocab)
         h = randn(t, d)
@@ -935,6 +1004,174 @@ def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     return cases
 
 
+def _ssd_case(torch, K, ref, randn, isz, b, s, path):
+    """K13 at zamba2's widths (80 heads of 64, state 64) over ``b``
+    sequences of ``s`` tokens, in the model's chunk: realistic operands
+    (dt from the init's dt_bias through softplus, a_log the init's).  The
+    library yardstick is the eager chunked ``mamba2_ssd`` (no one PyTorch
+    call computes the SSD).  Operations: per chunk of Q rows, C B^T and the
+    (C B^T o L) x product over the Q(Q+1)/2 pairs the mask keeps, then C
+    h^T and the state update."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _chunk_of
+    h, p, n = 80, 64, 64
+    q = _chunk_of(s, 128)
+    x = randn(b, s, h, p)
+    dt_bias = torch.log(torch.expm1(torch.exp(torch.linspace(
+        math.log(1e-3), math.log(1e-1), h, device=x.device))))
+    dt = torch.nn.functional.softplus(
+        randn(b, s, h, scale=0.5).float() + dt_bias).to(x.dtype)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=x.device)).to(
+        x.dtype)
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    d_skip = randn(h)
+    args = (x, dt, a_log, bm, cm, d_skip)
+    pairs = q * (q + 1) // 2
+    flops = b * h * (s // q) * (2 * pairs * (n + p) + 4 * q * p * n)
+    return dict(
+        name="mamba2_scan", model=ZAMBA, path=path,
+        shape=f"B={b},S={s},Q={q},H={h},P={p},N={n}",
+        kernel=lambda: K.mamba2_ssd(*args, chunk=q),
+        plain=lambda: ref.mamba2_ssd(*args, chunk=q),
+        library=lambda: L.mamba2_ssd(*args, chunk=q), cublas=None,
+        nbytes=(2 * b * s * h * p + b * s * h + 2 * b * s * n + 2 * h) * isz
+        + 4 * b * h * p * n, flops=flops)
+
+
+def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """zamba2-2.7b's kernel calls: K13 at whole prompts of 1000 (Q 8), 999
+    (Q 1), 37 (Q 37) and 128 (Q 128) tokens and at a training step's 2 x
+    2048 (Q 128); the shared block's GELU GLU (K4, D 2560, F 10240, no
+    folded norm) and its int8 twin K10b at a decode step (T 4), 128 rows
+    and a 1000-token prompt, K4 at the training step's 4096 rows; its qkv
+    (K3, N 2560, and the int8 twin K10a), ln2 rows and o-projection (K5) at
+    decode and a whole prompt; the final norm with the LM head (K3, N
+    32000) at one row and at decode; decode attention at head dim 80 (32
+    query and KV heads; slots of 1000, 517, 37 and 0 positions) over
+    bf16, int8 and fp8 pages (K1, K9a); the static flash kernel at head
+    dim 80 over a 1000-token prompt and the training step's 2 sequences of
+    2048 (folded into 64 heads); the training step's qkv projection (K3,
+    T 4096) and loss (K11, Vp 32000)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cases = []
+    for s in (1000, 999, 37, 128):
+        cases.append(_ssd_case(torch, K, ref, randn, isz, 1, s,
+                               "whole_prompt"))
+    b, sl = TRAIN_SHAPES[ZAMBA]
+    cases.append(_ssd_case(torch, K, ref, randn, isz, b, sl, "train"))
+    d, f = 2560, 10240
+    wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+    wgq, wuq, wdq = ((c.float() * sc).to(dtype)
+                     for c, sc in ((cg, sg), (cu, su), (cd, sd)))
+    gelu = lambda v: torch.nn.functional.gelu(v, approximate="tanh")
+    for t in (4, 128, 1000, b * sl):
+        path = {1000: "whole_prompt", b * sl: "train"}.get(t)
+        x = randn(t, d)
+        cases.append(dict(
+            name="streamed_ffn", model=ZAMBA, path=path,
+            shape=f"T={t},D={d},F={f},gelu,no norm",
+            kernel=lambda x=x: K.streamed_ffn(x, wg, wu, wd,
+                                              activation="gelu"),
+            plain=lambda x=x: ref.streamed_ffn(x, wg, wu, wd,
+                                               activation="gelu"),
+            library=None,
+            cublas=lambda x=x: torch.matmul(gelu(x @ wg) * (x @ wu), wd),
+            nbytes=(2 * t * d + 3 * d * f) * isz, flops=6 * t * d * f))
+        if t == b * sl:
+            continue
+        cases.append(dict(
+            name="streamed_ffn_w8", model=ZAMBA, path=path,
+            shape=f"T={t},D={d},F={f},gelu,no norm,int8",
+            kernel=lambda x=x: K.streamed_ffn_w8(
+                x, cg, cu, cd, wg_scale=sg, wu_scale=su, wd_scale=sd,
+                activation="gelu"),
+            plain=lambda x=x: ref.streamed_ffn_w8(
+                x, cg, cu, cd, wg_scale=sg, wu_scale=su, wd_scale=sd,
+                activation="gelu"),
+            library=None,
+            cublas=lambda x=x: torch.matmul(gelu(x @ wgq) * (x @ wuq), wdq),
+            nbytes=2 * t * d * isz + 3 * d * f + 4 * (2 * f + d),
+            flops=6 * t * d * f))
+    w_q = randn(d, d, scale=1 / math.sqrt(d))
+    (cq, sq), = _w8(torch, w_q)
+    wqq = (cq.float() * sq).to(dtype)
+    head = randn(d, 32000, scale=1 / math.sqrt(d))
+    for t in (1, 4, 1000):
+        path = "whole_prompt" if t == 1000 else None
+        x = randn(t, d)
+        s = randn(d, scale=0.1)
+        xn = ref.rms_rows(x, s, 1e-6)
+        if t > 1:
+            cases += [dict(
+                name="rmsnorm_matmul", model=ZAMBA, path=path,
+                shape=f"T={t},D={d},N={d}",
+                kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, w_q),
+                plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, w_q),
+                library=None, cublas=lambda xn=xn: torch.matmul(xn, w_q),
+                nbytes=(2 * t * d + d + d * d) * isz, flops=2 * t * d * d),
+                dict(
+                name="rmsnorm_matmul_w8", model=ZAMBA, path=path,
+                shape=f"T={t},D={d},N={d},int8",
+                kernel=lambda x=x, s=s: K.rmsnorm_matmul_w8(
+                    x, s, cq, w_scale=sq),
+                plain=lambda x=x, s=s: ref.rmsnorm_matmul_w8(x, s, cq, sq),
+                library=None, cublas=lambda xn=xn: torch.matmul(xn, wqq),
+                nbytes=(2 * t * d + d) * isz + d * d + 4 * d,
+                flops=2 * t * d * d),
+                dict(
+                name="block_matmul", model=ZAMBA, path=path,
+                shape=f"o_proj M={t},K={d},N={d}",
+                kernel=lambda x=x: K.block_matmul(x, w_q),
+                plain=lambda x=x: ref.block_matmul(x, w_q),
+                library=lambda x=x: torch.matmul(x, w_q), cublas=None,
+                nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d),
+                dict(
+                name="rms_norm_rows", model=ZAMBA, path=path,
+                shape=f"T={t},D={d}",
+                kernel=lambda x=x, s=s: K.rms_norm_rows(x, s),
+                plain=lambda x=x, s=s: ref.rms_rows(x, s, 1e-6),
+                library=lambda x=x, w1=(1.0 + s.float()).to(dtype):
+                    torch.nn.functional.rms_norm(x, (d,), w1, 1e-6),
+                cublas=None, nbytes=(2 * t * d + d) * isz,
+                flops=4 * t * d)]
+        if t < 1000:
+            cases.append(dict(
+                name="rmsnorm_matmul", model=ZAMBA, path=path,
+                shape=f"lm_head T={t},D={d},N=32000",
+                kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
+                plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
+                library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+                nbytes=(t * d + d + d * 32000 + t * 32000) * isz,
+                flops=2 * t * d * 32000))
+    # The training step's q / k / v projection (one shape for all three).
+    t = b * sl
+    x = randn(t, d)
+    s = randn(d, scale=0.1)
+    xn = ref.rms_rows(x, s, 1e-6)
+    cases.append(dict(
+        name="rmsnorm_matmul", model=ZAMBA, path="train",
+        shape=f"T={t},D={d},N={d}",
+        kernel=lambda: K.rmsnorm_matmul(x, s, w_q),
+        plain=lambda: ref.rmsnorm_matmul(x, s, w_q),
+        library=None, cublas=lambda: torch.matmul(xn, w_q),
+        nbytes=(2 * t * d + d + d * d) * isz, flops=2 * t * d * d))
+    for code in (None,) + CODES:
+        cases.append(dict(_paged_case(torch, K, ref, randn, isz, gen, 32, 32,
+                                      80, 128, dev, code), model=ZAMBA))
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", 32, 32, 80, 1000,
+                                  1000, None, dev),
+                      model=ZAMBA, path="whole_prompt"))
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", b * 32, b * 32,
+                                  80, sl, sl, None, dev),
+                      model=ZAMBA, path="train"))
+    return cases
+
+
 def _flat(torch, out):
     """A kernel's output, its parts concatenated when it has several
     (streamed_xent: lse and gold)."""
@@ -956,6 +1193,7 @@ def check_kernels(torch, timer):
                   for c in gpt2_kernel_cases(torch, K, ref, dtype, gen)]
         cases += xent_cases(torch, K, ref, dtype, gen)
         cases += granite_kernel_cases(torch, K, ref, dtype, gen)
+        cases += zamba_kernel_cases(torch, K, ref, dtype, gen)
         for c in cases:
             out = _flat(torch, c["kernel"]())
             torch.cuda.synchronize()
@@ -1025,8 +1263,9 @@ def check_row_invariance(torch):
     in bfloat16 and float32: the projection and FFN kernels and their int8
     twins, the o-projection (block_matmul), the final norm with the LM head
     (rmsnorm_matmul over the padded vocabulary; gpt2: block_matmul) and
-    gpt2's LayerNorm (row_norm); and granite-moe-3b's MoE stage at 1, 8,
-    12, 20 and 64 rows (its parts and the whole).  Exact acceptance needs
+    gpt2's LayerNorm (row_norm); granite-moe-3b's MoE stage at 1, 8,
+    12, 20 and 64 rows (its parts and the whole); and zamba2's GELU GLU
+    without a folded norm and its int8 twin.  Exact acceptance needs
     every one of them to pass (required; the MoE gate arithmetic is
     PyTorch's but on the path, so required too).  The eager plan's
     PyTorch calls at the same shapes (``torch.matmul``, PyTorch's norms)
@@ -1124,6 +1363,25 @@ def check_row_invariance(torch):
             out.append(row)
             if row["required"] and not all(row["equal_to_T4"].values()):
                 bad.append(f"{GRANITE} {dname} {name} {row['equal_to_T4']}")
+        # zamba2's shared-block FFN: GELU, no folded norm, and its int8
+        # twin.
+        d, f = 2560, 10240
+        x = randn(SPEC_T, d)
+        wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+        wd = randn(f, d, scale=1 / math.sqrt(f))
+        (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+        calls = {
+            "streamed_ffn gelu": lambda a: K.streamed_ffn(
+                a, wg, wu, wd, activation="gelu"),
+            "streamed_ffn_w8 gelu": lambda a: K.streamed_ffn_w8(
+                a, cg, cu, cd, wg_scale=sg, wu_scale=su, wd_scale=sd,
+                activation="gelu")}
+        for name, fn in calls.items():
+            row = _same_rows(torch, fn, x, ZAMBA, dname, name,
+                             (2 * SLOTS, 3 * SLOTS, SPEC_T))
+            out.append(row)
+            if not all(row["equal_to_T4"].values()):
+                bad.append(f"{ZAMBA} {dname} {name} {row['equal_to_T4']}")
     if bad:
         raise AssertionError("rows change with the row count: "
                              + "; ".join(bad))
@@ -1248,7 +1506,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     """A mixed burst of 8 prompts through the engine with the kernel plan;
     the kernels in ``expect`` must each launch, and no other."""
     from repro_torch import kernels as K
-    from repro_torch.models.params import weight_bytes
+    from repro_torch.models.params import cache_leaf_kind, weight_bytes
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
     rng = np.random.default_rng(2)
@@ -1274,7 +1532,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     tpot = [r.tpot_s for r in reqs]
     row = {"phase": phase, "config": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype, "quant": cfg.quant,
-           "admission": "chunked" if chunked else "whole_prompt",
+           "admission": "chunked" if eng.chunked else "whole_prompt",
            # Resident weights of the engine's tree: int8 codes and scales
            # in place of the w8 stages' weights under a weight mode.
            "weight_bytes": weight_bytes(eng.params), "init_s": init_s,
@@ -1286,6 +1544,10 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
            "tpot_mean_ms": 1e3 * statistics.mean(tpot),
            "kv_bytes_peak": eng.metrics["kv_bytes_peak"],
            "kv_itemsize_effective": eng.metrics["kv_itemsize_effective"],
+           # Slot-contiguous recurrent state (zamba2's SSM and conv rows).
+           "state_bytes": sum(t.numel() * t.element_size()
+                              for n, t in eng.cache.items()
+                              if cache_leaf_kind(n) == "state"),
            "device_mem_peak": (torch.cuda.max_memory_allocated()
                                if device == "cuda" else None),
            "metrics": burst_metrics, "launches": counts,
@@ -1628,6 +1890,94 @@ def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
 
 
 # --------------------------------------------------------------------- #
+# zamba2: the Mamba2 hybrid, whole-prompt admission
+# --------------------------------------------------------------------- #
+
+def zamba_fused_vs_eager(torch, cfg, device="cuda",
+                         lengths=(150, 40, 300, 9)):
+    """``cfg``: zamba2 at full width cut to 6 layers (one period: the
+    shared block runs once), float32.  The kernel plan's greedy tokens
+    must equal the eager plan's, and its burst must launch exactly
+    ``zamba_launches`` of its prefills and decode steps."""
+    from repro_torch import kernels as K
+    from repro_torch.serving import ServingEngine
+    params = _weights(torch, cfg, 1, jitter=False, device=device)
+    prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
+    row = {"phase": "zamba_fused_vs_eager", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "prompts": [len(p) for p in prompts], "new_tokens": 8}
+    tokens = {}
+    for fused in (True, False):
+        eng = ServingEngine(
+            dataclasses.replace(cfg, use_fused_kernels=fused), params,
+            batch_slots=SLOTS, max_len=512, device=device)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        tokens[fused] = [r.out_tokens for r in eng.generate(
+            prompts, max_new_tokens=8)]
+        _sync(torch, device)
+        row["fused_s" if fused else "eager_s"] = time.perf_counter() - t0
+        if fused:
+            row["admission"] = ("chunked" if eng.chunked
+                                else "whole_prompt")
+            row["launches"] = {k: n for k, n in K.launch_counts().items()
+                               if n}
+            row["expected"] = zamba_launches(
+                eng.metrics["prefills"], eng.metrics["scan_ticks"],
+                layers=cfg.num_layers, every=cfg.shared_attn_every)
+    row.update(tokens_equal=tokens[True] == tokens[False],
+               fused_tokens=tokens[True], eager_tokens=tokens[False])
+    emit(row)
+    del params
+    _free(torch, device)
+    bad = []
+    if not row["tokens_equal"]:
+        bad.append("kernel plan != eager plan")
+    if row["launches"] != row["expected"]:
+        bad.append(f"launched {row['launches']}, expected "
+                   f"{row['expected']}")
+    if row["admission"] != "whole_prompt":
+        bad.append("not admitted whole-prompt")
+    if bad:
+        raise AssertionError(f"zamba_fused_vs_eager: " + "; ".join(bad))
+    return row
+
+
+def zamba_serve(torch, cfg, device="cuda"):
+    """``cfg``: zamba2 at full width and depth, bfloat16, kernel plan;
+    weights drawn once on the card (seed 2).  The mixed burst (``serve``:
+    8 prompts of 37..1000 tokens, 32 new tokens each, 4 slots, max_len
+    2048, whole-prompt admission) plain and under w8_kv8; each burst must
+    launch exactly ``zamba_launches`` of its prefills and decode steps."""
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=False, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    out = {}
+    for quant in ("none", QUANT_MODE):
+        qcfg = dataclasses.replace(cfg, quant=quant)
+        row = serve(torch, qcfg, params, set(zamba_launches(1, 1, quant)),
+                    init_s=init_s, chunked=None,
+                    phase="zamba_serve" if quant == "none"
+                    else "zamba_quant_serve", device=device)
+        m = row["metrics"]
+        want = zamba_launches(m["prefills"], m["scan_ticks"], quant,
+                              cfg.num_layers, cfg.shared_attn_every)
+        got = {k: n for k, n in row["launches"].items() if n}
+        emit({"phase": "zamba_launches", "quant": quant,
+              "prefills": m["prefills"], "decode_steps": m["scan_ticks"],
+              "launches": got, "expected": want, "exact": got == want})
+        if got != want:
+            raise AssertionError(f"zamba_serve {quant}: launched {got}, "
+                                 f"expected {want}")
+        out[quant] = row
+        _free(torch, device)
+    del params
+    _free(torch, device)
+    return out
+
+
+# --------------------------------------------------------------------- #
 # Training
 # --------------------------------------------------------------------- #
 
@@ -1743,6 +2093,7 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
                ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
                ("streamed_ffn_kernel", "FFN (K4/K6)"),
                ("moe_", "MoE experts (K12)"),
+               ("mamba2_ssd_kernel", "SSD scan (K13)"),
                ("flash_offset_kernel", "attention (K7)"),
                ("xent_", "loss (K11)"))
 
@@ -1954,10 +2305,19 @@ def main(argv=None) -> int:
         for m, (_, jit, _, _) in models.items()}
     results["accuracy"] = {m: accuracy(torch, small[m], jitter=jit)
                            for m, (_, jit, _, _) in models.items()}
+    zamba = get_config(ZAMBA)
+    results["zamba_fused_vs_eager"] = zamba_fused_vs_eager(
+        torch, dataclasses.replace(zamba, num_layers=6, dtype="float32",
+                                   use_fused_kernels=True))
+    results["accuracy"][ZAMBA] = accuracy(
+        torch, dataclasses.replace(zamba, num_layers=6, dtype="float32"),
+        jitter=False)
     results["full_depth"] = {
         m: full_depth(torch, dataclasses.replace(c, use_fused_kernels=True),
                       m, jitter=jit, max_len=ml, hi=hi)
         for m, (c, jit, ml, hi) in models.items()}
+    results["zamba_serve"] = zamba_serve(
+        torch, dataclasses.replace(zamba, use_fused_kernels=True))
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
@@ -1978,7 +2338,12 @@ def main(argv=None) -> int:
                                        use_fused_kernels=True),
             GRANITE_TRAIN, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
             note="full width and depth; no checkpoint (the CPU tests hold "
-                 "MoE checkpoints to the reference)")}
+                 "MoE checkpoints to the reference)"),
+        ZAMBA: train(
+            torch, dataclasses.replace(zamba, use_fused_kernels=True),
+            ZAMBA, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+            note="full width and depth; no checkpoint (the CPU tests hold "
+                 "zamba2 checkpoints to the reference)")}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -1990,6 +2355,9 @@ def main(argv=None) -> int:
             paths.append((m, f"quant_{mode}", r["launches"]))
         paths.append((m, "quant_speculative",
                       fd["quant_spec_serve"]["launches"]))
+    for quant, r in results["zamba_serve"].items():
+        paths.append((ZAMBA, "whole_prompt" if quant == "none"
+                      else "quant_whole_prompt", r["launches"]))
     for m, r in results["train"].items():
         paths.append((m, "train", r["launches"]))
     summary = []

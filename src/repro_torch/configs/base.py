@@ -1,7 +1,7 @@
 """Architecture configuration dataclass (copy of ``repro.configs.base``).
 
 Only what the port's slices read is kept: the ``ModelConfig`` fields, the
-derived head/width accessors, the layer-pattern helpers and ``reduced()``,
+derived head/width accessors (the Mamba2 widths included), the layer-pattern helpers and ``reduced()``,
 and ``ShapeConfig`` (``configs/base.py:250``), the training batch shape.
 Field names and defaults match the reference so a config converts between
 the two packages field by field.
@@ -102,6 +102,15 @@ class ModelConfig:
     @property
     def is_mamba(self) -> bool:
         return self.ssm_state > 0
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def layer_kind(self, i: int) -> str:
         """What block sits at layer ``i`` (pattern-aware)."""

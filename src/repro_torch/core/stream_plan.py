@@ -3,9 +3,11 @@
 Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
 ``repro.core.stream_plan`` (the fields the port reads) and adds
 ``plan_for``, which returns the plan the reference compiler (trace ->
-tiling DSE -> fusion -> lowering) selects for the three ported families:
-dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b), its MoE variant (granite-moe)
-and dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2).  The
+tiling DSE -> fusion -> lowering) selects for the four ported families:
+dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b), its MoE variant (granite-moe),
+dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2), and the
+Mamba2 hybrid with a shared RMSNorm/GELU-GLU/RoPE attention block
+(zamba2; one ``LayerPlan`` per layer kind).  The
 reference selects the same kernels and blocks for each family's config
 and its reduced config at every token count, and at every KV length that
 is a multiple of the 16-token page
@@ -14,10 +16,10 @@ is a multiple of the 16-token page
 Under a weight-quantizing config (``w8``, ``w8_kv8``) the
 ``rmsnorm_matmul`` and ``streamed_ffn`` / ``streamed_mlp`` stages carry the
 reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
-``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``
-and ``moe_experts`` never do, so gpt2's projections and the MoE experts
-stay at full precision.  KV quantization changes no choice: the pools'
-dtype selects the attention twins.
+``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``,
+``moe_experts`` and ``mamba2_scan`` never do, so gpt2's projections, the
+MoE experts and the Mamba2 mixer stay at full precision.  KV quantization
+changes no choice: the pools' dtype selects the attention twins.
 The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
 is ``streamed_xent`` for every family, with the reference's blocks at
 every token count.
@@ -54,7 +56,7 @@ class KernelChoice:
 EAGER = KernelChoice("eager")
 
 # The main-path stages the port runs, in pipeline order.
-STAGES = ("qkv", "attention", "decode_attn", "verify_attn", "ffn")
+STAGES = ("qkv", "attention", "decode_attn", "verify_attn", "ffn", "mixer")
 
 
 @dataclass(frozen=True)
@@ -66,6 +68,7 @@ class LayerPlan:
     decode_attn: KernelChoice = EAGER  # single-token paged attention
     verify_attn: KernelChoice = EAGER  # W-token speculative verify window
     ffn: KernelChoice = EAGER          # (ln2 +) MLP
+    mixer: KernelChoice = EAGER        # the Mamba2 SSD scan
 
     def stages(self):
         for name in STAGES:
@@ -160,23 +163,58 @@ _MOE_RMSNORM_GLU = LayerPlan(
 )
 
 
+# ... and for the Mamba2 hybrid (zamba2-2.7b and its reduced config,
+# tokens in {4, 20, 128, 1000, 2048}): every layer's SSD scan through
+# ``mamba2_scan`` (chunk 128; the model cuts it to a divisor of the
+# sequence), and the shared block after every ``shared_attn_every``-th
+# layer through llama3's attention kernels and ``streamed_ffn`` with ln2
+# in front (GELU-GLU, the norm not folded).  The Mamba2 projections stay
+# plain matmuls.
+_MAMBA2_SCAN = KernelChoice("mamba2_scan", (("chunk", 128),))
+_MAMBA = LayerPlan(kind="mamba", mixer=_MAMBA2_SCAN)
+_MAMBA_SHARED_ATTN = replace(
+    _DENSE_RMSNORM_GLU, kind="mamba+shared_attn",
+    ffn=KernelChoice("streamed_ffn",
+                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 0))),
+    mixer=_MAMBA2_SCAN)
+
+
 # The training loss of every family (the reference's ``lm_head`` choice
 # at token counts 64..8192, full and reduced configs).
 _STREAMED_XENT = KernelChoice("streamed_xent",
                               (("block_t", 128), ("block_v", 512)))
 
 
-def _family_plan(cfg: ModelConfig) -> Optional[LayerPlan]:
-    """The ported family ``cfg`` belongs to, or None."""
+def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
+    """The ported family ``cfg`` belongs to (its plan per layer kind), or
+    None."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if kinds != {"attn"} or cfg.qkv_bias or cfg.qk_norm:
+    if cfg.qkv_bias or cfg.qk_norm:
+        return None
+    if kinds <= {"mamba", "mamba+shared_attn"}:
+        if (cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope"
+                and cfg.activation == "gelu" and not cfg.is_moe):
+            return {"mamba": _MAMBA, "mamba+shared_attn": _MAMBA_SHARED_ATTN}
+        return None
+    if kinds != {"attn"}:
         return None
     if cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope":
-        return _MOE_RMSNORM_GLU if cfg.is_moe else _DENSE_RMSNORM_GLU
+        return {"attn": (_MOE_RMSNORM_GLU if cfg.is_moe
+                         else _DENSE_RMSNORM_GLU)}
     if (cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none"
             and not cfg.is_moe):
-        return _DENSE_LAYERNORM_MLP
+        return {"attn": _DENSE_LAYERNORM_MLP}
     return None
+
+
+def _with_w8(lp: LayerPlan) -> LayerPlan:
+    """The ``("w8", 1)`` flag on the stages with an int8 twin."""
+    w8 = (("w8", 1),)
+    if lp.ffn.implementation in ("streamed_ffn", "streamed_mlp"):
+        lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
+    if lp.qkv.implementation == "rmsnorm_matmul":
+        lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
+    return lp
 
 
 def plan_for(cfg: ModelConfig, tokens: int,
@@ -185,18 +223,16 @@ def plan_for(cfg: ModelConfig, tokens: int,
     positions, or None when ``cfg.use_fused_kernels`` is off (eager)."""
     if not cfg.use_fused_kernels:
         return None
-    lp = _family_plan(cfg)
-    if lp is None:
+    family = _family_plan(cfg)
+    if family is None:
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
-            "RMSNorm/GQA/SwiGLU/RoPE (and its MoE variant) and LayerNorm/"
-            "MHA/GELU-MLP/learned-position stacks are ported")
-    if cfg.weight_quant:
-        w8 = (("w8", 1),)
-        if lp.ffn.implementation != "moe_experts":      # K12 has no w8 twin
-            lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
-        if lp.qkv.implementation == "rmsnorm_matmul":
-            lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
+            "RMSNorm/GQA/SwiGLU/RoPE (and its MoE variant), LayerNorm/"
+            "MHA/GELU-MLP/learned-position and Mamba2-hybrid stacks are "
+            "ported")
+    if cfg.weight_quant:                 # K12 and K13 have no w8 twin
+        family = {k: _with_w8(lp) for k, lp in family.items()}
     return StreamPlan(arch=cfg.name, tokens=int(tokens),
-                      kv_len=int(kv_len or tokens), layers=(("attn", lp),),
-                      quant=cfg.quant, lm_head=_STREAMED_XENT)
+                      kv_len=int(kv_len or tokens),
+                      layers=tuple(family.items()), quant=cfg.quant,
+                      lm_head=_STREAMED_XENT)

@@ -10,7 +10,10 @@
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
 // Only what the main paths run is built here: causal, no sliding window,
-// D in {64, 128}; the wrapper refuses the rest on the card.
+// D in {64, 128} and, for the static branch only, 80 (zamba2's shared
+// block); the wrapper refuses the rest on the card.  Each lane holds
+// output dims lane + 32 i; at D = 80 the last of its three is live on
+// lanes 0..15 only.
 //
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
 // _flash_kernel_offset (the offset branch of flash_attention_2d,
@@ -53,7 +56,8 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     int sq, int skv, int kv_group, int q_offset, int kv_len,
                     float scale) {
   constexpr bool QUANT = !std::is_same<T, C>::value;
-  constexpr int DPL = D / 32;   // output dims per lane
+  constexpr int DPL = (D + 31) / 32;   // output dims per lane
+  constexpr bool FULL = D % 32 == 0;   // every lane's every dim is live
   __shared__ float q_s[BQ][D];
   __shared__ float k_s[BKV][D + 1];
   __shared__ float v_s[BKV][D];
@@ -123,7 +127,8 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
         const float pj = __shfl_sync(0xffffffffu, pr, j);
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          acc[rr][i] = fmaf(pj, v_s[j][lane + 32 * i], acc[rr][i]);
+          if (FULL || lane + 32 * i < D)
+            acc[rr][i] = fmaf(pj, v_s[j][lane + 32 * i], acc[rr][i]);
       }
       m[rr] = m_new;
     }
@@ -136,7 +141,9 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
     const float denom = fmaxf(l[rr], 1e-30f);
     T* o = out + ((size_t)h * sq + q0 + r) * D;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) o[lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
+    for (int i = 0; i < DPL; ++i)
+      if (FULL || lane + 32 * i < D)
+        o[lane + 32 * i] = from_f<T>(acc[rr][i] / denom);
   }
 }
 
@@ -162,6 +169,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int hq,
   const float* vf = static_cast<const float*>(vs);
   if (d == 64)
     launch_d<T, C, 64>(q, k, v, kf, vf, out, hq, sq, skv, kv_group, q_offset,
+                       kv_len, scale, st);
+  else if (d == 80)
+    launch_d<T, C, 80>(q, k, v, kf, vf, out, hq, sq, skv, kv_group, q_offset,
                        kv_len, scale, st);
   else if (d == 128)
     launch_d<T, C, 128>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,

@@ -15,8 +15,10 @@
 // cached positions: decode passes lengths with extra = 0 (W = 1); verify
 // passes q_off with extra = 1 (row w attends through q_off + w).
 // Only what the main paths run is built here: no sliding window, D in
-// {64, 128} (gpt2, llama3), W * G up to 64 rows; the wrapper refuses the
-// rest on the card.
+// {64, 128} (gpt2, llama3) and, for decode only, 80 (zamba2's shared
+// block), W * G up to 64 rows; the wrapper refuses the rest on the card.
+// Each lane holds output dims lane + 32 i; at D = 80 the last of its
+// three is live on lanes 0..15 only.
 //
 // Replaces the TPU kernels
 // src/repro/kernels/paged_attention.py::_paged_decode_kernel (pallas_call
@@ -78,7 +80,8 @@ paged_window_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
                     int hkv, int g, int w, int extra, int ps, int maxp,
                     float scale) {
   constexpr bool QUANT = !std::is_same<T, C>::value;
-  constexpr int DPL = D / 32;
+  constexpr int DPL = (D + 31) / 32;
+  constexpr bool FULL = D % 32 == 0;    // every lane's every dim is live
   constexpr int ROWS = NWARP * RPW;
   extern __shared__ float smem[];
   __shared__ int page_s[CH];               // physical page of each position
@@ -167,7 +170,8 @@ paged_window_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int i = 0; i < DPL; ++i)
-          acc[hh][i] = fmaf(pj, v_s[j * D + lane + 32 * i], acc[hh][i]);
+          if (FULL || lane + 32 * i < D)
+            acc[hh][i] = fmaf(pj, v_s[j * D + lane + 32 * i], acc[hh][i]);
       }
       m[hh] = m_new;
     }
@@ -182,7 +186,8 @@ paged_window_kernel(const T* __restrict__ q, const C* __restrict__ kpool,
     T* o = out + (((size_t)b * w + wi) * hq + h * g + gi) * D;
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      o[lane + 32 * i] = from_f<T>(acc[hh][i] / denom);
+      if (FULL || lane + 32 * i < D)
+        o[lane + 32 * i] = from_f<T>(acc[hh][i] / denom);
   }
 }
 
@@ -241,6 +246,8 @@ int launch(const Operands& o, int b, int hkv, int g, int w, int extra, int d,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
     return launch_d<T, C, 64>(o, b, hkv, g, w, extra, ps, maxp, scale, st);
+  if (d == 80)
+    return launch_d<T, C, 80>(o, b, hkv, g, w, extra, ps, maxp, scale, st);
   if (d == 128)
     return launch_d<T, C, 128>(o, b, hkv, g, w, extra, ps, maxp, scale, st);
   return (int)cudaErrorInvalidValue;

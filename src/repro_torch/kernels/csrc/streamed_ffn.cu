@@ -1,11 +1,14 @@
 // streamed_ffn (K4) and streamed_mlp (K6), one kernel template:
-//   GLU  = true : out[T, D] = (silu(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, with
-//                 the pre-FFN RMSNorm folded in (xn = rms_norm(x) * (1 + s),
-//                 rounded to the x dtype) — the llama3 main path;
+//   GLU  = true : out[T, D] = (act(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, either
+//                 SiLU with the pre-FFN RMSNorm folded in (xn =
+//                 rms_norm(x) * (1 + s), rounded to the x dtype) — the
+//                 llama3 main path — or tanh-GELU without a folded norm
+//                 (xn = x) — zamba2's shared block, whose ln2 stays
+//                 outside;
 //   GLU  = false: out[T, D] = gelu_tanh(x @ Wu).to(T) @ Wd, no folded norm —
 //                 the gpt2 main path (its LayerNorm stays outside).
-// Only those two cases are built; the wrappers refuse other activations and
-// norm settings on the card.  Each also has a weight-only int8 twin (K10b
+// Only those three cases are built; the wrappers refuse other activations
+// and norm settings on the card.  Each also has a weight-only int8 twin (K10b
 // streamed_ffn, K10c streamed_mlp; W = int8_t): the weights are int8 codes
 // loaded one byte each with float32 per-output-channel scales; the gate and
 // up scales multiply their sums before the activation, h stays float32
@@ -59,8 +62,9 @@ struct WScales {
   const float *g, *u, *d;
 };
 
-template <typename T, typename W, bool GLU, int BT, int BF, int TM1, int TN1,
-          int BN2, int TM2, int TN2>
+// NORM: the RMSNorm folded in; SILU: SiLU, else tanh-GELU.
+template <typename T, typename W, bool GLU, bool NORM, bool SILU, int BT,
+          int BF, int TM1, int TN1, int BN2, int TM2, int TN2>
 __global__ void __launch_bounds__(NT)
 streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
                     const W* __restrict__ wg, const W* __restrict__ wu,
@@ -68,6 +72,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
                     float* __restrict__ part, int t, int d, int f,
                     float eps) {
   constexpr bool W8 = std::is_same<W, int8_t>::value;
+  static_assert(GLU || (!NORM && !SILU), "the MLP runs GELU, no norm");
   static_assert((BT / TM1) * (BF / TN1) == NT, "phase-1 thread layout");
   static_assert((BT / TM2) * (BN2 / TN2) == NT, "phase-2 thread layout");
   constexpr int P1 = BK * (BT + 1) + 2 * BK * BF;
@@ -84,7 +89,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int f0 = blockIdx.x * BF, row0 = blockIdx.y * BT;
 
-  if constexpr (GLU) {
+  if constexpr (NORM) {
     for (int r = warp; r < BT; r += NT / 32) {
       const int gr = row0 + r;
       float ss = 0.f;
@@ -116,7 +121,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
         float v = 0.f;
         if (gr < t && gk < d) {
           v = to_f(x[(size_t)gr * d + gk]);
-          if constexpr (GLU)
+          if constexpr (NORM)
             v = round_to<T>(v * rstd_s[r] * (1.f + to_f(nscale[gk])));
         }
         xs[kk * (BT + 1) + r] = v;
@@ -165,7 +170,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
         }
         float hv;
         if constexpr (GLU)
-          hv = silu(gv) * uv;
+          hv = (SILU ? silu(gv) : gelu_tanh(gv)) * uv;
         else
           hv = gelu_tanh(uv);
         if constexpr (!W8) hv = round_to<T>(hv);
@@ -229,7 +234,7 @@ streamed_ffn_kernel(const T* __restrict__ x, const T* __restrict__ nscale,
 // in order, whatever BT: classes 0 and 1 share BF = 64, so a row's bits do
 // not depend on T up to 64 rows (a speculative verify dispatch of slots x
 // W rows gives each row what a decode step of slots rows gives it).
-template <typename T, typename W, bool GLU>
+template <typename T, typename W, bool GLU, bool NORM, bool SILU>
 int launch(const void* x, const void* nscale, const void* wg, const void* wu,
            const void* wd, WScales ws, void* out, void* part, int t, int d,
            int f, int tile, float eps, void* stream) {
@@ -244,17 +249,17 @@ int launch(const void* x, const void* nscale, const void* wg, const void* wu,
   if (tile == 0) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 8));
-    streamed_ffn_kernel<T, W, GLU, 8, 64, 1, 2, 128, 1, 4>
+    streamed_ffn_kernel<T, W, GLU, NORM, SILU, 8, 64, 1, 2, 128, 1, 4>
         <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else if (tile == 1) {
     n_f = cdiv(f, 64);
     dim3 grid(n_f, cdiv(t, 32));
-    streamed_ffn_kernel<T, W, GLU, 32, 64, 2, 4, 128, 2, 8>
+    streamed_ffn_kernel<T, W, GLU, NORM, SILU, 32, 64, 2, 4, 128, 2, 8>
         <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else if (tile == 2) {
     n_f = cdiv(f, 128);
     dim3 grid(n_f, cdiv(t, 64));
-    streamed_ffn_kernel<T, W, GLU, 64, 128, 4, 8, 128, 4, 8>
+    streamed_ffn_kernel<T, W, GLU, NORM, SILU, 64, 128, 4, 8, 128, 4, 8>
         <<<grid, NT, 0, st>>>(xt, nt, gt, ut, dt, ws, p, t, d, f, eps);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -279,8 +284,9 @@ extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
                                       const void* wd, void* out, void* part,
                                       int t, int d, int f, int tile,
                                       float eps, void* stream) {
-  return launch<float, float, true>(x, nscale, wg, wu, wd, kNoScales, out,
-                                    part, t, d, f, tile, eps, stream);
+  return launch<float, float, true, true, true>(
+      x, nscale, wg, wu, wd, kNoScales, out, part, t, d, f, tile, eps,
+      stream);
 }
 
 extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
@@ -288,7 +294,7 @@ extern "C" int repro_streamed_ffn_bf16(const void* x, const void* nscale,
                                        const void* wd, void* out, void* part,
                                        int t, int d, int f, int tile,
                                        float eps, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, true>(
+  return launch<__nv_bfloat16, __nv_bfloat16, true, true, true>(
       x, nscale, wg, wu, wd, kNoScales, out, part, t, d, f, tile, eps,
       stream);
 }
@@ -297,15 +303,16 @@ extern "C" int repro_streamed_mlp_f32(const void* x, const void* wu,
                                       const void* wd, void* out, void* part,
                                       int t, int d, int f, int tile,
                                       void* stream) {
-  return launch<float, float, false>(x, nullptr, nullptr, wu, wd, kNoScales,
-                                     out, part, t, d, f, tile, 0.f, stream);
+  return launch<float, float, false, false, false>(
+      x, nullptr, nullptr, wu, wd, kNoScales, out, part, t, d, f, tile, 0.f,
+      stream);
 }
 
 extern "C" int repro_streamed_mlp_bf16(const void* x, const void* wu,
                                        const void* wd, void* out, void* part,
                                        int t, int d, int f, int tile,
                                        void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, false>(
+  return launch<__nv_bfloat16, __nv_bfloat16, false, false, false>(
       x, nullptr, nullptr, wu, wd, kNoScales, out, part, t, d, f, tile, 0.f,
       stream);
 }
@@ -317,9 +324,9 @@ extern "C" int repro_streamed_mlp_bf16(const void* x, const void* wu,
                       const void* wd, const void* ds, void* out, void* part, \
                       int t, int d, int f, int tile, float eps,              \
                       void* stream) {                                        \
-    return launch<T, int8_t, true>(x, nscale, wg, wu, wd,                    \
-                                   scales(gs, us, ds), out, part, t, d, f,   \
-                                   tile, eps, stream);                       \
+    return launch<T, int8_t, true, true, true>(                              \
+        x, nscale, wg, wu, wd, scales(gs, us, ds), out, part, t, d, f, tile, \
+        eps, stream);                                                        \
   }
 REPRO_STREAMED_FFN_W8(repro_streamed_ffn_w8_f32, float)
 REPRO_STREAMED_FFN_W8(repro_streamed_ffn_w8_bf16, __nv_bfloat16)
@@ -328,9 +335,33 @@ REPRO_STREAMED_FFN_W8(repro_streamed_ffn_w8_bf16, __nv_bfloat16)
   extern "C" int NAME(const void* x, const void* wu, const void* us,        \
                       const void* wd, const void* ds, void* out, void* part, \
                       int t, int d, int f, int tile, void* stream) {         \
-    return launch<T, int8_t, false>(x, nullptr, nullptr, wu, wd,             \
-                                    scales(nullptr, us, ds), out, part, t,   \
-                                    d, f, tile, 0.f, stream);                \
+    return launch<T, int8_t, false, false, false>(                           \
+        x, nullptr, nullptr, wu, wd, scales(nullptr, us, ds), out, part, t,  \
+        d, f, tile, 0.f, stream);                                            \
   }
 REPRO_STREAMED_MLP_W8(repro_streamed_mlp_w8_f32, float)
 REPRO_STREAMED_MLP_W8(repro_streamed_mlp_w8_bf16, __nv_bfloat16)
+
+// The GELU GLU without a folded norm (zamba2's shared block): no nscale.
+#define REPRO_STREAMED_FFN_GELU(NAME, T)                                     \
+  extern "C" int NAME(const void* x, const void* wg, const void* wu,        \
+                      const void* wd, void* out, void* part, int t, int d,   \
+                      int f, int tile, void* stream) {                       \
+    return launch<T, T, true, false, false>(x, nullptr, wg, wu, wd,          \
+                                            kNoScales, out, part, t, d, f,   \
+                                            tile, 0.f, stream);              \
+  }
+REPRO_STREAMED_FFN_GELU(repro_streamed_ffn_gelu_f32, float)
+REPRO_STREAMED_FFN_GELU(repro_streamed_ffn_gelu_bf16, __nv_bfloat16)
+
+#define REPRO_STREAMED_FFN_GELU_W8(NAME, T)                                  \
+  extern "C" int NAME(const void* x, const void* wg, const void* gs,        \
+                      const void* wu, const void* us, const void* wd,        \
+                      const void* ds, void* out, void* part, int t, int d,   \
+                      int f, int tile, void* stream) {                       \
+    return launch<T, int8_t, true, false, false>(                            \
+        x, nullptr, wg, wu, wd, scales(gs, us, ds), out, part, t, d, f,      \
+        tile, 0.f, stream);                                                  \
+  }
+REPRO_STREAMED_FFN_GELU_W8(repro_streamed_ffn_gelu_w8_f32, float)
+REPRO_STREAMED_FFN_GELU_W8(repro_streamed_ffn_gelu_w8_bf16, __nv_bfloat16)

@@ -12,9 +12,10 @@ tensor; ``flash_attention_2d.launches`` counts offset launches and
 is the offset branch over int8 / fp8-e4m3 codes with per-position scales
 (its own entry points and count; plain version
 ``ref.flash_attention_offset`` with scales).  The CUDA kernel covers
-what the main paths run (causal, no sliding window, head dim 64 or 128);
-on the card the rest is refused until a slice whose config needs it adds
-it.  The plain versions cover it all.
+what the main paths run (causal, no sliding window, head dim 64 or 128,
+and for the static branch also 80 for zamba2's shared block); on the
+card the rest is refused until a slice whose config needs it adds it.
+The plain versions cover it all.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from . import _build, ref
 from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
                      kernel_path)
 
-HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims
+HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (offset branch)
+STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,18 +58,19 @@ def _check(name: str, q, k, v, kv_group: int) -> None:
 
 
 def _check_cuda(name: str, q, k, v, causal: bool, window: int,
-                code: Optional[torch.dtype] = None, scales=()) -> None:
+                code: Optional[torch.dtype] = None, scales=(),
+                head_dims=HEAD_DIMS) -> None:
     """``code``: the K/V dtype, q's unless K/V hold codes (with their
-    ``scales``)."""
+    ``scales``); ``head_dims``: the ones this entry point takes."""
     check_cuda_operands(name, q.dtype, q, k, v, *scales)
     code = q.dtype if code is None else code
     if k.dtype != code or v.dtype != code:
         raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
                         f"{v.dtype}")
     d = q.shape[-1]
-    if d not in HEAD_DIMS or not causal or window:
+    if d not in head_dims or not causal or window:
         raise ValueError(f"{name}: the CUDA kernel runs causal attention "
-                         f"without a window at head dims {HEAD_DIMS}; got "
+                         f"without a window at head dims {head_dims}; got "
                          f"head dim {d}, causal {causal}, window {window}")
 
 
@@ -128,7 +131,8 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
         return ref.flash_attention_static(
             q, k, v, kv_len=kv_len, kv_group=kv_group, scale=scale,
             causal=causal, window=window, block_kv=block_kv)
-    _check_cuda("flash_attention_static", q, k, v, causal, window)
+    _check_cuda("flash_attention_static", q, k, v, causal, window,
+                head_dims=STATIC_HEAD_DIMS)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("static", q.dtype)(

@@ -8,9 +8,10 @@ code pools) and runs its plain version (``ref.paged_decode_attention`` /
 ``ref.paged_verify_attention``, with scales for the twins) on a CPU
 tensor; ``.launches`` on each counts its own kernel launches.  The CUDA
 kernel covers what the main paths run (no sliding window, head dim 64 for
-gpt2 or 128 for llama3, up to ``MAX_ROWS`` window rows per KV head); on
-the card the rest is refused until a slice whose config needs it adds it.
-The plain versions cover it all.
+gpt2 or 128 for llama3, and for decode also 80 for zamba2's shared
+block, up to ``MAX_ROWS`` window rows per KV head); on the card the rest
+is refused until a slice whose config needs it adds it.  The plain
+versions cover it all.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from . import _build, ref
 from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
                      kernel_path)
 
-HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims
+HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (verify)
+DECODE_HEAD_DIMS = (64, 80, 128)    # ... and decode's (K1, K9a)
 MAX_ROWS = 64             # window rows x query heads per KV head it holds
 
 
@@ -58,10 +60,11 @@ def _check_shapes(name, q, k_pool, v_pool, page_table, base) -> None:
 
 
 def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
-            window: int, scale: float, k_scale=None,
-            v_scale=None) -> torch.Tensor:
+            window: int, scale: float, k_scale=None, v_scale=None,
+            head_dims=HEAD_DIMS) -> torch.Tensor:
     """Launch the window kernel: row w of slot b sees ``base[b] + w +
-    extra`` positions.  With ``k_scale``/``v_scale`` the pools hold codes."""
+    extra`` positions.  With ``k_scale``/``v_scale`` the pools hold codes;
+    ``head_dims`` are the ones this entry point takes."""
     quant = k_scale is not None
     scales = (k_scale, v_scale) if quant else ()
     check_cuda_operands(name, q.dtype, q, k_pool, v_pool, page_table, base,
@@ -85,9 +88,9 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
     b, w, hq, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     g = hq // hkv
-    if d not in HEAD_DIMS or w * g > MAX_ROWS or window:
+    if d not in head_dims or w * g > MAX_ROWS or window:
         raise ValueError(f"{name}: the CUDA kernel runs head dims "
-                         f"{HEAD_DIMS}, up to {MAX_ROWS} window rows x query "
+                         f"{head_dims}, up to {MAX_ROWS} window rows x query "
                          f"heads per KV head, no window; got head dim {d}, "
                          f"{w} x {g} rows, window {window}")
     out = torch.empty_like(q)
@@ -120,7 +123,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           lengths, window=window,
                                           scale=scale)
     out = _launch("paged_decode_attention", q, k_pool, v_pool, page_table,
-                  lengths, extra=0, window=window, scale=scale)
+                  lengths, extra=0, window=window, scale=scale,
+                  head_dims=DECODE_HEAD_DIMS)
     paged_decode_attention.launches += 1
     return out
 
@@ -178,7 +182,8 @@ def paged_decode_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
                                           v_scale=v_scale)
     out = _launch("paged_decode_attention_q", q, k_pool, v_pool, page_table,
                   lengths, extra=0, window=window, scale=scale,
-                  k_scale=k_scale, v_scale=v_scale)
+                  k_scale=k_scale, v_scale=v_scale,
+                  head_dims=DECODE_HEAD_DIMS)
     paged_decode_attention_q.launches += 1
     return out
 

@@ -345,3 +345,48 @@ def xent_loss_ref(hidden: torch.Tensor, head: torch.Tensor,
     lse, gold = xent_parts_ref(hidden, head, torch.clamp(labels, min=0),
                                vocab_size)
     return xent_nll_mean(lse, gold, labels)
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor, *,
+               chunk: int = 128):
+    """The chunked SSD scan with ``_ssd_kernel``'s per-chunk arithmetic
+    (``mamba2_scan.py:34-74``), in float32, chunk after chunk: x [B, S, H,
+    P], dt [B, S, H], a_log [H], b/c [B, S, N] (one group, shared by every
+    head), d_skip [H] -> (y [B, S, H, P] in x's dtype, the final state [B,
+    H, P, N] float32), the state starting at zero.  Per chunk of Q rows,
+    with ``cum`` the running sum of ``dt * a`` (a = -exp(a_log)):
+    ``y = ((C B^T) * L) (x dt) + exp(cum) (C h^T) + x D`` with ``L[i, j] =
+    exp(cum_i - cum_j)`` for j <= i (the exponent is taken only there),
+    then ``h = h exp(cum_Q) + ((x dt) exp(cum_Q - cum))^T B``."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"mamba2_ssd: seq {s} must divide by chunk {q}")
+    a = -torch.exp(a_log.float())                                # [H]
+    dk = d_skip.float()
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    for c0 in range(0, s, q):
+        xc = x[:, c0:c0 + q].float()                             # [B,Q,H,P]
+        dtc = dt[:, c0:c0 + q].float()                           # [B,Q,H]
+        bc = b[:, c0:c0 + q].float()                             # [B,Q,N]
+        cc = c[:, c0:c0 + q].float()
+        xdt = xc * dtc[..., None]
+        cum = torch.cumsum(dtc * a, dim=1)                       # [B,Q,H]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]           # [B,i,j,H]
+        mask = tri[None, :, :, None]
+        l_mat = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)),
+                            0.0)
+        cb = torch.einsum("bin,bjn->bij", cc, bc)
+        yc = torch.einsum("bijh,bjhp->bihp", cb[..., None] * l_mat, xdt)
+        yc = yc + torch.exp(cum)[..., None] * torch.einsum(
+            "bin,bhpn->bihp", cc, state)
+        total = cum[:, -1:, :]                                   # [B,1,H]
+        dte = torch.exp(total - cum)                             # [B,Q,H]
+        state = (state * torch.exp(total)[:, 0, :, None, None]
+                 + torch.einsum("bjhp,bjn->bhpn", xdt * dte[..., None], bc))
+        y[:, c0:c0 + q] = (yc + xc * dk[None, None, :, None]).to(x.dtype)
+    return y, state

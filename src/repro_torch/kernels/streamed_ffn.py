@@ -8,11 +8,12 @@ on a CPU tensor; ``.launches`` on each counts its kernel launches.
 twins (int8 codes with float32 per-output-channel scales; plain versions
 ``ref.streamed_ffn_w8`` / ``ref.streamed_mlp_w8``), with their own
 counts.  The
-CUDA kernel covers what the main paths run: SiLU with the norm folded in
-for ``streamed_ffn`` (llama3), GELU without a folded norm for
-``streamed_mlp`` (gpt2).  On the card the other cases are refused until a
-slice whose config needs them adds them; the plain versions cover them
-all.
+CUDA kernel covers what the main paths run: for ``streamed_ffn`` SiLU
+with the norm folded in (llama3) and GELU without a folded norm
+(zamba2's shared block), GELU without a folded norm for
+``streamed_mlp`` (gpt2).  On the card the other cases (GELU with a
+folded norm among them) are refused until a slice whose config needs
+them adds them; the plain versions cover them all.
 """
 
 from __future__ import annotations
@@ -48,14 +49,15 @@ def workspace_shape(t: int, d: int, f: int):
 
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str, dtype: torch.dtype):
-    """``kind``: "ffn" (GLU, folded norm) or "mlp" (ungated, no norm), with
-    "_w8" for the int8 twin."""
+    """``kind``: "ffn" (GLU, SiLU, folded norm), "ffn_gelu" (GLU, GELU, no
+    norm) or "mlp" (ungated, no norm), with "_w8" for the int8 twin."""
     lib = _build.load("streamed_ffn")
     sym = (f"repro_streamed_{kind}_"
            + ("bf16" if dtype == torch.bfloat16 else "f32"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ptrs = {"ffn": 7, "mlp": 5, "ffn_w8": 10, "mlp_w8": 7}[kind]
-    tail = [ctypes.c_float, vp] if kind.startswith("ffn") else [vp]
+    ptrs = {"ffn": 7, "ffn_gelu": 6, "mlp": 5, "ffn_w8": 10,
+            "ffn_gelu_w8": 9, "mlp_w8": 7}[kind]
+    tail = [ctypes.c_float, vp] if kind in ("ffn", "ffn_w8") else [vp]
     return _build.declare(lib, sym, [vp] * ptrs + [i] * 4 + tail)
 
 
@@ -65,6 +67,20 @@ def _check_w8(name: str, x, codes, scales) -> None:
     if (any(c.dtype != torch.int8 for c in codes)
             or any(s.dtype != torch.float32 for s in scales)):
         raise TypeError(f"{name}: int8 codes and float32 scales expected")
+
+
+def _glu_kind(name: str, activation: str, norm_scale) -> str:
+    """The GLU entry point for an activation and norm setting: SiLU with
+    the norm folded in, or GELU without; the card refuses the rest."""
+    if activation == "silu" and norm_scale is not None:
+        return "ffn"
+    if activation == "gelu" and norm_scale is None:
+        return "ffn_gelu"
+    raise ValueError(f"{name}: the CUDA kernel runs SiLU with the norm "
+                     "folded in or GELU without a folded norm; got "
+                     f"activation {activation!r}"
+                     + (", a norm_scale" if norm_scale is not None
+                        else ", no norm_scale"))
 
 
 def _run(kind: str, name: str, x, ptrs, d: int, f: int, eps=None):
@@ -101,16 +117,16 @@ def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if kernel_path(x) == "plain":
         return ref.streamed_ffn(x, wg, wu, wd, activation=activation,
                                 norm_scale=norm_scale, norm_eps=norm_eps)
-    if activation != "silu" or norm_scale is None:
-        raise ValueError("streamed_ffn: the CUDA kernel runs SiLU with the "
-                         f"norm folded in; got activation {activation!r}"
-                         + (", no norm_scale" if norm_scale is None else ""))
-    ops = [x, wg, wu, wd, norm_scale]
+    kind = _glu_kind("streamed_ffn", activation, norm_scale)
+    ops = [x, wg, wu, wd] + ([norm_scale] if kind == "ffn" else [])
     check_cuda_operands("streamed_ffn", x.dtype, *ops)
     if any(o.dtype != x.dtype for o in ops):
         raise TypeError("streamed_ffn: operands must share the x dtype")
-    out = _run("ffn", "streamed_ffn", x, (norm_scale, wg, wu, wd), d, f,
-               norm_eps)
+    if kind == "ffn":
+        out = _run(kind, "streamed_ffn", x, (norm_scale, wg, wu, wd), d, f,
+                   norm_eps)
+    else:
+        out = _run(kind, "streamed_ffn", x, (wg, wu, wd), d, f)
     streamed_ffn.launches += 1
     return out
 
@@ -179,18 +195,18 @@ def streamed_ffn_w8(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                                    wu_scale=wu_scale, wd_scale=wd_scale,
                                    activation=activation,
                                    norm_scale=norm_scale, norm_eps=norm_eps)
-    if activation != "silu" or norm_scale is None:
-        raise ValueError("streamed_ffn_w8: the CUDA kernel runs SiLU with "
-                         f"the norm folded in; got activation {activation!r}"
-                         + (", no norm_scale" if norm_scale is None else ""))
+    kind = _glu_kind("streamed_ffn_w8", activation, norm_scale) + "_w8"
     _check_w8("streamed_ffn_w8", x, (wg, wu, wd),
               (wg_scale, wu_scale, wd_scale))
-    if norm_scale.dtype != x.dtype or not norm_scale.is_contiguous():
-        raise TypeError("streamed_ffn_w8: norm_scale must be a contiguous "
-                        "tensor of x's dtype")
-    out = _run("ffn_w8", "streamed_ffn_w8", x,
-               (norm_scale, wg, wg_scale, wu, wu_scale, wd, wd_scale), d, f,
-               norm_eps)
+    weights = (wg, wg_scale, wu, wu_scale, wd, wd_scale)
+    if kind == "ffn_w8":
+        if norm_scale.dtype != x.dtype or not norm_scale.is_contiguous():
+            raise TypeError("streamed_ffn_w8: norm_scale must be a "
+                            "contiguous tensor of x's dtype")
+        out = _run(kind, "streamed_ffn_w8", x, (norm_scale,) + weights, d,
+                   f, norm_eps)
+    else:
+        out = _run(kind, "streamed_ffn_w8", x, weights, d, f)
     streamed_ffn_w8.launches += 1
     return out
 

@@ -265,6 +265,105 @@ def moe_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
 
 
 # --------------------------------------------------------------------- #
+# Mamba2 (chunked SSD, ``layers.py:545-653``)
+# --------------------------------------------------------------------- #
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{j<k<=i}
+    x[..., k], -inf above the diagonal (``layers.py:545``)."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, diff, -math.inf)
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor, *,
+               chunk: int = 128, init_state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked state-space-dual scan (``layers.py:554``): x [B, S, H, P],
+    dt [B, S, H] (softplus-ed steps), a_log [H] (A = -exp(a_log)), b/c
+    [B, S, N] (one group), d_skip [H], init_state [B, H, P, N] -> (y [B,
+    S, H, P] in x's dtype, final state [B, H, P, N] float32).  The
+    inter-chunk ``lax.scan`` is a Python loop over the chunks."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must divide by chunk {q}")
+    nc = s // q
+    a = -torch.exp(a_log.float())                               # [H]
+    da = dt.float() * a                                         # [B,S,H]
+    xdt = x.float() * dt.float()[..., None]
+    dac = da.reshape(bsz, nc, q, h)
+    xc = xdt.reshape(bsz, nc, q, h, p)
+    bc = b.float().reshape(bsz, nc, q, n)
+    cc = c.float().reshape(bsz, nc, q, n)
+    # Intra-chunk (diagonal blocks): y_ij = C_i . B_j exp(segsum) x_j.
+    l_mat = torch.exp(_segsum(dac.permute(0, 1, 3, 2)))         # [B,nc,H,Q,Q]
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    y_diag = torch.einsum("bcij,bchij,bcjhp->bcihp", cb, l_mat, xc)
+    # Chunk-final states: S_c = sum_j exp(sum_{k>j} da) B_j x_j.
+    da_cum = torch.cumsum(dac, dim=2)                           # [B,nc,Q,H]
+    da_tot = da_cum[:, :, -1:, :]
+    decay_to_end = torch.exp(da_tot - da_cum)
+    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", bc, decay_to_end, xc)
+    # Inter-chunk recurrence: the state before each chunk.
+    chunk_decay = torch.exp(da_tot[:, :, 0, :])                 # [B,nc,H]
+    carry = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                              device=x.device))
+    prev = []
+    for ci in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    prev_states = torch.stack(prev, dim=1)                      # [B,nc,H,P,N]
+    # Inter-chunk contribution: y += C_i exp(cum da_i) S_{c-1}.
+    y_off = torch.einsum("bcqn,bcqh,bchpn->bcqhp", cc, torch.exp(da_cum),
+                         prev_states)
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    y = y + x.float() * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), carry
+
+
+def mamba2_decode_step(x: torch.Tensor, dt: torch.Tensor,
+                       a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       d_skip: torch.Tensor, state: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSM update (``layers.py:627``): x [B, H, P], dt [B,
+    H], b/c [B, N], state [B, H, P, N] float32 -> (y [B, H, P] in x's
+    dtype, new state)."""
+    a = -torch.exp(a_log.float())
+    da = torch.exp(dt.float() * a)                              # [B,H]
+    xdt = x.float() * dt.float()[..., None]
+    upd = torch.einsum("bhp,bn->bhpn", xdt, b.float())
+    new_state = state * da[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, c.float())
+    y = y + x.float() * d_skip[None, :, None]
+    return y.to(x.dtype), new_state
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  init: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv + SiLU (``layers.py:642``): x [B, S, D], w
+    [K, D], bias [D], init [B, K - 1, D] (zeros by default) -> (y [B, S,
+    D], the last K - 1 inputs), in x's dtype."""
+    k = w.shape[0]
+    if init is None:
+        init = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    xp = torch.cat([init, x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * w[0][None, None, :]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i][None, None, :]
+    tail = xp[:, xp.shape[1] - (k - 1):]
+    return torch.nn.functional.silu(y + bias[None, None, :]), tail
+
+
+# --------------------------------------------------------------------- #
 # Kernel forward, eager backward (``layers.py:697-716``)
 # --------------------------------------------------------------------- #
 
@@ -485,6 +584,23 @@ def fused_streamed_xent(hidden: torch.Tensor, head: torch.Tensor,
         return xent_nll_mean(lse, gold, lf)
 
     return _kernel_fwd_eager_bwd(fused, eager)(hidden, head, labels)
+
+
+def fused_mamba2_ssd(x: torch.Tensor, dt: torch.Tensor,
+                     a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     d_skip: torch.Tensor, *, chunk: int = 128
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan through ``mamba2_scan`` (K13;
+    ``layers.py:1071``, single device), shapes as ``mamba2_ssd``; its
+    backward recomputes ``mamba2_ssd`` at the same chunk."""
+
+    def fused(x, dt, a_log, b, c, d_skip):
+        return K.mamba2_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+    def eager(x, dt, a_log, b, c, d_skip):
+        return mamba2_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(x, dt, a_log, b, c, d_skip)
 
 
 def fused_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -41,6 +41,17 @@ float32 master weights are cast to the compute dtype inside the forward
 leaves; ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on the
 scan body), which runs its kernels a second time.
+
+Hybrid stacks (zamba2, ``model.py:219``, ``:302``, ``:852``, ``:916``):
+every layer is a Mamba2 block (its norm, the projections and the causal
+conv as PyTorch ops, the SSD scan through ``mamba2_scan`` (K13) on the
+kernel plan), and after every ``shared_attn_every``-th one the single
+``shared`` attention+MLP block runs with that application's K/V pools.
+Whole-prompt ``prefill`` returns each layer's SSM state and conv tail
+beside the K/V; ``decode_step`` advances them in place (the eager
+single-token update, the conv tail in float32, as the reference).  The
+shared block's gradient sums over its applications, as autograd does by
+itself; under remat each layer's checkpoint covers its application.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.stream_plan import LayerPlan, StreamPlan, plan_for
 from . import layers as L
-from .params import compute_dtype, map_tree
+from .params import SHARED_KIND, attn_pool_indices, compute_dtype, map_tree
 
 Tree = Any
 Cache = Dict[str, torch.Tensor]
@@ -192,13 +203,15 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor,
     return o @ wo
 
 
-def _layer_pools(cache: Cache, layer: int):
-    """(k, v, k_scale, v_scale) pools of one layer, views updated in place;
-    the scales are None for full-precision pools."""
+def _layer_pools(cfg: ModelConfig, cache: Cache, layer: int):
+    """(k, v, k_scale, v_scale) pools of one layer's attention (its row
+    along the pools' leading axis, ``attn_pool_indices``), views updated
+    in place; the scales are None for full-precision pools."""
+    a = attn_pool_indices(cfg)[layer]
     if "k_scale" in cache:
-        return (cache["k"][layer], cache["v"][layer],
-                cache["k_scale"][layer], cache["v_scale"][layer])
-    return cache["k"][layer], cache["v"][layer], None, None
+        return (cache["k"][a], cache["v"][a],
+                cache["k_scale"][a], cache["v_scale"][a])
+    return cache["k"][a], cache["v"][a], None, None
 
 
 def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
@@ -230,27 +243,68 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan, train), k, v
 
 
+def _mamba_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor, *,
+                      lplan: Optional[LayerPlan]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One Mamba2 block over whole sequences (``model.py:219``): ln, the
+    x/z/B/C/dt projections, the causal conv, the SSD scan (``mamba2_scan``
+    on the kernel plan, chunk ``_chunk_of(S, 128)``), the SiLU gate and the
+    output projection.  Returns the block output, the final SSM state [B,
+    H, P, N] float32 and the conv tail [B, K - 1, d_inner]."""
+    b, s, _ = x.shape
+    m = p["mamba"]
+    h = L.apply_norm(cfg.norm, x, p["ln"])
+    xin = h @ m["wx"]                                       # [B,S,di]
+    z = h @ m["wz"]
+    bmat = h @ m["wb"]                                      # [B,S,N]
+    cmat = h @ m["wc"]
+    dt = torch.nn.functional.softplus(h @ m["wdt"]
+                                      + m["dt_bias"].to(h.dtype))
+    xconv, conv_tail = L.causal_conv1d(xin, m["conv_w"], m["conv_b"])
+    hps = xconv.reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    mixer = lplan.mixer if lplan is not None else None
+    if mixer is not None and mixer.fused:
+        y, state = L.fused_mamba2_ssd(
+            hps, dt, m["a_log"], bmat, cmat, m["d_skip"],
+            chunk=_chunk_of(s, mixer.kw.get("chunk", 128)))
+    else:
+        y, state = L.mamba2_ssd(hps, dt, m["a_log"], bmat, cmat,
+                                m["d_skip"], chunk=_chunk_of(s, 128))
+    y = y.reshape(b, s, cfg.d_inner) * torch.nn.functional.silu(z)
+    return x + y @ m["wout"], state.float(), conv_tail
+
+
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             plan: Optional[StreamPlan] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Whole-prompt forward pass (``model.py:457``).
 
     tokens [B, S] int32 -> (logits [B, 1, Vp] at the last position, a
-    fresh cache {"k", "v"} [L, B, S, Hkv, hd] of the prompt's K/V, which
-    ``serving.kv_cache.place_prefill`` writes into a slot's pages)."""
+    fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of the prompt's K/V,
+    which ``serving.kv_cache.place_prefill`` writes into a slot's pages,
+    and for a Mamba2 stack {"ssm" [L, B, H, P, N] float32, "conv" [L, B,
+    K - 1, d_inner]}, which it writes into the slot's rows)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed(cfg, params, tokens, positions)
     plan = resolve_plan(cfg, b * s, plan=plan)
-    ks, vs = [], []
+    fresh: Dict[str, list] = {}
     for i, lp in enumerate(params["layers"]):
+        kind = cfg.layer_kind(i)
+        lplan = _lplan(plan, kind)
+        if kind.startswith("mamba"):
+            x, ssm, conv = _mamba_block_full(cfg, lp, x, lplan=lplan)
+            fresh.setdefault("ssm", []).append(ssm)
+            fresh.setdefault("conv", []).append(conv)
+            if kind != SHARED_KIND:
+                continue
+            lp = params["shared"]
         x, k, v = _attn_block_full(cfg, lp, x, positions,
-                                   window=_window(cfg, i),
-                                   lplan=_lplan(plan, cfg.layer_kind(i)))
-        ks.append(k)
-        vs.append(v)
+                                   window=_window(cfg, i), lplan=lplan)
+        fresh.setdefault("k", []).append(k)
+        fresh.setdefault("v", []).append(v)
     logits = _logits(cfg, params, x[:, -1:], plan)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {name: torch.stack(t) for name, t in fresh.items()}
 
 
 # --------------------------------------------------------------------- #
@@ -288,9 +342,15 @@ def forward_hidden(params: Tree, cfg: ModelConfig,
     plan = resolve_plan(cfg, b * s, plan=plan)
     for i, lp in enumerate(params["layers"]):
         def block(x, lp=lp, i=i):
+            kind = cfg.layer_kind(i)
+            lplan = _lplan(plan, kind)
+            if kind.startswith("mamba"):
+                x = _mamba_block_full(cfg, lp, x, lplan=lplan)[0]
+                if kind != SHARED_KIND:
+                    return x
+                lp = params["shared"]
             return _attn_block_full(cfg, lp, x, positions,
-                                    window=_window(cfg, i),
-                                    lplan=_lplan(plan, cfg.layer_kind(i)),
+                                    window=_window(cfg, i), lplan=lplan,
                                     train=True)[0]
         x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
     return L.apply_norm(cfg.norm, x, params["final_norm"])
@@ -363,7 +423,7 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     positions = offset + torch.arange(c, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
-    kc, vc, ks, vs = _layer_pools(cache, layer)
+    kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
     quant = ks is not None
     if quant:
         place_chunk_pages_q(kc, ks, k, chunk_pages, layout=layout)
@@ -447,7 +507,7 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     v = v.reshape(b, 1, hkv, hd)
     q = L.apply_positional(cfg.rope, q, pos[:, None], cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos[:, None], cfg.rope_theta)
-    kc, vc, ks, vs = _layer_pools(cache, layer)
+    kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
     if ks is not None:
         paged_append_q(kc, ks, page_table, pos, k, layout=layout)
         paged_append_q(vc, vs, page_table, pos, v, layout=layout)
@@ -464,6 +524,36 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
         o = L.decode_attention(q, kd, vd, lengths + 1, window=window)
     x = x + _out_proj(o.reshape(b, 1, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
+
+
+def _mamba_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
+                        cache: Cache, layer: int) -> torch.Tensor:
+    """One Mamba2 block for one token per slot (``model.py:852``): the
+    conv over the cached K - 1 inputs and this one in float32, then the
+    single-token SSM update; the layer's ``ssm`` and ``conv`` rows are
+    updated in place."""
+    b = x.shape[0]
+    m = p["mamba"]
+    h = L.apply_norm(cfg.norm, x, p["ln"])[:, 0]            # [B,D]
+    xin = h @ m["wx"]
+    z = h @ m["wz"]
+    bmat = h @ m["wb"]
+    cmat = h @ m["wc"]
+    dt = torch.nn.functional.softplus(h @ m["wdt"]
+                                      + m["dt_bias"].to(h.dtype))
+    conv_c = cache["conv"][layer]                           # [B,K-1,di]
+    conv_in = torch.cat([conv_c, xin[:, None].to(conv_c.dtype)], dim=1)
+    y = (conv_in.float() * m["conv_w"].float()[None]).sum(dim=1)
+    xconv = torch.nn.functional.silu(
+        y + m["conv_b"].float()).to(x.dtype)
+    hps = xconv.reshape(b, cfg.ssm_heads, cfg.ssm_head_dim)
+    ssm_c = cache["ssm"][layer]
+    yssm, state = L.mamba2_decode_step(hps, dt, m["a_log"], bmat, cmat,
+                                       m["d_skip"], ssm_c)
+    ssm_c.copy_(state)
+    conv_c.copy_(conv_in[:, 1:])
+    yin = yssm.reshape(b, cfg.d_inner) * torch.nn.functional.silu(z)
+    return x + (yin @ m["wout"])[:, None]
 
 
 def _dense_kv(kc, vc, ks, vs, table, layout):
@@ -484,7 +574,8 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
     """One decoding step for every slot.
 
-    tokens [B, 1] int32; cache the paged pools, updated in place;
+    tokens [B, 1] int32; cache the paged pools (and a Mamba2 stack's
+    slot-contiguous ``ssm``/``conv`` rows), updated in place;
     cache_pos [B] int32 write positions; lengths [B] int32 tokens already
     cached; page_table [B, max_pages] int32.  Returns (next_tokens [B, 1]
     int32, logits [B, 1, Vp], cache)."""
@@ -493,9 +584,15 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
     kv_extent = int(page_table.shape[1]) * int(cache["k"].shape[2])
     plan = resolve_plan(cfg, b, kv_len=kv_extent, plan=plan)
     for i, lp in enumerate(params["layers"]):
+        kind = cfg.layer_kind(i)
+        if kind.startswith("mamba"):
+            x = _mamba_block_decode(cfg, lp, x, cache, i)
+            if kind != SHARED_KIND:
+                continue
+            lp = params["shared"]
         x = _attn_block_decode(cfg, lp, x, cache, i, cache_pos, lengths,
                                page_table, window=_window(cfg, i),
-                               lplan=_lplan(plan, cfg.layer_kind(i)))
+                               lplan=_lplan(plan, kind))
     logits = _logits(cfg, params, x, plan)
     return logits.argmax(dim=-1).to(torch.int32), logits, cache
 
@@ -540,7 +637,7 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     pos = pos0[:, None] + torch.arange(w, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, pos, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos, cfg.rope_theta)
-    kc, vc, ks, vs = _layer_pools(cache, layer)
+    kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
     if ks is not None:
         paged_append_window_q(kc, ks, page_table, pos0, k, layout=layout)
         paged_append_window_q(vc, vs, page_table, pos0, v, layout=layout)

@@ -17,10 +17,15 @@ plain list ``layers`` of per-layer dicts and loops over it in Python.
 * ``quantize_weights`` replaces the weights of the plan's weight-only int8
   stages by their (codes, scales) once per tree, where the reference
   quantizes inside every fused call (the same deterministic codes).
+
+Hybrid stacks (zamba2): every layer is a Mamba2 block (``ln``, ``mamba``)
+and one ``shared`` attention+MLP block, a single copy outside ``layers``,
+runs after every ``shared_attn_every``-th of them (``params.py:212-213``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -48,7 +53,7 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros
+    init: str = "normal"        # normal | zeros | ones | a_log | dt_bias
     fan_in: Optional[int] = None
 
 
@@ -87,9 +92,31 @@ def _ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
+def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The Mamba2 mixer (``params.py:116-130``): input, gate, B, C and
+    step projections, the per-head ``dt_bias``/``a_log``/``d_skip``, the
+    depthwise conv [K, d_inner] (fan-in K) and its bias, the output
+    projection; the reference's leaf order."""
+    d, di = cfg.d_model, cfg.d_inner
+    h, n, k = cfg.ssm_heads, cfg.ssm_state, cfg.conv_width
+    return {
+        "wx": _mat(d, di), "wz": _mat(d, di), "wb": _mat(d, n),
+        "wc": _mat(d, n), "wdt": _mat(d, h),
+        "dt_bias": ParamDef((h,), "dt_bias"),
+        "a_log": ParamDef((h,), "a_log"),
+        "d_skip": ParamDef((h,), "ones"),
+        "conv_w": ParamDef((k, di), "normal", fan_in=k),
+        "conv_b": _vec(di),
+        "wout": _mat(di, d),
+    }
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
-    """One attention layer: ln1, attn (wq/wk/wv/wo), ln2, mlp (wg/wu/wd,
-    or the MoE router and expert stacks)."""
+    """One layer: an attention layer's ln1, attn (wq/wk/wv/wo), ln2, mlp
+    (wg/wu/wd, or the MoE router and expert stacks); a Mamba2 layer's ln
+    and mamba (the shared attention block lives outside the layers)."""
+    if kind in ("mamba", "mamba+shared_attn"):
+        return {"ln": _norm_defs(cfg), "mamba": _mamba_defs(cfg)}
     if kind not in ("attn", "local_attn", "global_attn"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     if cfg.qkv_bias or cfg.qk_norm:
@@ -108,6 +135,10 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
     }
 
 
+# The layer kind after which the shared attention+MLP block runs.
+SHARED_KIND = "mamba+shared_attn"
+
+
 POS_EMBED_ROWS = 32_768      # learned-position table (``params.py:194``)
 
 
@@ -117,9 +148,11 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Tree]:
     defs = {"embed": ParamDef((vp, d), "normal", fan_in=d)}
     if cfg.rope == "none" and not cfg.rwkv:
         defs["pos_embed"] = ParamDef((POS_EMBED_ROWS, d), "normal", fan_in=d)
+    defs["layers"] = [block_defs(cfg, cfg.layer_kind(i))
+                      for i in range(cfg.num_layers)]
+    if cfg.shared_attn_every:      # one copy (``params.py:160``)
+        defs["shared"] = block_defs(cfg, "attn")
     defs.update({
-        "layers": [block_defs(cfg, cfg.layer_kind(i))
-                   for i in range(cfg.num_layers)],
         "final_norm": _norm_defs(cfg),
         "lm_head": ParamDef((d, vp), "normal", fan_in=d),
     })
@@ -147,15 +180,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: Optional[torch.dtype] = None) -> Tree:
     """Random weights drawn on ``device`` from ``generator`` (which must
     live on that device): float32 normal draws scaled by 1/sqrt(fan_in)
-    and cast to ``dtype`` (default: the compute dtype), zero norm scales —
-    the reference ``_init_leaf`` distributions (its numbers differ: JAX
-    keys and torch generators draw different streams)."""
+    and cast to ``dtype`` (default: the compute dtype), zero norm scales,
+    and the Mamba2 heads' fixed ``a_log`` = log(linspace(1, 16)) and
+    ``dt_bias`` = softplus^-1(logspace(1e-3, 1e-1)) — the reference
+    ``_init_leaf`` distributions (its numbers differ: JAX keys and torch
+    generators draw different streams)."""
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
 
     def leaf(pd: ParamDef) -> torch.Tensor:
         if pd.init == "zeros":
             return torch.zeros(pd.shape, dtype=dtype, device=dev)
+        if pd.init == "ones":
+            return torch.ones(pd.shape, dtype=dtype, device=dev)
+        if pd.init in ("a_log", "dt_bias"):
+            h = pd.shape[-1]
+            if pd.init == "a_log":
+                v = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+            else:
+                dt = torch.exp(torch.linspace(math.log(1e-3),
+                                              math.log(1e-1), h, device=dev))
+                v = torch.log(torch.expm1(dt))
+            return v.expand(pd.shape).to(dtype)
         w = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
                         device=dev)
         w.mul_(1.0 / math.sqrt(pd.fan_in or pd.shape[0]))
@@ -172,9 +218,10 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
     ``tree`` is the reference ``init_params`` output converted leaf by leaf
     to numpy (nested dicts / tuples).  The stacked ``blocks`` [G, ...]
     leaves are unstacked into per-layer tensors (layer ``g * period + p``
-    is group ``g`` of pattern position ``p``; ``rest`` layers follow), and
-    float32 leaves are cast to the compute dtype once — the cast the
-    reference repeats on every call (``_cast_tree``)."""
+    is group ``g`` of pattern position ``p``; ``rest`` layers follow), the
+    ``shared`` block is carried as its one copy, and float32 leaves are
+    cast to the compute dtype once — the cast the reference repeats on
+    every call (``_cast_tree``)."""
     dev = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     period = len(cfg.layer_pattern)
@@ -197,8 +244,10 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
     out = {"embed": to_t(tree["embed"])}
     if "pos_embed" in tree:
         out["pos_embed"] = to_t(tree["pos_embed"])
-    out.update({"layers": layers,
-                "final_norm": map_tree(to_t, tree["final_norm"]),
+    out["layers"] = layers
+    if "shared" in tree:
+        out["shared"] = map_tree(to_t, tree["shared"])
+    out.update({"final_norm": map_tree(to_t, tree["final_norm"]),
                 "lm_head": to_t(tree["lm_head"])})
     return out
 
@@ -237,6 +286,10 @@ def params_to_numpy(params: Tree, cfg: ModelConfig) -> Tree:
         "blocks": tuple(_stack(layers[p:groups * period:period])
                         for p in range(period)) if groups else (),
         "rest": tuple(layers[groups * period:]),
+    })
+    if "shared" in params:
+        out["shared"] = map_tree(to_np, params["shared"])
+    out.update({
         "final_norm": map_tree(to_np, params["final_norm"]),
         "lm_head": to_np(params["lm_head"]),
     })
@@ -259,18 +312,23 @@ def quantize_weights(cfg: ModelConfig, params: Tree) -> Tree:
     plan = plan_for(cfg, 1) if cfg.weight_quant else None
     if plan is None:
         return params
-    layers = []
-    for i, lp in enumerate(params["layers"]):
-        choices = plan.layer(cfg.layer_kind(i))
-        new = dict(lp)
+
+    def block(kind: str, bp: Tree) -> Tree:
+        choices = plan.layer(kind)
+        new = dict(bp)
         for stage, sub, names in W8_STAGES:
-            if getattr(choices, stage).kw.get("w8"):
+            if sub in bp and getattr(choices, stage).kw.get("w8"):
                 new[sub] = {n: (quantize_channelwise(w)
                                 if n in names and not isinstance(w, tuple)
                                 else w)
-                            for n, w in lp[sub].items()}
-        layers.append(new)
-    return {**params, "layers": layers}
+                            for n, w in bp[sub].items()}
+        return new
+
+    out = {**params, "layers": [block(cfg.layer_kind(i), lp) for i, lp
+                                in enumerate(params["layers"])]}
+    if "shared" in params:       # the shared block's stages: its kind's
+        out["shared"] = block(SHARED_KIND, params["shared"])
+    return out
 
 
 def dequantize_weights(cfg: ModelConfig, params: Tree) -> Tree:
@@ -284,9 +342,14 @@ def dequantize_weights(cfg: ModelConfig, params: Tree) -> Tree:
         return {n: (dequantize_channelwise(*w, dtype)
                     if isinstance(w, tuple) else w) for n, w in d.items()}
 
-    layers = [{k: sub(v) if k in ("attn", "mlp") else v
-               for k, v in lp.items()} for lp in params["layers"]]
-    return {**params, "layers": layers}
+    def block(bp):
+        return {k: sub(v) if k in ("attn", "mlp") else v
+                for k, v in bp.items()}
+
+    out = {**params, "layers": [block(lp) for lp in params["layers"]]}
+    if "shared" in params:
+        out["shared"] = block(params["shared"])
+    return out
 
 
 def weight_bytes(params: Tree) -> int:
@@ -336,12 +399,46 @@ class CacheDef:
     dtype: torch.dtype
 
 
+@functools.lru_cache(maxsize=None)
+def attn_pool_indices(cfg: ModelConfig) -> Tuple[Optional[int], ...]:
+    """Per layer, the index of its K/V along the pools' leading axis (the
+    attention layers in order: zamba2's 9 shared-block applications), or
+    None for a layer without attention."""
+    out, n = [], 0
+    for i in range(cfg.num_layers):
+        if cfg.layer_kind(i) in ("attn", "local_attn", "global_attn",
+                                 SHARED_KIND):
+            out.append(n)
+            n += 1
+        else:
+            out.append(None)
+    return tuple(out)
+
+
 def attn_cache_defs(cfg: ModelConfig, batch: int,
                     max_len: int) -> Dict[str, CacheDef]:
-    """Contiguous K/V leaves ``[L, B, S, Hkv, hd]`` ("bshd").  Storage
-    follows the compute dtype, as in the reference (``params.py:329``)."""
+    """Contiguous K/V leaves ``[L_attn, B, S, Hkv, hd]`` ("bshd"), one row
+    per attention layer (``attn_pool_indices``).  Storage follows the
+    compute dtype, as in the reference (``params.py:329``)."""
     if cfg.kv_cache_layout != "bshd":
         raise NotImplementedError("the 'bhsd' cache layout is not ported yet")
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    n = sum(i is not None for i in attn_pool_indices(cfg))
+    shape = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
     dt = compute_dtype(cfg)
     return {"k": CacheDef(shape, dt), "v": CacheDef(shape, dt)}
+
+
+def state_cache_defs(cfg: ModelConfig, batch: int) -> Dict[str, CacheDef]:
+    """Slot-contiguous recurrent state, one row per layer (every layer of
+    a Mamba2 stack carries it; ``params.py:366``): ``ssm`` [L, B, H, P,
+    N] float32 and ``conv`` [L, B, K - 1, d_inner], the last K - 1 conv
+    inputs, in bfloat16 whatever the compute dtype (the reference's
+    ``CacheDef`` default: a float32 model rounds its conv inputs to bf16
+    when they enter the cache).  Empty for other stacks."""
+    if not cfg.is_mamba:
+        return {}
+    lyr, h = cfg.num_layers, cfg.ssm_heads
+    return {"ssm": CacheDef((lyr, batch, h, cfg.ssm_head_dim, cfg.ssm_state),
+                            torch.float32),
+            "conv": CacheDef((lyr, batch, cfg.conv_width - 1, cfg.d_inner),
+                             torch.bfloat16)}

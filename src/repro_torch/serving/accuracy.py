@@ -25,9 +25,10 @@ import torch
 
 from ..configs import ARCHS, ModelConfig, get_config
 from ..kernels.common import DeviceLike, resolve_device
-from ..models.model import decode_step, prefill_chunk
+from ..models.model import (decode_step, prefill, prefill_chunk,
+                            supports_chunked_prefill)
 from ..models.params import Tree, init_params, map_tree, quantize_weights
-from .kv_cache import PagedKVCache, stage_chunk
+from .kv_cache import PagedKVCache, place_prefill, stage_chunk
 
 QUANT_MODES: Tuple[str, ...] = ("kv_int8", "kv_fp8", "w8", "w8_kv8")
 
@@ -61,18 +62,29 @@ def _greedy_rollout(params: Tree, cfg: ModelConfig, kv: PagedKVCache,
     1`` tokens; with ``forced`` each decode step's input token comes from
     it (teacher forcing), while the returned tokens are still the model's
     own argmax.  Returns (tokens, float32 logits per step), entry 0 the
-    prefill read-out (``accuracy.py:54``)."""
+    prefill read-out (``accuracy.py:54``).  A config without chunked
+    prefill (zamba2's recurrent state) is prefilled whole and placed, as
+    the engine admits it; the reference's gate calls ``prefill_chunk``
+    there, which refuses such a config."""
     dev = kv.device
     cache = kv.init_cache()
     plen = len(prompt)
-    kv.ensure(0, plen + steps + 1)
+    pages = kv.ensure(0, plen + steps + 1)
     row = kv.table_row(0)
-    chunk = max(kv.page_size, 1 << (plen - 1).bit_length())
-    toks, cpages, last = stage_chunk(prompt, 0, chunk, row, kv.page_size)
-    _, logits, cache = prefill_chunk(
-        params, cfg, torch.as_tensor(toks, device=dev)[None], cache,
-        torch.as_tensor(row, device=dev),
-        torch.as_tensor(cpages, device=dev), 0, last)
+    if supports_chunked_prefill(cfg):
+        chunk = max(kv.page_size, 1 << (plen - 1).bit_length())
+        toks, cpages, last = stage_chunk(prompt, 0, chunk, row,
+                                         kv.page_size)
+        _, logits, cache = prefill_chunk(
+            params, cfg, torch.as_tensor(toks, device=dev)[None], cache,
+            torch.as_tensor(row, device=dev),
+            torch.as_tensor(cpages, device=dev), 0, last)
+    else:
+        logits, fresh = prefill(params, cfg,
+                                torch.as_tensor(prompt, device=dev)[None])
+        place_prefill(cache, fresh, torch.as_tensor(
+            pages[:-(-plen // kv.page_size)], device=dev),
+            layout=cfg.kv_cache_layout, slot=0)
     step_logits = [logits.float().reshape(-1).cpu().numpy()]
     out = [int(step_logits[0].argmax())]
     table = kv.page_table
@@ -147,7 +159,7 @@ def run_suite(archs: Optional[Iterable[str]] = None,
               modes: Iterable[str] = QUANT_MODES, **kw
               ) -> Dict[str, Dict[str, Dict[str, object]]]:
     """Accuracy reports for every arch of the port's registry (all of them
-    decoders with attention KV pages)."""
+    decoders with attention KV pages; zamba2's in its shared block)."""
     return {a: run_accuracy(a, modes, **kw) for a in (archs or ARCHS)}
 
 

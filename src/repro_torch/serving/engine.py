@@ -9,7 +9,10 @@ fixed-size, page-aligned chunks (the plan's attention ``block_q`` rounded
 to whole pages) and a token-budget scheduler hands each pass prefill
 chunks, a decode block, or both.  With ``chunked=False`` each admitted
 prompt is prefilled whole, at its own length, and its fresh K/V placed
-into the slot's pages before the slot joins decode.
+into the slot's pages (a Mamba2 stack's SSM state and conv tail into the
+slot's rows) before the slot joins decode.  A stack with recurrent state
+(zamba2) cannot be chunked: ``chunked`` defaults to whole-prompt there
+and the prefix cache, which shares pages at chunk granularity, to off.
 
 Prefix cache (DESIGN.md §10), on by default whenever prefill is chunked:
 admission walks a radix tree over whole KV pages (``prefix_cache.py``),
@@ -61,7 +64,7 @@ from ..kernels.ref import code_view
 from ..models.model import (decode_step, prefill, prefill_chunk,
                             resolve_plan, supports_chunked_prefill,
                             supports_speculative, verify_step)
-from ..models.params import quantize_weights
+from ..models.params import cache_leaf_kind, quantize_weights
 from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
@@ -150,17 +153,19 @@ class ServingEngine:
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
         if quant is not None and quant != cfg.quant:
             cfg = replace(cfg, quant=quant)
-        if not supports_chunked_prefill(cfg):
-            raise NotImplementedError(
-                f"config {cfg.name!r} carries recurrent state or mrope "
-                "positions, whose layers are not ported yet")
         if admission not in ADMISSION:
             raise ValueError(f"unknown admission policy {admission!r} "
                              "(fifo | sjf | prefix)")
         self.admission = admission
-        # None: chunked whenever the config supports it (``engine.py:367``),
-        # which every config the port serves does.
-        self.chunked = True if chunked is None else bool(chunked)
+        # None: chunked whenever the config supports it (``engine.py:367``);
+        # a recurrent-state stack (zamba2) admits whole prompts.
+        if chunked is None:
+            chunked = supports_chunked_prefill(cfg)
+        if chunked and not supports_chunked_prefill(cfg):
+            raise ValueError(
+                f"config {cfg.name!r} does not support chunked prefill "
+                "(SSM/RWKV state or mrope positions)")
+        self.chunked = bool(chunked)
         self.device = resolve_device(device)
         self.cfg = cfg
         # The plan's w8 stages read int8 codes quantized here, once.
@@ -408,7 +413,7 @@ class ServingEngine:
                                 torch.as_tensor(r.prompt, device=dev)[None],
                                 plan=self.plan)
         place_prefill(self.cache, fresh, pages,
-                      layout=self.cfg.kv_cache_layout)
+                      layout=self.cfg.kv_cache_layout, slot=slot)
         t = int(logits[0, 0].argmax())              # reads back: syncs
         r.out_tokens.append(t)
         r.first_token_at = self.clock()
@@ -516,7 +521,9 @@ class ServingEngine:
             return
         src = torch.as_tensor(cow_src, device=self.device).long()
         dst = torch.as_tensor(cow_dst, device=self.device).long()
-        for pool in self.cache.values():            # [L, P, ...]
+        for name, pool in self.cache.items():       # [L, P, ...]
+            if cache_leaf_kind(name) == "state":
+                continue
             raw = code_view(pool)
             raw[:, dst] = raw[:, src]
 

@@ -25,6 +25,11 @@ scale 0, as every page of a fresh pool does: the reference keeps whatever
 scale the page's previous owner left (``kv_cache.py:239``), so there a
 request's tokens depend on the traffic served before it.
 
+A Mamba2 stack's recurrent state (``ssm``, ``conv``) is not paged: it
+sits slot-contiguously beside the pools, one row per slot
+(``[L, slots, ...]``), outside the page accounting; whole-prompt
+placement replaces the slot's row (``kv_cache.py:426-428``).
+
 Where the reference's primitives return updated arrays from a donated jit,
 the port's update the pool tensors in place (``index_put_``), which is what
 donation bought there.  Mesh placement comes with a later slice.
@@ -40,7 +45,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.common import DeviceLike, cdiv, resolve_device
 from ..kernels.ref import code_view
-from ..models.params import CacheDef, attn_cache_defs, cache_leaf_kind
+from ..models.params import (CacheDef, attn_cache_defs, cache_leaf_kind,
+                             state_cache_defs)
 
 NULL_PAGE = 0
 
@@ -304,20 +310,26 @@ def place_chunk_pages(pool: torch.Tensor, seq: torch.Tensor,
 
 def place_prefill(cache: Dict[str, torch.Tensor],
                   fresh: Dict[str, torch.Tensor], pages: torch.Tensor, *,
-                  layout: str) -> Dict[str, torch.Tensor]:
-    """Write one request's whole-prompt prefill cache into its pages, in
-    place (``kv_cache.py:399``).
+                  layout: str, slot: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Write one request's whole-prompt prefill cache into its pages and
+    its slot's state rows, in place (``kv_cache.py:399``).
 
-    fresh {"k", "v"} [L, 1, S, H, hd] ("bshd"); pages [n] int32 the slot's
+    fresh {"k", "v"} [L_attn, 1, S, H, hd] ("bshd") and, for a Mamba2
+    stack, the state leaves [L, 1, ...]; pages [n] int32 the slot's
     physical pages from ``ensure(slot, S)``, n = cdiv(S, page_size).  The
     last page is zero-padded past S.  Quantized pools (a ``<name>_scale``
     sibling in ``cache``) get each page's codes at its own scale, and the
-    scale rows are set.  Returns ``cache``."""
+    scale rows are set.  A state leaf replaces row ``slot`` (required
+    when ``fresh`` holds one).  Returns ``cache``."""
     for name, small in fresh.items():
-        if cache_leaf_kind(name) != "kv":
-            raise NotImplementedError(f"placing cache leaf {name!r} is not "
-                                      "ported yet")
         pool = cache[name]
+        if cache_leaf_kind(name) == "state":
+            if slot is None:
+                raise ValueError(f"placing state leaf {name!r} needs the "
+                                 "slot")
+            pool[:, slot] = small[:, 0].to(pool.dtype)
+            continue
         page_size = pool.shape[2]
         seq = to_page_major(small, layout)[:, 0]           # [L, S, H, hd]
         layers, s, h, hd = seq.shape
@@ -356,10 +368,11 @@ def stage_chunk(prompt: np.ndarray, off: int, chunk: int, row: np.ndarray,
 
 def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
                      page_size: int) -> Dict[str, CacheDef]:
-    """K/V page pools ``[L, 1 + slots * cdiv(max_len, ps), ps, Hkv, hd]``
-    (+1: the NULL page).  Under a KV quant mode the pools hold int8 / fp8
-    codes and each gains a ``<name>_scale`` pool ``[L, P, Hkv]`` float32
-    (``kv_cache.py:523-554``)."""
+    """K/V page pools ``[L_attn, 1 + slots * cdiv(max_len, ps), ps, Hkv,
+    hd]`` (+1: the NULL page).  Under a KV quant mode the pools hold int8 /
+    fp8 codes and each gains a ``<name>_scale`` pool ``[L_attn, P, Hkv]``
+    float32 (``kv_cache.py:523-554``).  A Mamba2 stack's state leaves
+    follow, slot-contiguous (``state_cache_defs``)."""
     num_pages = 1 + slots * cdiv(max_len, page_size)
     qdtype = kv_quant_dtype(cfg.kv_quant)
     out = {}
@@ -370,6 +383,7 @@ def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
         if qdtype is not None:
             out[name + "_scale"] = CacheDef((layers, num_pages, hkv),
                                             torch.float32)
+    out.update(state_cache_defs(cfg, slots))
     return out
 
 
@@ -408,10 +422,13 @@ class PagedKVCache:
         # Bytes of ONE physical page summed over every pool leaf (all
         # layers, scale pools included), each at its own dtype's size: the
         # unit of the bytes-in-use accounting (``kv_cache.py:642-660``).
+        # State leaves have no pages and stay out of it.
         self.page_bytes = 0
         self._kv_elems_per_page = 0
         for name, cd in self._defs.items():
             kind = cache_leaf_kind(name)     # raises on an unknown leaf
+            if kind == "state":
+                continue
             per_page = int(np.prod(cd.shape)) // cd.shape[1]
             self.page_bytes += per_page * torch.empty(
                 (), dtype=cd.dtype).element_size()

@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.streamed_xent",
             "repro_torch.kernels.moe_experts",
             "repro_torch.configs.granite_moe_1b",
-            "repro_torch.configs.granite_moe_3b"} <= set(modules)
+            "repro_torch.configs.granite_moe_3b",
+            "repro_torch.kernels.mamba2_scan",
+            "repro_torch.configs.zamba2_2p7b"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"
