@@ -26,7 +26,10 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               and a training step's 2 x 2048, its shared block's GELU GLU
               without a folded norm (K4, K10b), decode attention (K1, K9a)
               and static attention (K7) at head dim 80, projections,
-              ln2 rows, LM head and loss),
+              ln2 rows, LM head and loss; rwkv6-7b's wkv recurrence (K14)
+              at the same prompts and step, y and the final state each
+              against its own scale, its final LayerNorm rows and LM head
+              (K5, Vp 65536) at 1, 4 and 1000 rows, and its loss),
               in bfloat16 and float32: max error against the stated
               tolerance, kernel / plain / library times (CUDA events, L2
               flushed between launches) and the card's bound; every row
@@ -66,8 +69,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               unquantized engine (max logit error, token equality; the
               errors must be finite);
 8. serve, gpt2_serve, granite_serve, spec_serve, quant_serve,
-              quant_spec_serve — llama3-8b, gpt2 and granite-moe-3b at
-              full width and depth, bfloat16, random weights
+              quant_spec_serve — gpt2 at full width and depth, llama3-8b
+              and granite-moe-3b at full width cut to 16 of their 32
+              layers (``SERVE_LAYERS``), bfloat16, random weights
               drawn on the card from a seed (gpt2 jittered): a mixed burst
               of 8 prompts (37..1000 tokens; gpt2 up to 992 in its
               1024-position context; 32 new tokens each) through the
@@ -95,7 +99,15 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               K4 or K10b 9 per decode step, K5 and the RMSNorm rows 9 per
               call, K3 once per call for the LM head; state bytes
               reported beside the KV bytes;
-9. train_fused_vs_eager — the three models at full width cut to 4 layers,
+   rwkv_fused_vs_eager, rwkv_serve — rwkv6-7b (no attention, no K/V
+              pools, whole-prompt admission, weights jittered): at full
+              width cut to 4 layers, float32, kernel plan tokens equal to
+              the eager plan's with launches exactly ``rwkv_launches``;
+              at full width and depth, bfloat16, the mixed burst: every
+              request completes, the solo request repeats its burst, the
+              launches are exactly K14 32 per prefill and the LayerNorm
+              rows and K5 (LM head) once per prefill and decode step;
+9. train_fused_vs_eager — the four models at full width cut to 4 layers,
               float32, B = 2, S = 256: the kernel plan's ``forward_train``
               loss against the eager plan's (relative 1e-5) and every
               gradient leaf (1e-4), 3 ``make_train_step`` steps on each plan
@@ -110,14 +122,16 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               equality reported); llama3-8b at full width cut to 2 layers
               (B = 2, S = 2048; the full depth does not fit one card) for
               3 steps and a timed restore; granite-moe-1b and zamba2-2.7b
-              at full width and depth (B = 2, S = 2048, lr 3e-5) for 3
-              steps, no checkpoint.  Losses finite and falling,
+              at full width and depth and rwkv6-7b at full width cut to 4
+              layers (B = 2, S = 2048, lr 3e-5) for 3 steps, no
+              checkpoint.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
               (serving or training) that runs it, with its check results
               and that path's own launch count.
 
+Every phase line carries ``t_s``, the seconds since the script started.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside this script, it exits non-zero and prints
 no result.  Full results and the nvcc resource report also go to
@@ -172,6 +186,7 @@ TPU_KERNELS = {
     # leaves to XLA in front of the MoE router and experts.
     "rms_norm_rows": "src/repro/models/layers.py:187",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:34",
+    "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:33",
 }
 HELPERS = {"row_norm", "rms_norm_rows"}
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -195,6 +210,7 @@ SOURCES = {
     "moe_experts": _CSRC + "moe_experts.cu",
     "rms_norm_rows": _CSRC + "row_norm.cu",
     "mamba2_scan": _CSRC + "mamba2_scan.cu",
+    "rwkv6_wkv": _CSRC + "rwkv6_wkv.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 # On the kernel plan the o-projection runs through block_matmul, llama3's
@@ -300,6 +316,30 @@ def zamba_launches(prefills: int, steps: int, quant: str = "none",
     return {k: n for k, n in out.items() if n}
 
 
+# rwkv6 (whole-prompt admission only, no attention, no K/V pools): K14 in
+# every layer of a prefill (decode runs the eager one-token recurrence, as
+# the reference); the final LayerNorm through the row-norm kernel and the
+# LM head through block_matmul once per prefill and per decode step.
+RWKV = "rwkv6-7b"
+RWKV_LAYERS = 32
+
+
+def rwkv_launches(prefills: int, steps: int,
+                  layers: int = RWKV_LAYERS) -> dict:
+    """Every kernel's exact launches in an rwkv6 burst of ``prefills``
+    whole-prompt prefills and ``steps`` decode steps."""
+    calls = prefills + steps
+    out = {"rwkv6_wkv": layers * prefills, "row_norm": calls,
+           "block_matmul": calls}
+    return {k: n for k, n in out.items() if n}
+
+
+# llama3-8b and granite-moe-3b serve at full width cut to 16 of their 32
+# layers: at full depth their eight bursts took 250 s, and the script has
+# to stay well inside its time limit with every model's phases.
+SERVE_LAYERS = {"llama3-8b": 16, GRANITE: 16}
+
+
 # The training path on the kernel plan: each layer's forward launches, the
 # static flash kernel for attention; under remat the backward runs every
 # layer's forward again (the eager backward itself launches nothing); the
@@ -319,9 +359,10 @@ TRAIN_LAYER_LAUNCHES[ZAMBA] = {"rmsnorm_matmul": 3,
                                        "streamed_ffn": 1,
                                        "flash_attention_static": 1}
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
-# llama3-8b, granite-moe-1b-a400m and zamba2-2.7b at 2 x 2048.
+# llama3-8b, granite-moe-1b-a400m, zamba2-2.7b and rwkv6-7b at 2 x 2048.
 TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
-                GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048)}
+                GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048),
+                RWKV: (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -329,16 +370,26 @@ SLOTS, WINDOW = 4, 5
 SPEC_T = SLOTS * WINDOW
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started, so consecutive lines time the phases."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
 def train_step_launches(model: str, layers: int, remat: bool = True):
     """Each kernel's launches in one training step on the kernel plan
     (zamba2: K13 in every layer, the shared block's kernels in each of its
-    ``layers // 6`` applications)."""
+    ``layers // 6`` applications; rwkv6: K14 in every layer, nothing
+    else but the loss)."""
     runs = 2 if remat else 1
-    if model == ZAMBA:
+    if model == RWKV:
+        out = {"rwkv6_wkv": runs * layers}
+    elif model == ZAMBA:
         out = {"mamba2_scan": runs * layers}
         out.update({k: runs * n * (layers // 6)
                     for k, n in TRAIN_LAYER_LAUNCHES[model].items()})
@@ -840,7 +891,7 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     for model, d, vocab in (("gpt2", 1024, 50257),
                             ("llama3-8b", 4096, 128256),
                             (GRANITE_TRAIN, 1024, 49155),
-                            (ZAMBA, 2560, 32000)):
+                            (ZAMBA, 2560, 32000), (RWKV, 4096, 65536)):
         b, s = TRAIN_SHAPES[model]
         t, vp = b * s, padded_vocab(vocab)
         h = randn(t, d)
@@ -1172,6 +1223,67 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     return cases
 
 
+def _wkv_case(torch, K, ref, randn, isz, b, s, path):
+    """K14 at rwkv6-7b's widths (64 heads of 64) over ``b`` sequences of
+    ``s`` tokens, at the model's chunk (the kernel ignores it): r, k, v in
+    the dtype, the decay as the model makes it (float32 ``exp(-exp(.))``
+    around the init's ``w_bias``), a nonzero bonus ``u``.  y and the final
+    state are checked each against its own scale.  Operations: 7 N^2 per
+    token and head (kv, u kv, the sum, r (...), S w, + kv), float32 on the
+    CUDA cores whatever the dtype; bytes: r, k, v and y in the dtype, w in
+    float32, the state out in float32.  No PyTorch call computes it."""
+    from repro_torch.models.model import _chunk_of
+    h, n = 64, 64
+    q = _chunk_of(s, 64)
+    r, k, v = (randn(b, s, h, n) for _ in range(3))
+    w_bias = torch.linspace(-6.0, -0.5, n, device=r.device)
+    w = torch.exp(-torch.exp(randn(b, s, h, n, scale=0.5).float() + w_bias))
+    u = randn(h, n, scale=0.5)
+    args = (r, k, v, w, u)
+    return dict(
+        name="rwkv6_wkv", model=RWKV, path=path, parts=True,
+        peak="float32", shape=f"B={b},S={s},chunk={q},H={h},N={n}",
+        kernel=lambda: K.wkv6(*args, chunk=q),
+        plain=lambda: ref.wkv6(*args), library=None, cublas=None,
+        nbytes=b * s * h * n * (4 * isz + 4) + 4 * b * h * n * n + h * n * isz,
+        flops=7 * b * s * h * n * n)
+
+
+def rwkv_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """rwkv6-7b's kernel calls: K14 at whole prompts of 1000 (chunk 8),
+    999 (chunk 1), 37 and 128 tokens and at a training step's 2 x 2048;
+    the final LayerNorm rows (D 4096) and the LM head (K5, D 4096 x Vp
+    65536) at one row (a prefill's last position), at decode (4 slots) and
+    at 1000 rows (no path runs that: reported for scale)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cases = [_wkv_case(torch, K, ref, randn, isz, 1, s, "whole_prompt")
+             for s in (1000, 999, 37, 128)]
+    b, sl = TRAIN_SHAPES[RWKV]
+    cases.append(_wkv_case(torch, K, ref, randn, isz, b, sl, "train"))
+    d, vocab = 4096, 65536
+    head = randn(d, vocab, scale=1 / math.sqrt(d))
+    for t in (1, 4, 1000):
+        path = "wide" if t == 1000 else None
+        x = randn(t, d)
+        sc, bi = randn(d, scale=0.1), randn(d, scale=0.1)
+        cases += [dict(
+            name="row_norm", model=RWKV, path=path, shape=f"T={t},D={d}",
+            kernel=lambda x=x, a=sc, c=bi: K.layer_norm_rows(x, a, c),
+            plain=lambda x=x, a=sc, c=bi: ref.layer_norm_rows(x, a, c),
+            library=lambda x=x, a=sc, c=bi: torch.nn.functional.layer_norm(
+                x, (d,), a, c, 1e-5), cublas=None,
+            nbytes=(2 * t * d + 2 * d) * isz, flops=8 * t * d), dict(
+            name="block_matmul", model=RWKV, path=path,
+            shape=f"lm_head M={t},K={d},N={vocab}",
+            kernel=lambda x=x: K.block_matmul(x, head),
+            plain=lambda x=x: ref.block_matmul(x, head),
+            library=lambda x=x: torch.matmul(x, head), cublas=None,
+            nbytes=(t * d + d * vocab + t * vocab) * isz,
+            flops=2 * t * d * vocab)]
+    return cases
+
+
 def _flat(torch, out):
     """A kernel's output, its parts concatenated when it has several
     (streamed_xent: lse and gold)."""
@@ -1194,14 +1306,21 @@ def check_kernels(torch, timer):
         cases += xent_cases(torch, K, ref, dtype, gen)
         cases += granite_kernel_cases(torch, K, ref, dtype, gen)
         cases += zamba_kernel_cases(torch, K, ref, dtype, gen)
+        cases += rwkv_kernel_cases(torch, K, ref, dtype, gen)
         for c in cases:
-            out = _flat(torch, c["kernel"]())
+            got, plain = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
-            want = _flat(torch, c["plain"]())
+            out, want = _flat(torch, got), _flat(torch, plain)
             err = (out.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
             rel = err / max(scale, 1e-30)
-            bound_ms, bound_by = bound(c["nbytes"], c["flops"], dname)
+            if c.get("parts"):          # each output against its own scale
+                rel = max(_rel(a.float(), b.float())
+                          for a, b in zip(got, plain))
+            # Operations at the peak of the type they run in (K14: float32
+            # on the CUDA cores whatever the operands' type).
+            bound_ms, bound_by = bound(c["nbytes"], c["flops"],
+                                       c.get("peak", dname))
             # Each verify row against the decode kernel at its length, bit
             # for bit (comparison launches; no path's count).
             same_rows = (c["rows_vs_decode"](out) if "rows_vs_decode" in c
@@ -1214,7 +1333,10 @@ def check_kernels(torch, timer):
                    "ok": bool(rel <= TOL[dname] and math.isfinite(err)
                               and (same_rows is None or all(same_rows))),
                    "rows_equal_decode": same_rows,
-                   "ms": timer(c["kernel"]), "plain_ms": timer(c["plain"]),
+                   # The plain version is a check, not a yardstick: the
+                   # median of 3 launches (some take 0.1-0.4 s).
+                   "ms": timer(c["kernel"]),
+                   "plain_ms": timer(c["plain"], iters=3),
                    "library_ms": (timer(c["library"])
                                   if c["library"] is not None else None),
                    "cublas_ms": (timer(c["cublas"])
@@ -1544,7 +1666,8 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
            "tpot_mean_ms": 1e3 * statistics.mean(tpot),
            "kv_bytes_peak": eng.metrics["kv_bytes_peak"],
            "kv_itemsize_effective": eng.metrics["kv_itemsize_effective"],
-           # Slot-contiguous recurrent state (zamba2's SSM and conv rows).
+           # Slot-contiguous recurrent state (zamba2's SSM and conv rows,
+           # rwkv6's wkv state and token-shift rows).
            "state_bytes": sum(t.numel() * t.element_size()
                               for n, t in eng.cache.items()
                               if cache_leaf_kind(n) == "state"),
@@ -1850,8 +1973,9 @@ def accuracy(torch, cfg, *, jitter, device="cuda"):
 
 
 def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
-    """``cfg``: full width and depth, bfloat16, kernel plan; weights drawn
-    once on the card (seed 2).  The mixed burst (``serve``; gpt2 and
+    """``cfg``: full width at the serving depth (``SERVE_LAYERS``),
+    bfloat16, kernel plan; weights drawn once on the card (seed 2).  The
+    mixed burst (``serve``; gpt2 and
     granite under chunked and whole-prompt admission), the speculative
     burst against the plain engine (``spec_serve``, exact), then both
     again under w8_kv8 (``quant_serve``, ``quant_spec_serve``).  Each
@@ -1890,20 +2014,22 @@ def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
 
 
 # --------------------------------------------------------------------- #
-# zamba2: the Mamba2 hybrid, whole-prompt admission
+# zamba2 and rwkv6: recurrent state, whole-prompt admission
 # --------------------------------------------------------------------- #
 
-def zamba_fused_vs_eager(torch, cfg, device="cuda",
-                         lengths=(150, 40, 300, 9)):
-    """``cfg``: zamba2 at full width cut to 6 layers (one period: the
-    shared block runs once), float32.  The kernel plan's greedy tokens
-    must equal the eager plan's, and its burst must launch exactly
-    ``zamba_launches`` of its prefills and decode steps."""
+def recurrent_fused_vs_eager(torch, cfg, *, phase, launches, jitter,
+                             device="cuda", lengths=(150, 40, 300, 9)):
+    """``cfg``: a recurrent-state model at full width cut in depth,
+    float32 (zamba2 at 6 layers: one period, the shared block runs once;
+    rwkv6 at 4, jittered).  The kernel plan's greedy tokens must equal the
+    eager plan's, the engine must admit whole prompts, and the kernel
+    plan's burst must launch exactly ``launches(prefills, decode
+    steps)``."""
     from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
-    params = _weights(torch, cfg, 1, jitter=False, device=device)
+    params = _weights(torch, cfg, 1, jitter=jitter, device=device)
     prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
-    row = {"phase": "zamba_fused_vs_eager", "config": cfg.name,
+    row = {"phase": phase, "config": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype,
            "prompts": [len(p) for p in prompts], "new_tokens": 8}
     tokens = {}
@@ -1922,9 +2048,8 @@ def zamba_fused_vs_eager(torch, cfg, device="cuda",
                                 else "whole_prompt")
             row["launches"] = {k: n for k, n in K.launch_counts().items()
                                if n}
-            row["expected"] = zamba_launches(
-                eng.metrics["prefills"], eng.metrics["scan_ticks"],
-                layers=cfg.num_layers, every=cfg.shared_attn_every)
+            row["expected"] = launches(eng.metrics["prefills"],
+                                       eng.metrics["scan_ticks"])
     row.update(tokens_equal=tokens[True] == tokens[False],
                fused_tokens=tokens[True], eager_tokens=tokens[False])
     emit(row)
@@ -1939,36 +2064,35 @@ def zamba_fused_vs_eager(torch, cfg, device="cuda",
     if row["admission"] != "whole_prompt":
         bad.append("not admitted whole-prompt")
     if bad:
-        raise AssertionError(f"zamba_fused_vs_eager: " + "; ".join(bad))
+        raise AssertionError(f"{phase}: " + "; ".join(bad))
     return row
 
 
-def zamba_serve(torch, cfg, device="cuda"):
-    """``cfg``: zamba2 at full width and depth, bfloat16, kernel plan;
-    weights drawn once on the card (seed 2).  The mixed burst (``serve``:
-    8 prompts of 37..1000 tokens, 32 new tokens each, 4 slots, max_len
-    2048, whole-prompt admission) plain and under w8_kv8; each burst must
-    launch exactly ``zamba_launches`` of its prefills and decode steps."""
+def recurrent_serve(torch, cfg, *, phases, launches, jitter, device="cuda"):
+    """``cfg``: a recurrent-state model at full width and depth, bfloat16,
+    kernel plan; weights drawn once on the card (seed 2; jittered for
+    rwkv6, whose LayerNorm scales start at zero and token-shift mixes at
+    one).  The mixed burst (``serve``: 8 prompts of 37..1000 tokens, 32
+    new tokens each, 4 slots, max_len 2048, whole-prompt admission) under
+    each quant mode of ``phases`` ({quant: phase name}); each burst must
+    launch exactly ``launches(prefills, decode steps, quant)``."""
     t0 = time.perf_counter()
-    params = _weights(torch, cfg, 2, jitter=False, device=device)
+    params = _weights(torch, cfg, 2, jitter=jitter, device=device)
     _sync(torch, device)
     init_s = time.perf_counter() - t0
     out = {}
-    for quant in ("none", QUANT_MODE):
+    for quant, phase in phases.items():
         qcfg = dataclasses.replace(cfg, quant=quant)
-        row = serve(torch, qcfg, params, set(zamba_launches(1, 1, quant)),
-                    init_s=init_s, chunked=None,
-                    phase="zamba_serve" if quant == "none"
-                    else "zamba_quant_serve", device=device)
+        row = serve(torch, qcfg, params, set(launches(1, 1, quant)),
+                    init_s=init_s, chunked=None, phase=phase, device=device)
         m = row["metrics"]
-        want = zamba_launches(m["prefills"], m["scan_ticks"], quant,
-                              cfg.num_layers, cfg.shared_attn_every)
+        want = launches(m["prefills"], m["scan_ticks"], quant)
         got = {k: n for k, n in row["launches"].items() if n}
-        emit({"phase": "zamba_launches", "quant": quant,
+        emit({"phase": f"{phase}_launches", "quant": quant,
               "prefills": m["prefills"], "decode_steps": m["scan_ticks"],
               "launches": got, "expected": want, "exact": got == want})
         if got != want:
-            raise AssertionError(f"zamba_serve {quant}: launched {got}, "
+            raise AssertionError(f"{phase} {quant}: launched {got}, "
                                  f"expected {want}")
         out[quant] = row
         _free(torch, device)
@@ -2094,6 +2218,7 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
                ("streamed_ffn_kernel", "FFN (K4/K6)"),
                ("moe_", "MoE experts (K12)"),
                ("mamba2_ssd_kernel", "SSD scan (K13)"),
+               ("wkv6_kernel", "wkv recurrence (K14)"),
                ("flash_offset_kernel", "attention (K7)"),
                ("xent_", "loss (K11)"))
 
@@ -2101,32 +2226,39 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
 def profile_step(torch, tr):
     """One more step of trainer ``tr`` under ``torch.profiler``: device
     milliseconds of the repository's kernels by stage and of PyTorch's
-    kernels (cuBLAS gemms apart), and the step's wall under the profiler.
-    None when the trace holds no device time."""
+    kernels (cuBLAS gemms apart), the step's wall under the profiler and
+    the seconds spent reading the trace.  Only device activity is traced,
+    and the trace is read as kineto's flat event list: host op events and
+    ``prof.events()``'s tree of them take minutes for a step of ~10^5 small
+    launches (rwkv6's eager wkv backward).  None when the trace holds no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     batch = tr.pipeline.batch_at(tr.step)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.params, tr.opt_state, m = tr.step_fn(tr.params, tr.opt_state,
                                                 batch)
         float(m["loss"])
         wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
     ms: dict = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
             continue
-        stage = next((v for k, v in OWN_KERNELS if k in e.name), None)
+        name = e.name()
+        stage = next((v for k, v in OWN_KERNELS if k in name), None)
         if stage is None:
             stage = ("PyTorch gemm" if any(
-                k in e.name.lower() for k in ("gemm", "xmma", "cutlass"))
+                k in name.lower() for k in ("gemm", "xmma", "cutlass"))
                 else "PyTorch other")
-        ms[stage] = ms.get(stage, 0.0) + e.time_range.elapsed_us() / 1e3
+        ms[stage] = ms.get(stage, 0.0) + e.duration_ns() / 1e6
     if not ms:
         return None
     return {"device_ms": ms, "busy_ms": sum(ms.values()),
-            "profiled_wall_ms": wall * 1e3}
+            "profiled_wall_ms": wall * 1e3,
+            "trace_read_s": time.perf_counter() - t1}
 
 
 def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
@@ -2306,21 +2438,40 @@ def main(argv=None) -> int:
     results["accuracy"] = {m: accuracy(torch, small[m], jitter=jit)
                            for m, (_, jit, _, _) in models.items()}
     zamba = get_config(ZAMBA)
-    results["zamba_fused_vs_eager"] = zamba_fused_vs_eager(
+    results["zamba_fused_vs_eager"] = recurrent_fused_vs_eager(
         torch, dataclasses.replace(zamba, num_layers=6, dtype="float32",
-                                   use_fused_kernels=True))
+                                   use_fused_kernels=True),
+        phase="zamba_fused_vs_eager", jitter=False,
+        launches=lambda p, s: zamba_launches(p, s, layers=6))
+    rwkv = get_config(RWKV)
+    results["rwkv_fused_vs_eager"] = recurrent_fused_vs_eager(
+        torch, dataclasses.replace(rwkv, num_layers=4, dtype="float32",
+                                   use_fused_kernels=True),
+        phase="rwkv_fused_vs_eager", jitter=True,
+        launches=lambda p, s: rwkv_launches(p, s, layers=4))
     results["accuracy"][ZAMBA] = accuracy(
         torch, dataclasses.replace(zamba, num_layers=6, dtype="float32"),
         jitter=False)
     results["full_depth"] = {
-        m: full_depth(torch, dataclasses.replace(c, use_fused_kernels=True),
-                      m, jitter=jit, max_len=ml, hi=hi)
+        m: full_depth(torch, dataclasses.replace(
+            c, use_fused_kernels=True,
+            num_layers=SERVE_LAYERS.get(m, c.num_layers)),
+            m, jitter=jit, max_len=ml, hi=hi)
         for m, (c, jit, ml, hi) in models.items()}
-    results["zamba_serve"] = zamba_serve(
-        torch, dataclasses.replace(zamba, use_fused_kernels=True))
+    results["zamba_serve"] = recurrent_serve(
+        torch, dataclasses.replace(zamba, use_fused_kernels=True),
+        phases={"none": "zamba_serve", QUANT_MODE: "zamba_quant_serve"},
+        launches=zamba_launches, jitter=False)
+    results["rwkv_serve"] = recurrent_serve(
+        torch, dataclasses.replace(rwkv, use_fused_kernels=True),
+        phases={"none": "rwkv_serve"}, jitter=True,
+        launches=lambda p, s, quant: rwkv_launches(p, s))
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
+    results["train_fused_vs_eager"][RWKV] = train_fused_vs_eager(
+        torch, dataclasses.replace(rwkv, num_layers=4, dtype="float32"),
+        RWKV, jitter=True)
     results["train"] = {
         "gpt2": train(torch, dataclasses.replace(gpt2, use_fused_kernels=True),
                       "gpt2", steps=6, ckpt_every=3, replay_from=3, lr=1e-3,
@@ -2343,7 +2494,15 @@ def main(argv=None) -> int:
             torch, dataclasses.replace(zamba, use_fused_kernels=True),
             ZAMBA, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
             note="full width and depth; no checkpoint (the CPU tests hold "
-                 "zamba2 checkpoints to the reference)")}
+                 "zamba2 checkpoints to the reference)"),
+        RWKV: train(
+            torch, dataclasses.replace(rwkv, num_layers=4,
+                                       use_fused_kernels=True),
+            RWKV, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+            note="full width cut to 4 layers (1.41 B parameters): float32 "
+                 "weights, gradients and two AdamW moments of all 32 "
+                 "layers take 120 GB; no checkpoint (the CPU tests hold "
+                 "rwkv6 checkpoints to the reference)")}
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -2358,6 +2517,8 @@ def main(argv=None) -> int:
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))
+    paths.append((RWKV, "whole_prompt",
+                  results["rwkv_serve"]["none"]["launches"]))
     for m, r in results["train"].items():
         paths.append((m, "train", r["launches"]))
     summary = []

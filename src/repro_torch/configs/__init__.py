@@ -13,6 +13,7 @@ from .gpt2 import CONFIG as GPT2
 from .granite_moe_1b import CONFIG as GRANITE_MOE_1B
 from .granite_moe_3b import CONFIG as GRANITE_MOE_3B
 from .llama3_8b import CONFIG as LLAMA3_8B
+from .rwkv6_7b import CONFIG as RWKV6_7B
 from .zamba2_2p7b import CONFIG as ZAMBA2_2P7B
 
 ARCHS: Dict[str, ModelConfig] = {
@@ -20,6 +21,7 @@ ARCHS: Dict[str, ModelConfig] = {
     "granite-moe-1b-a400m": GRANITE_MOE_1B,
     "granite-moe-3b-a800m": GRANITE_MOE_3B,
     "llama3-8b": LLAMA3_8B,
+    "rwkv6-7b": RWKV6_7B,
     "zamba2-2.7b": ZAMBA2_2P7B,
 }
 

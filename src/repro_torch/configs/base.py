@@ -1,10 +1,11 @@
 """Architecture configuration dataclass (copy of ``repro.configs.base``).
 
 Only what the port's slices read is kept: the ``ModelConfig`` fields, the
-derived head/width accessors (the Mamba2 widths included), the layer-pattern helpers and ``reduced()``,
-and ``ShapeConfig`` (``configs/base.py:250``), the training batch shape.
-Field names and defaults match the reference so a config converts between
-the two packages field by field.
+derived head/width accessors (the Mamba2 and RWKV6 widths included), the
+layer-pattern helpers and ``reduced()``, and ``ShapeConfig``
+(``configs/base.py:250``), the training batch shape.  Field names
+and defaults match the reference so a config converts between the two
+packages field by field.
 """
 
 from __future__ import annotations
@@ -111,6 +112,10 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
 
     def layer_kind(self, i: int) -> str:
         """What block sits at layer ``i`` (pattern-aware)."""

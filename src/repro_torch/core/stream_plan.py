@@ -3,11 +3,12 @@
 Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
 ``repro.core.stream_plan`` (the fields the port reads) and adds
 ``plan_for``, which returns the plan the reference compiler (trace ->
-tiling DSE -> fusion -> lowering) selects for the four ported families:
+tiling DSE -> fusion -> lowering) selects for the five ported families:
 dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b), its MoE variant (granite-moe),
-dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2), and the
+dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2), the
 Mamba2 hybrid with a shared RMSNorm/GELU-GLU/RoPE attention block
-(zamba2; one ``LayerPlan`` per layer kind).  The
+(zamba2; one ``LayerPlan`` per layer kind), and the attention-free RWKV6
+stack (rwkv6-7b: only the wkv mixer runs a kernel).  The
 reference selects the same kernels and blocks for each family's config
 and its reduced config at every token count, and at every KV length that
 is a multiple of the 16-token page
@@ -17,8 +18,9 @@ Under a weight-quantizing config (``w8``, ``w8_kv8``) the
 ``rmsnorm_matmul`` and ``streamed_ffn`` / ``streamed_mlp`` stages carry the
 reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
 ``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``,
-``moe_experts`` and ``mamba2_scan`` never do, so gpt2's projections, the
-MoE experts and the Mamba2 mixer stay at full precision.  KV quantization
+``moe_experts``, ``mamba2_scan`` and ``rwkv6_wkv`` never do, so gpt2's
+projections, the MoE experts and the Mamba2 and RWKV6 mixers stay at full
+precision (an RWKV6 plan is the same under ``w8``).  KV quantization
 changes no choice: the pools' dtype selects the attention twins.
 The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
 is ``streamed_xent`` for every family, with the reference's blocks at
@@ -68,7 +70,7 @@ class LayerPlan:
     decode_attn: KernelChoice = EAGER  # single-token paged attention
     verify_attn: KernelChoice = EAGER  # W-token speculative verify window
     ffn: KernelChoice = EAGER          # (ln2 +) MLP
-    mixer: KernelChoice = EAGER        # the Mamba2 SSD scan
+    mixer: KernelChoice = EAGER        # the Mamba2 SSD scan / RWKV6 wkv
 
     def stages(self):
         for name in STAGES:
@@ -179,6 +181,15 @@ _MAMBA_SHARED_ATTN = replace(
     mixer=_MAMBA2_SCAN)
 
 
+# ... and for the attention-free RWKV6 stack (rwkv6-7b and its reduced
+# config, tokens 1 to 4096, with and without ``w8``): the wkv recurrence
+# through ``rwkv6_wkv`` (chunk 64; the model cuts it to a divisor of the
+# sequence), every other stage eager (time-mix and channel-mix products
+# stay plain matmuls, the LayerNorms PyTorch's).
+_RWKV = LayerPlan(kind="rwkv",
+                  mixer=KernelChoice("rwkv6_wkv", (("chunk", 64),)))
+
+
 # The training loss of every family (the reference's ``lm_head`` choice
 # at token counts 64..8192, full and reduced configs).
 _STREAMED_XENT = KernelChoice("streamed_xent",
@@ -191,6 +202,8 @@ def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
     if cfg.qkv_bias or cfg.qk_norm:
         return None
+    if kinds == {"rwkv"}:
+        return {"rwkv": _RWKV} if cfg.norm == "layernorm" else None
     if kinds <= {"mamba", "mamba+shared_attn"}:
         if (cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope"
                 and cfg.activation == "gelu" and not cfg.is_moe):
@@ -228,9 +241,9 @@ def plan_for(cfg: ModelConfig, tokens: int,
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
             "RMSNorm/GQA/SwiGLU/RoPE (and its MoE variant), LayerNorm/"
-            "MHA/GELU-MLP/learned-position and Mamba2-hybrid stacks are "
-            "ported")
-    if cfg.weight_quant:                 # K12 and K13 have no w8 twin
+            "MHA/GELU-MLP/learned-position, Mamba2-hybrid and RWKV6 "
+            "stacks are ported")
+    if cfg.weight_quant:           # K12, K13 and K14 have no w8 twin
         family = {k: _with_w8(lp) for k, lp in family.items()}
     return StreamPlan(arch=cfg.name, tokens=int(tokens),
                       kv_len=int(kv_len or tokens),

@@ -19,6 +19,7 @@ from .paged_attention import (paged_decode_attention,
                               paged_verify_attention_q)
 from .rmsnorm_matmul import rmsnorm_matmul, rmsnorm_matmul_w8
 from .row_norm import layer_norm_rows, rms_norm_rows
+from .rwkv6_wkv import wkv6
 from .streamed_ffn import (streamed_ffn, streamed_ffn_w8, streamed_mlp,
                            streamed_mlp_w8)
 from .streamed_xent import streamed_xent_loss, streamed_xent_parts
@@ -26,7 +27,8 @@ from .streamed_xent import streamed_xent_loss, streamed_xent_parts
 # Every kernel, by the name its launch count goes under: K1-K8, the
 # quantized twins K9a-c (int8 / fp8 KV codes) and K10a-c (int8 weights),
 # the row-norm helper (LayerNorm and RMSNorm modes), the training loss K11,
-# the MoE experts K12 and the Mamba2 SSD scan K13.
+# the MoE experts K12, the Mamba2 SSD scan K13 and the RWKV6 wkv
+# recurrence K14.
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
@@ -47,6 +49,7 @@ KERNELS = {
     "moe_experts": moe_experts,
     "rms_norm_rows": rms_norm_rows,
     "mamba2_scan": mamba2_ssd,
+    "rwkv6_wkv": wkv6,
 }
 
 
@@ -67,6 +70,6 @@ __all__ = [
     "paged_decode_attention", "paged_decode_attention_q",
     "paged_verify_attention", "paged_verify_attention_q", "rmsnorm_matmul",
     "rmsnorm_matmul_w8", "streamed_ffn", "streamed_ffn_w8", "streamed_mlp",
-    "streamed_mlp_w8", "streamed_xent_loss", "streamed_xent_parts",
+    "streamed_mlp_w8", "streamed_xent_loss", "streamed_xent_parts", "wkv6",
     "KERNELS", "reset_launches", "launch_counts",
 ]

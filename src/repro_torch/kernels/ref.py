@@ -390,3 +390,33 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  + torch.einsum("bjhp,bjn->bhpn", xdt * dte[..., None], bc))
         y[:, c0:c0 + q] = (yc + xc * dk[None, None, :, None]).to(x.dtype)
     return y, state
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         init_state: Optional[torch.Tensor] = None):
+    """The RWKV6 recurrence, token by token in float32 (``ref.py:113``,
+    which ``_wkv_kernel``, ``rwkv6_wkv.py:33``, computes; the reference's
+    eager ``layers.wkv6`` is the same recurrence, and the model's eager
+    plan runs this function): r/k/v [B, S, H, N], w [B, S, H, N] the
+    per-step decay in (0, 1), u [H, N] the bonus, init_state [B, H, N, N]
+    (keys x values; zeros by default) -> (y [B, S, H, N] in r's dtype, the
+    final state [B, H, N, N] float32).  Per token, with kv = k^T v::
+
+        y = r (S + u^T o kv),   S = S o w^T + kv.
+
+    Differentiable: the tokens are taken apart once (``unbind``), so
+    autograd's graph holds each step's own ops and no per-token slice of
+    the whole sequence."""
+    bsz, s, h, n = r.shape
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, n, n), dtype=torch.float32,
+                              device=r.device))
+    rs, ks, vs, ws = (t.float().unbind(1) for t in (r, k, v, w))
+    ub = u.float()[None, :, :, None]
+    ys = []
+    for t in range(s):
+        kv = ks[t][..., None] * vs[t][..., None, :]             # k_t^T v_t
+        ys.append(torch.einsum("bhk,bhkv->bhv", rs[t], state + ub * kv))
+        state = state * ws[t][..., None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), state

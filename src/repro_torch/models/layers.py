@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from .. import kernels as K
-from ..kernels.ref import NEG_INF, act, xent_nll_mean
+from ..kernels.ref import NEG_INF, act, wkv6, xent_nll_mean
 
 Params = Dict[str, Any]
 # A weight on a w8 stage: the tensor itself (quantized at each call, as the
@@ -364,6 +364,70 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# RWKV6 (Finch): data-dependent decay linear recurrence (``:656-694``).
+# The eager recurrence ``wkv6`` (``layers.py:659``) is K14's plain version,
+# ``ref.wkv6``: the reference computes the same recurrence in both places.
+# --------------------------------------------------------------------- #
+
+def token_shift(x: torch.Tensor,
+                prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RWKV token shift (``layers.py:690``): x [B, S, D] -> x[t - 1], the
+    row at t = 0 from ``prev`` [B, 1, D] (zeros by default)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 init_state: Optional[torch.Tensor] = None, *,
+                 chunk: int = 16, min_log_w: float = -5.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel wkv6 (``layers.py:1186``), the eager plan's mixer
+    when ``cfg.rwkv_chunk > 0``: the state is carried once per ``chunk``
+    tokens and the intra-chunk part is matmuls through the factored decay
+    ``s[t, j] = sum_k (r[t, k] e^{L[t-1, k]}) (k[j, k] e^{-L[j, k]})``,
+    j < t, with L the in-chunk cumulative log decay, each step's log decay
+    clamped at ``min_log_w`` so ``e^{-L}`` stays finite (the clamp changes
+    decays below e^-5, as in the reference).  Shapes as ``wkv6``."""
+    bsz, s, h, n = r.shape
+    c = min(chunk, s)
+    if s % c:
+        c = math.gcd(s, c)
+    nc = s // c
+    rr = r.float().reshape(bsz, nc, c, h, n)
+    kk = k.float().reshape(bsz, nc, c, h, n)
+    vv = v.float().reshape(bsz, nc, c, h, n)
+    lw = torch.clamp(torch.log(torch.clamp(w.float(), min=1e-30)),
+                     min_log_w, 0.0).reshape(bsz, nc, c, h, n)
+    el = torch.cumsum(lw, dim=2)          # inclusive log decay (<= 0)
+    a = rr * torch.exp(el - lw)           # r e^{L[t-1]}, bounded by |r|
+    bmat = kk * torch.exp(-el)            # bounded by e^{-min_log_w * c}
+    scores = torch.einsum("bcthn,bcjhn->bchtj", a, bmat)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)         # strictly lower: j < t
+    y_intra = torch.einsum("bchtj,bcjhn->bcthn",
+                           torch.where(tri, scores, 0.0), vv)
+    # The diagonal bonus: y += (sum_k r u k) v at each t.
+    coef = torch.einsum("bcthn,hn,bcthn->bcth", rr, u.float(), kk)
+    y_diag = coef[..., None] * vv
+    # The inter-chunk recurrence.
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, n, n), dtype=torch.float32,
+                              device=r.device))
+    chunk_decay = torch.exp(el[:, :, -1])                  # [B,nc,H,N]
+    kdec = bmat * chunk_decay[:, :, None]                  # k e^{L[-1]-L[j]}
+    s_updates = torch.einsum("bcjhk,bcjhv->bchkv", kdec, vv)
+    y_cross = []
+    for ci in range(nc):
+        y_cross.append(torch.einsum("bthk,bhkv->bthv", a[:, ci], state))
+        state = state * chunk_decay[:, ci][..., None] + s_updates[:, ci]
+    y = (y_intra + y_diag + torch.stack(y_cross, dim=1)).reshape(bsz, s,
+                                                                 h, n)
+    return y.to(r.dtype), state
+
+
+# --------------------------------------------------------------------- #
 # Kernel forward, eager backward (``layers.py:697-716``)
 # --------------------------------------------------------------------- #
 
@@ -601,6 +665,22 @@ def fused_mamba2_ssd(x: torch.Tensor, dt: torch.Tensor,
         return mamba2_ssd(x, dt, a_log, b, c, d_skip, chunk=chunk)
 
     return _kernel_fwd_eager_bwd(fused, eager)(x, dt, a_log, b, c, d_skip)
+
+
+def fused_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, *, chunk: int = 64
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence through ``rwkv6_wkv`` (K14; ``layers.py:1098``,
+    single device), shapes as ``wkv6`` with the state starting at zero;
+    its backward recomputes the eager ``wkv6``."""
+
+    def fused(r, k, v, w, u):
+        return K.wkv6(r, k, v, w, u, chunk=chunk)
+
+    def eager(r, k, v, w, u):
+        return wkv6(r, k, v, w, u)
+
+    return _kernel_fwd_eager_bwd(fused, eager)(r, k, v, w, u)
 
 
 def fused_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -52,6 +52,16 @@ beside the K/V; ``decode_step`` advances them in place (the eager
 single-token update, the conv tail in float32, as the reference).  The
 shared block's gradient sums over its applications, as autograd does by
 itself; under remat each layer's checkpoint covers its application.
+
+RWKV6 stacks (rwkv6-7b, ``model.py:251``, ``:878``): every layer is a
+time mix (LayerNorm, token shift, the r/k/v/g/w projections, the wkv
+recurrence, the gated output projection) and a channel mix (LayerNorm,
+token shift, ``sigmoid(r) * (relu(k)^2 @ wv)``), all PyTorch ops but the
+recurrence, which runs ``rwkv6_wkv`` (K14) on the kernel plan.  There is
+no attention and no K/V: whole-prompt ``prefill`` returns each layer's
+wkv state and the last normalised rows of both mixes (the carried token
+shifts), and ``decode_step`` continues them in place with the eager
+one-token recurrence, as the reference does (no kernel there).
 """
 
 from __future__ import annotations
@@ -274,6 +284,67 @@ def _mamba_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor, *,
     return x + y @ m["wout"], state.float(), conv_tail
 
 
+def _rwkv_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, *,
+                lplan: Optional[LayerPlan],
+                carry: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """One RWKV6 block (``model.py:251``; ``:878`` with ``carry``): the
+    time mix then the channel mix.  x [B, S, D]; ``carry`` (wkv [B, H, N,
+    N], tm_shift [B, D], cm_shift [B, D]) continues a cached sequence by
+    one token through the eager ``wkv6`` (decode), else the recurrence
+    starts at zero and runs ``rwkv6_wkv`` on the kernel plan (chunk
+    ``_chunk_of(S, 64)``), ``wkv6_chunked`` under ``cfg.rwkv_chunk``, or
+    the eager ``wkv6``.  Returns the block output, the final wkv state
+    float32 and the last normalised row of each mix (the next token's
+    shifts), in x's dtype."""
+    b, s, d = x.shape
+    h, n = cfg.rwkv_heads, cfg.rwkv_head_dim
+    tm, cm = p["tm"], p["cm"]
+    state, tm_prev, cm_prev = carry if carry is not None else (None,) * 3
+
+    def prev(row, like):
+        return None if row is None else row.to(like.dtype)[:, None]
+
+    xa = L.apply_norm(cfg.norm, x, p["ln1"])
+    xs = L.token_shift(xa, prev(tm_prev, xa))
+
+    def mix(name):
+        mu = tm[f"mix_{name}"].to(xa.dtype)
+        return xa * mu + xs * (1.0 - mu)
+
+    r = (mix("r") @ tm["wr"]).reshape(b, s, h, n)
+    k = (mix("k") @ tm["wk"]).reshape(b, s, h, n)
+    v = (mix("v") @ tm["wv"]).reshape(b, s, h, n)
+    g = torch.nn.functional.silu(mix("g") @ tm["wg"])
+    wdec = torch.exp(-torch.exp(
+        (mix("w") @ tm["ww"]).float()
+        + tm["w_bias"].reshape(1, 1, h * n))).reshape(b, s, h, n)
+    mixer = lplan.mixer if lplan is not None else None
+    if carry is not None:
+        y, state = L.wkv6(r, k, v, wdec, tm["u"], init_state=state)
+    elif mixer is not None and mixer.fused:
+        y, state = L.fused_wkv6(r, k, v, wdec, tm["u"],
+                                chunk=_chunk_of(s, mixer.kw.get("chunk", 64)))
+    elif cfg.rwkv_chunk > 0:
+        y, state = L.wkv6_chunked(r, k, v, wdec, tm["u"],
+                                  chunk=cfg.rwkv_chunk)
+    else:
+        y, state = L.wkv6(r, k, v, wdec, tm["u"])
+    x = x + (y.reshape(b, s, d) * g) @ tm["wo"]
+    xc = L.apply_norm(cfg.norm, x, p["ln2"])
+    xcs = L.token_shift(xc, prev(cm_prev, xc))
+
+    def cmix(name):
+        mu = cm[f"mix_{name}"].to(xc.dtype)
+        return xc * mu + xcs * (1.0 - mu)
+
+    kk = torch.square(torch.relu(cmix("k") @ cm["wk"]))
+    rr = torch.sigmoid(cmix("r") @ cm["wr"])
+    return x + rr * (kk @ cm["wv"]), state, xa[:, -1], xc[:, -1]
+
+
 def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
             plan: Optional[StreamPlan] = None
             ) -> Tuple[torch.Tensor, Cache]:
@@ -282,8 +353,10 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     tokens [B, S] int32 -> (logits [B, 1, Vp] at the last position, a
     fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of the prompt's K/V,
     which ``serving.kv_cache.place_prefill`` writes into a slot's pages,
-    and for a Mamba2 stack {"ssm" [L, B, H, P, N] float32, "conv" [L, B,
-    K - 1, d_inner]}, which it writes into the slot's rows)."""
+    for a Mamba2 stack {"ssm" [L, B, H, P, N] float32, "conv" [L, B,
+    K - 1, d_inner]}, and for an RWKV6 stack {"wkv" [L, B, H, N, N]
+    float32, "tm_shift", "cm_shift" [L, B, D]} alone, which it writes into
+    the slot's rows)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     x = _embed(cfg, params, tokens, positions)
@@ -292,6 +365,11 @@ def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, lp in enumerate(params["layers"]):
         kind = cfg.layer_kind(i)
         lplan = _lplan(plan, kind)
+        if kind == "rwkv":
+            x, *rows = _rwkv_block(cfg, lp, x, lplan=lplan)
+            for name, t in zip(("wkv", "tm_shift", "cm_shift"), rows):
+                fresh.setdefault(name, []).append(t)
+            continue
         if kind.startswith("mamba"):
             x, ssm, conv = _mamba_block_full(cfg, lp, x, lplan=lplan)
             fresh.setdefault("ssm", []).append(ssm)
@@ -344,6 +422,8 @@ def forward_hidden(params: Tree, cfg: ModelConfig,
         def block(x, lp=lp, i=i):
             kind = cfg.layer_kind(i)
             lplan = _lplan(plan, kind)
+            if kind == "rwkv":
+                return _rwkv_block(cfg, lp, x, lplan=lplan)[0]
             if kind.startswith("mamba"):
                 x = _mamba_block_full(cfg, lp, x, lplan=lplan)[0]
                 if kind != SHARED_KIND:
@@ -574,17 +654,26 @@ def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
     """One decoding step for every slot.
 
-    tokens [B, 1] int32; cache the paged pools (and a Mamba2 stack's
-    slot-contiguous ``ssm``/``conv`` rows), updated in place;
-    cache_pos [B] int32 write positions; lengths [B] int32 tokens already
-    cached; page_table [B, max_pages] int32.  Returns (next_tokens [B, 1]
-    int32, logits [B, 1, Vp], cache)."""
+    tokens [B, 1] int32; cache the paged pools (and a Mamba2 or RWKV6
+    stack's slot-contiguous state rows), updated in place; cache_pos [B]
+    int32 write positions; lengths [B] int32 tokens already cached;
+    page_table [B, max_pages] int32.  Returns (next_tokens [B, 1] int32,
+    logits [B, 1, Vp], cache).  Without K/V pools (RWKV6) the plan sees
+    no KV extent, as the reference's ``_cache_kv_len``."""
     b = tokens.shape[0]
     x = _embed(cfg, params, tokens, cache_pos[:, None])
-    kv_extent = int(page_table.shape[1]) * int(cache["k"].shape[2])
+    kv_extent = (int(page_table.shape[1]) * int(cache["k"].shape[2])
+                 if "k" in cache else None)
     plan = resolve_plan(cfg, b, kv_len=kv_extent, plan=plan)
     for i, lp in enumerate(params["layers"]):
         kind = cfg.layer_kind(i)
+        if kind == "rwkv":
+            rows = tuple(cache[n][i] for n in ("wkv", "tm_shift",
+                                               "cm_shift"))
+            x, *new = _rwkv_block(cfg, lp, x, lplan=None, carry=rows)
+            for row, t in zip(rows, new):
+                row.copy_(t)
+            continue
         if kind.startswith("mamba"):
             x = _mamba_block_decode(cfg, lp, x, cache, i)
             if kind != SHARED_KIND:

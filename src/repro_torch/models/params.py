@@ -21,6 +21,8 @@ plain list ``layers`` of per-layer dicts and loops over it in Python.
 Hybrid stacks (zamba2): every layer is a Mamba2 block (``ln``, ``mamba``)
 and one ``shared`` attention+MLP block, a single copy outside ``layers``,
 runs after every ``shared_attn_every``-th of them (``params.py:212-213``).
+RWKV6 stacks: every layer is ``ln1``, ``ln2`` and the time-mix ``tm`` and
+channel-mix ``cm`` subtrees (``params.py:134-165``); no learned positions.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"        # normal | zeros | ones | a_log | dt_bias
+    init: str = "normal"   # normal | zeros | ones | a_log | dt_bias | decay
     fan_in: Optional[int] = None
 
 
@@ -61,8 +63,8 @@ def _mat(d_in: int, d_out: int) -> ParamDef:
     return ParamDef((d_in, d_out), "normal", fan_in=d_in)
 
 
-def _vec(n: int) -> ParamDef:
-    return ParamDef((n,), "zeros")
+def _vec(n: int, init: str = "zeros") -> ParamDef:
+    return ParamDef((n,), init)
 
 
 def _norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -111,10 +113,35 @@ def _mamba_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     }
 
 
+def _rwkv_defs(cfg: ModelConfig) -> Dict[str, Tree]:
+    """The RWKV6 time mix ``tm`` and channel mix ``cm`` (``params.py:134``):
+    the token-shift mixes (ones), the r/k/v/g/w projections, the per-head
+    decay bias ``w_bias`` [H, N] (``"decay"``), the bonus ``u`` [H, N]
+    (zeros) and the output projection; the channel mix's k [D, F], v [F,
+    D] and r [D, D]; the reference's leaf order."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, n = cfg.rwkv_heads, cfg.rwkv_head_dim
+    tm = {f"mix_{nm}": _vec(d, "ones") for nm in "rkvgw"}
+    tm.update({
+        "wr": _mat(d, d), "wk": _mat(d, d), "wv": _mat(d, d),
+        "wg": _mat(d, d), "ww": _mat(d, d),
+        "w_bias": ParamDef((h, n), "decay"),
+        "u": ParamDef((h, n), "zeros"),
+        "wo": _mat(d, d),
+    })
+    cm = {"mix_k": _vec(d, "ones"), "mix_r": _vec(d, "ones"),
+          "wk": _mat(d, f), "wv": _mat(f, d), "wr": _mat(d, d)}
+    return {"tm": tm, "cm": cm}
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
     """One layer: an attention layer's ln1, attn (wq/wk/wv/wo), ln2, mlp
     (wg/wu/wd, or the MoE router and expert stacks); a Mamba2 layer's ln
-    and mamba (the shared attention block lives outside the layers)."""
+    and mamba (the shared attention block lives outside the layers); an
+    RWKV6 layer's ln1, ln2, time mix ``tm`` and channel mix ``cm``."""
+    if kind == "rwkv":
+        return {"ln1": _norm_defs(cfg), "ln2": _norm_defs(cfg),
+                **_rwkv_defs(cfg)}
     if kind in ("mamba", "mamba+shared_attn"):
         return {"ln": _norm_defs(cfg), "mamba": _mamba_defs(cfg)}
     if kind not in ("attn", "local_attn", "global_attn"):
@@ -181,8 +208,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights drawn on ``device`` from ``generator`` (which must
     live on that device): float32 normal draws scaled by 1/sqrt(fan_in)
     and cast to ``dtype`` (default: the compute dtype), zero norm scales,
-    and the Mamba2 heads' fixed ``a_log`` = log(linspace(1, 16)) and
-    ``dt_bias`` = softplus^-1(logspace(1e-3, 1e-1)) — the reference
+    the Mamba2 heads' fixed ``a_log`` = log(linspace(1, 16)) and
+    ``dt_bias`` = softplus^-1(logspace(1e-3, 1e-1)), and the RWKV6 decay
+    bias linspace(-6, -0.5, N) on every head — the reference
     ``_init_leaf`` distributions (its numbers differ: JAX keys and torch
     generators draw different streams)."""
     dev = resolve_device(device)
@@ -202,6 +230,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                               math.log(1e-1), h, device=dev))
                 v = torch.log(torch.expm1(dt))
             return v.expand(pd.shape).to(dtype)
+        if pd.init == "decay":
+            v = torch.linspace(-6.0, -0.5, pd.shape[-1], device=dev)
+            return v.expand(pd.shape).contiguous().to(dtype)
         w = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
                         device=dev)
         w.mul_(1.0 / math.sqrt(pd.fan_in or pd.shape[0]))
@@ -415,13 +446,21 @@ def attn_pool_indices(cfg: ModelConfig) -> Tuple[Optional[int], ...]:
     return tuple(out)
 
 
+def has_kv_pools(cfg: ModelConfig) -> bool:
+    """Whether any layer attends, and so caches K/V (not RWKV6)."""
+    return any(i is not None for i in attn_pool_indices(cfg))
+
+
 def attn_cache_defs(cfg: ModelConfig, batch: int,
                     max_len: int) -> Dict[str, CacheDef]:
     """Contiguous K/V leaves ``[L_attn, B, S, Hkv, hd]`` ("bshd"), one row
     per attention layer (``attn_pool_indices``).  Storage follows the
-    compute dtype, as in the reference (``params.py:329``)."""
+    compute dtype, as in the reference (``params.py:329``).  Empty for a
+    stack without attention (RWKV6), which has no K/V to pool."""
     if cfg.kv_cache_layout != "bshd":
         raise NotImplementedError("the 'bhsd' cache layout is not ported yet")
+    if not has_kv_pools(cfg):
+        return {}
     n = sum(i is not None for i in attn_pool_indices(cfg))
     shape = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
     dt = compute_dtype(cfg)
@@ -430,14 +469,22 @@ def attn_cache_defs(cfg: ModelConfig, batch: int,
 
 def state_cache_defs(cfg: ModelConfig, batch: int) -> Dict[str, CacheDef]:
     """Slot-contiguous recurrent state, one row per layer (every layer of
-    a Mamba2 stack carries it; ``params.py:366``): ``ssm`` [L, B, H, P,
-    N] float32 and ``conv`` [L, B, K - 1, d_inner], the last K - 1 conv
-    inputs, in bfloat16 whatever the compute dtype (the reference's
-    ``CacheDef`` default: a float32 model rounds its conv inputs to bf16
-    when they enter the cache).  Empty for other stacks."""
+    a Mamba2 or RWKV6 stack carries it; ``params.py:344-366``).  Mamba2:
+    ``ssm`` [L, B, H, P, N] float32 and ``conv`` [L, B, K - 1, d_inner],
+    the last K - 1 conv inputs.  RWKV6: ``wkv`` [L, B, H, N, N] float32
+    and the carried token-shift rows ``tm_shift`` / ``cm_shift`` [L, B,
+    D].  ``conv`` and the shift rows are bfloat16 whatever the compute
+    dtype (the reference's ``CacheDef`` default: a float32 model rounds
+    them to bf16 when they enter the cache).  Empty for other stacks."""
+    lyr = cfg.num_layers
+    if cfg.rwkv:
+        h, n, d = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+        return {"wkv": CacheDef((lyr, batch, h, n, n), torch.float32),
+                "tm_shift": CacheDef((lyr, batch, d), torch.bfloat16),
+                "cm_shift": CacheDef((lyr, batch, d), torch.bfloat16)}
     if not cfg.is_mamba:
         return {}
-    lyr, h = cfg.num_layers, cfg.ssm_heads
+    h = cfg.ssm_heads
     return {"ssm": CacheDef((lyr, batch, h, cfg.ssm_head_dim, cfg.ssm_state),
                             torch.float32),
             "conv": CacheDef((lyr, batch, cfg.conv_width - 1, cfg.d_inner),

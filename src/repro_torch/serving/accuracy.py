@@ -27,7 +27,8 @@ from ..configs import ARCHS, ModelConfig, get_config
 from ..kernels.common import DeviceLike, resolve_device
 from ..models.model import (decode_step, prefill, prefill_chunk,
                             supports_chunked_prefill)
-from ..models.params import Tree, init_params, map_tree, quantize_weights
+from ..models.params import (Tree, has_kv_pools, init_params, map_tree,
+                             quantize_weights)
 from .kv_cache import PagedKVCache, place_prefill, stage_chunk
 
 QUANT_MODES: Tuple[str, ...] = ("kv_int8", "kv_fp8", "w8", "w8_kv8")
@@ -52,6 +53,12 @@ def jitter_params(params: Tree, generator: torch.Generator,
         return (t.float() + sigma * noise).to(t.dtype)
 
     return map_tree(leaf, params)
+
+
+def supports_quantized_serving(cfg: ModelConfig) -> bool:
+    """Paged KV quantization needs attention K/V pages (``accuracy.py:61``:
+    not an encoder, not RWKV6)."""
+    return not cfg.encoder_only and has_kv_pools(cfg)
 
 
 def _greedy_rollout(params: Tree, cfg: ModelConfig, kv: PagedKVCache,
@@ -117,6 +124,8 @@ def run_accuracy(cfg_or_arch, modes: Iterable[str] = QUANT_MODES, *,
     dev = resolve_device(device)
     cfg = (get_config(cfg_or_arch).reduced()
            if isinstance(cfg_or_arch, str) else cfg_or_arch)
+    if not supports_quantized_serving(cfg):
+        raise ValueError(f"{cfg.name} cannot serve quantized KV pages")
     cfg = dataclasses.replace(cfg, dtype="float32")
     if fused is not None:
         cfg = dataclasses.replace(cfg, use_fused_kernels=fused)
@@ -158,9 +167,11 @@ def run_accuracy(cfg_or_arch, modes: Iterable[str] = QUANT_MODES, *,
 def run_suite(archs: Optional[Iterable[str]] = None,
               modes: Iterable[str] = QUANT_MODES, **kw
               ) -> Dict[str, Dict[str, Dict[str, object]]]:
-    """Accuracy reports for every arch of the port's registry (all of them
-    decoders with attention KV pages; zamba2's in its shared block)."""
-    return {a: run_accuracy(a, modes, **kw) for a in (archs or ARCHS)}
+    """Accuracy reports for every arch of the port's registry that has
+    attention KV pages (zamba2's in its shared block; not rwkv6)."""
+    if archs is None:
+        archs = [a for a in ARCHS if supports_quantized_serving(ARCHS[a])]
+    return {a: run_accuracy(a, modes, **kw) for a in archs}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -11,8 +11,10 @@ chunks, a decode block, or both.  With ``chunked=False`` each admitted
 prompt is prefilled whole, at its own length, and its fresh K/V placed
 into the slot's pages (a Mamba2 stack's SSM state and conv tail into the
 slot's rows) before the slot joins decode.  A stack with recurrent state
-(zamba2) cannot be chunked: ``chunked`` defaults to whole-prompt there
+(zamba2, rwkv6) cannot be chunked: ``chunked`` defaults to whole-prompt there
 and the prefix cache, which shares pages at chunk granularity, to off.
+An attention-free stack (rwkv6) has no K/V pools: its slots hold only the
+recurrent state rows, and a KV quant mode is refused.
 
 Prefix cache (DESIGN.md §10), on by default whenever prefill is chunked:
 admission walks a radix tree over whole KV pages (``prefix_cache.py``),
@@ -64,7 +66,7 @@ from ..kernels.ref import code_view
 from ..models.model import (decode_step, prefill, prefill_chunk,
                             resolve_plan, supports_chunked_prefill,
                             supports_speculative, verify_step)
-from ..models.params import cache_leaf_kind, quantize_weights
+from ..models.params import cache_leaf_kind, has_kv_pools, quantize_weights
 from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
@@ -153,12 +155,17 @@ class ServingEngine:
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
         if quant is not None and quant != cfg.quant:
             cfg = replace(cfg, quant=quant)
+        if cfg.kv_quant and not has_kv_pools(cfg):
+            raise ValueError(
+                f"config {cfg.name!r} has no K/V pools to quantize "
+                f"(quant={cfg.quant!r}): an attention-free stack serves "
+                "'none' or 'w8'")
         if admission not in ADMISSION:
             raise ValueError(f"unknown admission policy {admission!r} "
                              "(fifo | sjf | prefix)")
         self.admission = admission
         # None: chunked whenever the config supports it (``engine.py:367``);
-        # a recurrent-state stack (zamba2) admits whole prompts.
+        # a recurrent-state stack (zamba2, rwkv6) admits whole prompts.
         if chunked is None:
             chunked = supports_chunked_prefill(cfg)
         if chunked and not supports_chunked_prefill(cfg):

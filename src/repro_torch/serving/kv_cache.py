@@ -25,10 +25,13 @@ scale 0, as every page of a fresh pool does: the reference keeps whatever
 scale the page's previous owner left (``kv_cache.py:239``), so there a
 request's tokens depend on the traffic served before it.
 
-A Mamba2 stack's recurrent state (``ssm``, ``conv``) is not paged: it
-sits slot-contiguously beside the pools, one row per slot
-(``[L, slots, ...]``), outside the page accounting; whole-prompt
-placement replaces the slot's row (``kv_cache.py:426-428``).
+A Mamba2 stack's recurrent state (``ssm``, ``conv``) and an RWKV6
+stack's (``wkv``, ``tm_shift``, ``cm_shift``) are not paged: they sit
+slot-contiguously beside the pools, one row per slot (``[L, slots,
+...]``), outside the page accounting; whole-prompt placement replaces
+the slot's row (``kv_cache.py:426-428``).  An RWKV6 stack has no
+attention and so no K/V pools at all: the page table and the allocator
+still run (a slot's pages bound its length), and hold nothing.
 
 Where the reference's primitives return updated arrays from a donated jit,
 the port's update the pool tensors in place (``index_put_``), which is what
@@ -316,9 +319,9 @@ def place_prefill(cache: Dict[str, torch.Tensor],
     its slot's state rows, in place (``kv_cache.py:399``).
 
     fresh {"k", "v"} [L_attn, 1, S, H, hd] ("bshd") and, for a Mamba2
-    stack, the state leaves [L, 1, ...]; pages [n] int32 the slot's
-    physical pages from ``ensure(slot, S)``, n = cdiv(S, page_size).  The
-    last page is zero-padded past S.  Quantized pools (a ``<name>_scale``
+    or RWKV6 stack, the state leaves [L, 1, ...] (an RWKV6 stack's alone);
+    pages [n] int32 the slot's physical pages from ``ensure(slot, S)``, n
+    = cdiv(S, page_size).  The last page is zero-padded past S.  Quantized pools (a ``<name>_scale``
     sibling in ``cache``) get each page's codes at its own scale, and the
     scale rows are set.  A state leaf replaces row ``slot`` (required
     when ``fresh`` holds one).  Returns ``cache``."""
@@ -371,8 +374,9 @@ def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
     """K/V page pools ``[L_attn, 1 + slots * cdiv(max_len, ps), ps, Hkv,
     hd]`` (+1: the NULL page).  Under a KV quant mode the pools hold int8 /
     fp8 codes and each gains a ``<name>_scale`` pool ``[L_attn, P, Hkv]``
-    float32 (``kv_cache.py:523-554``).  A Mamba2 stack's state leaves
-    follow, slot-contiguous (``state_cache_defs``)."""
+    float32 (``kv_cache.py:523-554``).  A Mamba2 or RWKV6 stack's state
+    leaves follow, slot-contiguous (``state_cache_defs``); an RWKV6 stack
+    has no pools."""
     num_pages = 1 + slots * cdiv(max_len, page_size)
     qdtype = kv_quant_dtype(cfg.kv_quant)
     out = {}
@@ -490,7 +494,12 @@ class PagedKVCache:
     def kv_itemsize_effective(self) -> float:
         """Stored bytes per K/V element with the scale pools amortized in
         (bf16 2.0; int8 with per-page, per-head float32 scales a little
-        above 1.0; ``kv_cache.py:745``)."""
+        above 1.0; ``kv_cache.py:745``).  Without K/V pools, the compute
+        dtype's size, as the reference's contiguous engine reports
+        (``engine.py:632-634``); the reference's paged cache divides by
+        zero there."""
+        if not self._kv_elems_per_page:
+            return 2.0 if self.cfg.dtype == "bfloat16" else 4.0
         return self.page_bytes / self._kv_elems_per_page
 
     @property

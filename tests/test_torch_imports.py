@@ -34,7 +34,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.granite_moe_1b",
             "repro_torch.configs.granite_moe_3b",
             "repro_torch.kernels.mamba2_scan",
-            "repro_torch.configs.zamba2_2p7b"} <= set(modules)
+            "repro_torch.configs.zamba2_2p7b",
+            "repro_torch.kernels.rwkv6_wkv",
+            "repro_torch.configs.rwkv6_7b"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"
