@@ -45,6 +45,22 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               64 rows (required), and zamba2's GELU GLU and its int8 twin
               (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
+   compile, compile_edge — the StreamTensor compiler (``compile_model``
+              with the reference's defaults: TPU_V5E, DSE budget 12) on
+              one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
+              and rwkv6-7b at full width, 128 tokens (kernels, fusion
+              groups, lowered implementations, FIFO depth, stage
+              seconds), each simulated with its LP-sized FIFOs (required:
+              completed); then every edge of each compiled graph, with
+              and without a converter, materialized through the layout
+              converter K15 from a seeded producer tensor in bfloat16 and
+              float32, and llama3-8b's edges at 1000 tokens in bfloat16
+              (streams up to 7.34 GB, one at a time), beside the identity
+              FIFO and the paper's Fig. 5 pair: each stream equal to the
+              plain version (``torch.equal``) and, on sampled tokens, to
+              direct slicing; each group launching K15 once per stream;
+              kernel, plain and ``aten::index`` gather times against the
+              bytes bound;
 4. fused_vs_eager, gpt2_fused_vs_eager, granite_fused_vs_eager —
               llama3-8b, gpt2 (jittered) and granite-moe-3b at full width
               cut to 4 layers, float32: a mixed burst through
@@ -128,8 +144,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
-              (serving or training) that runs it, with its check results
-              and that path's own launch count.
+              (serving, training or compile) that runs it, with its check
+              results and that path's own launch count (a compile group:
+              its streams' times and bounds summed).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -187,6 +204,9 @@ TPU_KERNELS = {
     "rms_norm_rows": "src/repro/models/layers.py:187",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:34",
     "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:33",
+    # Both Pallas bodies (`_copy_kernel` :30, the window `kernel` :79)
+    # behind the one function.
+    "convert_layout": "src/repro/kernels/stream_converter.py:34",
 }
 HELPERS = {"row_norm", "rms_norm_rows"}
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -211,6 +231,7 @@ SOURCES = {
     "rms_norm_rows": _CSRC + "row_norm.cu",
     "mamba2_scan": _CSRC + "mamba2_scan.cu",
     "rwkv6_wkv": _CSRC + "rwkv6_wkv.cu",
+    "convert_layout": _CSRC + "stream_converter.cu",
 }
 # The kernels each serving path must launch; every other count must be 0.
 # On the kernel plan the o-projection runs through block_matmul, llama3's
@@ -2365,6 +2386,226 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
 
 
 # --------------------------------------------------------------------- #
+# The compile path: the StreamTensor compiler, then K15 on every edge
+# --------------------------------------------------------------------- #
+
+# One block of each ported family at full width and its registry config,
+# compiled with the reference's defaults (TPU_V5E, dse_budget 12) at 128
+# tokens, as ``examples/quickstart.py`` compiles one; llama3-8b again at
+# the serving bursts' longest prompt, whose largest stream (ln2 -> the
+# gate projection) is 3.67e9 elements, 7.34 GB in bf16: past INT32_MAX,
+# so it exercises the kernel's 64-bit offsets.
+COMPILE_MODELS = ("llama3-8b", "gpt2", GRANITE, ZAMBA, RWKV)
+COMPILE_TOKENS = 128
+COMPILE_LONG = ("llama3-8b", 1000)
+# Tokens of each stream held against direct slicing, besides the first
+# and the last.
+SLICE_SAMPLES = 32
+
+
+def _tile_at(dst, t: int):
+    """(row, column) data offset of stream token ``t`` of ``dst``, by
+    Python integer arithmetic (independent of the kernel's and the plain
+    version's decoding)."""
+    idx, rem = [], t
+    for tc in reversed(dst.tripcounts):
+        idx.append(rem % tc)
+        rem //= tc
+    idx.reverse()
+    return tuple(idx[k] * dst.steps[k] for k in dst.iter_map.results)
+
+
+def _stream_cases(c, model, tokens):
+    """One case per edge of a compiled block, with and without a
+    converter."""
+    return [dict(model=model, tokens=tokens,
+                 edge=f"{u}->{v}" + (f"#{k}" if k else ""),
+                 src=d["src_type"], dst=d["dst_type"],
+                 spec=c.graph.edge_converter(u, v, k))
+            for u, v, k, d in c.graph.edges()]
+
+
+def _edge_data(torch, case, dtype, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(case["src"].data_shape, generator=gen, device=device,
+                       dtype=torch.float32).to(dtype)
+
+
+def _materialize(torch, K, ref, case, dtype, seed, device):
+    """One edge on the main path: K15 on the producer tensor; the stream
+    must equal the plain version (``torch.equal``: a copy, tolerance 0)
+    and, on the first, the last and ``SLICE_SAMPLES`` seeded tokens,
+    direct slicing of the tensor at ``dst``'s offsets."""
+    src, dst = case["src"], case["dst"]
+    data = _edge_data(torch, case, dtype, seed, device)
+    out = K.convert_layout(data, src, dst)
+    plain = ref.convert_layout_ref(data, src, dst)
+    _sync(torch, device)
+    equal_plain = bool(torch.equal(out, plain))
+    del plain
+    n = dst.num_tokens
+    rng = np.random.default_rng(seed)
+    sample = {0, n - 1, *rng.integers(0, n, SLICE_SAMPLES).tolist()}
+    eh, ew = dst.elem_shape
+    equal_slices = all(
+        torch.equal(out[t], data[oh:oh + eh, ow:ow + ew])
+        for t in sample for oh, ow in [_tile_at(dst, t)])
+    return {"equal_plain": equal_plain, "equal_slices": equal_slices,
+            "elements": out.numel()}
+
+
+def _time_edge(torch, K, ref, timer, case, dtype, seed, device):
+    """CUDA-event times of one edge: the kernel, the plain version, and
+    one ``aten::index`` gather ``data[ih, iw]`` (the library call; its
+    index tensors built outside the timed region); the bound moves the
+    producer tensor once and the stream once at 3.35 TB/s."""
+    src, dst = case["src"], case["dst"]
+    data = _edge_data(torch, case, dtype, seed, device)
+    n = dst.num_tokens
+    eh, ew = dst.elem_shape
+    oh, ow = ref.stream_token_offsets(dst, torch.arange(n, device=device))
+    ih = (oh[:, None] + torch.arange(eh, device=device))[:, :, None]
+    iw = (ow[:, None] + torch.arange(ew, device=device))[:, None, :]
+    del oh, ow
+    lib = data[ih, iw]
+    same_library = bool(torch.equal(lib, ref.convert_layout_ref(data, src,
+                                                                dst)))
+    del lib
+    nbytes = (data.numel() + n * eh * ew) * data.element_size()
+    bound_ms, bound_by = bound(nbytes, 0.0, "bfloat16")
+    row = {"ms": timer(lambda: K.convert_layout(data, src, dst)),
+           "plain_ms": timer(lambda: ref.convert_layout_ref(data, src, dst),
+                             iters=3),
+           "library_ms": timer(lambda: data[ih, iw]),
+           "library_equal": same_library,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    del ih, iw, data
+    _free(torch, device)
+    return row
+
+
+def compile_path(torch, timer, device="cuda"):
+    """The compile path: ``compile_model`` on each ``COMPILE_MODELS``
+    block (and ``COMPILE_LONG``), ``simulate_dataflow`` with the LP-sized
+    FIFOs (required: completed), then every edge of each compiled graph,
+    with and without a converter, through K15 in bfloat16 and float32
+    (``COMPILE_LONG`` in bfloat16, one edge at a time), beside the
+    identity FIFO and the paper's Fig. 5 pair.  Each group of streams is
+    driven with the launch counts set to 0 just before it and read just
+    after (exactly one K15 launch per stream); then each stream is timed.
+    Returns the emitted rows, one aggregate row per group for the
+    ``kernels`` line, and the groups' launch counts."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_model, fig5_b, fig5_c
+    from repro_torch.kernels import ref
+    from repro_torch.runtime import simulate_dataflow
+    t_phase = time.perf_counter()
+    groups, blocks, compiled = {}, [], {}
+    for model, tokens in [(m, COMPILE_TOKENS) for m in COMPILE_MODELS] + \
+            [COMPILE_LONG]:
+        t0 = time.perf_counter()
+        c = compiled[model, tokens] = compile_model(get_config(model),
+                                                    tokens=tokens)
+        compile_s = time.perf_counter() - t0
+        cases = _stream_cases(c, model, tokens)
+        row = {"phase": "compile", "model": model, "tokens": tokens,
+               "compile_s": compile_s, "stage_seconds": c.stage_seconds,
+               "kernels": c.graph.num_kernels,
+               "fusion_groups": [sorted(g) for g in c.fusion.groups],
+               "implementations": [g.implementation for g in c.lowered],
+               "fifo_total_depth": c.fifo.total_depth,
+               "edges": len(cases),
+               "converter_edges": sum(x["spec"] is not None for x in cases),
+               "stream_bytes_bf16": sum(x["dst"].num_tokens
+                                        * math.prod(x["dst"].elem_shape) * 2
+                                        for x in cases)}
+        if tokens == COMPILE_TOKENS:
+            timings = {k.name: k.timing for k in c.graph.kernels()}
+            t0 = time.perf_counter()
+            sim = simulate_dataflow(c.graph, timings, plan=c.fifo)
+            row.update(sim_completed=sim.completed, sim_makespan=sim.makespan,
+                       sim_s=time.perf_counter() - t0)
+            if not sim.completed:
+                emit(row)
+                raise AssertionError(f"compile {model}: the LP-sized FIFOs "
+                                     f"deadlock at {sim.deadlock_kernels}")
+        emit(row)
+        blocks.append(row)
+        path = "compile" if tokens == COMPILE_TOKENS else f"compile_{tokens}"
+        groups[(model, path)] = cases
+    ident = compiled["llama3-8b", COMPILE_TOKENS].graph.kernel(
+        "L0.ln1").out_type
+    groups[("itensor", "compile")] = [
+        dict(model="itensor", tokens=None, edge="identity_fifo", src=ident,
+             dst=ident, spec=None),
+        dict(model="itensor", tokens=None, edge="fig5_b->fig5_c",
+             src=fig5_b(), dst=fig5_c(), spec=None)]
+
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    edge_rows, paths, bad = [], [], []
+    for (model, path), cases in groups.items():
+        names = ("bfloat16",) if path != "compile" else tuple(dtypes)
+        K.reset_launches()
+        checks = [(i, case, d, _materialize(torch, K, ref, case,
+                                            dtypes[d], i, device))
+                  for i, case in enumerate(cases) for d in names]
+        launches = K.launch_counts()
+        paths.append((model, path, launches))
+        want = {n: 0 for n in launches}
+        want["convert_layout"] = len(checks)
+        if launches != want:
+            bad.append(f"{model} {path}: launches {launches}")
+        for i, case, d, chk in checks:
+            spec, dst = case["spec"], case["dst"]
+            row = {"phase": "compile_edge", "model": model, "path": path,
+                   "edge": case["edge"], "dtype": d,
+                   "src": str(case["src"]), "dst": str(dst),
+                   "converter": (None if spec is None else
+                                 {"buf_shape": spec.buf_shape,
+                                  "shared_prefix_len":
+                                      spec.shared_prefix_len,
+                                  "reuse_count": spec.reuse_count}),
+                   "tokens": dst.num_tokens,
+                   "shape": f"{case['src'].data_shape}->"
+                            f"[{dst.num_tokens},{dst.elem_shape[0]},"
+                            f"{dst.elem_shape[1]}]",
+                   **chk,
+                   **_time_edge(torch, K, ref, timer, case, dtypes[d], i,
+                                device)}
+            row["ok"] = bool(row["equal_plain"] and row["equal_slices"]
+                             and row["library_equal"])
+            if not row["ok"]:
+                bad.append(f"{model} {path} {case['edge']} {d}")
+            emit(row)
+            edge_rows.append(row)
+    # One row per group for the kernels line: its streams' bf16 times and
+    # bounds summed (the whole block's materialization).
+    summary_rows = []
+    for model, path, _ in paths:
+        mine = [r for r in edge_rows if r["model"] == model
+                and r["path"] == path and r["dtype"] == "bfloat16"]
+        summary_rows.append({
+            "name": "convert_layout", "model": model, "path": path,
+            "dtype": "bfloat16", "head_dim": None,
+            "shape": f"{len(mine)} streams",
+            "max_abs_err": 0.0 if all(r["equal_plain"] for r in mine)
+            else math.inf,
+            "ok": all(r["ok"] for r in edge_rows
+                      if r["model"] == model and r["path"] == path),
+            **{k: sum(r[k] for r in mine)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": "bytes"})
+    emit({"phase": "compile_done",
+          "seconds": time.perf_counter() - t_phase,
+          "streams": len(edge_rows)})
+    if bad:
+        raise AssertionError("compile path: " + "; ".join(bad))
+    return {"blocks": blocks, "edges": edge_rows, "rows": summary_rows,
+            "paths": paths}
+
+
+# --------------------------------------------------------------------- #
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2410,9 +2651,11 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     llama, gpt2 = get_config("llama3-8b"), get_config("gpt2")
     results = {"device": smi, "name": name, "build": build}
-    rows = check_kernels(torch, Timer(torch))
+    timer = Timer(torch)
+    rows = check_kernels(torch, timer)
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
+    results["compile"] = compile_path(torch, timer)
     models = {"llama3-8b": (llama, False, 2048, 1000),
               "gpt2": (gpt2, True, 1024, 992),
               GRANITE: (get_config(GRANITE), False, 2048, 1000)}
@@ -2521,6 +2764,8 @@ def main(argv=None) -> int:
                   results["rwkv_serve"]["none"]["launches"]))
     for m, r in results["train"].items():
         paths.append((m, "train", r["launches"]))
+    paths += results["compile"]["paths"]
+    rows = rows + results["compile"]["rows"]
     summary = []
     for kname in TPU_KERNELS:
         for model, path, launches in paths:

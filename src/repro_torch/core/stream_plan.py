@@ -25,8 +25,9 @@ changes no choice: the pools' dtype selects the attention twins.
 The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
 is ``streamed_xent`` for every family, with the reference's blocks at
 every token count.
-The compiler itself (``repro.core`` and a Hopper ``Platform``) is ported
-in a later slice.
+The compiler that makes the reference's choices (``compile_model`` in
+``lowering.py``) is in this package; ``build_stream_plan``, which turns it
+into a plan, and a Hopper ``Platform`` for it replace this table later.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the serving and training paths.
+"""Hand-written Hopper kernels for the serving, training and compile paths.
 
 Every kernel: ``csrc/<name>.cu`` holds the CUDA C++ (built by ``_build.py``
 with nvcc for sm_90a, loaded with ctypes), ``<name>.py`` the wrapper that
@@ -12,7 +12,7 @@ from .flash_attention import (flash_attention_2d, flash_attention_2d_q,
                               flash_attention_static)
 from .mamba2_scan import mamba2_ssd
 from .moe_experts import moe_experts
-from .ops import flash_attention
+from .ops import convert_layout, flash_attention
 from .paged_attention import (paged_decode_attention,
                               paged_decode_attention_q,
                               paged_verify_attention,
@@ -27,8 +27,8 @@ from .streamed_xent import streamed_xent_loss, streamed_xent_parts
 # Every kernel, by the name its launch count goes under: K1-K8, the
 # quantized twins K9a-c (int8 / fp8 KV codes) and K10a-c (int8 weights),
 # the row-norm helper (LayerNorm and RMSNorm modes), the training loss K11,
-# the MoE experts K12, the Mamba2 SSD scan K13 and the RWKV6 wkv
-# recurrence K14.
+# the MoE experts K12, the Mamba2 SSD scan K13, the RWKV6 wkv
+# recurrence K14 and the stream layout converter K15.
 KERNELS = {
     "rmsnorm_matmul": rmsnorm_matmul,
     "streamed_ffn": streamed_ffn,
@@ -50,6 +50,7 @@ KERNELS = {
     "rms_norm_rows": rms_norm_rows,
     "mamba2_scan": mamba2_ssd,
     "rwkv6_wkv": wkv6,
+    "convert_layout": convert_layout,
 }
 
 
@@ -64,7 +65,7 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "ref", "block_matmul", "flash_attention", "flash_attention_2d",
+    "ref", "block_matmul", "convert_layout", "flash_attention", "flash_attention_2d",
     "flash_attention_2d_q", "flash_attention_static", "layer_norm_rows",
     "mamba2_ssd", "moe_experts", "rms_norm_rows",
     "paged_decode_attention", "paged_decode_attention_q",

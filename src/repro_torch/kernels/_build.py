@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = ("rmsnorm_matmul", "streamed_ffn", "flash_attention",
                   "paged_attention", "block_matmul", "row_norm",
                   "streamed_xent", "moe_experts", "mamba2_scan",
-                  "rwkv6_wkv")
+                  "rwkv6_wkv", "stream_converter")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,8 @@ The reference pads the head dim to the TPU's 128 lanes here
 (``repro/kernels/ops.py:62``); the Hopper kernels take the head dim as it
 is, so no padding is done.  The RWKV6 recurrence ``wkv6`` (K14) already
 takes the model layout and is re-exported here, as the reference's
-``ops.py:24`` re-exports ``wkv6_pallas``.
+``ops.py:24`` re-exports ``wkv6_pallas``; so is the layout converter
+``convert_layout`` (K15), as the reference's ``ops.py:25``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from .flash_attention import flash_attention_2d, flash_attention_2d_q
 from .ref import code_view
 from .rwkv6_wkv import wkv6  # noqa: F401  (re-export)
+from .stream_converter import convert_layout  # noqa: F401  (re-export)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -420,3 +420,44 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys.append(torch.einsum("bhk,bhkv->bhv", rs[t], state + ub * kv))
         state = state * ws[t][..., None] + kv
     return torch.stack(ys, dim=1).to(r.dtype), state
+
+
+# Tokens gathered per step of ``convert_layout_ref``: its index tensors
+# hold (eh + ew) int64 values per token, 218 MB at 10 x 16 tiles.
+CONVERT_CHUNK = 1 << 20
+
+
+def stream_token_offsets(dst, tokens: torch.Tensor):
+    """Data offsets (one int64 tensor per data dim) of the stream tokens
+    ``tokens`` of the itensor type ``dst``: each token index decoded as a
+    mixed radix over ``dst.tripcounts``, the innermost loop last; data dim
+    ``j`` sits at ``idx[results[j]] * steps[results[j]]``.  Reuse loops
+    count in the radix and feed no data dim."""
+    idx = [None] * dst.iter_rank
+    rem = tokens
+    for k in reversed(range(dst.iter_rank)):
+        idx[k] = rem % dst.tripcounts[k]
+        rem = rem // dst.tripcounts[k]
+    return tuple(idx[k] * dst.steps[k] for k in dst.iter_map.results)
+
+
+def convert_layout_ref(data: torch.Tensor, src, dst) -> torch.Tensor:
+    """The tile stream of ``data`` [H, W] in the consumer layout ``dst``:
+    [dst.num_tokens, eh, ew], token t the tile at ``dst``'s t-th offset,
+    reuse loops repeating their tiles: the reference's
+    ``convert_layout_ref`` (``repro/kernels/ref.py:141``), which both
+    Pallas bodies of its ``convert_layout`` compute.  ``src`` is the producer's layout; the tiles do not depend
+    on it.  Vectorized: the offsets of ``CONVERT_CHUNK`` tokens at a time
+    from integer arithmetic on ``arange``, then one gather."""
+    eh, ew = dst.elem_shape
+    n = dst.num_tokens
+    dev = data.device
+    out = torch.empty((n, eh, ew), dtype=data.dtype, device=dev)
+    rows = torch.arange(eh, device=dev)[None, :, None]
+    cols = torch.arange(ew, device=dev)[None, None, :]
+    for a in range(0, n, CONVERT_CHUNK):
+        t = torch.arange(a, min(n, a + CONVERT_CHUNK), device=dev)
+        oh, ow = stream_token_offsets(dst, t)
+        out[a:a + len(t)] = data[oh[:, None, None] + rows,
+                                 ow[:, None, None] + cols]
+    return out

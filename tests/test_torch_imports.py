@@ -36,7 +36,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.mamba2_scan",
             "repro_torch.configs.zamba2_2p7b",
             "repro_torch.kernels.rwkv6_wkv",
-            "repro_torch.configs.rwkv6_7b"} <= set(modules)
+            "repro_torch.configs.rwkv6_7b",
+            "repro_torch.kernels.stream_converter",
+            "repro_torch.runtime.simulator"} <= set(modules)
+    assert {f"repro_torch.core.{m}" for m in (
+        "affine", "itensor", "converter", "graph", "token_model",
+        "fifo_sizing", "fusion", "platforms", "tiling", "trace", "dse",
+        "partition", "allocation", "dma", "lowering")} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"
