@@ -45,6 +45,15 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               64 rows (required), and zamba2's GELU GLU and its int8 twin
               (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
+   tensorcore, tensorcore_prefix — the tensor-core kernels in bfloat16
+              beyond the paths' shapes: K7 at S = 1, 37, 63, 64, 65, 999,
+              1000 and 2048 with head dims 64, 80 and 128 and GQA groups 1,
+              3 and 4 against its plain version and SDPA; K5 at 1, 4, 16,
+              17, 64, 65, 128, 992 and 8192 rows at each path's (K, N) and
+              an unaligned shape, splitting K and not, against its plain
+              version and ``torch.matmul``; every call repeated bit for bit
+              (required); K7's rows 0..999 equal at S = 1000 and S = 2048
+              on the same prefix (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
               one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
@@ -217,7 +226,7 @@ SOURCES = {
     "paged_attention": _CSRC + "paged_attention.cu",
     "block_matmul": _CSRC + "block_matmul.cu",
     "streamed_mlp": _CSRC + "streamed_ffn.cu",
-    "flash_attention_static": _CSRC + "flash_attention.cu",
+    "flash_attention_static": _CSRC + "flash_mma.cu",
     "paged_verify_attention": _CSRC + "paged_attention.cu",
     "paged_attention_q": _CSRC + "paged_attention.cu",
     "paged_verify_attention_q": _CSRC + "paged_attention.cu",
@@ -1531,6 +1540,105 @@ def check_row_invariance(torch):
     return out
 
 
+# The tensor-core kernels (bf16) beyond the paths' own shapes: K7 at its
+# 64-row / 64-key tile edges and at long prompts, over head dims and GQA
+# groups; K5 in every tile class (1-16, 17-64 and more rows), splitting and
+# not, at each path's (K, N), and through its scalar loads (K and N not
+# multiples of 8; an x at an odd address).
+TC_FLASH_S = (1, 37, 63, 64, 65, 999, 1000, 2048)
+TC_FLASH_D = (64, 80, 128)
+TC_FLASH_GROUPS = (1, 3, 4)
+TC_MATMUL_M = (1, 4, 16, 17, 64, 65, 128, 992, 8192)
+# gpt2's projections and LM head, llama3's o-projection, granite-3b's
+# router and o-projection, zamba2's o-projection, rwkv6's LM head; an
+# unaligned shape.
+TC_MATMUL_KN = ((1024, 1024), (1024, 50432), (4096, 4096), (1536, 40),
+                (1536, 1536), (2560, 2560), (4096, 65536), (1000, 1001))
+
+
+def _tc_row(torch, timer, case, dname="bfloat16"):
+    """One tensor-core case: max error against the plain version, two
+    calls bit-equal (required: no atomics sum values), kernel / plain /
+    library times and the bound."""
+    got, again, want = case["kernel"](), case["kernel"](), case["plain"]()
+    torch.cuda.synchronize()
+    rel = _rel(got.float(), want.float())
+    same = bool(torch.equal(got, again))
+    bound_ms, bound_by = bound(case["nbytes"], case["flops"], dname)
+    row = {"phase": "tensorcore", "name": case["name"],
+           "shape": case["shape"], "dtype": dname, "rel_err": rel,
+           "tol": TOL[dname], "deterministic": same,
+           "ok": bool(rel <= TOL[dname] and math.isfinite(rel) and same),
+           "ms": timer(case["kernel"]),
+           "plain_ms": timer(case["plain"], iters=3),
+           "library_ms": (timer(case["library"])
+                          if case["library"] is not None else None),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           **case.get("extra", {})}
+    emit(row)
+    return row
+
+
+def check_tensorcore(torch, timer):
+    """K7 (``flash_attention_static``) and K5 (``block_matmul``) in bf16
+    on the tensor cores at ``TC_*``'s shapes (2 KV heads for K7), each
+    against its plain version (``TOL``) and its library call (SDPA,
+    ``torch.matmul``), each deterministic; K7's prefix property (required):
+    rows 0..999 of a 2048-token prompt equal the 1000-token prompt's, bit
+    for bit, at each head dim (GQA group 4)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.common import mma_plan, sm_count
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    randn = _randn(torch, gen, torch.bfloat16, "cuda")
+    rows, prefix = [], []
+    for s in TC_FLASH_S:
+        for d in TC_FLASH_D:
+            for g in TC_FLASH_GROUPS:
+                rows.append(_tc_row(torch, timer, _flash_case(
+                    torch, K, ref, randn, 2, "flash_attention_static",
+                    2 * g, 2, d, s, s, None, "cuda")))
+    for d in TC_FLASH_D:
+        q, k, v = randn(8, 2048, d), randn(2, 2048, d), randn(2, 2048, d)
+        full = K.flash_attention_2d(q, k, v, kv_group=4)
+        part = K.flash_attention_2d(*(t[:, :1000].contiguous()
+                                      for t in (q, k, v)), kv_group=4)
+        row = {"phase": "tensorcore_prefix", "head_dim": d,
+               "equal": bool(torch.equal(full[:, :1000], part))}
+        emit(row)
+        prefix.append(row)
+    sms = sm_count(torch.device("cuda"))
+    for k, n in TC_MATMUL_KN:
+        w = randn(k, n, scale=1 / math.sqrt(k))
+        for m in TC_MATMUL_M:
+            x = randn(m, k)
+            _, _, k_per_split, splits = mma_plan(m, k, n, sms)
+            rows.append(_tc_row(torch, timer, dict(
+                name="block_matmul", shape=f"M={m},K={k},N={n}",
+                kernel=lambda x=x: K.block_matmul(x, w),
+                plain=lambda x=x: ref.block_matmul(x, w),
+                library=lambda x=x: torch.matmul(x, w),
+                nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n,
+                extra={"splits": splits, "k_per_split": k_per_split})))
+    # x at an odd address: the scalar loads at an aligned shape.
+    k = n = 1024
+    w = randn(k, n, scale=1 / math.sqrt(k))
+    for m in (4, 128):
+        x = randn(m * k + 1)[1:].view(m, k)
+        rows.append(_tc_row(torch, timer, dict(
+            name="block_matmul", shape=f"M={m},K={k},N={n},x at +2 bytes",
+            kernel=lambda x=x: K.block_matmul(x, w),
+            plain=lambda x=x: ref.block_matmul(x, w),
+            library=lambda x=x: torch.matmul(x, w),
+            nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n)))
+    bad = [f"{r['name']} {r['shape']} rel {r['rel_err']} deterministic "
+           f"{r['deterministic']}" for r in rows if not r["ok"]]
+    bad += [f"prefix D={r['head_dim']}" for r in prefix if not r["equal"]]
+    if bad:
+        raise AssertionError("tensor-core kernels: " + "; ".join(bad))
+    return {"rows": rows, "prefix": prefix}
+
+
 # --------------------------------------------------------------------- #
 # Phases 3 and 4: the serving engine
 # --------------------------------------------------------------------- #
@@ -2232,16 +2340,22 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
 
 
 # Device time by kernel name: the repository's kernels (name fragment ->
-# what runs it on the training path), the rest is PyTorch's (cuBLAS for
-# the eager backward and the o-projection, elementwise, norms, AdamW).
-OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3/K5)"),
+# what runs it; every ``__global__`` function in ``csrc/`` matches one),
+# the rest is PyTorch's (cuBLAS for the eager backward and the
+# o-projection, elementwise, norms, AdamW).
+OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3, f32 K5)"),
+               ("block_mma_kernel", "projections (K5, tensor cores)"),
                ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
                ("streamed_ffn_kernel", "FFN (K4/K6)"),
                ("moe_", "MoE experts (K12)"),
                ("mamba2_ssd_kernel", "SSD scan (K13)"),
                ("wkv6_kernel", "wkv recurrence (K14)"),
-               ("flash_offset_kernel", "attention (K7)"),
-               ("xent_", "loss (K11)"))
+               ("flash_mma_kernel", "attention (K7, tensor cores)"),
+               ("flash_offset_kernel", "attention (K2, K9c, f32 K7)"),
+               ("xent_", "loss (K11)"),
+               ("paged_window_kernel", "paged attention (K1, K8, K9a/b)"),
+               ("row_norm_kernel", "row norms"),
+               ("convert_kernel", "layout converter (K15)"))
 
 
 def profile_step(torch, tr):
@@ -2655,6 +2769,7 @@ def main(argv=None) -> int:
     rows = check_kernels(torch, timer)
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
+    results["tensorcore"] = check_tensorcore(torch, timer)
     results["compile"] = compile_path(torch, timer)
     models = {"llama3-8b": (llama, False, 2048, 1000),
               "gpt2": (gpt2, True, 1024, 992),

@@ -1,33 +1,60 @@
-"""Tiled matmul (the plan's ``qkv`` stage for the LayerNorm configs).
+"""Tiled matmul (the plan's ``qkv`` stage for the LayerNorm configs, the
+o-projection, gpt2's and rwkv6's LM heads, granite's router product).
 
 ``block_matmul`` launches ``csrc/block_matmul.cu`` on a CUDA tensor and runs
-``ref.block_matmul`` on a CPU tensor.  ``block_matmul.launches`` counts
-kernel launches.
+``ref.block_matmul`` on a CPU tensor: bfloat16 through the tensor-core
+kernel (``mma_plan``), float32 through the CUDA-core tiled kernel
+(``split_plan``), which keeps float32 products exact.
+``block_matmul.launches`` counts kernel launches, one per call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path, split_plan
+from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
+                     kernel_path, mma_plan, sm_count, split_plan)
+
+# Per device, the split-K workspace of the tensor-core kernel: float32
+# partials [splits, M, N] and one int32 arrival counter per output tile,
+# all 0 between launches (the last block on a tile resets its own).  Calls
+# on one stream run one after another, so one workspace serves them; it
+# grows to the largest split seen (a split runs only while the output tiles
+# fill less than a wave, so partials stay under ~17 MB).
+_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     lib = _build.load("block_matmul")
-    sym = ("repro_block_matmul_bf16" if dtype == torch.bfloat16
-           else "repro_block_matmul_f32")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp, vp, vp, vp, i, i, i, i, i, i, vp])
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, "repro_block_matmul_mma_bf16",
+                              [vp] * 5 + [i] * 6 + [vp])
+    return _build.declare(lib, "repro_block_matmul_f32",
+                          [vp] * 4 + [i] * 6 + [vp])
+
+
+def _workspace(device: torch.device, floats: int, tiles: int):
+    """(partials, counters) with room for ``floats`` and ``tiles``."""
+    part, ctr = _WORKSPACE.get(device, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                           device=device)
+    if ctr is None or ctr.numel() < tiles:
+        ctr = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+    _WORKSPACE[device] = part, ctr
+    return part, ctr
 
 
 def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [M, K]; w [K, N] -> x @ w [M, N] (x dtype, float32 sums).  The
-    CUDA kernel picks its own tiles (``split_plan``)."""
+    CUDA kernel picks its own tiles."""
     m, k = x.shape
     k2, n = w.shape
     if k != k2:
@@ -39,15 +66,28 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.dtype != x.dtype:
         raise TypeError("block_matmul: x and w must share a dtype")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    small, k_per_split, splits = split_plan(m, k, n, sms)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry(x.dtype)(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, m, k, n, int(small),
-        k_per_split, splits, stream)
+    if x.dtype == torch.bfloat16:
+        bm, _, k_per_split, splits = mma_plan(m, k, n, sm_count(x.device))
+        part = ctr = None
+        if splits > 1:
+            part, ctr = _workspace(x.device, splits * m * n,
+                                   cdiv(n, MMA_BN) * cdiv(m, bm))
+        xp, wp = x.data_ptr(), w.data_ptr()
+        aligned = k % 8 == 0 and n % 8 == 0 and xp % 16 == 0 and wp % 16 == 0
+        status = _entry(x.dtype)(
+            xp, wp, out.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            ctr.data_ptr() if ctr is not None else None, m, k, n,
+            k_per_split, splits, int(aligned), stream)
+    else:
+        small, k_per_split, splits = split_plan(m, k, n, sm_count(x.device))
+        part = (torch.empty((splits, m, n), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        status = _entry(x.dtype)(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None, m, k, n,
+            int(small), k_per_split, splits, stream)
     check_launch("block_matmul", status)
     block_matmul.launches += 1
     return out

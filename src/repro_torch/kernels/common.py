@@ -9,6 +9,7 @@ StreamPlan are hints: they never change the math (DESIGN.md §16).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -36,6 +37,17 @@ def on_hopper() -> bool:
             and torch.cuda.get_device_capability() == (9, 0))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, queried once per device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -61,7 +73,8 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-# Mirrors the tile shapes of csrc/tiled_matmul.cuh (K3 and K5).
+# Mirrors the tile shapes of csrc/tiled_matmul.cuh (K3, K10a, K11 and K5
+# in float32).
 _MATMUL_BK = 32
 _MATMUL_SMALL_T = 16      # T <= this: 8 x 128 tiles, else 64 x 64
 _MATMUL_TILES = {True: (8, 128), False: (64, 64)}
@@ -86,6 +99,34 @@ def split_plan(t: int, d: int, n: int, sms: int):
     want = max(1, min(cdiv(2 * sms, tiles), d // (4 * _MATMUL_BK)))
     k_per_split = cdiv(cdiv(d, want), _MATMUL_BK) * _MATMUL_BK
     return small, k_per_split, cdiv(d, k_per_split)
+
+
+# Mirrors the tile classes of csrc/block_matmul.cu's tensor-core kernel
+# (K5 in bf16): (rows up to, BM, BK); BN is 128 in every class.
+MMA_CLASSES = ((16, 16, 64), (ROW_INVARIANT_T, 64, 64), (None, 128, 64))
+MMA_BN = 128
+
+
+@functools.lru_cache(maxsize=4096)
+def mma_plan(m: int, k: int, n: int, sms: int):
+    """(bm, bk, k_per_split, splits) for the tensor-core ``block_matmul``.
+    Up to ``ROW_INVARIANT_T`` rows (the 16- and 64-row classes, both
+    64-deep K tiles) the split depends on (k, n) alone: K is cut until the
+    grid holds about one block per SM, keeping >= 2 K tiles per split
+    (more splits cost more in the last block's sum than they gain in
+    parallel loads), so a row's float32 sums are the same at every such
+    row count.  Larger M (128 x 128 tiles) splits only to fill one wave,
+    keeping >= 4 K tiles per split.  Splits cover K in whole K tiles.
+    Cached: it runs on every decode-step call."""
+    bm, bk = next((bm, bk) for top, bm, bk in MMA_CLASSES
+                  if top is None or m <= top)
+    ktiles = cdiv(k, bk)
+    if m <= ROW_INVARIANT_T:
+        want = min(cdiv(sms, cdiv(n, MMA_BN)), ktiles // 2)
+    else:
+        want = min(cdiv(sms, cdiv(n, MMA_BN) * cdiv(m, bm)), ktiles // 4)
+    k_per_split = max(1, cdiv(ktiles, max(1, want))) * bk
+    return bm, bk, k_per_split, max(1, cdiv(k, k_per_split))
 
 
 def kernel_path(t: torch.Tensor) -> str:

@@ -1,9 +1,10 @@
-// Flash attention, two entry points over one kernel:
+// Flash attention on the CUDA cores, one kernel behind these entry points:
 //   offset (chunked prefill): query row i of a chunk sits at absolute
 //     position q_offset + i and attends causally to the first kv_len cached
 //     positions;
-//   static (whole-prompt prefill): query row i sits at position i, kv_len
-//     is fixed by the caller (the prompt length);
+//   static in float32 (whole-prompt prefill): query row i sits at position
+//     i, kv_len is fixed by the caller (the prompt length); the static
+//     branch in bfloat16 runs on the tensor cores (flash_mma.cu);
 //   offset over codes (chunked prefill from quantized pools, K9c): K/V
 //     are int8 or fp8-e4m3 codes with one float32 scale per position
 //     [Hkv_, Skv] (each position carries its page's scale).
@@ -17,11 +18,13 @@
 //
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
 // _flash_kernel_offset (the offset branch of flash_attention_2d,
-// pallas_call at :300) and _flash_kernel (its static branch, pallas_call
-// at :309), and _flash_kernel_offset_q (the offset branch with k_scale /
-// v_scale, pallas_call at :300).  The static kernel's arithmetic is the
-// offset kernel's at q_offset = 0, so all entry points launch the same
-// device function, templated on the K/V code type C.
+// pallas_call at :300), _flash_kernel (its static branch, pallas_call at
+// :309) in float32, and _flash_kernel_offset_q (the offset branch with
+// k_scale / v_scale, pallas_call at :300).  The static kernel's arithmetic
+// is the offset kernel's at q_offset = 0, so every entry point here
+// launches the same device function, templated on the K/V code type C.
+// float32 stays on the CUDA cores: TF32 tensor-core products would break
+// the float32 checks against the reference.
 // There q_offset and kv_len ride in as scalar-prefetch operands; here they
 // are plain kernel arguments, and no S is assumed to divide a tile.  Each block holds 16 query rows of one head (4 per warp) and
 // walks only the KV tiles that can be live: below kv_len and at or before
@@ -207,15 +210,6 @@ extern "C" int repro_flash_static_f32(const void* q, const void* k,
                                       int kv_len, float scale, void* stream) {
   return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len,
                        scale, stream);
-}
-
-extern "C" int repro_flash_static_bf16(const void* q, const void* k,
-                                       const void* v, void* out, int hq,
-                                       int sq, int skv, int d, int kv_group,
-                                       int kv_len, float scale,
-                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, hq, sq, skv, d, kv_group, 0,
-                               kv_len, scale, stream);
 }
 
 // The offset branch over codes C with per-position scales [Hkv_, Skv].

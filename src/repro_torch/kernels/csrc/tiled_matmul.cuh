@@ -1,5 +1,6 @@
 // Split-K tiled matmul shared by rmsnorm_matmul (K3, NORM = true),
-// block_matmul (K5, NORM = false) and rmsnorm_matmul's weight-only int8
+// block_matmul in float32 (K5, NORM = false; bfloat16 K5 runs on the
+// tensor cores, block_matmul.cu) and rmsnorm_matmul's weight-only int8
 // twin (K10a, NORM = true, W = int8_t); its tile product
 // (`tile_accumulate`) also computes the logits tiles of streamed_xent
 // (K11):

@@ -4,12 +4,15 @@ quantized K/V, and the static branch for whole-prompt prefill (the plan's
 
 ``flash_attention_2d`` takes the offset branch when ``q_offset`` is given
 and the static branch (``flash_attention_static``) when it is None, as the
-reference wrapper does.  Each launches its entry point in
-``csrc/flash_attention.cu`` on a CUDA tensor and runs its plain version
-(``ref.flash_attention_offset`` / ``ref.flash_attention_static``) on a CPU
-tensor; ``flash_attention_2d.launches`` counts offset launches and
-``flash_attention_static.launches`` static ones.  ``flash_attention_2d_q``
-is the offset branch over int8 / fp8-e4m3 codes with per-position scales
+reference wrapper does.  Each launches its entry point on a CUDA tensor
+and runs its plain version (``ref.flash_attention_offset`` /
+``ref.flash_attention_static``) on a CPU tensor;
+``flash_attention_2d.launches`` counts offset launches and
+``flash_attention_static.launches`` static ones.  The static branch in
+bfloat16 runs on the tensor cores (``csrc/flash_mma.cu``); in float32 it
+and every offset branch run the CUDA-core kernel of
+``csrc/flash_attention.cu``.  ``flash_attention_2d_q`` is the offset
+branch over int8 / fp8-e4m3 codes with per-position scales
 (its own entry points and count; plain version
 ``ref.flash_attention_offset`` with scales).  The CUDA kernel covers
 what the main paths run (causal, no sliding window, head dim 64 or 128,
@@ -38,15 +41,26 @@ STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
 @functools.lru_cache(maxsize=None)
 def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     """``branch``: "offset", "static" or "offset_q" (``code`` "i8" or
-    "fp8")."""
-    lib = _build.load("flash_attention")
-    sym = (f"repro_flash_{branch}_"
-           + ("bf16" if dtype == torch.bfloat16 else "f32")
-           + (f"_{code}" if code else ""))
+    "fp8").  The static branch in bf16 is the tensor-core kernel of
+    ``csrc/flash_mma.cu``; every other entry point runs the CUDA-core
+    device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     ints = [i] * (6 if branch == "static" else 7)
     ptrs = 6 if branch == "offset_q" else 4
+    if branch == "static" and dtype == torch.bfloat16:
+        lib, sym = _build.load("flash_mma"), "repro_flash_static_mma_bf16"
+    else:
+        lib = _build.load("flash_attention")
+        sym = (f"repro_flash_{branch}_"
+               + ("bf16" if dtype == torch.bfloat16 else "f32")
+               + (f"_{code}" if code else ""))
     return _build.declare(lib, sym, [vp] * ptrs + ints + [ctypes.c_float, vp])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address: the
+    tensor-core kernel reads rows with 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(name: str, q, k, v, kv_group: int) -> None:
@@ -133,6 +147,11 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
             causal=causal, window=window, block_kv=block_kv)
     _check_cuda("flash_attention_static", q, k, v, causal, window,
                 head_dims=STATIC_HEAD_DIMS)
+    if q.dtype == torch.bfloat16:
+        if not scale > 0:
+            raise ValueError("flash_attention_static: the tensor-core "
+                             f"kernel takes a positive scale, got {scale}")
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("static", q.dtype)(
