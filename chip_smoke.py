@@ -45,15 +45,25 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               64 rows (required), and zamba2's GELU GLU and its int8 twin
               (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
-   tensorcore, tensorcore_prefix — the tensor-core kernels in bfloat16
-              beyond the paths' shapes: K7 at S = 1, 37, 63, 64, 65, 999,
-              1000 and 2048 with head dims 64, 80 and 128 and GQA groups 1,
-              3 and 4 against its plain version and SDPA; K5 at 1, 4, 16,
-              17, 64, 65, 128, 992 and 8192 rows at each path's (K, N) and
-              an unaligned shape, splitting K and not, against its plain
-              version and ``torch.matmul``; every call repeated bit for bit
-              (required); K7's rows 0..999 equal at S = 1000 and S = 2048
-              on the same prefix (required);
+   tensorcore, tensorcore_prefix, tensorcore_offset, tensorcore_rows —
+              the tensor-core kernels in bfloat16 beyond the paths' shapes:
+              K7 at S = 1, 37, 63, 64, 65, 999, 1000 and 2048 with head dims
+              64, 80 and 128 and GQA groups 1, 3 and 4 against its plain
+              version and SDPA; K2 at chunk offsets 0, 63, 64, 65 and 896,
+              1, 37, 64 and 128 rows, head dims 64 and 128 and GQA groups 1
+              and 4 against its plain version and SDPA with the offset
+              mask; K7 and K2 at a negative and a zero scale; K5 at 1, 4,
+              16, 17, 64, 65, 128, 992 and 8192 rows at each path's (K, N)
+              and an unaligned shape, splitting K and not, against its
+              plain version and ``torch.matmul``; every FFN instance (K4
+              SiLU with the folded norm and GELU, K6, K10b, K10c) at 1 to
+              4096 rows at its path's (D, F) and at an unaligned shape
+              against its plain version, the worst error of each reported;
+              every call repeated bit for bit (required); K7's rows 0..999
+              equal at S = 1000 and S = 2048 on the same prefix, K2's rows
+              equal to K7's rows at the same positions of the whole prompt,
+              and each FFN instance's rows equal at 1 to 64 rows
+              (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
               one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
@@ -222,7 +232,7 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "rmsnorm_matmul": _CSRC + "rmsnorm_matmul.cu",
     "streamed_ffn": _CSRC + "streamed_ffn.cu",
-    "flash_attention": _CSRC + "flash_attention.cu",
+    "flash_attention": _CSRC + "flash_mma.cu",
     "paged_attention": _CSRC + "paged_attention.cu",
     "block_matmul": _CSRC + "block_matmul.cu",
     "streamed_mlp": _CSRC + "streamed_ffn.cu",
@@ -500,12 +510,13 @@ def _encode(torch, x, code, page_axis):
 
 
 def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
-                q_off, dev, code=None):
+                q_off, dev, code=None, scale=None):
     """A causal flash call and its SDPA yardstick: the offset branch over a
     gathered extent (``q_off`` set, kv_len = q_off + sq), or the static
     branch over a whole prompt (``q_off`` None, sq == skv); with ``code``
     the offset branch over int8 / fp8 codes with per-position scales (no
-    single PyTorch call reads codes: no library yardstick)."""
+    single PyTorch call reads codes: no library yardstick).  ``scale``:
+    the softmax scale (None: 1 / sqrt(D))."""
     kv_len = skv if q_off is None else q_off + sq
     q = randn(hq, sq, hd)
     k = randn(hkv, skv, hd)
@@ -530,21 +541,26 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len},codes={code}")
     elif q_off is None:
-        kernel = lambda: K.flash_attention_2d(q, k, v, kv_group=g)
+        kernel = lambda: K.flash_attention_2d(q, k, v, kv_group=g,
+                                              scale=scale)
         plain = lambda: ref.flash_attention_static(q, k, v, kv_len=kv_len,
-                                                   kv_group=g)
+                                                   kv_group=g, scale=scale)
         library = lambda: sdpa(q[None], k[None], v[None], is_causal=True,
-                               enable_gqa=True)
+                               enable_gqa=True, scale=scale)
         shape = f"Hq={hq},Hkv={hkv},D={hd},S={sq}"
     else:
         kernel = lambda: K.flash_attention_2d(q, k, v, q_offset=q_off,
-                                              kv_len=kv_len, kv_group=g)
+                                              kv_len=kv_len, kv_group=g,
+                                              scale=scale)
         plain = lambda: ref.flash_attention_offset(q, k, v, q_offset=q_off,
-                                                   kv_len=kv_len, kv_group=g)
+                                                   kv_len=kv_len, kv_group=g,
+                                                   scale=scale)
         library = lambda: sdpa(q[None], k[None], v[None], attn_mask=mask,
-                               enable_gqa=True)
+                               enable_gqa=True, scale=scale)
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len}")
+    if scale is not None:
+        shape += f",scale={scale}"
     return dict(name=name, head_dim=hd, shape=shape, kernel=kernel,
                 plain=plain, library=library, cublas=None,
                 nbytes=2 * hq * sq * hd * isz + kv_bytes,
@@ -1579,25 +1595,167 @@ def _tc_row(torch, timer, case, dname="bfloat16"):
     return row
 
 
+# K2 (the offset branch, chunked prefill) at its 64-row / 64-key tile edges:
+# query offsets, chunk rows, head dims, GQA groups; K7 and K2 also at a
+# negative and a zero scale.
+TC_OFFSET_Q = (0, 63, 64, 65, 896)
+TC_OFFSET_ROWS = (1, 37, 64, 128)
+TC_OFFSET_D = (64, 128)
+TC_OFFSET_GROUPS = (1, 4)
+# The streamed FFN (K4, K6, K10b, K10c) on the tensor cores: the fused
+# launch at 1..64 rows, the two passes above; each instance at its path's
+# (D, F), and every instance at an unaligned shape.
+TC_FFN_T = (1, 4, 16, 17, 20, 64, 65, 128, 1000, 4096)
+TC_FFN_WIDTHS = {"llama3-8b": (4096, 14336), ZAMBA: (2560, 10240),
+                 "gpt2": (1024, 4096)}
+TC_FFN_UNALIGNED = ((1000, 1001), (4, 128))   # (D, F), rows
+
+
+def _ffn_instances(torch, K, ref, randn, d, f):
+    """The six bf16 FFN instances at (d, f): name -> (model, label, kernel
+    fn, plain fn, weight bytes, flops per row) for x [T, d]; weights drawn
+    once (the int8 twins' codes quantized from them per output channel)."""
+    wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    s = randn(d, scale=0.1)
+    (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+    q8 = dict(wg_scale=sg, wu_scale=su, wd_scale=sd)
+    glu, mlp = 3 * d * f, 2 * d * f
+    return {
+        "streamed_ffn": ("llama3-8b", "silu, folded norm",
+                         lambda x: K.streamed_ffn(x, wg, wu, wd,
+                                                  norm_scale=s),
+                         lambda x: ref.streamed_ffn(x, wg, wu, wd,
+                                                    norm_scale=s),
+                         2 * (glu + d), 6 * d * f),
+        "streamed_ffn_w8": ("llama3-8b", "silu, folded norm, int8",
+                            lambda x: K.streamed_ffn_w8(
+                                x, cg, cu, cd, norm_scale=s, **q8),
+                            lambda x: ref.streamed_ffn_w8(
+                                x, cg, cu, cd, norm_scale=s, **q8),
+                            glu + 2 * d + 4 * (2 * f + d), 6 * d * f),
+        "streamed_ffn gelu": (ZAMBA, "gelu",
+                              lambda x: K.streamed_ffn(x, wg, wu, wd,
+                                                       activation="gelu"),
+                              lambda x: ref.streamed_ffn(
+                                  x, wg, wu, wd, activation="gelu"),
+                              2 * glu, 6 * d * f),
+        "streamed_ffn_w8 gelu": (ZAMBA, "gelu, int8",
+                                 lambda x: K.streamed_ffn_w8(
+                                     x, cg, cu, cd, activation="gelu",
+                                     **q8),
+                                 lambda x: ref.streamed_ffn_w8(
+                                     x, cg, cu, cd, activation="gelu",
+                                     **q8),
+                                 glu + 4 * (2 * f + d), 6 * d * f),
+        "streamed_mlp": ("gpt2", "gelu",
+                         lambda x: K.streamed_mlp(x, wu, wd),
+                         lambda x: ref.streamed_mlp(x, wu, wd),
+                         2 * mlp, 4 * d * f),
+        "streamed_mlp_w8": ("gpt2", "gelu, int8",
+                            lambda x: K.streamed_mlp_w8(
+                                x, cu, cd, wu_scale=su, wd_scale=sd),
+                            lambda x: ref.streamed_mlp_w8(
+                                x, cu, cd, wu_scale=su, wd_scale=sd),
+                            mlp + 4 * (f + d), 4 * d * f)}
+
+
+def _ffn_tc_rows(torch, timer, K, ref, randn, sms):
+    """Every bf16 FFN instance at ``TC_FFN_T`` rows at its path's (D, F)
+    and at ``TC_FFN_UNALIGNED``, against its plain version (``TOL``) and
+    deterministic; each instance's rows at 1..64 rows equal its rows at 64
+    (required: the fused launch's row invariance)."""
+    from repro_torch.kernels.common import ROW_INVARIANT_T, ffn_plan
+    rows, same = [], []
+    for (d, f), ts in [(TC_FFN_WIDTHS[m], TC_FFN_T) for m in TC_FFN_WIDTHS
+                       ] + [TC_FFN_UNALIGNED]:
+        insts = _ffn_instances(torch, K, ref, randn, d, f)
+        aligned = (d, f) != TC_FFN_UNALIGNED[0]
+        for name, (model, label, kern, plain, wbytes, fl) in insts.items():
+            if aligned and TC_FFN_WIDTHS[model] != (d, f):
+                continue
+            for t in ts:
+                x = randn(t, d)
+                mode, f_per_split, splits = ffn_plan(t, d, f, sms)
+                rows.append(_tc_row(torch, timer, dict(
+                    name=name.split()[0], shape=f"{model} {label} T={t},"
+                    f"D={d},F={f}" + ("" if aligned else ",unaligned"),
+                    kernel=lambda x=x, k=kern: k(x),
+                    plain=lambda x=x, p=plain: p(x), library=None,
+                    nbytes=wbytes + 2 * 2 * t * d, flops=fl * t,
+                    extra={"mode": ("fused", "two-pass")[mode],
+                           "f_per_split": f_per_split, "splits": splits})))
+            if not aligned:
+                continue
+            x = randn(ROW_INVARIANT_T, d)
+            full = kern(x)
+            bad = [t for t in range(1, ROW_INVARIANT_T)
+                   if not torch.equal(kern(x[:t].contiguous()), full[:t])]
+            row = {"phase": "tensorcore_rows", "name": name, "model": model,
+                   "D": d, "F": f, "equal_1_to_64": not bad,
+                   "unequal_at": bad[:8]}
+            emit(row)
+            same.append(row)
+    return rows, same
+
+
 def check_tensorcore(torch, timer):
-    """K7 (``flash_attention_static``) and K5 (``block_matmul``) in bf16
-    on the tensor cores at ``TC_*``'s shapes (2 KV heads for K7), each
-    against its plain version (``TOL``) and its library call (SDPA,
-    ``torch.matmul``), each deterministic; K7's prefix property (required):
-    rows 0..999 of a 2048-token prompt equal the 1000-token prompt's, bit
-    for bit, at each head dim (GQA group 4)."""
+    """K7 (``flash_attention_static``), K2 (the offset branch of
+    ``flash_attention_2d``), K5 (``block_matmul``) and the streamed FFN
+    (K4, K6, K10b, K10c) in bf16 on the tensor cores at ``TC_*``'s shapes
+    (2 KV heads for K7 and K2), each against its plain version (``TOL``)
+    and its library call where one computes the same function (SDPA, with
+    the offset mask for K2; ``torch.matmul``), each deterministic; K7's
+    prefix property (required): rows 0..999 of a 2048-token prompt equal
+    the 1000-token prompt's, bit for bit, at each head dim (GQA group 4);
+    K2's rows equal K7's rows at the same positions of the whole prompt,
+    bit for bit, at every swept offset, row count and head dim
+    (``tensorcore_offset``, required); the FFN's rows equal at 1..64 rows
+    (``tensorcore_rows``, required)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import mma_plan, sm_count
     gen = torch.Generator(device="cuda").manual_seed(2020)
     randn = _randn(torch, gen, torch.bfloat16, "cuda")
-    rows, prefix = [], []
+    rows, prefix, offset = [], [], []
     for s in TC_FLASH_S:
         for d in TC_FLASH_D:
             for g in TC_FLASH_GROUPS:
                 rows.append(_tc_row(torch, timer, _flash_case(
                     torch, K, ref, randn, 2, "flash_attention_static",
                     2 * g, 2, d, s, s, None, "cuda")))
+    for q_off in TC_OFFSET_Q:
+        for sq in TC_OFFSET_ROWS:
+            for d in TC_OFFSET_D:
+                for g in TC_OFFSET_GROUPS:
+                    rows.append(_tc_row(torch, timer, _flash_case(
+                        torch, K, ref, randn, 2, "flash_attention", 2 * g, 2,
+                        d, sq, q_off + sq, q_off, "cuda")))
+    for scale in (-0.125, 0.0):
+        rows.append(_tc_row(torch, timer, _flash_case(
+            torch, K, ref, randn, 2, "flash_attention_static", 8, 2, 128,
+            1000, 1000, None, "cuda", scale=scale)))
+        rows.append(_tc_row(torch, timer, _flash_case(
+            torch, K, ref, randn, 2, "flash_attention", 8, 2, 128, 128,
+            1024, 896, "cuda", scale=scale)))
+    # K2 against K7 over the whole prompt: K/V gathered a few positions
+    # past kv_len (masked), as the cache gather leaves them.
+    for d in TC_OFFSET_D:
+        top = max(TC_OFFSET_Q) + max(TC_OFFSET_ROWS)
+        q, k, v = randn(8, top, d), randn(2, top + 7, d), randn(2, top + 7, d)
+        for q_off in TC_OFFSET_Q:
+            for sq in TC_OFFSET_ROWS:
+                n = q_off + sq
+                whole = K.flash_attention_2d(
+                    *(t[:, :n].contiguous() for t in (q, k, v)), kv_group=4)
+                chunk = K.flash_attention_2d(
+                    q[:, q_off:n].contiguous(), k, v, q_offset=q_off,
+                    kv_len=n, kv_group=4)
+                row = {"phase": "tensorcore_offset", "head_dim": d,
+                       "q_offset": q_off, "rows": sq,
+                       "equal": bool(torch.equal(chunk, whole[:, q_off:n]))}
+                emit(row)
+                offset.append(row)
     for d in TC_FLASH_D:
         q, k, v = randn(8, 2048, d), randn(2, 2048, d), randn(2, 2048, d)
         full = K.flash_attention_2d(q, k, v, kv_group=4)
@@ -1631,12 +1789,24 @@ def check_tensorcore(torch, timer):
             plain=lambda x=x: ref.block_matmul(x, w),
             library=lambda x=x: torch.matmul(x, w),
             nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n)))
+    ffn, ffn_same = _ffn_tc_rows(torch, timer, K, ref, randn, sms)
+    rows += ffn
+    worst = {}
+    for r in ffn:
+        key = r["shape"].split(" T=")[0]
+        worst[key] = max(worst.get(key, 0.0), r["rel_err"])
+    emit({"phase": "tensorcore_ffn_error", "max_rel_err": worst})
     bad = [f"{r['name']} {r['shape']} rel {r['rel_err']} deterministic "
            f"{r['deterministic']}" for r in rows if not r["ok"]]
     bad += [f"prefix D={r['head_dim']}" for r in prefix if not r["equal"]]
+    bad += [f"offset D={r['head_dim']} q_offset={r['q_offset']} "
+            f"rows={r['rows']}" for r in offset if not r["equal"]]
+    bad += [f"FFN rows {r['name']} at {r['unequal_at']}" for r in ffn_same
+            if not r["equal_1_to_64"]]
     if bad:
         raise AssertionError("tensor-core kernels: " + "; ".join(bad))
-    return {"rows": rows, "prefix": prefix}
+    return {"rows": rows, "prefix": prefix, "offset": offset,
+            "ffn_rows": ffn_same, "ffn_max_rel_err": worst}
 
 
 # --------------------------------------------------------------------- #
@@ -2346,12 +2516,14 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
 OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3, f32 K5)"),
                ("block_mma_kernel", "projections (K5, tensor cores)"),
                ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
-               ("streamed_ffn_kernel", "FFN (K4/K6)"),
+               ("streamed_ffn_kernel", "FFN (f32 K4/K6)"),
+               ("ffn_mma_kernel", "FFN (K4/K6, tensor cores)"),
+               ("rms_rows_kernel", "FFN (K4/K6, tensor cores)"),
                ("moe_", "MoE experts (K12)"),
                ("mamba2_ssd_kernel", "SSD scan (K13)"),
                ("wkv6_kernel", "wkv recurrence (K14)"),
-               ("flash_mma_kernel", "attention (K7, tensor cores)"),
-               ("flash_offset_kernel", "attention (K2, K9c, f32 K7)"),
+               ("flash_mma_kernel", "attention (K2, K7, tensor cores)"),
+               ("flash_offset_kernel", "attention (K9c, f32 K2/K7)"),
                ("xent_", "loss (K11)"),
                ("paged_window_kernel", "paged attention (K1, K8, K9a/b)"),
                ("row_norm_kernel", "row norms"),

@@ -129,6 +129,44 @@ def mma_plan(m: int, k: int, n: int, sms: int):
     return bm, bk, k_per_split, max(1, cdiv(k, k_per_split))
 
 
+# Mirrors csrc/streamed_ffn.cu's tensor-core kernel (K4, K6, K10b, K10c in
+# bf16): the fused launch's blocks own whole 128-column h tiles (at most
+# FFN_MAX_TILES); the two-pass kernels make 64-column h tiles (h's rows
+# padded to a multiple of 64) and split the down product's F rows in
+# 64-deep tiles over [64, 128] output tiles.
+FFN_FUSED_BF = 128
+FFN_MAX_TILES = 2
+FFN_BF = 64
+FFN_BN = 128
+FFN_BT = 64
+
+
+@functools.lru_cache(maxsize=4096)
+def ffn_plan(t: int, d: int, f: int, sms: int):
+    """(mode, f_per_split, splits) for the tensor-core streamed FFN.
+
+    Up to ``ROW_INVARIANT_T`` rows, mode 0 (one fused launch): the F
+    columns are cut into ``splits`` ranges of ``f_per_split`` (whole h
+    tiles), about one block per SM, from (d, f, sms) alone, so a row runs
+    the same products and sums the same partials in the same order at
+    every such row count.  Above, mode 1 (two passes through an h [T, F]
+    in HBM): the down product's F rows are split only while its [64, 128]
+    output tiles fill less than two blocks per SM, keeping >= 4 F tiles per
+    split and the partials' traffic (2 x splits x T x D x 4 bytes) within
+    2 D F bytes, less than every instance's weight bytes.  Cached: it runs
+    on every decode-step call."""
+    if t <= ROW_INVARIANT_T:
+        tiles = cdiv(f, FFN_FUSED_BF)
+        per = min(FFN_MAX_TILES, cdiv(tiles, sms))
+        f_per_split = per * FFN_FUSED_BF
+        return 0, f_per_split, cdiv(f, f_per_split)
+    tiles = cdiv(f, FFN_BF)
+    out_tiles = cdiv(d, FFN_BN) * cdiv(t, FFN_BT)
+    want = max(1, min(cdiv(2 * sms, out_tiles), tiles // 4, f // (4 * t)))
+    f_per_split = cdiv(tiles, want) * FFN_BF
+    return 1, f_per_split, cdiv(f, f_per_split)
+
+
 def kernel_path(t: torch.Tensor) -> str:
     """'plain' for a CPU tensor, 'cuda' for a CUDA tensor; anything else
     (meta, mps, ...) is refused."""

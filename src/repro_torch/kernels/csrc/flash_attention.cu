@@ -1,13 +1,15 @@
 // Flash attention on the CUDA cores, one kernel behind these entry points:
-//   offset (chunked prefill): query row i of a chunk sits at absolute
-//     position q_offset + i and attends causally to the first kv_len cached
-//     positions;
+//   offset in float32 (chunked prefill): query row i of a chunk sits at
+//     absolute position q_offset + i and attends causally to the first
+//     kv_len cached positions;
 //   static in float32 (whole-prompt prefill): query row i sits at position
-//     i, kv_len is fixed by the caller (the prompt length); the static
-//     branch in bfloat16 runs on the tensor cores (flash_mma.cu);
-//   offset over codes (chunked prefill from quantized pools, K9c): K/V
-//     are int8 or fp8-e4m3 codes with one float32 scale per position
-//     [Hkv_, Skv] (each position carries its page's scale).
+//     i, kv_len is fixed by the caller (the prompt length);
+//   offset over codes, q in float32 or bfloat16 (chunked prefill from
+//     quantized pools, K9c): K/V are int8 or fp8-e4m3 codes with one
+//     float32 scale per position [Hkv_, Skv] (each position carries its
+//     page's scale).
+// Both full-precision branches in bfloat16 run on the tensor cores
+// (flash_mma.cu).
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
 // Only what the main paths run is built here: causal, no sliding window,
@@ -17,27 +19,31 @@
 // lanes 0..15 only.
 //
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
-// _flash_kernel_offset (the offset branch of flash_attention_2d,
-// pallas_call at :300), _flash_kernel (its static branch, pallas_call at
-// :309) in float32, and _flash_kernel_offset_q (the offset branch with
-// k_scale / v_scale, pallas_call at :300).  The static kernel's arithmetic
-// is the offset kernel's at q_offset = 0, so every entry point here
-// launches the same device function, templated on the K/V code type C.
-// float32 stays on the CUDA cores: TF32 tensor-core products would break
-// the float32 checks against the reference.
+// _flash_kernel_offset (K2, the offset branch of flash_attention_2d,
+// pallas_call at :300) and _flash_kernel (K7, its static branch,
+// pallas_call at :309) in float32, and _flash_kernel_offset_q (K9c, the
+// offset branch with k_scale / v_scale, pallas_call at :300) in both
+// dtypes.  The static kernel's arithmetic is the offset kernel's at
+// q_offset = 0, so every entry point here launches the same device
+// function, templated on the K/V code type C.  float32 stays on the CUDA
+// cores: TF32 tensor-core products would break the float32 checks against
+// the reference.
 // There q_offset and kv_len ride in as scalar-prefetch operands; here they
-// are plain kernel arguments, and no S is assumed to divide a tile.  Each block holds 16 query rows of one head (4 per warp) and
-// walks only the KV tiles that can be live: below kv_len and at or before
-// the block's last query position.  Per 32-key tile it
-// runs the reference's online softmax: QK products of the input dtype
-// summed in float32, then scaled; masked scores at -1e30; p rounded to the
-// v dtype before PV; the normaliser clamped at 1e-30.  Over codes, K/V are
-// dequantized on load (`float(code) * scale[pos]`, before the dot) and p
-// stays float32, as in the reference's quantized body.  The caller gathers
-// the live pages into dense K/V first (models/model.py), as the reference
-// does.
+// are plain kernel arguments, and no S is assumed to divide a tile.  Each
+// block holds 16 query rows of one head (4 per warp) and walks only the
+// KV tiles that can be live: below kv_len and at or before the block's
+// last query position.  Per 32-key tile it runs the reference's online
+// softmax: QK products of the input dtype summed in float32, then scaled;
+// masked scores at -1e30; p rounded to the v dtype before PV; the
+// normaliser clamped at 1e-30.  Over codes, K/V are dequantized on load
+// (`float(code) * scale[pos]`, before the dot) and p stays float32, as in
+// the reference's quantized body.  The caller gathers the live pages into
+// dense K/V first (models/model.py), as the reference does.
 // What bounds it: the QK and PV arithmetic (O(Sq * kv_len * D) per head),
-// done here on the CUDA cores; K/V are re-read from L2 by each q block.
+// here float FMAs on the CUDA cores (67 TFLOP/s in float32); K/V are
+// re-read from L2 by each 16-row q block.  K9c's move onto flash_mma.cu's
+// tensor-core function (codes dequantized into its bf16 tiles) is a later
+// item.
 #include <type_traits>
 
 #include "common.cuh"
@@ -193,15 +199,6 @@ extern "C" int repro_flash_offset_f32(const void* q, const void* k,
                                       void* stream) {
   return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,
                        kv_len, scale, stream);
-}
-
-extern "C" int repro_flash_offset_bf16(const void* q, const void* k,
-                                       const void* v, void* out, int hq,
-                                       int sq, int skv, int d, int kv_group,
-                                       int q_offset, int kv_len, float scale,
-                                       void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, hq, sq, skv, d, kv_group,
-                               q_offset, kv_len, scale, stream);
 }
 
 extern "C" int repro_flash_static_f32(const void* q, const void* k,

@@ -1,29 +1,38 @@
-// Flash attention on the tensor cores, bf16: the static branch of
-// flash_attention_2d (whole-prompt prefill and the training forward).
+// Flash attention on the tensor cores, bf16: both full-precision branches
+// of flash_attention_2d, one device function.
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D] bf16, query head h reads KV head
-//   h / kv_group; query row i sits at position i and attends causally to
-//   the keys below kv_len -> out [Hq_, Sq, D] bf16.  D in {64, 80, 128}.
+//   h / kv_group; query row i sits at position q_offset + i and attends
+//   causally to the keys below kv_len -> out [Hq_, Sq, D] bf16.
+//   static (whole-prompt prefill, the training forward): q_offset = 0,
+//     D in {64, 80, 128};
+//   offset (chunked prefill over the gathered cache): any q_offset, D in
+//     {64, 128}.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// _flash_kernel (pallas_call at :309) for bf16; float32 keeps
-// flash_attention.cu's CUDA-core device function (as do the offset
-// branches K2 and K9c).  The reference's numerics: QK products of bf16
-// summed in float32, then multiplied by `scale`; masked scores drop out
-// (p = 0) and a row's running max starts at the reference's -1e30 fill;
-// the online softmax's p rounded to bf16 before PV (`p.astype(v.dtype)`),
-// its float32 value summed into the normaliser; the normaliser clamped at
-// 1e-30.  exp(s * scale - m) is taken as 2^(s * scale log2 e - m log2 e),
-// one FFMA and one ex2.approx per score (within float32 rounding of the
-// reference's exp): with `expf` and per-score masking the softmax took
-// more instruction slots than a tile's MMAs and ran at half speed.
+// Replaces the TPU kernels src/repro/kernels/flash_attention.py::
+// _flash_kernel (K7, the static branch, pallas_call at :309) and
+// ::_flash_kernel_offset (K2, the offset branch, pallas_call at :300) for
+// bf16; float32 keeps flash_attention.cu's CUDA-core device function, as
+// does the offset branch over int8 / fp8 codes (K9c).  The reference's
+// numerics: QK products of bf16 summed in float32, then multiplied by
+// `scale`; masked scores drop out (p = 0) and a row's running max starts
+// at the reference's -1e30 fill; the online softmax's p rounded to bf16
+// before PV (`p.astype(v.dtype)`), its float32 value summed into the
+// normaliser; the normaliser clamped at 1e-30.  exp(s * scale - m) is
+// taken as 2^(s * scale log2 e - m log2 e), one FFMA and one ex2.approx
+// per score (within float32 rounding of the reference's exp): with `expf`
+// and per-score masking the softmax took more instruction slots than a
+// tile's MMAs and ran at half speed.  Any scale: a row's max of the scaled
+// scores is max(s) * scale for scale >= 0 and min(s) * scale below 0.
 // What bounds it on the H100: the QK and PV products, 4 D flops per live
 // (query, key) pair, against 989 TFLOP/s of bf16 tensor cores (the bytes,
 // q, k, v and out once, are 10-40x smaller at the path's shapes).  The
-// previous kernel did them as float FMAs on the CUDA cores, in blocks of
-// 16 rows that re-read K/V from L2 four times as often.  Design:
+// CUDA-core kernels did them as float FMAs, in blocks of 16 rows that
+// re-read K/V from L2 four times as often.  Design:
 //   - one block of 4 warps per 64 query rows of one head, each warp owning
 //     16 rows; blocks are numbered so that the q heads of one KV head are
 //     adjacent (K/V stay in L2) and the longest (last) q tiles go first;
+//     keys are never split across blocks (a 128-row chunk of llama3-8b is
+//     2 q tiles x 32 heads = 64 blocks on 132 SMs);
 //   - QK^T and PV on mma.sync.m16n8k16 (bf16 -> f32): the warp's Q
 //     fragments are loaded once with ldmatrix, 64-key K tiles with
 //     ldmatrix, V with ldmatrix.trans; the rounded p is the A operand of
@@ -35,13 +44,16 @@
 //     cp.async 16-byte copies into a double-buffered ring: the next tile
 //     loads while this one is multiplied (87 KB at D = 128: the dynamic
 //     shared-memory limit is raised before the first launch);
-//   - causal work: tiles past a block's last row are never loaded, tiles
-//     past a warp's last row are skipped by that warp, and only tiles that
-//     cross the diagonal or kv_len are masked;
-//   - fixed 64 x 64 tiles at every S: a fully masked tile leaves a row's
-//     max, sum and accumulator exactly as they were (p = 0, corr = 1), so a
-//     row's result depends on its prefix alone, bit for bit, whatever the
-//     prompt's length or padding; no atomics, so results repeat run to run.
+//   - causal work: tiles past a block's last position are never loaded,
+//     tiles past a warp's last position are skipped by that warp, and only
+//     tiles that cross the diagonal or kv_len are masked;
+//   - fixed 64 x 64 tiles counted from position 0 at every S and offset: a
+//     fully masked tile leaves a row's max, sum and accumulator exactly as
+//     they were (p = 0, corr = 1), so a row's result depends on its prefix
+//     alone, bit for bit, whatever the prompt's length, padding or chunk:
+//     the offset branch's rows equal the static branch's rows at the same
+//     positions of the whole prompt; no atomics, so results repeat run to
+//     run.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -87,7 +99,8 @@ template <int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int hq,
-                 int sq, int skv, int kv_group, int kv_len, float scale) {
+                 int sq, int skv, int kv_group, int q_offset, int kv_len,
+                 float scale) {
   constexpr int LD = ld<D>();
   constexpr int KS = D / 16;     // k-steps of Q K^T
   constexpr int DN = D / 8;      // n8 tiles of the output rows
@@ -108,9 +121,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vh = v + (size_t)hk * skv * D;
 
   // Keys at or past kv_lim are masked; the block needs keys up to its last
-  // row only.
+  // row's position only.
   const int kv_lim = min(kv_len, skv);
-  const int kv_end = min(kv_lim, min(q0 + BQ, sq));
+  const int kv_end = min(kv_lim, q_offset + min(q0 + BQ, sq));
   const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
 
   load_rows<D>(q_s, qh, q0, sq, tid);
@@ -124,6 +137,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int w0 = q0 + warp * 16;        // the warp's first row
   const int row0 = w0 + g;              // this lane's rows: row0, row0 + 8
+  const int wp0 = q_offset + w0;        // ... and their positions
+  const int pos0 = q_offset + row0;
   uint32_t qf[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
@@ -137,6 +152,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   const float scale_log2 = scale * kLog2e;
+  // max(s * scale) is max(s) * scale for scale >= 0 and min(s) * scale
+  // below 0 (rounding is monotone); a masked score takes the value that
+  // drops out of that reduction.
+  const bool neg = scale < 0.f;
+  const float fill = neg ? INFINITY : -INFINITY;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     if (kt > 0) {
@@ -150,7 +170,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     cp_async_commit();
     const int k0 = kt * BKV;
-    if (k0 > w0 + 15) continue;   // every key past every row of the warp
+    if (k0 > wp0 + 15) continue;   // every key past every row of the warp
     const bf16* ks_t = k_s + (kt & 1) * BKV * LD;
     const bf16* vs_t = v_s + (kt & 1) * BKV * LD;
 
@@ -170,40 +190,51 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
       }
 
-    // Row max of the scaled scores: max(s) * scale, since rounding is
-    // monotone; masked scores (only in a tile crossing the diagonal or
-    // kv_lim) drop out as -inf, so a row with no live key keeps -1e30.
-    const bool masked = k0 + BKV - 1 > w0 || k0 + BKV > kv_lim;
+    // Row max of the scaled scores (see `fill`); masked scores (only in a
+    // tile crossing the diagonal or kv_lim) drop out, so a row with no
+    // live key keeps -1e30.
+    const bool masked = k0 + BKV - 1 > wp0 || k0 + BKV > kv_lim;
     if (masked) {
 #pragma unroll
       for (int j = 0; j < SN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + j * 8 + 2 * t4 + (e & 1);
-          if (kp > row0 + (e >> 1) * 8 || kp >= kv_lim) s[j][e] = -INFINITY;
+          if (kp > pos0 + (e >> 1) * 8 || kp >= kv_lim) s[j][e] = fill;
         }
     }
-    float mx[2] = {-INFINITY, -INFINITY};
+    float mx[2] = {fill, fill};
+    if (neg) {
 #pragma unroll
-    for (int j = 0; j < SN; ++j)
+      for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fminf(mx[e >> 1], s[j][e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
     float corr[2], ls[2] = {0.f, 0.f}, mlog[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float o1 = __shfl_xor_sync(0xffffffffu, mx[r], 1);
+      mx[r] = neg ? fminf(mx[r], o1) : fmaxf(mx[r], o1);
+      const float o2 = __shfl_xor_sync(0xffffffffu, mx[r], 2);
+      mx[r] = neg ? fminf(mx[r], o2) : fmaxf(mx[r], o2);
       mx[r] = fmaxf(m_r[r], mx[r] * scale);
       corr[r] = ex2((m_r[r] - mx[r]) * kLog2e);
       mlog[r] = mx[r] * kLog2e;
     }
     // p = exp(s * scale - m) as 2^(s * scale log2 e - m log2 e): one FFMA
-    // and one ex2 per score; a masked score (-inf) gives 0.
+    // and one ex2 per score; a masked score gives 0 (set outright in a
+    // masked tile: at scale 0 its fill times 0 is not a number).
 #pragma unroll
     for (int j = 0; j < SN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = ex2(fmaf(s[j][e], scale_log2, -mlog[e >> 1]));
+        float p = ex2(fmaf(s[j][e], scale_log2, -mlog[e >> 1]));
+        if (masked && s[j][e] == fill) p = 0.f;
         ls[e >> 1] += p;
         s[j][e] = p;
       }
@@ -257,8 +288,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, int hq,
-             int sq, int skv, int kv_group, int kv_len, float scale,
-             cudaStream_t stream) {
+             int sq, int skv, int kv_group, int q_offset, int kv_len,
+             float scale, cudaStream_t stream) {
   static bool smem_set = false;   // raised once per head dim
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -272,8 +303,24 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int hq,
   flash_mma_kernel<D><<<(unsigned)blocks, NT, smem_bytes<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, sq, skv,
-      kv_group, kv_len, scale);
+      kv_group, q_offset, kv_len, scale);
   return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int hq,
+           int sq, int skv, int d, int kv_group, int q_offset, int kv_len,
+           float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_d<64>(q, k, v, out, hq, sq, skv, kv_group, q_offset,
+                        kv_len, scale, st);
+  if (d == 80)
+    return launch_d<80>(q, k, v, out, hq, sq, skv, kv_group, q_offset,
+                        kv_len, scale, st);
+  if (d == 128)
+    return launch_d<128>(q, k, v, out, hq, sq, skv, kv_group, q_offset,
+                         kv_len, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -284,15 +331,17 @@ extern "C" int repro_flash_static_mma_bf16(const void* q, const void* k,
                                            int sq, int skv, int d,
                                            int kv_group, int kv_len,
                                            float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_d<64>(q, k, v, out, hq, sq, skv, kv_group, kv_len, scale,
-                        st);
-  if (d == 80)
-    return launch_d<80>(q, k, v, out, hq, sq, skv, kv_group, kv_len, scale,
-                        st);
-  if (d == 128)
-    return launch_d<128>(q, k, v, out, hq, sq, skv, kv_group, kv_len, scale,
-                         st);
-  return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len, scale,
+                stream);
+}
+
+// The offset branch (K2): query row i at position q_offset + i.
+extern "C" int repro_flash_offset_mma_bf16(const void* q, const void* k,
+                                           const void* v, void* out, int hq,
+                                           int sq, int skv, int d,
+                                           int kv_group, int q_offset,
+                                           int kv_len, float scale,
+                                           void* stream) {
+  return launch(q, k, v, out, hq, sq, skv, d, kv_group, q_offset, kv_len,
+                scale, stream);
 }

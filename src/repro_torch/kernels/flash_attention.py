@@ -8,13 +8,13 @@ reference wrapper does.  Each launches its entry point on a CUDA tensor
 and runs its plain version (``ref.flash_attention_offset`` /
 ``ref.flash_attention_static``) on a CPU tensor;
 ``flash_attention_2d.launches`` counts offset launches and
-``flash_attention_static.launches`` static ones.  The static branch in
-bfloat16 runs on the tensor cores (``csrc/flash_mma.cu``); in float32 it
-and every offset branch run the CUDA-core kernel of
+``flash_attention_static.launches`` static ones.  Both branches in
+bfloat16 run on the tensor cores (one device function,
+``csrc/flash_mma.cu``); in float32 both run the CUDA-core kernel of
 ``csrc/flash_attention.cu``.  ``flash_attention_2d_q`` is the offset
-branch over int8 / fp8-e4m3 codes with per-position scales
-(its own entry points and count; plain version
-``ref.flash_attention_offset`` with scales).  The CUDA kernel covers
+branch over int8 / fp8-e4m3 codes with per-position scales (its own
+entry points and count; plain version ``ref.flash_attention_offset`` with
+scales), on the CUDA-core kernel in both dtypes.  The CUDA kernels cover
 what the main paths run (causal, no sliding window, head dim 64 or 128,
 and for the static branch also 80 for zamba2's shared block); on the
 card the rest is refused until a slice whose config needs it adds it.
@@ -41,14 +41,14 @@ STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
 @functools.lru_cache(maxsize=None)
 def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     """``branch``: "offset", "static" or "offset_q" (``code`` "i8" or
-    "fp8").  The static branch in bf16 is the tensor-core kernel of
-    ``csrc/flash_mma.cu``; every other entry point runs the CUDA-core
+    "fp8").  The full-precision branches in bf16 are the tensor-core kernel
+    of ``csrc/flash_mma.cu``; every other entry point runs the CUDA-core
     device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     ints = [i] * (6 if branch == "static" else 7)
     ptrs = 6 if branch == "offset_q" else 4
-    if branch == "static" and dtype == torch.bfloat16:
-        lib, sym = _build.load("flash_mma"), "repro_flash_static_mma_bf16"
+    if branch != "offset_q" and dtype == torch.bfloat16:
+        lib, sym = _build.load("flash_mma"), f"repro_flash_{branch}_mma_bf16"
     else:
         lib = _build.load("flash_attention")
         sym = (f"repro_flash_{branch}_"
@@ -117,6 +117,8 @@ def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_group=kv_group, scale=scale, causal=causal, window=window,
             block_kv=block_kv)
     _check_cuda("flash_attention_2d", q, k, v, causal, window)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("offset", q.dtype)(
@@ -148,9 +150,6 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
     _check_cuda("flash_attention_static", q, k, v, causal, window,
                 head_dims=STATIC_HEAD_DIMS)
     if q.dtype == torch.bfloat16:
-        if not scale > 0:
-            raise ValueError("flash_attention_static: the tensor-core "
-                             f"kernel takes a positive scale, got {scale}")
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

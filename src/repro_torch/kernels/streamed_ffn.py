@@ -3,46 +3,69 @@ the RMSNorm folded in, and the ungated ``streamed_mlp``.
 
 Each launches its entry points in ``csrc/streamed_ffn.cu`` on a CUDA tensor
 and runs its plain version (``ref.streamed_ffn`` / ``ref.streamed_mlp``)
-on a CPU tensor; ``.launches`` on each counts its kernel launches.
+on a CPU tensor; ``.launches`` on each counts its calls that launch.
 ``streamed_ffn_w8`` / ``streamed_mlp_w8`` are their weight-only int8
 twins (int8 codes with float32 per-output-channel scales; plain versions
 ``ref.streamed_ffn_w8`` / ``ref.streamed_mlp_w8``), with their own
-counts.  The
-CUDA kernel covers what the main paths run: for ``streamed_ffn`` SiLU
-with the norm folded in (llama3) and GELU without a folded norm
-(zamba2's shared block), GELU without a folded norm for
-``streamed_mlp`` (gpt2).  On the card the other cases (GELU with a
-folded norm among them) are refused until a slice whose config needs
-them adds them; the plain versions cover them all.
+counts.  bfloat16 runs the tensor-core kernel (``ffn_mma_kernel``, planned
+by ``common.ffn_plan``: one fused launch up to 64 rows, two passes through
+h above), float32 the CUDA-core kernel (its F partials summed by a second
+launch), which keeps float32 products exact.  The CUDA kernels cover what
+the main paths run: for ``streamed_ffn`` SiLU with the norm folded in
+(llama3) and GELU without a folded norm (zamba2's shared block), GELU
+without a folded norm for ``streamed_mlp`` (gpt2).  On the card the other
+cases (GELU with a folded norm among them) are refused until a slice
+whose config needs them adds them; the plain versions cover them all.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build, ref
-from .common import (ROW_INVARIANT_T, check_cuda_operands, check_launch,
-                     kernel_path)
+from .common import (FFN_BF, FFN_BN, FFN_BT, ROW_INVARIANT_T, cdiv,
+                     check_cuda_operands, check_launch, ffn_plan,
+                     kernel_path, round_up, sm_count)
 
-# Tile classes of csrc/streamed_ffn.cu: (largest T, BF).  Up to
-# ROW_INVARIANT_T rows every class has BF = 64, so each output row sums the
-# same F partials in the same order at any T there.
+# Tile classes of the float32 kernel in csrc/streamed_ffn.cu: (largest T,
+# BF).  Up to ROW_INVARIANT_T rows every class has BF = 64, so each output
+# row sums the same F partials in the same order at any T there.
 _TILES = ((16, 64), (ROW_INVARIANT_T, 64), (None, 128))
 _ACTS = ("silu", "gelu")          # the plain versions'
+# Per device, the bf16 kernel's split workspace: float32 partials [splits,
+# T, D] and one int32 arrival counter per output tile, all 0 between
+# launches (the last block on a tile resets its own).  Calls on one stream
+# run one after another, so one workspace serves them; it grows to the
+# largest split seen (234 MB at llama3's 64 rows, 21 MB at its 128-row
+# chunk).
+_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+# The C signature's pointer operands, in order (null where unused).
+_OPERANDS = ("nscale", "wg", "gs", "wu", "us", "wd", "ds")
+# The float32 entry points' pointer operands, per kind.
+_F32_OPERANDS = {
+    "ffn": ("nscale", "wg", "wu", "wd"),
+    "ffn_gelu": ("wg", "wu", "wd"),
+    "mlp": ("wu", "wd"),
+    "ffn_w8": ("nscale", "wg", "gs", "wu", "us", "wd", "ds"),
+    "ffn_gelu_w8": ("wg", "gs", "wu", "us", "wd", "ds"),
+    "mlp_w8": ("wu", "us", "wd", "ds"),
+}
 
 
 def tile_class(t: int) -> int:
-    """Index into ``_TILES`` of the kernel's tile shape for T rows."""
+    """Index into ``_TILES`` of the float32 kernel's tile shape for T
+    rows."""
     return next(i for i, (top, _) in enumerate(_TILES)
                 if top is None or t <= top)
 
 
 def workspace_shape(t: int, d: int, f: int):
-    """Float32 partials [F / BF, T, D] the kernel sums in a second pass."""
+    """Float32 partials [F / BF, T, D] the float32 kernel sums in a second
+    pass."""
     bf = _TILES[tile_class(t)][1]
     return (-(-f // bf), t, d)
 
@@ -50,15 +73,29 @@ def workspace_shape(t: int, d: int, f: int):
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str, dtype: torch.dtype):
     """``kind``: "ffn" (GLU, SiLU, folded norm), "ffn_gelu" (GLU, GELU, no
-    norm) or "mlp" (ungated, no norm), with "_w8" for the int8 twin."""
+    norm) or "mlp" (ungated, no norm), with "_w8" for the int8 twin.  The
+    bf16 entry points (the tensor-core kernel) share one signature."""
     lib = _build.load("streamed_ffn")
-    sym = (f"repro_streamed_{kind}_"
-           + ("bf16" if dtype == torch.bfloat16 else "f32"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ptrs = {"ffn": 7, "ffn_gelu": 6, "mlp": 5, "ffn_w8": 10,
-            "ffn_gelu_w8": 9, "mlp_w8": 7}[kind]
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, f"repro_streamed_{kind}_mma_bf16",
+                              [vp] * 13 + [i] * 7 + [ctypes.c_float, vp])
     tail = [ctypes.c_float, vp] if kind in ("ffn", "ffn_w8") else [vp]
-    return _build.declare(lib, sym, [vp] * ptrs + [i] * 4 + tail)
+    return _build.declare(lib, f"repro_streamed_{kind}_f32",
+                          [vp] * (len(_F32_OPERANDS[kind]) + 3) + [i] * 4
+                          + tail)
+
+
+def _workspace(device: torch.device, floats: int, tiles: int):
+    """(partials, counters) with room for ``floats`` and ``tiles``."""
+    part, ctr = _WORKSPACE.get(device, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                           device=device)
+    if ctr is None or ctr.numel() < tiles:
+        ctr = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+    _WORKSPACE[device] = part, ctr
+    return part, ctr
 
 
 def _check_w8(name: str, x, codes, scales) -> None:
@@ -83,17 +120,43 @@ def _glu_kind(name: str, activation: str, norm_scale) -> str:
                         else ", no norm_scale"))
 
 
-def _run(kind: str, name: str, x, ptrs, d: int, f: int, eps=None):
-    """Allocate the output and the F-partials workspace and launch."""
+def _run(kind: str, name: str, x, d: int, f: int, eps: float = 0.0,
+         **ops):
+    """Allocate the output and the workspace and launch; ``ops`` holds the
+    named operands of ``_OPERANDS`` the kind takes."""
     t = x.shape[0]
-    out = torch.empty((t, d), dtype=x.dtype, device=x.device)
-    part = torch.empty(workspace_shape(t, d, f), dtype=torch.float32,
-                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    tail = [] if eps is None else [float(eps)]
+    dev = x.device
+    out = torch.empty((t, d), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if x.dtype != torch.bfloat16:
+        part = torch.empty(workspace_shape(t, d, f), dtype=torch.float32,
+                           device=dev)
+        tail = [float(eps)] if kind in ("ffn", "ffn_w8") else []
+        status = _entry(kind, x.dtype)(
+            x.data_ptr(), *(ops[k].data_ptr() for k in _F32_OPERANDS[kind]),
+            out.data_ptr(), part.data_ptr(), t, d, f, tile_class(t), *tail,
+            stream)
+        check_launch(name, status)
+        return out
+    mode, f_per_split, splits = ffn_plan(t, d, f, sm_count(dev))
+    part = ctr = h = xn = None
+    if splits > 1:
+        part, ctr = _workspace(dev, splits * t * d,
+                               cdiv(d, FFN_BN) * cdiv(t, FFN_BT))
+    if mode == 1:
+        planes = 2 if kind.endswith("_w8") else 1
+        h = torch.empty((planes, t, round_up(f, FFN_BF)),
+                        dtype=torch.bfloat16, device=dev)
+        if "nscale" in ops:
+            xn = torch.empty((t, d), dtype=x.dtype, device=dev)
+    tensors = [x] + [ops[k] for k in ("wg", "wu", "wd") if k in ops]
+    aligned = (d % 16 == 0 and f % 16 == 0
+               and all(o.data_ptr() % 16 == 0 for o in tensors))
+    ptr = (lambda o: o.data_ptr() if o is not None else None)
     status = _entry(kind, x.dtype)(
-        x.data_ptr(), *(p.data_ptr() for p in ptrs), out.data_ptr(),
-        part.data_ptr(), t, d, f, tile_class(t), *tail, stream)
+        x.data_ptr(), *(ptr(ops.get(k)) for k in _OPERANDS), out.data_ptr(),
+        ptr(part), ptr(ctr), ptr(h), ptr(xn), t, d, f, mode, f_per_split,
+        splits, int(aligned), float(eps), stream)
     check_launch(name, status)
     return out
 
@@ -122,11 +185,9 @@ def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     check_cuda_operands("streamed_ffn", x.dtype, *ops)
     if any(o.dtype != x.dtype for o in ops):
         raise TypeError("streamed_ffn: operands must share the x dtype")
-    if kind == "ffn":
-        out = _run(kind, "streamed_ffn", x, (norm_scale, wg, wu, wd), d, f,
-                   norm_eps)
-    else:
-        out = _run(kind, "streamed_ffn", x, (wg, wu, wd), d, f)
+    norm = {"nscale": norm_scale} if kind == "ffn" else {}
+    out = _run(kind, "streamed_ffn", x, d, f, norm_eps, wg=wg, wu=wu, wd=wd,
+               **norm)
     streamed_ffn.launches += 1
     return out
 
@@ -160,7 +221,7 @@ def streamed_mlp(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
     check_cuda_operands("streamed_mlp", x.dtype, x, wu, wd)
     if wu.dtype != x.dtype or wd.dtype != x.dtype:
         raise TypeError("streamed_mlp: operands must share the x dtype")
-    out = _run("mlp", "streamed_mlp", x, (wu, wd), d, f)
+    out = _run("mlp", "streamed_mlp", x, d, f, wu=wu, wd=wd)
     streamed_mlp.launches += 1
     return out
 
@@ -198,15 +259,14 @@ def streamed_ffn_w8(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     kind = _glu_kind("streamed_ffn_w8", activation, norm_scale) + "_w8"
     _check_w8("streamed_ffn_w8", x, (wg, wu, wd),
               (wg_scale, wu_scale, wd_scale))
-    weights = (wg, wg_scale, wu, wu_scale, wd, wd_scale)
+    norm = {}
     if kind == "ffn_w8":
         if norm_scale.dtype != x.dtype or not norm_scale.is_contiguous():
             raise TypeError("streamed_ffn_w8: norm_scale must be a "
                             "contiguous tensor of x's dtype")
-        out = _run(kind, "streamed_ffn_w8", x, (norm_scale,) + weights, d,
-                   f, norm_eps)
-    else:
-        out = _run(kind, "streamed_ffn_w8", x, weights, d, f)
+        norm = {"nscale": norm_scale}
+    out = _run(kind, "streamed_ffn_w8", x, d, f, norm_eps, wg=wg,
+               gs=wg_scale, wu=wu, us=wu_scale, wd=wd, ds=wd_scale, **norm)
     streamed_ffn_w8.launches += 1
     return out
 
@@ -243,8 +303,8 @@ def streamed_mlp_w8(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
                          + (", a norm_scale" if norm_scale is not None
                             else ""))
     _check_w8("streamed_mlp_w8", x, (wu, wd), (wu_scale, wd_scale))
-    out = _run("mlp_w8", "streamed_mlp_w8", x, (wu, wu_scale, wd, wd_scale),
-               d, f)
+    out = _run("mlp_w8", "streamed_mlp_w8", x, d, f, wu=wu, us=wu_scale,
+               wd=wd, ds=wd_scale)
     streamed_mlp_w8.launches += 1
     return out
 

@@ -1,5 +1,6 @@
-"""The tensor-core kernels K5 (``block_matmul``) and K7 (the static branch
-of flash attention) in bf16, on the CPU.
+"""The tensor-core kernels K5 (``block_matmul``), K7 and K2 (the static
+and offset branches of flash attention) and the streamed FFN (K4, K6,
+K10b, K10c) in bf16, on the CPU.
 
 Their CUDA code runs only on the card (``chip_smoke.py`` holds it there
 against the plain versions, row by row and bit for bit where the paths
@@ -8,9 +9,12 @@ rows, the route each dtype and branch takes to its C entry point (a fake
 library stands in for the build), the profile's attribution of every
 ``__global__`` function, and the plain static attention against the
 interpret-mode Pallas kernel at the new kernel's tile edges.
+The offset attention's (K2) is in ``test_torch_tensorcore_offset.py``, the
+FFN's plan and arguments are in ``test_torch_tensorcore_ffn.py``.
 """
 
 import ast
+import functools
 import importlib
 import math
 import re
@@ -34,6 +38,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # The wrapper modules (the package exports functions of the same names).
 bm_mod = importlib.import_module("repro_torch.kernels.block_matmul")
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+ffn_mod = importlib.import_module("repro_torch.kernels.streamed_ffn")
 # (K, N) of every block_matmul call on a path: gpt2's projections and LM
 # head, llama3's o-projection, granite-3b's router and o-projection,
 # zamba2's o-projection, rwkv6's LM head.
@@ -73,16 +78,17 @@ def card_route(monkeypatch):
     """Force the CUDA route for CPU tensors, with every library a
     ``_FakeLib``; returns the list of recorded launches."""
     calls = []
-    for mod in (bm_mod, fa_mod):
+    for mod in (bm_mod, fa_mod, ffn_mod):
         monkeypatch.setattr(mod, "kernel_path", lambda t: "cuda")
         mod._entry.cache_clear()
-    monkeypatch.setattr(bm_mod, "sm_count", lambda device: 132)
-    monkeypatch.setattr(bm_mod, "_WORKSPACE", {})
+    for mod in (bm_mod, ffn_mod):
+        monkeypatch.setattr(mod, "sm_count", lambda device: 132)
+        monkeypatch.setattr(mod, "_WORKSPACE", {})
     monkeypatch.setattr(_build, "load", lambda name: _FakeLib(name, calls))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: types.SimpleNamespace(cuda_stream=0))
     yield calls
-    for mod in (bm_mod, fa_mod):
+    for mod in (bm_mod, fa_mod, ffn_mod):
         mod._entry.cache_clear()
 
 
@@ -101,7 +107,32 @@ def _codes(dtype, code):
     return q, c, c, dict(k_scale=torch.ones(2, 40), v_scale=torch.ones(2, 40))
 
 
+def _ffn(dtype, kind):
+    """A call of one FFN instance at 4 rows, D 32, F 64 (int8 codes and
+    float32 scales for the twins)."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 32, generator=gen).to(dtype)
+    w = torch.randn(32, 64, generator=gen).to(dtype)
+    wd = torch.randn(64, 32, generator=gen).to(dtype)
+    s = torch.zeros(32, dtype=dtype)
+    c, cd = w.to(torch.int8), wd.to(torch.int8)
+    q8 = dict(wu_scale=torch.ones(64), wd_scale=torch.ones(32))
+    return {
+        "ffn": lambda: K.streamed_ffn(x, w, w, wd, norm_scale=s),
+        "ffn_gelu": lambda: K.streamed_ffn(x, w, w, wd, activation="gelu"),
+        "mlp": lambda: K.streamed_mlp(x, w, wd),
+        "ffn_w8": lambda: K.streamed_ffn_w8(
+            x, c, c, cd, wg_scale=torch.ones(64), norm_scale=s, **q8),
+        "ffn_gelu_w8": lambda: K.streamed_ffn_w8(
+            x, c, c, cd, wg_scale=torch.ones(64), activation="gelu", **q8),
+        "mlp_w8": lambda: K.streamed_mlp_w8(x, c, cd, **q8)}[kind]()
+
+
 BF16, F32 = torch.bfloat16, torch.float32
+FFN_COUNTERS = {"ffn": K.streamed_ffn, "ffn_gelu": K.streamed_ffn,
+                "mlp": K.streamed_mlp, "ffn_w8": K.streamed_ffn_w8,
+                "ffn_gelu_w8": K.streamed_ffn_w8,
+                "mlp_w8": K.streamed_mlp_w8}
 ROUTES = {
     # case: (call, library, symbol, wrapper whose count rises)
     "block_matmul bf16": (
@@ -125,9 +156,16 @@ ROUTES = {
         lambda: K.flash_attention_2d(*_qkv(F32), kv_group=2),
         "flash_attention", "repro_flash_static_f32",
         K.flash_attention_static),
+    "static bf16, negative scale": (
+        lambda: K.flash_attention_2d(*_qkv(BF16), kv_group=2, scale=-0.125),
+        "flash_mma", "repro_flash_static_mma_bf16", K.flash_attention_static),
     "offset bf16 (K2)": (
         lambda: K.flash_attention_2d(*_qkv(BF16), q_offset=0, kv_group=2),
-        "flash_attention", "repro_flash_offset_bf16", K.flash_attention_2d),
+        "flash_mma", "repro_flash_offset_mma_bf16", K.flash_attention_2d),
+    "offset bf16 D=128, negative scale (K2)": (
+        lambda: K.flash_attention_2d(*_qkv(BF16, 128), q_offset=24,
+                                     kv_len=40, kv_group=2, scale=-0.1),
+        "flash_mma", "repro_flash_offset_mma_bf16", K.flash_attention_2d),
     "offset f32 (K2)": (
         lambda: K.flash_attention_2d(*_qkv(F32), q_offset=0, kv_group=2),
         "flash_attention", "repro_flash_offset_f32", K.flash_attention_2d),
@@ -144,6 +182,14 @@ ROUTES = {
         "flash_attention", "repro_flash_offset_q_f32_fp8",
         K.flash_attention_2d_q),
 }
+# Every FFN instance: bf16 to the tensor-core entry point, f32 to the
+# CUDA-core one.
+ROUTES.update({
+    f"{kind} {name}": (functools.partial(_ffn, dtype, kind), "streamed_ffn",
+                       f"repro_streamed_{kind}_{sym}", FFN_COUNTERS[kind])
+    for kind in FFN_COUNTERS
+    for name, dtype, sym in (("bf16", BF16, "mma_bf16"),
+                             ("f32", F32, "f32"))})
 
 
 @pytest.mark.parametrize("case", sorted(ROUTES))
@@ -215,14 +261,16 @@ def _own_kernels():
 
 def test_profile_attributes_every_global_function():
     names = _global_functions()
-    assert {"flash_mma_kernel", "block_mma_kernel",
-            "flash_offset_kernel", "tiled_matmul_kernel"} <= names
+    assert {"flash_mma_kernel", "block_mma_kernel", "ffn_mma_kernel",
+            "rms_rows_kernel", "flash_offset_kernel",
+            "tiled_matmul_kernel", "streamed_ffn_kernel"} <= names
     keys = [k for k, _ in _own_kernels()]
     unmatched = sorted(n for n in names if not any(k in n for k in keys))
     assert not unmatched, unmatched
     # The new kernels go under their own stage, not under the old ones'.
     stage = dict(_own_kernels())
-    for name in ("flash_mma_kernel", "block_mma_kernel"):
+    for name in ("flash_mma_kernel", "block_mma_kernel", "ffn_mma_kernel",
+                 "rms_rows_kernel"):
         hits = [k for k in stage if k in name]
         assert len(hits) == 1, (name, hits)
 
@@ -244,3 +292,4 @@ def test_plain_static_flash_matches_pallas_at_tile_edges(s, d):
                       kv_group=4, scale=1.0 / math.sqrt(d))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
