@@ -45,6 +45,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               64 rows (required), and zamba2's GELU GLU and its int8 twin
               (required); the eager plan's PyTorch calls at those
               shapes are reported beside them;
+   paged_split — the split paged attention (K1, K8, K9a, K9b) at its
+              partition, tile and page edges: 9 slots of lengths 0, 1,
+              15, 16, 17, P - 1, P, P + 1 and the extent (320 positions,
+              P = ``PAGED_PART``; verify windows of 5 rows whose first row
+              sees those lengths), decode and verify, head dims 64 and
+              128 (and 80 for decode), GQA groups 1 and 4, bfloat16 and
+              float32, over full-precision, int8 and fp8 pools: each call
+              against its plain version (``TOL``), repeated bit for bit,
+              each verify row equal to the decode kernel at its length,
+              each slot served alone equal to the same slot in the batch,
+              and a shuffled page table equal to the identity one over the
+              same pages (all required); kernel time, HBM rate of the live
+              K/V and the number of live blocks;
    tensorcore, tensorcore_prefix, tensorcore_offset, tensorcore_rows —
               the tensor-core kernels in bfloat16 beyond the paths' shapes:
               K7 at S = 1, 37, 63, 64, 65, 999, 1000 and 2048 with head dims
@@ -1556,6 +1569,117 @@ def check_row_invariance(torch):
     return out
 
 
+# The split paged attention (K1, K8, K9a, K9b) at its edges: slots whose
+# lengths sit on the page (16), tile (32) and partition (PAGED_PART)
+# boundaries and at the extent, which ends in a partial partition.
+SPLIT_MAXP = 20                   # 320 positions: partitions 128, 128, 64
+SPLIT_HKV = 8
+SPLIT_D = (64, 80, 128)           # 80: decode only (zamba2's shared block)
+SPLIT_G = (1, 4)
+
+
+def _identity_pages(torch, ref, kp, vp, sc, table):
+    """The pools rearranged so that slot i's page j is page 1 + i maxp + j,
+    with that identity table: the same K/V (and scales) at every position
+    as ``table`` reads from ``kp`` / ``vp`` (fp8 codes moved as bytes)."""
+    src = torch.cat([table.new_zeros(1), table.reshape(-1)]).long()
+    ident = torch.arange(1, table.numel() + 1, dtype=torch.int32,
+                         device=table.device).reshape(table.shape)
+    scales = {k: v[src].contiguous() for k, v in sc.items()}
+    kp, vp = (ref.code_view(t)[src].view(t.dtype).contiguous()
+              for t in (kp, vp))
+    return kp, vp, scales, ident
+
+
+def _split_case(torch, K, ref, timer, randn, gen, dtype, d, g, code, w,
+                dev="cuda"):
+    """One decode (w = 1) or verify call over slots at the edge lengths
+    (verify: row 0 sees them): the required checks and the measurements,
+    as one row."""
+    from repro_torch.kernels.common import PAGED_PART, cdiv
+    dname = str(dtype).split(".")[-1]
+    isz = torch.empty((), dtype=dtype).element_size()
+    part, ps = PAGED_PART, 16
+    extent = SPLIT_MAXP * ps
+    lens = [0, 1, 15, 16, 17, part - 1, part, part + 1, extent]
+    b, hkv, hq = len(lens), SPLIT_HKV, SPLIT_HKV * g
+    kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b,
+                                               SPLIT_MAXP, hkv, d, code, dev)
+    q = randn(b, w, hq, d)
+    if w == 1:
+        base = lens
+        fn = K.paged_decode_attention if code is None \
+            else K.paged_decode_attention_q
+        plain = ref.paged_decode_attention
+    else:
+        base = [n - 1 for n in lens[:-1]] + [extent - w]
+        fn = K.paged_verify_attention if code is None \
+            else K.paged_verify_attention_q
+        plain = ref.paged_verify_attention
+    decode = K.paged_decode_attention if code is None \
+        else K.paged_decode_attention_q
+    bt = torch.tensor(base, dtype=torch.int32, device=dev)
+    call = lambda: fn(q, kp, vp, table, bt, **sc)
+    out, again = call(), call()
+    want = plain(q, kp, vp, table, bt, **sc)
+    _sync(torch, dev)
+    rel = _rel(out.float(), want.float())
+    checks = {"repeat": bool(torch.equal(out, again)),
+              "zero_row": not bool(out[0, 0].any())}
+    if w > 1:
+        checks["rows_equal_decode"] = all(
+            bool(torch.equal(out[:, i:i + 1], decode(
+                q[:, i:i + 1].contiguous(), kp, vp, table, bt + i + 1,
+                **sc))) for i in range(w))
+    checks["alone_equal_batch"] = all(
+        bool(torch.equal(fn(q[i:i + 1], kp, vp, table[i:i + 1].contiguous(),
+                            bt[i:i + 1], **sc), out[i:i + 1]))
+        for i in range(b))
+    ikp, ivp, isc, itable = _identity_pages(torch, ref, kp, vp, sc, table)
+    checks["identity_equal_shuffled"] = bool(torch.equal(
+        fn(q, ikp, ivp, itable, bt, **isc), out))
+    deepest = [min(max(n + (w > 1) + w - 1, 0), extent) for n in base]
+    live_kv = sum(deepest) * hkv * d * 2
+    nbytes = (2 * q.numel() * isz + live_kv * (per_elem or isz)
+              + table.numel() * 4 + b * 4)
+    ms = timer(call)
+    row = {"phase": "paged_split", "name": fn.__name__, "dtype": dname,
+           "head_dim": d, "group": g, "window": w, "codes": code,
+           "lengths" if w == 1 else "q_off": base, "rel_err": rel,
+           "tol": TOL[dname], **checks,
+           "ok": bool(rel <= TOL[dname] and math.isfinite(rel)
+                      and all(checks.values())),
+           "ms": ms, "bytes": nbytes, "hbm_gb_s": nbytes / ms / 1e6,
+           "live_blocks": sum(hkv * cdiv(n, part) for n in deepest),
+           "grid_blocks": b * hkv * cdiv(extent, part)}
+    emit(row)
+    return row
+
+
+def check_paged_split(torch, timer, dev="cuda"):
+    """The ``paged_split`` phase (see the module docstring); raises when a
+    required check fails."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        randn = _randn(torch, gen, dtype, dev)
+        for d in SPLIT_D:
+            for g in SPLIT_G:
+                for code in (None,) + CODES:
+                    for w in ((1,) if d == 80 else (1, WINDOW)):
+                        rows.append(_split_case(torch, K, ref, timer, randn,
+                                                gen, dtype, d, g, code, w,
+                                                dev))
+    bad = [f"{r['name']} {r['dtype']} D={r['head_dim']} G={r['group']} "
+           f"W={r['window']} codes={r['codes']} rel {r['rel_err']}"
+           for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError("split paged attention: " + "; ".join(bad))
+    return rows
+
+
 # The tensor-core kernels (bf16) beyond the paths' own shapes: K7 at its
 # 64-row / 64-key tile edges and at long prompts, over head dims and GQA
 # groups; K5 in every tile class (1-16, 17-64 and more rows), splitting and
@@ -2526,6 +2650,7 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3, f32 K5)"),
                ("flash_offset_kernel", "attention (K9c, f32 K2/K7)"),
                ("xent_", "loss (K11)"),
                ("paged_window_kernel", "paged attention (K1, K8, K9a/b)"),
+               ("paged_combine_kernel", "paged attention (K1, K8, K9a/b)"),
                ("row_norm_kernel", "row norms"),
                ("convert_kernel", "layout converter (K15)"))
 
@@ -2941,6 +3066,7 @@ def main(argv=None) -> int:
     rows = check_kernels(torch, timer)
     results["kernel_checks"] = rows
     results["row_invariance"] = check_row_invariance(torch)
+    results["paged_split"] = check_paged_split(torch, timer)
     results["tensorcore"] = check_tensorcore(torch, timer)
     results["compile"] = compile_path(torch, timer)
     models = {"llama3-8b": (llama, False, 2048, 1000),

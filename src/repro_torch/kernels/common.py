@@ -167,6 +167,24 @@ def ffn_plan(t: int, d: int, f: int, sms: int):
     return 1, f_per_split, cdiv(f, f_per_split)
 
 
+# Mirrors csrc/paged_attention.cu's split of a slot's keys (K1, K8, K9a,
+# K9b): block (slot, KV head, p) owns positions [p P, (p + 1) P) of the
+# slot's page-table extent, P = PAGED_PART, a multiple of the 16-token
+# page and of the kernel's 32-position tile.
+PAGED_PART = 128
+
+
+def paged_plan(extent: int) -> int:
+    """Partitions of a slot's page-table extent (``maxp * page_size``
+    positions) for the paged attention kernels: ``cdiv(extent,
+    PAGED_PART)``.  The partition size is one constant, never a function
+    of the lengths, the window, the batch or the card: a row's float32
+    operations then depend on its length alone, which keeps every verify
+    row bit-equal to decode at its length and a slot's bits independent
+    of the other slots."""
+    return cdiv(extent, PAGED_PART)
+
+
 def kernel_path(t: torch.Tensor) -> str:
     """'plain' for a CPU tensor, 'cuda' for a CUDA tensor; anything else
     (meta, mps, ...) is refused."""

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 kernels that run on
 // Hopper's tensor cores through warp-level MMA (block_matmul.cu's
 // block_mma_kernel, K5; flash_mma.cu's flash_mma_kernel, K7 and K2;
-// streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c):
+// streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c; the cp.async
+// copies also feed paged_attention.cu's CUDA-core K1, K8, K9a and K9b):
 //   cp.async 16-byte copies from global to shared memory (zero-filled when
 //     the source is out of range), committed and waited on in groups;
 //   ldmatrix (.trans) loads of four 8x8 bf16 tiles into the fragments of

@@ -6,12 +6,15 @@ Every wrapper launches the one window kernel in ``csrc/paged_attention.cu``
 on a CUDA tensor (decode is the window at W = 1; the ``_q`` twins read
 code pools) and runs its plain version (``ref.paged_decode_attention`` /
 ``ref.paged_verify_attention``, with scales for the twins) on a CPU
-tensor; ``.launches`` on each counts its own kernel launches.  The CUDA
-kernel covers what the main paths run (no sliding window, head dim 64 for
-gpt2 or 128 for llama3, and for decode also 80 for zamba2's shared
-block, up to ``MAX_ROWS`` window rows per KV head); on the card the rest
-is refused until a slice whose config needs it adds it.  The plain
-versions cover it all.
+tensor; ``.launches`` on each counts its own calls of the kernel (one per
+call: the split kernel and the fold of its partitions).  The kernel splits
+a slot's keys into ``common.paged_plan(extent)`` partitions of
+``PAGED_PART`` positions; the wrapper allocates their float32 partials
+per call.  The CUDA kernel covers what the main paths run (no sliding
+window, head dim 64 for gpt2 or 128 for llama3, and for decode also 80
+for zamba2's shared block, up to ``MAX_ROWS`` window rows per KV head);
+on the card the rest is refused until a slice whose config needs it adds
+it.  The plain versions cover it all.
 """
 
 from __future__ import annotations
@@ -24,8 +27,8 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
-                     kernel_path)
+from .common import (CODE_DTYPES, PAGED_PART, check_cuda_operands,
+                     check_launch, kernel_path, paged_plan)
 
 HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (verify)
 DECODE_HEAD_DIMS = (64, 80, 128)    # ... and decode's (K1, K9a)
@@ -38,13 +41,13 @@ def _entry(dtype: torch.dtype, code: Optional[torch.dtype] = None):
     lib = _build.load("paged_attention")
     tname = "bf16" if dtype == torch.bfloat16 else "f32"
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ints = [i] * 8 + [ctypes.c_float, vp]
+    ints = [i] * 9 + [ctypes.c_float, vp]
     if code is None:
         return _build.declare(lib, f"repro_paged_window_{tname}",
-                              [vp] * 6 + ints)
+                              [vp] * 7 + ints)
     return _build.declare(
         lib, f"repro_paged_window_q_{tname}_{CODE_DTYPES[code]}",
-        [vp] * 8 + ints)
+        [vp] * 9 + ints)
 
 
 def _check_shapes(name, q, k_pool, v_pool, page_table, base) -> None:
@@ -93,14 +96,23 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
                          f"{head_dims}, up to {MAX_ROWS} window rows x query "
                          f"heads per KV head, no window; got head dim {d}, "
                          f"{w} x {g} rows, window {window}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies pool rows in 16-byte "
+                         "vectors; the pools must start at 16-byte aligned "
+                         "addresses")
+    maxp = page_table.shape[1]
+    # The partitions' float32 (acc [D], m, l) per output row.
+    part = torch.empty(b * w * hq * paged_plan(maxp * ps) * (d + 2),
+                       dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr()]
     ptrs += [t.data_ptr() for t in scales]
-    ptrs += [page_table.data_ptr(), base.data_ptr(), out.data_ptr()]
+    ptrs += [page_table.data_ptr(), base.data_ptr(), part.data_ptr(),
+             out.data_ptr()]
     status = _entry(q.dtype, code if quant else None)(
-        *ptrs, b, hkv, g, w, extra, d, ps, page_table.shape[1],
-        float(scale), stream)
+        *ptrs, b, hkv, g, w, extra, d, ps, maxp, PAGED_PART, float(scale),
+        stream)
     check_launch(name, status)
     return out
 
