@@ -31,7 +31,8 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               against its own scale, its final LayerNorm rows and LM head
               (K5, Vp 65536) at 1, 4 and 1000 rows, and its loss),
               in bfloat16 and float32: max error against the stated
-              tolerance, kernel / plain / library times (CUDA events, L2
+              tolerance (the losses' parts in nats: 5e-4, since lse is
+              about log V), kernel / plain / library times (CUDA events, L2
               flushed between launches) and the card's bound; every row
               of each verify kernel equals its decode kernel at that
               row's length, bit for bit; K12's bound counts the experts
@@ -72,11 +73,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               SiLU with the folded norm and GELU, K6, K10b, K10c) at 1 to
               4096 rows at its path's (D, F) and at an unaligned shape
               against its plain version, the worst error of each reported;
+              K3 and K10a (q/k/v shapes; K3 also the LM heads) at 1 to 4096
+              rows at each path's (D, N) and an unaligned shape against
+              their plain versions and ``F.rms_norm`` + ``torch.matmul``;
+              K11 at each training path's step, at 1000 tokens, at a padded
+              vocabulary of partial 128-column tiles with labels on its
+              padded columns (their weights 8x the real ones) and
+              unaligned, against its plain version (within 5e-4 nats) and
+              ``h @ W``, ``logsumexp`` and ``gather``;
               every call repeated bit for bit (required); K7's rows 0..999
               equal at S = 1000 and S = 2048 on the same prefix, K2's rows
               equal to K7's rows at the same positions of the whole prompt,
-              and each FFN instance's rows equal at 1 to 64 rows
-              (required);
+              and each FFN instance's, K3's and K10a's rows equal at 1 to 64
+              rows (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
               one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
@@ -133,7 +142,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               burst must launch exactly its path's kernels (the quantized
               twins, and never K1, K2 or K8, under KV quantization) and
               complete every request; the first prompt served alone must
-              repeat its burst tokens;
+              repeat its burst tokens; llama3-8b's chunked burst once more
+              through a fresh engine under ``torch.profiler``
+              (``serve_profile``: device ms by stage, idle share);
    zamba_fused_vs_eager, zamba accuracy — zamba2-2.7b at full width
               cut to 6 layers (one period: the shared block runs once),
               float32, whole-prompt admission: kernel plan tokens equal to
@@ -692,6 +703,15 @@ def _w8(torch, *ws):
     return [quantize_channelwise(w) for w in ws]
 
 
+def _rms_library(torch, x, s, w):
+    """K3's library yardstick: ``F.rms_norm`` with the gain ``1 + scale``,
+    then ``torch.matmul`` (two PyTorch calls; K10a's on the dequantized
+    weights)."""
+    gain = (1.0 + s.float()).to(x.dtype)
+    return lambda: torch.matmul(torch.nn.functional.rms_norm(
+        x, (x.shape[-1],), gain, 1e-6), w)
+
+
 def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """llama3-8b's kernel calls: name, shape label, kernel / plain /
     library call (one PyTorch call computing the same function, or None),
@@ -718,7 +738,7 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}",
                 kernel=lambda x=x, s=s, w=w: K.rmsnorm_matmul(x, s, w),
                 plain=lambda x=x, s=s, w=w: ref.rmsnorm_matmul(x, s, w),
-                library=None,
+                library=_rms_library(torch, x, s, w),
                 cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
                 nbytes=(t * d + d + d * n + t * n) * isz,
                 flops=2 * t * d * n, path=path))
@@ -730,7 +750,7 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                     x, s, c, w_scale=ws),
                 plain=lambda x=x, s=s, c=c, ws=ws: ref.rmsnorm_matmul_w8(
                     x, s, c, ws),
-                library=None,
+                library=_rms_library(torch, x, s, wq),
                 cublas=lambda xn=xn, wq=wq: torch.matmul(xn, wq),
                 nbytes=(t * d + d + t * n) * isz + d * n + 4 * n,
                 flops=2 * t * d * n, path=path))
@@ -782,7 +802,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             name="rmsnorm_matmul", shape=f"lm_head T={t},D={d},N={vocab}",
             kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
             plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
-            library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+            library=_rms_library(torch, x, s, head),
+            cublas=lambda xn=xn: torch.matmul(xn, head),
             nbytes=(t * d + d + d * vocab + t * vocab) * isz,
             flops=2 * t * d * vocab,
             path="speculative" if t == SPEC_T else None))
@@ -801,7 +822,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}", path="train",
             kernel=lambda x=x, w=w: K.rmsnorm_matmul(x, sc, w),
             plain=lambda x=x, w=w: ref.rmsnorm_matmul(x, sc, w),
-            library=None, cublas=lambda w=w: torch.matmul(xn, w),
+            library=_rms_library(torch, x, sc, w),
+            cublas=lambda w=w: torch.matmul(xn, w),
             nbytes=(t * d + d + d * n + t * n) * isz, flops=2 * t * d * n))
     wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
     wd = randn(f, d, scale=1 / math.sqrt(f))
@@ -935,8 +957,9 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     2 x 2048, D = 1024, Vp = 49408 over 49155) and zamba2-2.7b (T = 2 x
     2048, D = 2560, Vp = vocab = 32000).  About 10% of the labels are
     ignored; the kernel gets them clamped to 0, as ``streamed_xent_loss``
-    passes them.  The library yardstick is the cuBLAS chain ``h @ W``,
-    ``torch.logsumexp`` and ``gather``."""
+    passes them.  Held to its plain version in nats (``_xent_err``).  The
+    library yardstick is the cuBLAS chain ``h @ W``, ``torch.logsumexp``
+    and ``gather``."""
     from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
     randn = _randn(torch, gen, dtype, dev)
@@ -967,6 +990,7 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
             plain=lambda h=h, w=w, y=y, v=vocab: ref.xent_parts_ref(
                 h, w, y, v),
             library=lambda h=h, w=w, y=y, v=vocab: library(h, w, y, v),
+            rel=_xent_err, tol=XENT_TOL_NATS,
             cublas=None, nbytes=(t * d + d * vp) * isz + 3 * t * 4,
             flops=2 * t * d * vp))
     return cases
@@ -1063,7 +1087,7 @@ def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 shape=f"T={t},D={d},N={n}",
                 kernel=lambda x=x, s=s, w=w: K.rmsnorm_matmul(x, s, w),
                 plain=lambda x=x, s=s, w=w: ref.rmsnorm_matmul(x, s, w),
-                library=None,
+                library=_rms_library(torch, x, s, w),
                 cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
                 nbytes=(t * d + d + d * n + t * n) * isz,
                 flops=2 * t * d * n))
@@ -1079,7 +1103,8 @@ def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             shape=f"lm_head T={t},D={d},N={vocab}",
             kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
             plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
-            library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+            library=_rms_library(torch, x, s, head),
+            cublas=lambda xn=xn: torch.matmul(xn, head),
             nbytes=(t * d + d + d * vocab + t * vocab) * isz,
             flops=2 * t * d * vocab))
     cases += [dict(c, model=GRANITE) for c in _attention_cases(
@@ -1104,7 +1129,8 @@ def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             shape=f"T={t},D={d1},N={n}",
             kernel=lambda w=w: K.rmsnorm_matmul(x, sc, w),
             plain=lambda w=w: ref.rmsnorm_matmul(x, sc, w),
-            library=None, cublas=lambda w=w: torch.matmul(xn, w),
+            library=_rms_library(torch, x, sc, w),
+            cublas=lambda w=w: torch.matmul(xn, w),
             nbytes=(t * d1 + d1 + d1 * n + t * n) * isz,
             flops=2 * t * d1 * n))
     cases.append(dict(_flash_case(torch, K, ref, randn, isz,
@@ -1220,7 +1246,8 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 shape=f"T={t},D={d},N={d}",
                 kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, w_q),
                 plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, w_q),
-                library=None, cublas=lambda xn=xn: torch.matmul(xn, w_q),
+                library=_rms_library(torch, x, s, w_q),
+                cublas=lambda xn=xn: torch.matmul(xn, w_q),
                 nbytes=(2 * t * d + d + d * d) * isz, flops=2 * t * d * d),
                 dict(
                 name="rmsnorm_matmul_w8", model=ZAMBA, path=path,
@@ -1228,7 +1255,8 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 kernel=lambda x=x, s=s: K.rmsnorm_matmul_w8(
                     x, s, cq, w_scale=sq),
                 plain=lambda x=x, s=s: ref.rmsnorm_matmul_w8(x, s, cq, sq),
-                library=None, cublas=lambda xn=xn: torch.matmul(xn, wqq),
+                library=_rms_library(torch, x, s, wqq),
+                cublas=lambda xn=xn: torch.matmul(xn, wqq),
                 nbytes=(2 * t * d + d) * isz + d * d + 4 * d,
                 flops=2 * t * d * d),
                 dict(
@@ -1253,7 +1281,8 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 shape=f"lm_head T={t},D={d},N=32000",
                 kernel=lambda x=x, s=s: K.rmsnorm_matmul(x, s, head),
                 plain=lambda x=x, s=s: ref.rmsnorm_matmul(x, s, head),
-                library=None, cublas=lambda xn=xn: torch.matmul(xn, head),
+                library=_rms_library(torch, x, s, head),
+                cublas=lambda xn=xn: torch.matmul(xn, head),
                 nbytes=(t * d + d + d * 32000 + t * 32000) * isz,
                 flops=2 * t * d * 32000))
     # The training step's q / k / v projection (one shape for all three).
@@ -1266,7 +1295,8 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
         shape=f"T={t},D={d},N={d}",
         kernel=lambda: K.rmsnorm_matmul(x, s, w_q),
         plain=lambda: ref.rmsnorm_matmul(x, s, w_q),
-        library=None, cublas=lambda: torch.matmul(xn, w_q),
+        library=_rms_library(torch, x, s, w_q),
+        cublas=lambda: torch.matmul(xn, w_q),
         nbytes=(2 * t * d + d + d * d) * isz, flops=2 * t * d * d))
     for code in (None,) + CODES:
         cases.append(dict(_paged_case(torch, K, ref, randn, isz, gen, 32, 32,
@@ -1376,6 +1406,9 @@ def check_kernels(torch, timer):
             if c.get("parts"):          # each output against its own scale
                 rel = max(_rel(a.float(), b.float())
                           for a, b in zip(got, plain))
+            if "rel" in c:              # the case's own measure (K11: nats)
+                rel = c["rel"](got, plain)
+            tol = c.get("tol", TOL[dname])
             # Operations at the peak of the type they run in (K14: float32
             # on the CUDA cores whatever the operands' type).
             bound_ms, bound_by = bound(c["nbytes"], c["flops"],
@@ -1388,8 +1421,9 @@ def check_kernels(torch, timer):
                    "head_dim": c.get("head_dim"), "path": c.get("path"),
                    "dtype": dname,
                    "shape": c["shape"], "max_abs_err": err,
-                   "max_abs_ref": scale, "rel_err": rel, "tol": TOL[dname],
-                   "ok": bool(rel <= TOL[dname] and math.isfinite(err)
+                   "max_abs_ref": scale, "rel_err": rel, "tol": tol,
+                   "ok": bool(rel <= tol and math.isfinite(rel)
+                              and math.isfinite(err)
                               and (same_rows is None or all(same_rows))),
                    "rows_equal_decode": same_rows,
                    # The plain version is a check, not a yardstick: the
@@ -1699,16 +1733,20 @@ TC_MATMUL_KN = ((1024, 1024), (1024, 50432), (4096, 4096), (1536, 40),
 def _tc_row(torch, timer, case, dname="bfloat16"):
     """One tensor-core case: max error against the plain version, two
     calls bit-equal (required: no atomics sum values), kernel / plain /
-    library times and the bound."""
+    library times and the bound; the error by the case's own ``rel`` and
+    ``tol`` where it has them (streamed_xent's, in nats)."""
     got, again, want = case["kernel"](), case["kernel"](), case["plain"]()
     torch.cuda.synchronize()
-    rel = _rel(got.float(), want.float())
+    rel = (case["rel"](got, want) if "rel" in case
+           else _rel(got.float(), want.float()))
+    tol = case.get("tol", TOL[dname])
+    got, again = _flat(torch, got), _flat(torch, again)
     same = bool(torch.equal(got, again))
     bound_ms, bound_by = bound(case["nbytes"], case["flops"], dname)
     row = {"phase": "tensorcore", "name": case["name"],
            "shape": case["shape"], "dtype": dname, "rel_err": rel,
-           "tol": TOL[dname], "deterministic": same,
-           "ok": bool(rel <= TOL[dname] and math.isfinite(rel) and same),
+           "tol": tol, "deterministic": same,
+           "ok": bool(rel <= tol and math.isfinite(rel) and same),
            "ms": timer(case["kernel"]),
            "plain_ms": timer(case["plain"], iters=3),
            "library_ms": (timer(case["library"])
@@ -1823,19 +1861,169 @@ def _ffn_tc_rows(torch, timer, K, ref, randn, sms):
     return rows, same
 
 
+# K3 and its int8 twin K10a on the tensor cores: one launch up to 64 rows,
+# a row pass and the Large class above; (D, N) of each path's q/k/v
+# projections and LM head (K10a: q/k/v only, the LM head is never int8),
+# and an unaligned shape.  K11 at each training path's step, at 1000 tokens
+# (a partial token tile), at a padded vocabulary that is not a whole number
+# of 128-column tiles with labels on its padded columns, and unaligned.
+TC_NORM_T = (1, 4, 16, 17, 20, 64, 65, 128, 1000, 4096)
+TC_NORM_DN = {"llama3-8b": ((4096, 4096), (4096, 1024), (4096, 128256)),
+              GRANITE: ((1536, 1536), (1536, 512), (1536, 49408)),
+              ZAMBA: ((2560, 2560), (2560, 32000)),
+              GRANITE_TRAIN: ((1024, 1024), (1024, 512))}
+TC_NORM_UNALIGNED = (1000, 1001)
+TC_LM_HEAD_N = 10000     # N above this: an LM head
+TC_XENT = (("gpt2", 8192, 1024, 50432, 50257),
+           ("llama3-8b", 4096, 4096, 128256, 128256),
+           (GRANITE_TRAIN, 4096, 1024, 49408, 49155),
+           (ZAMBA, 4096, 2560, 32000, 32000),
+           (RWKV, 4096, 4096, 65536, 65536),
+           ("partial token tile", 1000, 1024, 50432, 50257),
+           ("padded vocabulary", 512, 1024, 50264, 50257),
+           ("unaligned", 300, 1000, 1001, 999))
+
+
+def _norm_tc_rows(torch, timer, K, ref, randn, sms):
+    """bf16 K3 and K10a at ``TC_NORM_T`` rows at each path's (D, N) and at
+    ``TC_NORM_UNALIGNED``, against their plain versions (``TOL``),
+    deterministic, against ``F.rms_norm`` + ``torch.matmul``; each
+    serving shape's rows at 1..64 rows equal its rows at 64 (required:
+    the one-launch classes' row invariance, q/k/v and the LM head)."""
+    from repro_torch.kernels.common import ROW_INVARIANT_T, mma_plan
+    rows, same = [], []
+    shapes = [(m, dn) for m, dns in TC_NORM_DN.items() for dn in dns]
+    for model, (d, n) in shapes + [("unaligned", TC_NORM_UNALIGNED)]:
+        w = randn(d, n, scale=1 / math.sqrt(d))
+        s = randn(d, scale=0.1)
+        insts = {"rmsnorm_matmul": (
+            lambda x: K.rmsnorm_matmul(x, s, w),
+            lambda x: ref.rmsnorm_matmul(x, s, w), w, 2 * d * n)}
+        if n < TC_LM_HEAD_N:
+            (c, ws), = _w8(torch, w)
+            wq = (c.float() * ws).to(torch.bfloat16)
+            insts["rmsnorm_matmul_w8"] = (
+                lambda x: K.rmsnorm_matmul_w8(x, s, c, w_scale=ws),
+                lambda x: ref.rmsnorm_matmul_w8(x, s, c, ws), wq,
+                d * n + 4 * n)
+        for name, (kern, plain, wl, wbytes) in insts.items():
+            for t in TC_NORM_T:
+                x = randn(t, d)
+                _, _, k_per_split, splits = mma_plan(t, d, n, sms)
+                rows.append(_tc_row(torch, timer, dict(
+                    name=name, shape=f"{model} T={t},D={d},N={n}",
+                    kernel=lambda x=x, k=kern: k(x),
+                    plain=lambda x=x, p=plain: p(x),
+                    library=_rms_library(torch, x, s, wl),
+                    nbytes=wbytes + 2 * (t * d + d + t * n),
+                    flops=2 * t * d * n,
+                    extra={"k_per_split": k_per_split, "splits": splits})))
+            if model in ("unaligned", GRANITE_TRAIN):
+                continue        # on no serving path
+            x = randn(ROW_INVARIANT_T, d)
+            full = kern(x)
+            bad = [t for t in range(1, ROW_INVARIANT_T)
+                   if not torch.equal(kern(x[:t].contiguous()), full[:t])]
+            row = {"phase": "tensorcore_rows", "name": name, "model": model,
+                   "D": d, "N": n, "equal_1_to_64": not bad,
+                   "unequal_at": bad[:8]}
+            emit(row)
+            same.append(row)
+    return rows, same
+
+
+# K11's error: the largest |kernel - plain| in nats over lse and the finite
+# golds (both in the log domain; lse is about log V, so an error relative to
+# it would hide a wrong sum).  The runs read at most 2e-5 nats (bf16, llama3
+# at T 4096) and 2e-6 (float32).  A sum over llama3-8b's vocabulary that
+# missed one 128-column tile would be off by 1e-3, one that took in gpt2's
+# 175 padded columns by 3.5e-3, and one that took in the ``tensorcore``
+# phase's padded columns (weights 8x the real ones) by nats.
+XENT_TOL_NATS = 5e-4
+
+
+def _xent_err(got, want) -> float:
+    """K11's error in nats (``XENT_TOL_NATS``); a masked gold (-1e30, a
+    label on a padded column) must be masked in both, else inf."""
+    (lse, gold), (w_lse, w_gold) = got, want
+    masked = w_gold <= -1e29
+    if not bool(((gold <= -1e29) == masked).all()):
+        return math.inf
+    err = (lse.double() - w_lse.double()).abs().max().item()
+    if not bool(masked.all()):
+        err = max(err, (gold[~masked].double() - w_gold[~masked].double()
+                        ).abs().max().item())
+    return err
+
+
+def _xent_head(torch, randn, d, vp, vocab):
+    """A head [d, vp] for the ``tensorcore`` phase's K11 rows: the padded
+    columns (``v >= vocab``) 8x the real ones, so their logits stand far
+    above the real ones' logsumexp and a sum that let them in is nats
+    off."""
+    w = randn(d, vp, scale=1 / math.sqrt(d))
+    w[:, vocab:] *= 8
+    return w
+
+
+def _xent_tc_rows(torch, timer, K, ref, randn, gen, sms):
+    """bf16 K11 at ``TC_XENT``'s shapes (about 10% of the labels ignored,
+    passed clamped to 0; where Vp > vocab, 1% on its padded columns, whose
+    weights ``_xent_head`` makes large) against its plain version (in
+    nats: ``_xent_err``), deterministic, against ``h @ W``, ``logsumexp``
+    and ``gather``."""
+    from repro_torch.kernels.streamed_xent import xent_mma_plan
+    rows = []
+    for label, t, d, vp, vocab in TC_XENT:
+        h = randn(t, d)
+        w = _xent_head(torch, randn, d, vp, vocab)
+        y = torch.randint(0, vocab, (t,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        y = torch.where(torch.rand(t, generator=gen, device="cuda") < 0.1,
+                        0, y)
+        if vp > vocab:
+            pad = torch.randint(vocab, vp, (t,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            y = torch.where(torch.rand(t, generator=gen, device="cuda")
+                            < 0.01, pad, y)
+        y = y.to(torch.int32)
+
+        def library(h=h, w=w, y=y, vocab=vocab):
+            logits = (h @ w)[:, :vocab].float()
+            return (torch.logsumexp(logits, dim=-1),
+                    logits.gather(1, y.clamp(max=vocab - 1).long()[:, None]
+                                  )[:, 0])
+
+        per, splits = xent_mma_plan(t, vp, sms)
+        rows.append(_tc_row(torch, timer, dict(
+            rel=_xent_err, tol=XENT_TOL_NATS,
+            name="streamed_xent",
+            shape=f"{label} T={t},D={d},Vp={vp},vocab={vocab}",
+            kernel=lambda h=h, w=w, y=y, v=vocab: K.streamed_xent_parts(
+                h, w, y, vocab_size=v),
+            plain=lambda h=h, w=w, y=y, v=vocab: ref.xent_parts_ref(
+                h, w, y, v),
+            library=library, nbytes=(t * d + d * vp) * 2 + 3 * t * 4,
+            flops=2 * t * d * vp,
+            extra={"tiles_per_split": per, "splits": splits})))
+    return rows
+
+
 def check_tensorcore(torch, timer):
     """K7 (``flash_attention_static``), K2 (the offset branch of
-    ``flash_attention_2d``), K5 (``block_matmul``) and the streamed FFN
-    (K4, K6, K10b, K10c) in bf16 on the tensor cores at ``TC_*``'s shapes
-    (2 KV heads for K7 and K2), each against its plain version (``TOL``)
-    and its library call where one computes the same function (SDPA, with
-    the offset mask for K2; ``torch.matmul``), each deterministic; K7's
+    ``flash_attention_2d``), K5 (``block_matmul``), the streamed FFN (K4,
+    K6, K10b, K10c), K3 and K10a (``rmsnorm_matmul``, ``_w8``) and K11
+    (``streamed_xent_parts``) in bf16 on the tensor cores at ``TC_*``'s
+    shapes (2 KV heads for K7 and K2), each against its plain version
+    (``TOL``) and its library call or chain (SDPA, with the offset mask
+    for K2; ``torch.matmul``; ``F.rms_norm`` + ``torch.matmul``; ``h @
+    W``, ``logsumexp``, ``gather``), each deterministic; K7's
     prefix property (required): rows 0..999 of a 2048-token prompt equal
     the 1000-token prompt's, bit for bit, at each head dim (GQA group 4);
     K2's rows equal K7's rows at the same positions of the whole prompt,
     bit for bit, at every swept offset, row count and head dim
-    (``tensorcore_offset``, required); the FFN's rows equal at 1..64 rows
-    (``tensorcore_rows``, required)."""
+    (``tensorcore_offset``, required); the FFN's, K3's and K10a's rows
+    equal at 1..64 rows (``tensorcore_rows``, required)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import mma_plan, sm_count
@@ -1915,6 +2103,9 @@ def check_tensorcore(torch, timer):
             nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n)))
     ffn, ffn_same = _ffn_tc_rows(torch, timer, K, ref, randn, sms)
     rows += ffn
+    norm, norm_same = _norm_tc_rows(torch, timer, K, ref, randn, sms)
+    rows += norm
+    rows += _xent_tc_rows(torch, timer, K, ref, randn, gen, sms)
     worst = {}
     for r in ffn:
         key = r["shape"].split(" T=")[0]
@@ -1925,12 +2116,14 @@ def check_tensorcore(torch, timer):
     bad += [f"prefix D={r['head_dim']}" for r in prefix if not r["equal"]]
     bad += [f"offset D={r['head_dim']} q_offset={r['q_offset']} "
             f"rows={r['rows']}" for r in offset if not r["equal"]]
-    bad += [f"FFN rows {r['name']} at {r['unequal_at']}" for r in ffn_same
+    bad += [f"rows {r['name']} {r.get('F', r.get('N'))} at "
+            f"{r['unequal_at']}" for r in ffn_same + norm_same
             if not r["equal_1_to_64"]]
     if bad:
         raise AssertionError("tensor-core kernels: " + "; ".join(bad))
     return {"rows": rows, "prefix": prefix, "offset": offset,
-            "ffn_rows": ffn_same, "ffn_max_rel_err": worst}
+            "ffn_rows": ffn_same, "norm_rows": norm_same,
+            "ffn_max_rel_err": worst}
 
 
 # --------------------------------------------------------------------- #
@@ -2047,16 +2240,16 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
 
 def serve(torch, cfg, params, expect, *, init_s, chunked=True,
           phase="serve", device="cuda", max_len=2048, lo=37, hi=1000,
-          new=32):
+          new=32, profile=False):
     """A mixed burst of 8 prompts through the engine with the kernel plan;
-    the kernels in ``expect`` must each launch, and no other."""
+    the kernels in ``expect`` must each launch, and no other.  ``profile``:
+    the burst once more, through a fresh engine, under ``torch.profiler``
+    (device ms by stage, idle share of its wall)."""
     from repro_torch import kernels as K
     from repro_torch.models.params import cache_leaf_kind, weight_bytes
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
-    rng = np.random.default_rng(2)
-    lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
-    prompts = burst(rng, cfg.vocab_size, lengths)
+    lengths, prompts = _serve_prompts(cfg.vocab_size, lo, hi)
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
                         chunked=chunked, device=device)
     eng.generate([prompts[2][:8]], max_new_tokens=2)       # warm-up
@@ -2114,7 +2307,43 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
         problems.append("the first prompt served alone gave other tokens")
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
+    if profile:
+        del eng
+        _free(torch, device)
+        prof = profile_burst(torch, cfg, params, chunked=chunked,
+                             device=device, max_len=max_len, lo=lo, hi=hi,
+                             new=new)
+        row["profile"] = prof
+        emit({"phase": f"{phase}_profile", "config": cfg.name,
+              "layers": cfg.num_layers, "admission": row["admission"],
+              **(prof or {"device_ms": None})})
     return row
+
+
+def _serve_prompts(vocab: int, lo: int, hi: int):
+    """``serve``'s burst: (lengths, prompts), 8 prompts of ``lo``, ``hi``
+    and 6 lengths between, drawn from numpy seed 2."""
+    rng = np.random.default_rng(2)
+    lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
+    return lengths, burst(rng, vocab, lengths)
+
+
+def profile_burst(torch, cfg, params, *, chunked=True, device="cuda",
+                  max_len=2048, lo=37, hi=1000, new=32):
+    """``serve``'s burst through a fresh engine (no prefix-cache hits from
+    an earlier one), warmed up as there, under ``torch.profiler``: device
+    ms by stage (``profile_device``) and the idle share of the profiled
+    wall; None where the profiler saw no device time."""
+    from repro_torch.serving import ServingEngine
+    _, prompts = _serve_prompts(cfg.vocab_size, lo, hi)
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
+                        chunked=chunked, device=device)
+    eng.generate([prompts[2][:8]], max_new_tokens=2)
+    prof = profile_device(torch, lambda: eng.generate(
+        prompts, max_new_tokens=new))
+    if prof is not None:
+        prof["idle_share"] = 1 - prof["busy_ms"] / prof["profiled_wall_ms"]
+    return prof
 
 
 # --------------------------------------------------------------------- #
@@ -2416,7 +2645,7 @@ def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
         out["serve"][mode] = serve(
             torch, cfg, params, SERVE_PATHS[model][mode], init_s=init_s,
             chunked=mode == "chunked", device=device, max_len=max_len, hi=hi,
-            phase=phase)
+            phase=phase, profile=model == "llama3-8b")
         _free(torch, device)
     out["spec_serve"] = spec_serve(torch, cfg, params, SPEC_PATHS[model],
                                    init_s=init_s, max_len=max_len,
@@ -2637,8 +2866,10 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
 # what runs it; every ``__global__`` function in ``csrc/`` matches one),
 # the rest is PyTorch's (cuBLAS for the eager backward and the
 # o-projection, elementwise, norms, AdamW).
-OWN_KERNELS = (("tiled_matmul_kernel", "projections (K3, f32 K5)"),
+OWN_KERNELS = (("tiled_matmul_kernel", "projections (f32 K3, K5)"),
                ("block_mma_kernel", "projections (K5, tensor cores)"),
+               ("rmsnorm_mma_kernel", "projections (K3, tensor cores)"),
+               ("rmsnorm_rstd_kernel", "projections (K3, tensor cores)"),
                ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
                ("streamed_ffn_kernel", "FFN (f32 K4/K6)"),
                ("ffn_mma_kernel", "FFN (K4/K6, tensor cores)"),
@@ -2664,14 +2895,28 @@ def profile_step(torch, tr):
     ``prof.events()``'s tree of them take minutes for a step of ~10^5 small
     launches (rwkv6's eager wkv backward).  None when the trace holds no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
     batch = tr.pipeline.batch_at(tr.step)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def step():
         tr.params, tr.opt_state, m = tr.step_fn(tr.params, tr.opt_state,
                                                 batch)
         float(m["loss"])
+
+    return profile_device(torch, step)
+
+
+def profile_device(torch, fn):
+    """``fn()`` under ``torch.profiler``, device activity only: device
+    milliseconds by stage (``OWN_KERNELS``; PyTorch's kernels, cuBLAS
+    gemms apart), their sum, the wall of ``fn`` under the profiler and the
+    seconds spent reading the trace.  None when the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
     ms: dict = {}

@@ -101,15 +101,17 @@ def split_plan(t: int, d: int, n: int, sms: int):
     return small, k_per_split, cdiv(d, k_per_split)
 
 
-# Mirrors the tile classes of csrc/block_matmul.cu's tensor-core kernel
-# (K5 in bf16): (rows up to, BM, BK); BN is 128 in every class.
+# Mirrors the tile classes of csrc/mma_gemm.cuh's tensor-core GEMM (K5, K3
+# and K10a in bf16; K11's token tiles are its Large class): (rows up to,
+# BM, BK); BN is 128 in every class.
 MMA_CLASSES = ((16, 16, 64), (ROW_INVARIANT_T, 64, 64), (None, 128, 64))
 MMA_BN = 128
 
 
 @functools.lru_cache(maxsize=4096)
 def mma_plan(m: int, k: int, n: int, sms: int):
-    """(bm, bk, k_per_split, splits) for the tensor-core ``block_matmul``.
+    """(bm, bk, k_per_split, splits) for the tensor-core ``block_matmul``
+    and ``rmsnorm_matmul`` (and its int8 twin).
     Up to ``ROW_INVARIANT_T`` rows (the 16- and 64-row classes, both
     64-deep K tiles) the split depends on (k, n) alone: K is cut until the
     grid holds about one block per SM, keeping >= 2 K tiles per split

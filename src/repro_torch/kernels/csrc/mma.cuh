@@ -1,12 +1,14 @@
 // Tensor-core building blocks shared by the bf16 kernels that run on
-// Hopper's tensor cores through warp-level MMA (block_matmul.cu's
-// block_mma_kernel, K5; flash_mma.cu's flash_mma_kernel, K7 and K2;
+// Hopper's tensor cores through warp-level MMA (mma_gemm.cuh's GEMM: K5,
+// K3, K10a and K11; flash_mma.cu's flash_mma_kernel, K7 and K2;
 // streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c; the cp.async
 // copies also feed paged_attention.cu's CUDA-core K1, K8, K9a and K9b):
 //   cp.async 16-byte copies from global to shared memory (zero-filled when
 //     the source is out of range), committed and waited on in groups;
 //   ldmatrix (.trans) loads of four 8x8 bf16 tiles into the fragments of
-//     mma.sync.m16n8k16 (bf16 inputs, float32 accumulators).
+//     mma.sync.m16n8k16 (bf16 inputs, float32 accumulators);
+//   the int8 weight twins' code-to-bf16 conversion, the folded norm and a
+//   row's inverse RMS.
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16]: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
 //                a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
@@ -21,9 +23,23 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace repro {
 
 using bf16 = __nv_bfloat16;
+
+// Raise `kern`'s dynamic shared-memory limit to `bytes` where it is below:
+// `*set` holds the limit already raised for this kernel instance (a static
+// of the launcher, 0 at first).
+template <class Kernel>
+inline cudaError_t raise_smem(Kernel kern, size_t bytes, size_t* set) {
+  if (bytes <= *set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *set = bytes;
+  return err;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -86,6 +102,58 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Int8 codes [R][CC] (row stride CC) -> bf16 [R][LDS], by NT threads:
+// exact (|code| <= 127).
+template <int R, int CC, int LDS, int NT>
+__device__ __forceinline__ void codes_to_bf16(bf16* dst,
+                                              const int8_t* src) {
+  constexpr int CPR = CC / 16;
+  for (int i = threadIdx.x; i < R * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    const int4 v = *reinterpret_cast<const int4*>(src + r * CC + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+    uint32_t o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      o[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);
+    uint4* d = reinterpret_cast<uint4*>(dst + r * LDS + c);
+    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+// The folded RMSNorm of one element, (x * rstd) * (1 + scale), rounded to
+// bf16 by the caller, as the reference's `_rms_tile` and `_kernel`.
+__device__ __forceinline__ float norm_elem(float v, float rstd, float sc) {
+  return (v * rstd) * (1.f + sc);
+}
+
+// 1 / sqrt(mean(x^2) + eps) of one row, its squares summed in a fixed
+// order (the row's bits do not depend on the row count).
+__device__ __forceinline__ float row_rstd(const bf16* __restrict__ xr, int d,
+                                          float eps, int lane,
+                                          bool aligned) {
+  float ss = 0.f;
+  if (aligned) {
+    for (int c = lane * 8; c < d; c += 256) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float f = __bfloat162float(e[i]);
+        ss += f * f;
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) {
+      const float f = __bfloat162float(xr[c]);
+      ss += f * f;
+    }
+  }
+  ss = warp_sum(ss);
+  return rsqrtf(ss / (float)d + eps);
 }
 
 }  // namespace repro

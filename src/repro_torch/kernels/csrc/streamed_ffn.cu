@@ -400,58 +400,6 @@ __device__ __forceinline__ void load_tile(E* s, const E* __restrict__ g,
   }
 }
 
-// Int8 codes [R][CC] (row stride CC) -> bf16 [R][LDS], by NT threads:
-// exact.
-template <int R, int CC, int LDS, int NT>
-__device__ __forceinline__ void codes_to_bf16(bf16* dst,
-                                              const int8_t* src) {
-  constexpr int CPR = CC / 16;
-  for (int i = threadIdx.x; i < R * CPR; i += NT) {
-    const int r = i / CPR, c = (i % CPR) * 16;
-    const int4 v = *reinterpret_cast<const int4*>(src + r * CC + c);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-    uint32_t o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);
-    uint4* d = reinterpret_cast<uint4*>(dst + r * LDS + c);
-    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
-
-// 1 / sqrt(mean(x^2) + eps) of one row, its squares summed in a fixed
-// order (the row's bits do not depend on the row count).
-__device__ __forceinline__ float row_rstd(const bf16* __restrict__ xr, int d,
-                                          float eps, int lane,
-                                          bool aligned) {
-  float ss = 0.f;
-  if (aligned) {
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float f = __bfloat162float(e[i]);
-        ss += f * f;
-      }
-    }
-  } else {
-    for (int c = lane; c < d; c += 32) {
-      const float f = __bfloat162float(xr[c]);
-      ss += f * f;
-    }
-  }
-  ss = warp_sum(ss);
-  return rsqrtf(ss / (float)d + eps);
-}
-
-// The folded norm of one element, rounded to bf16 by the caller, as
-// `_rms_tile`.
-__device__ __forceinline__ float norm_elem(float v, float rstd, float sc) {
-  return (v * rstd) * (1.f + sc);
-}
-
 // The norm as a row pass for the two-pass path: xn = rms_norm(x), one warp
 // per row.
 __global__ void __launch_bounds__(128)
@@ -939,12 +887,8 @@ int launch_mma(const FfnArgs& a, dim3 grid, cudaStream_t stream) {
   // slice grows (at most 210 KB).
   static size_t smem_set = 0;
   const size_t smem = Layout<C, W8, MODE, GLU>::bytes(a.f_per_split);
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+  const cudaError_t err = raise_smem(kern, smem, &smem_set);
+  if (err != cudaSuccess) return (int)err;
   kern<<<grid, C::NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,21 @@
-// Split-K tiled matmul shared by rmsnorm_matmul (K3, NORM = true),
-// block_matmul in float32 (K5, NORM = false; bfloat16 K5 runs on the
-// tensor cores, block_matmul.cu) and rmsnorm_matmul's weight-only int8
-// twin (K10a, NORM = true, W = int8_t); its tile product
-// (`tile_accumulate`) also computes the logits tiles of streamed_xent
-// (K11):
-//   out[T, N] = xn @ W[D, N], xn = (rms_norm(x) * (1 + scale)).to(T) under
-//   NORM, else x itself; products summed in float32, out in x's dtype.
-//   With int8 codes W the normalised x stays float32 (not rounded to T),
-//   codes load one byte each, and the column's float32 scale multiplies
-//   the sum after the whole K reduction (the reference's `_kernel_w8`).
+// Split-K tiled matmul on the CUDA cores, the float32 route of
+// rmsnorm_matmul (K3, NORM = true), block_matmul (K5, NORM = false) and
+// rmsnorm_matmul's weight-only int8 twin (K10a, NORM = true, W = int8_t);
+// its tile product (`tile_accumulate`) also computes the logits tiles of
+// float32 streamed_xent (K11).  bfloat16 runs all four on the tensor
+// cores (mma_gemm.cuh); float32 stays here because TF32 would break the
+// float32 checks against the reference:
+//   out[T, N] = xn @ W[D, N], xn = (rms_norm(x) * (1 + scale)) under NORM,
+//   else x itself; products summed in float32.
+//   With int8 codes W the codes load one byte each and the column's
+//   float32 scale multiplies the sum after the whole K reduction (the
+//   reference's `_kernel_w8`).
 // Each block
 //   1. (NORM only) computes every row's rsqrt(mean(x^2) + eps) in a first
 //      pass over the row (x is small and read from L2),
 //   2. streams 32-deep K tiles of x and W through shared memory (x
-//      normalised and rounded to T on load under NORM), accumulating a
-//      BT x BN output tile in float32 registers on the CUDA cores.
+//      normalised on load under NORM), accumulating a BT x BN output tile
+//      in float32 registers with float FMA.
 // Few output tiles (T = 4, or N = 1024) would leave most of the 132 SMs
 // idle, so K is split across blocks (gridDim.z) into float32 partials that
 // a second pass sums in a fixed order: no atomics, so results repeat run to

@@ -3,8 +3,10 @@ and LM head of the RMSNorm configs on the kernel plan).
 
 ``rmsnorm_matmul`` launches ``csrc/rmsnorm_matmul.cu`` on a CUDA tensor and
 runs ``ref.rmsnorm_matmul`` on a CPU tensor; ``rmsnorm_matmul_w8`` is its
-weight-only int8 twin (``ref.rmsnorm_matmul_w8``).  ``.launches`` on each
-counts its kernel launches.
+weight-only int8 twin (``ref.rmsnorm_matmul_w8``).  bfloat16 runs on the
+tensor cores with K5's plan (``mma_plan``) and split-K workspace, float32 on
+the CUDA cores (``split_plan``), which keeps float32 products exact.
+``.launches`` on each counts its calls on the card, one per call.
 """
 
 from __future__ import annotations
@@ -15,17 +17,22 @@ import functools
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path, split_plan
+from .block_matmul import _workspace
+from .common import (MMA_BN, ROW_INVARIANT_T, cdiv, check_cuda_operands,
+                     check_launch, kernel_path, mma_plan, sm_count,
+                     split_plan)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype, w8: bool):
     lib = _build.load("rmsnorm_matmul")
-    sym = ("repro_rmsnorm_matmul_" + ("w8_" if w8 else "")
-           + ("bf16" if dtype == torch.bfloat16 else "f32"))
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if dtype == torch.bfloat16:
+        sym = f"repro_rmsnorm_matmul_{'w8_' if w8 else ''}mma_bf16"
+        return _build.declare(lib, sym, [vp] * 8 + [i] * 6 + [f, vp])
+    sym = f"repro_rmsnorm_matmul_{'w8_' if w8 else ''}f32"
     return _build.declare(lib, sym, [vp] * (6 if w8 else 5)
-                          + [i] * 6 + [ctypes.c_float, vp])
+                          + [i] * 6 + [f, vp])
 
 
 def _check(name: str, x, scale, w) -> None:
@@ -39,17 +46,39 @@ def _launch(name, x, scale, w, w_scale, eps) -> torch.Tensor:
     t, d = x.shape
     n = w.shape[1]
     out = torch.empty((t, n), dtype=x.dtype, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    small, k_per_split, splits = split_plan(t, d, n, sms)
-    part = (torch.empty((splits, t, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    sms = sm_count(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [x.data_ptr(), scale.data_ptr(), w.data_ptr()]
-    if w_scale is not None:
-        ptrs.append(w_scale.data_ptr())
-    status = _entry(x.dtype, w_scale is not None)(
-        *ptrs, out.data_ptr(), part.data_ptr() if part is not None else None,
-        t, d, n, int(small), k_per_split, splits, float(eps), stream)
+    w8 = w_scale is not None
+    ws = w_scale.data_ptr() if w8 else None
+    if x.dtype == torch.bfloat16:
+        bm, _, k_per_split, splits = mma_plan(t, d, n, sms)
+        part = ctr = None
+        if splits > 1:
+            part, ctr = _workspace(x.device, splits * t * n,
+                                   cdiv(n, MMA_BN) * cdiv(t, bm))
+        # Above ROW_INVARIANT_T rows a row pass writes each row's rstd.
+        rstd = (torch.empty(t, dtype=torch.float32, device=x.device)
+                if t > ROW_INVARIANT_T else None)
+        xp, sp, wp = x.data_ptr(), scale.data_ptr(), w.data_ptr()
+        aligned = (d % 8 == 0 and n % (16 if w8 else 8) == 0
+                   and xp % 16 == 0 and sp % 16 == 0 and wp % 16 == 0)
+        status = _entry(x.dtype, w8)(
+            xp, sp, wp, ws, out.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            ctr.data_ptr() if ctr is not None else None,
+            rstd.data_ptr() if rstd is not None else None, t, d, n,
+            k_per_split, splits, int(aligned), float(eps), stream)
+    else:
+        small, k_per_split, splits = split_plan(t, d, n, sms)
+        part = (torch.empty((splits, t, n), dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        ptrs = [x.data_ptr(), scale.data_ptr(), w.data_ptr()]
+        if w8:
+            ptrs.append(ws)
+        status = _entry(x.dtype, w8)(
+            *ptrs, out.data_ptr(),
+            part.data_ptr() if part is not None else None, t, d, n,
+            int(small), k_per_split, splits, float(eps), stream)
     check_launch(name, status)
     return out
 
@@ -57,7 +86,7 @@ def _launch(name, x, scale, w, w_scale, eps) -> torch.Tensor:
 def rmsnorm_matmul(x: torch.Tensor, scale: torch.Tensor, w: torch.Tensor,
                    *, eps: float = 1e-6) -> torch.Tensor:
     """x [T, D]; scale [D]; w [D, N] -> rms_norm(x) @ w [T, N] (x dtype).
-    The CUDA kernel picks its own tiles (``split_plan``)."""
+    The CUDA kernel picks its own tiles."""
     _check("rmsnorm_matmul", x, scale, w)
     if kernel_path(x) == "plain":
         return ref.rmsnorm_matmul(x, scale, w, eps)

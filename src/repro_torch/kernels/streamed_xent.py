@@ -3,7 +3,9 @@ path): the LM head's logits folded into (logsumexp, gold logit) per token
 without the ``[T, Vp]`` logits ever reaching device memory.
 
 ``streamed_xent_parts`` launches ``csrc/streamed_xent.cu`` on a CUDA tensor
-and runs ``ref.xent_parts_ref`` on a CPU tensor; ``streamed_xent_loss`` is
+(bfloat16 on the tensor cores, ``xent_mma_plan``; float32 on the CUDA cores,
+``vocab_split``) and runs ``ref.xent_parts_ref`` on a CPU tensor;
+``streamed_xent_loss`` is
 the mean over the valid labels on top of it, as the reference wrapper
 (``streamed_xent.py:112``).  ``streamed_xent_parts.launches`` counts kernel
 launches.
@@ -18,19 +20,24 @@ from typing import Tuple
 import torch
 
 from . import _build, ref
-from .common import cdiv, check_cuda_operands, check_launch, kernel_path
+from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
+                     kernel_path, sm_count)
 
-# Mirrors the tile shape of csrc/streamed_xent.cu.
+# Mirrors the tile shapes of csrc/streamed_xent.cu: float32 64 x 64 (token
+# x vocab), bfloat16 128 x 128 (the Large class of mma_gemm.cuh).
 _BT, _BN = 64, 64
+MMA_BT = 128
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     lib = _build.load("streamed_xent")
-    sym = ("repro_streamed_xent_bf16" if dtype == torch.bfloat16
-           else "repro_streamed_xent_f32")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp] * 6 + [i] * 6 + [vp])
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, "repro_streamed_xent_mma_bf16",
+                              [vp] * 6 + [i] * 7 + [vp])
+    return _build.declare(lib, "repro_streamed_xent_f32",
+                          [vp] * 6 + [i] * 6 + [vp])
 
 
 def vocab_split(t: int, vp: int, sms: int) -> Tuple[int, int]:
@@ -40,6 +47,18 @@ def vocab_split(t: int, vp: int, sms: int) -> Tuple[int, int]:
     tile."""
     n_tiles = cdiv(vp, _BN)
     want = max(1, min(n_tiles, cdiv(4 * sms, cdiv(t, _BT))))
+    per = cdiv(n_tiles, want)
+    return per, cdiv(n_tiles, per)
+
+
+def xent_mma_plan(t: int, vp: int, sms: int) -> Tuple[int, int]:
+    """(tiles_per_split, splits) for the bf16 kernel: cut the 128-column
+    vocab tiles into contiguous ranges until the grid holds about eight
+    blocks per SM (four waves at two per SM; 32 token tiles at 4096
+    tokens); every split gets at least one tile.  The partials are 12
+    bytes per row and split, so splitting costs nothing in memory."""
+    n_tiles = cdiv(vp, MMA_BN)
+    want = max(1, min(n_tiles, cdiv(8 * sms, cdiv(t, MMA_BT))))
     per = cdiv(n_tiles, want)
     return per, cdiv(n_tiles, per)
 
@@ -66,14 +85,18 @@ def streamed_xent_parts(hidden: torch.Tensor, head: torch.Tensor,
     dev = hidden.device
     lse = torch.empty(t, dtype=torch.float32, device=dev)
     gold = torch.empty(t, dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, splits = vocab_split(t, vp, sms)
+    mma = hidden.dtype == torch.bfloat16
+    per, splits = (xent_mma_plan if mma else vocab_split)(t, vp,
+                                                          sm_count(dev))
     part = torch.empty((3, splits, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _entry(hidden.dtype)(
-        hidden.data_ptr(), head.data_ptr(), labels.data_ptr(),
-        lse.data_ptr(), gold.data_ptr(), part.data_ptr(), t, d, vp,
-        int(vocab_size), per, splits, stream)
+    hp, wp = hidden.data_ptr(), head.data_ptr()
+    args = [hp, wp, labels.data_ptr(), lse.data_ptr(), gold.data_ptr(),
+            part.data_ptr(), t, d, vp, int(vocab_size), per, splits]
+    if mma:
+        args.append(int(d % 8 == 0 and vp % 8 == 0 and hp % 16 == 0
+                        and wp % 16 == 0))
+    status = _entry(hidden.dtype)(*args, stream)
     check_launch("streamed_xent", status)
     streamed_xent_parts.launches += 1
     return lse, gold
