@@ -15,6 +15,21 @@ parent.  Phases:
   norm       K3 and K10a (``rmsnorm_matmul``, ``_w8``) in bf16 at 1..4096
              rows at each path's (D, N), and their rows at 1..64 rows;
   xent       K11 (``streamed_xent_parts``) in bf16 at the training shapes;
+  ffn_hashes sha256 of the six bf16 FFN instances' outputs (K4, K6,
+             K10b, K10c: ``streamed_ffn``, ``_w8``, ``streamed_mlp``,
+             ``_w8``) at this checkout's ``tensorcore`` shapes
+             (``TC_FFN_*``), from seeded inputs;
+  moe        sha256 of K12's (``moe_experts``) float32 and bf16 outputs at
+             this checkout's ``tensorcore`` cases (``chip_smoke._moe_cases``:
+             both granite widths, the router's gates and the adversarial
+             routings; equal float32 hashes on two trees: bit-equal
+             outputs);
+  moe_probe  where K12's bf16 time goes at granite-3b's widths: a plain
+             16-byte-load read of all 40 experts' weights (189 MB) in the
+             fused launch's block slices and in contiguous chunks (the
+             card's read rate for those bytes), then K12 and the library
+             chain at 4, 20, 128 and 1000 tokens (router gates): CUDA-event
+             times and each kernel's device time (``torch.profiler``);
   tensorcore, kernel, row_invariance
              those phases of ``chip_smoke.py`` whole;
   burst      llama3-8b at full width, 16 layers, bf16: the chunked mixed
@@ -22,12 +37,18 @@ parent.  Phases:
              fresh engine under ``torch.profiler`` (this checkout's
              ``chip_smoke.profile_burst``, on the tree's engine): device ms
              by stage, busy, wall and idle share;
+  granite_burst
+             granite-moe-3b at full width, 16 layers, bf16: as ``burst``;
   train      llama3-8b at full width, 2 layers: ``chip_smoke.train``'s
-             3 steps with a profiled step.
+             3 steps with a profiled step;
+  granite_train
+             granite-moe-1b at full width and depth: the same.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
-the tree's own ``chip_smoke.py`` are used, so a phase that an older tree
-lacks (norm, xent) runs only on trees that have it.
+the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
+``moe_probe`` take their shapes and inputs from this checkout's), so a
+phase that an older tree lacks (norm, xent) runs only on trees that have
+it.
 """
 
 from __future__ import annotations
@@ -43,12 +64,20 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"k5_hashes": ["block_matmul"], "norm": ["rmsnorm_matmul"],
+SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
+           "norm": ["rmsnorm_matmul"],
            "xent": ["streamed_xent"],
            "burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                      "flash_attention", "paged_attention", "block_matmul"],
            "train": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
-                     "flash_attention", "block_matmul", "streamed_xent"]}
+                     "flash_attention", "block_matmul", "streamed_xent"],
+           "moe": ["moe_experts"], "moe_probe": ["moe_experts"],
+           "granite_burst": ["rmsnorm_matmul", "flash_mma", "flash_attention",
+                             "paged_attention", "block_matmul", "row_norm",
+                             "moe_experts"],
+           "granite_train": ["rmsnorm_matmul", "flash_mma", "flash_attention",
+                             "block_matmul", "streamed_xent", "row_norm",
+                             "moe_experts"]}
 
 
 def emit(obj) -> None:
@@ -82,27 +111,202 @@ def k5_hashes(torch, K, cs):
     emit({"phase": "k5_hashes", "hashes": out})
 
 
-def burst(torch, cs):
+def _sha(torch, y):
+    """sha256 of a bf16 or float32 tensor's bits."""
+    view = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    return hashlib.sha256(y.view(view).cpu().numpy().tobytes()).hexdigest()
+
+
+def ffn_hashes(torch, K, ref):
+    """The FFN instances at this checkout's ``tensorcore`` shapes."""
+    here, out = this_chip_smoke(), {}
+    widths = [(here.TC_FFN_WIDTHS[m], here.TC_FFN_T)
+              for m in here.TC_FFN_WIDTHS] + [here.TC_FFN_UNALIGNED]
+    for (d, f), ts in widths:
+        gen = torch.Generator(device="cuda").manual_seed(d * 1009 + f)
+        randn = here._randn(torch, gen, torch.bfloat16, "cuda")
+        insts = here._ffn_instances(torch, K, ref, randn, d, f)
+        for name, (model, _, kern, _, _, _) in insts.items():
+            if (d, f) != here.TC_FFN_UNALIGNED[0] and (
+                    here.TC_FFN_WIDTHS[model] != (d, f)):
+                continue
+            for t in ts:
+                x = randn(t, d)
+                out[f"{name} T={t},D={d},F={f}"] = _sha(torch, kern(x))
+    emit({"phase": "ffn_hashes", "hashes": out})
+
+
+def moe(torch, K):
+    """K12 on the tree at this checkout's ``tensorcore`` cases."""
+    here, out = this_chip_smoke(), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for model, routing, t, x, g, wg, wu, wd in here._moe_cases(torch,
+                                                                  dtype):
+            out[f"{model} {routing} T={t} {str(dtype)[6:]}"] = _sha(
+                torch, K.moe_experts(x, g, wg, wu, wd))
+    emit({"phase": "moe_hashes", "hashes": out})
+
+
+# A plain-load read of K12's weights, built by ``moe_probe`` alone: block
+# (r, e) reads expert e's F columns [r FR, (r + 1) FR) of wg and wu over
+# every D row and its wd rows [r FR, (r + 1) FR) (the fused launch's block
+# slices), or a contiguous 1 / gridDim.x of each of its three matrices; 16-
+# byte loads, four in flight per thread, folded into a sink so that none
+# is dropped.
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ unsigned read_run(const uint4* p, size_t n) {
+  unsigned acc = 0;
+  for (size_t i = threadIdx.x; i < n; i += 4 * 256) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = i + u * 256 < n ? __ldcs(p + i + u * 256) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  }
+  return acc;
+}
+__global__ void __launch_bounds__(256)
+moe_read_probe(const char* wg, const char* wu, const char* wd, int d, int f,
+               int fr, int contiguous, unsigned* sink) {
+  const int e = blockIdx.y, r = blockIdx.x;
+  const size_t mat = (size_t)d * f * 2;
+  const char* w[3] = {wg + e * mat, wu + e * mat, wd + e * mat};
+  unsigned acc = 0;
+  if (contiguous) {
+    const size_t chunk = mat / gridDim.x;
+    for (int m = 0; m < 3; ++m)
+      acc ^= read_run(reinterpret_cast<const uint4*>(w[m] + r * chunk),
+                      chunk / 16);
+  } else {
+    const int vpr = fr * 2 / 16, rows = 256 / vpr;
+    for (int m = 0; m < 2; ++m) {
+      const char* base = w[m] + (size_t)r * fr * 2;
+      for (int row = threadIdx.x / vpr; row < d; row += 4 * rows) {
+        uint4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int rr = row + u * rows;
+          v[u] = rr < d ? __ldcs(reinterpret_cast<const uint4*>(
+                              base + (size_t)rr * f * 2) + threadIdx.x % vpr)
+                        : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+      }
+    }
+    acc ^= read_run(reinterpret_cast<const uint4*>(
+                        w[2] + (size_t)r * fr * d * 2), (size_t)fr * d * 2 / 16);
+  }
+  if (acc == 0x9e3779b9u) sink[0] = acc;
+}
+extern "C" int repro_moe_read_probe(const void* wg, const void* wu,
+                                    const void* wd, int d, int f, int e,
+                                    int fr, int contiguous, void* sink,
+                                    void* stream) {
+  moe_read_probe<<<dim3(f / fr, e), 256, 0, (cudaStream_t)stream>>>(
+      (const char*)wg, (const char*)wu, (const char*)wd, d, f, fr,
+      contiguous, (unsigned*)sink);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _kernel_ms(torch, timer, fn, iters=10):
+    """Each kernel's mean device milliseconds per ``fn()`` over ``iters``
+    calls, the L2 rewritten before each (the timer's buffer; its fill
+    kernel left out), by name up to its argument list."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ms: dict = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != cuda or "FillFunctor" in name:
+            continue
+        key = name.split("(repro::")[0].replace("void ", "")[:100]
+        ms[key] = ms.get(key, 0.0) + e.duration_ns() / 1e6 / iters
+    return ms
+
+
+def moe_probe(torch, timer):
+    """K12's bf16 time at granite-3b's widths beside a plain read of its
+    weights."""
+    import ctypes
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    here = this_chip_smoke()
+    d, f, e = here.TC_MOE_WIDTHS[here.GRANITE]
+    src = os.path.join(_build.BUILD_DIR, "moe_read_probe.cu")
+    lib = os.path.join(_build.BUILD_DIR, "moe_read_probe.so")
+    with open(src, "w") as fh:
+        fh.write(PROBE_SRC)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True)
+    probe = ctypes.CDLL(lib).repro_moe_read_probe
+    probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    randn = here._randn(torch, gen, torch.bfloat16, "cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    nbytes = 3 * e * d * f * 2
+    for t in (4, 20, 128, 1000):
+        x, _, g, wg, wu, wd = here._moe_inputs(torch, randn, t, d, f, e,
+                                               here.TC_MOE_TOP_K,
+                                               torch.bfloat16)
+        if t == 4:
+            for contiguous in (0, 1):
+                def read(c=contiguous):
+                    status = probe(wg.data_ptr(), wu.data_ptr(),
+                                   wd.data_ptr(), d, f, e, 128, c,
+                                   sink.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+                    assert status == 0, status
+                ms = timer(read)
+                emit({"phase": "moe_probe", "read": ("block slices",
+                                                     "contiguous")[contiguous],
+                      "bytes": nbytes, "ms": ms,
+                      "TB/s": nbytes / ms / 1e9})
+        kept = g != 0
+        for name, fn in (("moe_experts",
+                          lambda: K.moe_experts(x, g, wg, wu, wd)),
+                         ("library chain", lambda: here._moe_library(
+                             torch, x, g, wg, wu, wd))):
+            emit({"phase": "moe_probe", "call": name, "T": t,
+                  "experts_touched": int(kept.any(0).sum()),
+                  "gate_pairs": int(kept.sum()), "ms": timer(fn),
+                  "kernel_ms": _kernel_ms(torch, timer, fn)})
+
+
+def burst(torch, cs, model="llama3-8b"):
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=16,
+    cfg = dataclasses.replace(get_config(model), num_layers=16,
                               use_fused_kernels=True)
     params = cs._weights(torch, cfg, 2, jitter=False)
-    cs.serve(torch, cfg, params, cs.SERVE_PATHS["llama3-8b"]["chunked"],
+    cs.serve(torch, cfg, params, cs.SERVE_PATHS[model]["chunked"],
              init_s=0.0)
     cs._free(torch, "cuda")
     # The profile as this checkout's chip_smoke.serve takes it, through the
     # tree's engine.
     prof = this_chip_smoke().profile_burst(torch, cfg, params)
-    emit({"phase": "burst_profile", "layers": cfg.num_layers,
-          **(prof or {"device_ms": None})})
+    emit({"phase": "burst_profile", "model": model,
+          "layers": cfg.num_layers, **(prof or {"device_ms": None})})
 
 
-def train(torch, cs):
+def train(torch, cs, model="llama3-8b", layers=2):
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2,
-                              use_fused_kernels=True)
-    cs.train(torch, cfg, "llama3-8b", steps=3, ckpt_every=None,
-             replay_from=0, lr=3e-5, note="full width cut to 2 layers")
+    cfg = dataclasses.replace(get_config(model), use_fused_kernels=True,
+                              num_layers=layers or get_config(model).num_layers)
+    cs.train(torch, cfg, model, steps=3, ckpt_every=None, replay_from=0,
+             lr=3e-5, note=f"full width, {cfg.num_layers} layers")
 
 
 def main() -> int:
@@ -157,10 +361,20 @@ def main() -> int:
             cs.check_kernels(torch, timer)
         elif phase == "row_invariance":
             cs.check_row_invariance(torch)
+        elif phase == "ffn_hashes":
+            ffn_hashes(torch, K, ref)
+        elif phase == "moe":
+            moe(torch, K)
+        elif phase == "moe_probe":
+            moe_probe(torch, timer)
         elif phase == "burst":
             burst(torch, cs)
+        elif phase == "granite_burst":
+            burst(torch, cs, cs.GRANITE)
         elif phase == "train":
             train(torch, cs)
+        elif phase == "granite_train":
+            train(torch, cs, cs.GRANITE_TRAIN, layers=None)
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

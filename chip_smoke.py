@@ -80,12 +80,18 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               vocabulary of partial 128-column tiles with labels on its
               padded columns (their weights 8x the real ones) and
               unaligned, against its plain version (within 5e-4 nats) and
-              ``h @ W``, ``logsumexp`` and ``gather``;
+              ``h @ W``, ``logsumexp`` and ``gather``; K12 at 1 to 4096
+              rows at granite-3b's and granite-1b's widths and, at 4, 20,
+              128 and 1000 rows, under four adversarial routings (an
+              expert no token keeps, every token on the same experts,
+              ties that keep 2k, tiny kept gates), each call without a
+              host sync, against its plain version row by row and the
+              three-``bmm`` chain;
               every call repeated bit for bit (required); K7's rows 0..999
               equal at S = 1000 and S = 2048 on the same prefix, K2's rows
               equal to K7's rows at the same positions of the whole prompt,
-              and each FFN instance's, K3's and K10a's rows equal at 1 to 64
-              rows (required);
+              and each FFN instance's, K3's, K10a's and K12's rows equal at
+              1 to 64 rows (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
               one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
@@ -538,9 +544,10 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
     """A causal flash call and its SDPA yardstick: the offset branch over a
     gathered extent (``q_off`` set, kv_len = q_off + sq), or the static
     branch over a whole prompt (``q_off`` None, sq == skv); with ``code``
-    the offset branch over int8 / fp8 codes with per-position scales (no
-    single PyTorch call reads codes: no library yardstick).  ``scale``:
-    the softmax scale (None: 1 / sqrt(D))."""
+    the offset branch over int8 / fp8 codes with per-position scales (its
+    library yardstick: SDPA with the offset mask on K/V dequantized
+    outside the timing, as K10a's is ``torch.matmul`` on dequantized W).
+    ``scale``: the softmax scale (None: 1 / sqrt(D))."""
     kv_len = skv if q_off is None else q_off + sq
     q = randn(hq, sq, hd)
     k = randn(hkv, skv, hd)
@@ -560,7 +567,10 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
         plain = lambda: ref.flash_attention_offset(
             q, k, v, q_offset=q_off, kv_len=kv_len, kv_group=g, k_scale=ks,
             v_scale=vs)
-        library = None
+        kd, vd = ((c.float() * cs[..., None]).to(q.dtype)
+                  for c, cs in ((k, ks), (v, vs)))
+        library = lambda: sdpa(q[None], kd[None], vd[None], attn_mask=mask,
+                               enable_gqa=True, scale=scale)
         kv_bytes = 2 * hkv * kv_len * (hd + 4)     # codes + f32 scales
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len},codes={code}")
@@ -1009,11 +1019,67 @@ def _moe_inputs(torch, randn, t, d, f, e, top_k, dtype):
 
 
 def _moe_library(torch, x, g, wg, wu, wd):
-    """The same dense-gather work as cuBLAS calls: three batched products
-    over the experts and the gate-weighted sum."""
+    """The same function as cuBLAS calls, on the dense gather (every
+    expert for every token): three batched products over the experts and
+    the gate-weighted sum."""
     xe = x.expand(wg.shape[0], -1, -1)
     h = torch.nn.functional.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
     return torch.einsum("etd,te->td", torch.bmm(h, wd), g)
+
+
+MOE_ROUTINGS = ("router", "no token keeps expert 0",
+                "all on experts 0..k-1", "ties keep 2k", "tiny kept gates")
+
+
+def _moe_routings(torch, x, wr, top_k, dtype):
+    """Gates [T, E] for x: the router's (``gates_from_logits``, top-k of
+    softmax(x @ wr)) and four adversarial routings of the same tokens:
+    "no token keeps expert 0" (its column zeroed), "all on experts 0..k-1"
+    (1/k each), "ties keep 2k" (the first 2k logits tied at the top: the
+    router keeps every tie) and "tiny kept gates" (every third row's gates
+    times 1e-30, and the next row keeping one more expert at 1e-30, both
+    normal bfloat16 values)."""
+    from repro_torch.models.layers import gates_from_logits
+    logits = x.float() @ wr.float()
+    t, e = logits.shape
+    g = gates_from_logits(logits, top_k, dtype)
+    none = g.clone()
+    none[:, 0] = 0
+    same = torch.zeros_like(g)
+    same[:, :top_k] = 1.0 / top_k
+    tied = logits.clone()
+    tied[:, :2 * top_k] = logits.amax(dim=1, keepdim=True) + 1.0
+    tiny = g.float().clone()
+    rows = torch.arange(t, device=g.device)
+    tiny[rows % 3 == 0] *= 1e-30
+    first = (g == 0).float().argmax(dim=1)
+    extra = rows[rows % 3 == 1]
+    tiny[extra, first[extra]] = 1e-30
+    return dict(zip(MOE_ROUTINGS, (
+        g, none, same, gates_from_logits(tied, top_k, dtype),
+        tiny.to(dtype))))
+
+
+def _no_sync(torch, fn):
+    """``fn()`` with any host synchronization raising
+    (``set_sync_debug_mode("error")``)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _row_rel(got, want) -> float:
+    """max over rows of max |got - want| / max |want| within the row (a row
+    all of tiny gates has its own scale; inf where a zero row is not)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(dim=-1)
+    scale = w.abs().amax(dim=-1)
+    rel = err / scale.clamp_min(1e-38)
+    rel = rel.masked_fill((scale == 0) & (err == 0), 0.0)
+    return float(rel.max().item())
 
 
 def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
@@ -1039,14 +1105,16 @@ def granite_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                                            dtype)
         # The bound counts what this router's gates need: the experts
         # some token kept, read once, and 6 D F operations per kept
-        # (token, expert) pair.  The dense-gather work K12 and the library
-        # chain do (every expert for every token) is reported beside it.
+        # (token, expert) pair, the work K12 does.  The dense-gather work
+        # the library chain does (every expert for every token) is
+        # reported beside it.  No host sync inside K12.
         kept = g != 0
         pairs, touched = int(kept.sum()), int(kept.any(0).sum())
         return x, wr, dict(
             name="moe_experts", model=model, path=path,
             shape=f"T={t},D={d},F={f},E={e},top_k={top_k}",
-            kernel=lambda: K.moe_experts(x, g, wg, wu, wd),
+            kernel=lambda: _no_sync(
+                torch, lambda: K.moe_experts(x, g, wg, wu, wd)),
             plain=lambda: ref.moe_experts(x, g, wg, wu, wd),
             library=lambda: _moe_library(torch, x, g, wg, wu, wd),
             cublas=None,
@@ -2009,6 +2077,101 @@ def _xent_tc_rows(torch, timer, K, ref, randn, gen, sms):
     return rows
 
 
+# K12 (``moe_experts``) in bf16 on the tensor cores: the fused launch at
+# 1..64 rows, the two passes above; granite-3b's and granite-1b's (D, F, E)
+# with the router's top-8 gates, and at granite-3b's widths the adversarial
+# routings of ``_moe_routings`` at a decode step, a verify dispatch, a
+# prefill chunk and a whole prompt.
+TC_MOE_T = (1, 4, 16, 17, 20, 64, 65, 128, 1000, 4096)
+TC_MOE_WIDTHS = {GRANITE: (1536, 512, 40), GRANITE_TRAIN: (1024, 512, 32)}
+TC_MOE_ROUTED_T = (4, SPEC_T, 128, 1000)
+TC_MOE_TOP_K = 8
+
+
+def _moe_cases(torch, dtype):
+    """K12's ``tensorcore`` cases, (model, routing, T, x, gates, wg, wu,
+    wd): ``TC_MOE_T`` rows at each width with the router's gates, and at
+    granite-3b's widths the other routings of ``_moe_routings`` at
+    ``TC_MOE_ROUTED_T``; inputs drawn per case from a seed of (T, D, E), so
+    that another tree's kernel gets the same tensors (``chip_phases.py
+    moe``)."""
+    for model, (d, f, e) in TC_MOE_WIDTHS.items():
+        for t in TC_MOE_T:
+            routings = (MOE_ROUTINGS if model == GRANITE
+                        and t in TC_MOE_ROUTED_T else ("router",))
+            for routing in routings:
+                gen = torch.Generator(device="cuda").manual_seed(
+                    t * 1_000_003 + d * 1009 + e)
+                x, wr, _, wg, wu, wd = _moe_inputs(
+                    torch, _randn(torch, gen, dtype, "cuda"), t, d, f, e,
+                    TC_MOE_TOP_K, dtype)
+                g = _moe_routings(torch, x, wr, TC_MOE_TOP_K,
+                                  dtype)[routing]
+                yield model, routing, t, x, g, wg, wu, wd
+
+
+def _moe_tc_case(torch, K, ref, model, routing, t, x, g, wg, wu, wd):
+    """One K12 case of ``_moe_cases``: each K12 call under ``_no_sync``;
+    held to the plain version row by row (``_row_rel``: a row of tiny
+    gates on its own scale) and to the library chain; bound from the kept
+    pairs."""
+    from repro_torch.kernels.common import moe_plan
+    d, f, e = TC_MOE_WIDTHS[model]
+    kept = g != 0
+    pairs, touched = int(kept.sum()), int(kept.any(0).sum())
+    mode, f_per_split, splits = moe_plan(t, f)
+    library = _moe_library(torch, x, g, wg, wu, wd)
+    return dict(
+        name="moe_experts", shape=f"{model} {routing} T={t},D={d},F={f},"
+        f"E={e}",
+        kernel=lambda: _no_sync(torch, lambda: K.moe_experts(x, g, wg, wu,
+                                                             wd)),
+        plain=lambda: ref.moe_experts(x, g, wg, wu, wd),
+        library=lambda: _moe_library(torch, x, g, wg, wu, wd),
+        rel=_row_rel, nbytes=(2 * t * d + t * e + 3 * touched * d * f) * 2,
+        flops=6 * d * f * pairs,
+        extra={"mode": ("fused", "two-pass")[mode],
+               "f_per_split": f_per_split, "splits": splits,
+               "gate_pairs": pairs, "experts_touched": touched,
+               "library_rel_err": _rel(library.float(),
+                                       ref.moe_experts(x, g, wg, wu,
+                                                       wd).float())})
+
+
+def _moe_tc_rows(torch, timer, K, ref, randn):
+    """K12 at ``_moe_cases``, each within ``TOL`` of its plain version row
+    by row, within ``TOL`` of the library chain (which rounds y to bf16 per
+    expert), deterministic, no host sync; rows at 1..64 equal their rows
+    at 64 (router gates at both widths, and every token on the same
+    experts), required."""
+    from repro_torch.kernels.common import ROW_INVARIANT_T
+    rows, same = [], []
+    for case in _moe_cases(torch, torch.bfloat16):
+        rows.append(_tc_row(torch, timer, _moe_tc_case(torch, K, ref,
+                                                       *case)))
+    for r in rows:
+        r["ok"] = bool(r["ok"] and r["library_rel_err"] <= TOL["bfloat16"])
+    for model, routing in ((GRANITE, "router"), (GRANITE_TRAIN, "router"),
+                           (GRANITE, "all on experts 0..k-1")):
+        d, f, e = TC_MOE_WIDTHS[model]
+        x, wr, _, wg, wu, wd = _moe_inputs(torch, randn, ROW_INVARIANT_T, d,
+                                           f, e, TC_MOE_TOP_K,
+                                           torch.bfloat16)
+        g = _moe_routings(torch, x, wr, TC_MOE_TOP_K,
+                          torch.bfloat16)[routing]
+        full = K.moe_experts(x, g, wg, wu, wd)
+        bad = [t for t in range(1, ROW_INVARIANT_T)
+               if not torch.equal(K.moe_experts(
+                   x[:t].contiguous(), g[:t].contiguous(), wg, wu, wd),
+                   full[:t])]
+        row = {"phase": "tensorcore_rows", "name": "moe_experts",
+               "model": model, "routing": routing, "D": d, "F": f, "E": e,
+               "equal_1_to_64": not bad, "unequal_at": bad[:8]}
+        emit(row)
+        same.append(row)
+    return rows, same
+
+
 def check_tensorcore(torch, timer):
     """K7 (``flash_attention_static``), K2 (the offset branch of
     ``flash_attention_2d``), K5 (``block_matmul``), the streamed FFN (K4,
@@ -2022,8 +2185,9 @@ def check_tensorcore(torch, timer):
     the 1000-token prompt's, bit for bit, at each head dim (GQA group 4);
     K2's rows equal K7's rows at the same positions of the whole prompt,
     bit for bit, at every swept offset, row count and head dim
-    (``tensorcore_offset``, required); the FFN's, K3's and K10a's rows
-    equal at 1..64 rows (``tensorcore_rows``, required)."""
+    (``tensorcore_offset``, required); the FFN's, K3's, K10a's and K12's
+    rows equal at 1..64 rows (``tensorcore_rows``, required); K12
+    (``moe_experts``) at ``TC_MOE_*`` (``_moe_tc_rows``)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import mma_plan, sm_count
@@ -2106,6 +2270,8 @@ def check_tensorcore(torch, timer):
     norm, norm_same = _norm_tc_rows(torch, timer, K, ref, randn, sms)
     rows += norm
     rows += _xent_tc_rows(torch, timer, K, ref, randn, gen, sms)
+    moe, moe_same = _moe_tc_rows(torch, timer, K, ref, randn)
+    rows += moe
     worst = {}
     for r in ffn:
         key = r["shape"].split(" T=")[0]
@@ -2117,12 +2283,13 @@ def check_tensorcore(torch, timer):
     bad += [f"offset D={r['head_dim']} q_offset={r['q_offset']} "
             f"rows={r['rows']}" for r in offset if not r["equal"]]
     bad += [f"rows {r['name']} {r.get('F', r.get('N'))} at "
-            f"{r['unequal_at']}" for r in ffn_same + norm_same
+            f"{r['unequal_at']}" for r in ffn_same + norm_same + moe_same
             if not r["equal_1_to_64"]]
     if bad:
         raise AssertionError("tensor-core kernels: " + "; ".join(bad))
     return {"rows": rows, "prefix": prefix, "offset": offset,
             "ffn_rows": ffn_same, "norm_rows": norm_same,
+            "moe_rows": moe_same,
             "ffn_max_rel_err": worst}
 
 
@@ -2870,7 +3037,7 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (f32 K3, K5)"),
                ("block_mma_kernel", "projections (K5, tensor cores)"),
                ("rmsnorm_mma_kernel", "projections (K3, tensor cores)"),
                ("rmsnorm_rstd_kernel", "projections (K3, tensor cores)"),
-               ("split_reduce_kernel", "float32 split sums (K3-K6, K12)"),
+               ("split_reduce_kernel", "float32 split sums (K3-K6)"),
                ("streamed_ffn_kernel", "FFN (f32 K4/K6)"),
                ("ffn_mma_kernel", "FFN (K4/K6, tensor cores)"),
                ("rms_rows_kernel", "FFN (K4/K6, tensor cores)"),

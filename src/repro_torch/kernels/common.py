@@ -169,6 +169,27 @@ def ffn_plan(t: int, d: int, f: int, sms: int):
     return 1, f_per_split, cdiv(f, f_per_split)
 
 
+# Mirrors csrc/moe_experts.cu's bf16 launches (K12): up to 64 rows each
+# fused block owns MOE_BF columns of one expert's F; the two passes make
+# 64-column h tiles (h's rows padded to a multiple of FFN_BF).
+MOE_BF = 128
+
+
+@functools.lru_cache(maxsize=4096)
+def moe_plan(t: int, f: int):
+    """(mode, f_per_split, splits) for the tensor-core MoE experts.
+
+    Up to ``ROW_INVARIANT_T`` rows, mode 0 (one fused launch over (F range,
+    expert)): F cut into ranges of ``MOE_BF`` columns, from f alone, so a
+    (token, expert) pair runs the same products and sums the same partials
+    in the same order at every such row count, however many tokens its
+    expert keeps.  Above, mode 1 (two passes through an h [E, T, F] in
+    HBM, one split).  Cached: it runs on every decode-step call."""
+    if t <= ROW_INVARIANT_T:
+        return 0, MOE_BF, cdiv(f, MOE_BF)
+    return 1, f, 1
+
+
 # Mirrors csrc/paged_attention.cu's split of a slot's keys (K1, K8, K9a,
 # K9b): block (slot, KV head, p) owns positions [p P, (p + 1) P) of the
 # slot's page-table extent, P = PAGED_PART, a multiple of the 16-token

@@ -1,10 +1,21 @@
-"""Dense-gather MoE experts (the plan's ``ffn`` for the MoE family, K12).
+"""MoE experts (the plan's ``ffn`` for the MoE family, K12).
 
 ``moe_experts`` launches ``csrc/moe_experts.cu`` on a CUDA tensor and runs
-``ref.moe_experts`` on a CPU tensor; ``moe_experts.launches`` counts kernel
-launches.  The CUDA kernel runs SiLU, the only activation of the ported
-MoE configs; on the card other activations are refused until a config
-needs them, while the plain version covers them all.
+``ref.moe_experts`` on a CPU tensor; ``moe_experts.launches`` counts its
+calls that launch.  On the card only the (token, expert) pairs the gates
+keep are computed: a route pass on the device lists each expert's kept
+tokens, the products run over those rows alone, and a combine sums each
+token's kept experts in expert order, which gives the reference's float32
+sum (a dropped pair adds ``y * 0 = +-0``; see the kernel's header for the
+two cases where it does not).  Nothing is read back to the host: the
+grids are sized from T and E.  bfloat16 runs the tensor-core body of the
+streamed FFN (planned by ``common.moe_plan``: up to 64 rows one fused
+launch whose blocks list their expert's tokens, two passes through h
+above), float32 the CUDA-core kernels, which keep float32 products
+exact.  The CUDA kernels run SiLU, the only
+activation of the ported MoE configs; on the card other activations are
+refused until a config needs them, while the plain version covers them
+all.
 """
 
 from __future__ import annotations
@@ -15,29 +26,55 @@ import functools
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (FFN_BF, check_cuda_operands, check_launch, kernel_path,
+                     moe_plan, round_up)
 
 _ACTS = ("silu", "gelu")          # the plain version's
-# csrc/moe_experts.cu's small tile class (8-row tiles) serves up to this
-# many rows, the large class (64-row tiles) the rest.
-_SMALL_T = 16
+_ALIGN = 256                      # bytes between the workspace's parts
+def workspace_layout(t: int, d: int, f: int, e: int, dtype: torch.dtype,
+                     mode: int, splits: int):
+    """(bytes, {part: (byte offset, shape, dtype)}) of the one workspace a
+    call allocates (none of it needs zeroing): the route's idx [E, T] and
+    counts [E] (int32), h and the float32 partials the combine sums.  bf16
+    mode 0 (the fused launch lists each expert's tokens itself): partials
+    [splits, E, T, D] alone; mode 1: h [E, T, F rounded up to 64] bf16 and
+    partials [1, E, T, D]; float32: h [E, T, F] and partials [E, T, D]."""
+    parts = []
+    if dtype != torch.bfloat16 or mode == 1:
+        parts += [("idx", (e, t), torch.int32), ("counts", (e,), torch.int32)]
+    if dtype != torch.bfloat16:
+        parts += [("h", (e, t, f), dtype), ("part", (e, t, d), torch.float32)]
+    else:
+        if mode == 1:
+            parts.append(("h", (e, t, round_up(f, FFN_BF)), dtype))
+        parts.append(("part", (splits, e, t, d), torch.float32))
+    layout, off = {}, 0
+    for name, shape, dt in parts:
+        layout[name] = (off, shape, dt)
+        n = dt.itemsize
+        for s in shape:
+            n *= s
+        off = round_up(off + n, _ALIGN)
+    return off, layout
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     lib = _build.load("moe_experts")
-    sym = ("repro_moe_experts_bf16" if dtype == torch.bfloat16
-           else "repro_moe_experts_f32")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp] * 8 + [i] * 5 + [vp])
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, "repro_moe_experts_bf16",
+                              [vp] * 10 + [i] * 8 + [vp])
+    return _build.declare(lib, "repro_moe_experts_f32",
+                          [vp] * 10 + [i] * 4 + [vp])
 
 
 def moe_experts(x: torch.Tensor, gates: torch.Tensor, wg: torch.Tensor,
                 wu: torch.Tensor, wd: torch.Tensor, *,
                 activation: str = "silu") -> torch.Tensor:
-    """x [T, D]; gates [T, E] (zero off the top-k); wg/wu [E, D, F]; wd
-    [E, F, D] -> the gate-weighted sum of every expert's GLU FFN [T, D]
-    (x dtype, float32 sums)."""
+    """x [T, D]; gates [T, E] (zero where the router drops an expert);
+    wg/wu [E, D, F]; wd [E, F, D] -> the gate-weighted sum of every
+    expert's GLU FFN [T, D] (x dtype, float32 sums)."""
     t, d = x.shape
     e, d2, f = wg.shape
     if (d != d2 or tuple(gates.shape) != (t, e)
@@ -59,13 +96,25 @@ def moe_experts(x: torch.Tensor, gates: torch.Tensor, wg: torch.Tensor,
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     if t == 0:
         return out
-    h = torch.empty((e, t, f), dtype=x.dtype, device=x.device)
-    part = torch.empty((e, t, d), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry(x.dtype)(
-        x.data_ptr(), gates.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), h.data_ptr(), part.data_ptr(), out.data_ptr(), t, d,
-        f, e, int(t <= _SMALL_T), stream)
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if x.dtype == torch.bfloat16:
+        mode, f_per_split, splits = moe_plan(t, f)
+    else:
+        mode, f_per_split, splits = 1, f, 1
+    nbytes, layout = workspace_layout(t, d, f, e, x.dtype, mode, splits)
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    ptr = {k: ws.data_ptr() + off for k, (off, _, _) in layout.items()}
+    operands = (x.data_ptr(), gates.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), ptr.get("idx"),
+                ptr.get("counts"), ptr.get("h"), ptr["part"], out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        aligned = (d % 16 == 0 and f % 16 == 0
+                   and all(o.data_ptr() % 16 == 0 for o in (x, wg, wu, wd)))
+        status = _entry(x.dtype)(*operands, t, d, f, e, mode, f_per_split,
+                                 splits, int(aligned), stream)
+    else:
+        status = _entry(x.dtype)(*operands, t, d, f, e, stream)
     check_launch("moe_experts", status)
     moe_experts.launches += 1
     return out
