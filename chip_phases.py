@@ -42,7 +42,26 @@ parent.  Phases:
   train      llama3-8b at full width, 2 layers: ``chip_smoke.train``'s
              3 steps with a profiled step;
   granite_train
-             granite-moe-1b at full width and depth: the same.
+             granite-moe-1b at full width and depth: the same;
+  flash_q_hashes
+             sha256 of K9c's (``flash_attention_2d_q``) float32 outputs
+             at this checkout's ``tensorcore`` shapes (``TC_OFFSET_*``,
+             int8 and fp8), from seeded inputs;
+  ssd_hashes sha256 of K13's (``mamba2_ssd``) float32 y and final state at
+             this checkout's ``tensorcore`` shapes (``TC_SSD_S`` and 2 x
+             2048, the model's chunk), from seeded inputs;
+  flash_q, ssd
+             this checkout's bf16 ``tensorcore`` rows of K9c
+             (``_flash_q_tc_rows``) and K13 (``_ssd_tc_rows``) on the
+             tree's kernels, with their bit-for-bit checks (reported, not
+             required: an older tree's kernels need not meet them);
+  zamba_burst
+             zamba2-2.7b at full size, bf16: the whole-prompt mixed burst
+             (TTFT, TPOT) and the same burst under ``torch.profiler``, as
+             ``burst``;
+  quant_burst
+             llama3-8b at full width, 16 layers, bf16, ``w8_kv8``: the
+             chunked mixed burst, as ``burst``.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
@@ -77,7 +96,16 @@ SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
                              "moe_experts"],
            "granite_train": ["rmsnorm_matmul", "flash_mma", "flash_attention",
                              "block_matmul", "streamed_xent", "row_norm",
-                             "moe_experts"]}
+                             "moe_experts"],
+           "flash_q_hashes": ["flash_attention"],
+           "flash_q": ["flash_mma", "flash_attention"],
+           "ssd_hashes": ["mamba2_scan"], "ssd": ["mamba2_scan"],
+           "zamba_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
+                           "flash_attention", "paged_attention",
+                           "block_matmul", "row_norm", "mamba2_scan"],
+           "quant_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
+                           "flash_attention", "paged_attention",
+                           "block_matmul"]}
 
 
 def emit(obj) -> None:
@@ -286,18 +314,69 @@ def moe_probe(torch, timer):
                   "kernel_ms": _kernel_ms(torch, timer, fn)})
 
 
-def burst(torch, cs, model="llama3-8b"):
+def flash_q_hashes(torch, K):
+    """K9c in float32 at this checkout's ``tensorcore`` shapes."""
+    here, out = this_chip_smoke(), {}
+    for code in here.CODES:
+        for d, g in here.TC_OFFSET_Q_DG:
+            for q_off in here.TC_OFFSET_Q:
+                for sq in here.TC_OFFSET_ROWS:
+                    skv = here.page_extent(q_off + sq)
+                    gen = torch.Generator(device="cuda").manual_seed(
+                        q_off * 1009 + sq * 31 + d + g)
+                    randn = here._randn(torch, gen, torch.float32, "cuda")
+                    q = randn(2 * g, sq, d)
+                    (k, ks), (v, vs) = (here._encode(torch, randn(2, skv, d),
+                                                     code, 1)
+                                        for _ in range(2))
+                    y = K.flash_attention_2d_q(
+                        q, k, v, k_scale=ks, v_scale=vs, q_offset=q_off,
+                        kv_len=q_off + sq, kv_group=g)
+                    out[f"{code} D={d},G={g},q_offset={q_off},rows={sq}"] = (
+                        _sha(torch, y))
+    emit({"phase": "flash_q_hashes", "hashes": out})
+
+
+def ssd_hashes(torch, K, ref):
+    """K13 in float32 at this checkout's ``tensorcore`` shapes, the
+    model's chunk."""
+    here, out = this_chip_smoke(), {}
+    for b, s in [(1, s) for s in here.TC_SSD_S] + [here.TRAIN_SHAPES[
+            here.ZAMBA]]:
+        gen = torch.Generator(device="cuda").manual_seed(b * 100_003 + s)
+        randn = here._randn(torch, gen, torch.float32, "cuda")
+        y, state = here._ssd_case(torch, K, ref, randn, 4, b, s,
+                                  None)["kernel"]()
+        out[f"B={b},S={s}"] = [_sha(torch, y), _sha(torch, state)]
+    emit({"phase": "ssd_hashes", "hashes": out})
+
+
+def burst(torch, cs, model="llama3-8b", quant=None, phase="burst"):
+    """The serving depth's (``SERVE_LAYERS``; zamba2 all 54 layers) mixed
+    burst on the tree: chunked admission (zamba2 whole-prompt), under
+    ``quant`` where given; then its profile."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(model), num_layers=16,
-                              use_fused_kernels=True)
+    base = get_config(model)
+    cfg = dataclasses.replace(
+        base, num_layers=cs.SERVE_LAYERS.get(model, base.num_layers),
+        use_fused_kernels=True)
     params = cs._weights(torch, cfg, 2, jitter=False)
-    cs.serve(torch, cfg, params, cs.SERVE_PATHS[model]["chunked"],
-             init_s=0.0)
+    if model == cs.ZAMBA:
+        chunked, expect = None, set(cs.zamba_launches(1, 1, quant or "none"))
+    elif quant:
+        chunked, expect = True, cs.QUANT_PATHS[(model, "chunked")]
+    else:
+        chunked, expect = True, cs.SERVE_PATHS[model]["chunked"]
+    if quant:
+        cfg = dataclasses.replace(cfg, quant=quant)
+    cs.serve(torch, cfg, params, expect, init_s=0.0, chunked=chunked,
+             phase=phase)
     cs._free(torch, "cuda")
     # The profile as this checkout's chip_smoke.serve takes it, through the
     # tree's engine.
-    prof = this_chip_smoke().profile_burst(torch, cfg, params)
-    emit({"phase": "burst_profile", "model": model,
+    prof = this_chip_smoke().profile_burst(torch, cfg, params,
+                                           chunked=chunked)
+    emit({"phase": f"{phase}_profile", "model": model, "quant": quant,
           "layers": cfg.num_layers, **(prof or {"device_ms": None})})
 
 
@@ -370,7 +449,19 @@ def main() -> int:
         elif phase == "burst":
             burst(torch, cs)
         elif phase == "granite_burst":
-            burst(torch, cs, cs.GRANITE)
+            burst(torch, cs, cs.GRANITE, phase="granite_burst")
+        elif phase == "zamba_burst":
+            burst(torch, cs, cs.ZAMBA, phase="zamba_burst")
+        elif phase == "quant_burst":
+            burst(torch, cs, quant=cs.QUANT_MODE, phase="quant_burst")
+        elif phase == "flash_q_hashes":
+            flash_q_hashes(torch, K)
+        elif phase == "ssd_hashes":
+            ssd_hashes(torch, K, ref)
+        elif phase == "flash_q":
+            this_chip_smoke()._flash_q_tc_rows(torch, timer, K, ref, randn)
+        elif phase == "ssd":
+            this_chip_smoke()._ssd_tc_rows(torch, timer, K, ref, randn)
         elif phase == "train":
             train(torch, cs)
         elif phase == "granite_train":

@@ -59,7 +59,8 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               and a shuffled page table equal to the identity one over the
               same pages (all required); kernel time, HBM rate of the live
               K/V and the number of live blocks;
-   tensorcore, tensorcore_prefix, tensorcore_offset, tensorcore_rows —
+   tensorcore, tensorcore_prefix, tensorcore_offset, tensorcore_rows,
+   tensorcore_offset_q, tensorcore_ssd —
               the tensor-core kernels in bfloat16 beyond the paths' shapes:
               K7 at S = 1, 37, 63, 64, 65, 999, 1000 and 2048 with head dims
               64, 80 and 128 and GQA groups 1, 3 and 4 against its plain
@@ -86,12 +87,21 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               expert no token keeps, every token on the same experts,
               ties that keep 2k, tiny kept gates), each call without a
               host sync, against its plain version row by row and the
-              three-``bmm`` chain;
+              three-``bmm`` chain; K9c over int8 and fp8 codes at K2's
+              offsets and rows, head dims 64 (GQA groups 1 and 3) and 128
+              (group 4), against its plain version and SDPA on dequantized
+              K/V; K13 at S = 1, 37, 64, 65, 289, 999 and 1000 (batch 1,
+              the model's chunk) and 2 x 2048, y and the final state each
+              on its own scale, against its plain version and the eager
+              chunked scan;
               every call repeated bit for bit (required); K7's rows 0..999
               equal at S = 1000 and S = 2048 on the same prefix, K2's rows
               equal to K7's rows at the same positions of the whole prompt,
-              and each FFN instance's, K3's, K10a's and K12's rows equal at
-              1 to 64 rows (required);
+              K9c's chunks' rows equal to one chunk's from offset 0
+              (``tensorcore_offset_q``), K13's rows 0..999 equal at S =
+              1000 and 2048, at Q = 1 and Q = 8, alone and in a batch of 2
+              (``tensorcore_ssd``), and each FFN instance's, K3's, K10a's
+              and K12's rows equal at 1 to 64 rows (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
               one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
@@ -270,7 +280,7 @@ SOURCES = {
     "paged_verify_attention": _CSRC + "paged_attention.cu",
     "paged_attention_q": _CSRC + "paged_attention.cu",
     "paged_verify_attention_q": _CSRC + "paged_attention.cu",
-    "flash_attention_q": _CSRC + "flash_attention.cu",
+    "flash_attention_q": _CSRC + "flash_mma.cu",
     "rmsnorm_matmul_w8": _CSRC + "rmsnorm_matmul.cu",
     "streamed_ffn_w8": _CSRC + "streamed_ffn.cu",
     "streamed_mlp_w8": _CSRC + "streamed_ffn.cu",
@@ -1215,7 +1225,8 @@ def _ssd_case(torch, K, ref, randn, isz, b, s, path):
     library yardstick is the eager chunked ``mamba2_ssd`` (no one PyTorch
     call computes the SSD).  Operations: per chunk of Q rows, C B^T and the
     (C B^T o L) x product over the Q(Q+1)/2 pairs the mask keeps, then C
-    h^T and the state update."""
+    h^T and the state update.  y and the final state are checked each
+    against its own scale."""
     from repro_torch.models import layers as L
     from repro_torch.models.model import _chunk_of
     h, p, n = 80, 64, 64
@@ -1233,7 +1244,7 @@ def _ssd_case(torch, K, ref, randn, isz, b, s, path):
     pairs = q * (q + 1) // 2
     flops = b * h * (s // q) * (2 * pairs * (n + p) + 4 * q * p * n)
     return dict(
-        name="mamba2_scan", model=ZAMBA, path=path,
+        name="mamba2_scan", model=ZAMBA, path=path, parts=True, args=args,
         shape=f"B={b},S={s},Q={q},H={h},P={p},N={n}",
         kernel=lambda: K.mamba2_ssd(*args, chunk=q),
         plain=lambda: ref.mamba2_ssd(*args, chunk=q),
@@ -1802,11 +1813,16 @@ def _tc_row(torch, timer, case, dname="bfloat16"):
     """One tensor-core case: max error against the plain version, two
     calls bit-equal (required: no atomics sum values), kernel / plain /
     library times and the bound; the error by the case's own ``rel`` and
-    ``tol`` where it has them (streamed_xent's, in nats)."""
+    ``tol`` where it has them (streamed_xent's, in nats), each output on
+    its own scale where it has ``parts`` (K13's y and state)."""
     got, again, want = case["kernel"](), case["kernel"](), case["plain"]()
     torch.cuda.synchronize()
-    rel = (case["rel"](got, want) if "rel" in case
-           else _rel(got.float(), want.float()))
+    if "rel" in case:
+        rel = case["rel"](got, want)
+    elif case.get("parts"):          # each output against its own scale
+        rel = max(_rel(a.float(), b.float()) for a, b in zip(got, want))
+    else:
+        rel = _rel(got.float(), want.float())
     tol = case.get("tol", TOL[dname])
     got, again = _flat(torch, got), _flat(torch, again)
     same = bool(torch.equal(got, again))
@@ -2172,6 +2188,111 @@ def _moe_tc_rows(torch, timer, K, ref, randn):
     return rows, same
 
 
+# K9c (the offset branch over int8 / fp8 codes) on the tensor cores: K2's
+# offsets and rows at head dim 64 (GQA groups 1 and 3: gpt2, granite-3b)
+# and 128 (group 4: llama3), each code; its yardstick SDPA with the offset
+# mask on K/V dequantized outside the timing.
+TC_OFFSET_Q_DG = ((64, 1), (64, 3), (128, 4))
+# ... and its main paths' chunks (128 rows at offset 896): (Hq, Hkv, D,
+# gathered extent) of llama3-8b, gpt2 and granite-moe-3b.
+TC_OFFSET_Q_PATHS = ((32, 8, 128, 2048), (16, 16, 64, 1024),
+                     (24, 8, 64, 2048))
+
+
+def page_extent(n: int) -> int:
+    """A gathered extent over ``n`` positions: whole 16-token pages (the
+    code pools' scale granule) with one page past them."""
+    return -(-n // 16) * 16 + 16
+
+
+def _flash_q_tc_rows(torch, timer, K, ref, randn):
+    """K9c at its paths' chunks (``TC_OFFSET_Q_PATHS``) and at
+    ``TC_OFFSET_Q`` x ``TC_OFFSET_ROWS`` x ``TC_OFFSET_Q_DG`` (2 KV heads,
+    over ``page_extent`` positions), each code, each within ``TOL`` of its
+    plain version and deterministic; then ``tensorcore_offset_q``
+    (required): at each code and (D, G) of the sweep but G = 1, the rows
+    of every swept (q_offset, rows) chunk equal, bit for bit, the rows at
+    the same positions of one chunk from offset 0 over the whole extent."""
+    rows, same = [], []
+    for code in CODES:
+        for hq, hkv, d, skv in TC_OFFSET_Q_PATHS:
+            rows.append(_tc_row(torch, timer, _flash_case(
+                torch, K, ref, randn, 2, "flash_attention_q", hq, hkv, d,
+                128, skv, 896, "cuda", code)))
+        for d, g in TC_OFFSET_Q_DG:
+            for q_off in TC_OFFSET_Q:
+                for sq in TC_OFFSET_ROWS:
+                    skv = page_extent(q_off + sq)
+                    rows.append(_tc_row(torch, timer, _flash_case(
+                        torch, K, ref, randn, 2, "flash_attention_q",
+                        2 * g, 2, d, sq, skv, q_off, "cuda", code)))
+    top = max(TC_OFFSET_Q) + max(TC_OFFSET_ROWS)
+    skv = page_extent(top)
+    for code in CODES:
+        for d, g in TC_OFFSET_Q_DG[1:]:
+            q = randn(2 * g, top, d)
+            (k, ks), (v, vs) = (_encode(torch, randn(2, skv, d).float(),
+                                        code, 1) for _ in range(2))
+            kw = dict(k_scale=ks, v_scale=vs, kv_group=g)
+            whole = K.flash_attention_2d_q(q, k, v, q_offset=0, kv_len=top,
+                                           **kw)
+            for q_off in TC_OFFSET_Q:
+                for sq in TC_OFFSET_ROWS:
+                    n = q_off + sq
+                    chunk = K.flash_attention_2d_q(
+                        q[:, q_off:n].contiguous(), k, v, q_offset=q_off,
+                        kv_len=n, **kw)
+                    row = {"phase": "tensorcore_offset_q", "codes": code,
+                           "head_dim": d, "group": g, "q_offset": q_off,
+                           "rows": sq, "equal": bool(torch.equal(
+                               chunk, whole[:, q_off:n]))}
+                    emit(row)
+                    same.append(row)
+    return rows, same
+
+
+# K13 (the SSD scan) on the tensor cores: whole prompts at batch 1 over
+# the model's chunks (37: one chunk; 64, 65: the segment edge; 289: Q 1;
+# 999: Q 1; 1000: Q 8) and a training step's 2 x 2048.
+TC_SSD_S = (1, 37, 64, 65, 289, 999, 1000)
+
+
+def _ssd_tc_rows(torch, timer, K, ref, randn):
+    """K13 at ``TC_SSD_S`` (batch 1) and 2 x 2048, y and the final state
+    each within ``TOL`` of the plain version on its own scale, each
+    deterministic; then ``tensorcore_ssd`` (required, bit for bit): rows
+    0..999 of a 2048-token sequence equal the 1000-token sequence's; the
+    same 1000 tokens at Q = 1 and Q = 8 give the same y and state; a
+    sequence alone gives the y and state it gets in a batch of 2."""
+    isz = 2
+    rows, same = [], []
+    shapes = [(1, s) for s in TC_SSD_S] + [TRAIN_SHAPES[ZAMBA]]
+    for b, s in shapes:
+        rows.append(_tc_row(torch, timer, _ssd_case(
+            torch, K, ref, randn, isz, b, s, None)))
+    x, dt, a_log, bm, cm, d = _ssd_case(torch, K, ref, randn, isz, 2, 2048,
+                                        None)["args"]
+
+    def scan(lo, hi, n, q):   # sequences lo..hi-1, their first n tokens
+        cut = [t[lo:hi, :n].contiguous() for t in (x, dt, bm, cm)]
+        return K.mamba2_ssd(cut[0], cut[1], a_log, cut[2], cut[3], d,
+                            chunk=q)
+
+    full, q8, q1 = scan(0, 1, 2048, 128), scan(0, 1, 1000, 8), scan(
+        0, 1, 1000, 1)
+    pair, alone = scan(0, 2, 1000, 8), scan(1, 2, 1000, 8)
+    checks = {
+        "prefix 1000 of 2048": torch.equal(full[0][:, :1000], q8[0]),
+        "Q 1 and Q 8": all(torch.equal(a, b) for a, b in zip(q8, q1)),
+        "alone and in a batch of 2": all(
+            torch.equal(a, b[1:]) for a, b in zip(alone, pair))}
+    for name, ok in checks.items():
+        row = {"phase": "tensorcore_ssd", "check": name, "equal": bool(ok)}
+        emit(row)
+        same.append(row)
+    return rows, same
+
+
 def check_tensorcore(torch, timer):
     """K7 (``flash_attention_static``), K2 (the offset branch of
     ``flash_attention_2d``), K5 (``block_matmul``), the streamed FFN (K4,
@@ -2187,7 +2308,12 @@ def check_tensorcore(torch, timer):
     bit for bit, at every swept offset, row count and head dim
     (``tensorcore_offset``, required); the FFN's, K3's, K10a's and K12's
     rows equal at 1..64 rows (``tensorcore_rows``, required); K12
-    (``moe_experts``) at ``TC_MOE_*`` (``_moe_tc_rows``)."""
+    (``moe_experts``) at ``TC_MOE_*`` (``_moe_tc_rows``); K9c
+    (``flash_attention_2d_q``) at K2's offsets and rows over int8 and fp8
+    codes, with its chunks' rows equal to one chunk's from offset 0
+    (``_flash_q_tc_rows``, required); K13 (``mamba2_ssd``) at
+    ``TC_SSD_S`` and 2 x 2048, bit for bit across prompt lengths, chunks
+    and batches (``_ssd_tc_rows``, required)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import mma_plan, sm_count
@@ -2272,6 +2398,10 @@ def check_tensorcore(torch, timer):
     rows += _xent_tc_rows(torch, timer, K, ref, randn, gen, sms)
     moe, moe_same = _moe_tc_rows(torch, timer, K, ref, randn)
     rows += moe
+    flash_q, flash_q_same = _flash_q_tc_rows(torch, timer, K, ref, randn)
+    rows += flash_q
+    ssd, ssd_same = _ssd_tc_rows(torch, timer, K, ref, randn)
+    rows += ssd
     worst = {}
     for r in ffn:
         key = r["shape"].split(" T=")[0]
@@ -2285,12 +2415,16 @@ def check_tensorcore(torch, timer):
     bad += [f"rows {r['name']} {r.get('F', r.get('N'))} at "
             f"{r['unequal_at']}" for r in ffn_same + norm_same + moe_same
             if not r["equal_1_to_64"]]
+    bad += [f"offset_q {r['codes']} D={r['head_dim']} q_offset="
+            f"{r['q_offset']} rows={r['rows']}" for r in flash_q_same
+            if not r["equal"]]
+    bad += [f"ssd {r['check']}" for r in ssd_same if not r["equal"]]
     if bad:
         raise AssertionError("tensor-core kernels: " + "; ".join(bad))
     return {"rows": rows, "prefix": prefix, "offset": offset,
             "ffn_rows": ffn_same, "norm_rows": norm_same,
-            "moe_rows": moe_same,
-            "ffn_max_rel_err": worst}
+            "moe_rows": moe_same, "offset_q": flash_q_same,
+            "ssd": ssd_same, "ffn_max_rel_err": worst}
 
 
 # --------------------------------------------------------------------- #
@@ -3042,10 +3176,12 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (f32 K3, K5)"),
                ("ffn_mma_kernel", "FFN (K4/K6, tensor cores)"),
                ("rms_rows_kernel", "FFN (K4/K6, tensor cores)"),
                ("moe_", "MoE experts (K12)"),
-               ("mamba2_ssd_kernel", "SSD scan (K13)"),
+               ("mamba2_ssd_kernel", "SSD scan (K13, CUDA cores)"),
+               ("ssd_seg_", "SSD scan (K13, tensor cores)"),
                ("wkv6_kernel", "wkv recurrence (K14)"),
                ("flash_mma_kernel", "attention (K2, K7, tensor cores)"),
-               ("flash_offset_kernel", "attention (K9c, f32 K2/K7)"),
+               ("flash_mma_q_kernel", "attention (K9c, tensor cores)"),
+               ("flash_offset_kernel", "attention (CUDA cores)"),
                ("xent_", "loss (K11)"),
                ("paged_window_kernel", "paged attention (K1, K8, K9a/b)"),
                ("paged_combine_kernel", "paged attention (K1, K8, K9a/b)"),

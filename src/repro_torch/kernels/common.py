@@ -208,6 +208,21 @@ def paged_plan(extent: int) -> int:
     return cdiv(extent, PAGED_PART)
 
 
+# Mirrors csrc/mamba2_scan.cu's bf16 sequence-split scan (K13): segments of
+# SSD_SEG rows counted from position 0.
+SSD_SEG = 64
+
+
+def ssd_plan(s: int):
+    """(segment rows, segments) of the bf16 SSD scan over ``s`` positions:
+    segments of ``SSD_SEG`` rows from position 0, the last one partial
+    where ``SSD_SEG`` does not divide ``s`` (its rows at or past ``s``
+    masked).  From ``s`` alone, never from the caller's chunk or the
+    batch: a row's bits then depend on the rows before it alone, at every
+    prompt length, chunk and batch."""
+    return SSD_SEG, cdiv(s, SSD_SEG)
+
+
 def kernel_path(t: torch.Tensor) -> str:
     """'plain' for a CPU tensor, 'cuda' for a CUDA tensor; anything else
     (meta, mps, ...) is refused."""
@@ -231,6 +246,12 @@ def check_cuda_operands(name: str, dtype: torch.dtype, *tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand of shape {tuple(t.shape)} "
                              "is not contiguous")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address: the
+    tensor-core kernels read rows with 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_launch(name: str, status: int) -> None:

@@ -4,12 +4,10 @@
 //     kv_len cached positions;
 //   static in float32 (whole-prompt prefill): query row i sits at position
 //     i, kv_len is fixed by the caller (the prompt length);
-//   offset over codes, q in float32 or bfloat16 (chunked prefill from
-//     quantized pools, K9c): K/V are int8 or fp8-e4m3 codes with one
-//     float32 scale per position [Hkv_, Skv] (each position carries its
-//     page's scale).
-// Both full-precision branches in bfloat16 run on the tensor cores
-// (flash_mma.cu).
+//   offset over codes in float32 (chunked prefill from quantized pools,
+//     K9c): K/V are int8 or fp8-e4m3 codes with one float32 scale per
+//     position [Hkv_, Skv] (each position carries its page's scale).
+// Every branch in bfloat16 runs on the tensor cores (flash_mma.cu).
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
 // Only what the main paths run is built here: causal, no sliding window,
@@ -21,11 +19,11 @@
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
 // _flash_kernel_offset (K2, the offset branch of flash_attention_2d,
 // pallas_call at :300) and _flash_kernel (K7, its static branch,
-// pallas_call at :309) in float32, and _flash_kernel_offset_q (K9c, the
-// offset branch with k_scale / v_scale, pallas_call at :300) in both
-// dtypes.  The static kernel's arithmetic is the offset kernel's at
-// q_offset = 0, so every entry point here launches the same device
-// function, templated on the K/V code type C.  float32 stays on the CUDA
+// pallas_call at :309) and _flash_kernel_offset_q (K9c, the offset branch
+// with k_scale / v_scale, pallas_call at :300) in float32.  The static
+// kernel's arithmetic is the offset kernel's at q_offset = 0, so every
+// entry point here launches the same device function, templated on the
+// K/V code type C.  float32 stays on the CUDA
 // cores: TF32 tensor-core products would break the float32 checks against
 // the reference.
 // There q_offset and kv_len ride in as scalar-prefetch operands; here they
@@ -41,9 +39,7 @@
 // dense K/V first (models/model.py), as the reference does.
 // What bounds it: the QK and PV arithmetic (O(Sq * kv_len * D) per head),
 // here float FMAs on the CUDA cores (67 TFLOP/s in float32); K/V are
-// re-read from L2 by each 16-row q block.  K9c's move onto flash_mma.cu's
-// tensor-core function (codes dequantized into its bf16 tiles) is a later
-// item.
+// re-read from L2 by each 16-row q block.
 #include <type_traits>
 
 #include "common.cuh"
@@ -219,7 +215,4 @@ extern "C" int repro_flash_static_f32(const void* q, const void* k,
                         kv_len, scale, stream, ks, vs);                      \
   }
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_i8, float, int8_t)
-REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_bf16_i8, __nv_bfloat16, int8_t)
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_fp8, float, __nv_fp8_e4m3)
-REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_bf16_fp8, __nv_bfloat16,
-                     __nv_fp8_e4m3)

@@ -1,14 +1,16 @@
 // Tensor-core building blocks shared by the bf16 kernels that run on
 // Hopper's tensor cores through warp-level MMA (mma_gemm.cuh's GEMM: K5,
-// K3, K10a and K11; flash_mma.cu's flash_mma_kernel, K7 and K2;
-// streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c; the cp.async
-// copies also feed paged_attention.cu's CUDA-core K1, K8, K9a and K9b):
+// K3, K10a and K11; flash_mma.cu's kernels, K7, K2 and K9c;
+// streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c; mamba2_scan.cu's
+// segment kernels, K13; the cp.async copies also feed paged_attention.cu's
+// CUDA-core K1, K8, K9a and K9b):
 //   cp.async 16-byte copies from global to shared memory (zero-filled when
 //     the source is out of range), committed and waited on in groups;
 //   ldmatrix (.trans) loads of four 8x8 bf16 tiles into the fragments of
 //     mma.sync.m16n8k16 (bf16 inputs, float32 accumulators);
-//   the int8 weight twins' code-to-bf16 conversion, the folded norm and a
-//   row's inverse RMS.
+//   the int8 / fp8 code-to-bf16 conversion (the int8 weight twins, K9c's
+//   K/V codes), the hi + lo split of a float32 operand, the folded norm
+//   and a row's inverse RMS.
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16]: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
 //                a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
@@ -22,6 +24,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,6 +56,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from `src` to shared `dst`, or 4 zero bytes when !ok.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 
@@ -104,20 +117,57 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Int8 codes [R][CC] (row stride CC) -> bf16 [R][LDS], by NT threads:
-// exact (|code| <= 127).
-template <int R, int CC, int LDS, int NT>
-__device__ __forceinline__ void codes_to_bf16(bf16* dst,
-                                              const int8_t* src) {
+// The float32 pair (a, b) as hi + lo bf16 planes: hi = bf16(x), lo =
+// bf16(x - hi), so hi + lo holds x to about 2^-16 of its size.  Two MMAs,
+// one per plane, against an exact bf16 operand give a float32 operand's
+// product to that precision.
+__device__ __forceinline__ void pack_bf16_split(float a, float b,
+                                                uint32_t& hi,
+                                                uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// Four int8 codes (one word) as float32, exactly, without the
+// quarter-rate I2F: byte i + 128 placed under the exponent of 2^23
+// (0x4B000000 | u8 is 2^23 + u8), then 2^23 + 128 taken off.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+}
+
+// Codes [R][CC] (row stride CC) -> bf16 [R][LDS], by NT threads; C is
+// int8 (|code| <= 127) or fp8-e4m3 (every e4m3 value is a bf16 value):
+// exact either way.
+template <int R, int CC, int LDS, int NT, typename C = int8_t>
+__device__ __forceinline__ void codes_to_bf16(bf16* dst, const C* src) {
+  static_assert(sizeof(C) == 1, "one-byte codes");
   constexpr int CPR = CC / 16;
   for (int i = threadIdx.x; i < R * CPR; i += NT) {
     const int r = i / CPR, c = (i % CPR) * 16;
     const int4 v = *reinterpret_cast<const int4*>(src + r * CC + c);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
     uint32_t o[8];
+    if constexpr (std::is_same<C, int8_t>::value) {
+      const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z,
+                             (uint32_t)v.w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);
+      for (int j = 0; j < 4; ++j) {
+        float f[4];
+        int8x4_to_f32(w[j], f);
+        o[2 * j] = pack_bf16(f[0], f[1]);
+        o[2 * j + 1] = pack_bf16(f[2], f[3]);
+      }
+    } else {
+      const C* b = reinterpret_cast<const C*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[j] = pack_bf16(to_f(b[2 * j]), to_f(b[2 * j + 1]));
+    }
     uint4* d = reinterpret_cast<uint4*>(dst + r * LDS + c);
     d[0] = make_uint4(o[0], o[1], o[2], o[3]);
     d[1] = make_uint4(o[4], o[5], o[6], o[7]);

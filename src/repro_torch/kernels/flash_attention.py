@@ -8,13 +8,13 @@ reference wrapper does.  Each launches its entry point on a CUDA tensor
 and runs its plain version (``ref.flash_attention_offset`` /
 ``ref.flash_attention_static``) on a CPU tensor;
 ``flash_attention_2d.launches`` counts offset launches and
-``flash_attention_static.launches`` static ones.  Both branches in
-bfloat16 run on the tensor cores (one device function,
-``csrc/flash_mma.cu``); in float32 both run the CUDA-core kernel of
-``csrc/flash_attention.cu``.  ``flash_attention_2d_q`` is the offset
-branch over int8 / fp8-e4m3 codes with per-position scales (its own
-entry points and count; plain version ``ref.flash_attention_offset`` with
-scales), on the CUDA-core kernel in both dtypes.  The CUDA kernels cover
+``flash_attention_static.launches`` static ones.
+``flash_attention_2d_q`` is the offset branch over int8 / fp8-e4m3 codes
+with per-position scales (its own entry points and count; plain version
+``ref.flash_attention_offset`` with scales).  Every branch in bfloat16
+runs on the tensor cores (one device function, ``csrc/flash_mma.cu``, the
+codes converted to bf16 in shared memory); in float32 every branch runs
+the CUDA-core kernel of ``csrc/flash_attention.cu``.  The CUDA kernels cover
 what the main paths run (causal, no sliding window, head dim 64 or 128,
 and for the static branch also 80 for zamba2's shared block); on the
 card the rest is refused until a slice whose config needs it adds it.
@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 
 from . import _build, ref
-from .common import (CODE_DTYPES, check_cuda_operands, check_launch,
-                     kernel_path)
+from .common import (CODE_DTYPES, aligned16, check_cuda_operands,
+                     check_launch, kernel_path)
 
 HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (offset branch)
 STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
@@ -41,26 +41,19 @@ STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
 @functools.lru_cache(maxsize=None)
 def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     """``branch``: "offset", "static" or "offset_q" (``code`` "i8" or
-    "fp8").  The full-precision branches in bf16 are the tensor-core kernel
-    of ``csrc/flash_mma.cu``; every other entry point runs the CUDA-core
-    device function of ``csrc/flash_attention.cu``."""
+    "fp8").  bf16 is the tensor-core kernel of ``csrc/flash_mma.cu``,
+    float32 the CUDA-core device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     ints = [i] * (6 if branch == "static" else 7)
     ptrs = 6 if branch == "offset_q" else 4
-    if branch != "offset_q" and dtype == torch.bfloat16:
-        lib, sym = _build.load("flash_mma"), f"repro_flash_{branch}_mma_bf16"
+    suffix = f"_{code}" if code else ""
+    if dtype == torch.bfloat16:
+        lib = _build.load("flash_mma")
+        sym = f"repro_flash_{branch}_mma_bf16{suffix}"
     else:
         lib = _build.load("flash_attention")
-        sym = (f"repro_flash_{branch}_"
-               + ("bf16" if dtype == torch.bfloat16 else "f32")
-               + (f"_{code}" if code else ""))
+        sym = f"repro_flash_{branch}_f32{suffix}"
     return _build.declare(lib, sym, [vp] * ptrs + ints + [ctypes.c_float, vp])
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it at a 16-byte aligned address: the
-    tensor-core kernel reads rows with 16-byte copies."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(name: str, q, k, v, kv_group: int) -> None:
@@ -118,7 +111,7 @@ def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             block_kv=block_kv)
     _check_cuda("flash_attention_2d", q, k, v, causal, window)
     if q.dtype == torch.bfloat16:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("offset", q.dtype)(
@@ -150,7 +143,7 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
     _check_cuda("flash_attention_static", q, k, v, causal, window,
                 head_dims=STATIC_HEAD_DIMS)
     if q.dtype == torch.bfloat16:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("static", q.dtype)(
@@ -193,6 +186,8 @@ def flash_attention_2d_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 (k_scale, v_scale))
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("flash_attention_2d_q: scales must be float32")
+    if q.dtype == torch.bfloat16:
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("offset_q", q.dtype, CODE_DTYPES[k.dtype])(

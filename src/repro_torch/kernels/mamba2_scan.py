@@ -1,10 +1,18 @@
 """The Mamba2 chunked SSD scan (the plan's ``mixer``, K13).
 
 ``mamba2_ssd`` launches ``csrc/mamba2_scan.cu`` on a CUDA tensor and runs
-``ref.mamba2_ssd`` on a CPU tensor; ``mamba2_ssd.launches`` counts kernel
-launches.  The CUDA kernel takes any chunk Q that divides S (the model
-asks for the largest divisor of S up to 128, so an odd prompt scans in
-chunks of 1) and reads B and C, one group shared by every head, in place.
+``ref.mamba2_ssd`` on a CPU tensor; ``mamba2_ssd.launches`` counts calls
+that launch (one per call, however many launches the call makes).  Both
+dtypes read B and C, one group shared by every head, in place.
+
+- float32: one block per (batch, head) walks the caller's chunks of Q
+  rows in order (any Q that divides S; the model asks for the largest
+  divisor of S up to 128).
+- bf16: the sequence-split scan on the tensor cores, in segments of
+  ``ssd_plan(S)`` rows counted from position 0 whatever the caller's Q
+  (which must still divide S, as the reference asserts): three launches
+  through a float32 workspace of each segment's state, allocated per
+  call.  It takes zamba2's P = N = 64.
 """
 
 from __future__ import annotations
@@ -15,26 +23,37 @@ import functools
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (aligned16, check_cuda_operands, check_launch,
+                     kernel_path, ssd_plan)
 
 # Shared memory one block may use on Hopper (227 KB).
 MAX_SMEM = 232_448
+# (P, N) of the bf16 kernels (zamba2's head dim and state).
+SEG_PN = (64, 64)
 
 
 def smem_bytes(q: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one block (csrc/mamba2_scan.cu): the
-    chunk's x [Q, P], B and C [Q, N + 1], the masked (C B^T) o L [Q, Q],
-    the state [P, N + 1] and three [Q] vectors, all float32."""
+    """Dynamic shared memory of one float32 block (csrc/mamba2_scan.cu):
+    the chunk's x [Q, P], B and C [Q, N + 1], the masked (C B^T) o L [Q,
+    Q], the state [P, N + 1] and three [Q] vectors, all float32."""
     return 4 * (q * p + 2 * q * (n + 1) + q * q + p * (n + 1) + 3 * q)
+
+
+def workspace_numel(bsz: int, h: int, p: int, n: int, nseg: int) -> int:
+    """float32 values of the bf16 scan's workspace: each segment's end
+    state [B, H, nseg, P, N], then its decay [B, H, nseg]."""
+    return bsz * h * nseg * (p * n + 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     lib = _build.load("mamba2_scan")
-    sym = ("repro_mamba2_ssd_bf16" if dtype == torch.bfloat16
-           else "repro_mamba2_ssd_f32")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp] * 8 + [i] * 6 + [vp])
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, "repro_mamba2_ssd_seg_bf16",
+                              [vp] * 6 + [i] + [vp] * 3 + [i] * 7 + [vp])
+    return _build.declare(lib, "repro_mamba2_ssd_f32",
+                          [vp] * 8 + [i] * 6 + [vp])
 
 
 def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -42,7 +61,8 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                chunk: int = 128):
     """x [B, S, H, P]; dt [B, S, H]; a_log [H]; b/c [B, S, N]; d_skip [H]
     -> (y [B, S, H, P] in x's dtype, final state [B, H, P, N] float32),
-    in chunks of ``min(chunk, S)`` rows, which must divide S."""
+    in chunks of ``min(chunk, S)`` rows, which must divide S (the bf16
+    kernel's segments do not depend on it)."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, s)
@@ -58,19 +78,40 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     check_cuda_operands("mamba2_ssd", x.dtype, x, dt, b, c, a_log, d_skip)
     if any(t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError("mamba2_ssd: x, dt, b and c must share a dtype")
-    if smem_bytes(q, p, n) > MAX_SMEM:
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (p, n) != SEG_PN:
+        raise ValueError(f"mamba2_ssd: the bf16 kernel takes (P, N) = "
+                         f"{SEG_PN}; got ({p}, {n})")
+    if not bf16 and smem_bytes(q, p, n) > MAX_SMEM:
         raise ValueError(f"mamba2_ssd: chunk {q} with P {p}, N {n} needs "
                          f"{smem_bytes(q, p, n)} bytes of shared memory")
-    # The per-head constants, as the reference wrapper prepares them.
-    a = -torch.exp(a_log.float())
-    d = d_skip.float()
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = _entry(x.dtype)(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), d.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s,
-        h, p, n, q, stream)
+    if bf16:
+        # The kernels take a = -exp(a_log) and d_skip from the parameters
+        # as they are (bf16 or float32), with no launch of their own.
+        if (a_log.dtype not in (torch.float32, torch.bfloat16)
+                or d_skip.dtype != a_log.dtype):
+            a_log, d_skip = a_log.float(), d_skip.float()
+        seg, nseg = ssd_plan(s)
+        x, b, c = aligned16(x), aligned16(b), aligned16(c)
+        ws = torch.empty(workspace_numel(bsz, h, p, n, nseg),
+                         dtype=torch.float32, device=x.device)
+        status = _entry(x.dtype)(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d_skip.data_ptr(),
+            int(a_log.dtype == torch.bfloat16), y.data_ptr(),
+            state.data_ptr(), ws.data_ptr(), bsz, s, h, p, n, seg, nseg,
+            stream)
+    else:
+        # The per-head constants, as the reference wrapper prepares them.
+        a = -torch.exp(a_log.float())
+        d = d_skip.float()
+        status = _entry(x.dtype)(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d.data_ptr(), y.data_ptr(), state.data_ptr(), bsz,
+            s, h, p, n, q, stream)
     check_launch("mamba2_ssd", status)
     mamba2_ssd.launches += 1
     return y, state

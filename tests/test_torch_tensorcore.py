@@ -173,7 +173,7 @@ ROUTES = {
         lambda: (lambda q, k, v, sc: K.flash_attention_2d_q(
             q, k, v, **sc, q_offset=0, kv_group=2))(
                 *_codes(BF16, torch.int8)),
-        "flash_attention", "repro_flash_offset_q_bf16_i8",
+        "flash_mma", "repro_flash_offset_q_mma_bf16_i8",
         K.flash_attention_2d_q),
     "offset over fp8, f32 (K9c)": (
         lambda: (lambda q, k, v, sc: K.flash_attention_2d_q(
