@@ -61,7 +61,28 @@ parent.  Phases:
              ``burst``;
   quant_burst
              llama3-8b at full width, 16 layers, bf16, ``w8_kv8``: the
-             chunked mixed burst, as ``burst``.
+             chunked mixed burst, as ``burst``;
+  wkv_hashes sha256 of K14's (``wkv6``) float32 y and final state at this
+             checkout's ``tensorcore`` shapes (``TC_WKV_S`` and 2 x 2048,
+             the model's chunk), from seeded inputs;
+  wkv        this checkout's bf16 ``tensorcore`` rows of K14
+             (``_wkv_tc_rows``) on the tree's kernels, with its bit-for-bit
+             checks (reported, not required);
+  rwkv_burst rwkv6-7b at full size, bf16, jittered: the whole-prompt mixed
+             burst (TTFT, TPOT) and the same burst under ``torch.profiler``,
+             as ``burst``;
+  convert    the tree's ``compile`` phase: every compiled edge through K15,
+             checked and timed (``chip_smoke.compile_path``);
+  wkv_probe  K14's bf16 launches by device time (``torch.profiler``, the
+             L2 rewritten before each call) at this checkout's
+             ``tensorcore`` shapes, beside the call's CUDA-event time and,
+             for scale, the eager ``wkv6_chunked``'s (chunk 16; it clamps
+             each log decay at -5, so it computes another function);
+  convert_probe
+             K15's device time on every edge of this checkout's compiled
+             blocks (``COMPILE_MODELS`` at 128 tokens and ``COMPILE_LONG``)
+             in bf16, free of the host time the event timer can catch on
+             streams of a few microseconds.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
@@ -105,7 +126,11 @@ SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
                            "block_matmul", "row_norm", "mamba2_scan"],
            "quant_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                            "flash_attention", "paged_attention",
-                           "block_matmul"]}
+                           "block_matmul"],
+           "wkv_hashes": ["rwkv6_wkv"], "wkv": ["rwkv6_wkv"],
+           "rwkv_burst": ["rwkv6_wkv", "row_norm", "block_matmul"],
+           "convert": ["stream_converter"], "wkv_probe": ["rwkv6_wkv"],
+           "convert_probe": ["stream_converter"]}
 
 
 def emit(obj) -> None:
@@ -351,6 +376,73 @@ def ssd_hashes(torch, K, ref):
     emit({"phase": "ssd_hashes", "hashes": out})
 
 
+def wkv_hashes(torch, K, ref):
+    """K14 in float32 at this checkout's ``tensorcore`` shapes, the
+    model's chunk."""
+    here, out = this_chip_smoke(), {}
+    for b, s in [(1, s) for s in here.TC_WKV_S] + [here.TRAIN_SHAPES[
+            here.RWKV]]:
+        gen = torch.Generator(device="cuda").manual_seed(b * 100_003 + s)
+        randn = here._randn(torch, gen, torch.float32, "cuda")
+        y, state = here._wkv_case(torch, K, ref, randn, 4, b, s,
+                                  None)["kernel"]()
+        out[f"B={b},S={s}"] = [_sha(torch, y), _sha(torch, state)]
+    emit({"phase": "wkv_hashes", "hashes": out})
+
+
+def wkv_probe(torch, K, ref, timer):
+    """K14's bf16 kernels at this checkout's ``tensorcore`` shapes."""
+    from repro_torch.models import layers as L
+    here = this_chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    randn = here._randn(torch, gen, torch.bfloat16, "cuda")
+    for b, s in [(1, s) for s in here.TC_WKV_S] + [here.TRAIN_SHAPES[
+            here.RWKV]]:
+        case = here._wkv_case(torch, K, ref, randn, 2, b, s, None)
+        fn = case["kernel"]
+        emit({"phase": "wkv_probe", "B": b, "S": s, "ms": timer(fn),
+              "kernel_ms": _kernel_ms(torch, timer, fn),
+              "chunked_ms": timer(lambda: L.wkv6_chunked(*case["args"]))})
+
+
+def convert_probe(torch, K, timer):
+    """K15's device time per compiled edge, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_model
+    here = this_chip_smoke()
+    for model, tokens in [(m, here.COMPILE_TOKENS)
+                          for m in here.COMPILE_MODELS] + [here.COMPILE_LONG]:
+        c = compile_model(get_config(model), tokens=tokens)
+        for i, case in enumerate(here._stream_cases(c, model, tokens)):
+            data = here._edge_data(torch, case, torch.bfloat16, i, "cuda")
+            ms = _kernel_ms(torch, timer, lambda: K.convert_layout(
+                data, case["src"], case["dst"]), iters=5)
+            dst = case["dst"]
+            nbytes = (data.numel() + dst.num_tokens * dst.elem_shape[0]
+                      * dst.elem_shape[1]) * 2
+            emit({"phase": "convert_probe", "model": model, "tokens": tokens,
+                  "edge": case["edge"], "bytes": nbytes,
+                  "device_ms": sum(ms.values()),
+                  "bound_ms": here.bound(nbytes, 0.0, "bfloat16")[0]})
+            del data
+            here._free(torch, "cuda")
+
+
+def rwkv_burst(torch, cs):
+    """rwkv6-7b's whole-prompt mixed burst at full size on the tree, then
+    its profile (this checkout's ``profile_burst``, on the tree's
+    engine)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(cs.RWKV), use_fused_kernels=True)
+    params = cs._weights(torch, cfg, 2, jitter=True)
+    cs.serve(torch, cfg, params, set(cs.rwkv_launches(1, 1)), init_s=0.0,
+             chunked=None, phase="rwkv_burst")
+    cs._free(torch, "cuda")
+    prof = this_chip_smoke().profile_burst(torch, cfg, params, chunked=None)
+    emit({"phase": "rwkv_burst_profile", "model": cs.RWKV,
+          "layers": cfg.num_layers, **(prof or {"device_ms": None})})
+
+
 def burst(torch, cs, model="llama3-8b", quant=None, phase="burst"):
     """The serving depth's (``SERVE_LAYERS``; zamba2 all 54 layers) mixed
     burst on the tree: chunked admission (zamba2 whole-prompt), under
@@ -462,6 +554,18 @@ def main() -> int:
             this_chip_smoke()._flash_q_tc_rows(torch, timer, K, ref, randn)
         elif phase == "ssd":
             this_chip_smoke()._ssd_tc_rows(torch, timer, K, ref, randn)
+        elif phase == "wkv_hashes":
+            wkv_hashes(torch, K, ref)
+        elif phase == "wkv":
+            this_chip_smoke()._wkv_tc_rows(torch, timer, K, ref, randn)
+        elif phase == "rwkv_burst":
+            rwkv_burst(torch, cs)
+        elif phase == "convert":
+            cs.compile_path(torch, timer)
+        elif phase == "wkv_probe":
+            wkv_probe(torch, K, ref, timer)
+        elif phase == "convert_probe":
+            convert_probe(torch, K, timer)
         elif phase == "train":
             train(torch, cs)
         elif phase == "granite_train":

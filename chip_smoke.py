@@ -60,7 +60,7 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               same pages (all required); kernel time, HBM rate of the live
               K/V and the number of live blocks;
    tensorcore, tensorcore_prefix, tensorcore_offset, tensorcore_rows,
-   tensorcore_offset_q, tensorcore_ssd —
+   tensorcore_offset_q, tensorcore_ssd, tensorcore_wkv —
               the tensor-core kernels in bfloat16 beyond the paths' shapes:
               K7 at S = 1, 37, 63, 64, 65, 999, 1000 and 2048 with head dims
               64, 80 and 128 and GQA groups 1, 3 and 4 against its plain
@@ -93,14 +93,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               K/V; K13 at S = 1, 37, 64, 65, 289, 999 and 1000 (batch 1,
               the model's chunk) and 2 x 2048, y and the final state each
               on its own scale, against its plain version and the eager
-              chunked scan;
+              chunked scan; K14 at S = 1, 15, 16, 17, 37, 64, 65, 128, 999
+              and 1000 (batch 1) and 2 x 2048 at rwkv6-7b's widths and at
+              head sizes 16, 32 and 128 (8 heads, 200 tokens), y and the
+              final state each on its own scale, against its plain
+              version;
               every call repeated bit for bit (required); K7's rows 0..999
               equal at S = 1000 and S = 2048 on the same prefix, K2's rows
               equal to K7's rows at the same positions of the whole prompt,
               K9c's chunks' rows equal to one chunk's from offset 0
               (``tensorcore_offset_q``), K13's rows 0..999 equal at S =
               1000 and 2048, at Q = 1 and Q = 8, alone and in a batch of 2
-              (``tensorcore_ssd``), and each FFN instance's, K3's, K10a's
+              (``tensorcore_ssd``), K14's likewise at chunk 1 and chunk 8
+              (``tensorcore_wkv``), and each FFN instance's, K3's, K10a's
               and K12's rows equal at 1 to 64 rows (required);
    compile, compile_edge — the StreamTensor compiler (``compile_model``
               with the reference's defaults: TPU_V5E, DSE budget 12) on
@@ -1391,17 +1396,18 @@ def zamba_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     return cases
 
 
-def _wkv_case(torch, K, ref, randn, isz, b, s, path):
-    """K14 at rwkv6-7b's widths (64 heads of 64) over ``b`` sequences of
-    ``s`` tokens, at the model's chunk (the kernel ignores it): r, k, v in
-    the dtype, the decay as the model makes it (float32 ``exp(-exp(.))``
-    around the init's ``w_bias``), a nonzero bonus ``u``.  y and the final
-    state are checked each against its own scale.  Operations: 7 N^2 per
-    token and head (kv, u kv, the sum, r (...), S w, + kv), float32 on the
-    CUDA cores whatever the dtype; bytes: r, k, v and y in the dtype, w in
-    float32, the state out in float32.  No PyTorch call computes it."""
+def _wkv_case(torch, K, ref, randn, isz, b, s, path, h=64, n=64):
+    """K14 at rwkv6-7b's widths (``h`` = 64 heads of ``n`` = 64) over ``b``
+    sequences of ``s`` tokens, at the model's chunk (neither kernel takes it): r, k, v
+    in the dtype, the decay as the model makes it (float32
+    ``exp(-exp(.))`` around the init's ``w_bias``), a nonzero bonus ``u``.
+    y and the final state are checked each against its own scale.
+    Operations: the recurrence's 7 N^2 per token and head (kv, u kv, the
+    sum, r (...), S w, + kv) at the operands' type's peak (bf16: the
+    sequence-split scan's products run on the tensor cores, and the bytes
+    set the bound).  Bytes: r, k, v and y in the dtype, w in float32, u,
+    the state out in float32.  No PyTorch call computes it."""
     from repro_torch.models.model import _chunk_of
-    h, n = 64, 64
     q = _chunk_of(s, 64)
     r, k, v = (randn(b, s, h, n) for _ in range(3))
     w_bias = torch.linspace(-6.0, -0.5, n, device=r.device)
@@ -1409,8 +1415,8 @@ def _wkv_case(torch, K, ref, randn, isz, b, s, path):
     u = randn(h, n, scale=0.5)
     args = (r, k, v, w, u)
     return dict(
-        name="rwkv6_wkv", model=RWKV, path=path, parts=True,
-        peak="float32", shape=f"B={b},S={s},chunk={q},H={h},N={n}",
+        name="rwkv6_wkv", model=RWKV, path=path, parts=True, args=args,
+        shape=f"B={b},S={s},chunk={q},H={h},N={n}",
         kernel=lambda: K.wkv6(*args, chunk=q),
         plain=lambda: ref.wkv6(*args), library=None, cublas=None,
         nbytes=b * s * h * n * (4 * isz + 4) + 4 * b * h * n * n + h * n * isz,
@@ -1488,10 +1494,7 @@ def check_kernels(torch, timer):
             if "rel" in c:              # the case's own measure (K11: nats)
                 rel = c["rel"](got, plain)
             tol = c.get("tol", TOL[dname])
-            # Operations at the peak of the type they run in (K14: float32
-            # on the CUDA cores whatever the operands' type).
-            bound_ms, bound_by = bound(c["nbytes"], c["flops"],
-                                       c.get("peak", dname))
+            bound_ms, bound_by = bound(c["nbytes"], c["flops"], dname)
             # Each verify row against the decode kernel at its length, bit
             # for bit (comparison launches; no path's count).
             same_rows = (c["rows_vs_decode"](out) if "rows_vs_decode" in c
@@ -2293,6 +2296,54 @@ def _ssd_tc_rows(torch, timer, K, ref, randn):
     return rows, same
 
 
+# K14 (the wkv recurrence) on the tensor cores: whole prompts at batch 1
+# around the 16-token sub-block and 64-token segment edges (1, 15, 16, 17,
+# 64, 65), a prompt of one partial segment (37), two whole segments (128),
+# the model's chunk 1 (999) and 8 (1000), and a training step's 2 x 2048;
+# the other head sizes the kernels take, at 8 heads over 200 tokens.
+TC_WKV_S = (1, 15, 16, 17, 37, 64, 65, 128, 999, 1000)
+TC_WKV_N = (16, 32, 128)
+
+
+def _wkv_tc_rows(torch, timer, K, ref, randn):
+    """K14 at ``TC_WKV_S`` (batch 1) and 2 x 2048, and at ``TC_WKV_N``, y
+    and the final state each within ``TOL`` of the plain version on its
+    own scale, each deterministic; then ``tensorcore_wkv`` (required, bit for bit): rows
+    0..999 of a 2048-token sequence equal the 1000-token sequence's; the
+    same 1000 tokens at chunk 1 and chunk 8 give the same y and state; a
+    sequence alone gives the y and state it gets in a batch of 2."""
+    isz = 2
+    rows, same = [], []
+    shapes = [(1, s) for s in TC_WKV_S] + [TRAIN_SHAPES[RWKV]]
+    for b, s in shapes:
+        rows.append(_tc_row(torch, timer, _wkv_case(
+            torch, K, ref, randn, isz, b, s, None)))
+    for n in TC_WKV_N:
+        rows.append(_tc_row(torch, timer, _wkv_case(
+            torch, K, ref, randn, isz, 1, 200, None, h=8, n=n)))
+    r, k, v, w, u = _wkv_case(torch, K, ref, randn, isz, 2, 2048,
+                              None)["args"]
+
+    def scan(lo, hi, n, q):   # sequences lo..hi-1, their first n tokens
+        cut = [t[lo:hi, :n].contiguous() for t in (r, k, v, w)]
+        return K.wkv6(*cut, u, chunk=q)
+
+    full, q8, q1 = scan(0, 1, 2048, 64), scan(0, 1, 1000, 8), scan(
+        0, 1, 1000, 1)
+    pair, alone = scan(0, 2, 1000, 8), scan(1, 2, 1000, 8)
+    checks = {
+        "prefix 1000 of 2048": torch.equal(full[0][:, :1000], q8[0]),
+        "chunk 1 and chunk 8": all(torch.equal(a, b)
+                                   for a, b in zip(q8, q1)),
+        "alone and in a batch of 2": all(
+            torch.equal(a, b[1:]) for a, b in zip(alone, pair))}
+    for name, ok in checks.items():
+        row = {"phase": "tensorcore_wkv", "check": name, "equal": bool(ok)}
+        emit(row)
+        same.append(row)
+    return rows, same
+
+
 def check_tensorcore(torch, timer):
     """K7 (``flash_attention_static``), K2 (the offset branch of
     ``flash_attention_2d``), K5 (``block_matmul``), the streamed FFN (K4,
@@ -2313,7 +2364,8 @@ def check_tensorcore(torch, timer):
     codes, with its chunks' rows equal to one chunk's from offset 0
     (``_flash_q_tc_rows``, required); K13 (``mamba2_ssd``) at
     ``TC_SSD_S`` and 2 x 2048, bit for bit across prompt lengths, chunks
-    and batches (``_ssd_tc_rows``, required)."""
+    and batches (``_ssd_tc_rows``, required); K14 (``wkv6``) at
+    ``TC_WKV_S`` and 2 x 2048, likewise (``_wkv_tc_rows``, required)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     from repro_torch.kernels.common import mma_plan, sm_count
@@ -2402,6 +2454,8 @@ def check_tensorcore(torch, timer):
     rows += flash_q
     ssd, ssd_same = _ssd_tc_rows(torch, timer, K, ref, randn)
     rows += ssd
+    wkv, wkv_same = _wkv_tc_rows(torch, timer, K, ref, randn)
+    rows += wkv
     worst = {}
     for r in ffn:
         key = r["shape"].split(" T=")[0]
@@ -2419,12 +2473,13 @@ def check_tensorcore(torch, timer):
             f"{r['q_offset']} rows={r['rows']}" for r in flash_q_same
             if not r["equal"]]
     bad += [f"ssd {r['check']}" for r in ssd_same if not r["equal"]]
+    bad += [f"wkv {r['check']}" for r in wkv_same if not r["equal"]]
     if bad:
         raise AssertionError("tensor-core kernels: " + "; ".join(bad))
     return {"rows": rows, "prefix": prefix, "offset": offset,
             "ffn_rows": ffn_same, "norm_rows": norm_same,
             "moe_rows": moe_same, "offset_q": flash_q_same,
-            "ssd": ssd_same, "ffn_max_rel_err": worst}
+            "ssd": ssd_same, "wkv": wkv_same, "ffn_max_rel_err": worst}
 
 
 # --------------------------------------------------------------------- #
@@ -3178,7 +3233,8 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (f32 K3, K5)"),
                ("moe_", "MoE experts (K12)"),
                ("mamba2_ssd_kernel", "SSD scan (K13, CUDA cores)"),
                ("ssd_seg_", "SSD scan (K13, tensor cores)"),
-               ("wkv6_kernel", "wkv recurrence (K14)"),
+               ("wkv6_kernel", "wkv recurrence (K14, CUDA cores)"),
+               ("wkv_seg_", "wkv recurrence (K14, tensor cores)"),
                ("flash_mma_kernel", "attention (K2, K7, tensor cores)"),
                ("flash_mma_q_kernel", "attention (K9c, tensor cores)"),
                ("flash_offset_kernel", "attention (CUDA cores)"),

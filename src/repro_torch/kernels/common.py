@@ -223,6 +223,21 @@ def ssd_plan(s: int):
     return SSD_SEG, cdiv(s, SSD_SEG)
 
 
+# Mirrors csrc/rwkv6_wkv.cu's bf16 sequence-split scan (K14): segments of
+# WKV_SEG tokens counted from position 0, walked in sub-blocks of WKV_SUB.
+WKV_SEG = 64
+WKV_SUB = 16
+
+
+def wkv_plan(s: int):
+    """(segment tokens, segments) of the bf16 wkv scan over ``s`` tokens:
+    segments of ``WKV_SEG`` tokens from position 0, the last one partial
+    where ``WKV_SEG`` does not divide ``s``.  From ``s`` alone, never from
+    the model's chunk or the batch, as ``ssd_plan``: a row's bits then
+    depend on the tokens before it alone."""
+    return WKV_SEG, cdiv(s, WKV_SEG)
+
+
 def kernel_path(t: torch.Tensor) -> str:
     """'plain' for a CPU tensor, 'cuda' for a CUDA tensor; anything else
     (meta, mps, ...) is refused."""

@@ -1,12 +1,21 @@
 """The RWKV6 wkv recurrence (the plan's ``mixer`` on an RWKV6 stack, K14).
 
 ``wkv6`` launches ``csrc/rwkv6_wkv.cu`` on CUDA tensors and runs
-``ref.wkv6`` on CPU tensors; ``wkv6.launches`` counts kernel launches.
-r, k and v are in the compute dtype (bfloat16 or float32, the entry point
-is keyed on r's), w is float32 whatever the compute dtype, u is cast to
-float32 here.  The CUDA kernel takes head sizes 16, 32, 64 and 128 and
-any S; ``chunk`` is the reference's grid cut, checked to divide S and not
-used by the kernel, whose result and speed do not depend on it.
+``ref.wkv6`` on CPU tensors; ``wkv6.launches`` counts calls that launch
+(one per call, however many launches the call makes).  r, k and v are in
+the compute dtype (bfloat16 or float32, the entry point is keyed on r's),
+w is float32 whatever the compute dtype; u goes to the bf16 kernels as it
+is (bf16 or float32) and is cast to float32 for the float32 kernel.  Both
+dtypes take head sizes 16, 32, 64 and 128 and any S; ``chunk`` is the
+reference's grid cut, checked to divide S and not used by either kernel.
+
+- float32: a block owns 16 state columns of one head and walks every
+  token in order on the CUDA cores.
+- bf16: the sequence-split scan on the tensor cores, in segments of
+  ``wkv_plan(S)`` tokens counted from position 0: each segment's own end
+  state and decay, a pass across segments, then the outputs in sub-blocks
+  of 16 tokens; three launches (one when S fits in one segment) through a
+  float32 workspace allocated per call.
 """
 
 from __future__ import annotations
@@ -17,18 +26,27 @@ import functools
 import torch
 
 from . import _build, ref
-from .common import check_cuda_operands, check_launch, kernel_path
+from .common import (aligned16, check_cuda_operands, check_launch,
+                     kernel_path, wkv_plan)
 
-# Head sizes the CUDA kernel is built for.
+# Head sizes the CUDA kernels are built for.
 HEAD_SIZES = (16, 32, 64, 128)
+
+
+def workspace_numel(bsz: int, h: int, n: int, nseg: int) -> int:
+    """float32 values of the bf16 scan's workspace: each segment's state
+    [B, H, nseg, N, N] (values x keys), then its decay [B, H, nseg, N]."""
+    return bsz * h * nseg * (n * n + n)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     lib = _build.load("rwkv6_wkv")
-    sym = "repro_wkv6_bf16" if dtype == torch.bfloat16 else "repro_wkv6_f32"
     vp, i = ctypes.c_void_p, ctypes.c_int
-    return _build.declare(lib, sym, [vp] * 7 + [i] * 4 + [vp])
+    if dtype == torch.bfloat16:
+        return _build.declare(lib, "repro_wkv6_seg_bf16",
+                              [vp] * 5 + [i] + [vp] * 3 + [i] * 6 + [vp])
+    return _build.declare(lib, "repro_wkv6_f32", [vp] * 7 + [i] * 4 + [vp])
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,8 +63,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(u.shape)}, chunk {chunk}")
     if kernel_path(r) == "plain":
         return ref.wkv6(r, k, v, w, u)
-    u32 = u.float().contiguous()
-    check_cuda_operands("wkv6", r.dtype, r, k, v, w, u32)
+    bf16 = r.dtype == torch.bfloat16
+    # The bf16 kernels read u as it is, bf16 or float32 (no launch of its
+    # own); the float32 kernel takes float32.
+    uk = (u if bf16 and u.dtype in (torch.float32, torch.bfloat16)
+          else u.float()).contiguous()
+    check_cuda_operands("wkv6", r.dtype, r, k, v, w, uk)
     if k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"wkv6: r, k and v must share a dtype (got "
                         f"{r.dtype}, {k.dtype}, {v.dtype})")
@@ -58,10 +80,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.empty_like(r)
     state = torch.empty((bsz, h, n, n), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    status = _entry(r.dtype)(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u32.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, h, n,
-        stream)
+    if bf16:
+        seg, nseg = wkv_plan(s)
+        r, k, v, w = (aligned16(t) for t in (r, k, v, w))
+        ws = torch.empty(workspace_numel(bsz, h, n, nseg),
+                         dtype=torch.float32, device=r.device)
+        status = _entry(r.dtype)(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            uk.data_ptr(), int(uk.dtype == torch.bfloat16), y.data_ptr(),
+            state.data_ptr(), ws.data_ptr(), bsz, s, h, n, seg, nseg,
+            stream)
+    else:
+        status = _entry(r.dtype)(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            uk.data_ptr(), y.data_ptr(), state.data_ptr(), bsz, s, h, n,
+            stream)
     check_launch("wkv6", status)
     wkv6.launches += 1
     return y, state

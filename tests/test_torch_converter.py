@@ -23,6 +23,7 @@ the CPU, against the JAX package.
 """
 
 import dataclasses
+import functools
 import types
 
 import jax.numpy as jnp
@@ -255,37 +256,102 @@ class _Launched(Exception):
     """Raised in place of a kernel launch, carrying its arguments."""
 
 
-def _emulate(x: torch.Tensor, desc, esz, per_warp, blocks):
-    """What ``csrc/stream_converter.cu`` writes, step for step: each warp
-    of ``blocks`` x 8 decodes its first token, then counts the radix up;
-    16-byte vectors move a row only where every address is aligned."""
-    n, row = desc.n_tokens, desc.row
-    eh, ew, nl = desc.eh, desc.ew, desc.nloops
-    trip = list(desc.trip)[:nl]
+NT, U = 256, 4   # csrc/stream_converter.cu: threads per block, vectors
+                 # in flight per thread
+
+
+def _token_offsets(desc, tokens):
+    """``token_offset`` of the kernel: each token's data offset oh W + ow
+    (int64 here; the kernel's int32 is checked to hold it)."""
+    oh = np.zeros(len(tokens), np.int64)
+    ow = np.zeros(len(tokens), np.int64)
+    rem = np.asarray(tokens, np.int64)
+    for k in reversed(range(desc.nloops)):
+        i, rem = rem % desc.trip[k], rem // desc.trip[k]
+        oh += i * desc.ch[k]
+        ow += i * desc.cw[k]
+    return oh * desc.row + ow
+
+
+def _step(tok, r, c, dt, dr, dc, rows, cols):
+    c = c + dc
+    r = r + dr
+    wrap = c >= cols
+    c, r = np.where(wrap, c - cols, c), np.where(wrap, r + 1, r)
+    wrap = r >= rows
+    r, tok = np.where(wrap, r - rows, r), np.where(wrap, tok + 1, tok)
+    return tok + dt, r, c
+
+
+def _emulate_block(desc, esz, b, numel):
+    """What block ``b`` of ``csrc/stream_converter.cu`` writes, step for
+    step, vectorized over its 256 threads: (e0, the flat data index of
+    each element of its range [e0, e0 + elems)).  Asserts what the kernel
+    relies on: at most ``MAX_TOKENS`` tokens decoded, every token read
+    among them, 32-bit offsets inside the data, 16-byte aligned loads on
+    the vector path and 16-byte aligned stores."""
+    vl = 16 // esz
+    b0 = b * desc.run
+    nbytes = min(desc.run, desc.total - b0)
+    assert b0 % 16 == 0 and nbytes > 0
+    tile = desc.eh * desc.ew
+    e0 = b0 // esz
+    t0 = e0 // tile
+    rel0 = e0 - t0 * tile
+    elems = nbytes // esz
+    ntok = (rel0 + elems - 1) // tile + 1
+    assert ntok <= sc_mod.MAX_TOKENS
+    toff = _token_offsets(desc, t0 + np.arange(ntok))
+    assert toff.max() < 2 ** 31
+    got = np.full(elems, -1, np.int64)
+    tid = np.arange(NT)
+    nvec = nbytes // 16
+    ix = np.arange(vl)
+    if desc.vec:
+        vpr = desc.ew // vl
+        vpt = desc.eh * vpr
+        q = rel0 // vl + tid
+        tok, p = np.divmod(q, vpt)
+        r, c = np.divmod(p, vpr)
+        dt, dp = divmod(NT, vpt)
+        dr, dc = divmod(dp, vpr)
+        for v0 in range(0, nvec, NT):
+            v = v0 + tid
+            live = v < nvec
+            src = (toff[tok[live]] + r[live] * desc.row + c[live] * vl)
+            assert (src * esz % 16 == 0).all()
+            got[(v[live] * vl)[:, None] + ix] = src[:, None] + ix
+            tok, r, c = _step(tok, r, c, dt, dr, dc, desc.eh, vpr)
+    else:
+        # A warp's chunk of 32 vl elements: lane l loads elements l, l +
+        # 32, ...; the chunk leaves as 32 vectors (the order of the warps
+        # over the chunks does not change what is written).
+        dt, dp = divmod(32, tile)
+        dr, dc = divmod(dp, desc.ew)
+        lane = np.arange(32)
+        for ch in range(-(-elems // (32 * vl))):
+            e = ch * 32 * vl + lane
+            tok, p = np.divmod(rel0 + e, tile)
+            r, c = np.divmod(p, desc.ew)
+            for j in range(vl):
+                ee = e + 32 * j
+                live = ee < elems
+                got[ee[live]] = (toff[tok[live]] + r[live] * desc.row
+                                 + c[live])
+                tok, r, c = _step(tok, r, c, dt, dr, dc, desc.eh, desc.ew)
+    assert (got >= 0).all() and got.max() < numel
+    return e0, got
+
+
+def _emulate(x: torch.Tensor, desc, esz, blocks):
+    """The whole stream the kernel writes, block by block."""
+    n, eh, ew = desc.n_tokens, desc.eh, desc.ew
+    assert (blocks - 1) * desc.run < desc.total <= blocks * desc.run
     flat = x.reshape(-1)
-    out = torch.full((n, eh * ew), -1, dtype=x.dtype)
-    for warp in range(blocks * 8):
-        t = warp * per_warp
-        t_end = min(t + per_warp, n)
-        if t >= t_end:
-            continue
-        idx, rem = [0] * nl, t
-        for k in reversed(range(nl)):
-            idx[k], rem = rem % trip[k], rem // trip[k]
-        for t in range(t, t_end):
-            oh = sum(i * c for i, c in zip(idx, desc.ch))
-            ow = sum(i * c for i, c in zip(idx, desc.cw))
-            for r in range(eh):
-                at = (oh + r) * row + ow
-                if desc.vec:
-                    assert (at * esz) % 16 == 0 and (ew * esz) % 16 == 0
-                    assert ((t * eh * ew + r * ew) * esz) % 16 == 0
-                out[t, r * ew:(r + 1) * ew] = flat[at:at + ew]
-            for k in reversed(range(nl)):
-                idx[k] += 1
-                if idx[k] < trip[k]:
-                    break
-                idx[k] = 0
+    out = torch.full((n * eh * ew,), -1, dtype=x.dtype)
+    for b in range(blocks):
+        e0, idx = _emulate_block(desc, esz, b, x.numel())
+        out[e0:e0 + len(idx)] = flat[torch.from_numpy(idx)]
     return out.reshape(n, eh, ew)
 
 
@@ -321,10 +387,11 @@ def test_kernel_indexing_model_gives_the_plain_stream(card_route, case, sms):
             DTYPES[dname][1])
         with pytest.raises(_Launched) as hit:
             K.convert_layout(x, src, dst)
-        _, _, desc, esz, per_warp, blocks, _ = hit.value.args
+        _, _, desc, esz, blocks, _ = hit.value.args
         assert esz == x.element_size()
-        assert blocks * 8 * per_warp >= dst.num_tokens
-        got = _emulate(x, desc, esz, per_warp, blocks)
+        assert desc.run % 16 == 0 and desc.total == (
+            dst.num_tokens * dst.elem_shape[0] * dst.elem_shape[1] * esz)
+        got = _emulate(x, desc, esz, blocks)
         assert torch.equal(got, ref.convert_layout_ref(x, src, dst))
     assert K.convert_layout.launches == 0
 
@@ -366,4 +433,93 @@ def test_card_route_refuses_what_the_kernel_lacks(card_route):
     assert deep.iter_rank == 9
     with pytest.raises(ValueError, match="at most 8"):
         K.convert_layout(torch.zeros(8, 8), deep, deep)
+    # 2^34 tokens: past the kernel's 31-bit token count.
+    huge = I.itensor_from_tiling((8, 8), (4, 4), reuse=[(0, 1 << 16)] * 2)
+    with pytest.raises(ValueError, match="31 bits"):
+        K.convert_layout(torch.zeros(8, 8), huge, huge)
     assert K.convert_layout.launches == 0
+
+
+# The compiled blocks' edges at full width: every distinct (src, dst)
+# type pair of each family at 128 tokens, and llama3-8b's at 1000 tokens
+# (streams up to 7.34 GB, windows up to [10, 14336]: 287 KB in bf16).
+COMPILED = [("llama3-8b", 128), ("gpt2", 128), ("granite-moe-3b-a800m", 128),
+            ("zamba2-2.7b", 128), ("rwkv6-7b", 128), ("llama3-8b", 1000)]
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled_edges(arch, tokens):
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_model
+    c = compile_model(get_config(arch), tokens=tokens)
+    pairs = {}
+    for _, _, _, d in c.graph.edges():
+        pairs.setdefault((str(d["src_type"]), str(d["dst_type"])),
+                         (d["src_type"], d["dst_type"]))
+    return list(pairs.values())
+
+
+def _want_indices(dst, row, e0, n_elems):
+    """The plain stream's flat data index of elements [e0, e0 + n) (the
+    gather ``ref.convert_layout_ref`` makes, as indices)."""
+    eh, ew = dst.elem_shape
+    tile = eh * ew
+    t0, t1 = e0 // tile, (e0 + n_elems - 1) // tile + 1
+    oh, ow = ref.stream_token_offsets(dst, torch.arange(t0, t1))
+    idx = ((oh[:, None, None] + torch.arange(eh)[None, :, None]) * row
+           + ow[:, None, None] + torch.arange(ew)[None, None, :])
+    start = e0 - t0 * tile
+    return idx.reshape(-1)[start:start + n_elems].numpy()
+
+
+@pytest.mark.parametrize("arch,tokens", COMPILED)
+def test_kernel_indexing_model_on_compiled_edges(arch, tokens):
+    """On every compiled edge type, in bf16, float32 and int8, the blocks
+    of the launch ``_plan`` makes (the first two, the last, the middle and
+    eight seeded ones) read exactly the plain stream's data elements at
+    their ranges; 16-byte loads only where every address aligns, so
+    granite's 10-wide router and expert streams take the gather path."""
+    rng = np.random.default_rng(tokens)
+    paths = set()
+    for src, dst in _compiled_edges(arch, tokens):
+        for tdt in (torch.bfloat16, torch.float32, torch.int8):
+            data = torch.empty(src.data_shape, dtype=tdt)
+            desc, blocks = sc_mod._plan(data, dst, 132)
+            esz = data.element_size()
+            assert (blocks - 1) * desc.run < desc.total <= blocks * desc.run
+            paths.add(desc.vec)
+            ew = dst.elem_shape[1]
+            assert desc.vec == int((ew * esz) % 16 == 0
+                                   and (dst.steps[dst.iter_map.results[1]]
+                                        * esz) % 16 == 0
+                                   and (data.shape[1] * esz) % 16 == 0)
+            picks = {0, min(1, blocks - 1), blocks - 1, blocks // 2,
+                     *rng.integers(0, blocks, 8).tolist()}
+            for b in sorted(picks):
+                e0, got = _emulate_block(desc, esz, b, data.numel())
+                np.testing.assert_array_equal(
+                    got, _want_indices(dst, data.shape[1], e0, len(got)))
+    assert 1 in paths
+    if arch.startswith("granite"):
+        assert 0 in paths
+
+
+def test_kernel_model_unaligned_router_stream_bit_for_bit(card_route):
+    """granite-3b's router stream (32 tokens of [16, 10], 20-byte rows)
+    and its top-k stream into the experts (10-wide tiles at a column step
+    of 10) through the card route: the gathered 16-byte vectors and the
+    ragged tail give the plain stream bit for bit, in bf16 and float32."""
+    card_route(132)
+    edges = [(s, d) for s, d in _compiled_edges("granite-moe-3b-a800m", 128)
+             if d.elem_shape == (16, 10)]
+    assert {d.num_tokens for _, d in edges} >= {32}
+    for src, dst in sorted(edges, key=lambda e: e[1].num_tokens)[:1]:
+        for dname in ("bfloat16", "float32"):
+            x = torch.from_numpy(_data(src.data_shape, dname)).to(
+                DTYPES[dname][1])
+            with pytest.raises(_Launched) as hit:
+                K.convert_layout(x, src, dst)
+            _, _, desc, esz, blocks, _ = hit.value.args
+            assert desc.vec == 0
+            got = _emulate(x, desc, esz, blocks)
+            assert torch.equal(got, ref.convert_layout_ref(x, src, dst))
