@@ -32,13 +32,15 @@ parent.  Phases:
              times and each kernel's device time (``torch.profiler``);
   tensorcore, kernel, row_invariance
              those phases of ``chip_smoke.py`` whole;
-  burst      llama3-8b at full width, 16 layers, bf16: the chunked mixed
-             burst (``chip_smoke.serve``), then the same burst through a
+  burst      llama3-8b at full width, ``SERVE_LAYERS`` deep, bf16: the
+             chunked mixed burst (``chip_smoke.serve``), then the same
+             burst through a
              fresh engine under ``torch.profiler`` (this checkout's
              ``chip_smoke.profile_burst``, on the tree's engine): device ms
              by stage, busy, wall and idle share;
   granite_burst
-             granite-moe-3b at full width, 16 layers, bf16: as ``burst``;
+             granite-moe-3b at full width, ``SERVE_LAYERS`` deep, bf16:
+             as ``burst``;
   train      llama3-8b at full width, 2 layers: ``chip_smoke.train``'s
              3 steps with a profiled step;
   granite_train
@@ -60,8 +62,8 @@ parent.  Phases:
              (TTFT, TPOT) and the same burst under ``torch.profiler``, as
              ``burst``;
   quant_burst
-             llama3-8b at full width, 16 layers, bf16, ``w8_kv8``: the
-             chunked mixed burst, as ``burst``;
+             llama3-8b at full width, ``SERVE_LAYERS`` deep, bf16,
+             ``w8_kv8``: the chunked mixed burst, as ``burst``;
   wkv_hashes sha256 of K14's (``wkv6``) float32 y and final state at this
              checkout's ``tensorcore`` shapes (``TC_WKV_S`` and 2 x 2048,
              the model's chunk), from seeded inputs;
@@ -82,7 +84,16 @@ parent.  Phases:
              K15's device time on every edge of this checkout's compiled
              blocks (``COMPILE_MODELS`` at 128 tokens and ``COMPILE_LONG``)
              in bf16, free of the host time the event timer can catch on
-             streams of a few microseconds.
+             streams of a few microseconds;
+  qwen_kernel_cases
+             the Qwen paths' kernel rows (``chip_smoke.qwen_kernel_cases``,
+             bf16 and float32, against their plain versions) and their
+             rows at 1..64 rows (``check_qwen_rows``);
+  qwen_fused_vs_eager, qwen_serve
+             those phases of ``chip_smoke.py`` for qwen3-0.6b, qwen1.5-0.5b
+             and qwen2-vl-2b;
+  qwen_train qwen3-0.6b and qwen2-vl-2b at full width and depth:
+             ``chip_smoke.train``'s 3 steps with a profiled step.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
@@ -131,6 +142,11 @@ SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
            "rwkv_burst": ["rwkv6_wkv", "row_norm", "block_matmul"],
            "convert": ["stream_converter"], "wkv_probe": ["rwkv6_wkv"],
            "convert_probe": ["stream_converter"]}
+QWEN_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
+                "flash_attention", "paged_attention", "block_matmul",
+                "streamed_xent"]
+SOURCES.update(dict.fromkeys(("qwen_kernel_cases", "qwen_fused_vs_eager",
+                              "qwen_serve", "qwen_train"), QWEN_SOURCES))
 
 
 def emit(obj) -> None:
@@ -570,6 +586,19 @@ def main() -> int:
             train(torch, cs)
         elif phase == "granite_train":
             train(torch, cs, cs.GRANITE_TRAIN, layers=None)
+        elif phase == "qwen_kernel_cases":
+            cs.check_kernels(torch, timer, (cs.qwen_kernel_cases,),
+                             phase="qwen_kernel_cases")
+            cs.check_qwen_rows(torch)
+        elif phase == "qwen_fused_vs_eager":
+            for m in cs.QWEN:
+                cs.qwen_fused_vs_eager(torch, m)
+        elif phase == "qwen_serve":
+            for m in cs.QWEN:
+                cs.qwen_serve(torch, m)
+        elif phase == "qwen_train":
+            for m in (cs.QWEN3, cs.QWEN2VL):
+                train(torch, cs, m, layers=None)
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

@@ -38,6 +38,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               row's length, bit for bit; K12's bound counts the experts
               and (token, expert) pairs its gates keep, the dense-gather
               bound beside it;
+   qwen_kernel_cases, qwen_rows — the same checks at the Qwen paths'
+              widths (``qwen_kernel_cases``): qwen3-0.6b's and
+              qwen1.5-0.5b's projections, o-projection, FFN (and qwen3's
+              int8 twins) at a prefill chunk, decode and a verify
+              dispatch, their LM head over the padded 151936-token
+              vocabulary and their chunk, decode and verify attention at
+              head dim 64 (GQA 2 and 1) over full-precision, int8 and fp8
+              pools; qwen2-vl-2b's at whole prompts of 1000 and 37 rows
+              and decode, K7 at head dim 128 with GQA 6 and K1 / K9a at
+              GQA 6; qwen3's and qwen2-vl's training step at 2 x 2048
+              (projections, FFN, K7, K11); then K3, K10a, K4 and K10b at
+              each Qwen width with rows at 1..63 rows bit-equal to the
+              same rows at 64 (``qwen_rows``, required);
 3. row_invariance — every call on the kernel plan's path gives rows 0..3
               the same bits at 4 rows (decode) as at 8, 12 and 20 (verify
               windows of 2, 3 and 5): the projection and FFN kernels and
@@ -146,9 +159,14 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               teacher-forced gate of every quant mode against the
               unquantized engine (max logit error, token equality; the
               errors must be finite);
+   qwen_fused_vs_eager — qwen3-0.6b, qwen1.5-0.5b and qwen2-vl-2b at
+              full width cut to 4 layers, float32, weights jittered (the
+              QKV biases and q/k norm scales start at zero): the phases
+              4-7 above for each (qwen2-vl whole-prompt only, without the
+              speculative engines, which M-RoPE refuses);
 8. serve, gpt2_serve, granite_serve, spec_serve, quant_serve,
               quant_spec_serve — gpt2 at full width and depth, llama3-8b
-              and granite-moe-3b at full width cut to 16 of their 32
+              and granite-moe-3b at full width cut to 8 of their 32
               layers (``SERVE_LAYERS``), bfloat16, random weights
               drawn on the card from a seed (gpt2 jittered): a mixed burst
               of 8 prompts (37..1000 tokens; gpt2 up to 992 in its
@@ -166,6 +184,14 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               repeat its burst tokens; llama3-8b's chunked burst once more
               through a fresh engine under ``torch.profiler``
               (``serve_profile``: device ms by stage, idle share);
+   qwen_serve, qwen_quant_serve, qwen_spec_serve — the three Qwen
+              configs at full width and depth, bfloat16, weights jittered:
+              the mixed burst (qwen3 and qwen1.5 chunked with the prefix
+              cache, qwen2-vl whole-prompt) with its profile, each launch
+              count exactly ``qwen_launches`` for the burst's prefill
+              dispatches and decode steps, the solo request repeating its
+              burst; qwen3's and qwen2-vl's burst again under w8_kv8;
+              qwen3's speculative burst equal to the plain engine's;
    zamba_fused_vs_eager, zamba accuracy — zamba2-2.7b at full width
               cut to 6 layers (one period: the shared block runs once),
               float32, whole-prompt admission: kernel plan tokens equal to
@@ -202,9 +228,11 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               equality reported); llama3-8b at full width cut to 2 layers
               (B = 2, S = 2048; the full depth does not fit one card) for
               3 steps and a timed restore; granite-moe-1b and zamba2-2.7b
-              at full width and depth and rwkv6-7b at full width cut to 4
+              at full width and depth and rwkv6-7b at full width cut to 2
               layers (B = 2, S = 2048, lr 3e-5) for 3 steps, no
-              checkpoint.  Losses finite and falling,
+              checkpoint; qwen3-0.6b and qwen2-vl-2b (on the pipeline's
+              patch embeddings and M-RoPE positions) at full width and
+              depth likewise.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
@@ -419,10 +447,58 @@ def rwkv_launches(prefills: int, steps: int,
     return {k: n for k, n in out.items() if n}
 
 
-# llama3-8b and granite-moe-3b serve at full width cut to 16 of their 32
+# The Qwen decoders run llama3-8b's plan stage for stage: q/k/v with ln1
+# folded in and the final norm + LM head through rmsnorm_matmul, the FFN
+# with ln2 folded in through streamed_ffn, the o-projection through
+# block_matmul, chunk / whole-prompt / decode / verify attention through
+# K2 / K7 / K1 / K8; the QKV bias, qk-norm and M-RoPE are PyTorch ops
+# beside them, as they are XLA ops in the reference.  qwen3 and qwen1.5
+# prefill in chunks; qwen2-vl (M-RoPE) only whole prompts, and never
+# verifies speculatively.  Under w8_kv8 as llama3's (K9, K10a, K10b).
+QWEN3, QWEN15, QWEN2VL = "qwen3-0.6b", "qwen1.5-0.5b", "qwen2-vl-2b"
+QWEN = (QWEN3, QWEN15, QWEN2VL)
+QWEN_PATHS = {"chunked": LLAMA_PATH,
+              "whole_prompt": (LLAMA_PATH - {"flash_attention"})
+              | {"flash_attention_static"}}
+QWEN_QUANT_PATHS = {
+    "chunked": QUANT_PATHS[("llama3-8b", "chunked")],
+    "whole_prompt": (QUANT_PATHS[("llama3-8b", "chunked")]
+                     - {"flash_attention_q"}) | {"flash_attention_static"}}
+
+
+def qwen_launches(layers: int, prefills: int, steps: int, *, whole: bool,
+                  quant: str = "none") -> dict:
+    """Every kernel's exact launches in a Qwen burst of ``prefills``
+    prefill dispatches (prompt chunks, or whole prompts with ``whole``)
+    and ``steps`` decode steps: per layer and call q, k and v through
+    rmsnorm_matmul, the o-projection and the FFN; attention once per
+    layer in a prefill (K2, or K7 whole) and in a decode step (K1); the
+    final norm and LM head through rmsnorm_matmul once per call.  Under a
+    weight mode the q/k/v and FFN launches are their int8 twins', under a
+    KV mode the chunk and decode attention read codes (K9c, K9a)."""
+    calls = prefills + steps
+    w8 = quant in ("w8", "w8_kv8")
+    kv8 = quant in ("kv_int8", "kv_fp8", "w8_kv8")
+    attn = ("flash_attention_static" if whole
+            else "flash_attention_q" if kv8 else "flash_attention")
+    out = {attn: layers * prefills,
+           "paged_attention_q" if kv8 else "paged_attention": layers * steps,
+           "streamed_ffn_w8" if w8 else "streamed_ffn": layers * calls,
+           "block_matmul": layers * calls,
+           "rmsnorm_matmul": calls + (0 if w8 else 3 * layers * calls)}
+    if w8:
+        out["rmsnorm_matmul_w8"] = 3 * layers * calls
+    return {k: n for k, n in out.items() if n}
+
+
+# llama3-8b and granite-moe-3b serve at full width cut to 8 of their 32
 # layers: at full depth their eight bursts took 250 s, and the script has
-# to stay well inside its time limit with every model's phases.
-SERVE_LAYERS = {"llama3-8b": 16, GRANITE: 16}
+# to stay well inside its time limit with every model's phases (929 s
+# with them at 16 layers once the Qwen phases joined).  rwkv6-7b trains
+# at 2 of its 32 layers for the same reason (its eager wkv backward makes
+# about 10^5 small launches a step).
+SERVE_LAYERS = {"llama3-8b": 8, GRANITE: 8}
+RWKV_TRAIN_LAYERS = 2
 
 
 # The training path on the kernel plan: each layer's forward launches, the
@@ -439,15 +515,18 @@ TRAIN_LAYER_LAUNCHES = {
                     "flash_attention_static": 1},
 }
 TRAIN_LAYER_LAUNCHES[GRANITE] = TRAIN_LAYER_LAUNCHES[GRANITE_TRAIN]
+TRAIN_LAYER_LAUNCHES[QWEN3] = TRAIN_LAYER_LAUNCHES["llama3-8b"]
+TRAIN_LAYER_LAUNCHES[QWEN2VL] = TRAIN_LAYER_LAUNCHES["llama3-8b"]
 # zamba2: per shared-block application (K13 per layer apart).
 TRAIN_LAYER_LAUNCHES[ZAMBA] = {"rmsnorm_matmul": 3,
                                        "streamed_ffn": 1,
                                        "flash_attention_static": 1}
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
-# llama3-8b, granite-moe-1b-a400m, zamba2-2.7b and rwkv6-7b at 2 x 2048.
+# llama3-8b, granite-moe-1b-a400m, zamba2-2.7b, rwkv6-7b, qwen3-0.6b and
+# qwen2-vl-2b at 2 x 2048.
 TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
                 GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048),
-                RWKV: (2, 2048)}
+                RWKV: (2, 2048), QWEN3: (2, 2048), QWEN2VL: (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -737,6 +816,85 @@ def _rms_library(torch, x, s, w):
         x, (x.shape[-1],), gain, 1e-6), w)
 
 
+def _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path, w8=True,
+                 o_proj=True):
+    """One dense RMSNorm/SwiGLU layer's kernel calls at ``t`` rows: the
+    projections with ln1 folded in (K3, an output width each in ``ns``),
+    the o-projection (K5, D x D; not with ``o_proj`` False: training's is
+    a PyTorch product), the FFN with ln2 folded in (K4, F), and with ``w8``
+    their int8 twins (K10a, K10b); ``path`` tags the cases."""
+    x = randn(t, d)
+    s = randn(d, scale=0.1)
+    xn = ref.rms_rows(x, s, 1e-6)
+    cases = []
+    for n in ns:
+        w = randn(d, n, scale=1 / math.sqrt(d))
+        cases.append(dict(
+            name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}",
+            kernel=lambda x=x, s=s, w=w: K.rmsnorm_matmul(x, s, w),
+            plain=lambda x=x, s=s, w=w: ref.rmsnorm_matmul(x, s, w),
+            library=_rms_library(torch, x, s, w),
+            cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
+            nbytes=(t * d + d + d * n + t * n) * isz,
+            flops=2 * t * d * n, path=path))
+        if not w8:
+            continue
+        (c, ws), = _w8(torch, w)
+        wq = (c.float() * ws).to(x.dtype)
+        cases.append(dict(
+            name="rmsnorm_matmul_w8", shape=f"T={t},D={d},N={n},int8",
+            kernel=lambda x=x, s=s, c=c, ws=ws: K.rmsnorm_matmul_w8(
+                x, s, c, w_scale=ws),
+            plain=lambda x=x, s=s, c=c, ws=ws: ref.rmsnorm_matmul_w8(
+                x, s, c, ws),
+            library=_rms_library(torch, x, s, wq),
+            cublas=lambda xn=xn, wq=wq: torch.matmul(xn, wq),
+            nbytes=(t * d + d + t * n) * isz + d * n + 4 * n,
+            flops=2 * t * d * n, path=path))
+    if o_proj:
+        w_o = randn(d, d, scale=1 / math.sqrt(d))
+        cases.append(dict(
+            name="block_matmul", shape=f"o_proj M={t},K={d},N={d}",
+            kernel=lambda x=x, w=w_o: K.block_matmul(x, w),
+            plain=lambda x=x, w=w_o: ref.block_matmul(x, w),
+            library=lambda x=x, w=w_o: torch.matmul(x, w), cublas=None,
+            nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d,
+            path=path))
+    wg = randn(d, f, scale=1 / math.sqrt(d))
+    wu = randn(d, f, scale=1 / math.sqrt(d))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    cases.append(dict(
+        name="streamed_ffn", shape=f"T={t},D={d},F={f}",
+        kernel=lambda x=x, s=s, a=wg, b=wu, c=wd: K.streamed_ffn(
+            x, a, b, c, norm_scale=s),
+        plain=lambda x=x, s=s, a=wg, b=wu, c=wd: ref.streamed_ffn(
+            x, a, b, c, norm_scale=s),
+        library=None,
+        cublas=lambda xn=xn, a=wg, b=wu, c=wd: torch.matmul(
+            torch.nn.functional.silu(xn @ a) * (xn @ b), c),
+        nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f,
+        path=path))
+    if not w8:
+        return cases
+    (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+    wgq, wuq, wdq = ((c.float() * sc).to(x.dtype)
+                     for c, sc in ((cg, sg), (cu, su), (cd, sd)))
+    cases.append(dict(
+        name="streamed_ffn_w8", shape=f"T={t},D={d},F={f},int8",
+        kernel=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
+            K.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
+                              wd_scale=q[5], norm_scale=s),
+        plain=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
+            ref.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
+                                wd_scale=q[5], norm_scale=s),
+        library=None,
+        cublas=lambda xn=xn, a=wgq, b=wuq, c=wdq: torch.matmul(
+            torch.nn.functional.silu(xn @ a) * (xn @ b), c),
+        nbytes=(2 * t * d + d) * isz + 3 * d * f + 4 * (2 * f + d),
+        flops=6 * t * d * f, path=path))
+    return cases
+
+
 def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """llama3-8b's kernel calls: name, shape label, kernel / plain /
     library call (one PyTorch call computing the same function, or None),
@@ -753,70 +911,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     cases = []
     d, f = 4096, 14336
     for t in (128, 4, SPEC_T):
-        path = "speculative" if t == SPEC_T else None
-        x = randn(t, d)
-        s = randn(d, scale=0.1)
-        xn = ref.rms_rows(x, s, 1e-6)
-        for n in (4096, 1024):
-            w = randn(d, n, scale=1 / math.sqrt(d))
-            cases.append(dict(
-                name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}",
-                kernel=lambda x=x, s=s, w=w: K.rmsnorm_matmul(x, s, w),
-                plain=lambda x=x, s=s, w=w: ref.rmsnorm_matmul(x, s, w),
-                library=_rms_library(torch, x, s, w),
-                cublas=lambda xn=xn, w=w: torch.matmul(xn, w),
-                nbytes=(t * d + d + d * n + t * n) * isz,
-                flops=2 * t * d * n, path=path))
-            (c, ws), = _w8(torch, w)
-            wq = (c.float() * ws).to(dtype)
-            cases.append(dict(
-                name="rmsnorm_matmul_w8", shape=f"T={t},D={d},N={n},int8",
-                kernel=lambda x=x, s=s, c=c, ws=ws: K.rmsnorm_matmul_w8(
-                    x, s, c, w_scale=ws),
-                plain=lambda x=x, s=s, c=c, ws=ws: ref.rmsnorm_matmul_w8(
-                    x, s, c, ws),
-                library=_rms_library(torch, x, s, wq),
-                cublas=lambda xn=xn, wq=wq: torch.matmul(xn, wq),
-                nbytes=(t * d + d + t * n) * isz + d * n + 4 * n,
-                flops=2 * t * d * n, path=path))
-        w_o = randn(d, d, scale=1 / math.sqrt(d))
-        cases.append(dict(
-            name="block_matmul", shape=f"o_proj M={t},K={d},N={d}",
-            kernel=lambda x=x, w=w_o: K.block_matmul(x, w),
-            plain=lambda x=x, w=w_o: ref.block_matmul(x, w),
-            library=lambda x=x, w=w_o: torch.matmul(x, w), cublas=None,
-            nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d,
-            path=path))
-        wg = randn(d, f, scale=1 / math.sqrt(d))
-        wu = randn(d, f, scale=1 / math.sqrt(d))
-        wd = randn(f, d, scale=1 / math.sqrt(f))
-        cases.append(dict(
-            name="streamed_ffn", shape=f"T={t},D={d},F={f}",
-            kernel=lambda x=x, s=s, a=wg, b=wu, c=wd: K.streamed_ffn(
-                x, a, b, c, norm_scale=s),
-            plain=lambda x=x, s=s, a=wg, b=wu, c=wd: ref.streamed_ffn(
-                x, a, b, c, norm_scale=s),
-            library=None,
-            cublas=lambda xn=xn, a=wg, b=wu, c=wd: torch.matmul(
-                torch.nn.functional.silu(xn @ a) * (xn @ b), c),
-            nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f,
-            path=path))
-        (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
-        wgq, wuq, wdq = ((c.float() * sc).to(dtype)
-                         for c, sc in ((cg, sg), (cu, su), (cd, sd)))
-        cases.append(dict(
-            name="streamed_ffn_w8", shape=f"T={t},D={d},F={f},int8",
-            kernel=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
-                K.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
-                                  wd_scale=q[5], norm_scale=s),
-            plain=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
-                ref.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
-                                    wd_scale=q[5], norm_scale=s),
-            library=None,
-            cublas=lambda xn=xn, a=wgq, b=wuq, c=wdq: torch.matmul(
-                torch.nn.functional.silu(xn @ a) * (xn @ b), c),
-            nbytes=(2 * t * d + d) * isz + 3 * d * f + 4 * (2 * f + d),
-            flops=6 * t * d * f, path=path))
+        cases += _layer_cases(torch, K, ref, randn, isz, t, d, (4096, 1024),
+                              f, "speculative" if t == SPEC_T else None)
     vocab = padded_vocab(128256)
     head = randn(d, vocab, scale=1 / math.sqrt(d))
     for t in (1, 4, SPEC_T):
@@ -837,29 +933,8 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     # The training path at a step's 2 x 2048 tokens: the projections and
     # the FFN (their forward; the backward is PyTorch's) ...
     b, s = TRAIN_SHAPES["llama3-8b"]
-    t = b * s
-    x = randn(t, d)
-    sc = randn(d, scale=0.1)
-    xn = ref.rms_rows(x, sc, 1e-6)
-    for n in (4096, 1024):
-        w = randn(d, n, scale=1 / math.sqrt(d))
-        cases.append(dict(
-            name="rmsnorm_matmul", shape=f"T={t},D={d},N={n}", path="train",
-            kernel=lambda x=x, w=w: K.rmsnorm_matmul(x, sc, w),
-            plain=lambda x=x, w=w: ref.rmsnorm_matmul(x, sc, w),
-            library=_rms_library(torch, x, sc, w),
-            cublas=lambda w=w: torch.matmul(xn, w),
-            nbytes=(t * d + d + d * n + t * n) * isz, flops=2 * t * d * n))
-    wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
-    wd = randn(f, d, scale=1 / math.sqrt(f))
-    cases.append(dict(
-        name="streamed_ffn", shape=f"T={t},D={d},F={f}", path="train",
-        kernel=lambda: K.streamed_ffn(x, wg, wu, wd, norm_scale=sc),
-        plain=lambda: ref.streamed_ffn(x, wg, wu, wd, norm_scale=sc),
-        library=None,
-        cublas=lambda: torch.matmul(
-            torch.nn.functional.silu(xn @ wg) * (xn @ wu), wd),
-        nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f))
+    cases += _layer_cases(torch, K, ref, randn, isz, b * s, d, (4096, 1024),
+                          f, "train", w8=False, o_proj=False)
     # ... and the attention: the 2 sequences folded into the heads (64
     # query heads over 16 KV heads, GQA group 4), as
     # ``ops.flash_attention`` flattens them.
@@ -985,40 +1060,45 @@ def xent_cases(torch, K, ref, dtype, gen, dev="cuda"):
     passes them.  Held to its plain version in nats (``_xent_err``).  The
     library yardstick is the cuBLAS chain ``h @ W``, ``torch.logsumexp``
     and ``gather``."""
-    from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
     randn = _randn(torch, gen, dtype, dev)
+    return [_xent_case(torch, K, ref, randn, gen, isz, model, d, vocab, dev)
+            for model, d, vocab in (("gpt2", 1024, 50257),
+                                    ("llama3-8b", 4096, 128256),
+                                    (GRANITE_TRAIN, 1024, 49155),
+                                    (ZAMBA, 2560, 32000),
+                                    (RWKV, 4096, 65536))]
+
+
+def _xent_case(torch, K, ref, randn, gen, isz, model, d, vocab, dev):
+    """K11 at ``model``'s training step (``TRAIN_SHAPES``), D ``d`` over
+    the padded ``vocab``; about 10% of the labels ignored (clamped to 0,
+    as ``streamed_xent_loss`` passes them); its library yardstick the
+    chain ``h @ W``, ``torch.logsumexp`` and ``gather``."""
+    from repro_torch.models.params import padded_vocab
 
     def library(h, w, y, vocab):
         logits = (h @ w)[:, :vocab].float()
         return (torch.logsumexp(logits, dim=-1),
                 logits.gather(1, y.long()[:, None])[:, 0])
 
-    cases = []
-    for model, d, vocab in (("gpt2", 1024, 50257),
-                            ("llama3-8b", 4096, 128256),
-                            (GRANITE_TRAIN, 1024, 49155),
-                            (ZAMBA, 2560, 32000), (RWKV, 4096, 65536)):
-        b, s = TRAIN_SHAPES[model]
-        t, vp = b * s, padded_vocab(vocab)
-        h = randn(t, d)
-        w = randn(d, vp, scale=1 / math.sqrt(d))
-        y = torch.randint(0, vocab, (t,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        ignored = torch.rand(t, generator=gen, device=dev) < 0.1
-        y = torch.where(ignored, 0, y).to(torch.int32)
-        cases.append(dict(
-            name="streamed_xent", model=model, path="train", head_dim=None,
-            shape=f"T={t},D={d},Vp={vp},vocab={vocab},ignored=10%",
-            kernel=lambda h=h, w=w, y=y, v=vocab: K.streamed_xent_parts(
-                h, w, y, vocab_size=v),
-            plain=lambda h=h, w=w, y=y, v=vocab: ref.xent_parts_ref(
-                h, w, y, v),
-            library=lambda h=h, w=w, y=y, v=vocab: library(h, w, y, v),
-            rel=_xent_err, tol=XENT_TOL_NATS,
-            cublas=None, nbytes=(t * d + d * vp) * isz + 3 * t * 4,
-            flops=2 * t * d * vp))
-    return cases
+    b, s = TRAIN_SHAPES[model]
+    t, vp = b * s, padded_vocab(vocab)
+    h = randn(t, d)
+    w = randn(d, vp, scale=1 / math.sqrt(d))
+    y = torch.randint(0, vocab, (t,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    ignored = torch.rand(t, generator=gen, device=dev) < 0.1
+    y = torch.where(ignored, 0, y).to(torch.int32)
+    return dict(
+        name="streamed_xent", model=model, path="train", head_dim=None,
+        shape=f"T={t},D={d},Vp={vp},vocab={vocab},ignored=10%",
+        kernel=lambda: K.streamed_xent_parts(h, w, y, vocab_size=vocab),
+        plain=lambda: ref.xent_parts_ref(h, w, y, vocab),
+        library=lambda: library(h, w, y, vocab),
+        rel=_xent_err, tol=XENT_TOL_NATS,
+        cublas=None, nbytes=(t * d + d * vp) * isz + 3 * t * 4,
+        flops=2 * t * d * vp)
 
 
 def _moe_inputs(torch, randn, t, d, f, e, top_k, dtype):
@@ -1458,6 +1538,129 @@ def rwkv_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     return cases
 
 
+def qwen_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """The Qwen paths' kernel calls at their own widths (``kernel_cases``'
+    fields): a layer's projections (q and k/v widths), o-projection and
+    FFN (``_layer_cases``; int8 twins where a burst runs ``w8_kv8``) and
+    the final norm with the LM head over the padded 151936-token
+    vocabulary, at qwen3's and qwen1.5's prefill chunk (128 rows), decode
+    (4) and verify dispatch (20) with their chunk, decode and verify
+    attention (qwen3 D 64 with 16 over 8 heads, qwen1.5 16 over 16) over
+    full-precision, int8 and fp8 pools, and at qwen2-vl's whole prompts
+    (1000 and 37 rows: K7 at D 128 with 12 over 2 heads, GQA 6) and decode
+    (K1 and K9a at GQA 6); qwen3's and qwen2-vl's training step at 2 x
+    2048: projections, FFN, K7 with the sequences folded into the heads,
+    and K11."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import padded_vocab
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    out = []
+    for model in QWEN:
+        cfg = get_config(model)
+        d, f = cfg.d_model, cfg.d_ff
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        ns = tuple(dict.fromkeys((cfg.q_dim, cfg.kv_dim)))
+        whole = model == QWEN2VL
+        w8 = model != QWEN15        # the burst runs w8_kv8
+        rows = ((1000, "whole_prompt"), (37, "whole_prompt"), (4, None)) \
+            if whole else ((128, None), (4, None), (SPEC_T, "speculative"))
+        cases = []
+        for t, path in rows:
+            cases += _layer_cases(torch, K, ref, randn, isz, t, d, ns, f,
+                                  path, w8=w8)
+        vocab = padded_vocab(cfg.vocab_size)
+        head = randn(d, vocab, scale=1 / math.sqrt(d))
+        for t in (1, 4) if whole else (1, 4, SPEC_T):
+            x = randn(t, d)
+            sc = randn(d, scale=0.1)
+            xn = ref.rms_rows(x, sc, 1e-6)
+            cases.append(dict(
+                name="rmsnorm_matmul", shape=f"lm_head T={t},D={d},N={vocab}",
+                kernel=lambda x=x, sc=sc, w=head: K.rmsnorm_matmul(x, sc, w),
+                plain=lambda x=x, sc=sc, w=head: ref.rmsnorm_matmul(x, sc, w),
+                library=_rms_library(torch, x, sc, head),
+                cublas=lambda xn=xn, w=head: torch.matmul(xn, w),
+                nbytes=(t * d + d + d * vocab + t * vocab) * isz,
+                flops=2 * t * d * vocab,
+                path="speculative" if t == SPEC_T else None))
+        if whole:
+            cases += [_paged_case(torch, K, ref, randn, isz, gen, hq, hkv,
+                                  hd, 128, dev, code)
+                      for code in (None,) + CODES]
+            cases.append(dict(_flash_case(
+                torch, K, ref, randn, isz, "flash_attention_static", hq,
+                hkv, hd, 1000, 1000, None, dev), path="whole_prompt"))
+        else:
+            cases += _attention_cases(torch, K, ref, randn, isz, gen, hq,
+                                      hkv, hd, 128, 2048, dev)
+        if model in TRAIN_SHAPES:
+            b, sl = TRAIN_SHAPES[model]
+            cases += _layer_cases(torch, K, ref, randn, isz, b * sl, d, ns,
+                                  f, "train", w8=False, o_proj=False)
+            cases.append(dict(_flash_case(
+                torch, K, ref, randn, isz, "flash_attention_static", b * hq,
+                b * hkv, hd, sl, sl, None, dev), path="train"))
+            cases.append(_xent_case(torch, K, ref, randn, gen, isz, model, d,
+                                    cfg.vocab_size, dev))
+        out += [dict(c, model=model) for c in cases]
+    return out
+
+
+def _unequal_row_counts(torch, kern, x):
+    """The row counts t < 64 at which ``kern(x[:t])`` is not bit-equal to
+    the first t rows of ``kern(x)`` (x: 64 rows)."""
+    full = kern(x)
+    return [t for t in range(1, x.shape[0])
+            if not torch.equal(kern(x[:t].contiguous()), full[:t])]
+
+
+def check_qwen_rows(torch, dev="cuda"):
+    """bf16 K3 (each q/k/v width), K10a, K4 and K10b at each Qwen width:
+    rows at 1..63 rows bit-equal to the same rows at 64 (required: a
+    verify dispatch must reproduce decode rows, and a prompt served alone
+    its burst)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import ROW_INVARIANT_T
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    randn = _randn(torch, gen, torch.bfloat16, dev)
+    out = []
+    for model in QWEN:
+        cfg = get_config(model)
+        d, f = cfg.d_model, cfg.d_ff
+        s = randn(d, scale=0.1)
+        x = randn(ROW_INVARIANT_T, d)
+        insts = {}
+        for n in dict.fromkeys((cfg.q_dim, cfg.kv_dim)):
+            w = randn(d, n, scale=1 / math.sqrt(d))
+            (c, ws), = _w8(torch, w)
+            insts[f"rmsnorm_matmul N={n}"] = (
+                lambda x, w=w: K.rmsnorm_matmul(x, s, w))
+            insts[f"rmsnorm_matmul_w8 N={n}"] = (
+                lambda x, c=c, ws=ws: K.rmsnorm_matmul_w8(x, s, c,
+                                                          w_scale=ws))
+        wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+        wd = randn(f, d, scale=1 / math.sqrt(f))
+        (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+        insts[f"streamed_ffn F={f}"] = (
+            lambda x: K.streamed_ffn(x, wg, wu, wd, norm_scale=s))
+        insts[f"streamed_ffn_w8 F={f}"] = (
+            lambda x: K.streamed_ffn_w8(x, cg, cu, cd, norm_scale=s,
+                                        wg_scale=sg, wu_scale=su,
+                                        wd_scale=sd))
+        for name, kern in insts.items():
+            bad = _unequal_row_counts(torch, kern, x)
+            row = {"phase": "qwen_rows", "model": model, "call": name,
+                   "D": d, "equal_1_to_64": not bad, "unequal_at": bad[:8]}
+            emit(row)
+            out.append(row)
+    bad = [f"{r['model']} {r['call']}" for r in out if not r["equal_1_to_64"]]
+    if bad:
+        raise AssertionError(f"qwen_rows: rows differ at 1..63 rows: {bad}")
+    return out
+
+
 def _flat(torch, out):
     """A kernel's output, its parts concatenated when it has several
     (streamed_xent: lse and gold)."""
@@ -1466,21 +1669,31 @@ def _flat(torch, out):
     return out
 
 
-def check_kernels(torch, timer):
+def _llama_cases(torch, K, ref, dtype, gen):
+    return [dict(c, model="llama3-8b")
+            for c in kernel_cases(torch, K, ref, dtype, gen)]
+
+
+def _gpt2_cases(torch, K, ref, dtype, gen):
+    return [dict(c, model="gpt2")
+            for c in gpt2_kernel_cases(torch, K, ref, dtype, gen)]
+
+
+KERNEL_CASES = (_llama_cases, _gpt2_cases, xent_cases, granite_kernel_cases,
+                zamba_kernel_cases, rwkv_kernel_cases)
+
+
+def check_kernels(torch, timer, case_sets=KERNEL_CASES, phase="kernel"):
+    """Each case of ``case_sets`` (functions of (torch, K, ref, dtype,
+    generator) giving model-tagged cases) in bfloat16 and float32 against
+    its plain version, one ``phase`` line each; raises if any disagrees."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ref
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         gen = torch.Generator(device="cuda").manual_seed(1234)
-        cases = [dict(c, model="llama3-8b")
-                 for c in kernel_cases(torch, K, ref, dtype, gen)]
-        cases += [dict(c, model="gpt2")
-                  for c in gpt2_kernel_cases(torch, K, ref, dtype, gen)]
-        cases += xent_cases(torch, K, ref, dtype, gen)
-        cases += granite_kernel_cases(torch, K, ref, dtype, gen)
-        cases += zamba_kernel_cases(torch, K, ref, dtype, gen)
-        cases += rwkv_kernel_cases(torch, K, ref, dtype, gen)
+        cases = [c for fn in case_sets for c in fn(torch, K, ref, dtype, gen)]
         for c in cases:
             got, plain = c["kernel"](), c["plain"]()
             torch.cuda.synchronize()
@@ -1499,7 +1712,7 @@ def check_kernels(torch, timer):
             # for bit (comparison launches; no path's count).
             same_rows = (c["rows_vs_decode"](out) if "rows_vs_decode" in c
                          else None)
-            row = {"phase": "kernel", "name": c["name"], "model": c["model"],
+            row = {"phase": phase, "name": c["name"], "model": c["model"],
                    "head_dim": c.get("head_dim"), "path": c.get("path"),
                    "dtype": dname,
                    "shape": c["shape"], "max_abs_err": err,
@@ -1936,10 +2149,7 @@ def _ffn_tc_rows(torch, timer, K, ref, randn, sms):
                            "f_per_split": f_per_split, "splits": splits})))
             if not aligned:
                 continue
-            x = randn(ROW_INVARIANT_T, d)
-            full = kern(x)
-            bad = [t for t in range(1, ROW_INVARIANT_T)
-                   if not torch.equal(kern(x[:t].contiguous()), full[:t])]
+            bad = _unequal_row_counts(torch, kern, randn(ROW_INVARIANT_T, d))
             row = {"phase": "tensorcore_rows", "name": name, "model": model,
                    "D": d, "F": f, "equal_1_to_64": not bad,
                    "unequal_at": bad[:8]}
@@ -2007,10 +2217,7 @@ def _norm_tc_rows(torch, timer, K, ref, randn, sms):
                     extra={"k_per_split": k_per_split, "splits": splits})))
             if model in ("unaligned", GRANITE_TRAIN):
                 continue        # on no serving path
-            x = randn(ROW_INVARIANT_T, d)
-            full = kern(x)
-            bad = [t for t in range(1, ROW_INVARIANT_T)
-                   if not torch.equal(kern(x[:t].contiguous()), full[:t])]
+            bad = _unequal_row_counts(torch, kern, randn(ROW_INVARIANT_T, d))
             row = {"phase": "tensorcore_rows", "name": name, "model": model,
                    "D": d, "N": n, "equal_1_to_64": not bad,
                    "unequal_at": bad[:8]}
@@ -2558,12 +2765,14 @@ def fused_vs_eager(torch, cfg, device="cuda", lengths=(150, 40, 300, 9)):
 
 
 def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
-                             device="cuda", lengths=(150, 40, 300, 9)):
+                             device="cuda", lengths=(150, 40, 300, 9),
+                             modes=("chunked", "whole_prompt")):
     """``cfg``: a model with both admission paths (gpt2 with jittered
-    weights, granite-moe-3b) cut to 4 layers, float32.  Fused and eager
-    tokens must agree under each admission mode, and the kernel plan's
-    burst must launch exactly ``expect[mode]``.  Whether chunked and
-    whole-prompt tokens agree is reported, not required: the two sum
+    weights, granite-moe-3b, qwen3, qwen1.5) cut to 4 layers, float32, or
+    with ``modes`` the one it has (qwen2-vl: whole prompts).  Fused and
+    eager tokens must agree under each admission mode, and the kernel
+    plan's burst must launch exactly ``expect[mode]``.  Whether chunked
+    and whole-prompt tokens agree is reported, not required: the two sum
     attention in different orders."""
     params = _weights(torch, cfg, 1, jitter=jitter, device=device)
     prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
@@ -2571,9 +2780,9 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
            "layers": cfg.num_layers, "dtype": cfg.dtype,
            "prompts": [len(p) for p in prompts], "new_tokens": 8}
     fused_tokens, bad = {}, []
-    for mode, chunked in (("chunked", True), ("whole_prompt", False)):
+    for mode in modes:
         tokens, seconds, launches = _fused_eager(
-            torch, cfg, params, prompts, chunked, device)
+            torch, cfg, params, prompts, mode == "chunked", device)
         row[mode] = {"tokens_equal": tokens[True] == tokens[False],
                      "fused_s": seconds[True], "eager_s": seconds[False],
                      "fused_tokens": tokens[True],
@@ -2584,8 +2793,9 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
         if set(launches) != expect[mode]:
             bad.append(f"{mode}: launched {sorted(launches)}, expected "
                        f"{sorted(expect[mode])}")
-    row["chunked_equals_whole_prompt"] = (fused_tokens["chunked"]
-                                          == fused_tokens["whole_prompt"])
+    if len(modes) == 2:
+        row["chunked_equals_whole_prompt"] = (fused_tokens["chunked"]
+                                              == fused_tokens["whole_prompt"])
     emit(row)
     del params
     _free(torch, device)
@@ -2888,15 +3098,17 @@ def spec_serve(torch, cfg, params, expect, *, init_s, max_len,
 # --------------------------------------------------------------------- #
 
 def quant_fused_vs_eager(torch, cfg, *, jitter, device="cuda",
-                         lengths=(150, 40, 300, 9), new=8):
+                         lengths=(150, 40, 300, 9), new=8, required=True):
     """``cfg``: full width cut to 4 layers, float32, kernel plan.  Under
     every quant mode the kernel plan must give the eager plan's greedy
     tokens; the eager plan of a weight mode runs on the eager w8 reference
     (each w8 stage's weight quantized and dequantized back), since the
     reference's eager plan keeps full-precision weights.  Under kv_int8 the
     speculative engine (prefix cache on) must give the plain engine's
-    tokens."""
+    tokens, where the config verifies speculatively (not qwen2-vl).
+    ``required`` False reports the equalities without failing on them."""
     from repro_torch import kernels as K
+    from repro_torch.models import supports_speculative
     from repro_torch.models.params import dequantize_weights, quantize_weights
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.accuracy import QUANT_MODES
@@ -2923,7 +3135,7 @@ def quant_fused_vs_eager(torch, cfg, *, jitter, device="cuda",
                      "eager_tokens": eager, "launches": launches}
         if fused != eager:
             bad.append(f"{mode}: kernel plan != eager plan")
-        if mode == "kv_int8":
+        if mode == "kv_int8" and supports_speculative(cfg):
             plain = [r.out_tokens for r in ServingEngine(
                 qcfg, params, prefix_cache=False, **kw).generate(
                     prompts, max_new_tokens=new)]
@@ -2942,10 +3154,11 @@ def quant_fused_vs_eager(torch, cfg, *, jitter, device="cuda",
             if spec_tokens != plain:
                 bad.append("kv_int8: speculative != plain")
         _free(torch, device)
+    row["required"] = required
     emit(row)
     del params
     _free(torch, device)
-    if bad:
+    if bad and required:
         raise AssertionError(f"quant_fused_vs_eager {cfg.name}: "
                              + "; ".join(bad))
     return row
@@ -3076,6 +3289,20 @@ def recurrent_fused_vs_eager(torch, cfg, *, phase, launches, jitter,
     return row
 
 
+def _exact_launches(phase, quant, row, prefills, want) -> None:
+    """A ``serve`` burst's launch counts against ``want``, the exact
+    counts for its ``prefills`` prefill dispatches and decode steps; one
+    line, and a failure when they differ."""
+    got = {k: n for k, n in row["launches"].items() if n}
+    emit({"phase": f"{phase}_launches", "config": row["config"],
+          "quant": quant, "prefills": prefills,
+          "decode_steps": row["metrics"]["scan_ticks"], "launches": got,
+          "expected": want, "exact": got == want})
+    if got != want:
+        raise AssertionError(f"{phase} {row['config']} {quant}: launched "
+                             f"{got}, expected {want}")
+
+
 def recurrent_serve(torch, cfg, *, phases, launches, jitter, device="cuda"):
     """``cfg``: a recurrent-state model at full width and depth, bfloat16,
     kernel plan; weights drawn once on the card (seed 2; jittered for
@@ -3094,16 +3321,95 @@ def recurrent_serve(torch, cfg, *, phases, launches, jitter, device="cuda"):
         row = serve(torch, qcfg, params, set(launches(1, 1, quant)),
                     init_s=init_s, chunked=None, phase=phase, device=device)
         m = row["metrics"]
-        want = launches(m["prefills"], m["scan_ticks"], quant)
-        got = {k: n for k, n in row["launches"].items() if n}
-        emit({"phase": f"{phase}_launches", "quant": quant,
-              "prefills": m["prefills"], "decode_steps": m["scan_ticks"],
-              "launches": got, "expected": want, "exact": got == want})
-        if got != want:
-            raise AssertionError(f"{phase} {quant}: launched {got}, "
-                                 f"expected {want}")
+        _exact_launches(phase, quant, row, m["prefills"],
+                        launches(m["prefills"], m["scan_ticks"], quant))
         out[quant] = row
         _free(torch, device)
+    del params
+    _free(torch, device)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# The Qwen decoders: qk-norm, the QKV bias, M-RoPE
+# --------------------------------------------------------------------- #
+
+def qwen_fused_vs_eager(torch, model, device="cuda"):
+    """``model`` at full width cut to 4 layers, float32, weights jittered
+    (the biases and the q/k norm scales start at zero): the kernel plan's
+    greedy tokens equal the eager plan's on the mixed burst (qwen3 and
+    qwen1.5: chunked and whole-prompt; qwen2-vl: whole-prompt), each
+    burst launching exactly its path's kernels; qwen3 and qwen1.5 also
+    on the speculative burst (``spec_fused_vs_eager``: plain, prefix
+    cache, speculative on both plans, all equal); every quant mode's
+    kernel plan equal to its eager plan (``quant_fused_vs_eager``;
+    reported, not required, for qwen2-vl: below); the accuracy gate of
+    every quant mode."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(model), num_layers=4,
+                              dtype="float32")
+    fused = dataclasses.replace(cfg, use_fused_kernels=True)
+    whole = model == QWEN2VL
+    out = {"admission": admission_fused_vs_eager(
+        torch, cfg, jitter=True, phase="qwen_fused_vs_eager",
+        expect=QWEN_PATHS, device=device,
+        modes=("whole_prompt",) if whole else ("chunked", "whole_prompt"))}
+    if not whole:
+        out["speculative"] = spec_fused_vs_eager(
+            torch, fused, jitter=True, max_len=2048, device=device,
+            expect=SPEC_PATHS["llama3-8b"])
+    # qwen2-vl's whole prompts reach the KV quantizer from each plan's own
+    # prefill products, 3.4e-6 apart (relative), so a few fp8 codes differ
+    # (9 of 81920 for request 1) and its first decode step parts the
+    # plans on a tie: the eager plan's top two logits are equal to the
+    # bit (argmax takes the lower index), the kernel plan's 2.1e-5 apart;
+    # on the kernel plan's pools both plans' decodes pick the same token
+    # (measured on the card; PERF.md §6).
+    out["quant"] = quant_fused_vs_eager(torch, fused, jitter=True,
+                                        device=device, required=not whole)
+    out["accuracy"] = accuracy(torch, cfg, jitter=True, device=device)
+    return out
+
+
+def qwen_serve(torch, model, device="cuda"):
+    """``model`` at full width and depth, bfloat16, kernel plan, weights
+    drawn on the card (seed 2) and jittered: the mixed burst (``serve``:
+    8 prompts of 37..1000 tokens, 32 new tokens each, 4 slots, max_len
+    2048; qwen3 and qwen1.5 chunked with the prefix cache, qwen2-vl
+    whole-prompt) with its profile; qwen3 also the speculative burst
+    against the plain engine (``spec_serve``, exact); qwen3 and qwen2-vl
+    also the mixed burst under w8_kv8.  Each mixed burst must launch
+    exactly ``qwen_launches`` for its prefill dispatches and decode
+    steps."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(model), use_fused_kernels=True)
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=True, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    whole = model == QWEN2VL
+    mode = "whole_prompt" if whole else "chunked"
+    out = {"serve": {}, "quant_serve": {}}
+    quants = ("none", QUANT_MODE) if model != QWEN15 else ("none",)
+    for quant in quants:
+        qcfg = dataclasses.replace(cfg, quant=quant)
+        plain = quant == "none"
+        row = serve(torch, qcfg, params,
+                    (QWEN_PATHS if plain else QWEN_QUANT_PATHS)[mode],
+                    init_s=init_s, chunked=not whole, device=device,
+                    phase="qwen_serve" if plain else "qwen_quant_serve",
+                    profile=plain)
+        m = row["metrics"]
+        prefills = m["prefills"] if whole else m["prefill_chunks"]
+        _exact_launches(row["phase"], quant, row, prefills, qwen_launches(
+            cfg.num_layers, prefills, m["scan_ticks"], whole=whole,
+            quant=quant))
+        out["serve" if plain else "quant_serve"][mode] = row
+        _free(torch, device)
+    if model == QWEN3:
+        out["spec_serve"] = spec_serve(
+            torch, cfg, params, SPEC_PATHS["llama3-8b"], init_s=init_s,
+            max_len=2048, phase="qwen_spec_serve", device=device)
     del params
     _free(torch, device)
     return out
@@ -3669,6 +3975,10 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
     results["kernel_checks"] = rows
+    results["qwen_kernel_cases"] = check_kernels(
+        torch, timer, (qwen_kernel_cases,), phase="qwen_kernel_cases")
+    rows = rows + results["qwen_kernel_cases"]
+    results["qwen_rows"] = check_qwen_rows(torch)
     results["row_invariance"] = check_row_invariance(torch)
     results["paged_split"] = check_paged_split(torch, timer)
     results["tensorcore"] = check_tensorcore(torch, timer)
@@ -3712,6 +4022,8 @@ def main(argv=None) -> int:
     results["accuracy"][ZAMBA] = accuracy(
         torch, dataclasses.replace(zamba, num_layers=6, dtype="float32"),
         jitter=False)
+    results["qwen_fused_vs_eager"] = {m: qwen_fused_vs_eager(torch, m)
+                                      for m in QWEN}
     results["full_depth"] = {
         m: full_depth(torch, dataclasses.replace(
             c, use_fused_kernels=True,
@@ -3726,12 +4038,13 @@ def main(argv=None) -> int:
         torch, dataclasses.replace(rwkv, use_fused_kernels=True),
         phases={"none": "rwkv_serve"}, jitter=True,
         launches=lambda p, s, quant: rwkv_launches(p, s))
+    results["qwen_serve"] = {m: qwen_serve(torch, m) for m in QWEN}
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
     results["train_fused_vs_eager"][RWKV] = train_fused_vs_eager(
-        torch, dataclasses.replace(rwkv, num_layers=4, dtype="float32"),
-        RWKV, jitter=True)
+        torch, dataclasses.replace(rwkv, num_layers=RWKV_TRAIN_LAYERS,
+                                   dtype="float32"), RWKV, jitter=True)
     results["train"] = {
         "gpt2": train(torch, dataclasses.replace(gpt2, use_fused_kernels=True),
                       "gpt2", steps=6, ckpt_every=3, replay_from=3, lr=1e-3,
@@ -3756,24 +4069,34 @@ def main(argv=None) -> int:
             note="full width and depth; no checkpoint (the CPU tests hold "
                  "zamba2 checkpoints to the reference)"),
         RWKV: train(
-            torch, dataclasses.replace(rwkv, num_layers=4,
+            torch, dataclasses.replace(rwkv, num_layers=RWKV_TRAIN_LAYERS,
                                        use_fused_kernels=True),
             RWKV, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
-            note="full width cut to 4 layers (1.41 B parameters): float32 "
-                 "weights, gradients and two AdamW moments of all 32 "
-                 "layers take 120 GB; no checkpoint (the CPU tests hold "
-                 "rwkv6 checkpoints to the reference)")}
+            note="full width cut to 2 layers: float32 weights, gradients "
+                 "and two AdamW moments of all 32 layers take 120 GB, and "
+                 "its host-bound step keeps the whole run within its time "
+                 "limit; no checkpoint (the CPU tests hold rwkv6 "
+                 "checkpoints to the reference)")}
+    for m in (QWEN3, QWEN2VL):
+        results["train"][m] = train(
+            torch, dataclasses.replace(get_config(m), use_fused_kernels=True),
+            m, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+            note="full width and depth; no checkpoint (the CPU tests hold "
+                 "Qwen checkpoints to the reference)"
+                 + ("; the pipeline's patch embeddings and M-RoPE "
+                    "positions" if m == QWEN2VL else ""))
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
-    for m, fd in results["full_depth"].items():
+    for m, fd in {**results["full_depth"], **results["qwen_serve"]}.items():
         for mode, r in fd["serve"].items():
             paths.append((m, mode, r["launches"]))
-        paths.append((m, "speculative", fd["spec_serve"]["launches"]))
         for mode, r in fd["quant_serve"].items():
             paths.append((m, f"quant_{mode}", r["launches"]))
-        paths.append((m, "quant_speculative",
-                      fd["quant_spec_serve"]["launches"]))
+        for key, path in (("spec_serve", "speculative"),
+                          ("quant_spec_serve", "quant_speculative")):
+            if key in fd:
+                paths.append((m, path, fd[key]["launches"]))
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))

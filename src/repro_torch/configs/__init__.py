@@ -13,6 +13,9 @@ from .gpt2 import CONFIG as GPT2
 from .granite_moe_1b import CONFIG as GRANITE_MOE_1B
 from .granite_moe_3b import CONFIG as GRANITE_MOE_3B
 from .llama3_8b import CONFIG as LLAMA3_8B
+from .qwen1p5_0p5b import CONFIG as QWEN1P5_0P5B
+from .qwen2_vl_2b import CONFIG as QWEN2_VL_2B
+from .qwen3_0p6b import CONFIG as QWEN3_0P6B
 from .rwkv6_7b import CONFIG as RWKV6_7B
 from .zamba2_2p7b import CONFIG as ZAMBA2_2P7B
 
@@ -21,6 +24,9 @@ ARCHS: Dict[str, ModelConfig] = {
     "granite-moe-1b-a400m": GRANITE_MOE_1B,
     "granite-moe-3b-a800m": GRANITE_MOE_3B,
     "llama3-8b": LLAMA3_8B,
+    "qwen1.5-0.5b": QWEN1P5_0P5B,
+    "qwen2-vl-2b": QWEN2_VL_2B,
+    "qwen3-0.6b": QWEN3_0P6B,
     "rwkv6-7b": RWKV6_7B,
     "zamba2-2.7b": ZAMBA2_2P7B,
 }

@@ -4,7 +4,8 @@ Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
 ``repro.core.stream_plan`` (the fields the port reads) and adds
 ``plan_for``, which returns the plan the reference compiler (trace ->
 tiling DSE -> fusion -> lowering) selects for the five ported families:
-dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b), its MoE variant (granite-moe),
+dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b; also the Qwen stacks, with
+the QKV bias, qk-norm or M-RoPE), its MoE variant (granite-moe),
 dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2), the
 Mamba2 hybrid with a shared RMSNorm/GELU-GLU/RoPE attention block
 (zamba2; one ``LayerPlan`` per layer kind), and the attention-free RWKV6
@@ -123,7 +124,10 @@ class StreamPlan:
 
 # The reference compiler's selection for the dense RMSNorm / GQA / SwiGLU
 # family (repro.core.stream_plan.plan_for on llama3-8b and llama3-8b
-# reduced, tokens in {4, 64, 128, 512}, kv_len in {256, 2048, 4096}).
+# reduced, tokens in {4, 64, 128, 512}, kv_len in {256, 2048, 4096}; the
+# same stage for stage on the Qwen stacks, whose QKV bias, qk-norm and
+# M-RoPE stay eager ops beside the kernels: qwen3-0.6b, qwen1.5-0.5b and
+# qwen2-vl-2b, full and reduced, tokens 4 to 4096).
 _DENSE_RMSNORM_GLU = LayerPlan(
     kind="attn",
     qkv=KernelChoice("rmsnorm_matmul", (("block_t", 128), ("block_n", 128))),
@@ -201,8 +205,6 @@ def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
     """The ported family ``cfg`` belongs to (its plan per layer kind), or
     None."""
     kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if cfg.qkv_bias or cfg.qk_norm:
-        return None
     if kinds == {"rwkv"}:
         return {"rwkv": _RWKV} if cfg.norm == "layernorm" else None
     if kinds <= {"mamba", "mamba+shared_attn"}:
@@ -210,9 +212,12 @@ def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
                 and cfg.activation == "gelu" and not cfg.is_moe):
             return {"mamba": _MAMBA, "mamba+shared_attn": _MAMBA_SHARED_ATTN}
         return None
-    if kinds != {"attn"}:
+    # Not yet: gemma3's interleaved local/global attention (other kinds),
+    # hubert's non-causal encoder.
+    if kinds != {"attn"} or cfg.encoder_only or not cfg.causal:
         return None
-    if cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope":
+    if (cfg.norm == "rmsnorm" and cfg.gated_ffn
+            and cfg.rope in ("rope", "mrope")):
         return {"attn": (_MOE_RMSNORM_GLU if cfg.is_moe
                          else _DENSE_RMSNORM_GLU)}
     if (cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none"
@@ -241,7 +246,8 @@ def plan_for(cfg: ModelConfig, tokens: int,
     if family is None:
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
-            "RMSNorm/GQA/SwiGLU/RoPE (and its MoE variant), LayerNorm/"
+            "RMSNorm/GQA/SwiGLU with RoPE or M-RoPE (with or without the "
+            "QKV bias and qk-norm; and its MoE variant), LayerNorm/"
             "MHA/GELU-MLP/learned-position, Mamba2-hybrid and RWKV6 "
             "stacks are ported")
     if cfg.weight_quant:           # K12, K13 and K14 have no w8 twin

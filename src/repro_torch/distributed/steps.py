@@ -28,7 +28,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     {"loss", "grad_norm", "lr"})`` on ``device`` (None: the card).
     ``params`` are float32 master weights (``init_params(...,
     dtype=torch.float32)``), updated in place; ``batch`` holds ``tokens``
-    and ``labels`` [B, S] (numpy or tensors), -100 = ignore."""
+    and ``labels`` [B, S] (numpy or tensors), -100 = ignore, or a
+    frontend's ``embeds`` (and M-RoPE ``positions``) in place of the
+    tokens."""
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_device(device)
 
@@ -39,7 +41,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             for p in leaves:
                 p.requires_grad_(True)
             loss = forward_train(params, cfg, batch, remat=remat)
-            flat = iter(torch.autograd.grad(loss, leaves))
+            # A leaf the loss does not read (the token embedding under a
+            # frontend's ``embeds``) gets a zero gradient, as under
+            # ``jax.grad``.
+            flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True))
         grads = map_tree(lambda _: next(flat), params)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)

@@ -105,10 +105,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+# M-RoPE (Qwen2-VL, ``layers.py:265``): the rotary half dim is cut into
+# (temporal, height, width) sections, each rotated by its own position
+# stream; fractions of the half dim, the last section takes the remainder.
+MROPE_SECTIONS = (2, 1, 1)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """x [B, S, H, D]; positions [3, B, S] (temporal, height, width) ->
+    rotate-half RoPE with each section's angles from its own axis, float32
+    angles.  With the three axes equal it is ``apply_rope``."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    total = sum(MROPE_SECTIONS)
+    sizes = [half * s // total for s in MROPE_SECTIONS]
+    sizes[-1] = half - sum(sizes[:-1])
+    parts, start = [], 0
+    for sec, size in enumerate(sizes):
+        parts.append(positions[sec][..., None].float()
+                     * freqs[start:start + size])
+        start += size
+    angles = torch.cat(parts, dim=-1)                           # [B,S,half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
 def apply_positional(kind: str, x: torch.Tensor, positions: torch.Tensor,
                      theta: float) -> torch.Tensor:
     if kind == "rope":
         return apply_rope(x, positions, theta)
+    if kind == "mrope":
+        return apply_mrope(x, positions, theta)
     if kind == "none":               # learned positions, added at the embed
         return x
     raise NotImplementedError(f"positional encoding {kind!r} is not ported")

@@ -53,6 +53,17 @@ single-token update, the conv tail in float32, as the reference).  The
 shared block's gradient sums over its applications, as autograd does by
 itself; under remat each layer's checkpoint covers its application.
 
+Qwen stacks (qwen3-0.6b, qwen1.5-0.5b, qwen2-vl-2b) are the dense stack
+with the reference's three additions, PyTorch ops on every plan as they
+are XLA ops there: the QKV biases after the projections, qk-norm (an
+RMSNorm over each head's q and k) before the rotary embedding, so the
+pages hold normed, rotated K, and M-RoPE (qwen2-vl: three position axes,
+a section of the rotary half dim each).  ``prefill`` and
+``forward_hidden`` take a frontend's ``embeds`` with M-RoPE ``positions``
+in place of tokens; decode gives a slot's one position to all three axes.
+M-RoPE stacks are neither chunked nor speculative (a scalar chunk offset
+cannot carry three position axes), as in the reference.
+
 RWKV6 stacks (rwkv6-7b, ``model.py:251``, ``:878``): every layer is a
 time mix (LayerNorm, token shift, the r/k/v/g/w projections, the wkv
 recurrence, the gated output projection) and a channel mix (LayerNorm,
@@ -121,6 +132,43 @@ def _embed(cfg: ModelConfig, params: Tree, tokens: torch.Tensor,
     return x
 
 
+def _embed_in(cfg: ModelConfig, params: Tree, tokens: Optional[torch.Tensor],
+              embeds: Optional[torch.Tensor],
+              positions: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x [B, S, D], positions) of a whole sequence (``model.py:326``).
+    ``embeds`` [B, S, D] (a frontend's patch or frame embeddings) enter as
+    they are, cast to the compute dtype and not scaled; else the tokens go
+    through ``_embed``.  Under M-RoPE the positions are ``positions`` [3,
+    B, S] (temporal, height, width), by default the token positions on all
+    three axes; else the token positions [B, S] (a given ``positions`` is
+    ignored, as in the reference)."""
+    src = tokens if embeds is None else embeds
+    b, s = src.shape[:2]
+    base = torch.arange(s, device=src.device)[None].expand(b, s)
+    if cfg.rope != "mrope":
+        positions = base
+    elif positions is None:
+        positions = base[None].expand(3, b, s)
+    if embeds is None:
+        return _embed(cfg, params, tokens, positions), positions
+    x = embeds.to(compute_dtype(cfg))
+    if "pos_embed" in params:
+        x = x + params["pos_embed"][:s][None]
+    return x, positions
+
+
+def _qk_normed(cfg: ModelConfig, ap: Tree, q: torch.Tensor,
+               k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qk-norm (``model.py:105``): RMSNorm of each head's q and k over the
+    head dim with the ``q_norm``/``k_norm`` scales, after the head reshape
+    and before the rotary embedding, as PyTorch ops on every plan (the
+    reference leaves it to XLA)."""
+    if not cfg.qk_norm:
+        return q, k
+    return L.rms_norm(q, ap["q_norm"]), L.rms_norm(k, ap["k_norm"])
+
+
 def _logits(cfg: ModelConfig, params: Tree, h: torch.Tensor,
             plan: Optional[StreamPlan]) -> torch.Tensor:
     """Final norm + LM head in float32, pad-vocab columns at -1e30.  On the
@@ -154,20 +202,27 @@ def _project_qkv(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ln + Q/K/V projections, eager or through the plan's kernel (three
     launches, one per projection, as the reference): ``rmsnorm_matmul``
-    folds the norm in; under ``block_matmul`` the norm stays outside."""
+    folds the norm in; under ``block_matmul`` the norm stays outside.
+    Under ``qkv_bias`` the biases (never quantized) are added after the
+    projections on every route (``model.py:139``)."""
     choice = lplan.qkv if lplan is not None else None
     if choice is not None and choice.fused:
         if choice.implementation == "rmsnorm_matmul":
             w8 = choice.kw.get("w8", 0)
-            return tuple(L.fused_norm_matmul(x, ln_p["scale"], p[w], w8=w8)
-                         for w in ("wq", "wk", "wv"))
-        if choice.implementation != "block_matmul":
+            q, k, v = (L.fused_norm_matmul(x, ln_p["scale"], p[w], w8=w8)
+                       for w in ("wq", "wk", "wv"))
+        elif choice.implementation == "block_matmul":
+            h = _plan_norm(train)(cfg.norm, x, ln_p)
+            q, k, v = (L.fused_matmul(h, p[w]) for w in ("wq", "wk", "wv"))
+        else:
             raise NotImplementedError(
                 f"qkv kernel {choice.implementation!r} is not ported yet")
-        h = _plan_norm(train)(cfg.norm, x, ln_p)
-        return tuple(L.fused_matmul(h, p[w]) for w in ("wq", "wk", "wv"))
-    h = L.apply_norm(cfg.norm, x, ln_p)
-    return h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    else:
+        h = L.apply_norm(cfg.norm, x, ln_p)
+        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q, k, v
 
 
 def _ffn_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, ln_p: Tree,
@@ -238,6 +293,7 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
+    q, k = _qk_normed(cfg, ap, q, k)
     q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
     choice = lplan.attention if lplan is not None else None
@@ -345,21 +401,24 @@ def _rwkv_block(cfg: ModelConfig, p: Tree, x: torch.Tensor, *,
     return x + rr * (kk @ cm["wv"]), state, xa[:, -1], xc[:, -1]
 
 
-def prefill(params: Tree, cfg: ModelConfig, tokens: torch.Tensor, *,
+def prefill(params: Tree, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             plan: Optional[StreamPlan] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Whole-prompt forward pass (``model.py:457``).
 
-    tokens [B, S] int32 -> (logits [B, 1, Vp] at the last position, a
-    fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of the prompt's K/V,
-    which ``serving.kv_cache.place_prefill`` writes into a slot's pages,
-    for a Mamba2 stack {"ssm" [L, B, H, P, N] float32, "conv" [L, B,
-    K - 1, d_inner]}, and for an RWKV6 stack {"wkv" [L, B, H, N, N]
-    float32, "tm_shift", "cm_shift" [L, B, D]} alone, which it writes into
-    the slot's rows)."""
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = _embed(cfg, params, tokens, positions)
+    tokens [B, S] int32, or ``embeds`` [B, S, D] (with M-RoPE
+    ``positions`` [3, B, S]; ``_embed_in``) -> (logits [B, 1, Vp] at the
+    last position, a fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of
+    the prompt's K/V, which ``serving.kv_cache.place_prefill`` writes into
+    a slot's pages, for a Mamba2 stack {"ssm" [L, B, H, P, N] float32,
+    "conv" [L, B, K - 1, d_inner]}, and for an RWKV6 stack {"wkv" [L, B,
+    H, N, N] float32, "tm_shift", "cm_shift" [L, B, D]} alone, which it
+    writes into the slot's rows)."""
+    x, positions = _embed_in(cfg, params, tokens, embeds, positions)
+    b, s = x.shape[:2]
     plan = resolve_plan(cfg, b * s, plan=plan)
     fresh: Dict[str, list] = {}
     for i, lp in enumerate(params["layers"]):
@@ -409,14 +468,15 @@ def forward_hidden(params: Tree, cfg: ModelConfig,
                    batch: Dict[str, torch.Tensor], *, remat: bool = True,
                    plan: Optional[StreamPlan] = None) -> torch.Tensor:
     """Embedding + every block + final norm -> hidden states [B, S, D]
-    (``model.py:349``).  ``batch["tokens"]`` [B, S] int; ``remat`` wraps
-    each layer in ``torch.utils.checkpoint`` (non-reentrant), so its
-    activations are recomputed in the backward."""
+    (``model.py:349``).  ``batch["tokens"]`` [B, S] int, or a frontend's
+    ``batch["embeds"]`` [B, S, D] with, under M-RoPE, ``batch["positions"]``
+    [3, B, S] (``_embed_in``); ``remat`` wraps each layer in
+    ``torch.utils.checkpoint`` (non-reentrant), so its activations are
+    recomputed in the backward."""
     params = _cast_tree(cfg, params)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    x = _embed(cfg, params, tokens, positions)
+    x, positions = _embed_in(cfg, params, batch.get("tokens"),
+                             batch.get("embeds"), batch.get("positions"))
+    b, s = x.shape[:2]
     plan = resolve_plan(cfg, b * s, plan=plan)
     for i, lp in enumerate(params["layers"]):
         def block(x, lp=lp, i=i):
@@ -465,8 +525,10 @@ def forward_train(params: Tree, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor], *, remat: bool = True,
                   plan: Optional[StreamPlan] = None) -> torch.Tensor:
     """The streamed cross-entropy training loss (``model.py:435``): batch
-    ``{"tokens", "labels"}`` [B, S] int, -100 = ignore.  On the kernel
-    plan the loss runs through ``streamed_xent`` (K11), else eagerly."""
+    ``{"tokens", "labels"}`` [B, S] int, -100 = ignore (or ``embeds`` and
+    ``positions`` in place of the tokens, as ``forward_hidden``).  On the
+    kernel plan the loss runs through ``streamed_xent`` (K11), else
+    eagerly."""
     labels = batch["labels"]
     plan = resolve_plan(cfg, labels.numel(), plan=plan)
     hidden = forward_hidden(params, cfg, batch, remat=remat, plan=plan)
@@ -500,6 +562,7 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = q.reshape(b, c, hq, hd)
     k = k.reshape(b, c, hkv, hd)
     v = v.reshape(b, c, hkv, hd)
+    q, k = _qk_normed(cfg, ap, q, k)
     positions = offset + torch.arange(c, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
@@ -585,8 +648,13 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = q.reshape(b, 1, hq, hd)
     k = k.reshape(b, 1, hkv, hd)
     v = v.reshape(b, 1, hkv, hd)
-    q = L.apply_positional(cfg.rope, q, pos[:, None], cfg.rope_theta)
-    k = L.apply_positional(cfg.rope, k, pos[:, None], cfg.rope_theta)
+    q, k = _qk_normed(cfg, ap, q, k)
+    # One position per slot; M-RoPE's three axes all at it (``:778``).
+    pos_q = pos[:, None]
+    if cfg.rope == "mrope":
+        pos_q = pos_q[None].expand(3, b, 1)
+    q = L.apply_positional(cfg.rope, q, pos_q, cfg.rope_theta)
+    k = L.apply_positional(cfg.rope, k, pos_q, cfg.rope_theta)
     kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
     if ks is not None:
         paged_append_q(kc, ks, page_table, pos, k, layout=layout)
@@ -723,6 +791,7 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = q.reshape(b, w, hq, hd)
     k = k.reshape(b, w, hkv, hd)
     v = v.reshape(b, w, hkv, hd)
+    q, k = _qk_normed(cfg, ap, q, k)
     pos = pos0[:, None] + torch.arange(w, device=x.device)[None]
     q = L.apply_positional(cfg.rope, q, pos, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos, cfg.rope_theta)

@@ -75,6 +75,21 @@ def _norm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
+def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """The projections (``params.py:75-90``), then the QKV biases ``bq``
+    [q_dim], ``bk``/``bv`` [kv_dim] under ``qkv_bias`` and the per-head
+    RMSNorm scales ``q_norm``/``k_norm`` [head_dim] under ``qk_norm``, all
+    zero-initialised (the norms' gain is ``1 + scale``)."""
+    d, dq, dkv, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim_
+    out = {"wq": _mat(d, dq), "wk": _mat(d, dkv), "wv": _mat(d, dkv),
+           "wo": _mat(dq, d)}
+    if cfg.qkv_bias:
+        out.update(bq=_vec(dq), bk=_vec(dkv), bv=_vec(dkv))
+    if cfg.qk_norm:
+        out.update(q_norm=_vec(hd), k_norm=_vec(hd))
+    return out
+
+
 def _ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     """The MLP, or under MoE the router ``wr`` [D, E] and the expert
     stacks ``wu``/``wg`` [E, D, F], ``wd`` [E, F, D] (``params.py:96``,
@@ -135,7 +150,8 @@ def _rwkv_defs(cfg: ModelConfig) -> Dict[str, Tree]:
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
-    """One layer: an attention layer's ln1, attn (wq/wk/wv/wo), ln2, mlp
+    """One layer: an attention layer's ln1, attn (wq/wk/wv/wo, with the
+    Qwen biases and qk-norm scales where the config has them), ln2, mlp
     (wg/wu/wd, or the MoE router and expert stacks); a Mamba2 layer's ln
     and mamba (the shared attention block lives outside the layers); an
     RWKV6 layer's ln1, ln2, time mix ``tm`` and channel mix ``cm``."""
@@ -146,17 +162,12 @@ def block_defs(cfg: ModelConfig, kind: str) -> Dict[str, Tree]:
         return {"ln": _norm_defs(cfg), "mamba": _mamba_defs(cfg)}
     if kind not in ("attn", "local_attn", "global_attn"):
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError(
-            f"{cfg.name!r}: qkv bias / qk-norm layers are not ported yet")
     if cfg.norm == "layernorm" and cfg.gated_ffn:
         raise NotImplementedError(
             f"{cfg.name!r}: a gated FFN under LayerNorm is not ported yet")
-    d, dq, dkv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     return {
         "ln1": _norm_defs(cfg),
-        "attn": {"wq": _mat(d, dq), "wk": _mat(d, dkv), "wv": _mat(d, dkv),
-                 "wo": _mat(dq, d)},
+        "attn": _attn_defs(cfg),
         "ln2": _norm_defs(cfg),
         "mlp": _ffn_defs(cfg),
     }

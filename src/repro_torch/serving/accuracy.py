@@ -70,9 +70,9 @@ def _greedy_rollout(params: Tree, cfg: ModelConfig, kv: PagedKVCache,
     it (teacher forcing), while the returned tokens are still the model's
     own argmax.  Returns (tokens, float32 logits per step), entry 0 the
     prefill read-out (``accuracy.py:54``).  A config without chunked
-    prefill (zamba2's recurrent state) is prefilled whole and placed, as
-    the engine admits it; the reference's gate calls ``prefill_chunk``
-    there, which refuses such a config."""
+    prefill (zamba2's recurrent state, qwen2-vl's M-RoPE positions) is
+    prefilled whole and placed, as the engine admits it; the reference's
+    gate calls ``prefill_chunk`` there, which refuses such a config."""
     dev = kv.device
     cache = kv.init_cache()
     plen = len(prompt)

@@ -11,8 +11,10 @@ chunks, a decode block, or both.  With ``chunked=False`` each admitted
 prompt is prefilled whole, at its own length, and its fresh K/V placed
 into the slot's pages (a Mamba2 stack's SSM state and conv tail into the
 slot's rows) before the slot joins decode.  A stack with recurrent state
-(zamba2, rwkv6) cannot be chunked: ``chunked`` defaults to whole-prompt there
-and the prefix cache, which shares pages at chunk granularity, to off.
+(zamba2, rwkv6) or M-RoPE positions (qwen2-vl) cannot be chunked:
+``chunked`` defaults to whole-prompt there and the prefix cache, which
+shares pages at chunk granularity, to off; nor can such a stack verify
+speculatively.
 An attention-free stack (rwkv6) has no K/V pools: its slots hold only the
 recurrent state rows, and a KV quant mode is refused.
 
@@ -165,7 +167,8 @@ class ServingEngine:
                              "(fifo | sjf | prefix)")
         self.admission = admission
         # None: chunked whenever the config supports it (``engine.py:367``);
-        # a recurrent-state stack (zamba2, rwkv6) admits whole prompts.
+        # a recurrent-state stack (zamba2, rwkv6) or an M-RoPE one
+        # (qwen2-vl) admits whole prompts.
         if chunked is None:
             chunked = supports_chunked_prefill(cfg)
         if chunked and not supports_chunked_prefill(cfg):
