@@ -93,7 +93,15 @@ parent.  Phases:
              those phases of ``chip_smoke.py`` for qwen3-0.6b, qwen1.5-0.5b
              and qwen2-vl-2b;
   qwen_train qwen3-0.6b and qwen2-vl-2b at full width and depth:
-             ``chip_smoke.train``'s 3 steps with a profiled step.
+             ``chip_smoke.train``'s 3 steps with a profiled step;
+  gemma_kernel_cases
+             gemma3-4b's kernel rows (``chip_smoke.gemma_kernel_cases``,
+             bf16 and float32, against their plain versions: head dim
+             320, the 1024-token window and none), then
+             ``check_gemma_rows`` (K3 and K4 rows at 1..64 rows, K2's
+             chunk rows equal to K7's, the local / global K7 times);
+  gemma_fused_vs_eager, gemma_serve
+             those phases of ``chip_smoke.py`` for gemma3-4b.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
@@ -147,6 +155,9 @@ QWEN_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                 "streamed_xent"]
 SOURCES.update(dict.fromkeys(("qwen_kernel_cases", "qwen_fused_vs_eager",
                               "qwen_serve", "qwen_train"), QWEN_SOURCES))
+SOURCES.update(dict.fromkeys(("gemma_kernel_cases", "gemma_fused_vs_eager",
+                              "gemma_serve"),
+                             QWEN_SOURCES[:-1] + ["paged_attention_320"]))
 
 
 def emit(obj) -> None:
@@ -529,7 +540,9 @@ def main() -> int:
                   for line in log.splitlines()
                   if "spill" in line and " 0 bytes spill stores" not in line]
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "built": list(_build.BUILD_LOG), "spills": spills})
+              "built": list(_build.BUILD_LOG),
+              "seconds_by_source": dict(_build.BUILD_SECONDS),
+              "spills": spills})
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(2020)
     randn = cs._randn(torch, gen, torch.bfloat16, "cuda")
@@ -599,6 +612,14 @@ def main() -> int:
         elif phase == "qwen_train":
             for m in (cs.QWEN3, cs.QWEN2VL):
                 train(torch, cs, m, layers=None)
+        elif phase == "gemma_kernel_cases":
+            cs.check_kernels(torch, timer, (cs.gemma_kernel_cases,),
+                             phase="gemma_kernel_cases")
+            cs.check_gemma_rows(torch, timer)
+        elif phase == "gemma_fused_vs_eager":
+            cs.gemma_fused_vs_eager(torch)
+        elif phase == "gemma_serve":
+            cs.gemma_serve(torch)
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

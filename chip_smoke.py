@@ -51,6 +51,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               (projections, FFN, K7, K11); then K3, K10a, K4 and K10b at
               each Qwen width with rows at 1..63 rows bit-equal to the
               same rows at 64 (``qwen_rows``, required);
+   gemma_kernel_cases, gemma_rows — gemma3-4b's widths
+              (``gemma_kernel_cases``): its projections (K3 at N 2560 and
+              1280), o-projection and GELU-GLU with the norm folded in
+              (K4) at a prefill chunk, decode and a verify dispatch, its
+              LM head over the 262144-token vocabulary, and at head dim
+              320 (8 over 4 heads) K2 chunks at offsets 896 and 2944, K7
+              at 1000 and 3000 tokens, K1 at lengths 1023, 1024, 1025, 0
+              and 3000 and K8 with rows across them, each under the
+              1024-token window and without it; then K3's and K4's rows
+              at 1..63 rows bit-equal to the same rows at 64, K2's chunk
+              rows bit-equal to K7's at the same positions with and
+              without the window (``gemma_rows``, required), and K7's
+              local / global time at 3000 tokens (``gemma_window``);
 3. row_invariance — every call on the kernel plan's path gives rows 0..3
               the same bits at 4 rows (decode) as at 8, 12 and 20 (verify
               windows of 2, 3 and 5): the projection and FFN kernels and
@@ -185,18 +198,32 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               through a fresh engine under ``torch.profiler``
               (``serve_profile``: device ms by stage, idle share);
    qwen_serve, qwen_quant_serve, qwen_spec_serve — the three Qwen
-              configs at full width and depth, bfloat16, weights jittered:
+              configs at full width cut to 4 layers (``QWEN_SERVE_LAYERS``),
+              bfloat16, weights jittered:
               the mixed burst (qwen3 and qwen1.5 chunked with the prefix
               cache, qwen2-vl whole-prompt) with its profile, each launch
               count exactly ``qwen_launches`` for the burst's prefill
               dispatches and decode steps, the solo request repeating its
               burst; qwen3's and qwen2-vl's burst again under w8_kv8;
               qwen3's speculative burst equal to the plain engine's;
+   gemma_fused_vs_eager — gemma3-4b at full width cut to 6 layers (five
+              local, one global), float32, weights jittered: prompts of
+              1100, 1030, 300 and 40 tokens (across the window), chunked
+              and whole-prompt, kernel plan tokens equal to the eager
+              plan's, each launching exactly its path's kernels;
    zamba_fused_vs_eager, zamba accuracy — zamba2-2.7b at full width
               cut to 6 layers (one period: the shared block runs once),
               float32, whole-prompt admission: kernel plan tokens equal to
               the eager plan's, launches exactly ``zamba_launches``; the
               accuracy gate of every quant mode;
+   gemma_serve, gemma_spec_serve — gemma3-4b at full width and depth,
+              bfloat16, weights jittered, max_len 4096: 8 prompts of
+              3000, 2100, 1500, 1100, 1025, 1024, 600 and 37 tokens, 32
+              new tokens each, chunked with the prefix cache and
+              whole-prompt (with its profile), then the speculative burst over
+              a shared 1200-token prefix equal to the plain engine; each
+              burst launching exactly ``gemma_launches``, the solo request
+              repeating its burst;
    zamba_serve, zamba_quant_serve — zamba2-2.7b at full width and
               depth, bfloat16, the mixed burst with whole-prompt admission,
               plain and under w8_kv8: every request completes, the solo
@@ -306,13 +333,13 @@ SOURCES = {
     "rmsnorm_matmul": _CSRC + "rmsnorm_matmul.cu",
     "streamed_ffn": _CSRC + "streamed_ffn.cu",
     "flash_attention": _CSRC + "flash_mma.cu",
-    "paged_attention": _CSRC + "paged_attention.cu",
+    "paged_attention": _CSRC + "paged_attention.cuh",
     "block_matmul": _CSRC + "block_matmul.cu",
     "streamed_mlp": _CSRC + "streamed_ffn.cu",
     "flash_attention_static": _CSRC + "flash_mma.cu",
-    "paged_verify_attention": _CSRC + "paged_attention.cu",
-    "paged_attention_q": _CSRC + "paged_attention.cu",
-    "paged_verify_attention_q": _CSRC + "paged_attention.cu",
+    "paged_verify_attention": _CSRC + "paged_attention.cuh",
+    "paged_attention_q": _CSRC + "paged_attention.cuh",
+    "paged_verify_attention_q": _CSRC + "paged_attention.cuh",
     "flash_attention_q": _CSRC + "flash_mma.cu",
     "rmsnorm_matmul_w8": _CSRC + "rmsnorm_matmul.cu",
     "streamed_ffn_w8": _CSRC + "streamed_ffn.cu",
@@ -491,6 +518,41 @@ def qwen_launches(layers: int, prefills: int, steps: int, *, whole: bool,
     return {k: n for k, n in out.items() if n}
 
 
+# gemma3-4b runs llama3-8b's plan stage for stage in both of its layer
+# kinds, the FFN a GELU-GLU with ln2 folded in (K4); the five local layers
+# of every six pass their 1024-token sliding window to K2 / K7 / K1 / K8,
+# the global one none; qk-norm is a PyTorch op.  The speculative engine
+# verifies every decode (K8, never K1).
+GEMMA = "gemma3-4b"
+GEMMA_WINDOW = 1024
+GEMMA_PATHS = {"chunked": LLAMA_PATH,
+               "whole_prompt": QWEN_PATHS["whole_prompt"],
+               "speculative": SPEC_PATHS["llama3-8b"]}
+# The served burst: prompts on both sides of the window and one at 3000
+# tokens, where a local layer reads 1024 positions a step and a global one
+# 3000; a 4096-position context.
+GEMMA_BURST = (3000, 2100, 1500, 1100, 1025, 1024, 600, 37)
+GEMMA_MAX_LEN = 4096
+GEMMA_SHARED = 1200       # the speculative burst's shared prefix
+
+
+def gemma_launches(layers: int, prefills: int, steps: int, *, whole=False,
+                   verifies: int = 0) -> dict:
+    """Every kernel's exact launches in a gemma3 burst of ``prefills``
+    prefill dispatches (prompt chunks, or whole prompts with ``whole``),
+    ``steps`` decode steps and ``verifies`` verify dispatches: the Qwen
+    count (``qwen_launches``) for the prefills and decode steps, and per
+    verify dispatch a decode step's kernels with K8 in K1's place."""
+    out = qwen_launches(layers, prefills, steps, whole=whole)
+    if verifies:
+        out["paged_verify_attention"] = layers * verifies
+        for k in ("streamed_ffn", "block_matmul"):
+            out[k] = out.get(k, 0) + layers * verifies
+        out["rmsnorm_matmul"] = (out.get("rmsnorm_matmul", 0)
+                                 + verifies * (1 + 3 * layers))
+    return out
+
+
 # llama3-8b and granite-moe-3b serve at full width cut to 8 of their 32
 # layers: at full depth their eight bursts took 250 s, and the script has
 # to stay well inside its time limit with every model's phases (929 s
@@ -499,6 +561,10 @@ def qwen_launches(layers: int, prefills: int, steps: int, *, whole: bool,
 # about 10^5 small launches a step).
 SERVE_LAYERS = {"llama3-8b": 8, GRANITE: 8}
 RWKV_TRAIN_LAYERS = 2
+# The Qwen bursts at 4 of their 24-28 layers: at full depth they took 180
+# s of a 794 s run, and beside gemma3-4b's full-depth bursts, with the
+# Qwen bursts at 8 layers, the script took 1081 s.
+QWEN_SERVE_LAYERS = 4
 
 
 # The training path on the kernel plan: each layer's forward launches, the
@@ -634,14 +700,16 @@ def _encode(torch, x, code, page_axis):
 
 
 def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
-                q_off, dev, code=None, scale=None):
+                q_off, dev, code=None, scale=None, window=0):
     """A causal flash call and its SDPA yardstick: the offset branch over a
     gathered extent (``q_off`` set, kv_len = q_off + sq), or the static
     branch over a whole prompt (``q_off`` None, sq == skv); with ``code``
     the offset branch over int8 / fp8 codes with per-position scales (its
     library yardstick: SDPA with the offset mask on K/V dequantized
     outside the timing, as K10a's is ``torch.matmul`` on dequantized W).
-    ``scale``: the softmax scale (None: 1 / sqrt(D))."""
+    ``scale``: the softmax scale (None: 1 / sqrt(D)); ``window`` > 0: a
+    sliding window (SDPA with the window in its mask; the bytes count the
+    keys some query sees)."""
     kv_len = skv if q_off is None else q_off + sq
     q = randn(hq, sq, hd)
     k = randn(hkv, skv, hd)
@@ -649,10 +717,14 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
     qpos = (q_off or 0) + torch.arange(sq, device=dev)[:, None]
     kpos = torch.arange(skv, device=dev)[None, :]
     mask = (kpos <= qpos) & (kpos < kv_len)
+    kv_first = 0
+    if window:
+        mask &= kpos > qpos - window
+        kv_first = max((q_off or 0) - window + 1, 0)
     live_pairs = int(mask.sum()) * hq
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = hq // hkv
-    kv_bytes = 2 * hkv * kv_len * hd * isz
+    kv_bytes = 2 * hkv * (kv_len - kv_first) * hd * isz
     if code is not None:
         (k, ks), (v, vs) = (_encode(torch, t.float(), code, 1) for t in (k, v))
         kernel = lambda: K.flash_attention_2d_q(
@@ -670,25 +742,33 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
                  f"q_offset={q_off},kv_len={kv_len},codes={code}")
     elif q_off is None:
         kernel = lambda: K.flash_attention_2d(q, k, v, kv_group=g,
-                                              scale=scale)
+                                              scale=scale, window=window)
         plain = lambda: ref.flash_attention_static(q, k, v, kv_len=kv_len,
-                                                   kv_group=g, scale=scale)
-        library = lambda: sdpa(q[None], k[None], v[None], is_causal=True,
-                               enable_gqa=True, scale=scale)
+                                                   kv_group=g, scale=scale,
+                                                   window=window)
+        if window:
+            library = lambda: sdpa(q[None], k[None], v[None],
+                                   attn_mask=mask, enable_gqa=True,
+                                   scale=scale)
+        else:
+            library = lambda: sdpa(q[None], k[None], v[None], is_causal=True,
+                                   enable_gqa=True, scale=scale)
         shape = f"Hq={hq},Hkv={hkv},D={hd},S={sq}"
     else:
         kernel = lambda: K.flash_attention_2d(q, k, v, q_offset=q_off,
                                               kv_len=kv_len, kv_group=g,
-                                              scale=scale)
+                                              scale=scale, window=window)
         plain = lambda: ref.flash_attention_offset(q, k, v, q_offset=q_off,
                                                    kv_len=kv_len, kv_group=g,
-                                                   scale=scale)
+                                                   scale=scale, window=window)
         library = lambda: sdpa(q[None], k[None], v[None], attn_mask=mask,
                                enable_gqa=True, scale=scale)
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len}")
     if scale is not None:
         shape += f",scale={scale}"
+    if window:
+        shape += f",window={window}"
     return dict(name=name, head_dim=hd, shape=shape, kernel=kernel,
                 plain=plain, library=library, cublas=None,
                 nbytes=2 * hq * sq * hd * isz + kv_bytes,
@@ -817,12 +897,13 @@ def _rms_library(torch, x, s, w):
 
 
 def _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path, w8=True,
-                 o_proj=True):
+                 o_proj=True, activation="silu"):
     """One dense RMSNorm/SwiGLU layer's kernel calls at ``t`` rows: the
     projections with ln1 folded in (K3, an output width each in ``ns``),
     the o-projection (K5, D x D; not with ``o_proj`` False: training's is
-    a PyTorch product), the FFN with ln2 folded in (K4, F), and with ``w8``
-    their int8 twins (K10a, K10b); ``path`` tags the cases."""
+    a PyTorch product), the FFN with ln2 folded in (K4, F; ``activation``
+    "gelu": gemma3's GELU-GLU), and with ``w8`` their int8 twins (K10a,
+    K10b); ``path`` tags the cases."""
     x = randn(t, d)
     s = randn(d, scale=0.1)
     xn = ref.rms_rows(x, s, 1e-6)
@@ -863,15 +944,20 @@ def _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path, w8=True,
     wg = randn(d, f, scale=1 / math.sqrt(d))
     wu = randn(d, f, scale=1 / math.sqrt(d))
     wd = randn(f, d, scale=1 / math.sqrt(f))
+    act = {"silu": torch.nn.functional.silu,
+           "gelu": lambda y: torch.nn.functional.gelu(
+               y, approximate="tanh")}[activation]
     cases.append(dict(
-        name="streamed_ffn", shape=f"T={t},D={d},F={f}",
+        name="streamed_ffn",
+        shape=f"T={t},D={d},F={f}"
+        + ("" if activation == "silu" else f",{activation}"),
         kernel=lambda x=x, s=s, a=wg, b=wu, c=wd: K.streamed_ffn(
-            x, a, b, c, norm_scale=s),
+            x, a, b, c, norm_scale=s, activation=activation),
         plain=lambda x=x, s=s, a=wg, b=wu, c=wd: ref.streamed_ffn(
-            x, a, b, c, norm_scale=s),
+            x, a, b, c, norm_scale=s, activation=activation),
         library=None,
         cublas=lambda xn=xn, a=wg, b=wu, c=wd: torch.matmul(
-            torch.nn.functional.silu(xn @ a) * (xn @ b), c),
+            act(xn @ a) * (xn @ b), c),
         nbytes=(2 * t * d + d + 3 * d * f) * isz, flops=6 * t * d * f,
         path=path))
     if not w8:
@@ -1658,6 +1744,180 @@ def check_qwen_rows(torch, dev="cuda"):
     bad = [f"{r['model']} {r['call']}" for r in out if not r["equal_1_to_64"]]
     if bad:
         raise AssertionError(f"qwen_rows: rows differ at 1..63 rows: {bad}")
+    return out
+
+
+def _gemma_paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
+                      window, verify):
+    """gemma3's decode (K1) or verify (K8) call at head dim 320: 5 slots
+    of lengths 1023, 1024, 1025, 0 and 3000 (decode), or 5-row windows
+    whose rows see 1021..1025, 1022..1026, 1023..1027, 1..5 and
+    2999..3003 positions (verify), over a 4096-position page table, with
+    ``window`` (0: a global layer).  The bytes are the K/V positions the
+    rows see (at most ``window`` a row), q and out; the operations each
+    row's own positions."""
+    b, ps, maxp = 5, 16, GEMMA_MAX_LEN // 16
+    kp, vp, _, table, _ = _paged_pools(torch, randn, gen, b, maxp, hkv, hd,
+                                       None, dev)
+    w = WINDOW if verify else 1
+    base = [1020, 1021, 1022, 0, 2998] if verify else [1023, 1024, 1025, 0,
+                                                       3000]
+    lens = [[o + i + 1 for i in range(w)] if verify else [o]
+            for o in base]
+    seen = [[min(n, window) if window else n for n in row] for row in lens]
+    # A slot's positions read: from its shallowest row's window start to
+    # its deepest row.
+    span = [max(r) - (max(min(r) - window, 0) if window else 0)
+            for r in lens]
+    base_t = torch.tensor(base, dtype=torch.int32, device=dev)
+    q = randn(b, w, hq, hd)
+    rows = sum(sum(r) for r in seen)
+    if verify:
+        kernel = lambda: K.paged_verify_attention(q, kp, vp, table, base_t,
+                                                  window=window)
+        plain = lambda: ref.paged_verify_attention(q, kp, vp, table, base_t,
+                                                   window=window)
+    else:
+        kernel = lambda: K.paged_decode_attention(q, kp, vp, table, base_t,
+                                                  window=window)
+        plain = lambda: ref.paged_decode_attention(q, kp, vp, table, base_t,
+                                                   window=window)
+    case = dict(
+        name="paged_verify_attention" if verify else "paged_attention",
+        head_dim=hd, path="speculative" if verify else None,
+        shape=(f"B={b},W={w},Hq={hq},Hkv={hkv},D={hd},ps={ps},"
+               + (f"q_off={base}" if verify else f"lengths={base}")
+               + f",window={window}"),
+        kernel=kernel, plain=plain, library=None, cublas=None,
+        nbytes=2 * b * w * hq * hd * isz + 2 * sum(span) * hkv * hd * isz
+        + (b * maxp + b) * 4,
+        flops=4 * hd * hq * rows)
+    if verify:
+        case["rows_vs_decode"] = lambda out: [
+            bool(torch.equal(out[:, i:i + 1], K.paged_decode_attention(
+                q[:, i:i + 1].contiguous(), kp, vp, table, base_t + i + 1,
+                window=window)))
+            for i in range(w)]
+    return case
+
+
+def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """gemma3-4b's kernel calls at its widths (``kernel_cases``' fields):
+    a layer's projections with ln1 folded in (K3 at N 2560 for q, 1280 for
+    k and v), o-projection (K5) and GELU-GLU with ln2 folded in (K4) at a
+    prefill chunk (128 rows), decode (4) and a verify dispatch (20); the
+    final norm with the LM head over the 262144-token vocabulary at 1, 4
+    and 20 rows; at head dim 320 with 8 query heads over 4: K2 chunks of
+    128 rows at offsets 896 and 2944 over a 4096-position gathered extent,
+    K7 at whole prompts of 1000 and 3000, K1 and K8 at the window's edge
+    lengths (``_gemma_paged_case``), each under the 1024-token window and
+    without it (a global layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import padded_vocab
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cfg = get_config(GEMMA)
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    ns = (cfg.q_dim, cfg.kv_dim)
+    cases = []
+    for t, path in ((128, None), (4, None), (SPEC_T, "speculative")):
+        cases += _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path,
+                              w8=False, activation="gelu")
+    vocab = padded_vocab(cfg.vocab_size)
+    head = randn(d, vocab, scale=1 / math.sqrt(d))
+    for t in (1, 4, SPEC_T):
+        x = randn(t, d)
+        sc = randn(d, scale=0.1)
+        xn = ref.rms_rows(x, sc, 1e-6)
+        cases.append(dict(
+            name="rmsnorm_matmul", shape=f"lm_head T={t},D={d},N={vocab}",
+            kernel=lambda x=x, sc=sc, w=head: K.rmsnorm_matmul(x, sc, w),
+            plain=lambda x=x, sc=sc, w=head: ref.rmsnorm_matmul(x, sc, w),
+            library=_rms_library(torch, x, sc, head),
+            cublas=lambda xn=xn, w=head: torch.matmul(xn, w),
+            nbytes=(t * d + d + d * vocab + t * vocab) * isz,
+            flops=2 * t * d * vocab,
+            path="speculative" if t == SPEC_T else None))
+    for window in (GEMMA_WINDOW, 0):
+        for off in (896, 2944):
+            cases.append(_flash_case(
+                torch, K, ref, randn, isz, "flash_attention", hq, hkv, hd,
+                128, GEMMA_MAX_LEN, off, dev, window=window))
+        for s in (1000, 3000):
+            cases.append(dict(_flash_case(
+                torch, K, ref, randn, isz, "flash_attention_static", hq,
+                hkv, hd, s, s, None, dev, window=window),
+                path="whole_prompt"))
+        for verify in (False, True):
+            cases.append(_gemma_paged_case(torch, K, ref, randn, isz, gen,
+                                           hq, hkv, hd, dev, window, verify))
+    return [dict(c, model=GEMMA) for c in cases]
+
+
+def check_gemma_rows(torch, timer, dev="cuda"):
+    """bf16 K3 (q and k/v widths) and K4 (GELU-GLU with the norm folded
+    in) at gemma3's widths: rows at 1..63 rows bit-equal to the same rows
+    at 64 (required); and K2's 128-row chunks at offsets 896 and 2944
+    bit-equal to K7's rows at the same positions of the 3072-token prompt,
+    with the window and without (required: a chunked prompt then gives its
+    whole-prompt rows).  K7 with and without the window at 3000 tokens:
+    the local layer's time over the global layer's."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import ROW_INVARIANT_T
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    randn = _randn(torch, gen, torch.bfloat16, dev)
+    cfg = get_config(GEMMA)
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    s = randn(d, scale=0.1)
+    x = randn(ROW_INVARIANT_T, d)
+    insts = {}
+    for n in (cfg.q_dim, cfg.kv_dim):
+        w = randn(d, n, scale=1 / math.sqrt(d))
+        insts[f"rmsnorm_matmul N={n}"] = (
+            lambda x, w=w: K.rmsnorm_matmul(x, s, w))
+    wg, wu = (randn(d, f, scale=1 / math.sqrt(d)) for _ in range(2))
+    wd = randn(f, d, scale=1 / math.sqrt(f))
+    insts[f"streamed_ffn F={f},gelu"] = (
+        lambda x: K.streamed_ffn(x, wg, wu, wd, norm_scale=s,
+                                 activation="gelu"))
+    out = []
+    for name, kern in insts.items():
+        bad = _unequal_row_counts(torch, kern, x)
+        row = {"phase": "gemma_rows", "model": GEMMA, "call": name, "D": d,
+               "equal_1_to_64": not bad, "unequal_at": bad[:8]}
+        emit(row)
+        out.append(row)
+    n = 3072
+    q, k, v = randn(hq, n, hd), randn(hkv, n, hd), randn(hkv, n, hd)
+    for window in (GEMMA_WINDOW, 0):
+        whole = K.flash_attention_2d(q, k, v, kv_group=hq // hkv,
+                                     window=window)
+        for off in (896, 2944):
+            chunk = K.flash_attention_2d(
+                q[:, off:off + 128].contiguous(), k, v, q_offset=off,
+                kv_len=off + 128, kv_group=hq // hkv, window=window)
+            row = {"phase": "gemma_rows", "model": GEMMA,
+                   "call": f"flash_attention q_offset={off}",
+                   "window": window,
+                   "equal_1_to_64": bool(torch.equal(
+                       chunk, whole[:, off:off + 128]))}
+            emit(row)
+            out.append(row)
+    q3, k3, v3 = q[:, :3000].contiguous(), k[:, :3000].contiguous(), \
+        v[:, :3000].contiguous()
+    ms = {w: timer(lambda w=w: K.flash_attention_2d(
+        q3, k3, v3, kv_group=hq // hkv, window=w))
+        for w in (GEMMA_WINDOW, 0)}
+    emit({"phase": "gemma_window", "model": GEMMA, "S": 3000,
+          "local_ms": ms[GEMMA_WINDOW], "global_ms": ms[0],
+          "local_over_global": ms[GEMMA_WINDOW] / ms[0]})
+    bad = [f"{r['call']} {r.get('window', '')}" for r in out
+           if not r["equal_1_to_64"]]
+    if bad:
+        raise AssertionError(f"gemma_rows: rows differ: {bad}")
     return out
 
 
@@ -2716,7 +2976,8 @@ def _weights(torch, cfg, seed: int, jitter: bool, device="cuda"):
     return params
 
 
-def _fused_eager(torch, cfg, params, prompts, chunked, device="cuda"):
+def _fused_eager(torch, cfg, params, prompts, chunked, device="cuda",
+                 max_len=512):
     """One burst with the kernel plan and one with the eager plan:
     ({fused: tokens}, {fused: seconds}, the kernel plan's launches)."""
     from repro_torch import kernels as K
@@ -2725,7 +2986,7 @@ def _fused_eager(torch, cfg, params, prompts, chunked, device="cuda"):
     for fused in (True, False):
         eng = ServingEngine(
             dataclasses.replace(cfg, use_fused_kernels=fused), params,
-            batch_slots=4, max_len=512, chunked=chunked, device=device)
+            batch_slots=4, max_len=max_len, chunked=chunked, device=device)
         K.reset_launches()
         t0 = time.perf_counter()
         reqs = eng.generate(prompts, max_new_tokens=8)
@@ -2766,7 +3027,8 @@ def fused_vs_eager(torch, cfg, device="cuda", lengths=(150, 40, 300, 9)):
 
 def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
                              device="cuda", lengths=(150, 40, 300, 9),
-                             modes=("chunked", "whole_prompt")):
+                             modes=("chunked", "whole_prompt"),
+                             max_len=512):
     """``cfg``: a model with both admission paths (gpt2 with jittered
     weights, granite-moe-3b, qwen3, qwen1.5) cut to 4 layers, float32, or
     with ``modes`` the one it has (qwen2-vl: whole prompts).  Fused and
@@ -2782,7 +3044,7 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
     fused_tokens, bad = {}, []
     for mode in modes:
         tokens, seconds, launches = _fused_eager(
-            torch, cfg, params, prompts, mode == "chunked", device)
+            torch, cfg, params, prompts, mode == "chunked", device, max_len)
         row[mode] = {"tokens_equal": tokens[True] == tokens[False],
                      "fused_s": seconds[True], "eager_s": seconds[False],
                      "fused_tokens": tokens[True],
@@ -2806,16 +3068,17 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
 
 def serve(torch, cfg, params, expect, *, init_s, chunked=True,
           phase="serve", device="cuda", max_len=2048, lo=37, hi=1000,
-          new=32, profile=False):
+          new=32, profile=False, lengths=None):
     """A mixed burst of 8 prompts through the engine with the kernel plan;
     the kernels in ``expect`` must each launch, and no other.  ``profile``:
     the burst once more, through a fresh engine, under ``torch.profiler``
-    (device ms by stage, idle share of its wall)."""
+    (device ms by stage, idle share of its wall).  ``lengths``: the
+    prompts' lengths (default: ``lo``, ``hi`` and 6 drawn between)."""
     from repro_torch import kernels as K
     from repro_torch.models.params import cache_leaf_kind, weight_bytes
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
-    lengths, prompts = _serve_prompts(cfg.vocab_size, lo, hi)
+    lengths, prompts = _serve_prompts(cfg.vocab_size, lo, hi, lengths)
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
                         chunked=chunked, device=device)
     eng.generate([prompts[2][:8]], max_new_tokens=2)       # warm-up
@@ -2878,7 +3141,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
         _free(torch, device)
         prof = profile_burst(torch, cfg, params, chunked=chunked,
                              device=device, max_len=max_len, lo=lo, hi=hi,
-                             new=new)
+                             new=new, lengths=lengths)
         row["profile"] = prof
         emit({"phase": f"{phase}_profile", "config": cfg.name,
               "layers": cfg.num_layers, "admission": row["admission"],
@@ -2886,22 +3149,25 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     return row
 
 
-def _serve_prompts(vocab: int, lo: int, hi: int):
+def _serve_prompts(vocab: int, lo: int, hi: int, lengths=None):
     """``serve``'s burst: (lengths, prompts), 8 prompts of ``lo``, ``hi``
-    and 6 lengths between, drawn from numpy seed 2."""
+    and 6 lengths between, drawn from numpy seed 2, or of ``lengths``."""
     rng = np.random.default_rng(2)
-    lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
+    if lengths is None:
+        lengths = [lo, hi] + [int(n) for n in rng.integers(lo, hi + 1, 6)]
+    else:
+        lengths = list(lengths)
     return lengths, burst(rng, vocab, lengths)
 
 
 def profile_burst(torch, cfg, params, *, chunked=True, device="cuda",
-                  max_len=2048, lo=37, hi=1000, new=32):
+                  max_len=2048, lo=37, hi=1000, new=32, lengths=None):
     """``serve``'s burst through a fresh engine (no prefix-cache hits from
     an earlier one), warmed up as there, under ``torch.profiler``: device
     ms by stage (``profile_device``) and the idle share of the profiled
     wall; None where the profiler saw no device time."""
     from repro_torch.serving import ServingEngine
-    _, prompts = _serve_prompts(cfg.vocab_size, lo, hi)
+    _, prompts = _serve_prompts(cfg.vocab_size, lo, hi, lengths)
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
                         chunked=chunked, device=device)
     eng.generate([prompts[2][:8]], max_new_tokens=2)
@@ -2916,14 +3182,16 @@ def profile_burst(torch, cfg, params, *, chunked=True, device="cuda",
 # Phases 7 and 8: speculative decoding over the prefix cache
 # --------------------------------------------------------------------- #
 
-def spec_burst(vocab: int):
+def spec_burst(vocab: int, shared_len: int = 512):
     """8 prompts for 4 slots: one shared 512-token prefix (four 128-token
     chunks: the system prompt chat and agent traffic repeats) with distinct
     random suffixes of 37..480 tokens (numpy seed 2), the last two
     repeating the second and third verbatim; at most 992 tokens, so every
-    request gets 32 new tokens in gpt2's 1024-position context."""
+    request gets 32 new tokens in gpt2's 1024-position context.
+    ``shared_len``: another prefix length (gemma3: 1200, past its
+    window)."""
     rng = np.random.default_rng(2)
-    shared = rng.integers(0, vocab, 512).astype(np.int32)
+    shared = rng.integers(0, vocab, shared_len).astype(np.int32)
     lengths = [37, 480] + [int(n) for n in rng.integers(37, 481, 4)]
     prompts = [np.concatenate([shared, rng.integers(0, vocab, n)
                                .astype(np.int32)]) for n in lengths]
@@ -3002,7 +3270,7 @@ def spec_fused_vs_eager(torch, cfg, *, jitter, max_len, expect,
 
 def spec_serve(torch, cfg, params, expect, *, init_s, max_len,
                require_equal=True, phase="spec_serve", device="cuda",
-               new=32):
+               new=32, shared_len=512):
     """``cfg``: full width and depth, bfloat16, kernel plan.  The
     speculative burst through the speculative engine (prefix cache on),
     then through the plain engine for per-request token equality, which
@@ -3015,7 +3283,7 @@ def spec_serve(torch, cfg, params, expect, *, init_s, max_len,
     from repro_torch import kernels as K
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
-    prompts = spec_burst(cfg.vocab_size)
+    prompts = spec_burst(cfg.vocab_size, shared_len)
     eng = ServingEngine(cfg, params, batch_slots=SLOTS, max_len=max_len,
                         speculative=True, draft_len=4, device=device)
     eng.generate([prompts[2][:8]], max_new_tokens=2)       # warm-up
@@ -3372,7 +3640,8 @@ def qwen_fused_vs_eager(torch, model, device="cuda"):
 
 
 def qwen_serve(torch, model, device="cuda"):
-    """``model`` at full width and depth, bfloat16, kernel plan, weights
+    """``model`` at full width cut to ``QWEN_SERVE_LAYERS``, bfloat16,
+    kernel plan, weights
     drawn on the card (seed 2) and jittered: the mixed burst (``serve``:
     8 prompts of 37..1000 tokens, 32 new tokens each, 4 slots, max_len
     2048; qwen3 and qwen1.5 chunked with the prefix cache, qwen2-vl
@@ -3382,7 +3651,8 @@ def qwen_serve(torch, model, device="cuda"):
     exactly ``qwen_launches`` for its prefill dispatches and decode
     steps."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(model), use_fused_kernels=True)
+    cfg = dataclasses.replace(get_config(model), use_fused_kernels=True,
+                              num_layers=QWEN_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = _weights(torch, cfg, 2, jitter=True, device=device)
     _sync(torch, device)
@@ -3410,6 +3680,67 @@ def qwen_serve(torch, model, device="cuda"):
         out["spec_serve"] = spec_serve(
             torch, cfg, params, SPEC_PATHS["llama3-8b"], init_s=init_s,
             max_len=2048, phase="qwen_spec_serve", device=device)
+    del params
+    _free(torch, device)
+    return out
+
+
+def gemma_fused_vs_eager(torch, device="cuda"):
+    """gemma3-4b at full width cut to 6 layers (five local, one global: one
+    period of its pattern), float32, weights jittered (the q/k norm scales
+    start at zero): the kernel plan's greedy tokens equal the eager plan's
+    on a burst of prompts on both sides of the 1024-token window (1100,
+    1030, 300 and 40 tokens), chunked and whole-prompt, each launching
+    exactly its path's kernels."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(GEMMA), num_layers=6,
+                              dtype="float32")
+    return admission_fused_vs_eager(
+        torch, cfg, jitter=True, phase="gemma_fused_vs_eager",
+        expect=GEMMA_PATHS, device=device, lengths=(1100, 1030, 300, 40),
+        max_len=2048)
+
+
+def gemma_serve(torch, device="cuda"):
+    """gemma3-4b at full width and depth, bfloat16, kernel plan, weights
+    drawn on the card (seed 2) and jittered: ``GEMMA_BURST`` (8 prompts of
+    37..3000 tokens, 32 new tokens each, 4 slots, max_len 4096) chunked
+    with the prefix cache and whole-prompt (with its profile; the chunked
+    burst's 85 chunks and 208 decode steps took 95 s under the profiler
+    on an H100),
+    then the speculative burst over a shared 1200-token prefix against the
+    plain engine (``spec_serve``, exact).  Each burst must launch exactly
+    ``gemma_launches`` for its prefill dispatches, decode steps and verify
+    dispatches; a prompt served alone repeats its burst tokens."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(GEMMA), use_fused_kernels=True)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=True, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    out = {"serve": {}, "quant_serve": {}}
+    for mode in ("chunked", "whole_prompt"):
+        whole = mode == "whole_prompt"
+        row = serve(torch, cfg, params, GEMMA_PATHS[mode], init_s=init_s,
+                    chunked=not whole, device=device, phase="gemma_serve",
+                    max_len=GEMMA_MAX_LEN, lengths=GEMMA_BURST,
+                    profile=whole)
+        m = row["metrics"]
+        prefills = m["prefills"] if whole else m["prefill_chunks"]
+        _exact_launches(row["phase"], "none", row, prefills, gemma_launches(
+            layers, prefills, m["scan_ticks"], whole=whole))
+        out["serve"][mode] = row
+        _free(torch, device)
+    row = spec_serve(torch, cfg, params, GEMMA_PATHS["speculative"],
+                     init_s=init_s, max_len=GEMMA_MAX_LEN,
+                     phase="gemma_spec_serve", device=device,
+                     shared_len=GEMMA_SHARED)
+    m = row["metrics"]
+    _exact_launches(row["phase"], "none", row, m["prefill_chunks"],
+                    gemma_launches(layers, m["prefill_chunks"], 0,
+                                   verifies=m["verify_dispatches"]))
+    out["spec_serve"] = row
     del params
     _free(torch, device)
     return out
@@ -3961,7 +4292,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     build = {"phase": "build", "seconds": time.perf_counter() - t0,
-             "built": built, "nvcc": _build.find_nvcc()}
+             "built": built, "nvcc": _build.find_nvcc(),
+             "seconds_by_source": dict(_build.BUILD_SECONDS)}
     emit(build)
     out_dir = args.out
     os.makedirs(out_dir, exist_ok=True)
@@ -3979,6 +4311,10 @@ def main(argv=None) -> int:
         torch, timer, (qwen_kernel_cases,), phase="qwen_kernel_cases")
     rows = rows + results["qwen_kernel_cases"]
     results["qwen_rows"] = check_qwen_rows(torch)
+    results["gemma_kernel_cases"] = check_kernels(
+        torch, timer, (gemma_kernel_cases,), phase="gemma_kernel_cases")
+    rows = rows + results["gemma_kernel_cases"]
+    results["gemma_rows"] = check_gemma_rows(torch, timer)
     results["row_invariance"] = check_row_invariance(torch)
     results["paged_split"] = check_paged_split(torch, timer)
     results["tensorcore"] = check_tensorcore(torch, timer)
@@ -4024,6 +4360,7 @@ def main(argv=None) -> int:
         jitter=False)
     results["qwen_fused_vs_eager"] = {m: qwen_fused_vs_eager(torch, m)
                                       for m in QWEN}
+    results["gemma_fused_vs_eager"] = gemma_fused_vs_eager(torch)
     results["full_depth"] = {
         m: full_depth(torch, dataclasses.replace(
             c, use_fused_kernels=True,
@@ -4039,6 +4376,7 @@ def main(argv=None) -> int:
         phases={"none": "rwkv_serve"}, jitter=True,
         launches=lambda p, s, quant: rwkv_launches(p, s))
     results["qwen_serve"] = {m: qwen_serve(torch, m) for m in QWEN}
+    results["gemma_serve"] = gemma_serve(torch)
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
@@ -4088,7 +4426,8 @@ def main(argv=None) -> int:
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
-    for m, fd in {**results["full_depth"], **results["qwen_serve"]}.items():
+    for m, fd in {**results["full_depth"], **results["qwen_serve"],
+                  GEMMA: results["gemma_serve"]}.items():
         for mode, r in fd["serve"].items():
             paths.append((m, mode, r["launches"]))
         for mode, r in fd["quant_serve"].items():

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig
+from .gemma3_4b import CONFIG as GEMMA3_4B
 from .gpt2 import CONFIG as GPT2
 from .granite_moe_1b import CONFIG as GRANITE_MOE_1B
 from .granite_moe_3b import CONFIG as GRANITE_MOE_3B
@@ -20,6 +21,7 @@ from .rwkv6_7b import CONFIG as RWKV6_7B
 from .zamba2_2p7b import CONFIG as ZAMBA2_2P7B
 
 ARCHS: Dict[str, ModelConfig] = {
+    "gemma3-4b": GEMMA3_4B,
     "gpt2": GPT2,
     "granite-moe-1b-a400m": GRANITE_MOE_1B,
     "granite-moe-3b-a800m": GRANITE_MOE_3B,

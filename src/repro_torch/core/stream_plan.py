@@ -127,7 +127,9 @@ class StreamPlan:
 # reduced, tokens in {4, 64, 128, 512}, kv_len in {256, 2048, 4096}; the
 # same stage for stage on the Qwen stacks, whose QKV bias, qk-norm and
 # M-RoPE stay eager ops beside the kernels: qwen3-0.6b, qwen1.5-0.5b and
-# qwen2-vl-2b, full and reduced, tokens 4 to 4096).
+# qwen2-vl-2b, full and reduced, tokens 4 to 4096; and for both of
+# gemma3-4b's kinds, ``local_attn`` and ``global_attn``, full and reduced,
+# tokens 1 to 2048, the GELU-GLU with the norm folded in).
 _DENSE_RMSNORM_GLU = LayerPlan(
     kind="attn",
     qkv=KernelChoice("rmsnorm_matmul", (("block_t", 128), ("block_n", 128))),
@@ -212,9 +214,18 @@ def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
                 and cfg.activation == "gelu" and not cfg.is_moe):
             return {"mamba": _MAMBA, "mamba+shared_attn": _MAMBA_SHARED_ATTN}
         return None
-    # Not yet: gemma3's interleaved local/global attention (other kinds),
-    # hubert's non-causal encoder.
-    if kinds != {"attn"} or cfg.encoder_only or not cfg.causal:
+    # Not yet: hubert's non-causal encoder.
+    if cfg.encoder_only or not cfg.causal:
+        return None
+    if kinds == {"local_attn", "global_attn"}:
+        # gemma3: both kinds take the dense plan (the window rides on each
+        # layer's attention call, not on its plan).
+        if (cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope"
+                and not cfg.is_moe):
+            return {k: replace(_DENSE_RMSNORM_GLU, kind=k)
+                    for k in ("local_attn", "global_attn")}
+        return None
+    if kinds != {"attn"}:
         return None
     if (cfg.norm == "rmsnorm" and cfg.gated_ffn
             and cfg.rope in ("rope", "mrope")):
@@ -247,7 +258,8 @@ def plan_for(cfg: ModelConfig, tokens: int,
         raise NotImplementedError(
             f"the port has no plan for {cfg.name!r} yet: only dense "
             "RMSNorm/GQA/SwiGLU with RoPE or M-RoPE (with or without the "
-            "QKV bias and qk-norm; and its MoE variant), LayerNorm/"
+            "QKV bias and qk-norm; its MoE variant; and its interleaved "
+            "local/global sliding-window variant), LayerNorm/"
             "MHA/GELU-MLP/learned-position, Mamba2-hybrid and RWKV6 "
             "stacks are ported")
     if cfg.weight_quant:           # K12, K13 and K14 have no w8 twin

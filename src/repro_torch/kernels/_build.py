@@ -19,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -27,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = ("rmsnorm_matmul", "streamed_ffn", "flash_attention",
                   "paged_attention", "block_matmul", "row_norm",
                   "streamed_xent", "moe_experts", "mamba2_scan",
-                  "rwkv6_wkv", "stream_converter", "flash_mma")
+                  "rwkv6_wkv", "stream_converter", "flash_mma",
+                  "paged_attention_320")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +38,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # nvcc's resource report (-Xptxas -v: registers, shared memory, spills)
 # per kernel source, from the build that produced the loaded library.
 BUILD_LOG: Dict[str, str] = {}
+# Seconds from the start of a ``build_all`` to the end of each source's
+# nvcc: the longest source bounds the build.
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -89,15 +95,26 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[str]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together; returns the names that were built."""
+    together (each waited on by a thread of its own, which times it);
+    returns the names that were built."""
     nvcc = find_nvcc()
+    t0 = time.perf_counter()
     procs = {n: p for n in names if (p := _start(n, nvcc)) is not None}
-    errors = []
-    for n, p in procs.items():
+    errors: List[str] = []
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
         try:
-            _finish(n, p)
+            _finish(name, proc)
         except RuntimeError as e:
             errors.append(str(e))
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=item)
+               for item in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
     return list(procs)

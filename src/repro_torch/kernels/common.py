@@ -190,7 +190,7 @@ def moe_plan(t: int, f: int):
     return 1, f, 1
 
 
-# Mirrors csrc/paged_attention.cu's split of a slot's keys (K1, K8, K9a,
+# Mirrors csrc/paged_attention.cuh's split of a slot's keys (K1, K8, K9a,
 # K9b): block (slot, KV head, p) owns positions [p P, (p + 1) P) of the
 # slot's page-table extent, P = PAGED_PART, a multiple of the 16-token
 # page and of the kernel's 32-position tile.

@@ -10,11 +10,14 @@
 // Every branch in bfloat16 runs on the tensor cores (flash_mma.cu).
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
-// Only what the main paths run is built here: causal, no sliding window,
-// D in {64, 128} and, for the static branch only, 80 (zamba2's shared
-// block); the wrapper refuses the rest on the card.  Each lane holds
-// output dims lane + 32 i; at D = 80 the last of its three is live on
-// lanes 0..15 only.
+// Only what the main paths run is built here: causal, with or without a
+// sliding window (window > 0: a key is live above the query's position -
+// window, gemma3's local layers; none over codes), D in {64, 128, 320}
+// and, for the static branch only, 80 (zamba2's shared block); the wrapper
+// refuses the rest on the card.  Each lane holds output dims lane + 32 i;
+// at D = 80 the last of its three is live on lanes 0..15 only.  The tiles
+// live in dynamic shared memory (100 KB at D = 320, over the 48 KB a
+// static array may take).
 //
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
 // _flash_kernel_offset (K2, the offset branch of flash_attention_2d,
@@ -29,8 +32,10 @@
 // There q_offset and kv_len ride in as scalar-prefetch operands; here they
 // are plain kernel arguments, and no S is assumed to divide a tile.  Each
 // block holds 16 query rows of one head (4 per warp) and walks only the
-// KV tiles that can be live: below kv_len and at or before the block's
-// last query position.  Per 32-key tile it runs the reference's online
+// KV tiles that can be live: below kv_len, at or before the block's last
+// query position and, under a window, from the tile of the first key its
+// first row sees (tiles counted from position 0, so a wholly masked tile
+// left out changes nothing).  Per 32-key tile it runs the reference's online
 // softmax: QK products of the input dtype summed in float32, then scaled;
 // masked scores at -1e30; p rounded to the v dtype before PV; the
 // normaliser clamped at 1e-30.  Over codes, K/V are dequantized on load
@@ -43,6 +48,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace repro;
 
@@ -59,13 +65,16 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const C* __restrict__ v, const float* __restrict__ kscale,
                     const float* __restrict__ vscale, T* __restrict__ out,
                     int sq, int skv, int kv_group, int q_offset, int kv_len,
-                    float scale) {
+                    int window, float scale) {
   constexpr bool QUANT = !std::is_same<T, C>::value;
   constexpr int DPL = (D + 31) / 32;   // output dims per lane
   constexpr bool FULL = D % 32 == 0;   // every lane's every dim is live
-  __shared__ float q_s[BQ][D];
-  __shared__ float k_s[BKV][D + 1];
-  __shared__ float v_s[BKV][D];
+  extern __shared__ __align__(16) float smem_f[];
+  float(*q_s)[D] = reinterpret_cast<float(*)[D]>(smem_f);        // [BQ][D]
+  float(*k_s)[D + 1] =
+      reinterpret_cast<float(*)[D + 1]>(smem_f + BQ * D);    // [BKV][D + 1]
+  float(*v_s)[D] = reinterpret_cast<float(*)[D]>(smem_f + BQ * D +
+                                                 BKV * (D + 1));  // [BKV][D]
 
   const int h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int hk = h / kv_group;
@@ -91,8 +100,10 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
   // Live KV range of this block (tiles outside it are wholly masked).
   const int q_last = q_offset + min(q0 + BQ, sq) - 1;
   const int kv_end = min(min(kv_len, skv), q_last + 1);
+  const int k_first =
+      window > 0 ? max(q_offset + q0 - window + 1, 0) / BKV * BKV : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+  for (int k0 = k_first; k0 < kv_end; k0 += BKV) {
     __syncthreads();   // q_s written / previous tile consumed
     for (int i = tid; i < BKV * D; i += NWARP * 32) {
       const int r = i / D, c = i % D, kp = k0 + r;
@@ -118,7 +129,8 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
 #pragma unroll 16
       for (int c = 0; c < D; ++c) s = fmaf(q_s[r][c], k_s[lane][c], s);
       s *= scale;
-      const bool valid = kp < kv_len && kp < skv && q0 + r < sq && kp <= qpos;
+      const bool valid = kp < kv_len && kp < skv && q0 + r < sq &&
+                         kp <= qpos && (window <= 0 || kp > qpos - window);
       s = valid ? s : kNegInf;
       const float m_new = fmaxf(m[rr], warp_max(s));
       const float p = valid ? expf(s - m_new) : 0.f;
@@ -153,56 +165,69 @@ flash_offset_kernel(const T* __restrict__ q, const C* __restrict__ k,
 }
 
 template <typename T, typename C, int D>
-void launch_d(const void* q, const void* k, const void* v, const float* ks,
-              const float* vs, void* out, int hq, int sq, int skv,
-              int kv_group, int q_offset, int kv_len, float scale,
-              cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, void* out, int hq, int sq, int skv,
+             int kv_group, int q_offset, int kv_len, int window, float scale,
+             cudaStream_t stream) {
+  static size_t smem_set = 0;   // raised once per instance
+  constexpr size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D);
+  const cudaError_t err =
+      raise_smem(flash_offset_kernel<T, C, D>, smem, &smem_set);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(cdiv(sq, BQ), hq);
-  flash_offset_kernel<T, C, D><<<grid, NWARP * 32, 0, stream>>>(
+  flash_offset_kernel<T, C, D><<<grid, NWARP * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const C*>(k),
       static_cast<const C*>(v), ks, vs, static_cast<T*>(out), sq, skv,
-      kv_group, q_offset, kv_len, scale);
+      kv_group, q_offset, kv_len, window, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename C = T>
 int launch(const void* q, const void* k, const void* v, void* out, int hq,
            int sq, int skv, int d, int kv_group, int q_offset, int kv_len,
-           float scale, void* stream, const void* ks = nullptr,
+           int window, float scale, void* stream, const void* ks = nullptr,
            const void* vs = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kf = static_cast<const float*>(ks);
   const float* vf = static_cast<const float*>(vs);
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (d == 64)
-    launch_d<T, C, 64>(q, k, v, kf, vf, out, hq, sq, skv, kv_group, q_offset,
-                       kv_len, scale, st);
-  else if (d == 80)
-    launch_d<T, C, 80>(q, k, v, kf, vf, out, hq, sq, skv, kv_group, q_offset,
-                       kv_len, scale, st);
-  else if (d == 128)
-    launch_d<T, C, 128>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
-                        q_offset, kv_len, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_d<T, C, 64>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                              q_offset, kv_len, window, scale, st);
+  if (d == 80)
+    return launch_d<T, C, 80>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                              q_offset, kv_len, window, scale, st);
+  if (d == 128)
+    return launch_d<T, C, 128>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                               q_offset, kv_len, window, scale, st);
+  if constexpr (std::is_same<T, C>::value) {   // gemma3, full precision
+    if (d == 320)
+      return launch_d<T, C, 320>(q, k, v, kf, vf, out, hq, sq, skv,
+                                 kv_group, q_offset, kv_len, window, scale,
+                                 st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// window 0 for none.
 extern "C" int repro_flash_offset_f32(const void* q, const void* k,
                                       const void* v, void* out, int hq,
                                       int sq, int skv, int d, int kv_group,
-                                      int q_offset, int kv_len, float scale,
-                                      void* stream) {
+                                      int q_offset, int kv_len, int window,
+                                      float scale, void* stream) {
   return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,
-                       kv_len, scale, stream);
+                       kv_len, window, scale, stream);
 }
 
 extern "C" int repro_flash_static_f32(const void* q, const void* k,
                                       const void* v, void* out, int hq,
                                       int sq, int skv, int d, int kv_group,
-                                      int kv_len, float scale, void* stream) {
+                                      int kv_len, int window, float scale,
+                                      void* stream) {
   return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len,
-                       scale, stream);
+                       window, scale, stream);
 }
 
 // The offset branch over codes C with per-position scales [Hkv_, Skv].
@@ -212,7 +237,7 @@ extern "C" int repro_flash_static_f32(const void* q, const void* k,
                       int sq, int skv, int d, int kv_group, int q_offset,    \
                       int kv_len, float scale, void* stream) {               \
     return launch<T, C>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,    \
-                        kv_len, scale, stream, ks, vs);                      \
+                        kv_len, 0, scale, stream, ks, vs);                   \
   }
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_i8, float, int8_t)
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_fp8, float, __nv_fp8_e4m3)

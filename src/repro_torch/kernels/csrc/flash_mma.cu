@@ -4,13 +4,15 @@
 //   q [Hq_, Sq, D] bf16, k/v [Hkv_, Skv, D] (bf16, or codes C with
 //   float32 per-position scales [Hkv_, Skv]), query head h reads KV head
 //   h / kv_group; query row i sits at position q_offset + i and attends
-//   causally to the keys below kv_len -> out [Hq_, Sq, D] bf16.
+//   causally to the keys below kv_len and, with a sliding window (window
+//   > 0, gemma3's local layers), above its position - window -> out
+//   [Hq_, Sq, D] bf16.
 //   static (whole-prompt prefill, the training forward): q_offset = 0,
-//     D in {64, 80, 128};
+//     D in {64, 80, 128, 320};
 //   offset (chunked prefill over the gathered cache): any q_offset, D in
-//     {64, 128};
-//   offset over codes (chunked prefill from quantized pools): as offset,
-//     C int8 or fp8-e4m3, D in {64, 128}.
+//     {64, 128, 320};
+//   offset over codes (chunked prefill from quantized pools): as offset
+//     without a window, C int8 or fp8-e4m3, D in {64, 128}.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention.py::
 // _flash_kernel (K7, the static branch, pallas_call at :309),
@@ -73,7 +75,15 @@
 //     (151 KB of shared memory at D = 128, one block per SM);
 //   - causal work: tiles past a block's last position are never loaded,
 //     tiles past a warp's last position are skipped by that warp, and only
-//     tiles that cross the diagonal or kv_len are masked;
+//     tiles that cross the diagonal or kv_len are masked; under a window a
+//     block starts at the first tile its first row can see (tiles still
+//     counted from position 0), a warp skips the tiles wholly below its
+//     first row's window, and a tile that crosses a row's window edge is
+//     masked per key (`k_pos > q_pos - window`, the reference's);
+//   - D = 320 (gemma3): the warp's Q fragments would take 80 of its
+//     registers beside the 160 of its output rows, so they are read from
+//     shared memory at each k-step of Q K^T instead of once; the bf16
+//     ring then takes 205 KB, one block per SM;
 //   - fixed 64 x 64 tiles counted from position 0 at every S and offset: a
 //     fully masked tile leaves a row's max, sum and accumulator exactly as
 //     they were (p = 0, corr = 1), so a row's result depends on its prefix
@@ -154,6 +164,8 @@ __device__ __forceinline__ void load_codes(C* s, const C* g, int r0, int n,
 // Step `st`'s K/V into ring stage st & 1: bf16 tile st, or the codes of
 // tiles 2 st and 2 st + 1 (one per key group) with their scales from ksh /
 // vsh, the head's rows; positions at or past skv are zero-filled.
+// kh / vh / ksh / vsh start at the block's first tile (position t0 BKV), and
+// skv counts from there.
 template <int D, typename C>
 __device__ __forceinline__ void load_step(void* k_ring, void* v_ring,
                                           float* sc_ring, const C* kh,
@@ -187,12 +199,14 @@ __device__ __forceinline__ void flash_body(
     const bf16* __restrict__ q, const C* __restrict__ k,
     const C* __restrict__ v, const float* __restrict__ kscale,
     const float* __restrict__ vscale, bf16* __restrict__ out, int hq,
-    int sq, int skv, int kv_group, int q_offset, int kv_len, float scale) {
+    int sq, int skv, int kv_group, int q_offset, int kv_len, int window,
+    float scale) {
   constexpr bool CODES = kCodes<C>;
   constexpr int KG = kGroups<C>;
   constexpr int NTH = KG * NT;
   constexpr int LD = ld<D>();
   constexpr int KS = D / 16;     // k-steps of Q K^T
+  constexpr bool Q_SMEM = D > 128;   // Q fragments read at each k-step
   constexpr int DN = D / 8;      // n8 tiles of the output rows
   constexpr int SN = BKV / 8;    // n8 tiles of a score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -223,15 +237,25 @@ __device__ __forceinline__ void flash_body(
   const float* vsh = CODES ? vscale + (size_t)hk * skv : nullptr;
 
   // Keys at or past kv_lim are masked; the block needs keys up to its last
-  // row's position only.
+  // row's position only and, under a window, from the first key its first
+  // row sees: tiles t0 .. n_tiles - 1, counted from position 0.
   const int kv_lim = min(kv_len, skv);
   const int kv_end = min(kv_lim, q_offset + min(q0 + BQ, sq));
   const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
-  const int n_steps = (n_tiles + KG - 1) / KG;   // KG tiles a step
+  const int t0 = window > 0 ? max(q_offset + q0 - window + 1, 0) / BKV : 0;
+  const int n_steps = n_tiles > t0 ? (n_tiles - t0 + KG - 1) / KG : 0;
+  const int kbase = t0 * BKV;   // the ring's tiles start here
+  kh += (size_t)kbase * D;
+  vh += (size_t)kbase * D;
+  if constexpr (CODES) {
+    ksh += kbase;
+    vsh += kbase;
+  }
+  const int skv_t = skv - kbase;
 
   load_rows<D, BQ, NTH>(q_s, qh, q0, sq, tid);
-  if (n_tiles > 0)
-    load_step<D>(k_ring, v_ring, sc_s, kh, vh, ksh, vsh, 0, skv, tid);
+  if (n_steps > 0)
+    load_step<D>(k_ring, v_ring, sc_s, kh, vh, ksh, vsh, 0, skv_t, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -240,11 +264,15 @@ __device__ __forceinline__ void flash_body(
   const int row0 = w0 + g;              // this lane's rows: row0, row0 + 8
   const int wp0 = q_offset + w0;        // ... and their positions
   const int pos0 = q_offset + row0;
-  uint32_t qf[KS][4];
+  // The A fragment of k-step ks of the warp's 16 Q rows: held for every
+  // k-step, or (Q_SMEM) read from q_s when it is used.
+  const bf16* q_frag = q_s + (rw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 LD + (lane >> 4) * 8;
+  uint32_t qf[Q_SMEM ? 1 : KS][4];
+  if constexpr (!Q_SMEM) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(qf[ks], q_s + (rw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              LD + ks * 16 + (lane >> 4) * 8);
+    for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[ks], q_frag + ks * 16);
+  }
 
   float o[DN][4];
 #pragma unroll
@@ -267,7 +295,8 @@ __device__ __forceinline__ void flash_body(
       __syncthreads();      // ... for every warp, and step st - 1 is done
     }
     if (st + 1 < n_steps)
-      load_step<D>(k_ring, v_ring, sc_s, kh, vh, ksh, vsh, st + 1, skv, tid);
+      load_step<D>(k_ring, v_ring, sc_s, kh, vh, ksh, vsh, st + 1, skv_t,
+                   tid);
     cp_async_commit();
     if constexpr (CODES) {
       // Both groups' codes into their bf16 tiles (exact).
@@ -275,10 +304,13 @@ __device__ __forceinline__ void flash_body(
       codes_to_bf16<2 * BKV, D, LD, NTH>(v_s, vc_s + (st & 1) * 2 * BKV * D);
       __syncthreads();
     }
-    const int kt = st * KG + kg;   // this warp's tile
+    const int kt = t0 + st * KG + kg;   // this warp's tile
     const int k0 = kt * BKV;
-    // Past the block's tiles, or every key past every row of the warp.
-    if (kt >= n_tiles || k0 > wp0 + 15) continue;
+    // Past the block's tiles, every key past every row of the warp, or
+    // every key below every row's window.
+    if (kt >= n_tiles || k0 > wp0 + 15 ||
+        (window > 0 && k0 + BKV - 1 <= wp0 - window))
+      continue;
     const int buf = CODES ? kg : (st & 1);
     const bf16* ks_t = k_s + buf * BKV * LD;
     const bf16* vs_t = v_s + buf * BKV * LD;
@@ -292,15 +324,23 @@ __device__ __forceinline__ void flash_body(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (Q_SMEM) {
+        ldsm_x4(qa, q_frag + ks * 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+      }
 #pragma unroll
       for (int np = 0; np < SN / 2; ++np) {
         uint32_t b[4];
         ldsm_x4(b, ks_t + (np * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) *
                               LD + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * np], qa, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
       }
+    }
     if constexpr (CODES) {
       // s = acc * (ks[j] * scale), column j = 8 n + 2 t4 + (e & 1).
 #pragma unroll
@@ -316,16 +356,19 @@ __device__ __forceinline__ void flash_body(
     }
 
     // Row max of the scaled scores (see `fill`); masked scores (only in a
-    // tile crossing the diagonal or kv_lim) drop out, so a row with no
-    // live key keeps -1e30.
-    const bool masked = k0 + BKV - 1 > wp0 || k0 + BKV > kv_lim;
+    // tile crossing the diagonal, kv_lim or a row's window edge) drop out,
+    // so a row with no live key keeps -1e30.
+    const bool masked = k0 + BKV - 1 > wp0 || k0 + BKV > kv_lim ||
+                        (window > 0 && k0 <= wp0 + 15 - window);
     if (masked) {
 #pragma unroll
       for (int j = 0; j < SN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + j * 8 + 2 * t4 + (e & 1);
-          if (kp > pos0 + (e >> 1) * 8 || kp >= kv_lim) s[j][e] = fill;
+          const int qp = pos0 + (e >> 1) * 8;
+          if (kp > qp || kp >= kv_lim || (window > 0 && kp <= qp - window))
+            s[j][e] = fill;
         }
     }
     float mx[2] = {fill, fill};
@@ -478,9 +521,9 @@ __global__ void __launch_bounds__(NT, 2)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int hq,
                  int sq, int skv, int kv_group, int q_offset, int kv_len,
-                 float scale) {
+                 int window, float scale) {
   flash_body<D, bf16>(q, k, v, nullptr, nullptr, out, hq, sq, skv, kv_group,
-                      q_offset, kv_len, scale);
+                      q_offset, kv_len, window, scale);
 }
 
 // K9c: a name of its own, so that a profile tells it from K2 and K7.
@@ -492,13 +535,13 @@ flash_mma_q_kernel(const bf16* __restrict__ q, const C* __restrict__ k,
                    int hq, int sq, int skv, int kv_group, int q_offset,
                    int kv_len, float scale) {
   flash_body<D, C>(q, k, v, ks, vs, out, hq, sq, skv, kv_group, q_offset,
-                   kv_len, scale);
+                   kv_len, 0, scale);
 }
 
 template <int D, typename C>
 int launch_d(const void* q, const void* k, const void* v, const float* ks,
              const float* vs, void* out, int hq, int sq, int skv,
-             int kv_group, int q_offset, int kv_len, float scale,
+             int kv_group, int q_offset, int kv_len, int window, float scale,
              cudaStream_t stream) {
   static size_t smem_set = 0;   // raised once per instance
   constexpr size_t smem = smem_bytes<D, C>();
@@ -520,7 +563,7 @@ int launch_d(const void* q, const void* k, const void* v, const float* ks,
     flash_mma_kernel<D><<<(unsigned)blocks, NT, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, sq, skv,
-        kv_group, q_offset, kv_len, scale);
+        kv_group, q_offset, kv_len, window, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -528,35 +571,41 @@ int launch_d(const void* q, const void* k, const void* v, const float* ks,
 template <typename C = bf16>
 int launch(const void* q, const void* k, const void* v, void* out, int hq,
            int sq, int skv, int d, int kv_group, int q_offset, int kv_len,
-           float scale, void* stream, const void* ks = nullptr,
+           int window, float scale, void* stream, const void* ks = nullptr,
            const void* vs = nullptr) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kf = static_cast<const float*>(ks);
   const float* vf = static_cast<const float*>(vs);
+  if (window < 0 || (kCodes<C> && window)) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return launch_d<64, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
-                           q_offset, kv_len, scale, st);
-  if constexpr (!kCodes<C>) {   // D = 80: the static branch (zamba2)
-    if (d == 80)
+                           q_offset, kv_len, window, scale, st);
+  if constexpr (!kCodes<C>) {
+    if (d == 80)   // the static branch (zamba2)
       return launch_d<80, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
-                             q_offset, kv_len, scale, st);
+                             q_offset, kv_len, window, scale, st);
+    if (d == 320)  // gemma3
+      return launch_d<320, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                              q_offset, kv_len, window, scale, st);
   }
   if (d == 128)
     return launch_d<128, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
-                            q_offset, kv_len, scale, st);
+                            q_offset, kv_len, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v and out 16-byte aligned (the wrapper sees to it).
+// q, k, v and out 16-byte aligned (the wrapper sees to it); window 0 for
+// none.
 extern "C" int repro_flash_static_mma_bf16(const void* q, const void* k,
                                            const void* v, void* out, int hq,
                                            int sq, int skv, int d,
                                            int kv_group, int kv_len,
-                                           float scale, void* stream) {
-  return launch(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len, scale,
-                stream);
+                                           int window, float scale,
+                                           void* stream) {
+  return launch(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len, window,
+                scale, stream);
 }
 
 // The offset branch (K2): query row i at position q_offset + i.
@@ -564,10 +613,10 @@ extern "C" int repro_flash_offset_mma_bf16(const void* q, const void* k,
                                            const void* v, void* out, int hq,
                                            int sq, int skv, int d,
                                            int kv_group, int q_offset,
-                                           int kv_len, float scale,
-                                           void* stream) {
+                                           int kv_len, int window,
+                                           float scale, void* stream) {
   return launch(q, k, v, out, hq, sq, skv, d, kv_group, q_offset, kv_len,
-                scale, stream);
+                window, scale, stream);
 }
 
 // The offset branch over codes C (K9c) with float32 per-position scales
@@ -579,7 +628,7 @@ extern "C" int repro_flash_offset_mma_bf16(const void* q, const void* k,
                       int sq, int skv, int d, int kv_group, int q_offset,    \
                       int kv_len, float scale, void* stream) {               \
     return launch<C>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,       \
-                     kv_len, scale, stream, ks, vs);                         \
+                     kv_len, 0, scale, stream, ks, vs);                      \
   }
 REPRO_FLASH_OFFSET_Q_MMA(repro_flash_offset_q_mma_bf16_i8, int8_t)
 REPRO_FLASH_OFFSET_Q_MMA(repro_flash_offset_q_mma_bf16_fp8, __nv_fp8_e4m3)

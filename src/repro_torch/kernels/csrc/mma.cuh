@@ -2,7 +2,7 @@
 // Hopper's tensor cores through warp-level MMA (mma_gemm.cuh's GEMM: K5,
 // K3, K10a and K11; flash_mma.cu's kernels, K7, K2 and K9c;
 // streamed_ffn.cu's ffn_mma_kernel, K4, K6, K10b and K10c; mamba2_scan.cu's
-// segment kernels, K13; the cp.async copies also feed paged_attention.cu's
+// segment kernels, K13; the cp.async copies also feed paged_attention.cuh's
 // CUDA-core K1, K8, K9a and K9b):
 //   cp.async 16-byte copies from global to shared memory (zero-filled when
 //     the source is out of range), committed and waited on in groups;

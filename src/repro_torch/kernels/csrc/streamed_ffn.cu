@@ -3,12 +3,14 @@
 //   GLU        : out[T, D] = (act(xn @ Wg) * (xn @ Wu)).to(T) @ Wd, either
 //                SiLU with the pre-FFN RMSNorm folded in (xn =
 //                rms_norm(x) * (1 + s), rounded to the x dtype) — the
-//                llama3 main path — or tanh-GELU without a folded norm
-//                (xn = x) — zamba2's shared block, whose ln2 stays outside;
+//                llama3 main path — tanh-GELU with the norm folded in —
+//                gemma3's — or tanh-GELU without a folded norm (xn = x) —
+//                zamba2's shared block, whose ln2 stays outside;
 //   ungated MLP: out[T, D] = gelu_tanh(x @ Wu).to(T) @ Wd, no folded norm —
 //                the gpt2 main path (its LayerNorm stays outside).
-// Only those three cases are built; the wrappers refuse other activations
-// and norm settings on the card.  In the int8 twins W holds int8 codes with
+// Only those four cases are built (the int8 twins: all but GELU with the
+// norm folded in); the wrappers refuse other activations and norm settings
+// on the card.  In the int8 twins W holds int8 codes with
 // float32 per-output-channel scales: the gate and up scales multiply their
 // sums before the activation, h stays float32 (not rounded to the x
 // dtype), and the down scale multiplies each F range's partial before the
@@ -384,7 +386,7 @@ int run_mma(FfnArgs a, bf16* xn, int mode, int splits, cudaStream_t st) {
 
 }  // namespace
 
-// bf16 on the tensor cores; one signature for the six instances (unused
+// bf16 on the tensor cores; one signature for the seven instances (unused
 // pointers null).  `part` [splits, T, D] float32 and `counters` (all 0; one
 // per 64-row tile and 128-column strip) are needed only when splits > 1;
 // `h` [planes, T, round_up(F, 64)] (planes 2 for the int8 twins) and, with
@@ -424,6 +426,8 @@ int run_mma(FfnArgs a, bf16* xn, int mode, int splits, cudaStream_t st) {
 REPRO_STREAMED_FFN_MMA(repro_streamed_ffn_mma_bf16, false, true, true, true)
 REPRO_STREAMED_FFN_MMA(repro_streamed_ffn_gelu_mma_bf16, false, true, false,
                        false)
+REPRO_STREAMED_FFN_MMA(repro_streamed_ffn_gelu_norm_mma_bf16, false, true,
+                       true, false)
 REPRO_STREAMED_FFN_MMA(repro_streamed_mlp_mma_bf16, false, false, false, false)
 REPRO_STREAMED_FFN_MMA(repro_streamed_ffn_w8_mma_bf16, true, true, true, true)
 REPRO_STREAMED_FFN_MMA(repro_streamed_ffn_gelu_w8_mma_bf16, true, true, false,
@@ -437,6 +441,19 @@ extern "C" int repro_streamed_ffn_f32(const void* x, const void* nscale,
                                       int t, int d, int f, int tile,
                                       float eps, void* stream) {
   return launch<float, float, true, true, true>(
+      x, nscale, wg, wu, wd, kNoScales, out, part, t, d, f, tile, eps,
+      stream);
+}
+
+// The GELU GLU with the norm folded in (gemma3).
+extern "C" int repro_streamed_ffn_gelu_norm_f32(const void* x,
+                                                const void* nscale,
+                                                const void* wg, const void* wu,
+                                                const void* wd, void* out,
+                                                void* part, int t, int d,
+                                                int f, int tile, float eps,
+                                                void* stream) {
+  return launch<float, float, true, true, false>(
       x, nscale, wg, wu, wd, kNoScales, out, part, t, d, f, tile, eps,
       stream);
 }

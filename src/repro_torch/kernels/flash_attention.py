@@ -15,10 +15,12 @@ with per-position scales (its own entry points and count; plain version
 runs on the tensor cores (one device function, ``csrc/flash_mma.cu``, the
 codes converted to bf16 in shared memory); in float32 every branch runs
 the CUDA-core kernel of ``csrc/flash_attention.cu``.  The CUDA kernels cover
-what the main paths run (causal, no sliding window, head dim 64 or 128,
-and for the static branch also 80 for zamba2's shared block); on the
-card the rest is refused until a slice whose config needs it adds it.
-The plain versions cover it all.
+what the main paths run: causal attention with or without a sliding
+window (gemma3's local layers) at head dim 64, 128 or 320 (gemma3), and
+for the static branch also 80 for zamba2's shared block; over codes
+(K9c) no window, head dim 64 or 128.  On the card the rest is refused
+until a slice whose config needs it adds it.  The plain versions cover it
+all.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from . import _build, ref
 from .common import (CODE_DTYPES, aligned16, check_cuda_operands,
                      check_launch, kernel_path)
 
-HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (offset branch)
-STATIC_HEAD_DIMS = (64, 80, 128)    # ... and the static branch's (K7)
+HEAD_DIMS = (64, 128, 320)     # the CUDA kernel's head dims (offset branch)
+STATIC_HEAD_DIMS = (64, 80, 128, 320)    # ... the static branch's (K7)
+CODE_HEAD_DIMS = (64, 128)     # ... and the offset branch's over codes (K9c)
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +47,9 @@ def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     "fp8").  bf16 is the tensor-core kernel of ``csrc/flash_mma.cu``,
     float32 the CUDA-core device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    ints = [i] * (6 if branch == "static" else 7)
+    # (hq, sq, skv, d, kv_group[, q_offset], kv_len[, window]): the
+    # full-precision branches take the sliding window, K9c none.
+    ints = [i] * ((6 if branch == "static" else 7) + (branch != "offset_q"))
     ptrs = 6 if branch == "offset_q" else 4
     suffix = f"_{code}" if code else ""
     if dtype == torch.bfloat16:
@@ -68,17 +73,19 @@ def _check_cuda(name: str, q, k, v, causal: bool, window: int,
                 code: Optional[torch.dtype] = None, scales=(),
                 head_dims=HEAD_DIMS) -> None:
     """``code``: the K/V dtype, q's unless K/V hold codes (with their
-    ``scales``); ``head_dims``: the ones this entry point takes."""
+    ``scales``: no window); ``head_dims``: the ones this entry point
+    takes."""
     check_cuda_operands(name, q.dtype, q, k, v, *scales)
     code = q.dtype if code is None else code
     if k.dtype != code or v.dtype != code:
         raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
                         f"{v.dtype}")
     d = q.shape[-1]
-    if d not in head_dims or not causal or window:
+    if d not in head_dims or not causal or window < 0 or (scales and window):
         raise ValueError(f"{name}: the CUDA kernel runs causal attention "
-                         f"without a window at head dims {head_dims}; got "
-                         f"head dim {d}, causal {causal}, window {window}")
+                         + ("without" if scales else "with or without")
+                         + f" a window at head dims {head_dims}; got head "
+                         f"dim {d}, causal {causal}, window {window}")
 
 
 def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,7 +99,8 @@ def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Query i sits at absolute position ``q_offset + i`` (``q_offset`` None:
     the static branch, position i); positions at or past ``kv_len``
-    (default Skv) are masked.  ``block_kv`` is the plan's hint: the plain
+    (default Skv) are masked; with ``window`` > 0 a key is live only
+    above ``position - window``.  ``block_kv`` is the plan's hint: the plain
     versions walk KV tiles of that size as the reference kernel does; the
     CUDA kernel picks its own tiles."""
     if q_offset is None:
@@ -116,7 +124,8 @@ def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("offset", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, sq, skv,
-        d, kv_group, int(q_offset), kv_len, float(scale), stream)
+        d, kv_group, int(q_offset), kv_len, int(window), float(scale),
+        stream)
     check_launch("flash_attention_2d", status)
     flash_attention_2d.launches += 1
     return out
@@ -148,7 +157,7 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("static", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, sq, skv,
-        d, kv_group, kv_len, float(scale), stream)
+        d, kv_group, kv_len, int(window), float(scale), stream)
     check_launch("flash_attention_static", status)
     flash_attention_static.launches += 1
     return out
@@ -183,7 +192,7 @@ def flash_attention_2d_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention_2d_q: K/V must be int8 or "
                         f"float8_e4m3fn codes, got {k.dtype}")
     _check_cuda("flash_attention_2d_q", q, k, v, causal, window, k.dtype,
-                (k_scale, v_scale))
+                (k_scale, v_scale), head_dims=CODE_HEAD_DIMS)
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("flash_attention_2d_q: scales must be float32")
     if q.dtype == torch.bfloat16:

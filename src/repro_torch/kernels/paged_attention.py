@@ -2,19 +2,21 @@
 the speculative verify window (``verify_attn``), over full-precision pools
 or over int8 / fp8-e4m3 code pools with per-(page, KV head) scales.
 
-Every wrapper launches the one window kernel in ``csrc/paged_attention.cu``
-on a CUDA tensor (decode is the window at W = 1; the ``_q`` twins read
+Every wrapper launches the one window kernel in ``csrc/paged_attention.cuh``
+(built by ``paged_attention.cu``, and at head dim 320 by
+``paged_attention_320.cu``) on a CUDA tensor (decode is the window at W = 1; the ``_q`` twins read
 code pools) and runs its plain version (``ref.paged_decode_attention`` /
 ``ref.paged_verify_attention``, with scales for the twins) on a CPU
 tensor; ``.launches`` on each counts its own calls of the kernel (one per
 call: the split kernel and the fold of its partitions).  The kernel splits
 a slot's keys into ``common.paged_plan(extent)`` partitions of
 ``PAGED_PART`` positions; the wrapper allocates their float32 partials
-per call.  The CUDA kernel covers what the main paths run (no sliding
-window, head dim 64 for gpt2 or 128 for llama3, and for decode also 80
-for zamba2's shared block, up to ``MAX_ROWS`` window rows per KV head);
-on the card the rest is refused until a slice whose config needs it adds
-it.  The plain versions cover it all.
+per call.  The CUDA kernel covers what the main paths run: head dim 64 for
+gpt2, 128 for llama3 or 320 for gemma3 (with or without its sliding
+window, over full-precision pools), and for decode also 80 for zamba2's
+shared block, up to ``MAX_ROWS`` window rows x query heads per KV head
+(``MAX_ROWS_320`` at head dim 320); on the card the rest is refused until
+a slice whose config needs it adds it.  The plain versions cover it all.
 """
 
 from __future__ import annotations
@@ -30,21 +32,25 @@ from . import _build, ref
 from .common import (CODE_DTYPES, PAGED_PART, check_cuda_operands,
                      check_launch, kernel_path, paged_plan)
 
-HEAD_DIMS = (64, 128)     # the CUDA kernel's head dims (verify)
-DECODE_HEAD_DIMS = (64, 80, 128)    # ... and decode's (K1, K9a)
+HEAD_DIMS = (64, 128, 320)     # the CUDA kernel's head dims (verify)
+DECODE_HEAD_DIMS = (64, 80, 128, 320)    # ... and decode's (K1, K9a)
 MAX_ROWS = 64             # window rows x query heads per KV head it holds
+MAX_ROWS_320 = 32         # ... at head dim 320 (shared memory)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype, code: Optional[torch.dtype] = None):
-    """``code``: None for full-precision pools, else the pools' code type."""
-    lib = _build.load("paged_attention")
+def _entry(dtype: torch.dtype, code: Optional[torch.dtype] = None,
+           d320: bool = False):
+    """``code``: None for full-precision pools, else the pools' code type;
+    ``d320``: head dim 320's library (full precision only)."""
+    lib = _build.load("paged_attention_320" if d320 else "paged_attention")
     tname = "bf16" if dtype == torch.bfloat16 else "f32"
     vp, i = ctypes.c_void_p, ctypes.c_int
     ints = [i] * 9 + [ctypes.c_float, vp]
-    if code is None:
-        return _build.declare(lib, f"repro_paged_window_{tname}",
-                              [vp] * 7 + ints)
+    if code is None:     # ... and the sliding window before the scale
+        return _build.declare(
+            lib, f"repro_paged_window_{'d320_' if d320 else ''}{tname}",
+            [vp] * 7 + [i] * 10 + [ctypes.c_float, vp])
     return _build.declare(
         lib, f"repro_paged_window_q_{tname}_{CODE_DTYPES[code]}",
         [vp] * 9 + ints)
@@ -66,7 +72,8 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
             window: int, scale: float, k_scale=None, v_scale=None,
             head_dims=HEAD_DIMS) -> torch.Tensor:
     """Launch the window kernel: row w of slot b sees ``base[b] + w +
-    extra`` positions.  With ``k_scale``/``v_scale`` the pools hold codes;
+    extra`` positions (the last ``window`` of them when ``window`` > 0).
+    With ``k_scale``/``v_scale`` the pools hold codes (no window);
     ``head_dims`` are the ones this entry point takes."""
     quant = k_scale is not None
     scales = (k_scale, v_scale) if quant else ()
@@ -91,11 +98,17 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
     b, w, hq, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     g = hq // hkv
-    if d not in head_dims or w * g > MAX_ROWS or window:
+    if quant:                  # code pools: not gemma3's head dim
+        head_dims = tuple(x for x in head_dims if x != 320)
+    max_rows = MAX_ROWS_320 if d == 320 else MAX_ROWS
+    if (d not in head_dims or w * g > max_rows or window < 0
+            or (quant and window)):
         raise ValueError(f"{name}: the CUDA kernel runs head dims "
-                         f"{head_dims}, up to {MAX_ROWS} window rows x query "
-                         f"heads per KV head, no window; got head dim {d}, "
-                         f"{w} x {g} rows, window {window}")
+                         f"{head_dims}, up to {max_rows} window rows x query "
+                         "heads per KV head, "
+                         + ("no window" if quant else "any window")
+                         + f"; got head dim {d}, {w} x {g} rows, window "
+                         f"{window}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel copies pool rows in 16-byte "
                          "vectors; the pools must start at 16-byte aligned "
@@ -110,9 +123,11 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
     ptrs += [t.data_ptr() for t in scales]
     ptrs += [page_table.data_ptr(), base.data_ptr(), part.data_ptr(),
              out.data_ptr()]
-    status = _entry(q.dtype, code if quant else None)(
-        *ptrs, b, hkv, g, w, extra, d, ps, maxp, PAGED_PART, float(scale),
-        stream)
+    ints = [b, hkv, g, w, extra, d, ps, maxp, PAGED_PART]
+    if not quant:
+        ints.append(int(window))
+    status = _entry(q.dtype, code if quant else None, d == 320)(
+        *ptrs, *ints, float(scale), stream)
     check_launch(name, status)
     return out
 

@@ -12,10 +12,11 @@ by ``common.ffn_plan``: one fused launch up to 64 rows, two passes through
 h above), float32 the CUDA-core kernel (its F partials summed by a second
 launch), which keeps float32 products exact.  The CUDA kernels cover what
 the main paths run: for ``streamed_ffn`` SiLU with the norm folded in
-(llama3) and GELU without a folded norm (zamba2's shared block), GELU
-without a folded norm for ``streamed_mlp`` (gpt2).  On the card the other
-cases (GELU with a folded norm among them) are refused until a slice
-whose config needs them adds them; the plain versions cover them all.
+(llama3), GELU with the norm folded in (gemma3) and GELU without a folded
+norm (zamba2's shared block), GELU without a folded norm for
+``streamed_mlp`` (gpt2); the int8 twins all but GELU with a folded norm.
+On the card the other cases are refused until a slice whose config needs
+them adds them; the plain versions cover them all.
 """
 
 from __future__ import annotations
@@ -49,11 +50,14 @@ _OPERANDS = ("nscale", "wg", "gs", "wu", "us", "wd", "ds")
 _F32_OPERANDS = {
     "ffn": ("nscale", "wg", "wu", "wd"),
     "ffn_gelu": ("wg", "wu", "wd"),
+    "ffn_gelu_norm": ("nscale", "wg", "wu", "wd"),
     "mlp": ("wu", "wd"),
     "ffn_w8": ("nscale", "wg", "gs", "wu", "us", "wd", "ds"),
     "ffn_gelu_w8": ("wg", "gs", "wu", "us", "wd", "ds"),
     "mlp_w8": ("wu", "us", "wd", "ds"),
 }
+# The kinds with the norm folded in (their float32 entry points take eps).
+_NORM_KINDS = ("ffn", "ffn_gelu_norm", "ffn_w8")
 
 
 def tile_class(t: int) -> int:
@@ -72,15 +76,16 @@ def workspace_shape(t: int, d: int, f: int):
 
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str, dtype: torch.dtype):
-    """``kind``: "ffn" (GLU, SiLU, folded norm), "ffn_gelu" (GLU, GELU, no
-    norm) or "mlp" (ungated, no norm), with "_w8" for the int8 twin.  The
+    """``kind``: "ffn" (GLU, SiLU, folded norm), "ffn_gelu_norm" (GLU,
+    GELU, folded norm), "ffn_gelu" (GLU, GELU, no norm) or "mlp" (ungated,
+    no norm), with "_w8" for the int8 twin (not of "ffn_gelu_norm").  The
     bf16 entry points (the tensor-core kernel) share one signature."""
     lib = _build.load("streamed_ffn")
     vp, i = ctypes.c_void_p, ctypes.c_int
     if dtype == torch.bfloat16:
         return _build.declare(lib, f"repro_streamed_{kind}_mma_bf16",
                               [vp] * 13 + [i] * 7 + [ctypes.c_float, vp])
-    tail = [ctypes.c_float, vp] if kind in ("ffn", "ffn_w8") else [vp]
+    tail = [ctypes.c_float, vp] if kind in _NORM_KINDS else [vp]
     return _build.declare(lib, f"repro_streamed_{kind}_f32",
                           [vp] * (len(_F32_OPERANDS[kind]) + 3) + [i] * 4
                           + tail)
@@ -106,16 +111,21 @@ def _check_w8(name: str, x, codes, scales) -> None:
         raise TypeError(f"{name}: int8 codes and float32 scales expected")
 
 
-def _glu_kind(name: str, activation: str, norm_scale) -> str:
+def _glu_kind(name: str, activation: str, norm_scale,
+              w8: bool = False) -> str:
     """The GLU entry point for an activation and norm setting: SiLU with
-    the norm folded in, or GELU without; the card refuses the rest."""
+    the norm folded in, GELU with or without it (the int8 twin: without);
+    the card refuses the rest."""
     if activation == "silu" and norm_scale is not None:
-        return "ffn"
+        return "ffn_w8" if w8 else "ffn"
     if activation == "gelu" and norm_scale is None:
-        return "ffn_gelu"
+        return "ffn_gelu_w8" if w8 else "ffn_gelu"
+    if activation == "gelu" and not w8:
+        return "ffn_gelu_norm"
     raise ValueError(f"{name}: the CUDA kernel runs SiLU with the norm "
-                     "folded in or GELU without a folded norm; got "
-                     f"activation {activation!r}"
+                     "folded in or GELU"
+                     + (" without a folded norm" if w8 else "")
+                     + f"; got activation {activation!r}"
                      + (", a norm_scale" if norm_scale is not None
                         else ", no norm_scale"))
 
@@ -131,7 +141,7 @@ def _run(kind: str, name: str, x, d: int, f: int, eps: float = 0.0,
     if x.dtype != torch.bfloat16:
         part = torch.empty(workspace_shape(t, d, f), dtype=torch.float32,
                            device=dev)
-        tail = [float(eps)] if kind in ("ffn", "ffn_w8") else []
+        tail = [float(eps)] if kind in _NORM_KINDS else []
         status = _entry(kind, x.dtype)(
             x.data_ptr(), *(ops[k].data_ptr() for k in _F32_OPERANDS[kind]),
             out.data_ptr(), part.data_ptr(), t, d, f, tile_class(t), *tail,
@@ -181,11 +191,11 @@ def streamed_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return ref.streamed_ffn(x, wg, wu, wd, activation=activation,
                                 norm_scale=norm_scale, norm_eps=norm_eps)
     kind = _glu_kind("streamed_ffn", activation, norm_scale)
-    ops = [x, wg, wu, wd] + ([norm_scale] if kind == "ffn" else [])
+    norm = {"nscale": norm_scale} if kind in _NORM_KINDS else {}
+    ops = [x, wg, wu, wd, *norm.values()]
     check_cuda_operands("streamed_ffn", x.dtype, *ops)
     if any(o.dtype != x.dtype for o in ops):
         raise TypeError("streamed_ffn: operands must share the x dtype")
-    norm = {"nscale": norm_scale} if kind == "ffn" else {}
     out = _run(kind, "streamed_ffn", x, d, f, norm_eps, wg=wg, wu=wu, wd=wd,
                **norm)
     streamed_ffn.launches += 1
@@ -256,7 +266,7 @@ def streamed_ffn_w8(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                                    wu_scale=wu_scale, wd_scale=wd_scale,
                                    activation=activation,
                                    norm_scale=norm_scale, norm_eps=norm_eps)
-    kind = _glu_kind("streamed_ffn_w8", activation, norm_scale) + "_w8"
+    kind = _glu_kind("streamed_ffn_w8", activation, norm_scale, w8=True)
     _check_w8("streamed_ffn_w8", x, (wg, wu, wd),
               (wg_scale, wu_scale, wd_scale))
     norm = {}

@@ -199,6 +199,15 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int) -> torch.Tensor:
+    """Sliding-window attention over whole sequences (``layers.py:392``):
+    ``streaming_attention`` with chunks of ``max(128, min(window, Skv))``
+    keys."""
+    return streaming_attention(q, k, v, causal=True, window=window,
+                               chunk_size=max(128, min(window, k.shape[1])))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                      window: int = 0) -> torch.Tensor:
@@ -635,7 +644,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     block_kv: int = 512) -> torch.Tensor:
     """Whole-sequence attention through the static flash kernel
-    (``layers.py:915``); its backward recomputes ``streaming_attention``."""
+    (``layers.py:915``); its backward recomputes ``streaming_attention``
+    (``local_attention`` under a window)."""
 
     def fused(q, k, v):
         return K.flash_attention(q, k, v, causal=causal, window=window,
@@ -643,8 +653,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def eager(q, k, v):
         if window:
-            raise NotImplementedError("eager local attention (sliding "
-                                      "window) is not ported yet")
+            return local_attention(q, k, v, window=window)
         return streaming_attention(q, k, v, causal=causal)
 
     return _kernel_fwd_eager_bwd(fused, eager)(q, k, v)

@@ -301,8 +301,7 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
         o = L.fused_attention(q, k, v, causal=cfg.causal, window=window,
                               block_kv=choice.kw["block_kv"])
     elif window:
-        raise NotImplementedError("eager local attention (sliding window) "
-                                  "is not ported yet")
+        o = L.local_attention(q, k, v, window=window)
     else:
         o = L.streaming_attention(q, k, v, causal=cfg.causal)
     x = x + _out_proj(o.reshape(b, s, hq * hd), ap["wo"], lplan, train)

@@ -281,20 +281,25 @@ def _off_path_calls():
     pool_scale = torch.ones(5, 2)
     kv_scale = torch.ones(2, 16)
     return {
-        "ffn_gelu": ("streamed_ffn", lambda: K.streamed_ffn(
-            x, w_up, w_up, w_down, activation="gelu",
-            norm_scale=torch.zeros(32))),
+        # GELU with the norm folded in runs on the card (gemma3) but not
+        # over int8 weights.
+        "ffn_gelu": ("streamed_ffn", lambda: K.streamed_ffn_w8(
+            x, *w8_ffn, activation="gelu", norm_scale=torch.zeros(32),
+            **w8_ffn_scales)),
         "ffn_no_norm": ("streamed_ffn", lambda: K.streamed_ffn(
             x, w_up, w_up, w_down)),
+        # A sliding window runs on the card with causal masking only.
         "flash_window": ("flash_attention", lambda: K.flash_attention_2d(
-            q, kv, kv, q_offset=8, kv_group=2, window=4)),
+            q, kv, kv, q_offset=8, kv_group=2, window=4, causal=False)),
         "flash_not_causal": ("flash_attention", lambda: K.flash_attention_2d(
             q, kv, kv, q_offset=8, kv_group=2, causal=False)),
         "flash_head_dim_96": ("flash_attention", lambda: K.flash_attention_2d(
             *(t[..., :96].contiguous() for t in (q, kv, kv)), q_offset=8,
             kv_group=2)),
-        "paged_window": ("paged_attention", lambda: K.paged_decode_attention(
-            qd, pool, pool, table, lengths, window=3)),
+        # A window at head dim 320 holds 32 rows x query heads at most.
+        "paged_window": ("paged_attention", lambda: K.paged_verify_attention(
+            torch.randn(2, 20, 4, 320), torch.randn(5, 4, 2, 320),
+            torch.randn(5, 4, 2, 320), table, lengths, window=3)),
         "paged_head_dim_96": ("paged_attention",
                               lambda: K.paged_decode_attention(
                                   *(t[..., :96].contiguous()
@@ -305,7 +310,7 @@ def _off_path_calls():
         "mlp_folded_norm": ("streamed_ffn", lambda: K.streamed_mlp(
             x, w_up, w_down, norm_scale=torch.zeros(32))),
         "static_window": ("flash_attention", lambda: K.flash_attention_2d(
-            q, kv, kv, kv_group=2, window=4)),
+            q, kv, kv, kv_group=2, window=4, causal=False)),
         "static_not_causal": ("flash_attention",
                               lambda: K.flash_attention_2d(
                                   q, kv, kv, kv_group=2, causal=False)),

@@ -310,8 +310,11 @@ def test_card_route_takes_the_zamba2_cases_and_refuses_the_rest(
         "verify_80": lambda: K.paged_verify_attention(
             qd, pool, pool, table, lengths),
         "ffn_silu_no_norm": lambda: K.streamed_ffn(x, wu, wu, wd),
-        "ffn_gelu_norm": lambda: K.streamed_ffn(
-            x, wu, wu, wd, activation="gelu", norm_scale=torch.zeros(32)),
+        "ffn_gelu_norm": lambda: K.streamed_ffn_w8(
+            x, *(w.to(torch.int8) for w in (wu, wu, wd)),
+            wg_scale=torch.ones(16), wu_scale=torch.ones(16),
+            wd_scale=torch.ones(32), activation="gelu",
+            norm_scale=torch.zeros(32)),
     }
     for name, call in refused.items():
         with pytest.raises(ValueError, match="the CUDA kernel runs"):

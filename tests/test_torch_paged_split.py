@@ -119,7 +119,11 @@ def test_each_wrapper_passes_the_partition_and_its_partials(card_route,
         args = calls[-1][2]
         n_ptrs = 9 if code is not None else 7
         part_ptr = args[n_ptrs - 2]
-        b, hkv_, g, w_, extra, d_, ps, maxp, part_size = args[n_ptrs:-2]
+        ints = args[n_ptrs:-2]
+        if code is None:           # full-precision pools: the window too
+            ints, window = ints[:-1], ints[-1]
+            assert window == 0
+        b, hkv_, g, w_, extra, d_, ps, maxp, part_size = ints
         assert (b, hkv_, g, w_, extra, d_, ps, maxp) == (
             4, hkv, hq // hkv, w, int(w > 1), d, PS, MAXP)
         assert part_size == PAGED_PART
@@ -136,8 +140,9 @@ def test_the_partition_size_does_not_follow_the_batch(card_route):
         q, kp, vp, table, base, _ = _operands(BF16, None, w, 8, 2, 64, b=b)
         fn = K.paged_decode_attention if w == 1 else K.paged_verify_attention
         fn(q, kp, vp, table, base)
-    assert {c[2][-3] for c in calls} == {PAGED_PART}
-    assert {c[2][-4] for c in calls} == {MAXP}
+    # (..., maxp, part_size, window, scale, stream)
+    assert {c[2][-4] for c in calls} == {PAGED_PART}
+    assert {c[2][-5] for c in calls} == {MAXP}
 
 
 def test_an_unaligned_pool_is_refused(card_route):
@@ -172,7 +177,7 @@ def _lane_sum(x):
 
 def _emulate(q, kp, vp, table, base, extra, *, scale, k_scale=None,
              v_scale=None):
-    """``csrc/paged_attention.cu`` in float32 torch ops, one output row per
+    """``csrc/paged_attention.cuh`` in float32 torch ops, one output row per
     (slot, window row, query head): partitions of ``PAGED_PART`` positions
     of the slot's extent, 32-position tiles in each, a sequential dot over
     D per score, the online softmax per tile (a row skips the tiles at or
