@@ -101,7 +101,27 @@ parent.  Phases:
              ``check_gemma_rows`` (K3 and K4 rows at 1..64 rows, K2's
              chunk rows equal to K7's, the local / global K7 times);
   gemma_fused_vs_eager, gemma_serve
-             those phases of ``chip_smoke.py`` for gemma3-4b.
+             those phases of ``chip_smoke.py`` for gemma3-4b;
+  flash_hashes
+             sha256 of the causal flash kernels' bf16 and float32 outputs
+             (K7, K2, K9c over int8 and fp8) at this checkout's
+             ``tensorcore`` shapes (``TC_FLASH_*``, ``TC_OFFSET_*``,
+             ``TC_OFFSET_Q_*``) and at gemma3's head dim 320 with its
+             window and without, from seeded inputs: equal hashes on two
+             trees mean bit-equal outputs;
+  flash_times
+             the causal K7, K2 and K9c calls of the paths (``FLASH_TIMES``)
+             timed in bf16 and float32, for parent/change comparisons;
+  hubert_kernel_cases
+             hubert-xlarge's kernel rows (``chip_smoke.hubert_kernel_cases``:
+             K5, K6, non-causal K7 and K11 at the encode's and a training
+             step's shapes, bf16 and float32, against their plain
+             versions);
+  hubert_fused_vs_eager, hubert_encode
+             those phases of ``chip_smoke.py``;
+  hubert_train
+             hubert-xlarge at full width and depth: ``chip_smoke.train``'s
+             3 steps, the step-2 checkpoint and the replay of step 3.
 
 The card's name and power limit (nvidia-smi) come first.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
@@ -158,6 +178,12 @@ SOURCES.update(dict.fromkeys(("qwen_kernel_cases", "qwen_fused_vs_eager",
 SOURCES.update(dict.fromkeys(("gemma_kernel_cases", "gemma_fused_vs_eager",
                               "gemma_serve"),
                              QWEN_SOURCES[:-1] + ["paged_attention_320"]))
+SOURCES.update(dict.fromkeys(("hubert_kernel_cases", "hubert_fused_vs_eager",
+                              "hubert_encode", "hubert_train"),
+                             ["block_matmul", "streamed_ffn", "flash_mma",
+                              "flash_attention", "streamed_xent"]))
+SOURCES["flash_hashes"] = SOURCES["flash_times"] = ["flash_mma",
+                                                    "flash_attention"]
 
 
 def emit(obj) -> None:
@@ -387,6 +413,102 @@ def flash_q_hashes(torch, K):
                     out[f"{code} D={d},G={g},q_offset={q_off},rows={sq}"] = (
                         _sha(torch, y))
     emit({"phase": "flash_q_hashes", "hashes": out})
+
+
+def flash_hashes(torch, K):
+    """K7, K2 and K9c, causal, in bf16 and float32 at this checkout's
+    ``tensorcore`` shapes and gemma3's head dim 320 (the tree's kernels
+    with their default, causal, masking)."""
+    here, out = this_chip_smoke(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+
+        def inputs(seed, *shapes):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            randn = here._randn(torch, gen, dtype, "cuda")
+            return [randn(*sh) for sh in shapes]
+
+        for s in here.TC_FLASH_S:
+            for d in here.TC_FLASH_D:
+                for g in here.TC_FLASH_GROUPS:
+                    q, k, v = inputs(s * 1009 + d * 31 + g, (2 * g, s, d),
+                                     (2, s, d), (2, s, d))
+                    out[f"K7 {dn} S={s},D={d},G={g}"] = _sha(
+                        torch, K.flash_attention_2d(q, k, v, kv_group=g))
+        for q_off in here.TC_OFFSET_Q:
+            for sq in here.TC_OFFSET_ROWS:
+                for d in here.TC_OFFSET_D:
+                    for g in here.TC_OFFSET_GROUPS:
+                        n = q_off + sq
+                        q, k, v = inputs(q_off * 1009 + sq * 31 + d + g,
+                                         (2 * g, sq, d), (2, n + 7, d),
+                                         (2, n + 7, d))
+                        out[f"K2 {dn} q_offset={q_off},rows={sq},D={d},"
+                            f"G={g}"] = _sha(torch, K.flash_attention_2d(
+                                q, k, v, q_offset=q_off, kv_len=n,
+                                kv_group=g))
+        for code in here.CODES:
+            for d, g in here.TC_OFFSET_Q_DG:
+                for q_off in here.TC_OFFSET_Q:
+                    for sq in here.TC_OFFSET_ROWS:
+                        skv = here.page_extent(q_off + sq)
+                        gen = torch.Generator(device="cuda").manual_seed(
+                            q_off * 1009 + sq * 31 + d + g)
+                        randn = here._randn(torch, gen, dtype, "cuda")
+                        q = randn(2 * g, sq, d)
+                        (k, ks), (v, vs) = (
+                            here._encode(torch, randn(2, skv, d).float(),
+                                         code, 1) for _ in range(2))
+                        out[f"K9c {dn} {code} D={d},G={g},q_offset={q_off},"
+                            f"rows={sq}"] = _sha(torch, K.flash_attention_2d_q(
+                                q, k, v, k_scale=ks, v_scale=vs,
+                                q_offset=q_off, kv_len=q_off + sq,
+                                kv_group=g))
+        for window in (here.GEMMA_WINDOW, 0):
+            q, k, v = inputs(320 + window, (8, 3000, 320), (4, 3000, 320),
+                             (4, 3000, 320))
+            out[f"K7 {dn} D=320,S=3000,window={window}"] = _sha(
+                torch, K.flash_attention_2d(q, k, v, kv_group=2,
+                                            window=window))
+            for off in (896, 2872):
+                out[f"K2 {dn} D=320,q_offset={off},window={window}"] = _sha(
+                    torch, K.flash_attention_2d(
+                        q[:, off:off + 128].contiguous(), k, v, q_offset=off,
+                        kv_len=off + 128, kv_group=2, window=window))
+    emit({"phase": "flash_hashes", "hashes": out})
+
+
+# The causal flash calls of the paths, timed on each tree: (label, Hq,
+# Hkv, D, Sq, Skv, q_offset or None for K7, K/V codes, window).
+FLASH_TIMES = (
+    ("K7 gpt2 whole prompt", 16, 16, 64, 1000, 1000, None, None, 0),
+    ("K7 zamba2", 32, 32, 80, 1000, 1000, None, None, 0),
+    ("K7 llama3 training", 64, 16, 128, 2048, 2048, None, None, 0),
+    ("K7 gemma3 local", 8, 4, 320, 3000, 3000, None, None, 1024),
+    ("K7 gemma3 global", 8, 4, 320, 3000, 3000, None, None, 0),
+    ("K2 llama3 chunk", 32, 8, 128, 128, 1024, 896, None, 0),
+    ("K2 gpt2 chunk", 16, 16, 64, 128, 1024, 896, None, 0),
+    ("K2 gemma3 local chunk", 8, 4, 320, 128, 4096, 2944, None, 1024),
+    ("K9c llama3 int8", 32, 8, 128, 128, 1024, 896, "int8", 0),
+    ("K9c gpt2 fp8", 16, 16, 64, 128, 1024, 896, "fp8", 0),
+)
+
+
+def flash_times(torch, K, ref, timer):
+    """CUDA-event times of the causal flash kernels at the paths' shapes
+    (``FLASH_TIMES``) in bf16 and float32: this checkout's cases
+    (``chip_smoke._flash_case``) on the tree's kernels."""
+    here, out = this_chip_smoke(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        randn = here._randn(torch, gen, dtype, "cuda")
+        isz = torch.empty((), dtype=dtype).element_size()
+        for label, hq, hkv, d, sq, skv, q_off, code, window in FLASH_TIMES:
+            case = here._flash_case(torch, K, ref, randn, isz, label, hq, hkv,
+                                    d, sq, skv, q_off, "cuda", code=code,
+                                    window=window)
+            out[f"{label} {str(dtype)[6:]}"] = timer(case["kernel"])
+    emit({"phase": "flash_times", "ms": out})
 
 
 def ssd_hashes(torch, K, ref):
@@ -620,6 +742,24 @@ def main() -> int:
             cs.gemma_fused_vs_eager(torch)
         elif phase == "gemma_serve":
             cs.gemma_serve(torch)
+        elif phase == "flash_hashes":
+            flash_hashes(torch, K)
+        elif phase == "flash_times":
+            flash_times(torch, K, ref, timer)
+        elif phase == "hubert_kernel_cases":
+            cs.check_kernels(torch, timer, (cs.hubert_kernel_cases,),
+                             phase="hubert_kernel_cases")
+        elif phase == "hubert_fused_vs_eager":
+            cs.hubert_fused_vs_eager(torch)
+        elif phase == "hubert_encode":
+            cs.hubert_encode(torch)
+        elif phase == "hubert_train":
+            from repro_torch.configs import get_config
+            cfg = dataclasses.replace(get_config(cs.HUBERT),
+                                      use_fused_kernels=True)
+            cs.train(torch, cfg, cs.HUBERT, steps=3, ckpt_every=2,
+                     replay_from=2, lr=cs.HUBERT_LR, jitter=True,
+                     note="full width and depth")
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

@@ -64,6 +64,11 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               rows bit-equal to K7's at the same positions with and
               without the window (``gemma_rows``, required), and K7's
               local / global time at 3000 tokens (``gemma_window``);
+   hubert_kernel_cases — hubert-xlarge's widths: K5 (q/k/v, [T, 1280] @
+              [1280, 1280]), K6 (D 1280, F 5120) and non-causal K7 (16
+              over 16 heads of 80 a clip) at the encode's 8 clips x 1000
+              frames and a training step's 2 x 2048, and K11 at the step
+              (Vp 512 over the 504-entry codebook);
 3. row_invariance — every call on the kernel plan's path gives rows 0..3
               the same bits at 4 rows (decode) as at 8, 12 and 20 (verify
               windows of 2, 3 and 5): the projection and FFN kernels and
@@ -90,8 +95,10 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               the tensor-core kernels in bfloat16 beyond the paths' shapes:
               K7 at S = 1, 37, 63, 64, 65, 999, 1000 and 2048 with head dims
               64, 80 and 128 and GQA groups 1, 3 and 4 against its plain
-              version and SDPA; K2 at chunk offsets 0, 63, 64, 65 and 896,
-              1, 37, 64 and 128 rows, head dims 64 and 128 and GQA groups 1
+              version and SDPA, and non-causal (MHA) at those S and head
+              dims and at four kv_len < S cases, kv_len 0 among them; K2
+              at chunk offsets 0, 63, 64, 65 and 896, 1, 37, 64 and 128
+              rows, head dims 64 and 128 and GQA groups 1
               and 4 against its plain version and SDPA with the offset
               mask; K7 and K2 at a negative and a zero scale; K5 at 1, 4,
               16, 17, 64, 65, 128, 992 and 8192 rows at each path's (K, N)
@@ -133,22 +140,21 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               (``tensorcore_ssd``), K14's likewise at chunk 1 and chunk 8
               (``tensorcore_wkv``), and each FFN instance's, K3's, K10a's
               and K12's rows equal at 1 to 64 rows (required);
-   compile, compile_edge — the StreamTensor compiler (``compile_model``
-              with the reference's defaults: TPU_V5E, DSE budget 12) on
-              one block of llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b
-              and rwkv6-7b at full width, 128 tokens (kernels, fusion
-              groups, lowered implementations, FIFO depth, stage
-              seconds), each simulated with its LP-sized FIFOs (required:
-              completed); then every edge of each compiled graph, with
-              and without a converter, materialized through the layout
-              converter K15 from a seeded producer tensor in bfloat16 and
-              float32, and llama3-8b's edges at 1000 tokens in bfloat16
-              (streams up to 7.34 GB, one at a time), beside the identity
-              FIFO and the paper's Fig. 5 pair: each stream equal to the
-              plain version (``torch.equal``) and, on sampled tokens, to
-              direct slicing; each group launching K15 once per stream;
-              kernel, plain and ``aten::index`` gather times against the
-              bytes bound;
+   compile, compile_edge — the StreamTensor compiler (``compile_model`` with
+              the reference's defaults: TPU_V5E, DSE budget 12) on one block of
+              llama3-8b, gpt2, granite-moe-3b, zamba2-2.7b, rwkv6-7b and
+              hubert-xlarge at full width, 128 tokens (kernels, fusion groups,
+              lowered implementations, FIFO depth, stage seconds), each
+              simulated with its LP-sized FIFOs (required: completed); then
+              every edge of each compiled graph, with and without a converter,
+              materialized through the layout converter K15 from a seeded
+              producer tensor in bfloat16 and float32, and llama3-8b's edges at
+              1000 tokens in bfloat16 (streams up to 7.34 GB, one at a time),
+              beside the identity FIFO and the paper's Fig. 5 pair: each stream
+              equal to the plain version (``torch.equal``) and, on sampled
+              tokens, to direct slicing; each group launching K15 once per
+              stream; kernel, plain and ``aten::index`` gather times against
+              the bytes bound;
 4. fused_vs_eager, gpt2_fused_vs_eager, granite_fused_vs_eager —
               llama3-8b, gpt2 (jittered) and granite-moe-3b at full width
               cut to 4 layers, float32: a mixed burst through
@@ -206,6 +212,11 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               dispatches and decode steps, the solo request repeating its
               burst; qwen3's and qwen2-vl's burst again under w8_kv8;
               qwen3's speculative burst equal to the plain engine's;
+   hubert_fused_vs_eager — hubert-xlarge at full width cut to 4 layers,
+              float32, weights jittered: ``forward_hidden`` over 2 clips of
+              1000 frames on the kernel plan equal to the eager plan's
+              (1e-4) with exactly the encode's launches, then phase 9's
+              training comparison on the pipeline's frame batches;
    gemma_fused_vs_eager — gemma3-4b at full width cut to 6 layers (five
               local, one global), float32, weights jittered: prompts of
               1100, 1030, 300 and 40 tokens (across the window), chunked
@@ -216,7 +227,8 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               float32, whole-prompt admission: kernel plan tokens equal to
               the eager plan's, launches exactly ``zamba_launches``; the
               accuracy gate of every quant mode;
-   gemma_serve, gemma_spec_serve — gemma3-4b at full width and depth,
+   gemma_serve, gemma_spec_serve — gemma3-4b at full width cut to 12
+              of its 34 layers (``GEMMA_SERVE_LAYERS``: two periods),
               bfloat16, weights jittered, max_len 4096: 8 prompts of
               3000, 2100, 1500, 1100, 1025, 1024, 600 and 37 tokens, 32
               new tokens each, chunked with the prefix cache and
@@ -224,6 +236,12 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               a shared 1200-token prefix equal to the plain engine; each
               burst launching exactly ``gemma_launches``, the solo request
               repeating its burst;
+   hubert_encode — hubert-xlarge at full width and depth (48 layers),
+              bfloat16, weights jittered: ``forward_hidden`` over 8 clips
+              of 1000 frames under ``torch.no_grad``, twice, each launching
+              exactly K5 144, K6 48 and K7 48 times, the second bit-equal
+              to the first, the hidden states finite; frames/s, then a
+              profiled encode (device ms by stage, idle share);
    zamba_serve, zamba_quant_serve — zamba2-2.7b at full width and
               depth, bfloat16, the mixed burst with whole-prompt admission,
               plain and under w8_kv8: every request completes, the solo
@@ -259,13 +277,16 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               layers (B = 2, S = 2048, lr 3e-5) for 3 steps, no
               checkpoint; qwen3-0.6b and qwen2-vl-2b (on the pipeline's
               patch embeddings and M-RoPE positions) at full width and
-              depth likewise.  Losses finite and falling,
+              depth likewise; hubert-xlarge at full width and depth on
+              the pipeline's frame embeddings, weights jittered (lr
+              1e-4), with a checkpoint at step 2 and a trainer resuming
+              there to replay step 3.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
-              (serving, training or compile) that runs it, with its check
-              results and that path's own launch count (a compile group:
-              its streams' times and bounds summed).
+              (serving, encode, training or compile) that runs it, with
+              its check results and that path's own launch count (a
+              compile group: its streams' times and bounds summed).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -553,6 +574,27 @@ def gemma_launches(layers: int, prefills: int, steps: int, *, whole=False,
     return out
 
 
+# hubert-xlarge, the encoder (no decode, no serving engine): gpt2's plan
+# stage for stage, its attention non-causal through the static flash
+# kernel (K7) at head dim 80, 16 over 16 heads.  The encode is
+# ``forward_hidden`` over 8 clips of 1000 frames (20 s of audio each at
+# the 50 frames a second of the stubbed feature extractor) in inference:
+# q, k and v through block_matmul, the MLP through streamed_mlp and the
+# attention through K7 once per layer, the LayerNorms and the
+# o-projection PyTorch ops (the training path's routing, as the
+# reference's ``forward_hidden``).
+HUBERT = "hubert-xlarge"
+HUBERT_CLIPS, HUBERT_FRAMES = 8, 1000
+HUBERT_PATH = {"block_matmul": 3, "streamed_mlp": 1,
+               "flash_attention_static": 1}
+HUBERT_LR = 1e-4          # the training phase's AdamW rate
+
+
+def hubert_launches(layers: int) -> dict:
+    """Every kernel's exact launches in one encode of ``layers`` layers."""
+    return {k: n * layers for k, n in HUBERT_PATH.items()}
+
+
 # llama3-8b and granite-moe-3b serve at full width cut to 8 of their 32
 # layers: at full depth their eight bursts took 250 s, and the script has
 # to stay well inside its time limit with every model's phases (929 s
@@ -565,6 +607,10 @@ RWKV_TRAIN_LAYERS = 2
 # s of a 794 s run, and beside gemma3-4b's full-depth bursts, with the
 # Qwen bursts at 8 layers, the script took 1081 s.
 QWEN_SERVE_LAYERS = 4
+# gemma3-4b serves at 12 of its 34 layers (two periods of five local
+# layers and a global one): with hubert-xlarge's phases the script took
+# 959 s with gemma3's bursts at full depth (104 s of them).
+GEMMA_SERVE_LAYERS = 12
 
 
 # The training path on the kernel plan: each layer's forward launches, the
@@ -583,16 +629,18 @@ TRAIN_LAYER_LAUNCHES = {
 TRAIN_LAYER_LAUNCHES[GRANITE] = TRAIN_LAYER_LAUNCHES[GRANITE_TRAIN]
 TRAIN_LAYER_LAUNCHES[QWEN3] = TRAIN_LAYER_LAUNCHES["llama3-8b"]
 TRAIN_LAYER_LAUNCHES[QWEN2VL] = TRAIN_LAYER_LAUNCHES["llama3-8b"]
+TRAIN_LAYER_LAUNCHES[HUBERT] = TRAIN_LAYER_LAUNCHES["gpt2"]
 # zamba2: per shared-block application (K13 per layer apart).
 TRAIN_LAYER_LAUNCHES[ZAMBA] = {"rmsnorm_matmul": 3,
                                        "streamed_ffn": 1,
                                        "flash_attention_static": 1}
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
-# llama3-8b, granite-moe-1b-a400m, zamba2-2.7b, rwkv6-7b, qwen3-0.6b and
-# qwen2-vl-2b at 2 x 2048.
+# llama3-8b, granite-moe-1b-a400m, zamba2-2.7b, rwkv6-7b, qwen3-0.6b,
+# qwen2-vl-2b and hubert-xlarge (frames) at 2 x 2048.
 TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
                 GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048),
-                RWKV: (2, 2048), QWEN3: (2, 2048), QWEN2VL: (2, 2048)}
+                RWKV: (2, 2048), QWEN3: (2, 2048), QWEN2VL: (2, 2048),
+                HUBERT: (2, 2048)}
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -700,23 +748,31 @@ def _encode(torch, x, code, page_axis):
 
 
 def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
-                q_off, dev, code=None, scale=None, window=0):
+                q_off, dev, code=None, scale=None, window=0, causal=True,
+                kv_len=None):
     """A causal flash call and its SDPA yardstick: the offset branch over a
     gathered extent (``q_off`` set, kv_len = q_off + sq), or the static
-    branch over a whole prompt (``q_off`` None, sq == skv); with ``code``
+    branch over a whole prompt (``q_off`` None, sq == skv, kv_len
+    ``kv_len`` or skv); with ``code``
     the offset branch over int8 / fp8 codes with per-position scales (its
     library yardstick: SDPA with the offset mask on K/V dequantized
     outside the timing, as K10a's is ``torch.matmul`` on dequantized W).
     ``scale``: the softmax scale (None: 1 / sqrt(D)); ``window`` > 0: a
     sliding window (SDPA with the window in its mask; the bytes count the
-    keys some query sees)."""
-    kv_len = skv if q_off is None else q_off + sq
+    keys some query sees); ``causal`` False: the static branch's
+    non-causal attention (hubert's encoder; SDPA without the causal mask,
+    with the kv_len mask where kv_len < skv)."""
+    if q_off is not None:
+        kv_len = q_off + sq
+    elif kv_len is None:
+        kv_len = skv
     q = randn(hq, sq, hd)
     k = randn(hkv, skv, hd)
     v = randn(hkv, skv, hd)
     qpos = (q_off or 0) + torch.arange(sq, device=dev)[:, None]
     kpos = torch.arange(skv, device=dev)[None, :]
-    mask = (kpos <= qpos) & (kpos < kv_len)
+    mask = ((kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)) \
+        & (kpos < kv_len)
     kv_first = 0
     if window:
         mask &= kpos > qpos - window
@@ -741,19 +797,26 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len},codes={code}")
     elif q_off is None:
-        kernel = lambda: K.flash_attention_2d(q, k, v, kv_group=g,
-                                              scale=scale, window=window)
+        kernel = lambda: K.flash_attention_2d(q, k, v, kv_len=kv_len,
+                                              kv_group=g, scale=scale,
+                                              window=window, causal=causal)
         plain = lambda: ref.flash_attention_static(q, k, v, kv_len=kv_len,
                                                    kv_group=g, scale=scale,
-                                                   window=window)
-        if window:
+                                                   window=window,
+                                                   causal=causal)
+        if window or kv_len < skv:
             library = lambda: sdpa(q[None], k[None], v[None],
                                    attn_mask=mask, enable_gqa=True,
                                    scale=scale)
         else:
-            library = lambda: sdpa(q[None], k[None], v[None], is_causal=True,
-                                   enable_gqa=True, scale=scale)
+            library = lambda: sdpa(q[None], k[None], v[None],
+                                   is_causal=causal, enable_gqa=True,
+                                   scale=scale)
         shape = f"Hq={hq},Hkv={hkv},D={hd},S={sq}"
+        if kv_len < skv:
+            shape += f",kv_len={kv_len}"
+        if not causal:
+            shape += ",non-causal"
     else:
         kernel = lambda: K.flash_attention_2d(q, k, v, q_offset=q_off,
                                               kv_len=kv_len, kv_group=g,
@@ -1921,6 +1984,50 @@ def check_gemma_rows(torch, timer, dev="cuda"):
     return out
 
 
+def hubert_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """hubert-xlarge's kernel calls at its widths (``kernel_cases``'
+    fields), at the encode's 8 clips x 1000 frames (path ``encode``) and
+    a training step's 2 x 2048 (``train``): the q/k/v projection (K5,
+    [T, 1280] @ [1280, 1280]), the MLP (K6, D 1280, F 5120) and the
+    non-causal attention (K7, 16 over 16 heads of 80 a clip, the clips
+    folded into the heads, as ``ops.flash_attention`` flattens them); the
+    training step's loss (K11, Vp 512 over the 504-entry codebook)."""
+    from repro_torch.configs import get_config
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    gelu = torch.nn.functional.gelu
+    cfg = get_config(HUBERT)
+    d, f, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim_
+    cases = []
+    for (b, sl), path in (((HUBERT_CLIPS, HUBERT_FRAMES), "encode"),
+                          (TRAIN_SHAPES[HUBERT], "train")):
+        t = b * sl
+        x = randn(t, d)
+        w = randn(d, d, scale=1 / math.sqrt(d))
+        cases.append(dict(
+            name="block_matmul", shape=f"qkv M={t},K={d},N={d}", path=path,
+            kernel=lambda x=x, w=w: K.block_matmul(x, w),
+            plain=lambda x=x, w=w: ref.block_matmul(x, w),
+            library=lambda x=x, w=w: torch.matmul(x, w), cublas=None,
+            nbytes=(2 * t * d + d * d) * isz, flops=2 * t * d * d))
+        wu = randn(d, f, scale=1 / math.sqrt(d))
+        wd = randn(f, d, scale=1 / math.sqrt(f))
+        cases.append(dict(
+            name="streamed_mlp", shape=f"T={t},D={d},F={f}", path=path,
+            kernel=lambda x=x, a=wu, c=wd: K.streamed_mlp(x, a, c),
+            plain=lambda x=x, a=wu, c=wd: ref.streamed_mlp(x, a, c),
+            library=None,
+            cublas=lambda x=x, a=wu, c=wd: torch.matmul(
+                gelu(x @ a, approximate="tanh"), c),
+            nbytes=(2 * t * d + 2 * d * f) * isz, flops=4 * t * d * f))
+        cases.append(dict(_flash_case(
+            torch, K, ref, randn, isz, "flash_attention_static", b * h,
+            b * h, hd, sl, sl, None, dev, causal=False), path=path))
+    cases.append(_xent_case(torch, K, ref, randn, gen, isz, HUBERT, d,
+                            cfg.vocab_size, dev))
+    return [dict(c, model=HUBERT) for c in cases]
+
+
 def _flat(torch, out):
     """A kernel's output, its parts concatenated when it has several
     (streamed_xent: lse and gold)."""
@@ -2277,6 +2384,10 @@ def check_paged_split(torch, timer, dev="cuda"):
 TC_FLASH_S = (1, 37, 63, 64, 65, 999, 1000, 2048)
 TC_FLASH_D = (64, 80, 128)
 TC_FLASH_GROUPS = (1, 3, 4)
+# Non-causal K7 with keys past kv_len: (head dim, GQA group, S, kv_len);
+# kv_len 0 gives zero rows.
+TC_NONCAUSAL_KV_LEN = ((80, 1, 1000, 937), (64, 4, 65, 1),
+                       (128, 3, 2048, 1500), (80, 1, 37, 0))
 TC_MATMUL_M = (1, 4, 16, 17, 64, 65, 128, 992, 8192)
 # gpt2's projections and LM head, llama3's o-projection, granite-3b's
 # router and o-projection, zamba2's o-projection, rwkv6's LM head; an
@@ -2845,6 +2956,16 @@ def check_tensorcore(torch, timer):
                 rows.append(_tc_row(torch, timer, _flash_case(
                     torch, K, ref, randn, 2, "flash_attention_static",
                     2 * g, 2, d, s, s, None, "cuda")))
+    # K7 non-causal (hubert's encoder, MHA), and with keys past kv_len.
+    for s in TC_FLASH_S:
+        for d in TC_FLASH_D:
+            rows.append(_tc_row(torch, timer, _flash_case(
+                torch, K, ref, randn, 2, "flash_attention_static", 2, 2, d,
+                s, s, None, "cuda", causal=False)))
+    for d, g, s, kv_len in TC_NONCAUSAL_KV_LEN:
+        rows.append(_tc_row(torch, timer, _flash_case(
+            torch, K, ref, randn, 2, "flash_attention_static", 2 * g, 2, d,
+            s, s, None, "cuda", causal=False, kv_len=kv_len)))
     for q_off in TC_OFFSET_Q:
         for sq in TC_OFFSET_ROWS:
             for d in TC_OFFSET_D:
@@ -3702,18 +3823,19 @@ def gemma_fused_vs_eager(torch, device="cuda"):
 
 
 def gemma_serve(torch, device="cuda"):
-    """gemma3-4b at full width and depth, bfloat16, kernel plan, weights
-    drawn on the card (seed 2) and jittered: ``GEMMA_BURST`` (8 prompts of
-    37..3000 tokens, 32 new tokens each, 4 slots, max_len 4096) chunked
-    with the prefix cache and whole-prompt (with its profile; the chunked
-    burst's 85 chunks and 208 decode steps took 95 s under the profiler
-    on an H100),
+    """gemma3-4b at full width cut to ``GEMMA_SERVE_LAYERS``, bfloat16,
+    kernel plan, weights drawn on the card (seed 2) and jittered:
+    ``GEMMA_BURST`` (8 prompts of 37..3000 tokens, 32 new tokens each, 4
+    slots, max_len 4096) chunked with the prefix cache and whole-prompt
+    (with its profile; at full depth the chunked burst's 85 chunks and
+    208 decode steps took 95 s under the profiler on an H100),
     then the speculative burst over a shared 1200-token prefix against the
     plain engine (``spec_serve``, exact).  Each burst must launch exactly
     ``gemma_launches`` for its prefill dispatches, decode steps and verify
     dispatches; a prompt served alone repeats its burst tokens."""
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(GEMMA), use_fused_kernels=True)
+    cfg = dataclasses.replace(get_config(GEMMA), use_fused_kernels=True,
+                              num_layers=GEMMA_SERVE_LAYERS)
     layers = cfg.num_layers
     t0 = time.perf_counter()
     params = _weights(torch, cfg, 2, jitter=True, device=device)
@@ -3744,6 +3866,130 @@ def gemma_serve(torch, device="cuda"):
     del params
     _free(torch, device)
     return out
+
+
+def _hubert_frames(torch, cfg, b, s, seed, device="cuda"):
+    """Frame embeddings [b, s, D] in float32 drawn on the device from
+    ``seed``, at the token pipeline's scale (0.1 x standard normal): what
+    the reference's stubbed feature extractor hands the encoder."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return 0.1 * torch.randn(b, s, cfg.d_model, generator=gen,
+                             device=device)
+
+
+def hubert_fused_vs_eager(torch, device="cuda"):
+    """hubert-xlarge at full width cut to 4 layers, float32, weights
+    jittered (the LayerNorm scales start at zero): ``forward_hidden`` over
+    2 clips of 1000 frames on the kernel plan equals the eager plan's at
+    relative 1e-4 (max |d| over max |eager|) with exactly the encode's
+    launches; then ``train_fused_vs_eager`` on the pipeline's frame
+    batches: the loss (1e-5), every gradient leaf (1e-4) and 3 AdamW
+    steps (1e-4)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_hidden
+    cfg = dataclasses.replace(get_config(HUBERT), num_layers=4,
+                              dtype="float32")
+    params = _weights(torch, cfg, 1, jitter=True, device=device)
+    frames = _hubert_frames(torch, cfg, 2, HUBERT_FRAMES, 5, device)
+    expect = hubert_launches(cfg.num_layers)
+    hidden = {}
+    with torch.no_grad():
+        for fused in (True, False):
+            K.reset_launches()
+            hidden[fused] = forward_hidden(
+                params, dataclasses.replace(cfg, use_fused_kernels=fused),
+                {"embeds": frames}, remat=False)
+            _sync(torch, device)
+            if fused:
+                counts, bad = _train_counts(torch, K, expect)
+    row = {"phase": "hubert_fused_vs_eager", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "clips": 2,
+           "frames": HUBERT_FRAMES,
+           "hidden_rel": _rel(hidden[True], hidden[False]),
+           "hidden_max_abs": hidden[False].abs().max().item(),
+           "launches": counts, "launches_expected": expect}
+    emit(row)
+    del params, hidden
+    _free(torch, device)
+    if not row["hidden_rel"] <= 1e-4 or bad:
+        raise AssertionError(f"hubert_fused_vs_eager: hidden rel "
+                             f"{row['hidden_rel']}, launches off {bad}")
+    row["train"] = train_fused_vs_eager(torch, cfg, HUBERT, jitter=True,
+                                        device=device)
+    return row
+
+
+def hubert_encode(torch, device="cuda"):
+    """hubert-xlarge at full width and depth (48 layers), bfloat16, kernel
+    plan, weights drawn on the card (seed 2) and jittered: ``forward_hidden``
+    over ``HUBERT_CLIPS`` clips of ``HUBERT_FRAMES`` frames under
+    ``torch.no_grad``, twice: each call launching exactly
+    ``hubert_launches``, the second bit-equal to the first (required), the
+    hidden states finite; frames/s from the second call's wall; a third
+    call under ``torch.profiler`` (device ms by stage, idle share against
+    its own wall); for scale, the eager plan's hidden states in
+    bf16 on the same frames (relative difference reported: the two plans
+    sum in other orders over 48 layers)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_hidden
+    cfg = dataclasses.replace(get_config(HUBERT), use_fused_kernels=True)
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=True, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    batch = {"embeds": _hubert_frames(torch, cfg, HUBERT_CLIPS,
+                                      HUBERT_FRAMES, 3, device)}
+    expect = hubert_launches(cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    outs, walls, bad = [], [], {}
+    with torch.no_grad():
+        def encode(c=cfg):
+            return forward_hidden(params, c, batch, remat=False)
+        for _ in range(2):
+            K.reset_launches()
+            t1 = time.perf_counter()
+            outs.append(encode())
+            _sync(torch, device)
+            walls.append(time.perf_counter() - t1)
+            counts, off = _train_counts(torch, K, expect)
+            bad.update(off)
+        prof = profile_device(torch, encode)
+        eager = encode(dataclasses.replace(cfg, use_fused_kernels=False))
+    frames = HUBERT_CLIPS * HUBERT_FRAMES
+    if prof is not None:
+        # Against the profiled call's own wall: the kernels' summed device
+        # time exceeds an unprofiled encode's wall (the device never
+        # waits on the host here).
+        prof["idle_share"] = 1 - prof["busy_ms"] / prof["profiled_wall_ms"]
+    row = {"phase": "hubert_encode", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "clips": HUBERT_CLIPS, "frames_per_clip": HUBERT_FRAMES,
+           "init_s": init_s, "wall_s": walls,
+           "frames_per_s": frames / walls[1],
+           "shape": list(outs[0].shape),
+           "finite": bool(torch.isfinite(outs[0]).all()),
+           "repeat_bit_equal": bool(torch.equal(outs[0], outs[1])),
+           "eager_rel": _rel(outs[0].float(), eager.float()),
+           "device_mem_peak": torch.cuda.max_memory_allocated(),
+           "launches": counts, "launches_expected": expect,
+           "profile": prof}
+    emit(row)
+    del params, outs, eager
+    _free(torch, device)
+    problems = []
+    if row["shape"] != [HUBERT_CLIPS, HUBERT_FRAMES, cfg.d_model]:
+        problems.append(f"shape {row['shape']}")
+    if not row["finite"]:
+        problems.append("hidden states not finite")
+    if not row["repeat_bit_equal"]:
+        problems.append("a second encode differs")
+    if bad:
+        problems.append(f"launches off the path's: {bad}")
+    if problems:
+        raise AssertionError("hubert_encode: " + "; ".join(problems))
+    return row
 
 
 # --------------------------------------------------------------------- #
@@ -3935,7 +4181,7 @@ def profile_device(torch, fn):
 
 
 def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
-          device="cuda"):
+          device="cuda", jitter=False):
     """``cfg``: full width (gpt2 also full depth), bfloat16 compute, kernel
     plan, through ``Trainer.run()``: float32 master weights and AdamW
     state drawn by the trainer (seed 0), token-pipeline batches of
@@ -3945,7 +4191,10 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
     steps after it; its losses must equal the first run's at relative
     1e-3 (bit equality is reported: the embedding's backward accumulates
     with atomics).  Every loss must be finite and the last below the
-    first; the launches must be ``steps`` times the plan's per step."""
+    first; the launches must be ``steps`` times the plan's per step.
+    ``jitter``: the trainer's fresh weights jittered before the first
+    step (a LayerNorm stack's zero scales would zero every hidden
+    state)."""
     import shutil
     from repro_torch import kernels as K
     from repro_torch.configs.base import ShapeConfig
@@ -3964,6 +4213,11 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, shape, TrainerConfig(checkpoint_dir=first, **tcfg),
                  opt, device=device)
+    if jitter:
+        from repro_torch.serving.accuracy import jitter_params
+        tr.init()
+        tr.params = jitter_params(
+            tr.params, torch.Generator(device=device).manual_seed(12))
     K.reset_launches()
     t0 = time.perf_counter()
     tr.run()
@@ -4047,7 +4301,7 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
 # the serving bursts' longest prompt, whose largest stream (ln2 -> the
 # gate projection) is 3.67e9 elements, 7.34 GB in bf16: past INT32_MAX,
 # so it exercises the kernel's 64-bit offsets.
-COMPILE_MODELS = ("llama3-8b", "gpt2", GRANITE, ZAMBA, RWKV)
+COMPILE_MODELS = ("llama3-8b", "gpt2", GRANITE, ZAMBA, RWKV, HUBERT)
 COMPILE_TOKENS = 128
 COMPILE_LONG = ("llama3-8b", 1000)
 # Tokens of each stream held against direct slicing, besides the first
@@ -4315,6 +4569,9 @@ def main(argv=None) -> int:
         torch, timer, (gemma_kernel_cases,), phase="gemma_kernel_cases")
     rows = rows + results["gemma_kernel_cases"]
     results["gemma_rows"] = check_gemma_rows(torch, timer)
+    results["hubert_kernel_cases"] = check_kernels(
+        torch, timer, (hubert_kernel_cases,), phase="hubert_kernel_cases")
+    rows = rows + results["hubert_kernel_cases"]
     results["row_invariance"] = check_row_invariance(torch)
     results["paged_split"] = check_paged_split(torch, timer)
     results["tensorcore"] = check_tensorcore(torch, timer)
@@ -4361,6 +4618,7 @@ def main(argv=None) -> int:
     results["qwen_fused_vs_eager"] = {m: qwen_fused_vs_eager(torch, m)
                                       for m in QWEN}
     results["gemma_fused_vs_eager"] = gemma_fused_vs_eager(torch)
+    results["hubert_fused_vs_eager"] = hubert_fused_vs_eager(torch)
     results["full_depth"] = {
         m: full_depth(torch, dataclasses.replace(
             c, use_fused_kernels=True,
@@ -4377,6 +4635,7 @@ def main(argv=None) -> int:
         launches=lambda p, s, quant: rwkv_launches(p, s))
     results["qwen_serve"] = {m: qwen_serve(torch, m) for m in QWEN}
     results["gemma_serve"] = gemma_serve(torch)
+    results["hubert_encode"] = hubert_encode(torch)
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
@@ -4423,6 +4682,14 @@ def main(argv=None) -> int:
                  "Qwen checkpoints to the reference)"
                  + ("; the pipeline's patch embeddings and M-RoPE "
                     "positions" if m == QWEN2VL else ""))
+    results["train"][HUBERT] = train(
+        torch, dataclasses.replace(get_config(HUBERT),
+                                   use_fused_kernels=True),
+        HUBERT, steps=3, ckpt_every=2, replay_from=2, lr=HUBERT_LR,
+        jitter=True,
+        note="full width and depth (48 layers) on the pipeline's frame "
+             "embeddings, weights jittered; a checkpoint at step 2 and a "
+             "trainer resuming there to replay step 3")
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -4436,6 +4703,7 @@ def main(argv=None) -> int:
                           ("quant_spec_serve", "quant_speculative")):
             if key in fd:
                 paths.append((m, path, fd[key]["launches"]))
+    paths.append((HUBERT, "encode", results["hubert_encode"]["launches"]))
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))

@@ -143,8 +143,9 @@ _DENSE_RMSNORM_GLU = LayerPlan(
 
 # ... and for the dense LayerNorm / MHA / GELU-MLP / learned-position
 # family (gpt2 and gpt2 reduced, same token counts; kv_len in {256, 1024,
-# 2048}): the norms stay eager, so the projections and the MLP run the
-# plain tiled kernels.
+# 2048}; the same for hubert-xlarge's non-causal encoder, full and reduced,
+# tokens 128 to 4096): the norms stay eager, so the projections and the
+# MLP run the plain tiled kernels.
 _DENSE_LAYERNORM_MLP = LayerPlan(
     kind="attn",
     qkv=KernelChoice("block_matmul", (("block_t", 128), ("block_n", 128))),
@@ -214,8 +215,13 @@ def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
                 and cfg.activation == "gelu" and not cfg.is_moe):
             return {"mamba": _MAMBA, "mamba+shared_attn": _MAMBA_SHARED_ATTN}
         return None
-    # Not yet: hubert's non-causal encoder.
     if cfg.encoder_only or not cfg.causal:
+        # hubert: a non-causal LayerNorm/MLP encoder takes gpt2's plan
+        # (attention through the static flash kernel, non-causal).
+        if (kinds == {"attn"} and cfg.norm == "layernorm"
+                and not cfg.gated_ffn and cfg.rope == "none"
+                and not cfg.is_moe):
+            return {"attn": _DENSE_LAYERNORM_MLP}
         return None
     if kinds == {"local_attn", "global_attn"}:
         # gemma3: both kinds take the dense plan (the window rides on each
@@ -260,8 +266,8 @@ def plan_for(cfg: ModelConfig, tokens: int,
             "RMSNorm/GQA/SwiGLU with RoPE or M-RoPE (with or without the "
             "QKV bias and qk-norm; its MoE variant; and its interleaved "
             "local/global sliding-window variant), LayerNorm/"
-            "MHA/GELU-MLP/learned-position, Mamba2-hybrid and RWKV6 "
-            "stacks are ported")
+            "MHA/GELU-MLP/learned-position (causal, or its non-causal "
+            "encoder), Mamba2-hybrid and RWKV6 stacks are ported")
     if cfg.weight_quant:           # K12, K13 and K14 have no w8 twin
         family = {k: _with_w8(lp) for k, lp in family.items()}
     return StreamPlan(arch=cfg.name, tokens=int(tokens),

@@ -2,17 +2,21 @@
 //   offset in float32 (chunked prefill): query row i of a chunk sits at
 //     absolute position q_offset + i and attends causally to the first
 //     kv_len cached positions;
-//   static in float32 (whole-prompt prefill): query row i sits at position
-//     i, kv_len is fixed by the caller (the prompt length);
+//   static in float32 (whole-prompt prefill, the training forward, the
+//     encoder): query row i sits at position i, kv_len is fixed by the
+//     caller (the prompt length); non-causal without a window (hubert's
+//     encoder; `causal` 0 at the entry point): every key below kv_len,
+//     launched with every query at position skv, past the last key;
 //   offset over codes in float32 (chunked prefill from quantized pools,
 //     K9c): K/V are int8 or fp8-e4m3 codes with one float32 scale per
 //     position [Hkv_, Skv] (each position carries its page's scale).
 // Every branch in bfloat16 runs on the tensor cores (flash_mma.cu).
 //   q [Hq_, Sq, D], k/v [Hkv_, Skv, D], query head h reads KV head
 //   h / kv_group -> out [Hq_, Sq, D].
-// Only what the main paths run is built here: causal, with or without a
-// sliding window (window > 0: a key is live above the query's position -
-// window, gemma3's local layers; none over codes), D in {64, 128, 320}
+// Only what the main paths run is built here: causal (the static branch
+// also non-causal, as above), with or without a sliding window (window >
+// 0: a key is live above the query's position - window, gemma3's local
+// layers; none over codes or non-causal), D in {64, 128, 320}
 // and, for the static branch only, 80 (zamba2's shared block); the wrapper
 // refuses the rest on the card.  Each lane holds output dims lane + 32 i;
 // at D = 80 the last of its three is live on lanes 0..15 only.  The tiles
@@ -221,13 +225,16 @@ extern "C" int repro_flash_offset_f32(const void* q, const void* k,
                        kv_len, window, scale, stream);
 }
 
+// causal 0: non-causal, without a window (every query at position skv
+// sees every key below kv_len).
 extern "C" int repro_flash_static_f32(const void* q, const void* k,
                                       const void* v, void* out, int hq,
                                       int sq, int skv, int d, int kv_group,
-                                      int kv_len, int window, float scale,
-                                      void* stream) {
-  return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len,
-                       window, scale, stream);
+                                      int kv_len, int window, int causal,
+                                      float scale, void* stream) {
+  if (!causal && window) return (int)cudaErrorInvalidValue;
+  return launch<float>(q, k, v, out, hq, sq, skv, d, kv_group,
+                       causal ? 0 : skv, kv_len, window, scale, stream);
 }
 
 // The offset branch over codes C with per-position scales [Hkv_, Skv].

@@ -7,8 +7,13 @@
 //   causally to the keys below kv_len and, with a sliding window (window
 //   > 0, gemma3's local layers), above its position - window -> out
 //   [Hq_, Sq, D] bf16.
-//   static (whole-prompt prefill, the training forward): q_offset = 0,
-//     D in {64, 80, 128, 320};
+//   static (whole-prompt prefill, the training forward, the encoder):
+//     q_offset = 0, D in {64, 80, 128, 320}; also non-causal without a
+//     window (hubert's encoder; `causal` 0 at the entry point): every
+//     key below kv_len, launched as the causal walk with every query at
+//     position skv, past the last key, so that no warp skips a tile and
+//     only the tile crossing kv_len is masked (the masks and skips below
+//     are unchanged, and so is the causal case's code);
 //   offset (chunked prefill over the gathered cache): any q_offset, D in
 //     {64, 128, 320};
 //   offset over codes (chunked prefill from quantized pools): as offset
@@ -597,15 +602,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int hq,
 }  // namespace
 
 // q, k, v and out 16-byte aligned (the wrapper sees to it); window 0 for
-// none.
+// none; causal 0: non-causal, without a window (every query at position
+// skv sees every key below kv_len).
 extern "C" int repro_flash_static_mma_bf16(const void* q, const void* k,
                                            const void* v, void* out, int hq,
                                            int sq, int skv, int d,
                                            int kv_group, int kv_len,
-                                           int window, float scale,
-                                           void* stream) {
-  return launch(q, k, v, out, hq, sq, skv, d, kv_group, 0, kv_len, window,
-                scale, stream);
+                                           int window, int causal,
+                                           float scale, void* stream) {
+  if (!causal && window) return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, out, hq, sq, skv, d, kv_group, causal ? 0 : skv,
+                kv_len, window, scale, stream);
 }
 
 // The offset branch (K2): query row i at position q_offset + i.

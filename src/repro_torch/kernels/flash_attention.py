@@ -17,10 +17,10 @@ codes converted to bf16 in shared memory); in float32 every branch runs
 the CUDA-core kernel of ``csrc/flash_attention.cu``.  The CUDA kernels cover
 what the main paths run: causal attention with or without a sliding
 window (gemma3's local layers) at head dim 64, 128 or 320 (gemma3), and
-for the static branch also 80 for zamba2's shared block; over codes
-(K9c) no window, head dim 64 or 128.  On the card the rest is refused
-until a slice whose config needs it adds it.  The plain versions cover it
-all.
+for the static branch also 80 for zamba2's shared block and non-causal
+attention without a window (hubert's encoder); over codes (K9c) causal,
+no window, head dim 64 or 128.  On the card the rest is refused until a
+slice whose config needs it adds it.  The plain versions cover it all.
 """
 
 from __future__ import annotations
@@ -47,9 +47,10 @@ def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     "fp8").  bf16 is the tensor-core kernel of ``csrc/flash_mma.cu``,
     float32 the CUDA-core device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    # (hq, sq, skv, d, kv_group[, q_offset], kv_len[, window]): the
-    # full-precision branches take the sliding window, K9c none.
-    ints = [i] * ((6 if branch == "static" else 7) + (branch != "offset_q"))
+    # (hq, sq, skv, d, kv_group[, q_offset], kv_len[, window][, causal]):
+    # the full-precision branches take the sliding window, K9c none; the
+    # static branch alone takes causal (0: non-causal).
+    ints = [i] * {"static": 8, "offset": 8, "offset_q": 7}[branch]
     ptrs = 6 if branch == "offset_q" else 4
     suffix = f"_{code}" if code else ""
     if dtype == torch.bfloat16:
@@ -71,21 +72,26 @@ def _check(name: str, q, k, v, kv_group: int) -> None:
 
 def _check_cuda(name: str, q, k, v, causal: bool, window: int,
                 code: Optional[torch.dtype] = None, scales=(),
-                head_dims=HEAD_DIMS) -> None:
+                head_dims=HEAD_DIMS, non_causal: bool = False) -> None:
     """``code``: the K/V dtype, q's unless K/V hold codes (with their
     ``scales``: no window); ``head_dims``: the ones this entry point
-    takes."""
+    takes; ``non_causal``: it also takes non-causal attention without a
+    window (the static branch)."""
     check_cuda_operands(name, q.dtype, q, k, v, *scales)
     code = q.dtype if code is None else code
     if k.dtype != code or v.dtype != code:
         raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
                         f"{v.dtype}")
     d = q.shape[-1]
-    if d not in head_dims or not causal or window < 0 or (scales and window):
+    if (d not in head_dims or window < 0 or (scales and window)
+            or (not causal and (not non_causal or window))):
         raise ValueError(f"{name}: the CUDA kernel runs causal attention "
                          + ("without" if scales else "with or without")
-                         + f" a window at head dims {head_dims}; got head "
-                         f"dim {d}, causal {causal}, window {window}")
+                         + " a window"
+                         + (", or non-causal attention without one,"
+                            if non_causal else "")
+                         + f" at head dims {head_dims}; got head dim {d}, "
+                         f"causal {causal}, window {window}")
 
 
 def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,14 +156,14 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
             q, k, v, kv_len=kv_len, kv_group=kv_group, scale=scale,
             causal=causal, window=window, block_kv=block_kv)
     _check_cuda("flash_attention_static", q, k, v, causal, window,
-                head_dims=STATIC_HEAD_DIMS)
+                head_dims=STATIC_HEAD_DIMS, non_causal=True)
     if q.dtype == torch.bfloat16:
         q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = _entry("static", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, sq, skv,
-        d, kv_group, kv_len, int(window), float(scale), stream)
+        d, kv_group, kv_len, int(window), int(causal), float(scale), stream)
     check_launch("flash_attention_static", status)
     flash_attention_static.launches += 1
     return out

@@ -183,7 +183,11 @@ POS_EMBED_ROWS = 32_768      # learned-position table (``params.py:194``)
 def model_defs(cfg: ModelConfig) -> Dict[str, Tree]:
     vp = padded_vocab(cfg.vocab_size)
     d = cfg.d_model
-    defs = {"embed": ParamDef((vp, d), "normal", fan_in=d)}
+    defs = {}
+    # An encoder with a modality frontend (hubert's frames) never embeds
+    # tokens, so it has no ``embed`` (``params.py:190``).
+    if cfg.frontend == "none" or not cfg.encoder_only:
+        defs["embed"] = ParamDef((vp, d), "normal", fan_in=d)
     if cfg.rope == "none" and not cfg.rwkv:
         defs["pos_embed"] = ParamDef((POS_EMBED_ROWS, d), "normal", fan_in=d)
     defs["layers"] = [block_defs(cfg, cfg.layer_kind(i))
@@ -283,9 +287,8 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig,
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.num_layers}")
-    out = {"embed": to_t(tree["embed"])}
-    if "pos_embed" in tree:
-        out["pos_embed"] = to_t(tree["pos_embed"])
+    out = {name: to_t(tree[name]) for name in ("embed", "pos_embed")
+           if name in tree}
     out["layers"] = layers
     if "shared" in tree:
         out["shared"] = map_tree(to_t, tree["shared"])
@@ -315,15 +318,16 @@ def params_to_numpy(params: Tree, cfg: ModelConfig) -> Tree:
         t = t.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        # A copy also of a CPU tensor: a checkpoint's snapshot must not
+        # follow the weights the next step updates in place.
+        return t.to("cpu", copy=True).numpy()
 
     layers = [map_tree(to_np, lp) for lp in params["layers"]]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.num_layers}")
-    out = {"embed": to_np(params["embed"])}
-    if "pos_embed" in params:
-        out["pos_embed"] = to_np(params["pos_embed"])
+    out = {name: to_np(params[name]) for name in ("embed", "pos_embed")
+           if name in params}
     out.update({
         "blocks": tuple(_stack(layers[p:groups * period:period])
                         for p in range(period)) if groups else (),

@@ -11,7 +11,11 @@ both directions:
   ``step-N``, so a crash mid-save never corrupts the latest checkpoint;
   the newest ``keep`` checkpoints are retained;
 * ``AsyncCheckpointer`` snapshots the tensors to host memory on the
-  caller's thread and writes them from a background thread.
+  caller's thread and writes them from a background thread, one array
+  after another (the training steps run beside it);
+* a restore, which nothing runs beside, loads and hashes ``IO_THREADS``
+  arrays at a time: numpy's file reads and ``hashlib`` release the GIL on
+  large buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -36,6 +41,7 @@ from ..models.params import model_defs, params_from_numpy, params_to_numpy
 Tree = Any
 
 MANIFEST = "manifest.json"
+IO_THREADS = 8
 
 
 def _flatten(tree: Tree, prefix: str = "") -> List[Tuple[str, np.ndarray]]:
@@ -75,7 +81,10 @@ def _unflatten(arrays: Dict[str, np.ndarray]) -> Tree:
 
 
 def _sha256(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """sha256 of the array's bytes in C order (the reference's
+    ``tobytes()`` hash), read in place."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(flat).hexdigest()
 
 
 def host_trees(cfg: ModelConfig, params: Tree,
@@ -178,11 +187,19 @@ def restore_checkpoint(path: str | Path, cfg: ModelConfig, *,
     path = Path(path)
     dev = resolve_device(device)
     manifest = json.loads((path / MANIFEST).read_text())
-    groups: Dict[str, Dict[str, np.ndarray]] = {}
-    for key, meta in manifest["arrays"].items():
+    entries = list(manifest["arrays"].items())
+
+    def load(entry) -> np.ndarray:
+        key, meta = entry
         arr = np.load(path / meta["file"])
         if verify and _sha256(arr) != meta["sha256"]:
             raise IOError(f"checksum mismatch for {key}")
+        return arr
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        arrays = list(pool.map(load, entries))
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    for (key, _), arr in zip(entries, arrays):
         prefix, name = key.split("/", 1)
         groups.setdefault(prefix, {})[name] = arr
     trees = {k: _unflatten(v) for k, v in groups.items()}

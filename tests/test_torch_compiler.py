@@ -45,7 +45,7 @@ from repro_torch.core import trace as p_trace
 from repro_torch.runtime import simulate_dataflow
 
 ARCHS = ("llama3-8b", "gpt2", "granite-moe-1b-a400m", "granite-moe-3b-a800m",
-         "zamba2-2.7b", "rwkv6-7b")
+         "zamba2-2.7b", "rwkv6-7b", "hubert-xlarge")
 
 
 def _norm(x, ref=False):

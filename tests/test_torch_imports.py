@@ -41,6 +41,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.qwen1p5_0p5b",
             "repro_torch.configs.qwen2_vl_2b",
             "repro_torch.configs.gemma3_4b",
+            "repro_torch.configs.hubert_xlarge",
             "repro_torch.kernels.stream_converter",
             "repro_torch.runtime.simulator"} <= set(modules)
     assert {f"repro_torch.core.{m}" for m in (

@@ -311,9 +311,13 @@ def _off_path_calls():
             x, w_up, w_down, norm_scale=torch.zeros(32))),
         "static_window": ("flash_attention", lambda: K.flash_attention_2d(
             q, kv, kv, kv_group=2, window=4, causal=False)),
+        # The static branch runs non-causal attention (hubert) only
+        # without a window.
         "static_not_causal": ("flash_attention",
                               lambda: K.flash_attention_2d(
-                                  q, kv, kv, kv_group=2, causal=False)),
+                                  *(t[..., :80].contiguous()
+                                    for t in (q, kv, kv)), kv_group=2,
+                                  window=4, causal=False)),
         "static_head_dim_96": ("flash_attention",
                                lambda: K.flash_attention_2d(
                                    *(t[..., :96].contiguous()

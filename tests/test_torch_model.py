@@ -183,11 +183,13 @@ def test_plan_for_matches_reference(arch):
 
 
 def test_plan_for_refuses_unported_family():
-    """Families still unported: hubert's non-causal encoder, a gated FFN
-    under LayerNorm, an ungated MLP under RMSNorm."""
+    """Families still unported: a non-causal encoder with a gated FFN
+    (hubert's ungated one is ported), a gated FFN under LayerNorm, an
+    ungated MLP under RMSNorm."""
     llama = get_config("llama3-8b").reduced()
     gpt2 = get_config("gpt2").reduced()
-    for base, change in ((gpt2, dict(encoder_only=True, causal=False)),
+    for base, change in ((gpt2, dict(encoder_only=True, causal=False,
+                                     gated_ffn=True)),
                          (gpt2, dict(gated_ffn=True)),
                          (llama, dict(gated_ffn=False))):
         cfg = dataclasses.replace(base, use_fused_kernels=True, **change)

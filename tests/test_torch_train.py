@@ -89,12 +89,16 @@ def _wrapper_case(name, rng):
     if name == "matmul":
         args = (x, _rand(rng, d, 24, scale=0.2))
         return (args, L.fused_matmul, lambda x, w: x @ w, JL.fused_matmul)
-    if name == "attention":
+    if name.startswith("attention"):
+        # Causal, and non-causal as hubert's encoder runs it.
+        causal = name == "attention"
         q = _rand(rng, b, 16, 4, 16)
         k, v = _rand(rng, b, 16, 2, 16), _rand(rng, b, 16, 2, 16)
-        return ((q, k, v), L.fused_attention,
-                lambda q, k, v: L.streaming_attention(q, k, v, causal=True),
-                lambda q, k, v: JL.fused_attention(q, k, v, causal=True))
+        return ((q, k, v),
+                lambda q, k, v: L.fused_attention(q, k, v, causal=causal),
+                lambda q, k, v: L.streaming_attention(q, k, v,
+                                                      causal=causal),
+                lambda q, k, v: JL.fused_attention(q, k, v, causal=causal))
     gated = name.startswith("ffn")
     act = "silu" if gated else "gelu"
     names = ("wg", "wu", "wd") if gated else ("wu", "wd")
@@ -125,7 +129,8 @@ def _wrapper_case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["norm_matmul", "matmul", "ffn_norm", "ffn",
-                                  "mlp", "mlp_norm", "attention"])
+                                  "mlp", "mlp_norm", "attention",
+                                  "attention_non_causal"])
 def test_wrapper_grads_are_eager_grads_and_match_the_reference(name):
     rng = np.random.default_rng(11)
     args, port, eager, ref = _wrapper_case(name, rng)
