@@ -100,8 +100,11 @@ parent.  Phases:
              320, the 1024-token window and none), then
              ``check_gemma_rows`` (K3 and K4 rows at 1..64 rows, K2's
              chunk rows equal to K7's, the local / global K7 times);
-  gemma_fused_vs_eager, gemma_serve
-             those phases of ``chip_smoke.py`` for gemma3-4b;
+  gemma_fused_vs_eager, gemma_serve, gemma_quant_fused_vs_eager,
+  gemma_quant_serve
+             those phases of ``chip_smoke.py`` for gemma3-4b (the last two
+             its quantized serving: every quant mode at 6 layers in
+             float32, then ``w8_kv8``'s bursts);
   flash_hashes
              sha256 of the causal flash kernels' bf16 and float32 outputs
              (K7, K2, K9c over int8 and fp8) at this checkout's
@@ -123,7 +126,10 @@ parent.  Phases:
              hubert-xlarge at full width and depth: ``chip_smoke.train``'s
              3 steps, the step-2 checkpoint and the replay of step 3.
 
-The card's name and power limit (nvidia-smi) come first.  The phases of
+The card's name and power limit (nvidia-smi) come first.  ``--ptxas
+FILE`` writes nvcc's resource report (``-Xptxas -v``: registers, shared
+memory, spills per kernel) of the sources built to FILE.  A source the
+tree does not have is not built for it.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
 ``moe_probe`` take their shapes and inputs from this checkout's), so a
 phase that an older tree lacks (norm, xent) runs only on trees that have
@@ -143,7 +149,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
+SOURCES = {"k5_hashes": ["block_matmul"],
+           "ffn_hashes": ["streamed_ffn", "streamed_ffn_w8"],
            "norm": ["rmsnorm_matmul"],
            "xent": ["streamed_xent"],
            "burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
@@ -165,19 +172,21 @@ SOURCES = {"k5_hashes": ["block_matmul"], "ffn_hashes": ["streamed_ffn"],
                            "block_matmul", "row_norm", "mamba2_scan"],
            "quant_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                            "flash_attention", "paged_attention",
-                           "block_matmul"],
+                           "block_matmul", "streamed_ffn_w8"],
            "wkv_hashes": ["rwkv6_wkv"], "wkv": ["rwkv6_wkv"],
            "rwkv_burst": ["rwkv6_wkv", "row_norm", "block_matmul"],
            "convert": ["stream_converter"], "wkv_probe": ["rwkv6_wkv"],
            "convert_probe": ["stream_converter"]}
 QWEN_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                 "flash_attention", "paged_attention", "block_matmul",
-                "streamed_xent"]
+                "streamed_ffn_w8", "streamed_xent"]
 SOURCES.update(dict.fromkeys(("qwen_kernel_cases", "qwen_fused_vs_eager",
                               "qwen_serve", "qwen_train"), QWEN_SOURCES))
 SOURCES.update(dict.fromkeys(("gemma_kernel_cases", "gemma_fused_vs_eager",
-                              "gemma_serve"),
-                             QWEN_SOURCES[:-1] + ["paged_attention_320"]))
+                              "gemma_serve", "gemma_quant_fused_vs_eager",
+                              "gemma_quant_serve"),
+                             QWEN_SOURCES[:-1] + ["paged_attention_320",
+                                                  "paged_attention_q320"]))
 SOURCES.update(dict.fromkeys(("hubert_kernel_cases", "hubert_fused_vs_eager",
                               "hubert_encode", "hubert_train"),
                              ["block_matmul", "streamed_ffn", "flash_mma",
@@ -633,6 +642,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE,
                     help="checkout whose repro_torch and chip_smoke run")
+    ap.add_argument("--ptxas", default=None,
+                    help="file for nvcc's -Xptxas -v report of the build")
     ap.add_argument("phases", nargs="+")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -652,7 +663,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     emit({"phase": "device", "tree": tree, "nvidia_smi": smi})
     names = sorted({s for p in args.phases
-                    for s in SOURCES.get(p, _build.KERNEL_SOURCES)})
+                    for s in SOURCES.get(p, _build.KERNEL_SOURCES)}
+                   & set(_build.KERNEL_SOURCES))
     t0 = time.perf_counter()
     try:
         _build.build_all(names)
@@ -665,6 +677,12 @@ def main() -> int:
               "built": list(_build.BUILD_LOG),
               "seconds_by_source": dict(_build.BUILD_SECONDS),
               "spills": spills})
+        if args.ptxas:
+            os.makedirs(os.path.dirname(os.path.abspath(args.ptxas)),
+                        exist_ok=True)
+            with open(args.ptxas, "w") as fh:
+                for n, log in sorted(_build.BUILD_LOG.items()):
+                    fh.write(f"== {n}\n{log}\n")
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(2020)
     randn = cs._randn(torch, gen, torch.bfloat16, "cuda")
@@ -742,6 +760,10 @@ def main() -> int:
             cs.gemma_fused_vs_eager(torch)
         elif phase == "gemma_serve":
             cs.gemma_serve(torch)
+        elif phase == "gemma_quant_fused_vs_eager":
+            cs.gemma_quant_fused_vs_eager(torch)
+        elif phase == "gemma_quant_serve":
+            cs.gemma_quant_serve(torch)
         elif phase == "flash_hashes":
             flash_hashes(torch, K)
         elif phase == "flash_times":

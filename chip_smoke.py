@@ -53,17 +53,20 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               same rows at 64 (``qwen_rows``, required);
    gemma_kernel_cases, gemma_rows — gemma3-4b's widths
               (``gemma_kernel_cases``): its projections (K3 at N 2560 and
-              1280), o-projection and GELU-GLU with the norm folded in
-              (K4) at a prefill chunk, decode and a verify dispatch, its
-              LM head over the 262144-token vocabulary, and at head dim
-              320 (8 over 4 heads) K2 chunks at offsets 896 and 2944, K7
-              at 1000 and 3000 tokens, K1 at lengths 1023, 1024, 1025, 0
-              and 3000 and K8 with rows across them, each under the
-              1024-token window and without it; then K3's and K4's rows
-              at 1..63 rows bit-equal to the same rows at 64, K2's chunk
-              rows bit-equal to K7's at the same positions with and
-              without the window (``gemma_rows``, required), and K7's
-              local / global time at 3000 tokens (``gemma_window``);
+              1280, and K10a over int8 weights), o-projection and GELU-GLU
+              with the norm folded in (K4, and K10b) at a prefill chunk,
+              decode and a verify dispatch, its LM head over the
+              262144-token vocabulary, and at head dim 320 (8 over 4
+              heads) K2 and K9c (int8, fp8) chunks at offsets 896 and
+              2944, K7 at 1000 and 3000 tokens, K1 / K9a at lengths 1023,
+              1024, 1025, 0 and 3000 and K8 / K9b with rows across them,
+              each under the 1024-token window and without it, and K9c and
+              K9a under the window at head dim 128; then K3's, K10a's,
+              K4's and K10b's rows at 1..63 rows bit-equal to the same
+              rows at 64, K2's chunk rows bit-equal to K7's at the same
+              positions and K9c's to one K9c call over the whole prompt,
+              with and without the window (``gemma_rows``, required), and
+              K7's local / global time at 3000 tokens (``gemma_window``);
    hubert_kernel_cases — hubert-xlarge's widths: K5 (q/k/v, [T, 1280] @
               [1280, 1280]), K6 (D 1280, F 5120) and non-causal K7 (16
               over 16 heads of 80 a clip) at the encode's 8 clips x 1000
@@ -222,6 +225,12 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               1100, 1030, 300 and 40 tokens (across the window), chunked
               and whole-prompt, kernel plan tokens equal to the eager
               plan's, each launching exactly its path's kernels;
+   gemma_quant_fused_vs_eager, gemma accuracy — the same cut and prompts
+              under every quant mode, chunked and whole-prompt, kernel plan
+              tokens equal to the eager plan's with exactly
+              ``gemma_launches`` of the mode; under kv_int8 the
+              speculative engine's tokens equal to the plain engine's; the
+              accuracy gate of every quant mode;
    zamba_fused_vs_eager, zamba accuracy — zamba2-2.7b at full width
               cut to 6 layers (one period: the shared block runs once),
               float32, whole-prompt admission: kernel plan tokens equal to
@@ -236,6 +245,12 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               a shared 1200-token prefix equal to the plain engine; each
               burst launching exactly ``gemma_launches``, the solo request
               repeating its burst;
+   gemma_quant_serve, gemma_quant_spec_serve — the same bursts under
+              w8_kv8 at 6 layers (``GEMMA_QUANT_SERVE_LAYERS``: one
+              period; ``GEMMA_QUANT_PATHS``: K9c, K9a, K9b, K10a, K10b,
+              K7 for whole prompts; never K1, K2 or K8), each launching
+              exactly ``gemma_launches`` under w8_kv8, the solo request
+              repeating its burst; speculative equality reported;
    hubert_encode — hubert-xlarge at full width and depth (48 layers),
               bfloat16, weights jittered: ``forward_hidden`` over 8 clips
               of 1000 frames under ``torch.no_grad``, twice, each launching
@@ -363,8 +378,8 @@ SOURCES = {
     "paged_verify_attention_q": _CSRC + "paged_attention.cuh",
     "flash_attention_q": _CSRC + "flash_mma.cu",
     "rmsnorm_matmul_w8": _CSRC + "rmsnorm_matmul.cu",
-    "streamed_ffn_w8": _CSRC + "streamed_ffn.cu",
-    "streamed_mlp_w8": _CSRC + "streamed_ffn.cu",
+    "streamed_ffn_w8": _CSRC + "streamed_ffn_w8.cu",
+    "streamed_mlp_w8": _CSRC + "streamed_ffn_w8.cu",
     "row_norm": _CSRC + "row_norm.cu",
     "streamed_xent": _CSRC + "streamed_xent.cu",
     "moe_experts": _CSRC + "moe_experts.cu",
@@ -555,22 +570,38 @@ GEMMA_PATHS = {"chunked": LLAMA_PATH,
 GEMMA_BURST = (3000, 2100, 1500, 1100, 1025, 1024, 600, 37)
 GEMMA_MAX_LEN = 4096
 GEMMA_SHARED = 1200       # the speculative burst's shared prefix
+# Under w8_kv8 as llama3's: the code twins K9c / K9a / K9b over the pools
+# (never K2, K1 or K8), K10a for q/k/v and K10b (GELU with ln2 folded in)
+# for the FFN; whole prompts attend over their fresh full-precision K/V
+# (K7) before it is placed into the pools as codes.
+GEMMA_QUANT_PATHS = {
+    "chunked": QWEN_QUANT_PATHS["chunked"],
+    "whole_prompt": QWEN_QUANT_PATHS["whole_prompt"],
+    "speculative": QUANT_PATHS[("llama3-8b", "speculative")]}
 
 
 def gemma_launches(layers: int, prefills: int, steps: int, *, whole=False,
-                   verifies: int = 0) -> dict:
+                   verifies: int = 0, quant: str = "none") -> dict:
     """Every kernel's exact launches in a gemma3 burst of ``prefills``
     prefill dispatches (prompt chunks, or whole prompts with ``whole``),
     ``steps`` decode steps and ``verifies`` verify dispatches: the Qwen
-    count (``qwen_launches``) for the prefills and decode steps, and per
-    verify dispatch a decode step's kernels with K8 in K1's place."""
-    out = qwen_launches(layers, prefills, steps, whole=whole)
+    count (``qwen_launches``, under ``quant`` as there) for the prefills
+    and decode steps, and per verify dispatch a decode step's kernels with
+    K8 (K9b over codes) in K1's place."""
+    out = qwen_launches(layers, prefills, steps, whole=whole, quant=quant)
     if verifies:
-        out["paged_verify_attention"] = layers * verifies
-        for k in ("streamed_ffn", "block_matmul"):
+        w8 = quant in ("w8", "w8_kv8")
+        kv8 = quant in ("kv_int8", "kv_fp8", "w8_kv8")
+        out["paged_verify_attention_q" if kv8
+            else "paged_verify_attention"] = layers * verifies
+        for k in ("streamed_ffn_w8" if w8 else "streamed_ffn",
+                  "block_matmul"):
             out[k] = out.get(k, 0) + layers * verifies
         out["rmsnorm_matmul"] = (out.get("rmsnorm_matmul", 0)
-                                 + verifies * (1 + 3 * layers))
+                                 + verifies * (1 + (0 if w8 else 3 * layers)))
+        if w8:
+            out["rmsnorm_matmul_w8"] = (out.get("rmsnorm_matmul_w8", 0)
+                                        + 3 * layers * verifies)
     return out
 
 
@@ -609,8 +640,12 @@ RWKV_TRAIN_LAYERS = 2
 QWEN_SERVE_LAYERS = 4
 # gemma3-4b serves at 12 of its 34 layers (two periods of five local
 # layers and a global one): with hubert-xlarge's phases the script took
-# 959 s with gemma3's bursts at full depth (104 s of them).
+# 959 s with gemma3's bursts at full depth (104 s of them).  Its quantized
+# bursts (w8_kv8) serve 6 (one period): at 12 they took 41 s of the 64 s
+# its quantized phases added to an 806 s script on an H100, over their
+# 60 s budget.
 GEMMA_SERVE_LAYERS = 12
+GEMMA_QUANT_SERVE_LAYERS = 6
 
 
 # The training path on the kernel plan: each layer's forward launches, the
@@ -785,15 +820,15 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
         (k, ks), (v, vs) = (_encode(torch, t.float(), code, 1) for t in (k, v))
         kernel = lambda: K.flash_attention_2d_q(
             q, k, v, k_scale=ks, v_scale=vs, q_offset=q_off, kv_len=kv_len,
-            kv_group=g)
+            kv_group=g, window=window)
         plain = lambda: ref.flash_attention_offset(
             q, k, v, q_offset=q_off, kv_len=kv_len, kv_group=g, k_scale=ks,
-            v_scale=vs)
+            v_scale=vs, window=window)
         kd, vd = ((c.float() * cs[..., None]).to(q.dtype)
                   for c, cs in ((k, ks), (v, vs)))
         library = lambda: sdpa(q[None], kd[None], vd[None], attn_mask=mask,
                                enable_gqa=True, scale=scale)
-        kv_bytes = 2 * hkv * kv_len * (hd + 4)     # codes + f32 scales
+        kv_bytes = 2 * hkv * (kv_len - kv_first) * (hd + 4)   # + scales
         shape = (f"Hq={hq},Hkv={hkv},D={hd},Sq={sq},Skv={skv},"
                  f"q_offset={q_off},kv_len={kv_len},codes={code}")
     elif q_off is None:
@@ -1029,16 +1064,20 @@ def _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path, w8=True,
     wgq, wuq, wdq = ((c.float() * sc).to(x.dtype)
                      for c, sc in ((cg, sg), (cu, su), (cd, sd)))
     cases.append(dict(
-        name="streamed_ffn_w8", shape=f"T={t},D={d},F={f},int8",
+        name="streamed_ffn_w8",
+        shape=f"T={t},D={d},F={f},int8"
+        + ("" if activation == "silu" else f",{activation}"),
         kernel=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
             K.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
-                              wd_scale=q[5], norm_scale=s),
+                              wd_scale=q[5], norm_scale=s,
+                              activation=activation),
         plain=lambda x=x, s=s, q=(cg, cu, cd, sg, su, sd):
             ref.streamed_ffn_w8(x, *q[:3], wg_scale=q[3], wu_scale=q[4],
-                                wd_scale=q[5], norm_scale=s),
+                                wd_scale=q[5], norm_scale=s,
+                                activation=activation),
         library=None,
         cublas=lambda xn=xn, a=wgq, b=wuq, c=wdq: torch.matmul(
-            torch.nn.functional.silu(xn @ a) * (xn @ b), c),
+            act(xn @ a) * (xn @ b), c),
         nbytes=(2 * t * d + d) * isz + 3 * d * f + 4 * (2 * f + d),
         flops=6 * t * d * f, path=path))
     return cases
@@ -1811,17 +1850,18 @@ def check_qwen_rows(torch, dev="cuda"):
 
 
 def _gemma_paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
-                      window, verify):
+                      window, verify, code=None):
     """gemma3's decode (K1) or verify (K8) call at head dim 320: 5 slots
     of lengths 1023, 1024, 1025, 0 and 3000 (decode), or 5-row windows
     whose rows see 1021..1025, 1022..1026, 1023..1027, 1..5 and
     2999..3003 positions (verify), over a 4096-position page table, with
-    ``window`` (0: a global layer).  The bytes are the K/V positions the
-    rows see (at most ``window`` a row), q and out; the operations each
-    row's own positions."""
+    ``window`` (0: a global layer); with ``code`` over int8 / fp8 code
+    pools (K9a, K9b).  The bytes are the K/V positions the rows see (at
+    most ``window`` a row), q and out; the operations each row's own
+    positions."""
     b, ps, maxp = 5, 16, GEMMA_MAX_LEN // 16
-    kp, vp, _, table, _ = _paged_pools(torch, randn, gen, b, maxp, hkv, hd,
-                                       None, dev)
+    kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b, maxp,
+                                               hkv, hd, code, dev)
     w = WINDOW if verify else 1
     base = [1020, 1021, 1022, 0, 2998] if verify else [1023, 1024, 1025, 0,
                                                        3000]
@@ -1835,31 +1875,33 @@ def _gemma_paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
     base_t = torch.tensor(base, dtype=torch.int32, device=dev)
     q = randn(b, w, hq, hd)
     rows = sum(sum(r) for r in seen)
-    if verify:
-        kernel = lambda: K.paged_verify_attention(q, kp, vp, table, base_t,
-                                                  window=window)
-        plain = lambda: ref.paged_verify_attention(q, kp, vp, table, base_t,
-                                                   window=window)
+    if code is None:
+        verify_k, decode_k = K.paged_verify_attention, K.paged_decode_attention
     else:
-        kernel = lambda: K.paged_decode_attention(q, kp, vp, table, base_t,
-                                                  window=window)
-        plain = lambda: ref.paged_decode_attention(q, kp, vp, table, base_t,
-                                                   window=window)
+        verify_k = K.paged_verify_attention_q
+        decode_k = K.paged_decode_attention_q
+    kern = verify_k if verify else decode_k
+    plain_fn = (ref.paged_verify_attention if verify
+                else ref.paged_decode_attention)
+    name = "paged_verify_attention" if verify else "paged_attention"
     case = dict(
-        name="paged_verify_attention" if verify else "paged_attention",
+        name=name + ("_q" if code else ""),
         head_dim=hd, path="speculative" if verify else None,
         shape=(f"B={b},W={w},Hq={hq},Hkv={hkv},D={hd},ps={ps},"
                + (f"q_off={base}" if verify else f"lengths={base}")
-               + f",window={window}"),
-        kernel=kernel, plain=plain, library=None, cublas=None,
-        nbytes=2 * b * w * hq * hd * isz + 2 * sum(span) * hkv * hd * isz
-        + (b * maxp + b) * 4,
+               + f",window={window}" + (f",codes={code}" if code else "")),
+        kernel=lambda: kern(q, kp, vp, table, base_t, window=window, **sc),
+        plain=lambda: plain_fn(q, kp, vp, table, base_t, window=window,
+                               **sc),
+        library=None, cublas=None,
+        nbytes=2 * b * w * hq * hd * isz
+        + 2 * sum(span) * hkv * hd * (per_elem or isz) + (b * maxp + b) * 4,
         flops=4 * hd * hq * rows)
     if verify:
         case["rows_vs_decode"] = lambda out: [
-            bool(torch.equal(out[:, i:i + 1], K.paged_decode_attention(
+            bool(torch.equal(out[:, i:i + 1], decode_k(
                 q[:, i:i + 1].contiguous(), kp, vp, table, base_t + i + 1,
-                window=window)))
+                window=window, **sc)))
             for i in range(w)]
     return case
 
@@ -1867,14 +1909,17 @@ def _gemma_paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
 def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     """gemma3-4b's kernel calls at its widths (``kernel_cases``' fields):
     a layer's projections with ln1 folded in (K3 at N 2560 for q, 1280 for
-    k and v), o-projection (K5) and GELU-GLU with ln2 folded in (K4) at a
-    prefill chunk (128 rows), decode (4) and a verify dispatch (20); the
-    final norm with the LM head over the 262144-token vocabulary at 1, 4
-    and 20 rows; at head dim 320 with 8 query heads over 4: K2 chunks of
-    128 rows at offsets 896 and 2944 over a 4096-position gathered extent,
-    K7 at whole prompts of 1000 and 3000, K1 and K8 at the window's edge
-    lengths (``_gemma_paged_case``), each under the 1024-token window and
-    without it (a global layer)."""
+    k and v, and its int8 twin K10a), o-projection (K5) and GELU-GLU with
+    ln2 folded in (K4, and its int8 twin K10b) at a prefill chunk (128
+    rows), decode (4) and a verify dispatch (20); the final norm with the
+    LM head over the 262144-token vocabulary at 1, 4 and 20 rows; at head
+    dim 320 with 8 query heads over 4: K2 chunks of 128 rows at offsets
+    896 and 2944 over a 4096-position gathered extent and their twin over
+    int8 and fp8 codes (K9c), K7 at whole prompts of 1000 and 3000, K1 and
+    K8 at the window's edge lengths (``_gemma_paged_case``) and their
+    twins over code pools (K9a, K9b), each under the 1024-token window and
+    without it (a global layer); and K9c and K9a under the window at head
+    dim 128 over int8 codes."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
@@ -1886,7 +1931,7 @@ def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     cases = []
     for t, path in ((128, None), (4, None), (SPEC_T, "speculative")):
         cases += _layer_cases(torch, K, ref, randn, isz, t, d, ns, f, path,
-                              w8=False, activation="gelu")
+                              activation="gelu")
     vocab = padded_vocab(cfg.vocab_size)
     head = randn(d, vocab, scale=1 / math.sqrt(d))
     for t in (1, 4, SPEC_T):
@@ -1904,28 +1949,44 @@ def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
             path="speculative" if t == SPEC_T else None))
     for window in (GEMMA_WINDOW, 0):
         for off in (896, 2944):
-            cases.append(_flash_case(
-                torch, K, ref, randn, isz, "flash_attention", hq, hkv, hd,
-                128, GEMMA_MAX_LEN, off, dev, window=window))
+            for code in (None,) + CODES:
+                cases.append(_flash_case(
+                    torch, K, ref, randn, isz,
+                    "flash_attention" if code is None
+                    else "flash_attention_q", hq, hkv, hd, 128,
+                    GEMMA_MAX_LEN, off, dev, code=code, window=window))
         for s in (1000, 3000):
             cases.append(dict(_flash_case(
                 torch, K, ref, randn, isz, "flash_attention_static", hq,
                 hkv, hd, s, s, None, dev, window=window),
                 path="whole_prompt"))
         for verify in (False, True):
-            cases.append(_gemma_paged_case(torch, K, ref, randn, isz, gen,
-                                           hq, hkv, hd, dev, window, verify))
+            for code in (None,) + CODES:
+                cases.append(_gemma_paged_case(
+                    torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
+                    window, verify, code))
+    # The window over codes at head dim 128 too (path "d128": no gemma3
+    # burst runs it).
+    cases.append(dict(_flash_case(
+        torch, K, ref, randn, isz, "flash_attention_q", hq, hkv, 128, 128,
+        GEMMA_MAX_LEN, 2944, dev, code="int8", window=GEMMA_WINDOW),
+        path="d128"))
+    cases.append(dict(_gemma_paged_case(
+        torch, K, ref, randn, isz, gen, hq, hkv, 128, dev, GEMMA_WINDOW,
+        False, "int8"), path="d128"))
     return [dict(c, model=GEMMA) for c in cases]
 
 
 def check_gemma_rows(torch, timer, dev="cuda"):
-    """bf16 K3 (q and k/v widths) and K4 (GELU-GLU with the norm folded
-    in) at gemma3's widths: rows at 1..63 rows bit-equal to the same rows
-    at 64 (required); and K2's 128-row chunks at offsets 896 and 2944
-    bit-equal to K7's rows at the same positions of the 3072-token prompt,
-    with the window and without (required: a chunked prompt then gives its
-    whole-prompt rows).  K7 with and without the window at 3000 tokens:
-    the local layer's time over the global layer's."""
+    """bf16 K3 and K10a (q and k/v widths) and K4 and K10b (GELU-GLU with
+    the norm folded in) at gemma3's widths: rows at 1..63 rows bit-equal
+    to the same rows at 64 (required); K2's 128-row chunks at offsets 896
+    and 2944 bit-equal to K7's rows at the same positions of the
+    3072-token prompt, and K9c's over int8 and fp8 codes to one K9c call
+    over the whole prompt from offset 0, with the window and without
+    (required: a chunked prompt then gives its whole-prompt rows).  K7
+    with and without the window at 3000 tokens: the local layer's time
+    over the global layer's."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.kernels.common import ROW_INVARIANT_T
@@ -1946,6 +2007,15 @@ def check_gemma_rows(torch, timer, dev="cuda"):
     insts[f"streamed_ffn F={f},gelu"] = (
         lambda x: K.streamed_ffn(x, wg, wu, wd, norm_scale=s,
                                  activation="gelu"))
+    for n in (cfg.q_dim, cfg.kv_dim):
+        (c, ws), = _w8(torch, randn(d, n, scale=1 / math.sqrt(d)))
+        insts[f"rmsnorm_matmul_w8 N={n}"] = (
+            lambda x, c=c, ws=ws: K.rmsnorm_matmul_w8(x, s, c, w_scale=ws))
+    (cg, sg), (cu, su), (cd, sd) = _w8(torch, wg, wu, wd)
+    insts[f"streamed_ffn_w8 F={f},gelu"] = (
+        lambda x: K.streamed_ffn_w8(x, cg, cu, cd, wg_scale=sg, wu_scale=su,
+                                    wd_scale=sd, norm_scale=s,
+                                    activation="gelu"))
     out = []
     for name, kern in insts.items():
         bad = _unequal_row_counts(torch, kern, x)
@@ -1969,6 +2039,25 @@ def check_gemma_rows(torch, timer, dev="cuda"):
                        chunk, whole[:, off:off + 128]))}
             emit(row)
             out.append(row)
+    for code in CODES:
+        (kc, ks), (vc, vs) = (_encode(torch, t.float(), code, 1)
+                              for t in (k, v))
+        for window in (GEMMA_WINDOW, 0):
+            whole = K.flash_attention_2d_q(q, kc, vc, k_scale=ks, v_scale=vs,
+                                           q_offset=0, kv_group=hq // hkv,
+                                           window=window)
+            for off in (896, 2944):
+                chunk = K.flash_attention_2d_q(
+                    q[:, off:off + 128].contiguous(), kc, vc, k_scale=ks,
+                    v_scale=vs, q_offset=off, kv_len=off + 128,
+                    kv_group=hq // hkv, window=window)
+                row = {"phase": "gemma_rows", "model": GEMMA,
+                       "call": f"flash_attention_q {code} q_offset={off}",
+                       "window": window,
+                       "equal_1_to_64": bool(torch.equal(
+                           chunk, whole[:, off:off + 128]))}
+                emit(row)
+                out.append(row)
     q3, k3, v3 = q[:, :3000].contiguous(), k[:, :3000].contiguous(), \
         v[:, :3000].contiguous()
     ms = {w: timer(lambda w=w: K.flash_attention_2d(
@@ -3868,6 +3957,137 @@ def gemma_serve(torch, device="cuda"):
     return out
 
 
+def gemma_quant_fused_vs_eager(torch, device="cuda",
+                               lengths=(1100, 1030, 300, 40), new=8):
+    """gemma3-4b at full width cut to 6 layers (one period), float32,
+    weights jittered, prompts on both sides of the 1024-token window: in
+    every quant mode the kernel plan's greedy tokens equal the eager
+    plan's (a weight mode's eager plan on the eager w8 reference, as in
+    ``quant_fused_vs_eager``), chunked and whole-prompt, each burst
+    launching exactly ``gemma_launches`` for its mode; under kv_int8 the
+    speculative engine (prefix cache on) gives the plain engine's tokens;
+    the accuracy gate of every quant mode (``accuracy``), its errors
+    finite."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import dequantize_weights, quantize_weights
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.accuracy import QUANT_MODES
+    layers = 6
+    cfg = dataclasses.replace(get_config(GEMMA), num_layers=layers,
+                              dtype="float32")
+    fused_cfg = dataclasses.replace(cfg, use_fused_kernels=True)
+    params = _weights(torch, cfg, 1, jitter=True, device=device)
+    prompts = burst(np.random.default_rng(1), cfg.vocab_size, lengths)
+    kw = dict(batch_slots=SLOTS, max_len=2048, device=device)
+    row = {"phase": "gemma_quant_fused_vs_eager", "config": cfg.name,
+           "layers": layers, "dtype": cfg.dtype,
+           "prompts": [len(p) for p in prompts], "new_tokens": new}
+    bad = []
+    for mode in QUANT_MODES:
+        qcfg = dataclasses.replace(fused_cfg, quant=mode)
+        ref_params = dequantize_weights(qcfg, quantize_weights(qcfg, params))
+        row[mode] = {}
+        for adm in ("chunked", "whole_prompt"):
+            whole = adm == "whole_prompt"
+            K.reset_launches()
+            eng = ServingEngine(qcfg, params, chunked=not whole, **kw)
+            fused = [r.out_tokens for r in eng.generate(
+                prompts, max_new_tokens=new)]
+            launches = {k: n for k, n in K.launch_counts().items() if n}
+            m = eng.metrics
+            want = gemma_launches(
+                layers, m["prefills"] if whole else m["prefill_chunks"],
+                m["scan_ticks"], whole=whole, quant=mode)
+            del eng
+            eager = [r.out_tokens for r in ServingEngine(
+                dataclasses.replace(cfg, quant=mode), ref_params,
+                chunked=not whole, **kw).generate(prompts,
+                                                  max_new_tokens=new)]
+            row[mode][adm] = {"tokens_equal": fused == eager,
+                              "fused_tokens": fused, "eager_tokens": eager,
+                              "launches": launches, "expected": want,
+                              "exact": launches == want}
+            if fused != eager:
+                bad.append(f"{mode} {adm}: kernel plan != eager plan")
+            if launches != want:
+                bad.append(f"{mode} {adm}: launched {launches}, expected "
+                           f"{want}")
+            _free(torch, device)
+        del ref_params
+        if mode == "kv_int8":
+            plain = [r.out_tokens for r in ServingEngine(
+                qcfg, params, prefix_cache=False, **kw).generate(
+                    prompts, max_new_tokens=new)]
+            spec = ServingEngine(qcfg, params, speculative=True, draft_len=4,
+                                 **kw)
+            spec_tokens = [r.out_tokens for r in spec.generate(
+                prompts, max_new_tokens=new)]
+            row[mode]["speculative_equal_plain"] = spec_tokens == plain
+            row[mode]["speculative_first_divergence"] = [
+                _first_divergence(a, b) for a, b in zip(spec_tokens, plain)]
+            if spec_tokens != plain:
+                bad.append("kv_int8: speculative != plain")
+            del spec
+            _free(torch, device)
+    emit(row)
+    del params
+    _free(torch, device)
+    out = {"fused_vs_eager": row,
+           "accuracy": accuracy(torch, cfg, jitter=True, device=device)}
+    if bad:
+        raise AssertionError("gemma_quant_fused_vs_eager: " + "; ".join(bad))
+    return out
+
+
+def gemma_quant_serve(torch, device="cuda"):
+    """gemma3-4b at full width cut to ``GEMMA_QUANT_SERVE_LAYERS``,
+    bfloat16, kernel plan, weights drawn on the card (seed 2) and
+    jittered, under w8_kv8: ``GEMMA_BURST`` chunked with the prefix cache,
+    then whole
+    prompts (``serve``), then the speculative burst against the plain
+    engine (``spec_serve``; equality reported, not required, as for
+    llama3 under w8_kv8).  Each burst must launch exactly
+    ``gemma_launches`` under w8_kv8: the code twins and never K1, K2 or
+    K8; a prompt served alone repeats its burst tokens."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(GEMMA), use_fused_kernels=True,
+                              num_layers=GEMMA_QUANT_SERVE_LAYERS,
+                              quant=QUANT_MODE)
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=True, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    out = {"quant_serve": {}}
+    for mode in ("chunked", "whole_prompt"):
+        whole = mode == "whole_prompt"
+        row = serve(torch, cfg, params, GEMMA_QUANT_PATHS[mode],
+                    init_s=init_s, chunked=not whole, device=device,
+                    phase="gemma_quant_serve", max_len=GEMMA_MAX_LEN,
+                    lengths=GEMMA_BURST)
+        m = row["metrics"]
+        prefills = m["prefills"] if whole else m["prefill_chunks"]
+        _exact_launches(row["phase"], QUANT_MODE, row, prefills,
+                        gemma_launches(layers, prefills, m["scan_ticks"],
+                                       whole=whole, quant=QUANT_MODE))
+        out["quant_serve"][mode] = row
+        _free(torch, device)
+    row = spec_serve(torch, cfg, params, GEMMA_QUANT_PATHS["speculative"],
+                     init_s=init_s, max_len=GEMMA_MAX_LEN,
+                     require_equal=False, phase="gemma_quant_spec_serve",
+                     device=device, shared_len=GEMMA_SHARED)
+    m = row["metrics"]
+    _exact_launches(row["phase"], QUANT_MODE, row, m["prefill_chunks"],
+                    gemma_launches(layers, m["prefill_chunks"], 0,
+                                   verifies=m["verify_dispatches"],
+                                   quant=QUANT_MODE))
+    out["quant_spec_serve"] = row
+    del params
+    _free(torch, device)
+    return out
+
+
 def _hubert_frames(torch, cfg, b, s, seed, device="cuda"):
     """Frame embeddings [b, s, D] in float32 drawn on the device from
     ``seed``, at the token pipeline's scale (0.1 x standard normal): what
@@ -4120,6 +4340,8 @@ OWN_KERNELS = (("tiled_matmul_kernel", "projections (f32 K3, K5)"),
                ("wkv_seg_", "wkv recurrence (K14, tensor cores)"),
                ("flash_mma_kernel", "attention (K2, K7, tensor cores)"),
                ("flash_mma_q_kernel", "attention (K9c, tensor cores)"),
+               ("flash_mma_q_window_kernel",
+                "attention (K9c, tensor cores)"),
                ("flash_offset_kernel", "attention (CUDA cores)"),
                ("xent_", "loss (K11)"),
                ("paged_window_kernel", "paged attention (K1, K8, K9a/b)"),
@@ -4618,6 +4840,7 @@ def main(argv=None) -> int:
     results["qwen_fused_vs_eager"] = {m: qwen_fused_vs_eager(torch, m)
                                       for m in QWEN}
     results["gemma_fused_vs_eager"] = gemma_fused_vs_eager(torch)
+    results["gemma_quant_fused_vs_eager"] = gemma_quant_fused_vs_eager(torch)
     results["hubert_fused_vs_eager"] = hubert_fused_vs_eager(torch)
     results["full_depth"] = {
         m: full_depth(torch, dataclasses.replace(
@@ -4635,6 +4858,7 @@ def main(argv=None) -> int:
         launches=lambda p, s, quant: rwkv_launches(p, s))
     results["qwen_serve"] = {m: qwen_serve(torch, m) for m in QWEN}
     results["gemma_serve"] = gemma_serve(torch)
+    results["gemma_serve"].update(gemma_quant_serve(torch))
     results["hubert_encode"] = hubert_encode(torch)
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)

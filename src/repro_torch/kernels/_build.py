@@ -30,7 +30,8 @@ KERNEL_SOURCES = ("rmsnorm_matmul", "streamed_ffn", "flash_attention",
                   "paged_attention", "block_matmul", "row_norm",
                   "streamed_xent", "moe_experts", "mamba2_scan",
                   "rwkv6_wkv", "stream_converter", "flash_mma",
-                  "paged_attention_320")
+                  "paged_attention_320", "paged_attention_q320",
+                  "streamed_ffn_w8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

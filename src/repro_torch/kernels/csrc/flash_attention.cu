@@ -16,9 +16,9 @@
 // Only what the main paths run is built here: causal (the static branch
 // also non-causal, as above), with or without a sliding window (window >
 // 0: a key is live above the query's position - window, gemma3's local
-// layers; none over codes or non-causal), D in {64, 128, 320}
-// and, for the static branch only, 80 (zamba2's shared block); the wrapper
-// refuses the rest on the card.  Each lane holds output dims lane + 32 i;
+// layers, over codes too; none non-causal), D in {64, 128, 320} and, for
+// the static branch only, 80 (zamba2's shared block); the wrapper refuses
+// the rest on the card.  Each lane holds output dims lane + 32 i;
 // at D = 80 the last of its three is live on lanes 0..15 only.  The tiles
 // live in dynamic shared memory (100 KB at D = 320, over the 48 KB a
 // static array may take).
@@ -204,12 +204,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int hq,
   if (d == 128)
     return launch_d<T, C, 128>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
                                q_offset, kv_len, window, scale, st);
-  if constexpr (std::is_same<T, C>::value) {   // gemma3, full precision
-    if (d == 320)
-      return launch_d<T, C, 320>(q, k, v, kf, vf, out, hq, sq, skv,
-                                 kv_group, q_offset, kv_len, window, scale,
-                                 st);
-  }
+  if (d == 320)   // gemma3
+    return launch_d<T, C, 320>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                               q_offset, kv_len, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -237,14 +234,15 @@ extern "C" int repro_flash_static_f32(const void* q, const void* k,
                        causal ? 0 : skv, kv_len, window, scale, stream);
 }
 
-// The offset branch over codes C with per-position scales [Hkv_, Skv].
+// The offset branch over codes C with per-position scales [Hkv_, Skv];
+// window 0 for none.
 #define REPRO_FLASH_OFFSET_Q(NAME, T, C)                                     \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* ks, const void* vs, void* out, int hq,     \
                       int sq, int skv, int d, int kv_group, int q_offset,    \
-                      int kv_len, float scale, void* stream) {               \
+                      int kv_len, int window, float scale, void* stream) {   \
     return launch<T, C>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,    \
-                        kv_len, 0, scale, stream, ks, vs);                   \
+                        kv_len, window, scale, stream, ks, vs);              \
   }
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_i8, float, int8_t)
 REPRO_FLASH_OFFSET_Q(repro_flash_offset_q_f32_fp8, float, __nv_fp8_e4m3)

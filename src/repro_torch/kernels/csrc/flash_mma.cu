@@ -16,8 +16,11 @@
 //     are unchanged, and so is the causal case's code);
 //   offset (chunked prefill over the gathered cache): any q_offset, D in
 //     {64, 128, 320};
-//   offset over codes (chunked prefill from quantized pools): as offset
-//     without a window, C int8 or fp8-e4m3, D in {64, 128}.
+//   offset over codes (chunked prefill from quantized pools): as offset,
+//     C int8 or fp8-e4m3, D in {64, 128, 320}; with a window through
+//     flash_mma_q_window_kernel, instances of their own, so that the
+//     windowless ones compile with the window's masks and skips folded
+//     away.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention.py::
 // _flash_kernel (K7, the static branch, pallas_call at :309),
@@ -71,13 +74,18 @@
 //     the ring holds the codes (a 64 x 128 int8 tile is 8 KB, half of
 //     bf16's) and their k and v scales, and each landed tile is converted
 //     into a bf16 K and V tile (int8 without the quarter-rate I2F);
-//   - over codes a block has two groups of 4 warps, each warp owning 16
-//     rows in each group: one group walks the even key tiles, the other
-//     the odd ones, both converted in one step, and the odd group's (m,
-//     l, o) is folded into the even group's at the end, in that order.
-//     The serial walk of a block is half as long: the paths' chunks run
-//     32-64 blocks on 132 SMs, so a block's walk is the kernel's time
-//     (151 KB of shared memory at D = 128, one block per SM);
+//   - over codes at D 64 / 128 a block has two groups of 4 warps, each
+//     warp owning 16 rows in each group: one group walks the even key
+//     tiles (counted from the block's first tile t0), the other the odd
+//     ones, both converted in one step, and the odd group's (m, l, o) is
+//     folded into the even group's at the end, in that order.  The serial
+//     walk of a block is half as long: the paths' chunks run 32-64 blocks
+//     on 132 SMs, so a block's walk is the kernel's time (151 KB of shared
+//     memory at D = 128, one block per SM).  At D = 320 two groups would
+//     take 375,808 B against 232,448: one group of 4 warps walks every
+//     tile, Q read from shared memory at each k-step as at D = 320 in
+//     bf16, the ring holding two stages of one tile's codes and scales
+//     beside one converted K and V tile (208,896 B);
 //   - causal work: tiles past a block's last position are never loaded,
 //     tiles past a warp's last position are skipped by that warp, and only
 //     tiles that cross the diagonal or kv_len are masked; under a window a
@@ -121,21 +129,29 @@ __device__ __forceinline__ float ex2(float x) {
 
 // K/V over codes (K9c) rather than bf16.
 template <typename C> constexpr bool kCodes = !std::is_same<C, bf16>::value;
-// Key groups: over codes two groups of 4 warps walk the even and the odd
-// key tiles of the block's rows; bf16 walks them all with one group.
-template <typename C> constexpr int kGroups = kCodes<C> ? 2 : 1;
+// Key groups: over codes at D <= 128 two groups of 4 warps walk the even
+// and the odd key tiles of the block's rows; bf16, and codes at D = 320
+// (shared memory), walk them all with one group.
+template <typename C, int D>
+constexpr int kGroups = kCodes<C> && D <= 128 ? 2 : 1;
+// bf16 K (and V) tiles in shared memory: the ring's two stages for bf16,
+// one converted tile per key group over codes.
+template <typename C, int D>
+constexpr int kTiles = kCodes<C> ? kGroups<C, D> : 2;
 
 // Shared-memory row stride.
 template <int D> __host__ __device__ constexpr int ld() { return D + 8; }
-// bf16 K/V: Q, then two stages of K, then two of V.  Codes: Q, the two
-// key groups' bf16 K tiles and V tiles, two stages of both groups' K and
-// V codes and of their k and v scales (the codes' ring holds the second
-// group's results at the end).
+// bf16 K/V: Q, then two stages of K, then two of V.  Codes: Q, the key
+// groups' bf16 K tiles and V tiles, two stages of every group's K and V
+// codes and of their k and v scales (with two groups the codes' ring
+// holds the second group's results at the end).
 template <int D, typename C> __host__ __device__ constexpr size_t
 smem_bytes() {
+  constexpr int KG = kGroups<C, D>;
   return kCodes<C>
-             ? (size_t)(BQ + 4 * BKV) * ld<D>() * sizeof(bf16) +
-                   8 * BKV * D + 8 * BKV * sizeof(float)
+             ? (size_t)(BQ + 2 * kTiles<C, D> * BKV) * ld<D>() *
+                       sizeof(bf16) +
+                   4 * KG * BKV * D + 4 * KG * BKV * sizeof(float)
              : (size_t)(BQ + 4 * BKV) * ld<D>() * sizeof(bf16);
 }
 
@@ -167,8 +183,8 @@ __device__ __forceinline__ void load_codes(C* s, const C* g, int r0, int n,
 }
 
 // Step `st`'s K/V into ring stage st & 1: bf16 tile st, or the codes of
-// tiles 2 st and 2 st + 1 (one per key group) with their scales from ksh /
-// vsh, the head's rows; positions at or past skv are zero-filled.
+// tiles KG st .. KG st + KG - 1 (one per key group) with their scales from
+// ksh / vsh, the head's rows; positions at or past skv are zero-filled.
 // kh / vh / ksh / vsh start at the block's first tile (position t0 BKV), and
 // skv counts from there.
 template <int D, typename C>
@@ -178,17 +194,18 @@ __device__ __forceinline__ void load_step(void* k_ring, void* v_ring,
                                           const float* vsh, int st, int skv,
                                           int tid) {
   if constexpr (kCodes<C>) {
-    constexpr int R = 2 * BKV, NTH = 2 * NT;
+    constexpr int KG = kGroups<C, D>;
+    constexpr int R = KG * BKV, NTH = KG * NT;
     const int off = (st & 1) * R * D;
     load_codes<D, R, NTH>(static_cast<C*>(k_ring) + off, kh, st * R, skv,
                           tid);
     load_codes<D, R, NTH>(static_cast<C*>(v_ring) + off, vh, st * R, skv,
                           tid);
     // Thread t brings the k (bit 6 clear) or v scale of position t % 64
-    // of tile 2 st + t / 128: the ring holds [stage][group][k, v][BKV].
+    // of tile KG st + t / 128: the ring holds [stage][group][k, v][BKV].
     const int kp = st * R + (tid >> 7) * BKV + (tid & (BKV - 1));
     const bool ok = kp < skv;
-    cp_async4(sc_ring + (st & 1) * 4 * BKV + tid,
+    cp_async4(sc_ring + (st & 1) * 2 * KG * BKV + tid,
               ((tid >> 6) & 1 ? vsh : ksh) + (ok ? kp : 0), ok);
   } else {
     const int off = (st & 1) * BKV * ld<D>();
@@ -207,7 +224,8 @@ __device__ __forceinline__ void flash_body(
     int sq, int skv, int kv_group, int q_offset, int kv_len, int window,
     float scale) {
   constexpr bool CODES = kCodes<C>;
-  constexpr int KG = kGroups<C>;
+  constexpr int KG = kGroups<C, D>;
+  constexpr int KT = kTiles<C, D>;
   constexpr int NTH = KG * NT;
   constexpr int LD = ld<D>();
   constexpr int KS = D / 16;     // k-steps of Q K^T
@@ -218,12 +236,12 @@ __device__ __forceinline__ void flash_body(
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   // bf16: [stage][BKV][LD]; codes: [group][BKV][LD], converted.
   bf16* k_s = q_s + BQ * LD;
-  bf16* v_s = k_s + 2 * BKV * LD;
+  bf16* v_s = k_s + KT * BKV * LD;
   // Codes only: the ring [stage][group][BKV][D] of K and of V codes, then
   // the ring [stage][group][k, v][BKV] of their scales.
-  C* kc_s = reinterpret_cast<C*>(v_s + 2 * BKV * LD);
-  C* vc_s = kc_s + 4 * BKV * D;
-  float* sc_s = reinterpret_cast<float*>(vc_s + 4 * BKV * D);
+  C* kc_s = reinterpret_cast<C*>(v_s + KT * BKV * LD);
+  C* vc_s = kc_s + 2 * KG * BKV * D;
+  float* sc_s = reinterpret_cast<float*>(vc_s + 2 * KG * BKV * D);
   void* k_ring = CODES ? static_cast<void*>(kc_s) : static_cast<void*>(k_s);
   void* v_ring = CODES ? static_cast<void*>(vc_s) : static_cast<void*>(v_s);
 
@@ -304,9 +322,11 @@ __device__ __forceinline__ void flash_body(
                    tid);
     cp_async_commit();
     if constexpr (CODES) {
-      // Both groups' codes into their bf16 tiles (exact).
-      codes_to_bf16<2 * BKV, D, LD, NTH>(k_s, kc_s + (st & 1) * 2 * BKV * D);
-      codes_to_bf16<2 * BKV, D, LD, NTH>(v_s, vc_s + (st & 1) * 2 * BKV * D);
+      // Every group's codes into its bf16 tiles (exact).
+      codes_to_bf16<KG * BKV, D, LD, NTH>(k_s,
+                                          kc_s + (st & 1) * KG * BKV * D);
+      codes_to_bf16<KG * BKV, D, LD, NTH>(v_s,
+                                          vc_s + (st & 1) * KG * BKV * D);
       __syncthreads();
     }
     const int kt = t0 + st * KG + kg;   // this warp's tile
@@ -320,7 +340,7 @@ __device__ __forceinline__ void flash_body(
     const bf16* ks_t = k_s + buf * BKV * LD;
     const bf16* vs_t = v_s + buf * BKV * LD;
     // Codes: the tile's k and v scales.
-    const float* ks_s = sc_s + ((st & 1) * 2 + kg) * 2 * BKV;
+    const float* ks_s = sc_s + ((st & 1) * KG + kg) * 2 * BKV;
     const float* vs_s = ks_s + BKV;
 
     float s[SN][4];
@@ -533,7 +553,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // K9c: a name of its own, so that a profile tells it from K2 and K7.
 template <int D, typename C>
-__global__ void __launch_bounds__(2 * NT, 1)
+__global__ void __launch_bounds__(kGroups<C, D> * NT, 1)
 flash_mma_q_kernel(const bf16* __restrict__ q, const C* __restrict__ k,
                    const C* __restrict__ v, const float* __restrict__ ks,
                    const float* __restrict__ vs, bf16* __restrict__ out,
@@ -541,6 +561,21 @@ flash_mma_q_kernel(const bf16* __restrict__ q, const C* __restrict__ k,
                    int kv_len, float scale) {
   flash_body<D, C>(q, k, v, ks, vs, out, hq, sq, skv, kv_group, q_offset,
                    kv_len, 0, scale);
+}
+
+// K9c under a sliding window (gemma3's local layers): the same body with
+// the window a runtime value, in instances of their own.
+template <int D, typename C>
+__global__ void __launch_bounds__(kGroups<C, D> * NT, 1)
+flash_mma_q_window_kernel(const bf16* __restrict__ q,
+                          const C* __restrict__ k, const C* __restrict__ v,
+                          const float* __restrict__ ks,
+                          const float* __restrict__ vs,
+                          bf16* __restrict__ out, int hq, int sq, int skv,
+                          int kv_group, int q_offset, int kv_len,
+                          int window, float scale) {
+  flash_body<D, C>(q, k, v, ks, vs, out, hq, sq, skv, kv_group, q_offset,
+                   kv_len, window, scale);
 }
 
 template <int D, typename C>
@@ -552,12 +587,25 @@ int launch_d(const void* q, const void* k, const void* v, const float* ks,
   constexpr size_t smem = smem_bytes<D, C>();
   const long blocks = (long)cdiv(sq, BQ) * hq;
   if constexpr (kCodes<C>) {
+    constexpr int nt = kGroups<C, D> * NT;
+    if (window > 0) {
+      static size_t smem_set_w = 0;
+      const cudaError_t err =
+          raise_smem(flash_mma_q_window_kernel<D, C>, smem, &smem_set_w);
+      if (err != cudaSuccess) return (int)err;
+      if (blocks == 0) return (int)cudaGetLastError();
+      flash_mma_q_window_kernel<D, C><<<(unsigned)blocks, nt, smem,
+                                        stream>>>(
+          static_cast<const bf16*>(q), static_cast<const C*>(k),
+          static_cast<const C*>(v), ks, vs, static_cast<bf16*>(out), hq, sq,
+          skv, kv_group, q_offset, kv_len, window, scale);
+      return (int)cudaGetLastError();
+    }
     const cudaError_t err =
         raise_smem(flash_mma_q_kernel<D, C>, smem, &smem_set);
     if (err != cudaSuccess) return (int)err;
     if (blocks == 0) return (int)cudaGetLastError();
-    flash_mma_q_kernel<D, C><<<(unsigned)blocks, kGroups<C> * NT, smem,
-                               stream>>>(
+    flash_mma_q_kernel<D, C><<<(unsigned)blocks, nt, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const C*>(k),
         static_cast<const C*>(v), ks, vs, static_cast<bf16*>(out), hq, sq,
         skv, kv_group, q_offset, kv_len, scale);
@@ -581,7 +629,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int hq,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kf = static_cast<const float*>(ks);
   const float* vf = static_cast<const float*>(vs);
-  if (window < 0 || (kCodes<C> && window)) return (int)cudaErrorInvalidValue;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   if (d == 64)
     return launch_d<64, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
                            q_offset, kv_len, window, scale, st);
@@ -589,10 +637,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int hq,
     if (d == 80)   // the static branch (zamba2)
       return launch_d<80, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
                              q_offset, kv_len, window, scale, st);
-    if (d == 320)  // gemma3
-      return launch_d<320, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
-                              q_offset, kv_len, window, scale, st);
   }
+  if (d == 320)  // gemma3
+    return launch_d<320, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
+                            q_offset, kv_len, window, scale, st);
   if (d == 128)
     return launch_d<128, C>(q, k, v, kf, vf, out, hq, sq, skv, kv_group,
                             q_offset, kv_len, window, scale, st);
@@ -628,14 +676,14 @@ extern "C" int repro_flash_offset_mma_bf16(const void* q, const void* k,
 
 // The offset branch over codes C (K9c) with float32 per-position scales
 // ks / vs [Hkv_, Skv] (any alignment); q, the codes and out 16-byte
-// aligned.
+// aligned; window 0 for none.
 #define REPRO_FLASH_OFFSET_Q_MMA(NAME, C)                                    \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* ks, const void* vs, void* out, int hq,     \
                       int sq, int skv, int d, int kv_group, int q_offset,    \
-                      int kv_len, float scale, void* stream) {               \
+                      int kv_len, int window, float scale, void* stream) {   \
     return launch<C>(q, k, v, out, hq, sq, skv, d, kv_group, q_offset,       \
-                     kv_len, 0, scale, stream, ks, vs);                      \
+                     kv_len, window, scale, stream, ks, vs);                 \
   }
 REPRO_FLASH_OFFSET_Q_MMA(repro_flash_offset_q_mma_bf16_i8, int8_t)
 REPRO_FLASH_OFFSET_Q_MMA(repro_flash_offset_q_mma_bf16_fp8, __nv_fp8_e4m3)

@@ -14,14 +14,15 @@
 //   len(b, w) = base[b] + w + extra
 // cached positions: decode passes lengths with extra = 0 (W = 1); verify
 // passes q_off with extra = 1 (row w attends through q_off + w).  With a
-// sliding window (window > 0, gemma3's local layers; full-precision pools
-// only) it attends to the last `window` of them, positions
-// [len - window, len) (the reference's `kv_pos >= length - window`).
+// sliding window (window > 0, gemma3's local layers; a runtime integer,
+// over full-precision and code pools alike) it attends to the last
+// `window` of them, positions [len - window, len) (the reference's
+// `kv_pos >= length - window`).
 // Only what the main paths run is built (paged_attention.cu and, for D =
-// 320, paged_attention_320.cu): D in {64, 128} (gpt2, llama3), 320
-// (gemma3, full-precision pools) and, for decode only, 80 (zamba2's shared
-// block); W * G up to 64 rows, 32 at D = 320; the wrapper refuses the rest
-// on the card.
+// 320, paged_attention_320.cu over full-precision pools and
+// paged_attention_q320.cu over codes): D in {64, 128} (gpt2, llama3), 320
+// (gemma3) and, for decode only, 80 (zamba2's shared block); W * G up to
+// 64 rows, 32 at D = 320; the wrapper refuses the rest on the card.
 //
 // Replaces the TPU kernels
 // src/repro/kernels/paged_attention.py::_paged_decode_kernel (pallas_call
@@ -54,7 +55,9 @@
 //     pool row is D * sizeof(C) bytes, a whole number of 16-byte vectors at
 //     D 64/80/128/320), so every tile of a 128-position partition is
 //     loading while the first is scored (at D = 320 in float32 the ring
-//     holds 2 stages: 4 would take 324 KB).  Positions past the deepest row
+//     holds 2 stages: 4 would take 324 KB; over one-byte codes a 32-position
+//     tile at D = 320 is 10.5 KB and the ring keeps 4).  Positions past the
+//     deepest row
 //     are zero-filled (src-size 0) and never read from the pool.
 //   - The W x G query rows sharing KV head h live in the block, RPW per
 //     warp (q * scale in float32 in shared memory).  Lane j scores
@@ -472,7 +475,8 @@ int launch_rpw(const Operands& o, const Shape& s, cudaStream_t stream) {
 
 // Rows per warp: the fewest that hold the block's W * G rows.  A row's
 // arithmetic does not depend on it.  At D = 320 a block holds 32 rows at
-// most (64 would take 81 KB of q_s beside the ring).
+// most, over codes too (64 would take 81 KB of q_s beside the ring and 192
+// accumulator registers a thread).
 template <typename T, typename C, int D>
 int launch_d(const Operands& o, const Shape& s, cudaStream_t stream) {
   const int rows = s.w * s.g;
@@ -485,8 +489,9 @@ int launch_d(const Operands& o, const Shape& s, cudaStream_t stream) {
 }
 
 // Launch at head dim d, one of Ds: the instances a translation unit
-// builds (paged_attention.cu: 64, 80 and 128; paged_attention_320.cu:
-// gemma3's 320, in a library of its own that compiles beside the other).
+// builds (paged_attention.cu: 64, 80 and 128; paged_attention_320.cu and
+// paged_attention_q320.cu: gemma3's 320 over full-precision and code
+// pools, each in a library of its own that compiles beside the others).
 template <typename T, typename C, int... Ds>
 int launch(const Operands& o, const Shape& s, int d, void* stream) {
   // Partitions are whole 32-position tiles.
@@ -518,16 +523,18 @@ int launch(const Operands& o, const Shape& s, int d, void* stream) {
     return launch<T, T, __VA_ARGS__>(o, s, d, stream);                       \
   }
 
-// The quantized twins: pools of codes C, scales [P, Hkv] float32.
+// The quantized twins: pools of codes C, scales [P, Hkv] float32; window
+// as above.
 #define REPRO_PAGED_WINDOW_Q(NAME, T, C, ...)                                \
   extern "C" int NAME(const void* q, const void* kp, const void* vp,        \
                       const void* ks, const void* vs, const void* table,     \
                       const void* base, void* part, void* out, int b,        \
                       int hkv, int g, int w, int extra, int d, int ps,       \
-                      int maxp, int part_size, float scale, void* stream) {  \
+                      int maxp, int part_size, int window, float scale,      \
+                      void* stream) {                                        \
     const Operands o{q, kp, vp, static_cast<const float*>(ks),              \
                      static_cast<const float*>(vs), table, base,             \
                      static_cast<float*>(part), out};                        \
-    const Shape s{b, hkv, g, w, extra, ps, maxp, part_size, 0, scale};       \
+    const Shape s{b, hkv, g, w, extra, ps, maxp, part_size, window, scale};  \
     return launch<T, C, __VA_ARGS__>(o, s, d, stream);                       \
   }

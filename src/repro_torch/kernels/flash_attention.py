@@ -19,8 +19,9 @@ what the main paths run: causal attention with or without a sliding
 window (gemma3's local layers) at head dim 64, 128 or 320 (gemma3), and
 for the static branch also 80 for zamba2's shared block and non-causal
 attention without a window (hubert's encoder); over codes (K9c) causal,
-no window, head dim 64 or 128.  On the card the rest is refused until a
-slice whose config needs it adds it.  The plain versions cover it all.
+with or without a window, head dim 64, 128 or 320.  On the card the rest
+is refused until a slice whose config needs it adds it.  The plain
+versions cover it all.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .common import (CODE_DTYPES, aligned16, check_cuda_operands,
 
 HEAD_DIMS = (64, 128, 320)     # the CUDA kernel's head dims (offset branch)
 STATIC_HEAD_DIMS = (64, 80, 128, 320)    # ... the static branch's (K7)
-CODE_HEAD_DIMS = (64, 128)     # ... and the offset branch's over codes (K9c)
+CODE_HEAD_DIMS = (64, 128, 320)    # ... the offset branch's over codes (K9c)
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,10 +48,9 @@ def _entry(branch: str, dtype: torch.dtype, code: str = ""):
     "fp8").  bf16 is the tensor-core kernel of ``csrc/flash_mma.cu``,
     float32 the CUDA-core device function of ``csrc/flash_attention.cu``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    # (hq, sq, skv, d, kv_group[, q_offset], kv_len[, window][, causal]):
-    # the full-precision branches take the sliding window, K9c none; the
-    # static branch alone takes causal (0: non-causal).
-    ints = [i] * {"static": 8, "offset": 8, "offset_q": 7}[branch]
+    # (hq, sq, skv, d, kv_group[, q_offset], kv_len, window[, causal]):
+    # the static branch alone takes causal (0: non-causal).
+    ints = [i] * 8
     ptrs = 6 if branch == "offset_q" else 4
     suffix = f"_{code}" if code else ""
     if dtype == torch.bfloat16:
@@ -74,20 +74,19 @@ def _check_cuda(name: str, q, k, v, causal: bool, window: int,
                 code: Optional[torch.dtype] = None, scales=(),
                 head_dims=HEAD_DIMS, non_causal: bool = False) -> None:
     """``code``: the K/V dtype, q's unless K/V hold codes (with their
-    ``scales``: no window); ``head_dims``: the ones this entry point
-    takes; ``non_causal``: it also takes non-causal attention without a
-    window (the static branch)."""
+    ``scales``); ``head_dims``: the ones this entry point takes;
+    ``non_causal``: it also takes non-causal attention without a window
+    (the static branch)."""
     check_cuda_operands(name, q.dtype, q, k, v, *scales)
     code = q.dtype if code is None else code
     if k.dtype != code or v.dtype != code:
         raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
                         f"{v.dtype}")
     d = q.shape[-1]
-    if (d not in head_dims or window < 0 or (scales and window)
+    if (d not in head_dims or window < 0
             or (not causal and (not non_causal or window))):
         raise ValueError(f"{name}: the CUDA kernel runs causal attention "
-                         + ("without" if scales else "with or without")
-                         + " a window"
+                         "with or without a window"
                          + (", or non-causal attention without one,"
                             if non_causal else "")
                          + f" at head dims {head_dims}; got head dim {d}, "
@@ -208,7 +207,7 @@ def flash_attention_2d_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = _entry("offset_q", q.dtype, CODE_DTYPES[k.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), h, sq, skv, d, kv_group,
-        int(q_offset), kv_len, float(scale), stream)
+        int(q_offset), kv_len, int(window), float(scale), stream)
     check_launch("flash_attention_2d_q", status)
     flash_attention_2d_q.launches += 1
     return out

@@ -1,20 +1,21 @@
 """Stream-fused FFNs (the plan's ``ffn``): the GLU ``streamed_ffn`` with
 the RMSNorm folded in, and the ungated ``streamed_mlp``.
 
-Each launches its entry points in ``csrc/streamed_ffn.cu`` on a CUDA tensor
-and runs its plain version (``ref.streamed_ffn`` / ``ref.streamed_mlp``)
-on a CPU tensor; ``.launches`` on each counts its calls that launch.
-``streamed_ffn_w8`` / ``streamed_mlp_w8`` are their weight-only int8
-twins (int8 codes with float32 per-output-channel scales; plain versions
-``ref.streamed_ffn_w8`` / ``ref.streamed_mlp_w8``), with their own
-counts.  bfloat16 runs the tensor-core kernel (``ffn_mma_kernel``, planned
-by ``common.ffn_plan``: one fused launch up to 64 rows, two passes through
-h above), float32 the CUDA-core kernel (its F partials summed by a second
-launch), which keeps float32 products exact.  The CUDA kernels cover what
-the main paths run: for ``streamed_ffn`` SiLU with the norm folded in
+Each launches its entry points in ``csrc/streamed_ffn.cu`` (the int8
+twins': ``csrc/streamed_ffn_w8.cu``) on a CUDA tensor and runs its plain
+version (``ref.streamed_ffn`` / ``ref.streamed_mlp``) on a CPU tensor;
+``.launches`` on each counts its calls that launch.  ``streamed_ffn_w8``
+/ ``streamed_mlp_w8`` are their weight-only int8 twins (int8 codes with
+float32 per-output-channel scales; plain versions ``ref.streamed_ffn_w8``
+/ ``ref.streamed_mlp_w8``), with their own counts.  bfloat16 runs the
+tensor-core kernel (``ffn_mma_kernel``, planned by ``common.ffn_plan``:
+one fused launch up to 64 rows, two passes through h above), float32
+the CUDA-core kernel (its F partials summed by a second launch), which
+keeps float32 products exact.  The CUDA kernels cover what the main paths
+run: for ``streamed_ffn`` SiLU with the norm folded in
 (llama3), GELU with the norm folded in (gemma3) and GELU without a folded
 norm (zamba2's shared block), GELU without a folded norm for
-``streamed_mlp`` (gpt2); the int8 twins all but GELU with a folded norm.
+``streamed_mlp`` (gpt2); the int8 twins the same four.
 On the card the other cases are refused until a slice whose config needs
 them adds them; the plain versions cover them all.
 """
@@ -54,10 +55,11 @@ _F32_OPERANDS = {
     "mlp": ("wu", "wd"),
     "ffn_w8": ("nscale", "wg", "gs", "wu", "us", "wd", "ds"),
     "ffn_gelu_w8": ("wg", "gs", "wu", "us", "wd", "ds"),
+    "ffn_gelu_norm_w8": ("nscale", "wg", "gs", "wu", "us", "wd", "ds"),
     "mlp_w8": ("wu", "us", "wd", "ds"),
 }
 # The kinds with the norm folded in (their float32 entry points take eps).
-_NORM_KINDS = ("ffn", "ffn_gelu_norm", "ffn_w8")
+_NORM_KINDS = ("ffn", "ffn_gelu_norm", "ffn_w8", "ffn_gelu_norm_w8")
 
 
 def tile_class(t: int) -> int:
@@ -78,9 +80,10 @@ def workspace_shape(t: int, d: int, f: int):
 def _entry(kind: str, dtype: torch.dtype):
     """``kind``: "ffn" (GLU, SiLU, folded norm), "ffn_gelu_norm" (GLU,
     GELU, folded norm), "ffn_gelu" (GLU, GELU, no norm) or "mlp" (ungated,
-    no norm), with "_w8" for the int8 twin (not of "ffn_gelu_norm").  The
-    bf16 entry points (the tensor-core kernel) share one signature."""
-    lib = _build.load("streamed_ffn")
+    no norm), with "_w8" for the int8 twin (``streamed_ffn_w8``'s library).
+    The bf16 entry points (the tensor-core kernel) share one signature."""
+    lib = _build.load("streamed_ffn_w8" if kind.endswith("_w8")
+                      else "streamed_ffn")
     vp, i = ctypes.c_void_p, ctypes.c_int
     if dtype == torch.bfloat16:
         return _build.declare(lib, f"repro_streamed_{kind}_mma_bf16",
@@ -114,18 +117,15 @@ def _check_w8(name: str, x, codes, scales) -> None:
 def _glu_kind(name: str, activation: str, norm_scale,
               w8: bool = False) -> str:
     """The GLU entry point for an activation and norm setting: SiLU with
-    the norm folded in, GELU with or without it (the int8 twin: without);
-    the card refuses the rest."""
-    if activation == "silu" and norm_scale is not None:
-        return "ffn_w8" if w8 else "ffn"
-    if activation == "gelu" and norm_scale is None:
-        return "ffn_gelu_w8" if w8 else "ffn_gelu"
-    if activation == "gelu" and not w8:
-        return "ffn_gelu_norm"
+    the norm folded in, GELU with or without it; the card refuses the
+    rest."""
+    kind = {("silu", True): "ffn", ("gelu", False): "ffn_gelu",
+            ("gelu", True): "ffn_gelu_norm"}.get(
+                (activation, norm_scale is not None))
+    if kind is not None:
+        return kind + "_w8" if w8 else kind
     raise ValueError(f"{name}: the CUDA kernel runs SiLU with the norm "
-                     "folded in or GELU"
-                     + (" without a folded norm" if w8 else "")
-                     + f"; got activation {activation!r}"
+                     f"folded in or GELU; got activation {activation!r}"
                      + (", a norm_scale" if norm_scale is not None
                         else ", no norm_scale"))
 
@@ -270,7 +270,7 @@ def streamed_ffn_w8(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check_w8("streamed_ffn_w8", x, (wg, wu, wd),
               (wg_scale, wu_scale, wd_scale))
     norm = {}
-    if kind == "ffn_w8":
+    if kind in _NORM_KINDS:
         if norm_scale.dtype != x.dtype or not norm_scale.is_contiguous():
             raise TypeError("streamed_ffn_w8: norm_scale must be a "
                             "contiguous tensor of x's dtype")

@@ -19,7 +19,9 @@ and a tied 262144-token vocabulary.  Its reduced config keeps the pattern
   and the GELU-GLU with the norm folded in against the Pallas FFN;
 * on the card route (a stand-in entry point), the wrappers take gemma3's
   cases: K7/K2 and K1/K8 with a window at head dim 320, K4 GELU with the
-  norm folded in; K9c and the code pools keep refusing a window.
+  norm folded in, and their quantized twins (K9c, K9a / K9b over code
+  pools with a window at head dim 320, K10b GELU with the norm folded
+  in); K9c keeps refusing non-causal attention and head dim 80.
 
 Weights: the reference ``init_params`` jittered
 (``repro.serving.accuracy.jitter_params``), then the numpy bridge: the q/k
@@ -402,8 +404,8 @@ class _Launched(Exception):
 def test_card_route_takes_the_gemma3_cases_and_refuses_the_rest(
         monkeypatch):
     """The wrappers' CUDA route (forced for CPU tensors, the entry point a
-    stand-in that raises ``_Launched``) takes gemma3's cases and keeps
-    refusing windows over codes."""
+    stand-in that raises ``_Launched``) takes gemma3's cases, over codes
+    and int8 weights too, and refuses the rest."""
     for mod in ("streamed_ffn", "paged_attention", "flash_attention"):
         w = importlib.import_module(f"repro_torch.kernels.{mod}")
         monkeypatch.setattr(w, "kernel_path", lambda t: "cuda")
@@ -437,11 +439,6 @@ def test_card_route_takes_the_gemma3_cases_and_refuses_the_rest(
             torch.randn(2, 5, 8, D), pool, pool, table, base, window=3),
         "verify_320_16_rows": lambda: K.paged_verify_attention(
             torch.randn(2, 16, 8, D), pool, pool, table, base),
-    }
-    for name, call in taken.items():
-        with pytest.raises(_Launched):
-            call()
-    refused = {
         "offset_q_window": lambda: K.flash_attention_2d_q(
             q[..., :128].contiguous(), kv[..., :128].to(torch.int8),
             kv[..., :128].to(torch.int8), k_scale=torch.ones(4, 40),
@@ -449,17 +446,34 @@ def test_card_route_takes_the_gemma3_cases_and_refuses_the_rest(
         "offset_q_320": lambda: K.flash_attention_2d_q(
             q, kv.to(torch.int8), kv.to(torch.int8),
             k_scale=torch.ones(4, 40), v_scale=torch.ones(4, 40),
-            q_offset=8, kv_group=2),
+            q_offset=8, kv_group=2, window=16),
         "decode_q_320": lambda: K.paged_decode_attention_q(
             torch.randn(2, 1, 8, D), codes, codes, table, base,
-            k_scale=pscale, v_scale=pscale),
-        "verify_320_17_rows": lambda: K.paged_verify_attention(
-            torch.randn(2, 17, 8, D), pool, pool, table, base),
+            k_scale=pscale, v_scale=pscale, window=3),
+        "verify_q_320_window": lambda: K.paged_verify_attention_q(
+            torch.randn(2, 5, 8, D), codes.to(torch.float8_e4m3fn),
+            codes.to(torch.float8_e4m3fn), table, base, k_scale=pscale,
+            v_scale=pscale, window=3),
         "ffn_w8_gelu_norm": lambda: K.streamed_ffn_w8(
             x, *(w.to(torch.int8) for w in (wu, wu, wd)),
             wg_scale=torch.ones(16), wu_scale=torch.ones(16),
             wd_scale=torch.ones(32), activation="gelu",
             norm_scale=torch.zeros(32)),
+    }
+    for name, call in taken.items():
+        with pytest.raises(_Launched):
+            call()
+    refused = {
+        "verify_320_17_rows": lambda: K.paged_verify_attention(
+            torch.randn(2, 17, 8, D), pool, pool, table, base),
+        "offset_q_non_causal": lambda: K.flash_attention_2d_q(
+            q, kv.to(torch.int8), kv.to(torch.int8),
+            k_scale=torch.ones(4, 40), v_scale=torch.ones(4, 40),
+            q_offset=8, kv_group=2, causal=False),
+        "offset_q_80": lambda: K.flash_attention_2d_q(
+            q[..., :80].contiguous(), kv[..., :80].to(torch.int8),
+            kv[..., :80].to(torch.int8), k_scale=torch.ones(4, 40),
+            v_scale=torch.ones(4, 40), q_offset=8, kv_group=2, window=16),
     }
     for name, call in refused.items():
         with pytest.raises(ValueError, match="the CUDA kernel runs"):

@@ -281,11 +281,11 @@ def _off_path_calls():
     pool_scale = torch.ones(5, 2)
     kv_scale = torch.ones(2, 16)
     return {
-        # GELU with the norm folded in runs on the card (gemma3) but not
-        # over int8 weights.
+        # GELU runs on the card with the norm folded in and without it,
+        # over int8 weights too (gemma3, zamba2); the int8 GLU's SiLU
+        # still needs the folded norm.
         "ffn_gelu": ("streamed_ffn", lambda: K.streamed_ffn_w8(
-            x, *w8_ffn, activation="gelu", norm_scale=torch.zeros(32),
-            **w8_ffn_scales)),
+            x, *w8_ffn, activation="silu", **w8_ffn_scales)),
         "ffn_no_norm": ("streamed_ffn", lambda: K.streamed_ffn(
             x, w_up, w_up, w_down)),
         # A sliding window runs on the card with causal masking only.
@@ -322,21 +322,30 @@ def _off_path_calls():
                                lambda: K.flash_attention_2d(
                                    *(t[..., :96].contiguous()
                                      for t in (q, kv, kv)), kv_group=2)),
-        "ffn_w8_gelu": ("streamed_ffn", lambda: K.streamed_ffn_w8(
-            x, *w8_ffn, activation="gelu", norm_scale=torch.zeros(32),
-            **w8_ffn_scales)),
+        # ... and the int8 MLP (gpt2's) runs GELU only.
+        "ffn_w8_gelu": ("streamed_ffn", lambda: K.streamed_mlp_w8(
+            x, w8_ffn[1], w8_ffn[2], activation="silu",
+            wu_scale=w8_ffn_scales["wu_scale"],
+            wd_scale=w8_ffn_scales["wd_scale"])),
         "mlp_w8_folded_norm": ("streamed_ffn", lambda: K.streamed_mlp_w8(
             x, w8_ffn[1], w8_ffn[2], norm_scale=torch.zeros(32),
             wu_scale=w8_ffn_scales["wu_scale"],
             wd_scale=w8_ffn_scales["wd_scale"])),
+        # A window over code pools runs on the card (gemma3) but, at head
+        # dim 320, for 32 rows x query heads at most, as over
+        # full-precision pools.
         "paged_q_window": ("paged_attention",
-                           lambda: K.paged_decode_attention_q(
-                               qd, code_pool, code_pool, table, lengths,
-                               k_scale=pool_scale, v_scale=pool_scale,
-                               window=3)),
+                           lambda: K.paged_verify_attention_q(
+                               torch.randn(2, 20, 4, 320),
+                               torch.zeros(5, 4, 2, 320, dtype=torch.int8),
+                               torch.zeros(5, 4, 2, 320, dtype=torch.int8),
+                               table, lengths, k_scale=pool_scale,
+                               v_scale=pool_scale, window=3)),
+        # A window over codes runs causal only.
         "flash_q_window": ("flash_attention", lambda: K.flash_attention_2d_q(
             q, kv.to(torch.int8), kv.to(torch.int8), k_scale=kv_scale,
-            v_scale=kv_scale, q_offset=8, kv_group=2, window=4)),
+            v_scale=kv_scale, q_offset=8, kv_group=2, window=4,
+            causal=False)),
     }
 
 

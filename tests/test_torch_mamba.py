@@ -300,6 +300,12 @@ def test_card_route_takes_the_zamba2_cases_and_refuses_the_rest(
         "static_80": lambda: K.flash_attention_2d(q, kv, kv, kv_group=2),
         "mamba2_scan": lambda: K.mamba2_ssd(*ssd, chunk=8),
         "mamba2_scan_q1": lambda: K.mamba2_ssd(*ssd, chunk=1),
+        # GELU with the norm folded in over int8 weights: gemma3's K10b.
+        "ffn_gelu_norm": lambda: K.streamed_ffn_w8(
+            x, *(w.to(torch.int8) for w in (wu, wu, wd)),
+            wg_scale=torch.ones(16), wu_scale=torch.ones(16),
+            wd_scale=torch.ones(32), activation="gelu",
+            norm_scale=torch.zeros(32)),
     }
     for name, call in taken.items():
         with pytest.raises(_Launched):
@@ -310,11 +316,10 @@ def test_card_route_takes_the_zamba2_cases_and_refuses_the_rest(
         "verify_80": lambda: K.paged_verify_attention(
             qd, pool, pool, table, lengths),
         "ffn_silu_no_norm": lambda: K.streamed_ffn(x, wu, wu, wd),
-        "ffn_gelu_norm": lambda: K.streamed_ffn_w8(
+        "ffn_w8_silu_no_norm": lambda: K.streamed_ffn_w8(
             x, *(w.to(torch.int8) for w in (wu, wu, wd)),
             wg_scale=torch.ones(16), wu_scale=torch.ones(16),
-            wd_scale=torch.ones(32), activation="gelu",
-            norm_scale=torch.zeros(32)),
+            wd_scale=torch.ones(32)),
     }
     for name, call in refused.items():
         with pytest.raises(ValueError, match="the CUDA kernel runs"):

@@ -119,10 +119,8 @@ def test_each_wrapper_passes_the_partition_and_its_partials(card_route,
         args = calls[-1][2]
         n_ptrs = 9 if code is not None else 7
         part_ptr = args[n_ptrs - 2]
-        ints = args[n_ptrs:-2]
-        if code is None:           # full-precision pools: the window too
-            ints, window = ints[:-1], ints[-1]
-            assert window == 0
+        ints, window = args[n_ptrs:-3], args[-3]
+        assert window == 0
         b, hkv_, g, w_, extra, d_, ps, maxp, part_size = ints
         assert (b, hkv_, g, w_, extra, d_, ps, maxp) == (
             4, hkv, hq // hkv, w, int(w > 1), d, PS, MAXP)

@@ -120,18 +120,25 @@ def _ffn(dtype, kind):
     return {
         "ffn": lambda: K.streamed_ffn(x, w, w, wd, norm_scale=s),
         "ffn_gelu": lambda: K.streamed_ffn(x, w, w, wd, activation="gelu"),
+        "ffn_gelu_norm": lambda: K.streamed_ffn(
+            x, w, w, wd, activation="gelu", norm_scale=s),
         "mlp": lambda: K.streamed_mlp(x, w, wd),
         "ffn_w8": lambda: K.streamed_ffn_w8(
             x, c, c, cd, wg_scale=torch.ones(64), norm_scale=s, **q8),
         "ffn_gelu_w8": lambda: K.streamed_ffn_w8(
             x, c, c, cd, wg_scale=torch.ones(64), activation="gelu", **q8),
+        "ffn_gelu_norm_w8": lambda: K.streamed_ffn_w8(
+            x, c, c, cd, wg_scale=torch.ones(64), activation="gelu",
+            norm_scale=s, **q8),
         "mlp_w8": lambda: K.streamed_mlp_w8(x, c, cd, **q8)}[kind]()
 
 
 BF16, F32 = torch.bfloat16, torch.float32
 FFN_COUNTERS = {"ffn": K.streamed_ffn, "ffn_gelu": K.streamed_ffn,
+                "ffn_gelu_norm": K.streamed_ffn,
                 "mlp": K.streamed_mlp, "ffn_w8": K.streamed_ffn_w8,
                 "ffn_gelu_w8": K.streamed_ffn_w8,
+                "ffn_gelu_norm_w8": K.streamed_ffn_w8,
                 "mlp_w8": K.streamed_mlp_w8}
 ROUTES = {
     # case: (call, library, symbol, wrapper whose count rises)
@@ -183,9 +190,11 @@ ROUTES = {
         K.flash_attention_2d_q),
 }
 # Every FFN instance: bf16 to the tensor-core entry point, f32 to the
-# CUDA-core one.
+# CUDA-core one; the int8 twins in a library of their own.
 ROUTES.update({
-    f"{kind} {name}": (functools.partial(_ffn, dtype, kind), "streamed_ffn",
+    f"{kind} {name}": (functools.partial(_ffn, dtype, kind),
+                       "streamed_ffn_w8" if kind.endswith("_w8")
+                       else "streamed_ffn",
                        f"repro_streamed_{kind}_{sym}", FFN_COUNTERS[kind])
     for kind in FFN_COUNTERS
     for name, dtype, sym in (("bf16", BF16, "mma_bf16"),

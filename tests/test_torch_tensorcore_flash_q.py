@@ -93,8 +93,8 @@ def test_bf16_k9c_reaches_the_tensor_core_entry(card_route, code, unaligned):
     assert (lib, symbol) == ("flash_mma",
                              f"repro_flash_offset_q_mma_bf16_{suffix}")
     assert all(a % 16 == 0 for a in args[:3] + args[5:6])
-    assert args[6:13] == (6, 37, 160, 64, 3, 65, 102)
-    assert args[13] == pytest.approx(1 / 8)
+    assert args[6:14] == (6, 37, 160, 64, 3, 65, 102, 0)   # no window
+    assert args[14] == pytest.approx(1 / 8)
     assert K.flash_attention_2d_q.launches == before + 1
 
 
@@ -105,7 +105,7 @@ def test_f32_k9c_keeps_the_cuda_core_entry(card_route, code):
     (lib, symbol, args), = card_route
     assert (lib, symbol) == ("flash_attention",
                              f"repro_flash_offset_q_f32_{suffix}")
-    assert args[6:13] == (6, 37, 160, 64, 3, 65, 102)
+    assert args[6:14] == (6, 37, 160, 64, 3, 65, 102, 0)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -115,8 +115,8 @@ def test_f32_k9c_keeps_the_cuda_core_entry(card_route, code):
 def test_k9c_refusals_are_unchanged(card_route, dtype, bad):
     """The card refuses what no main path runs, before any launch."""
     kw, d = {}, 64
-    if bad == "window":
-        kw = dict(window=16)
+    if bad == "window":      # a window runs causal only
+        kw = dict(window=16, causal=False)
     elif bad == "non-causal":
         kw = dict(causal=False)
     elif bad.startswith("head dim"):
