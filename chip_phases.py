@@ -115,6 +115,11 @@ parent.  Phases:
   flash_times
              the causal K7, K2 and K9c calls of the paths (``FLASH_TIMES``)
              timed in bf16 and float32, for parent/change comparisons;
+  paged_hashes
+             sha256 of K1's, K8's, K9a's and K9b's bf16 and float32
+             outputs over the ``paged_split`` slots at head dims 64, 80
+             (decode), 128 and 320, GQA 1 and 4, every pool type, with and
+             without a window, from seeded inputs;
   hubert_kernel_cases
              hubert-xlarge's kernel rows (``chip_smoke.hubert_kernel_cases``:
              K5, K6, non-causal K7 and K11 at the encode's and a training
@@ -124,7 +129,20 @@ parent.  Phases:
              those phases of ``chip_smoke.py``;
   hubert_train
              hubert-xlarge at full width and depth: ``chip_smoke.train``'s
-             3 steps, the step-2 checkpoint and the replay of step 3.
+             3 steps, the step-2 checkpoint and the replay of step 3;
+  train_kernel_cases
+             the training paths' kernel rows (``chip_smoke.train_cases``:
+             llama3-8b's, gpt2's and gemma3-4b's at a step's tokens, the
+             int8 twins K10a / K10b / K10c among them, gemma3's K7 at head
+             dim 320 and K11 over its 262144-token vocabulary), bf16 and
+             float32, against their plain versions;
+  gemma_train_fused_vs_eager, train_w8_ste, gemma_train, quant_train
+             those phases of ``chip_smoke.py``: gemma3-4b's float32
+             kernel-plan step against its eager step at 6 layers, the
+             straight-through identity under w8 (llama3-8b at 4 layers,
+             gemma3-4b at 6), gemma3-4b's bf16 training at 6 layers, and
+             the w8 training entries (gemma3-4b at 6 layers, llama3-8b at
+             2, gpt2 at full depth).
 
 The card's name and power limit (nvidia-smi) come first.  ``--ptxas
 FILE`` writes nvcc's resource report (``-Xptxas -v``: registers, shared
@@ -159,8 +177,8 @@ SOURCES = {"k5_hashes": ["block_matmul"],
                      "flash_attention", "block_matmul", "streamed_xent"],
            "moe": ["moe_experts"], "moe_probe": ["moe_experts"],
            "granite_burst": ["rmsnorm_matmul", "flash_mma", "flash_attention",
-                             "paged_attention", "block_matmul", "row_norm",
-                             "moe_experts"],
+                             "paged_attention_64", "block_matmul",
+                             "row_norm", "moe_experts"],
            "granite_train": ["rmsnorm_matmul", "flash_mma", "flash_attention",
                              "block_matmul", "streamed_xent", "row_norm",
                              "moe_experts"],
@@ -168,7 +186,7 @@ SOURCES = {"k5_hashes": ["block_matmul"],
            "flash_q": ["flash_mma", "flash_attention"],
            "ssd_hashes": ["mamba2_scan"], "ssd": ["mamba2_scan"],
            "zamba_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
-                           "flash_attention", "paged_attention",
+                           "flash_attention", "paged_attention_80",
                            "block_matmul", "row_norm", "mamba2_scan"],
            "quant_burst": ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
                            "flash_attention", "paged_attention",
@@ -178,8 +196,8 @@ SOURCES = {"k5_hashes": ["block_matmul"],
            "convert": ["stream_converter"], "wkv_probe": ["rwkv6_wkv"],
            "convert_probe": ["stream_converter"]}
 QWEN_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
-                "flash_attention", "paged_attention", "block_matmul",
-                "streamed_ffn_w8", "streamed_xent"]
+                "flash_attention", "paged_attention", "paged_attention_64",
+                "block_matmul", "streamed_ffn_w8", "streamed_xent"]
 SOURCES.update(dict.fromkeys(("qwen_kernel_cases", "qwen_fused_vs_eager",
                               "qwen_serve", "qwen_train"), QWEN_SOURCES))
 SOURCES.update(dict.fromkeys(("gemma_kernel_cases", "gemma_fused_vs_eager",
@@ -193,6 +211,16 @@ SOURCES.update(dict.fromkeys(("hubert_kernel_cases", "hubert_fused_vs_eager",
                               "flash_attention", "streamed_xent"]))
 SOURCES["flash_hashes"] = SOURCES["flash_times"] = ["flash_mma",
                                                     "flash_attention"]
+# The training phases: the kernel plan's training path under w8 too.
+TRAIN_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "streamed_ffn_w8",
+                 "flash_mma", "flash_attention", "block_matmul",
+                 "streamed_xent"]
+SOURCES.update(dict.fromkeys(("train_kernel_cases",
+                              "gemma_train_fused_vs_eager", "train_w8_ste",
+                              "gemma_train", "quant_train"), TRAIN_SOURCES))
+SOURCES["paged_hashes"] = ["paged_attention", "paged_attention_64",
+                           "paged_attention_80", "paged_attention_320",
+                           "paged_attention_q320"]
 
 
 def emit(obj) -> None:
@@ -422,6 +450,49 @@ def flash_q_hashes(torch, K):
                     out[f"{code} D={d},G={g},q_offset={q_off},rows={sq}"] = (
                         _sha(torch, y))
     emit({"phase": "flash_q_hashes", "hashes": out})
+
+
+def paged_hashes(torch, K):
+    """K1, K8, K9a and K9b in bf16 and float32 over this checkout's
+    ``paged_split`` slots (lengths at the page, tile and partition edges),
+    head dims 64, 80 (decode only), 128 and 320, GQA groups 1 and 4, full-
+    precision, int8 and fp8 pools, with no window and a 100-token one: the
+    sha256 of each output, from seeded inputs (equal hashes on two trees:
+    bit-equal outputs)."""
+    from repro_torch.kernels.common import PAGED_PART
+    here, out = this_chip_smoke(), {}
+    ps, maxp = 16, here.SPLIT_MAXP
+    extent = maxp * ps
+    lens = [0, 1, 15, 16, 17, PAGED_PART - 1, PAGED_PART, PAGED_PART + 1,
+            extent]
+    b, hkv = len(lens), here.SPLIT_HKV
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        for d in (64, 80, 128, 320):
+            for g in (1, 4):
+                for code in (None,) + here.CODES:
+                    for w in ((1,) if d == 80 else (1, 5)):
+                        gen = torch.Generator(device="cuda").manual_seed(
+                            d * 1009 + g * 31 + w)
+                        randn = here._randn(torch, gen, dtype, "cuda")
+                        kp, vp, sc, table, _ = here._paged_pools(
+                            torch, randn, gen, b, maxp, hkv, d, code, "cuda")
+                        q = randn(b, w, hkv * g, d)
+                        base = (lens if w == 1 else
+                                [n - 1 for n in lens[:-1]] + [extent - w])
+                        bt = torch.tensor(base, dtype=torch.int32,
+                                          device="cuda")
+                        fn = {(1, None): K.paged_decode_attention,
+                              (5, None): K.paged_verify_attention}.get(
+                            (w, code)) or (K.paged_decode_attention_q
+                                           if w == 1 else
+                                           K.paged_verify_attention_q)
+                        for window in (0, 100):
+                            out[f"{fn.__name__} {dn} D={d},G={g},W={w},"
+                                f"codes={code},window={window}"] = _sha(
+                                torch, fn(q, kp, vp, table, bt, **sc,
+                                          window=window))
+    emit({"phase": "paged_hashes", "hashes": out})
 
 
 def flash_hashes(torch, K):
@@ -775,6 +846,23 @@ def main() -> int:
             cs.hubert_fused_vs_eager(torch)
         elif phase == "hubert_encode":
             cs.hubert_encode(torch)
+        elif phase == "train_kernel_cases":
+            cs.check_kernels(torch, timer, (cs.train_cases,),
+                             phase="train_kernel_cases")
+        elif phase == "gemma_train_fused_vs_eager":
+            from repro_torch.configs import get_config
+            cs.train_fused_vs_eager(
+                torch, dataclasses.replace(
+                    get_config(cs.GEMMA), num_layers=cs.GEMMA_TRAIN_LAYERS,
+                    dtype="float32"), cs.GEMMA, jitter=True)
+        elif phase == "train_w8_ste":
+            cs.train_w8_ste_phase(torch)
+        elif phase == "gemma_train":
+            cs.gemma_train(torch)
+        elif phase == "quant_train":
+            cs.quant_train(torch)
+        elif phase == "paged_hashes":
+            paged_hashes(torch, K)
         elif phase == "hubert_train":
             from repro_torch.configs import get_config
             cfg = dataclasses.replace(get_config(cs.HUBERT),

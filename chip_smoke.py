@@ -17,7 +17,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               verify attention over full-precision, int8 and fp8 pools;
               the training path's static attention and streamed
               cross-entropy at a training step's tokens: gpt2 8 x 1024,
-              llama3-8b 2 x 2048 with GQA; granite-moe-3b's MoE experts
+              llama3-8b 2 x 2048 with GQA, and the int8 twins a w8 step
+              runs there (K10a and K10b at llama3-8b's 4096 rows, K10c at
+              gpt2's 8192); granite-moe-3b's MoE experts
               (K12), router product, ln2 rows, projections and attention
               at decode, verify, a prefill chunk and a whole prompt, and
               granite-moe-1b's experts, projections, attention and loss
@@ -67,6 +69,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               positions and K9c's to one K9c call over the whole prompt,
               with and without the window (``gemma_rows``, required), and
               K7's local / global time at 3000 tokens (``gemma_window``);
+              and a training step's 2 x 2048 tokens: K3, K10a, K4 and K10b
+              at 4096 rows, K7 at head dim 320 over the folded heads
+              windowed and global, K11 over the 262144-token vocabulary;
    hubert_kernel_cases — hubert-xlarge's widths: K5 (q/k/v, [T, 1280] @
               [1280, 1280]), K6 (D 1280, F 5120) and non-causal K7 (16
               over 16 heads of 80 a clip) at the encode's 8 clips x 1000
@@ -273,13 +278,19 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               request completes, the solo request repeats its burst, the
               launches are exactly K14 32 per prefill and the LayerNorm
               rows and K5 (LM head) once per prefill and decode step;
-9. train_fused_vs_eager — the four models at full width cut to 4 layers,
-              float32, B = 2, S = 256: the kernel plan's ``forward_train``
+9. train_fused_vs_eager — the four models at full width cut to 4 layers
+              (gemma3-4b 6, weights jittered), float32, B = 2, S = 256:
+              the kernel plan's ``forward_train``
               loss against the eager plan's (relative 1e-5) and every
               gradient leaf (1e-4), 3 ``make_train_step`` steps on each plan
               (losses within 1e-4), and the kernel plan's launches per step
               equal to the plan's (the forward, the re-run of each layer
               under remat, the loss once);
+   train_w8_ste — llama3-8b at 4 layers and gemma3-4b at 6, float32,
+              under w8: the kernel plan's step (the int8 twins K10a and
+              K10b forward, the straight-through gradient back) against
+              the eager plan's on the dequantized weights, loss at 1e-5 and
+              every gradient leaf at 1e-4 relative, launches the plan's;
 10. train   — ``Trainer.run()`` on the kernel plan, bfloat16 compute over
               float32 master weights and AdamW state: gpt2 at full width
               and depth (B = 8, S = 1024) for 6 steps with a checkpoint
@@ -295,7 +306,13 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               depth likewise; hubert-xlarge at full width and depth on
               the pipeline's frame embeddings, weights jittered (lr
               1e-4), with a checkpoint at step 2 and a trainer resuming
-              there to replay step 3.  Losses finite and falling,
+              there to replay step 3; gemma3-4b at full width cut to 6
+              layers (``GEMMA_TRAIN_LAYERS``: five local, one global; B =
+              2, S = 2048, lr 3e-5, no checkpoint); and under w8
+              (``quant_train``: each w8 weight quantized at every call
+              from the float32 masters) gemma3-4b at 6 layers, llama3-8b
+              at 2 (lr 3e-5) and gpt2 at full depth (lr 1e-3), 3 steps
+              each, no checkpoint.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
 11. kernels — one line listing every kernel, once per model and path
@@ -669,13 +686,28 @@ TRAIN_LAYER_LAUNCHES[HUBERT] = TRAIN_LAYER_LAUNCHES["gpt2"]
 TRAIN_LAYER_LAUNCHES[ZAMBA] = {"rmsnorm_matmul": 3,
                                        "streamed_ffn": 1,
                                        "flash_attention_static": 1}
+# gemma3: llama3's stages in both layer kinds (the window rides on K7's
+# call in the local layers), K4 its GELU-GLU with ln2 folded in.
+TRAIN_LAYER_LAUNCHES[GEMMA] = TRAIN_LAYER_LAUNCHES["llama3-8b"]
+# Under a weight mode (w8, w8_kv8) each w8 stage launches its int8 twin
+# (K10a, K10b, K10c) in the unquantized kernel's place; K5 (gpt2's q/k/v),
+# K7, K11 and K12 have no twin.  A KV mode changes nothing in training.
+W8_TWINS = {"rmsnorm_matmul": "rmsnorm_matmul_w8",
+            "streamed_ffn": "streamed_ffn_w8",
+            "streamed_mlp": "streamed_mlp_w8"}
 # Training shapes: gpt2 at GPT-2's 1024-token context (8 sequences),
 # llama3-8b, granite-moe-1b-a400m, zamba2-2.7b, rwkv6-7b, qwen3-0.6b,
-# qwen2-vl-2b and hubert-xlarge (frames) at 2 x 2048.
+# qwen2-vl-2b, gemma3-4b (past its 1024-token window) and hubert-xlarge
+# (frames) at 2 x 2048.
 TRAIN_SHAPES = {"gpt2": (8, 1024), "llama3-8b": (2, 2048),
                 GRANITE_TRAIN: (2, 2048), ZAMBA: (2, 2048),
                 RWKV: (2, 2048), QWEN3: (2, 2048), QWEN2VL: (2, 2048),
-                HUBERT: (2, 2048)}
+                GEMMA: (2, 2048), HUBERT: (2, 2048)}
+# gemma3-4b trains at 6 of its 34 layers (one period: five local layers
+# and a global one): float32 masters, gradients and two AdamW moments take
+# 16 bytes a parameter, 75 GB at full depth (embed and lm_head 671 M
+# parameters each, a layer 98.3 M), about 31 GB at 6 layers.
+GEMMA_TRAIN_LAYERS = 6
 CODES = ("int8", "fp8")
 # A verify dispatch: 4 slots x a 5-row window (draft_len 4); the window
 # ladder's other rungs give 2 and 3 rows.
@@ -694,11 +726,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def train_step_launches(model: str, layers: int, remat: bool = True):
+def train_step_launches(model: str, layers: int, remat: bool = True,
+                        quant: str = "none"):
     """Each kernel's launches in one training step on the kernel plan
     (zamba2: K13 in every layer, the shared block's kernels in each of its
     ``layers // 6`` applications; rwkv6: K14 in every layer, nothing
-    else but the loss)."""
+    else but the loss); under a weight mode the int8 twins
+    (``W8_TWINS``) in their kernels' place."""
     runs = 2 if remat else 1
     if model == RWKV:
         out = {"rwkv6_wkv": runs * layers}
@@ -709,6 +743,8 @@ def train_step_launches(model: str, layers: int, remat: bool = True):
     else:
         out = {k: runs * n * layers
                for k, n in TRAIN_LAYER_LAUNCHES[model].items()}
+    if quant in ("w8", "w8_kv8"):
+        out = {W8_TWINS.get(k, k): n for k, n in out.items()}
     out["streamed_xent"] = 1
     return out
 
@@ -1119,10 +1155,11 @@ def kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     cases += _attention_cases(torch, K, ref, randn, isz, gen, 32, 8, 128,
                               128, 2048, dev)
     # The training path at a step's 2 x 2048 tokens: the projections and
-    # the FFN (their forward; the backward is PyTorch's) ...
+    # the FFN (their forward; the backward is PyTorch's), and their int8
+    # twins (K10a, K10b: the forward of the w8 step) ...
     b, s = TRAIN_SHAPES["llama3-8b"]
     cases += _layer_cases(torch, K, ref, randn, isz, b * s, d, (4096, 1024),
-                          f, "train", w8=False, o_proj=False)
+                          f, "train", o_proj=False)
     # ... and the attention: the 2 sequences folded into the heads (64
     # query heads over 16 KV heads, GQA group 4), as
     # ``ops.flash_attention`` flattens them.
@@ -1232,6 +1269,20 @@ def gpt2_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
         library=None,
         cublas=lambda: torch.matmul(gelu(x @ wu, approximate="tanh"), wd),
         nbytes=(2 * t * d + 2 * d * f) * isz, flops=4 * t * d * f))
+    # The w8 step's MLP: K10c over the codes of the same weights.
+    (cu, su), (cd, sd) = _w8(torch, wu, wd)
+    wuq, wdq = ((c.float() * sc).to(dtype) for c, sc in ((cu, su), (cd, sd)))
+    cases.append(dict(
+        name="streamed_mlp_w8", shape=f"T={t},D={d},F={f},int8",
+        path="train",
+        kernel=lambda: K.streamed_mlp_w8(x, cu, cd, wu_scale=su,
+                                         wd_scale=sd),
+        plain=lambda: ref.streamed_mlp_w8(x, cu, cd, wu_scale=su,
+                                          wd_scale=sd),
+        library=None,
+        cublas=lambda: torch.matmul(gelu(x @ wuq, approximate="tanh"), wdq),
+        nbytes=2 * t * d * isz + 2 * d * f + 4 * (f + d),
+        flops=4 * t * d * f))
     cases.append(dict(_flash_case(torch, K, ref, randn, isz,
                                   "flash_attention_static", b * 16, b * 16,
                                   64, s, s, None, dev), path="train"))
@@ -1919,7 +1970,9 @@ def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
     K8 at the window's edge lengths (``_gemma_paged_case``) and their
     twins over code pools (K9a, K9b), each under the 1024-token window and
     without it (a global layer); and K9c and K9a under the window at head
-    dim 128 over int8 codes."""
+    dim 128 over int8 codes; a training step's 2 x 2048 tokens: K3, K10a,
+    K4 and K10b at T = 4096, K7 over the folded heads windowed and global,
+    and K11 over the 262144-token vocabulary."""
     from repro_torch.configs import get_config
     from repro_torch.models.params import padded_vocab
     isz = torch.empty((), dtype=dtype).element_size()
@@ -1965,6 +2018,20 @@ def gemma_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
                 cases.append(_gemma_paged_case(
                     torch, K, ref, randn, isz, gen, hq, hkv, hd, dev,
                     window, verify, code))
+    # The training step at 2 x 2048 tokens: the projections (K3, K10a),
+    # the GELU-GLU with ln2 folded in (K4, K10b), K7 at head dim 320 with
+    # the two sequences folded into the heads, windowed (a local layer)
+    # and global, and the loss over the 262144-token vocabulary (K11;
+    # T x Vp = 2^30).
+    b, s = TRAIN_SHAPES[GEMMA]
+    cases += _layer_cases(torch, K, ref, randn, isz, b * s, d, ns, f,
+                          "train", o_proj=False, activation="gelu")
+    for window in (GEMMA_WINDOW, 0):
+        cases.append(dict(_flash_case(
+            torch, K, ref, randn, isz, "flash_attention_static", b * hq,
+            b * hkv, hd, s, s, None, dev, window=window), path="train"))
+    cases.append(_xent_case(torch, K, ref, randn, gen, isz, GEMMA, d,
+                            cfg.vocab_size, dev))
     # The window over codes at head dim 128 too (path "d128": no gemma3
     # burst runs it).
     cases.append(dict(_flash_case(
@@ -4258,7 +4325,7 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
     pipe = TokenPipeline(cfg, ShapeConfig("smoke", 256, 2, "train"), seed=0)
     batch = {k: torch.as_tensor(v, device=device)
              for k, v in pipe.batch_at(0).items()}
-    expect = train_step_launches(model, cfg.num_layers)
+    expect = train_step_launches(model, cfg.num_layers, quant=cfg.quant)
     leaves = tree_leaves(params0)
     for p in leaves:
         p.requires_grad_(True)
@@ -4317,6 +4384,80 @@ def train_fused_vs_eager(torch, cfg, model, *, jitter, device="cuda",
         problems.append(f"launches off the plan's: {grad_bad} {step_bad}")
     if problems:
         raise AssertionError(f"train_fused_vs_eager {cfg.name}: "
+                             + "; ".join(problems))
+    return row
+
+
+def train_w8_ste(torch, cfg, model, *, device="cuda"):
+    """``cfg``: full width cut to 4 layers (gemma3 6), float32, ``w8``.
+    The straight-through identity on one batch (B = 2, S = 256, from the
+    token pipeline): the kernel plan's ``forward_train`` on weights W
+    (each w8 stage's int8 twin forward, the reference's straight-through
+    backward) against the eager plan's on dq(W), each w8 stage's weight
+    quantized and dequantized (``params.quantize_weights``,
+    ``dequantize_weights``): the losses at relative 1e-5 (the twins
+    against PyTorch's products over the same dequantized weights, as in
+    ``train_fused_vs_eager``) and every gradient leaf at relative 1e-4
+    (max |d| over max |eager|; a w8 weight's gradient against the eager
+    gradient of its dequantized copy, so the gradient passed through
+    the rounding as if it were not there); the kernel plan's launches the
+    plan's under w8."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.models.params import (dequantize_weights, map_tree,
+                                           quantize_weights, tree_leaves)
+    fused_cfg = dataclasses.replace(cfg, use_fused_kernels=True)
+    params = init_params(fused_cfg,
+                         torch.Generator(device=device).manual_seed(3),
+                         device=device, dtype=torch.float32)
+    with torch.no_grad():
+        dq = dequantize_weights(fused_cfg,
+                                quantize_weights(fused_cfg, params))
+    leaves, dq_leaves = tree_leaves(params), tree_leaves(dq)
+    w8 = [i for i, (a, b) in enumerate(zip(leaves, dq_leaves)) if a is not b]
+    weight_rel = max(_rel(dq_leaves[i], leaves[i]) for i in w8)
+    for t in leaves + [dq_leaves[i] for i in w8]:
+        t.requires_grad_(True)
+    pipe = TokenPipeline(cfg, ShapeConfig("smoke", 256, 2, "train"), seed=0)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in pipe.batch_at(0).items()}
+    expect = train_step_launches(model, cfg.num_layers, quant=cfg.quant)
+    K.reset_launches()
+    out = forward_train(params, fused_cfg, batch)
+    fused = torch.autograd.grad(out, leaves)
+    _sync(torch, device)
+    counts, bad = _train_counts(torch, K, expect)
+    loss_fused = float(out.detach())
+    out = forward_train(dq, dataclasses.replace(cfg, use_fused_kernels=False),
+                        batch)
+    eager = torch.autograd.grad(out, dq_leaves)
+    loss_eager = float(out.detach())
+    rels = [_rel(a, b) for a, b in zip(fused, eager)]
+    row = {"phase": "train_w8_ste", "config": cfg.name, "quant": cfg.quant,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": 2,
+           "seq_len": 256, "w8_leaves": len(w8),
+           "w8_weight_rel_change": weight_rel, "loss_fused": loss_fused,
+           "loss_eager_dequantized": loss_eager,
+           "loss_rel": abs(loss_fused - loss_eager) / abs(loss_eager),
+           "grad_rel_max": max(rels),
+           "grad_rel_max_w8_leaves": max(rels[i] for i in w8),
+           "launches": counts, "expected": expect}
+    emit(row)
+    del params, dq, leaves, dq_leaves, fused, eager, out
+    _free(torch, device)
+    problems = []
+    if not w8:
+        problems.append("no w8 weight in the tree")
+    if not row["loss_rel"] <= 1e-5:
+        problems.append(f"loss rel {row['loss_rel']}")
+    if not row["grad_rel_max"] <= 1e-4:
+        problems.append(f"gradient rel {row['grad_rel_max']}")
+    if bad:
+        problems.append(f"launches off the plan's: {bad}")
+    if problems:
+        raise AssertionError(f"train_w8_ste {cfg.name}: "
                              + "; ".join(problems))
     return row
 
@@ -4445,12 +4586,13 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
     tr.run()
     _sync(torch, device)
     wall = time.perf_counter() - t0
-    per_step = train_step_launches(model, cfg.num_layers)
+    per_step = train_step_launches(model, cfg.num_layers, quant=cfg.quant)
     counts, bad = _train_counts(
         torch, K, {k: n * steps for k, n in per_step.items()})
     losses = [l for _, l in tr.history]
     step_s = statistics.median(tr.step_s[1:])
-    row = {"phase": "train", "config": cfg.name, "layers": cfg.num_layers,
+    row = {"phase": "train", "config": cfg.name, "quant": cfg.quant,
+           "layers": cfg.num_layers,
            "dtype": cfg.dtype, "master": "float32", "batch": b,
            "seq_len": s, "steps": steps, "lr": lr, "note": note,
            "losses": losses, "step_s": tr.step_s,
@@ -4511,6 +4653,62 @@ def train(torch, cfg, model, *, steps, ckpt_every, replay_from, lr, note,
     if problems:
         raise AssertionError(f"train {cfg.name}: " + "; ".join(problems))
     return row
+
+
+def train_w8_ste_phase(torch):
+    """``train_w8_ste`` for llama3-8b at 4 layers and gemma3-4b at 6
+    (``GEMMA_TRAIN_LAYERS``), float32, under w8."""
+    from repro_torch.configs import get_config
+    return {m: train_w8_ste(torch, dataclasses.replace(
+        get_config(m), num_layers=n, dtype="float32", quant="w8"), m)
+        for m, n in (("llama3-8b", 4), (GEMMA, GEMMA_TRAIN_LAYERS))}
+
+
+def gemma_train(torch, quant="none"):
+    """gemma3-4b at full width cut to ``GEMMA_TRAIN_LAYERS``, bf16 over
+    float32 masters: 3 steps on 2 x 2048 tokens, lr 3e-5, no
+    checkpoint."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(GEMMA), num_layers=GEMMA_TRAIN_LAYERS,
+                              use_fused_kernels=True, quant=quant)
+    return train(
+        torch, cfg, GEMMA, steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+        note=f"full width cut to {GEMMA_TRAIN_LAYERS} layers (five local, "
+             "one global): float32 weights, gradients and two AdamW moments "
+             "of all 34 take 75 GB; no checkpoint (the CPU tests hold "
+             "gemma3 checkpoints to the reference)")
+
+
+def quant_train(torch):
+    """The w8 training entries, bf16 over float32 masters, 3 steps each,
+    no checkpoint: gemma3-4b at ``GEMMA_TRAIN_LAYERS`` (K10a, K10b's
+    GELU-GLU with ln2 folded in), llama3-8b at 2 layers (K10a, K10b's
+    SiLU-GLU) and gpt2 at full depth (K5, K10c), each w8 weight quantized
+    at every call from the live float32 masters."""
+    from repro_torch.configs import get_config
+    note = ("w8: the int8 twins forward, the straight-through gradient "
+            "back, float32 masters; no checkpoint")
+    out = {GEMMA: gemma_train(torch, quant="w8")}
+    out["llama3-8b"] = train(
+        torch, dataclasses.replace(get_config("llama3-8b"), num_layers=2,
+                                   use_fused_kernels=True, quant="w8"),
+        "llama3-8b", steps=3, ckpt_every=None, replay_from=0, lr=3e-5,
+        note=note + "; full width cut to 2 layers, as the bf16 entry")
+    out["gpt2"] = train(
+        torch, dataclasses.replace(get_config("gpt2"), use_fused_kernels=True,
+                                   quant="w8"),
+        "gpt2", steps=3, ckpt_every=None, replay_from=0, lr=1e-3,
+        note=note + "; full width and depth")
+    return out
+
+
+def train_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """The training paths' rows (path "train") of llama3-8b's, gpt2's and
+    gemma3-4b's kernel cases: K3, K10a, K4, K10b, K5, K6, K10c, K7 and
+    gemma3's K11 at a step's tokens."""
+    return [c for fn in (_llama_cases, _gpt2_cases, gemma_kernel_cases)
+            for c in fn(torch, K, ref, dtype, gen)
+            if c.get("path") == "train"]
 
 
 # --------------------------------------------------------------------- #
@@ -4866,6 +5064,11 @@ def main(argv=None) -> int:
     results["train_fused_vs_eager"][RWKV] = train_fused_vs_eager(
         torch, dataclasses.replace(rwkv, num_layers=RWKV_TRAIN_LAYERS,
                                    dtype="float32"), RWKV, jitter=True)
+    gemma = get_config(GEMMA)
+    results["train_fused_vs_eager"][GEMMA] = train_fused_vs_eager(
+        torch, dataclasses.replace(gemma, num_layers=GEMMA_TRAIN_LAYERS,
+                                   dtype="float32"), GEMMA, jitter=True)
+    results["train_w8_ste"] = train_w8_ste_phase(torch)
     results["train"] = {
         "gpt2": train(torch, dataclasses.replace(gpt2, use_fused_kernels=True),
                       "gpt2", steps=6, ckpt_every=3, replay_from=3, lr=1e-3,
@@ -4914,6 +5117,8 @@ def main(argv=None) -> int:
         note="full width and depth (48 layers) on the pipeline's frame "
              "embeddings, weights jittered; a checkpoint at step 2 and a "
              "trainer resuming there to replay step 3")
+    results["train"][GEMMA] = gemma_train(torch)
+    results["train_w8"] = quant_train(torch)
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -4935,6 +5140,8 @@ def main(argv=None) -> int:
                   results["rwkv_serve"]["none"]["launches"]))
     for m, r in results["train"].items():
         paths.append((m, "train", r["launches"]))
+    for m, r in results["train_w8"].items():
+        paths.append((m, "quant_train", r["launches"]))
     paths += results["compile"]["paths"]
     rows = rows + results["compile"]["rows"]
     summary = []

@@ -31,7 +31,8 @@ KERNEL_SOURCES = ("rmsnorm_matmul", "streamed_ffn", "flash_attention",
                   "streamed_xent", "moe_experts", "mamba2_scan",
                   "rwkv6_wkv", "stream_converter", "flash_mma",
                   "paged_attention_320", "paged_attention_q320",
-                  "streamed_ffn_w8")
+                  "streamed_ffn_w8", "paged_attention_64",
+                  "paged_attention_80")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

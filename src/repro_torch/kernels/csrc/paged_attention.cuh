@@ -18,8 +18,9 @@
 // over full-precision and code pools alike) it attends to the last
 // `window` of them, positions [len - window, len) (the reference's
 // `kv_pos >= length - window`).
-// Only what the main paths run is built (paged_attention.cu and, for D =
-// 320, paged_attention_320.cu over full-precision pools and
+// Only what the main paths run is built (one library per head dim:
+// paged_attention.cu at 128, paged_attention_64.cu, paged_attention_80.cu,
+// and at 320 paged_attention_320.cu over full-precision pools and
 // paged_attention_q320.cu over codes): D in {64, 128} (gpt2, llama3), 320
 // (gemma3) and, for decode only, 80 (zamba2's shared block); W * G up to
 // 64 rows, 32 at D = 320; the wrapper refuses the rest on the card.
@@ -489,9 +490,11 @@ int launch_d(const Operands& o, const Shape& s, cudaStream_t stream) {
 }
 
 // Launch at head dim d, one of Ds: the instances a translation unit
-// builds (paged_attention.cu: 64, 80 and 128; paged_attention_320.cu and
-// paged_attention_q320.cu: gemma3's 320 over full-precision and code
-// pools, each in a library of its own that compiles beside the others).
+// builds, one head dim each (paged_attention.cu: 128;
+// paged_attention_64.cu, paged_attention_80.cu: 64 and 80;
+// paged_attention_320.cu and paged_attention_q320.cu: gemma3's 320 over
+// full-precision and code pools), each in a library of its own that
+// compiles beside the others.
 template <typename T, typename C, int... Ds>
 int launch(const Operands& o, const Shape& s, int d, void* stream) {
   // Partitions are whole 32-position tiles.

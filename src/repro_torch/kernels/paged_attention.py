@@ -3,7 +3,8 @@ the speculative verify window (``verify_attn``), over full-precision pools
 or over int8 / fp8-e4m3 code pools with per-(page, KV head) scales.
 
 Every wrapper launches the one window kernel in ``csrc/paged_attention.cuh``
-(built by ``paged_attention.cu``, and at head dim 320 by
+(built one head dim a library: ``paged_attention.cu`` at 128,
+``paged_attention_64.cu``, ``paged_attention_80.cu``, and at 320
 ``paged_attention_320.cu`` and, over codes, ``paged_attention_q320.cu``)
 on a CUDA tensor (decode is the window at W = 1; the ``_q`` twins read
 code pools) and runs its plain version (``ref.paged_decode_attention`` /
@@ -40,18 +41,25 @@ MAX_ROWS = 64             # window rows x query heads per KV head it holds
 MAX_ROWS_320 = 32         # ... at head dim 320 (registers; codes too)
 
 
+# Each head dim's instances build in a library of their own, so that the
+# sources compile side by side: (library, symbol prefix) per head dim;
+# at head dim 320 the code twins in ``paged_attention_q320``.
+_LIBRARIES = {64: ("paged_attention_64", "d64_"),
+              80: ("paged_attention_80", "d80_"),
+              128: ("paged_attention", ""),
+              320: ("paged_attention_320", "d320_")}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype, code: Optional[torch.dtype] = None,
-           d320: bool = False):
+           head_dim: int = 128):
     """``code``: None for full-precision pools, else the pools' code type;
-    ``d320``: head dim 320's library (``paged_attention_320``, or
-    ``paged_attention_q320`` over codes)."""
-    source = "paged_attention"
-    if d320:
-        source += "_320" if code is None else "_q320"
+    ``head_dim``: which library (``_LIBRARIES``)."""
+    source, d = _LIBRARIES[head_dim]
+    if head_dim == 320 and code is not None:
+        source = "paged_attention_q320"
     lib = _build.load(source)
     tname = "bf16" if dtype == torch.bfloat16 else "f32"
-    d = "d320_" if d320 else ""
     vp, i = ctypes.c_void_p, ctypes.c_int
     # Ten ints (the shape, the partition, the sliding window), the scale.
     ints = [i] * 10 + [ctypes.c_float, vp]
@@ -126,7 +134,7 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
     ptrs += [page_table.data_ptr(), base.data_ptr(), part.data_ptr(),
              out.data_ptr()]
     ints = [b, hkv, g, w, extra, d, ps, maxp, PAGED_PART, int(window)]
-    status = _entry(q.dtype, code if quant else None, d == 320)(
+    status = _entry(q.dtype, code if quant else None, d)(
         *ptrs, *ints, float(scale), stream)
     check_launch(name, status)
     return out

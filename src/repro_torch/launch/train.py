@@ -12,7 +12,10 @@ plan, as the reference's launcher does).  ``--smoke`` uses the reduced
 config;
 ``--layers`` cuts the depth (llama3-8b at full width fits one card at 4
 layers: float32 weights, gradients and two AdamW moments take 16 bytes a
-parameter).  Checkpoints are the reference's format, so ``--resume``
+parameter).  A weight-quantized config (``quant`` ``w8`` or ``w8_kv8``)
+trains through its ``ModelConfig``, as in the reference, which has no
+quant flag either: on the kernel plan its q/k/v and FFN stages run their
+int8 twins forward and the straight-through gradient backward.  Checkpoints are the reference's format, so ``--resume``
 continues a run of ``python -m repro.launch.train`` too.  The reference's
 ``--data``/``--model`` mesh flags come with the distributed slice.
 """
@@ -56,10 +59,6 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.fused:
         cfg = dataclasses.replace(cfg, use_fused_kernels=True)
-    if cfg.quant != "none":
-        ap.error(f"quant {cfg.quant!r}: quantized training (the "
-                 "straight-through _w8_ste, layers.py:233) is not ported "
-                 "yet")
     shape = ShapeConfig("cli", args.seq_len, args.batch, "train")
     tcfg = TrainerConfig(total_steps=args.steps,
                          checkpoint_every=args.ckpt_every,

@@ -11,9 +11,11 @@ Gradients (``_kernel_fwd_eager_bwd``, the reference's
 ``_pallas_fwd_eager_bwd``): where an input requires grad and grad mode is
 on, a wrapper runs its kernel for the forward value and recomputes the
 backward through the eager formulation it replaces, from the saved
-inputs; there is no backward kernel, as the reference has none.  Serving
-runs under ``torch.no_grad()`` and calls the kernel directly, with no
-autograd node.
+inputs; there is no backward kernel, as the reference has none.  A w8
+stage's forward quantizes its live weight and runs the int8 twin; its
+eager formulation is the reference's straight-through one (``w8_ste``).
+Serving runs under ``torch.no_grad()`` and calls the kernel directly,
+with no autograd node.
 """
 
 from __future__ import annotations
@@ -77,6 +79,14 @@ def quantize_channelwise(w: torch.Tensor
 def dequantize_channelwise(codes: torch.Tensor, scales: torch.Tensor,
                            dtype: torch.dtype) -> torch.Tensor:
     return (codes.float() * scales[None, :]).to(dtype)
+
+
+def w8_ste(w: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (``_w8_ste``,
+    ``layers.py:233``): the value carries the int8 rounding, the gradient
+    passes through as if ``w`` were untouched."""
+    wq = dequantize_channelwise(*quantize_channelwise(w), w.dtype)
+    return w + (wq - w).detach()
 
 
 def w8_codes(w: W8Weight) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -499,21 +509,22 @@ class _KernelFwdEagerBwd(torch.autograd.Function):
 
 def _kernel_fwd_eager_bwd(fused: Callable, eager: Callable) -> Callable:
     """``fused`` with ``eager``'s gradient.  Without grad mode, or when no
-    input requires grad (serving), ``fused`` runs as it is."""
+    input requires grad (serving), ``fused`` runs as it is.  A w8 stage's
+    cached ``(codes, scales)`` pair (``params.quantize_weights``) is for
+    serving: under grad it is refused, as its codes would be those of
+    weights the optimizer has since moved."""
     def apply(*args):
-        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args):
+            if any(isinstance(a, tuple) for a in args):
+                raise ValueError("cached int8 weights "
+                                 "(params.quantize_weights) are for "
+                                 "serving: train on the weight tensors, "
+                                 "which each call quantizes anew")
             return _KernelFwdEagerBwd.apply(fused, eager, *args)
         return fused(*args)
     return apply
-
-
-def _refuse_w8_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "weight-only int8 stages have no gradient yet: the reference's "
-            "straight-through _w8_ste (layers.py:233) comes with quantized "
-            "training")
 
 
 # --------------------------------------------------------------------- #
@@ -529,20 +540,22 @@ def fused_norm_matmul(x: torch.Tensor, scale: torch.Tensor, w: W8Weight,
                       *, eps: float = 1e-6, w8: int = 0) -> torch.Tensor:
     """rms_norm(x) @ w through ``rmsnorm_matmul``: x [B, S, D] -> [B, S, N]
     (``layers.py:725``).  ``w8`` (the plan's block flag): weight-only int8
-    through the ``rmsnorm_matmul_w8`` twin (serving only)."""
+    through the ``rmsnorm_matmul_w8`` twin, the weight quantized at each
+    call; its backward is the reference's straight-through estimator
+    (x's gradient through the dequantized weight, w's as if unquantized)."""
     b, s, _ = x.shape
-    if w8:
-        _refuse_w8_grad(x, scale, w)
-        codes, ws = w8_codes(w)
-        y = K.rmsnorm_matmul_w8(_rows(x), scale, codes, w_scale=ws, eps=eps)
-        return y.reshape(b, s, y.shape[-1])
 
     def fused(x, scale, w):
-        return K.rmsnorm_matmul(_rows(x), scale, w, eps=eps).reshape(
-            b, s, w.shape[-1])
+        if w8:
+            codes, ws = w8_codes(w)
+            y = K.rmsnorm_matmul_w8(_rows(x), scale, codes, w_scale=ws,
+                                    eps=eps)
+        else:
+            y = K.rmsnorm_matmul(_rows(x), scale, w, eps=eps)
+        return y.reshape(b, s, y.shape[-1])
 
     def eager(x, scale, w):
-        return rms_norm(x, scale, eps) @ w
+        return rms_norm(x, scale, eps) @ (w8_ste(w) if w8 else w)
 
     return _kernel_fwd_eager_bwd(fused, eager)(x, scale, w)
 
@@ -577,19 +590,11 @@ def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
     """GLU FFN through ``streamed_ffn``, or the ungated MLP through
     ``streamed_mlp``; with ``norm_scale`` the pre-FFN RMSNorm is folded
     into the kernel (``layers.py:795``).  ``w8``: weight-only int8 on
-    every projection through the ``_w8`` twins (serving only)."""
+    every projection through the ``_w8`` twins, each weight quantized at
+    each call, with the straight-through backward (``layers.py:835``,
+    ``:856``)."""
     b, s, d = x.shape
     names = ("wg", "wu", "wd") if gated else ("wu", "wd")
-    if w8:
-        _refuse_w8_grad(x, norm_scale, *(p[n] for n in names))
-        codes, scales = {}, {}
-        for n in names:
-            codes[n], scales[n + "_scale"] = w8_codes(p[n])
-        fn = K.streamed_ffn_w8 if gated else K.streamed_mlp_w8
-        y = fn(_rows(x), *(codes[n] for n in names), activation=activation,
-               norm_scale=norm_scale, **scales)
-        return y.reshape(b, s, d)
-    kernel = K.streamed_ffn if gated else K.streamed_mlp
     args = (x,) + tuple(p[n] for n in names)
     if norm_scale is not None:
         args += (norm_scale,)
@@ -601,12 +606,21 @@ def fused_ffn(x: torch.Tensor, p: Params, *, activation: str, gated: bool,
 
     def fused(*args):
         x, ws, norm = split(args)
-        return kernel(_rows(x), *ws, activation=activation,
-                      norm_scale=norm).reshape(b, s, d)
+        if w8:
+            codes, scales = zip(*(w8_codes(w) for w in ws))
+            fn = K.streamed_ffn_w8 if gated else K.streamed_mlp_w8
+            y = fn(_rows(x), *codes, activation=activation, norm_scale=norm,
+                   **{n + "_scale": sc for n, sc in zip(names, scales)})
+        else:
+            kernel = K.streamed_ffn if gated else K.streamed_mlp
+            y = kernel(_rows(x), *ws, activation=activation, norm_scale=norm)
+        return y.reshape(b, s, d)
 
     def eager(*args):
         x, ws, norm = split(args)
         h = rms_norm(x, norm) if norm is not None else x
+        if w8:
+            ws = [w8_ste(w) for w in ws]
         return ffn(h, dict(zip(names, ws)), activation=activation,
                    gated=gated)
 

@@ -1,0 +1,214 @@
+"""Training gemma3-4b in the port on the CPU, against the JAX package.
+
+The reduced config (head dim 16, window 32, a global layer every 2) cut
+to one period (a local layer and a global one), float32, the JAX
+``init_params`` jittered (the q/k norm scales start at zero) and bridged
+with ``params_from_numpy``; batches of 2 x 80 tokens, so the windowed
+layer reaches past its window:
+
+* ``forward_train``: the loss at relative 1e-6 and every gradient leaf,
+  ``q_norm`` and ``k_norm`` included (nonzero), at relative 1e-5 against
+  ``jax.value_and_grad`` of ``repro.models.forward_train``, kernel and
+  eager plans, remat on and off; the kernel plan runs its kernels once
+  per layer (twice under remat) and the loss kernel once;
+* the trainer: a JAX checkpoint resumed by the port's ``Trainer`` on the
+  kernel plan, 3 AdamW steps at lr 3e-4 to the JAX trainer's losses, and
+  the JAX package restoring the port's checkpoint to the JAX run's
+  weights and moments, ``embed`` and ``lm_head`` as two leaves (the
+  config ties them, the reference's tree does not);
+* the launcher: ``--arch gemma3-4b --smoke --device cpu --fused``.
+"""
+
+import dataclasses
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.distributed.optimizer import AdamWConfig as JAdamWConfig
+from repro.distributed.optimizer import abstract_opt_state
+from repro.distributed.optimizer import init_opt_state as j_init_opt_state
+from repro.launch.mesh import make_host_mesh
+from repro.models import abstract_params
+from repro.models import forward_train as j_forward_train
+from repro.models import init_params as j_init_params
+from repro.serving.accuracy import jitter_params as j_jitter_params
+from repro.train import Trainer as JTrainer
+from repro.train import TrainerConfig as JTrainerConfig
+from repro.train import restore_checkpoint as j_restore_checkpoint
+from repro.train import save_checkpoint as j_save_checkpoint
+from repro_torch import kernels as K
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import AdamWConfig
+from repro_torch.launch.train import main as train_main
+from repro_torch.models import (forward_train, params_from_numpy,
+                                params_to_numpy)
+from repro_torch.models.params import map_tree, tree_leaves
+from repro_torch.train import Trainer, TrainerConfig, latest_checkpoint
+
+ARCH = "gemma3-4b"
+LAYERS = 2            # one period of the reduced config's pattern
+LOSS_REL, REL = 1e-6, 1e-5
+B, S = 2, 80
+# The kernels each layer's forward runs on the kernel plan (K3 three
+# times for q, k, v; K4 with ln2 folded in); qk-norm and the o-projection
+# are PyTorch ops there.
+FORWARD_LAUNCHES = {"rmsnorm_matmul": 3, "streamed_ffn": 1,
+                    "flash_attention": 1}
+
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's CPU runs here are many small ops: one intra-op thread
+    each (restored after the module), so that the test workers running
+    beside one another do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+def _rel_close(got, want, tol=REL):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _configs(fused):
+    j_cfg = dataclasses.replace(j_get_config(ARCH).reduced(),
+                                dtype="float32", use_fused_kernels=fused,
+                                num_layers=LAYERS)
+    t_cfg = dataclasses.replace(get_config(ARCH).reduced(), dtype="float32",
+                                use_fused_kernels=fused, num_layers=LAYERS)
+    return j_cfg, t_cfg
+
+
+def _count_calls(monkeypatch, names):
+    """Count calls of the kernel wrappers the model layers reach (plain
+    versions on the CPU, so their launch counters stay at 0)."""
+    calls = dict.fromkeys(names, 0)
+    for n in names:
+        fn = getattr(K, n)
+
+        def counted(*a, _n=n, _fn=fn, **kw):
+            calls[_n] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(K, n, counted)
+    return calls
+
+
+def test_the_reduced_config_trains_past_its_window():
+    _, t_cfg = _configs(True)
+    kinds = [t_cfg.layer_kind(i) for i in range(t_cfg.num_layers)]
+    assert kinds == ["local_attn", "global_attn"]
+    assert 0 < t_cfg.sliding_window < S
+    assert t_cfg.qk_norm and t_cfg.tie_embeddings
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["kernel", "eager"])
+def test_forward_train_matches_reference(fused, monkeypatch):
+    j_cfg, t_cfg = _configs(fused)
+    jp = j_jitter_params(j_init_params(jax.random.PRNGKey(2), j_cfg), seed=7)
+    rng = np.random.default_rng(0)
+    batch = {n: rng.integers(0, j_cfg.vocab_size, (B, S)).astype(np.int32)
+             for n in ("tokens", "labels")}
+    batch["labels"][0, :5] = -100
+    j_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    j_loss, j_grads = jax.jit(jax.value_and_grad(
+        lambda p: j_forward_train(p, j_cfg, j_batch)))(jp)
+    j_flat = jax.tree_util.tree_flatten_with_path(j_grads)[0]
+    host = jax.tree.map(np.asarray, jp)
+    calls = _count_calls(monkeypatch, list(FORWARD_LAUNCHES)
+                         + ["block_matmul", "streamed_xent_loss"])
+    for remat in (True, False):
+        params = params_from_numpy(host, t_cfg, device="cpu",
+                                   dtype=torch.float32)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        for n in calls:
+            calls[n] = 0
+        loss = forward_train(params, t_cfg,
+                             {k: torch.from_numpy(v)
+                              for k, v in batch.items()}, remat=remat)
+        flat = iter(torch.autograd.grad(loss, leaves))
+        grads = params_to_numpy(map_tree(lambda _: next(flat), params),
+                                t_cfg)
+        _rel_close(loss.detach().numpy(), j_loss, LOSS_REL)
+        t_flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+        assert [p for p, _ in t_flat] == [p for p, _ in j_flat]
+        for (_, got), (_, want) in zip(t_flat, j_flat):
+            _rel_close(got, want)
+        for kind in grads["blocks"]:        # one stacked tree per kind
+            for name in ("q_norm", "k_norm"):
+                assert np.abs(kind["attn"][name]).max() > 0
+        runs = 2 if remat else 1
+        want_calls = {n: runs * c * t_cfg.num_layers if fused else 0
+                      for n, c in FORWARD_LAUNCHES.items()}
+        want_calls.update(block_matmul=0, streamed_xent_loss=int(fused))
+        assert calls == want_calls
+
+
+SHAPE = ShapeConfig("t", S, B, "train")
+J_SHAPE = JShapeConfig("t", S, B, "train")
+OPT = dict(lr=3e-4, warmup_steps=1, total_steps=3)
+
+
+def test_trainer_and_checkpoints_move_between_the_packages(tmp_path):
+    j_cfg, t_cfg = _configs(True)
+    jp = j_jitter_params(j_init_params(jax.random.PRNGKey(0), j_cfg), seed=3)
+    j_save_checkpoint(tmp_path / "start", 0, jp,
+                      opt_state=j_init_opt_state(jp),
+                      extra={"pipeline": {"step": 0}})
+    for who in ("jax", "torch"):
+        shutil.copytree(tmp_path / "start", tmp_path / who)
+    tc = dict(total_steps=3, checkpoint_every=3, log_every=100)
+    j_tr = JTrainer(j_cfg, J_SHAPE, make_host_mesh(1, 1),
+                    JTrainerConfig(checkpoint_dir=str(tmp_path / "jax"), **tc),
+                    JAdamWConfig(**OPT))
+    j_tr.run()
+    t_tr = Trainer(t_cfg, SHAPE,
+                   TrainerConfig(checkpoint_dir=str(tmp_path / "torch"), **tc),
+                   AdamWConfig(**OPT), device="cpu")
+    assert t_tr.resume() and t_tr.step == 0
+    # The JAX checkpoint's two leaves arrive as two tensors.
+    embed, head = t_tr.params["embed"], t_tr.params["lm_head"]
+    assert embed.data_ptr() != head.data_ptr()
+    assert not torch.equal(embed.T, head)
+    t_tr.run()
+    assert [s for s, _ in t_tr.history] == [s for s, _ in j_tr.history] \
+        == [1, 2, 3]
+    _rel_close([l for _, l in t_tr.history], [l for _, l in j_tr.history],
+               LOSS_REL)
+
+    path = latest_checkpoint(tmp_path / "torch")
+    ab = abstract_params(j_cfg)
+    assert {"embed", "lm_head"} <= set(ab)
+    step, params, opt, extra = j_restore_checkpoint(
+        path, ab, opt_template=abstract_opt_state(ab))
+    assert step == 3 and extra == {"pipeline": {"step": 3}}
+    for mine, ref in ((params, j_tr.params), (opt.mu, j_tr.opt_state.mu),
+                      (opt.nu, j_tr.opt_state.nu)):
+        for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(ref)):
+            _rel_close(a, b, 1e-4)
+    # Each of the two leaves trained on its own gradient.
+    for name in ("embed", "lm_head"):
+        _rel_close(params[name], j_tr.params[name], 1e-4)
+        assert not np.array_equal(np.asarray(params[name]),
+                                  np.asarray(jp[name]))
+
+
+def test_launcher_trains_gemma3_smoke_on_cpu(tmp_path):
+    assert train_main(["--arch", ARCH, "--smoke", "--layers", str(LAYERS),
+                       "--device", "cpu", "--steps", "2", "--seq-len", "40",
+                       "--batch", "2", "--ckpt", str(tmp_path),
+                       "--fused"]) == 0
