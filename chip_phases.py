@@ -142,7 +142,14 @@ parent.  Phases:
              straight-through identity under w8 (llama3-8b at 4 layers,
              gemma3-4b at 6), gemma3-4b's bf16 training at 6 layers, and
              the w8 training entries (gemma3-4b at 6 layers, llama3-8b at
-             2, gpt2 at full depth).
+             2, gpt2 at full depth);
+  serve_contiguous, serve_surface, serve_launcher
+             those phases of ``chip_smoke.py``: llama3-8b's mixed burst
+             through the contiguous slot cache beside the paged
+             whole-prompt engine; the surface's kernel rows and float32
+             bursts (page sizes, chunks, layouts, adaptive decode block,
+             contiguous); ``python -m repro_torch.launch.serve``
+             in-process.
 
 The card's name and power limit (nvidia-smi) come first.  ``--ptxas
 FILE`` writes nvcc's resource report (``-Xptxas -v``: registers, shared
@@ -221,6 +228,14 @@ SOURCES.update(dict.fromkeys(("train_kernel_cases",
 SOURCES["paged_hashes"] = ["paged_attention", "paged_attention_64",
                            "paged_attention_80", "paged_attention_320",
                            "paged_attention_q320"]
+# The engine's surface: llama3-8b's serving kernels; the launcher also
+# gpt2's (head dim 64, its MLP and LayerNorm rows).
+SERVE_SOURCES = ["rmsnorm_matmul", "streamed_ffn", "flash_mma",
+                 "flash_attention", "paged_attention", "block_matmul"]
+SOURCES.update(dict.fromkeys(("serve_contiguous", "serve_surface"),
+                             SERVE_SOURCES))
+SOURCES["serve_launcher"] = SERVE_SOURCES + ["paged_attention_64",
+                                             "row_norm"]
 
 
 def emit(obj) -> None:
@@ -863,6 +878,12 @@ def main() -> int:
             cs.quant_train(torch)
         elif phase == "paged_hashes":
             paged_hashes(torch, K)
+        elif phase == "serve_contiguous":
+            cs.serve_contiguous(torch)
+        elif phase == "serve_surface":
+            cs.serve_surface(torch, timer)
+        elif phase == "serve_launcher":
+            cs.serve_launcher(torch)
         elif phase == "hubert_train":
             from repro_torch.configs import get_config
             cfg = dataclasses.replace(get_config(cs.HUBERT),

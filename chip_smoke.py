@@ -278,6 +278,32 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               request completes, the solo request repeats its burst, the
               launches are exactly K14 32 per prefill and the LayerNorm
               rows and K5 (LM head) once per prefill and decode step;
+   serve_contiguous, serve_contiguous_paged — llama3-8b at 8 layers,
+              bfloat16, the weights of ``serve``: its mixed burst through
+              the contiguous slot cache (``paged=False``: whole prompts
+              through K7, decode through the plain decode attention; K3,
+              K4, K5 and K7 launch, never K1 or K2), then through the
+              paged whole-prompt engine, each profiled, every request
+              done, the solo prompt repeating its burst; TTFT, TPOT,
+              tokens/s, reserved and peak KV bytes and idle share side by
+              side (``serve_contiguous_vs_paged``);
+   serve_surface — K1 over 32- and 64-token pages and K2 on 256-row
+              chunks (and K7 at the contiguous path's prompt) against
+              their plain versions in bfloat16 and float32
+              (``surface_kernel_cases``); a 256-row chunk's K2 rows equal
+              to K7's rows of the whole prompt in bfloat16 (required;
+              float32 reported) and K1 over 16-, 32- and 64-token pages
+              of the same K/V compared bit for bit (reported); then
+              llama3-8b at 4 layers, float32: one burst each through the
+              default engine, page sizes 32 and 64, 256-token chunks, the
+              bhsd layout, the adaptive decode block, whole-prompt, and
+              the contiguous cache in both layouts, tokens equal within
+              the chunked engines and within the whole-prompt ones,
+              launches exact, page size and chunk as asked (required);
+   serve_launcher — ``python -m repro_torch.launch.serve`` in-process:
+              llama3-8b ``--fused --layers 8`` paged, ``--contiguous`` and
+              ``--page-size 32``, and gpt2 ``--fused`` at full size; exit
+              code 0, the two ``[serve]`` lines, launches exact;
 9. train_fused_vs_eager — the four models at full width cut to 4 layers
               (gemma3-4b 6, weights jittered), float32, B = 2, S = 256:
               the kernel plan's ``forward_train``
@@ -909,11 +935,11 @@ def _flash_case(torch, K, ref, randn, isz, name, hq, hkv, hd, sq, skv,
                 flops=4 * hd * live_pairs)
 
 
-def _paged_pools(torch, randn, gen, b, maxp, hkv, hd, code, dev):
-    """K/V pools of 1 + b * maxp 16-token pages (codes and [P, Hkv] scales
-    with ``code``), a shuffled page table, and the pool's bytes per KV
-    element (codes + amortized scales, or the dtype's)."""
-    ps, pool_pages = 16, 1 + b * maxp
+def _paged_pools(torch, randn, gen, b, maxp, hkv, hd, code, dev, ps=16):
+    """K/V pools of 1 + b * maxp ``ps``-token pages (codes and [P, Hkv]
+    scales with ``code``), a shuffled page table, and the pool's bytes per
+    KV element (codes + amortized scales, or the dtype's)."""
+    pool_pages = 1 + b * maxp
     kp = randn(pool_pages, ps, hkv, hd)
     vp = randn(pool_pages, ps, hkv, hd)
     scales = {}
@@ -928,12 +954,12 @@ def _paged_pools(torch, randn, gen, b, maxp, hkv, hd, code, dev):
 
 
 def _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev,
-                code=None):
-    """Paged decode: 4 slots, ``maxp`` 16-token pages of capacity each;
-    with ``code`` over int8 / fp8 code pools (K9a)."""
-    b, ps = 4, 16
+                code=None, ps=16):
+    """Paged decode: 4 slots, ``maxp`` ``ps``-token pages of capacity
+    each; with ``code`` over int8 / fp8 code pools (K9a)."""
+    b = 4
     kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b, maxp,
-                                               hkv, hd, code, dev)
+                                               hkv, hd, code, dev, ps)
     lens = [1000, 517, 37, 0]
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     qd = randn(b, 1, hq, hd)
@@ -3345,19 +3371,21 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
 
 def serve(torch, cfg, params, expect, *, init_s, chunked=True,
           phase="serve", device="cuda", max_len=2048, lo=37, hi=1000,
-          new=32, profile=False, lengths=None):
+          new=32, profile=False, lengths=None, engine_kw=None):
     """A mixed burst of 8 prompts through the engine with the kernel plan;
     the kernels in ``expect`` must each launch, and no other.  ``profile``:
     the burst once more, through a fresh engine, under ``torch.profiler``
     (device ms by stage, idle share of its wall).  ``lengths``: the
-    prompts' lengths (default: ``lo``, ``hi`` and 6 drawn between)."""
+    prompts' lengths (default: ``lo``, ``hi`` and 6 drawn between).
+    ``engine_kw``: more engine arguments (``paged=False``: the contiguous
+    slot cache)."""
     from repro_torch import kernels as K
     from repro_torch.models.params import cache_leaf_kind, weight_bytes
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import COUNTER_NAMES
     lengths, prompts = _serve_prompts(cfg.vocab_size, lo, hi, lengths)
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
-                        chunked=chunked, device=device)
+                        chunked=chunked, device=device, **(engine_kw or {}))
     eng.generate([prompts[2][:8]], max_new_tokens=2)       # warm-up
     _sync(torch, device)
     if device == "cuda":
@@ -3377,6 +3405,9 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     row = {"phase": phase, "config": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.dtype, "quant": cfg.quant,
            "admission": "chunked" if eng.chunked else "whole_prompt",
+           "paged": eng.metrics["paged"],
+           "page_size": eng.metrics["page_size"],
+           "prefill_chunk": eng.metrics["prefill_chunk"],
            # Resident weights of the engine's tree: int8 codes and scales
            # in place of the w8 stages' weights under a weight mode.
            "weight_bytes": weight_bytes(eng.params), "init_s": init_s,
@@ -3387,6 +3418,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
            "ttft_max_s": max(ttft),
            "tpot_mean_ms": 1e3 * statistics.mean(tpot),
            "kv_bytes_peak": eng.metrics["kv_bytes_peak"],
+           "kv_bytes_reserved": eng.metrics["kv_bytes_reserved"],
            "kv_itemsize_effective": eng.metrics["kv_itemsize_effective"],
            # Slot-contiguous recurrent state (zamba2's SSM and conv rows,
            # rwkv6's wkv state and token-shift rows).
@@ -3418,7 +3450,7 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
         _free(torch, device)
         prof = profile_burst(torch, cfg, params, chunked=chunked,
                              device=device, max_len=max_len, lo=lo, hi=hi,
-                             new=new, lengths=lengths)
+                             new=new, lengths=lengths, engine_kw=engine_kw)
         row["profile"] = prof
         emit({"phase": f"{phase}_profile", "config": cfg.name,
               "layers": cfg.num_layers, "admission": row["admission"],
@@ -3438,7 +3470,8 @@ def _serve_prompts(vocab: int, lo: int, hi: int, lengths=None):
 
 
 def profile_burst(torch, cfg, params, *, chunked=True, device="cuda",
-                  max_len=2048, lo=37, hi=1000, new=32, lengths=None):
+                  max_len=2048, lo=37, hi=1000, new=32, lengths=None,
+                  engine_kw=None):
     """``serve``'s burst through a fresh engine (no prefix-cache hits from
     an earlier one), warmed up as there, under ``torch.profiler``: device
     ms by stage (``profile_device``) and the idle share of the profiled
@@ -3446,7 +3479,7 @@ def profile_burst(torch, cfg, params, *, chunked=True, device="cuda",
     from repro_torch.serving import ServingEngine
     _, prompts = _serve_prompts(cfg.vocab_size, lo, hi, lengths)
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=max_len,
-                        chunked=chunked, device=device)
+                        chunked=chunked, device=device, **(engine_kw or {}))
     eng.generate([prompts[2][:8]], max_new_tokens=2)
     prof = profile_device(torch, lambda: eng.generate(
         prompts, max_new_tokens=new))
@@ -3776,6 +3809,281 @@ def full_depth(torch, cfg, model, *, jitter, max_len, hi, device="cuda"):
         phase="quant_spec_serve", device=device)
     del params
     _free(torch, device)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# The engine's surface: the contiguous slot cache, page sizes and chunks,
+# the bhsd layout, the adaptive decode block, the serving launcher
+# --------------------------------------------------------------------- #
+
+# The contiguous slot cache admits whole prompts (K7) and decodes without
+# a page table through the plain decode attention, as the reference does:
+# no K1 and no K2.  The paged whole-prompt path beside it for comparison.
+CONTIGUOUS_PATH = {"rmsnorm_matmul", "streamed_ffn",
+                   "flash_attention_static", "block_matmul"}
+LLAMA_WHOLE_PATH = CONTIGUOUS_PATH | {"paged_attention"}
+# ``serve_surface``: llama3-8b at full width cut to 4 layers, float32, a
+# burst of 6 prompts (the 600-token one three 256-token chunks) through
+# engines that differ in one argument each.  The chunked engines must
+# give the default engine's tokens, the whole-prompt ones (paged and
+# contiguous, either layout) the paged whole-prompt engine's.
+SURFACE_LAYERS = 4
+SURFACE_LENGTHS = (150, 40, 300, 9, 600, 77)
+SURFACE_ENGINES = {
+    "paged": {},
+    "page_size_32": dict(page_size=32, prefill_chunk=128),
+    "page_size_64": dict(page_size=64, prefill_chunk=128),
+    "prefill_chunk_256": dict(prefill_chunk=256),
+    "bhsd": dict(layout="bhsd"),
+    "adaptive": dict(adaptive_decode_block=True),
+    "whole_prompt": dict(chunked=False),
+    "contiguous": dict(paged=False),
+    "contiguous_bhsd": dict(paged=False, layout="bhsd"),
+}
+SURFACE_WHOLE = ("whole_prompt", "contiguous", "contiguous_bhsd")
+CHUNK_256 = 256
+# ``serve_launcher``: ``python -m repro_torch.launch.serve`` in-process,
+# each run's launches exactly its path's.
+LAUNCHER_RUNS = {
+    "llama3-8b": (["--arch", "llama3-8b", "--fused", "--layers", "8"],
+                  LLAMA_PATH),
+    "llama3-8b contiguous": (["--arch", "llama3-8b", "--fused", "--layers",
+                              "8", "--contiguous"], CONTIGUOUS_PATH),
+    "llama3-8b page size 32": (["--arch", "llama3-8b", "--fused",
+                                "--layers", "8", "--page-size", "32"],
+                               LLAMA_PATH),
+    "gpt2": (["--arch", "gpt2", "--fused"], GPT2_PATHS["chunked"]),
+}
+
+
+def surface_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """llama3-8b's attention at the surface's new shapes: K1 over 32- and
+    64-token pages (4 slots of 1000, 517, 37 and 0 tokens in 1024
+    positions), K2 on a 256-row chunk at offsets 768 and 0 of a
+    1024-position extent (the first the path's row in ``kernels``), and K7 over a 1000-token prompt (the contiguous
+    path's prefill), each tagged with its path."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cases = [dict(_paged_case(torch, K, ref, randn, isz, gen, 32, 8, 128,
+                              1024 // ps, dev, ps=ps), path=f"page_size_{ps}")
+             for ps in (32, 64)]
+    cases += [dict(_flash_case(torch, K, ref, randn, isz, "flash_attention",
+                               32, 8, 128, CHUNK_256, 1024, q_off, dev),
+                   path="prefill_chunk_256") for q_off in (768, 0)]
+    cases.append(dict(_flash_case(torch, K, ref, randn, isz,
+                                  "flash_attention_static", 32, 8, 128, 1000,
+                                  1000, None, dev), path="contiguous"))
+    return [dict(c, model="llama3-8b") for c in cases]
+
+
+def _surface_bits(torch):
+    """K2's rows of a 256-row chunk against K7's rows at the same positions
+    of the whole prompt, bit for bit (bf16 at offsets 0, 256 and 768;
+    float32 reported), and K1 over the same K/V in 16-, 32- and 64-token
+    pages, bit for bit (reported).  Returns (rows, failures)."""
+    from repro_torch import kernels as K
+    rows, bad = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        gen = torch.Generator(device="cuda").manual_seed(77)
+        randn = _randn(torch, gen, dtype, "cuda")
+        top = 768 + CHUNK_256
+        q, k, v = randn(32, top, 128), randn(8, top + 7, 128), \
+            randn(8, top + 7, 128)
+        for q_off in (0, 256, 768):
+            n = q_off + CHUNK_256
+            whole = K.flash_attention_2d(
+                *(t[:, :n].contiguous() for t in (q, k, v)), kv_group=4)
+            chunk = K.flash_attention_2d(
+                q[:, q_off:n].contiguous(), k, v, q_offset=q_off, kv_len=n,
+                kv_group=4)
+            row = {"phase": "surface_chunk_rows", "dtype": dname,
+                   "q_offset": q_off, "rows": CHUNK_256,
+                   "equal": bool(torch.equal(chunk, whole[:, q_off:n]))}
+            emit(row)
+            rows.append(row)
+            if dtype == torch.bfloat16 and not row["equal"]:
+                bad.append(f"K2 256-row chunk at {q_off} != K7's rows")
+        # One K/V sequence per slot, paged at each page size (identity
+        # table past the NULL page).
+        b, s = 4, 1024
+        lengths = torch.tensor([1000, 517, 37, 0], dtype=torch.int32,
+                               device="cuda")
+        kseq, vseq = randn(b, s, 8, 128), randn(b, s, 8, 128)
+        qd = randn(b, 1, 32, 128)
+        outs = {}
+        for ps in (16, 32, 64):
+            def pool(seq):
+                body = seq.reshape(b * (s // ps), ps, 8, 128)
+                return torch.cat([torch.zeros_like(body[:1]), body])
+            table = (torch.arange(b * (s // ps), device="cuda",
+                                  dtype=torch.int32).reshape(b, -1) + 1)
+            outs[ps] = K.paged_decode_attention(qd, pool(kseq), pool(vseq),
+                                                table, lengths)
+        row = {"phase": "surface_page_bits", "dtype": dname,
+               "equal_to_ps16": {ps: bool(torch.equal(outs[ps], outs[16]))
+                                 for ps in (32, 64)}}
+        emit(row)
+        rows.append(row)
+    return rows, bad
+
+
+def serve_surface(torch, timer, device="cuda"):
+    """The surface's kernel rows (``surface_kernel_cases``, bf16 and f32
+    against the plain versions), ``_surface_bits``, then the float32
+    bursts of ``SURFACE_ENGINES``: tokens equal within the chunked group
+    and within the whole-prompt group (required), chunked against
+    whole-prompt reported; each burst launching exactly its path's
+    kernels; the resolved page size and chunk as asked."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine
+    out = {"kernel_rows": check_kernels(torch, timer, (surface_kernel_cases,),
+                                        phase="surface_kernel_cases")}
+    out["bits"], bad = _surface_bits(torch)
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              num_layers=SURFACE_LAYERS, dtype="float32",
+                              use_fused_kernels=True)
+    params = _weights(torch, cfg, 1, jitter=False, device=device)
+    prompts = burst(np.random.default_rng(3), cfg.vocab_size,
+                    SURFACE_LENGTHS)
+    tokens, bursts = {}, {}
+    for name, kw in SURFACE_ENGINES.items():
+        kw = dict(kw)
+        c = dataclasses.replace(cfg, kv_cache_layout=kw.pop("layout",
+                                                            "bshd"))
+        eng = ServingEngine(c, params, batch_slots=4, max_len=1024,
+                            device=device, **kw)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        reqs = eng.generate(prompts, max_new_tokens=16)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in K.launch_counts().items() if n}
+        tokens[name] = [r.out_tokens for r in reqs]
+        m = eng.metrics
+        expect = (CONTIGUOUS_PATH if not eng.paged else
+                  LLAMA_WHOLE_PATH if not eng.chunked else LLAMA_PATH)
+        row = {"phase": "serve_surface", "engine": name,
+               "config": cfg.name, "layers": cfg.num_layers,
+               "dtype": cfg.dtype, "layout": c.kv_cache_layout,
+               "prompts": list(SURFACE_LENGTHS), "new_tokens": 16,
+               "wall_s": wall, "launches": launches,
+               **{k: m[k] for k in ("paged", "chunked", "page_size",
+                                    "prefill_chunk", "decode_block_last",
+                                    "kv_bytes_reserved", "kv_bytes_peak",
+                                    "dispatches", "scan_ticks", "ticks",
+                                    "prefill_chunks")}}
+        emit(row)
+        bursts[name] = row
+        if set(launches) != expect:
+            bad.append(f"{name}: launched {sorted(launches)}, expected "
+                       f"{sorted(expect)}")
+        if any(r.failed or len(r.out_tokens) != 16 for r in reqs):
+            bad.append(f"{name}: a request failed or fell short")
+        want_ps = kw.get("page_size", 16) if eng.paged else 0
+        want_chunk = (kw.get("prefill_chunk", 128) if eng.chunked else 0)
+        if (m["page_size"], m["prefill_chunk"]) != (want_ps, want_chunk):
+            bad.append(f"{name}: page size {m['page_size']}, chunk "
+                       f"{m['prefill_chunk']}")
+        del eng
+        _free(torch, device)
+    chunked = [n for n in SURFACE_ENGINES if n not in SURFACE_WHOLE]
+    equal = {n: tokens[n] == tokens["paged"] for n in chunked}
+    equal.update({n: tokens[n] == tokens["whole_prompt"]
+                  for n in SURFACE_WHOLE})
+    row = {"phase": "serve_surface_tokens", "equal": equal,
+           "chunked_equals_whole_prompt": (tokens["paged"]
+                                           == tokens["whole_prompt"]),
+           "adaptive_blocks": [bursts["adaptive"]["scan_ticks"],
+                               bursts["paged"]["scan_ticks"]]}
+    emit(row)
+    bad += [f"{n}: tokens differ" for n, ok in equal.items() if not ok]
+    del params
+    _free(torch, device)
+    if bad:
+        raise AssertionError("serve_surface: " + "; ".join(bad))
+    out.update(bursts=bursts, tokens=row)
+    return out
+
+
+def serve_contiguous(torch, device="cuda"):
+    """llama3-8b at full width cut to ``SERVE_LAYERS``, bfloat16, kernel
+    plan, the weights of ``full_depth`` (seed 2): ``serve``'s mixed burst
+    through the contiguous slot cache (exact launches, every request done,
+    the solo prompt repeating its burst, profiled), then through the paged
+    whole-prompt engine on the same weights, and the two side by side."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("llama3-8b"), use_fused_kernels=True,
+                              num_layers=SERVE_LAYERS["llama3-8b"])
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=False, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    out = {"contiguous": serve(
+        torch, cfg, params, CONTIGUOUS_PATH, init_s=init_s, chunked=False,
+        phase="serve_contiguous", device=device, profile=True,
+        engine_kw={"paged": False})}
+    _free(torch, device)
+    out["paged_whole_prompt"] = serve(
+        torch, cfg, params, LLAMA_WHOLE_PATH, init_s=init_s, chunked=False,
+        phase="serve_contiguous_paged", device=device, profile=True)
+    del params
+    _free(torch, device)
+
+    def idle(r):
+        return (r.get("profile") or {}).get("idle_share")
+
+    emit({"phase": "serve_contiguous_vs_paged", "config": cfg.name,
+          "layers": cfg.num_layers,
+          **{f"{k}_{name}": r[k] for name, r in (
+              ("contiguous", out["contiguous"]),
+              ("paged", out["paged_whole_prompt"]))
+             for k in ("ttft_p50_s", "tpot_mean_ms", "tokens_per_s",
+                       "kv_bytes_reserved", "kv_bytes_peak")},
+          "idle_share_contiguous": idle(out["contiguous"]),
+          "idle_share_paged": idle(out["paged_whole_prompt"]),
+          "first_tokens_equal": (out["contiguous"]["first_tokens"]
+                                 == out["paged_whole_prompt"]["first_tokens"])})
+    return out
+
+
+def serve_launcher(torch, device="cuda"):
+    """``repro_torch.launch.serve.main`` in-process for each of
+    ``LAUNCHER_RUNS`` on the card: exit code 0, the reference's two
+    ``[serve]`` lines (printed here too), launches exactly the run's
+    path's."""
+    import contextlib
+    import io
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import main as serve_main
+    out, bad = {}, []
+    for name, (argv, expect) in LAUNCHER_RUNS.items():
+        buf = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_main(argv)
+        _sync(torch, device)
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in K.launch_counts().items() if n}
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(ln, flush=True)
+        row = {"phase": "serve_launcher", "run": name, "argv": argv,
+               "rc": rc, "seconds": seconds, "lines": lines,
+               "launches": launches}
+        emit(row)
+        out[name] = row
+        if rc != 0 or sum(ln.startswith("[serve]") for ln in lines) != 2:
+            bad.append(f"{name}: rc {rc}, lines {lines[:2]}")
+        if set(launches) != expect:
+            bad.append(f"{name}: launched {sorted(launches)}, expected "
+                       f"{sorted(expect)}")
+        _free(torch, device)
+    if bad:
+        raise AssertionError("serve_launcher: " + "; ".join(bad))
     return out
 
 
@@ -5058,6 +5366,9 @@ def main(argv=None) -> int:
     results["gemma_serve"] = gemma_serve(torch)
     results["gemma_serve"].update(gemma_quant_serve(torch))
     results["hubert_encode"] = hubert_encode(torch)
+    results["serve_contiguous"] = serve_contiguous(torch)
+    results["serve_surface"] = serve_surface(torch, timer)
+    results["serve_launcher"] = serve_launcher(torch)
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
@@ -5133,6 +5444,12 @@ def main(argv=None) -> int:
             if key in fd:
                 paths.append((m, path, fd[key]["launches"]))
     paths.append((HUBERT, "encode", results["hubert_encode"]["launches"]))
+    paths.append(("llama3-8b", "contiguous",
+                  results["serve_contiguous"]["contiguous"]["launches"]))
+    for path in ("page_size_32", "page_size_64", "prefill_chunk_256"):
+        paths.append(("llama3-8b", path,
+                      results["serve_surface"]["bursts"][path]["launches"]))
+    rows = rows + results["serve_surface"]["kernel_rows"]
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))

@@ -218,16 +218,47 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                chunk_size=max(128, min(window, k.shape[1])))
 
 
+def _cache_scores(qg: torch.Tensor, k_cache: torch.Tensor,
+                  layout: str) -> torch.Tensor:
+    """Scores ``[B, Hkv, G, Q, S]`` float32 of grouped queries qg [B, Q,
+    Hkv, G, D] against a dense cache.  Under "bshd" (k_cache [B, S, Hkv,
+    D]) they accumulate in float32; under "bhsd" (k_cache [B, Hkv, S, D])
+    they are emitted in the cache dtype and then widened, as the
+    reference's attention-native einsum (``layers.py:421-429``)."""
+    if layout == "bhsd":
+        s = torch.einsum("bqhgd,bhsd->bhgqs", qg.float(), k_cache.float())
+        return s.to(k_cache.dtype).float()
+    return torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k_cache.float())
+
+
+def _cache_pv(p: torch.Tensor, v_cache: torch.Tensor,
+              layout: str) -> torch.Tensor:
+    """p [B, Hkv, G, Q, S] float32 times the dense V cache, in float32 ->
+    [B, Q, Hkv, G, D]."""
+    eq = "bhgqs,bhsd->bqhgd" if layout == "bhsd" else "bhgqs,bshd->bqhgd"
+    return torch.einsum(eq, p, v_cache.float())
+
+
+def _cache_dims(k_cache: torch.Tensor, layout: str) -> Tuple[int, int]:
+    """(S, Hkv) of a dense cache in ``layout``."""
+    if layout == "bhsd":
+        return k_cache.shape[2], k_cache.shape[1]
+    return k_cache.shape[1], k_cache.shape[2]
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
-    """One-token attention against a dense ("bshd") cache (``:403``):
-    q [B, 1, Hq, D]; caches [B, S, Hkv, D]; cache_len [B].  PV in float32."""
+                     window: int = 0, layout: str = "bshd") -> torch.Tensor:
+    """One-token attention against a dense cache (``layers.py:403``): q
+    [B, 1, Hq, D]; caches [B, S, Hkv, D] ("bshd") or [B, Hkv, S, D]
+    ("bhsd"); cache_len [B] valid entries; keys past it, and under a
+    ``window`` those ``window`` or more behind it, are masked.  Softmax and
+    PV in float32; the scores as ``_cache_scores``."""
     b, _, hq, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    s, hkv = _cache_dims(k_cache, layout)
     g = hq // hkv
     qg = (q * (1.0 / math.sqrt(d))).reshape(b, 1, hkv, g, d)
-    scores = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k_cache.float())
+    scores = _cache_scores(qg, k_cache, layout)
     pos = torch.arange(s, device=q.device)
     lens = cache_len.reshape(-1, 1).long()
     valid = pos[None] < lens
@@ -235,24 +266,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = valid & (pos[None] >= lens - window)
     scores = torch.where(valid[:, None, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
+    out = _cache_pv(p, v_cache, layout)
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
 def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_off: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
-    """W-token speculative-verify attention against a dense ("bshd")
-    cache (``layers.py:447``): q [B, W, Hq, D]; caches [B, S, Hkv, D];
+                     window: int = 0, layout: str = "bshd") -> torch.Tensor:
+    """W-token speculative-verify attention against a dense cache
+    (``layers.py:447``): q [B, W, Hq, D]; caches as ``decode_attention``;
     q_off [B] the position of window row 0, so row i attends to the first
-    ``q_off + i + 1`` positions.  The W-row twin of ``decode_attention``:
-    scores, softmax and PV in float32, so row i computes what
-    ``decode_attention`` computes at length ``q_off + i + 1``."""
+    ``q_off + i + 1`` positions.  The W-row twin of ``decode_attention``
+    under the same numerics, so row i computes what ``decode_attention``
+    computes at length ``q_off + i + 1``."""
     b, w, hq, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    s, hkv = _cache_dims(k_cache, layout)
     g = hq // hkv
     qg = (q * (1.0 / math.sqrt(d))).reshape(b, w, hkv, g, d)
-    scores = torch.einsum("bqhgd,bshd->bhgqs", qg.float(), k_cache.float())
+    scores = _cache_scores(qg, k_cache, layout)
     pos = torch.arange(s, device=q.device)
     qlen = (q_off.reshape(-1, 1).long()
             + torch.arange(w, device=q.device)[None] + 1)       # [B, W]
@@ -261,7 +292,7 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
         valid = valid & (pos[None, None] >= qlen[..., None] - window)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqs,bshd->bqhgd", p, v_cache.float())
+    out = _cache_pv(p, v_cache, layout)
     return out.reshape(b, w, hq, d).to(q.dtype)
 
 

@@ -6,12 +6,15 @@ places into pages; for training, ``forward_hidden`` and ``forward_train``
 
 Port of ``repro.models.model`` on the main paths.  Layers run as a Python
 loop over ``params["layers"]`` (the reference scans over stacked pattern
-groups).  The paged pools are updated in place; both entry points return
-the cache object they were given, for symmetry with the reference, which
-returns the updated (donated) tree.  Quirks kept from the reference: the
-``x * sqrt(d_model)`` embedding scale, learned positions added after that
-scale (pad rows of a final chunk included), pad-vocab logits set to
--1e30, and greedy argmax returning the first maximum.
+groups).  The paged pools, and the contiguous slot cache that ``decode_step``
+also takes (no page table), are updated in place; the entry points return the
+cache object they were given, for symmetry with the reference, which returns
+the updated (donated) tree.  K/V enter and leave the caches in the config's
+``kv_cache_layout`` ("bshd" or "bhsd", transposed at the edges); the paged
+pools are page-major under either.  Quirks kept from the reference: the ``x *
+sqrt(d_model)`` embedding scale, learned positions added after that scale (pad
+rows of a final chunk included), pad-vocab logits set to -1e30, and greedy
+argmax returning the first maximum.
 
 On the kernel plan every call on the path gives a row the same bits at any
 row count up to 64 (a speculative verify dispatch of slots x W rows must
@@ -86,7 +89,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.stream_plan import LayerPlan, StreamPlan, plan_for
 from . import layers as L
-from .params import SHARED_KIND, attn_pool_indices, compute_dtype, map_tree
+from .params import (SHARED_KIND, attn_pool_indices, compute_dtype,
+                     kv_seq_axis, map_tree)
 
 Tree = Any
 Cache = Dict[str, torch.Tensor]
@@ -268,6 +272,12 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor,
     return o @ wo
 
 
+def _to_layout(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """K or V [B, S, Hkv, hd] in the config's cache layout: transposed to
+    [B, Hkv, S, hd] under "bhsd" (a view), unchanged under "bshd"."""
+    return t.transpose(1, 2) if cfg.kv_cache_layout == "bhsd" else t
+
+
 def _layer_pools(cfg: ModelConfig, cache: Cache, layer: int):
     """(k, v, k_scale, v_scale) pools of one layer's attention (its row
     along the pools' leading axis, ``attn_pool_indices``), views updated
@@ -410,12 +420,13 @@ def prefill(params: Tree, cfg: ModelConfig,
 
     tokens [B, S] int32, or ``embeds`` [B, S, D] (with M-RoPE
     ``positions`` [3, B, S]; ``_embed_in``) -> (logits [B, 1, Vp] at the
-    last position, a fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of
-    the prompt's K/V, which ``serving.kv_cache.place_prefill`` writes into
-    a slot's pages, for a Mamba2 stack {"ssm" [L, B, H, P, N] float32,
-    "conv" [L, B, K - 1, d_inner]}, and for an RWKV6 stack {"wkv" [L, B,
-    H, N, N] float32, "tm_shift", "cm_shift" [L, B, D]} alone, which it
-    writes into the slot's rows)."""
+    last position, a fresh cache: {"k", "v"} [L_attn, B, S, Hkv, hd] of the
+    prompt's K/V ([L_attn, B, Hkv, S, hd] under "bhsd"), which
+    ``serving.kv_cache.place_prefill`` writes into a slot's pages (the
+    engine's contiguous cache: into its slot rows), for a Mamba2 stack {"ssm"
+    [L, B, H, P, N] float32, "conv" [L, B, K - 1, d_inner]}, and for an RWKV6
+    stack {"wkv" [L, B, H, N, N] float32, "tm_shift", "cm_shift" [L, B, D]}
+    alone, which it writes into the slot's rows)."""
     x, positions = _embed_in(cfg, params, tokens, embeds, positions)
     b, s = x.shape[:2]
     plan = resolve_plan(cfg, b * s, plan=plan)
@@ -437,8 +448,8 @@ def prefill(params: Tree, cfg: ModelConfig,
             lp = params["shared"]
         x, k, v = _attn_block_full(cfg, lp, x, positions,
                                    window=_window(cfg, i), lplan=lplan)
-        fresh.setdefault("k", []).append(k)
-        fresh.setdefault("v", []).append(v)
+        fresh.setdefault("k", []).append(_to_layout(k, cfg))
+        fresh.setdefault("v", []).append(_to_layout(v, cfg))
     logits = _logits(cfg, params, x[:, -1:], plan)
     return logits, {name: torch.stack(t) for name, t in fresh.items()}
 
@@ -566,18 +577,22 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = L.apply_positional(cfg.rope, q, positions, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, positions, cfg.rope_theta)
     kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
+    k_new, v_new = _to_layout(k, cfg), _to_layout(v, cfg)
     quant = ks is not None
     if quant:
-        place_chunk_pages_q(kc, ks, k, chunk_pages, layout=layout)
-        place_chunk_pages_q(vc, vs, v, chunk_pages, layout=layout)
+        place_chunk_pages_q(kc, ks, k_new, chunk_pages, layout=layout)
+        place_chunk_pages_q(vc, vs, v_new, chunk_pages, layout=layout)
     else:
-        place_chunk_pages(kc, k, chunk_pages, layout=layout)
-        place_chunk_pages(vc, v, chunk_pages, layout=layout)
+        place_chunk_pages(kc, k_new, chunk_pages, layout=layout)
+        place_chunk_pages(vc, v_new, chunk_pages, layout=layout)
     row_live = live_page_table(table_row, kv_len, kc.shape[1])
     choice = lplan.attention if lplan is not None else None
+    # Both attention routes take [1, S, Hkv, hd]: gather page-major
+    # ("bshd") under either layout, which is the reference's "bhsd"
+    # gather transposed back (``model.py:592-594``).
     if choice is not None and choice.fused:
-        kseq = gather_pages(kc, row_live[None], layout=layout)
-        vseq = gather_pages(vc, row_live[None], layout=layout)
+        kseq = gather_pages(kc, row_live[None], layout="bshd")
+        vseq = gather_pages(vc, row_live[None], layout="bshd")
         # Codes: each position carries its page's scale (``:606``).
         scl = {}
         if quant:
@@ -588,7 +603,7 @@ def _attn_block_chunk(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                                     causal=cfg.causal, window=window,
                                     block_kv=choice.kw["block_kv"], **scl)
     else:
-        kseq, vseq = _dense_kv(kc, vc, ks, vs, row_live[None], layout)
+        kseq, vseq = _dense_kv(kc, vc, ks, vs, row_live[None], "bshd")
         o = L.streaming_attention(q, kseq, vseq, causal=cfg.causal,
                                   q_offset=offset, window=window,
                                   kv_len=kv_len)
@@ -629,16 +644,22 @@ def prefill_chunk(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
                        cache: Cache, layer: int, pos: torch.Tensor,
-                       lengths: torch.Tensor, page_table: torch.Tensor, *,
+                       lengths: torch.Tensor,
+                       page_table: Optional[torch.Tensor], *,
                        window: int, lplan: Optional[LayerPlan]
                        ) -> torch.Tensor:
-    """One attention block for one token per slot (paged branch of
-    ``model.py:752``): append the token's K/V through the page table, then
-    attend through the paged kernel or the gather-pages eager path; over
+    """One attention block for one token per slot (``model.py:752``).
+    With a page table: append the token's K/V through it, then attend
+    through the paged kernel or the gather-pages eager path; over
     quantized pools through the quantize-on-write append and the kernel's
-    quantized twin or dense dequantized K/V (``model.py:793-848``)."""
+    quantized twin or dense dequantized K/V (``model.py:793-848``).
+    Without one (the contiguous slot cache): write each slot's row at
+    ``min(pos, S - 1)`` of its K/V leaves (a slot at capacity rewrites its
+    last row; the engine retires it there) and attend with the plain
+    ``decode_attention`` on every plan, as the reference
+    (``model.py:827-843``)."""
     from ..serving.kv_cache import (live_page_table, paged_append,
-                                    paged_append_q)
+                                    paged_append_q, to_page_major)
     b = x.shape[0]
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     layout = cfg.kv_cache_layout
@@ -655,20 +676,32 @@ def _attn_block_decode(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = L.apply_positional(cfg.rope, q, pos_q, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos_q, cfg.rope_theta)
     kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
-    if ks is not None:
-        paged_append_q(kc, ks, page_table, pos, k, layout=layout)
-        paged_append_q(vc, vs, page_table, pos, v, layout=layout)
+    if page_table is None:
+        rows = torch.arange(b, device=x.device)
+        for leaf, new in ((kc, k), (vc, v)):
+            seq = to_page_major(leaf, layout)       # [B, S, Hkv, hd] view
+            at = pos.long().clamp(max=seq.shape[1] - 1)
+            seq[rows, at] = new[:, 0].to(leaf.dtype)
+        o = L.decode_attention(q, kc, vc, lengths + 1, window=window,
+                               layout=layout)
     else:
-        paged_append(kc, page_table, pos, k, layout=layout)
-        paged_append(vc, page_table, pos, v, layout=layout)
-    choice = lplan.decode_attn if lplan is not None else None
-    if choice is not None and choice.fused:
-        o = L.fused_paged_attention(q, kc, vc, page_table, lengths + 1,
-                                    window=window, k_scale=ks, v_scale=vs)
-    else:
-        tbl_live = live_page_table(page_table, lengths + 1, kc.shape[1])
-        kd, vd = _dense_kv(kc, vc, ks, vs, tbl_live, layout)
-        o = L.decode_attention(q, kd, vd, lengths + 1, window=window)
+        k_new, v_new = _to_layout(k, cfg), _to_layout(v, cfg)
+        if ks is not None:
+            paged_append_q(kc, ks, page_table, pos, k_new, layout=layout)
+            paged_append_q(vc, vs, page_table, pos, v_new, layout=layout)
+        else:
+            paged_append(kc, page_table, pos, k_new, layout=layout)
+            paged_append(vc, page_table, pos, v_new, layout=layout)
+        choice = lplan.decode_attn if lplan is not None else None
+        if choice is not None and choice.fused:
+            o = L.fused_paged_attention(q, kc, vc, page_table, lengths + 1,
+                                        window=window, k_scale=ks,
+                                        v_scale=vs)
+        else:
+            tbl_live = live_page_table(page_table, lengths + 1, kc.shape[1])
+            kd, vd = _dense_kv(kc, vc, ks, vs, tbl_live, layout)
+            o = L.decode_attention(q, kd, vd, lengths + 1, window=window,
+                                   layout=layout)
     x = x + _out_proj(o.reshape(b, 1, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
 
@@ -716,21 +749,29 @@ def _dense_kv(kc, vc, ks, vs, table, layout):
 
 def decode_step(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Cache, cache_pos: torch.Tensor,
-                lengths: torch.Tensor, *, page_table: torch.Tensor,
+                lengths: torch.Tensor, *,
+                page_table: Optional[torch.Tensor] = None,
                 plan: Optional[StreamPlan] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
-    """One decoding step for every slot.
+    """One decoding step for every slot (``model.py:941``).
 
-    tokens [B, 1] int32; cache the paged pools (and a Mamba2 or RWKV6
-    stack's slot-contiguous state rows), updated in place; cache_pos [B]
-    int32 write positions; lengths [B] int32 tokens already cached;
-    page_table [B, max_pages] int32.  Returns (next_tokens [B, 1] int32,
-    logits [B, 1, Vp], cache).  Without K/V pools (RWKV6) the plan sees
-    no KV extent, as the reference's ``_cache_kv_len``."""
+    tokens [B, 1] int32; cache the paged pools with page_table [B,
+    max_pages] int32, or without a table the contiguous slot cache
+    (``params.init_cache``: K/V leaves [L_attn, B, S, Hkv, hd], [L_attn,
+    B, Hkv, S, hd] under "bhsd"), and a Mamba2 or RWKV6 stack's
+    slot-contiguous state rows, all updated in place; cache_pos [B] int32
+    write positions; lengths [B] int32 tokens already cached.  Returns
+    (next_tokens [B, 1] int32, logits [B, 1, Vp], cache).  The plan sees
+    the table's extent or the cache's length as its KV extent, none
+    without K/V (RWKV6), as the reference's ``_cache_kv_len``."""
     b = tokens.shape[0]
     x = _embed(cfg, params, tokens, cache_pos[:, None])
-    kv_extent = (int(page_table.shape[1]) * int(cache["k"].shape[2])
-                 if "k" in cache else None)
+    if "k" not in cache:
+        kv_extent = None
+    elif page_table is not None:
+        kv_extent = int(page_table.shape[1]) * int(cache["k"].shape[2])
+    else:
+        kv_extent = int(cache["k"].shape[kv_seq_axis(cfg.kv_cache_layout)])
     plan = resolve_plan(cfg, b, kv_len=kv_extent, plan=plan)
     for i, lp in enumerate(params["layers"]):
         kind = cfg.layer_kind(i)
@@ -795,12 +836,13 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     q = L.apply_positional(cfg.rope, q, pos, cfg.rope_theta)
     k = L.apply_positional(cfg.rope, k, pos, cfg.rope_theta)
     kc, vc, ks, vs = _layer_pools(cfg, cache, layer)
+    k_new, v_new = _to_layout(k, cfg), _to_layout(v, cfg)
     if ks is not None:
-        paged_append_window_q(kc, ks, page_table, pos0, k, layout=layout)
-        paged_append_window_q(vc, vs, page_table, pos0, v, layout=layout)
+        paged_append_window_q(kc, ks, page_table, pos0, k_new, layout=layout)
+        paged_append_window_q(vc, vs, page_table, pos0, v_new, layout=layout)
     else:
-        paged_append_window(kc, page_table, pos0, k, layout=layout)
-        paged_append_window(vc, page_table, pos0, v, layout=layout)
+        paged_append_window(kc, page_table, pos0, k_new, layout=layout)
+        paged_append_window(vc, page_table, pos0, v_new, layout=layout)
     choice = lplan.verify_attn if lplan is not None else None
     if choice is not None and choice.fused:
         o = L.fused_verify_attention(q, kc, vc, page_table, lengths,
@@ -808,7 +850,8 @@ def _attn_block_verify(cfg: ModelConfig, p: Tree, x: torch.Tensor,
     else:
         tbl_live = live_page_table(page_table, lengths + w, kc.shape[1])
         kd, vd = _dense_kv(kc, vc, ks, vs, tbl_live, layout)
-        o = L.verify_attention(q, kd, vd, lengths, window=window)
+        o = L.verify_attention(q, kd, vd, lengths, window=window,
+                               layout=layout)
     x = x + _out_proj(o.reshape(b, w, hq * hd), ap["wo"], lplan)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan)
 

@@ -468,16 +468,23 @@ def has_kv_pools(cfg: ModelConfig) -> bool:
 
 def attn_cache_defs(cfg: ModelConfig, batch: int,
                     max_len: int) -> Dict[str, CacheDef]:
-    """Contiguous K/V leaves ``[L_attn, B, S, Hkv, hd]`` ("bshd"), one row
-    per attention layer (``attn_pool_indices``).  Storage follows the
-    compute dtype, as in the reference (``params.py:329``).  Empty for a
-    stack without attention (RWKV6), which has no K/V to pool."""
-    if cfg.kv_cache_layout != "bshd":
-        raise NotImplementedError("the 'bhsd' cache layout is not ported yet")
+    """Contiguous K/V leaves, one row per attention layer
+    (``attn_pool_indices``): ``[L_attn, B, S, Hkv, hd]`` under "bshd",
+    ``[L_attn, B, Hkv, S, hd]`` under "bhsd" (the attention-native order,
+    ``params.py:329-337``).  Storage follows the compute dtype, as in the
+    reference.  Empty for a stack without attention (RWKV6), which has no
+    K/V to pool."""
+    if cfg.kv_cache_layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown kv_cache_layout {cfg.kv_cache_layout!r} "
+                         "(bshd | bhsd)")
     if not has_kv_pools(cfg):
         return {}
     n = sum(i is not None for i in attn_pool_indices(cfg))
-    shape = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim_)
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    if cfg.kv_cache_layout == "bhsd":
+        shape = (n, batch, hkv, max_len, hd)
+    else:
+        shape = (n, batch, max_len, hkv, hd)
     dt = compute_dtype(cfg)
     return {"k": CacheDef(shape, dt), "v": CacheDef(shape, dt)}
 
@@ -504,3 +511,16 @@ def state_cache_defs(cfg: ModelConfig, batch: int) -> Dict[str, CacheDef]:
                             torch.float32),
             "conv": CacheDef((lyr, batch, cfg.conv_width - 1, cfg.d_inner),
                              torch.bfloat16)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The contiguous slot cache (``params.py:395``): zeroed K/V leaves
+    (``attn_cache_defs``, ``batch`` rows of ``max_len`` positions in the
+    config's layout) and the recurrent state rows (``state_cache_defs``),
+    on ``device``."""
+    dev = resolve_device(device)
+    defs = {**attn_cache_defs(cfg, batch, max_len),
+            **state_cache_defs(cfg, batch)}
+    return {name: torch.zeros(cd.shape, dtype=cd.dtype, device=dev)
+            for name, cd in defs.items()}

@@ -1,13 +1,17 @@
-"""Serving engine: continuous batching over paged KV, with chunked or
-whole-prompt prefill, the prefix cache and self-speculative decoding.
+"""Serving engine: continuous batching over paged KV or a contiguous slot
+cache, with chunked or whole-prompt prefill, the prefix cache and
+self-speculative decoding.
 
-Port of ``repro.serving.engine`` on the paged paths.  Requests are
+Port of ``repro.serving.engine``.  Requests are
 admitted to cache slots one by one the moment a slot frees up, in the
 order ``admission`` picks (FIFO, shortest prompt first, or longest cached
 prefix first).  With ``chunked`` (the default), prompts are prefilled in
-fixed-size, page-aligned chunks (the plan's attention ``block_q`` rounded
-to whole pages) and a token-budget scheduler hands each pass prefill
-chunks, a decode block, or both.  With ``chunked=False`` each admitted
+fixed-size, page-aligned chunks (``prefill_chunk``, by default the plan's
+attention ``block_q``, rounded up to whole pages and clamped to a slot's
+table extent) and a token-budget scheduler hands each pass prefill
+chunks, a decode block, or both.  The page size is ``page_size``, by
+default the plan's KV stream granule (16 on the eager plan), clamped to
+``max_len``.  With ``chunked=False`` each admitted
 prompt is prefilled whole, at its own length, and its fresh K/V placed
 into the slot's pages (a Mamba2 stack's SSM state and conv tail into the
 slot's rows) before the slot joins decode.  A stack with recurrent state
@@ -17,6 +21,17 @@ shares pages at chunk granularity, to off; nor can such a stack verify
 speculatively.
 An attention-free stack (rwkv6) has no K/V pools: its slots hold only the
 recurrent state rows, and a KV quant mode is refused.
+
+``paged=False`` keeps the contiguous slot cache (``models.init_cache``:
+``slots x max_len`` K/V rows per attention layer, in the config's
+``kv_cache_layout``, beside the state rows) under the same scheduler:
+whole-prompt prefill, the slot's rows placed, then decode blocks of
+``decode_step`` without a page table, whose attention is the plain
+``decode_attention`` on every plan, as in the reference.  It refuses what
+the reference refuses there: a KV quant mode, chunked prefill and
+speculative decoding; the prefix cache, which needs chunks, is off.
+``kv_bytes_reserved`` is the pools' size (paged) or the worst-case rows
+(contiguous).
 
 Prefix cache (DESIGN.md §10), on by default whenever prefill is chunked:
 admission walks a radix tree over whole KV pages (``prefix_cache.py``),
@@ -28,15 +43,17 @@ page and serves a fully cached prompt through decode alone, copying the
 shared last page (copy-on-write) before the first append.
 
 A decode block runs ``decode_block`` steps for all slots with the sampled
-tokens kept on the device and read back once per block (the reference runs
-the block as one ``lax.scan``).  With ``speculative`` the decode block is
-replaced by draft-then-verify (DESIGN.md §11): each pass drafts up to
-``draft_len`` tokens per slot on the host (the prefix tree's
-continuations, then n-gram lookup over the slot's own history), scores
-``[pending, drafts]`` with one ``verify_step`` dispatch, keeps the drafts
-while they equal the model's own greedy argmax (so outputs equal the
-plain engine's) and rolls the slot's page extent back over the rejected
-tail.  Window widths snap to a ladder of at most three rungs.
+tokens kept on the device and read back once per block (the reference runs the
+block as one ``lax.scan``).  With ``adaptive_decode_block`` the block scales
+with the slots decoding, in power-of-two steps up to 4x, pulled back by the
+``decode_eff`` EMA of useful ticks (``_decode_block_size``).  With
+``speculative`` the decode block is replaced by draft-then-verify (DESIGN.md
+§11): each pass drafts up to ``draft_len`` tokens per slot on the host (the
+prefix tree's continuations, then n-gram lookup over the slot's own history),
+scores ``[pending, drafts]`` with one ``verify_step`` dispatch, keeps the
+drafts while they equal the model's own greedy argmax (so outputs equal the
+plain engine's) and rolls the slot's page extent back over the rejected tail.
+Window widths snap to a ladder of at most three rungs.
 
 Idle slots and slots parked mid-prefill ride along in decode and verify
 with their write position at the table extent (their writes go to the
@@ -47,9 +64,15 @@ mode for this engine.  KV modes store the page pools as int8 / fp8 codes
 with per-(page, KV head) scales; weight modes run the kernel plan's w8
 stages on int8 weights, quantized once when the engine is built.
 
-Left for later slices: telemetry, trace probes, autotuning, plan
-verification, ``adaptive_decode_block``, meshes, the contiguous cache and
-the ``bhsd`` layout.
+Requests carry lifecycle stamps on the engine's clock: ``ttft_s``,
+``latency_s``, ``queue_wait_s`` and ``tpot_s`` are ``nan`` until their
+stamps exist; a request rejected at admission has a finite ``latency_s``
+and a ``nan`` ``ttft_s``.
+
+Left for later slices: telemetry (the typed metric registry and its
+histograms; ``metrics`` is a plain dict of the reference's counters and
+gauges), ``snapshot()``, trace probes, autotuning, plan verification and
+meshes.
 """
 
 from __future__ import annotations
@@ -63,12 +86,13 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.common import DeviceLike, resolve_device
+from ..kernels.common import DeviceLike, cdiv, resolve_device
 from ..kernels.ref import code_view
 from ..models.model import (decode_step, prefill, prefill_chunk,
                             resolve_plan, supports_chunked_prefill,
                             supports_speculative, verify_step)
-from ..models.params import cache_leaf_kind, has_kv_pools, quantize_weights
+from ..models.params import (cache_leaf_kind, has_kv_pools, init_cache,
+                             kv_seq_axis, quantize_weights)
 from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
@@ -85,7 +109,9 @@ COUNTER_NAMES = (
 # Gauges (point in time) and lifetime rates.
 GAUGE_NAMES = ("kv_bytes_peak", "pages_in_use", "prefix_cached_pages",
                "kv_bytes_cached", "prefix_hit_rate", "accept_rate",
-               "dispatches_per_token", "kv_itemsize_effective")
+               "dispatches_per_token", "kv_itemsize_effective", "paged",
+               "chunked", "prefill_chunk", "page_size", "decode_block",
+               "decode_block_last", "kv_bytes_reserved")
 METRIC_NAMES = COUNTER_NAMES + GAUGE_NAMES
 ADMISSION = ("fifo", "sjf", "prefix")
 
@@ -107,6 +133,22 @@ def _ngram_continuation(hist: np.ndarray, k: int) -> List[int]:
             i = int(hits[-1])
             return [int(t) for t in hist[i + n:i + n + k]]
     return []
+
+
+def _place_cache_slot(cache: Dict[str, torch.Tensor],
+                      fresh: Dict[str, torch.Tensor], slot: int,
+                      layout: str) -> None:
+    """Write a batch-1 prefill cache into one slot of the contiguous cache,
+    in place (``engine.py:226``): K/V fill the slot's first S positions
+    along the layout's sequence axis, state leaves replace the slot's
+    row.  An unregistered leaf raises (``cache_leaf_kind``)."""
+    ax = kv_seq_axis(layout)
+    for name, small in fresh.items():
+        row = cache[name][:, slot]
+        if cache_leaf_kind(name) == "state":
+            row.copy_(small[:, 0])
+        else:
+            row.narrow(ax, 0, small.shape[ax]).copy_(small[:, 0])
 
 
 @dataclass
@@ -133,6 +175,22 @@ class Request:
         return self.first_token_at - self.submitted_at
 
     @property
+    def latency_s(self) -> float:
+        """Submit-to-finish time; nan until the request finished (a request
+        rejected at admission finished then)."""
+        if self.finished_at <= 0.0 or self.submitted_at <= 0.0:
+            return float("nan")
+        return self.finished_at - self.submitted_at
+
+    @property
+    def queue_wait_s(self) -> float:
+        """Submit-to-admission wait; nan until the request takes a slot
+        (a rejected request never does)."""
+        if self.admitted_at <= 0.0 or self.submitted_at <= 0.0:
+            return float("nan")
+        return self.admitted_at - self.submitted_at
+
+    @property
     def tpot_s(self) -> float:
         """Time per output token after the first; nan with fewer than two
         tokens or before the request finished."""
@@ -148,15 +206,23 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Tree, *,
                  batch_slots: int = 4, max_len: int = 256,
-                 decode_block: int = 16, chunked: Optional[bool] = None,
+                 decode_block: int = 16, paged: bool = True,
+                 page_size: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 chunked: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
                  prefix_bootstrap: bool = False, admission: str = "fifo",
+                 adaptive_decode_block: bool = False,
                  speculative: bool = False, draft_len: int = 4,
                  quant: Optional[str] = None, device: DeviceLike = None):
         # ``quant`` replaces the config's quant mode for this engine
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
         if quant is not None and quant != cfg.quant:
             cfg = replace(cfg, quant=quant)
+        if cfg.kv_quant and not paged:
+            raise ValueError("KV quantization requires the paged cache "
+                             "(per-page scale pools ride next to the "
+                             "page pools)")
         if cfg.kv_quant and not has_kv_pools(cfg):
             raise ValueError(
                 f"config {cfg.name!r} has no K/V pools to quantize "
@@ -166,11 +232,17 @@ class ServingEngine:
             raise ValueError(f"unknown admission policy {admission!r} "
                              "(fifo | sjf | prefix)")
         self.admission = admission
-        # None: chunked whenever the config supports it (``engine.py:367``);
-        # a recurrent-state stack (zamba2, rwkv6) or an M-RoPE one
-        # (qwen2-vl) admits whole prompts.
+        self.adaptive_decode_block = bool(adaptive_decode_block)
+        self.paged = bool(paged)
+        # None: chunked whenever the cache is paged and the config supports
+        # it (``engine.py:367``); a recurrent-state stack (zamba2, rwkv6)
+        # or an M-RoPE one (qwen2-vl) admits whole prompts.
         if chunked is None:
-            chunked = supports_chunked_prefill(cfg)
+            chunked = paged and supports_chunked_prefill(cfg)
+        if chunked and not paged:
+            raise ValueError("chunked prefill requires the paged cache "
+                             "(chunks carry between dispatches in the "
+                             "page pools)")
         if chunked and not supports_chunked_prefill(cfg):
             raise ValueError(
                 f"config {cfg.name!r} does not support chunked prefill "
@@ -185,18 +257,24 @@ class ServingEngine:
         self.decode_block = max(1, decode_block)
         self.clock = time.perf_counter
         # EMA of the per-dispatch useful-tick fraction: the prefill
-        # budget's decode-pressure signal (1.0 = every tick useful).
+        # budget's and the adaptive decode block's pressure signal (1.0 =
+        # every tick useful).
         self.decode_eff = 1.0
         # One plan drives both stream granules: the KV page size and the
         # prefill chunk (a whole number of pages).  None when eager.
         self.plan = resolve_plan(cfg, batch_slots, kv_len=max_len)
-        page_size = (self.plan.decode_page_size(16)
-                     if self.plan is not None else 16)
+        if page_size is None:
+            page_size = (self.plan.decode_page_size(16)
+                         if self.plan is not None else 16)
 
         # Self-speculative decoding: the plan clamps the verify window to
         # its KV page granule (``engine.py:379-408``).
         self.draft_len = int(draft_len)
         if speculative:
+            if not paged:
+                raise ValueError("speculative decoding requires the paged "
+                                 "cache (rejection rolls back the slot's "
+                                 "page-table extent)")
             if not supports_speculative(cfg):
                 raise ValueError(
                     f"config {cfg.name!r} does not support speculative "
@@ -215,13 +293,22 @@ class ServingEngine:
         # Tests turn this on to audit the allocator after every rollback.
         self._debug_check_pages = False
 
-        self.kv = PagedKVCache(cfg, slots=batch_slots, max_len=max_len,
-                               page_size=page_size, device=self.device)
-        self.cache = self.kv.init_cache()
+        self.kv: Optional[PagedKVCache] = None
+        if paged:
+            self.kv = PagedKVCache(cfg, slots=batch_slots, max_len=max_len,
+                                   page_size=page_size, device=self.device)
+            self.cache = self.kv.init_cache()
+        else:
+            self.cache = init_cache(cfg, batch_slots, max_len,
+                                    device=self.device)
         if self.chunked:
             ps = self.kv.page_size
-            want = (self.plan.prefill_chunk_size(ps)
-                    if self.plan is not None else 4 * ps)
+            # The plan's prefill granule, or the override, rounded up to
+            # whole pages and clamped to the table extent (``:524-531``).
+            want = (prefill_chunk if prefill_chunk is not None
+                    else (self.plan.prefill_chunk_size(ps)
+                          if self.plan is not None else 4 * ps))
+            want = cdiv(max(1, int(want)), ps) * ps
             self.chunk = max(ps, min(want, self.kv.extent))
         else:
             self.chunk = 0
@@ -245,9 +332,22 @@ class ServingEngine:
         # Pending copy-on-write per slot: the logical page whose next
         # write must swap in a private copy.
         self._cow: List[Optional[int]] = [None] * batch_slots
+        # Reserved K/V bytes: the pools (paged) or the worst-case slot
+        # rows (contiguous), scale pools included (``engine.py:575-580``).
+        self.kv_bytes_reserved = sum(
+            t.numel() * t.element_size() for name, t in self.cache.items()
+            if cache_leaf_kind(name) in ("kv", "scale"))
         self.metrics: Dict[str, Any] = {name: 0 for name in METRIC_NAMES}
-        self.metrics["quant"] = cfg.quant
-        self.metrics["kv_itemsize_effective"] = self.kv.kv_itemsize_effective
+        self.metrics.update(
+            quant=cfg.quant, paged=int(self.paged),
+            chunked=int(self.chunked), prefill_chunk=self.chunk,
+            page_size=self.kv.page_size if self.kv is not None else 0,
+            decode_block=self.decode_block,
+            decode_block_last=self.decode_block,
+            kv_bytes_reserved=self.kv_bytes_reserved,
+            kv_itemsize_effective=(
+                self.kv.kv_itemsize_effective if self.kv is not None
+                else (2.0 if cfg.dtype == "bfloat16" else 4.0)))
 
     # -------------------------------------------------------------- API
     @torch.no_grad()
@@ -290,9 +390,12 @@ class ServingEngine:
             if not progressed:
                 break
         m = self.metrics
-        m["kv_bytes_peak"] = max(m["kv_bytes_peak"],
-                                 self.kv.peak_bytes_in_use)
-        m["pages_in_use"] = self.kv.pages_in_use
+        if self.kv is not None:
+            m["kv_bytes_peak"] = max(m["kv_bytes_peak"],
+                                     self.kv.peak_bytes_in_use)
+            m["pages_in_use"] = self.kv.pages_in_use
+        else:
+            m["kv_bytes_peak"] = self.kv_bytes_reserved
         if self.prefix is not None:
             # Lifetime rate: hit pages over every prompt page admitted.
             m["prefix_hit_rate"] = (m["prefix_hit_pages"]
@@ -415,15 +518,20 @@ class ServingEngine:
 
     def _admit(self, slot: int, r: Request, pos, tok) -> None:
         """Whole-prompt prefill at the request's own length into the slot's
-        pages (``engine.py:969``); emits the first token."""
+        pages, or its rows of the contiguous cache (``engine.py:969``);
+        emits the first token."""
         plen = int(r.prompt.shape[0])
         dev = self.device
-        pages = torch.as_tensor(self.kv.ensure(slot, plen), device=dev)
         logits, fresh = prefill(self.params, self.cfg,
                                 torch.as_tensor(r.prompt, device=dev)[None],
                                 plan=self.plan)
-        place_prefill(self.cache, fresh, pages,
-                      layout=self.cfg.kv_cache_layout, slot=slot)
+        if self.kv is None:
+            _place_cache_slot(self.cache, fresh, slot,
+                              self.cfg.kv_cache_layout)
+        else:
+            pages = torch.as_tensor(self.kv.ensure(slot, plen), device=dev)
+            place_prefill(self.cache, fresh, pages,
+                          layout=self.cfg.kv_cache_layout, slot=slot)
         t = int(logits[0, 0].argmax())              # reads back: syncs
         r.out_tokens.append(t)
         r.first_token_at = self.clock()
@@ -494,7 +602,8 @@ class ServingEngine:
             # Drop the tree's hold first (re-stamps the prefix as most
             # recently used); tree pages stay cached after the release.
             self.prefix.release_slot(slot)
-        self.kv.release(slot)
+        if self.kv is not None:
+            self.kv.release(slot)
 
     def _provision(self, runnable, active, decoding, pos, tok,
                    width) -> Tuple[np.ndarray, np.ndarray]:
@@ -537,34 +646,57 @@ class ServingEngine:
             raw = code_view(pool)
             raw[:, dst] = raw[:, src]
 
+    def _decode_block_size(self, n_active: int) -> int:
+        """Steps in the next decode block (``engine.py:1115``): the static
+        ``decode_block``, or with ``adaptive_decode_block`` that block
+        doubled once per power of two that ``n_active * decode_eff``
+        reaches (at 2, then 4), at most 4x: more slots decoding usefully
+        amortize the per-block read-back over more tokens, and ticks
+        wasted on slots retiring mid-block pull it back."""
+        if not self.adaptive_decode_block:
+            return self.decode_block
+        scale = n_active * max(self.decode_eff, 0.0)
+        k = 0
+        while k < 2 and (2 << k) <= scale:
+            k += 1
+        return self.decode_block << k
+
     def _decode_block(self, active, decoding, pos, tok) -> None:
-        """``decode_block`` steps across all slots, each at its own
+        """A block of decode steps across all slots, each at its own
         position; tokens stay on the device until the block ends."""
         runnable = [s for s in range(self.slots)
                     if active[s] is not None and decoding[s]]
-        block = self.decode_block
-        # Allocate only what each request's remaining budget can read back:
-        # later ticks write past the allocated pages, which routes them to
-        # the NULL page, and their tokens are dropped.
-        cow_src, cow_dst = self._provision(
-            runnable, active, decoding, pos, tok,
-            lambda s: min(block, active[s].max_new_tokens
-                          - len(active[s].out_tokens)))
-        runnable = [s for s in runnable
-                    if active[s] is not None and decoding[s]]
-        if not runnable:
-            return
-        self._copy_on_write(cow_src, cow_dst)
-        dpos = np.full(self.slots, self.kv.extent, np.int32)
-        dlen = np.zeros(self.slots, np.int32)
-        for s in runnable:
-            dpos[s] = pos[s]
-            dlen[s] = pos[s]
+        block = self._decode_block_size(len(runnable))
+        self.metrics["decode_block_last"] = block
         dev = self.device
+        if self.kv is not None:
+            # Allocate only what each request's remaining budget can read
+            # back: later ticks write past the allocated pages, which
+            # routes them to the NULL page, and their tokens are dropped.
+            cow_src, cow_dst = self._provision(
+                runnable, active, decoding, pos, tok,
+                lambda s: min(block, active[s].max_new_tokens
+                              - len(active[s].out_tokens)))
+            runnable = [s for s in runnable
+                        if active[s] is not None and decoding[s]]
+            if not runnable:
+                return
+            self._copy_on_write(cow_src, cow_dst)
+            dpos = np.full(self.slots, self.kv.extent, np.int32)
+            dlen = np.zeros(self.slots, np.int32)
+            for s in runnable:
+                dpos[s] = pos[s]
+                dlen[s] = pos[s]
+            table = self.kv.page_table
+        else:
+            # Contiguous: every slot steps at its own position; an idle
+            # slot writes into its own rows, which the next admission's
+            # placement overwrites (``engine.py:1198-1202``).
+            dpos = dlen = pos.copy()
+            table = None
         tok_d = torch.as_tensor(tok, device=dev)
         pos_d = torch.as_tensor(dpos, device=dev)
         len_d = torch.as_tensor(dlen, device=dev)
-        table = self.kv.page_table
         steps = []
         for _ in range(block):
             tok_d, _, _ = decode_step(self.params, self.cfg, tok_d,
@@ -592,7 +724,8 @@ class ServingEngine:
         self.metrics["dispatches"] += 1
         self.metrics["ticks"] += useful
         self.metrics["scan_ticks"] += block
-        self.metrics["pages_in_use"] = self.kv.pages_in_use
+        if self.kv is not None:
+            self.metrics["pages_in_use"] = self.kv.pages_in_use
         self.decode_eff = 0.5 * self.decode_eff + 0.5 * useful / block
 
     # ------------------------------------------------ speculative decode

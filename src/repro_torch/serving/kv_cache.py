@@ -2,10 +2,14 @@
 
 Port of ``repro.serving.kv_cache`` on the main path:
 
-* K/V storage is a pool of fixed-size pages per layer, page-major:
-  ``[L, P, page_size, Hkv, hd]``.  Physical page 0 is the NULL page:
-  unallocated table entries point at it, and writes at or past a slot's
-  table extent land in it, so every indexed read and write is in bounds.
+* K/V storage is a pool of fixed-size pages per layer, page-major and
+  layout-canonical: ``[L, P, page_size, Hkv, hd]`` whatever the config's
+  ``kv_cache_layout``.  The primitives take K/V in the model's layout ("bshd"
+  ``[B, S, H, hd]`` or "bhsd" ``[B, H, S, hd]``, ``layout=``) and convert at
+  the edges (``to_page_major`` / ``from_page_major``), so the paged kernels
+  see the same pools under either layout.  Physical page 0 is the NULL page:
+  unallocated table entries point at it, and writes at or past a slot's table
+  extent land in it, so every indexed read and write is in bounds.
 * A page table ``[slots, max_pages]`` int32 maps a slot's logical page j to
   a physical page; it lives on the host and is uploaded per dispatch.
 * The host-side allocator hands out pages from a free list with refcounts.
@@ -125,7 +129,8 @@ def paged_append(pool: torch.Tensor, page_table: torch.Tensor,
     """Scatter one decode token per slot into its page, in place.
 
     pool [P, page_size, H, hd]; page_table [B, max_pages] int32; pos [B]
-    absolute write positions; new [B, 1, H, hd] ("bshd").  A position at or
+    absolute write positions; new [B, 1, H, hd] ("bshd") or [B, H, 1, hd]
+    ("bhsd").  A position at or
     past the table extent (an idle or parked slot) routes to the NULL page
     instead of rewriting a live row.  Returns ``pool``."""
     page_size = pool.shape[1]
@@ -147,12 +152,12 @@ def paged_append_window(pool: torch.Tensor, page_table: torch.Tensor,
                         layout: str) -> torch.Tensor:
     """Scatter a W-token verify window per slot into its pages, in place.
 
-    new [B, W, H, hd] ("bshd") lands at positions ``pos[b] .. pos[b] + W -
-    1``; each row resolves its own physical page, and a row at or past the
-    table extent (or negative) routes to the NULL page, as in
-    ``paged_append`` (``kv_cache.py:266``).  Rows past the accepted prefix
-    are stale after acceptance: the engine rolls the extent back and later
-    writes overwrite them.  Returns ``pool``."""
+    new [B, W, H, hd] ("bshd", or [B, H, W, hd] "bhsd") lands at positions
+    ``pos[b] .. pos[b] + W - 1``; each row resolves its own physical page, and
+    a row at or past the table extent (or negative) routes to the NULL page,
+    as in ``paged_append`` (``kv_cache.py:266``).  Rows past the accepted
+    prefix are stale after acceptance: the engine rolls the extent back and
+    later writes overwrite them.  Returns ``pool``."""
     page_size = pool.shape[1]
     b = page_table.shape[0]
     win = to_page_major(new, layout)                       # [B, W, H, hd]
@@ -254,7 +259,8 @@ def live_page_table(page_table: torch.Tensor, lengths,
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor, *,
                  layout: str) -> torch.Tensor:
     """Per-slot contiguous K/V from the pool: [P, ps, H, hd] ->
-    [B, max_pages * ps, H, hd] ("bshd")."""
+    [B, max_pages * ps, H, hd] ("bshd") or [B, H, max_pages * ps, hd]
+    ("bhsd")."""
     pages = _take(pool, page_table.long())        # [B, max_pages, ps, H, hd]
     b, n, ps, h, hd = pages.shape
     return from_page_major(pages.reshape(b, n * ps, h, hd), layout)
@@ -301,7 +307,8 @@ def place_chunk_pages(pool: torch.Tensor, seq: torch.Tensor,
                       chunk_pages: torch.Tensor, *,
                       layout: str) -> torch.Tensor:
     """Write one page-aligned prefill chunk's K/V into its physical pages,
-    in place.  seq [1, C, H, hd] ("bshd"); chunk_pages [C // page_size]
+    in place.  seq [1, C, H, hd] ("bshd") or [1, H, C, hd] ("bhsd");
+    chunk_pages [C // page_size]
     (NULL past the slot's capacity: pad tokens land in the NULL page)."""
     page_size = pool.shape[1]
     x = to_page_major(seq, layout)[0]                      # [C, H, hd]
@@ -318,7 +325,8 @@ def place_prefill(cache: Dict[str, torch.Tensor],
     """Write one request's whole-prompt prefill cache into its pages and
     its slot's state rows, in place (``kv_cache.py:399``).
 
-    fresh {"k", "v"} [L_attn, 1, S, H, hd] ("bshd") and, for a Mamba2
+    fresh {"k", "v"} [L_attn, 1, S, H, hd] ("bshd"; [L_attn, 1, H, S, hd]
+    under "bhsd") and, for a Mamba2
     or RWKV6 stack, the state leaves [L, 1, ...] (an RWKV6 stack's alone);
     pages [n] int32 the slot's physical pages from ``ensure(slot, S)``, n
     = cdiv(S, page_size).  The last page is zero-padded past S.  Quantized pools (a ``<name>_scale``
@@ -372,16 +380,17 @@ def stage_chunk(prompt: np.ndarray, off: int, chunk: int, row: np.ndarray,
 def paged_cache_defs(cfg: ModelConfig, slots: int, max_len: int,
                      page_size: int) -> Dict[str, CacheDef]:
     """K/V page pools ``[L_attn, 1 + slots * cdiv(max_len, ps), ps, Hkv,
-    hd]`` (+1: the NULL page).  Under a KV quant mode the pools hold int8 /
-    fp8 codes and each gains a ``<name>_scale`` pool ``[L_attn, P, Hkv]``
-    float32 (``kv_cache.py:523-554``).  A Mamba2 or RWKV6 stack's state
-    leaves follow, slot-contiguous (``state_cache_defs``); an RWKV6 stack
-    has no pools."""
+    hd]`` (+1: the NULL page), page-major under either layout.  Under a KV
+    quant mode the pools hold int8 / fp8 codes and each gains a
+    ``<name>_scale`` pool ``[L_attn, P, Hkv]`` float32
+    (``kv_cache.py:523-554``).  A Mamba2 or RWKV6 stack's state leaves follow,
+    slot-contiguous (``state_cache_defs``); an RWKV6 stack has no pools."""
     num_pages = 1 + slots * cdiv(max_len, page_size)
     qdtype = kv_quant_dtype(cfg.kv_quant)
     out = {}
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
     for name, cd in attn_cache_defs(cfg, slots, max_len).items():
-        layers, _, _, hkv, hd = cd.shape
+        layers = cd.shape[0]
         out[name] = CacheDef((layers, num_pages, page_size, hkv, hd),
                              qdtype or cd.dtype)
         if qdtype is not None:

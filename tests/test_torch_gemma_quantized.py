@@ -59,6 +59,17 @@ COUNTERS = ("prefix_hit_pages", "prompt_pages", "draft_tokens",
             "rollbacks", "generated", "prefills", "prefill_chunks")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's CPU runs here are many small ops: one intra-op thread
+    each (restored after the module), so that the test workers running
+    beside one another do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel_close(got, want, tol=REL):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)

@@ -29,6 +29,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.paged_attention",
             "repro_torch.train.trainer", "repro_torch.distributed.optimizer",
             "repro_torch.data.pipeline", "repro_torch.launch.train",
+            "repro_torch.launch.serve",
             "repro_torch.kernels.streamed_xent",
             "repro_torch.kernels.moe_experts",
             "repro_torch.configs.granite_moe_1b",

@@ -17,6 +17,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import init_params as j_init_params
@@ -30,6 +31,17 @@ BURST = (5, 150, 37, 90, 17)
 COUNTERS = ("prefix_hit_pages", "prompt_pages", "draft_tokens",
             "accepted_tokens", "spec_tokens", "verify_dispatches",
             "rollbacks", "generated")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's CPU runs here are many small ops: one intra-op thread
+    each (restored after the module), so that the test workers running
+    beside one another do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _configs(arch: str, fused: bool):

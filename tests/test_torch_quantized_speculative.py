@@ -41,6 +41,17 @@ COUNTERS = ("prefix_hit_pages", "prompt_pages", "draft_tokens",
             "rollbacks", "rollback_pages", "generated")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's CPU runs here are many small ops: one intra-op thread
+    each (restored after the module), so that the test workers running
+    beside one another do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configs(arch: str):
     j_cfg = dataclasses.replace(j_get_config(arch).reduced(),
                                 dtype="float32", use_fused_kernels=True)
@@ -61,14 +72,26 @@ def _burst(vocab: int):
     return prompts
 
 
+@pytest.fixture(scope="module")
+def weights():
+    """Each arch's JAX weights and their port bridge, once for both
+    modes."""
+    out = {}
+    for arch in ARCHS:
+        j_cfg, t_cfg = _configs(arch)
+        jp = j_init_params(jax.random.PRNGKey(0), j_cfg)
+        if arch == "gpt2":       # zero LayerNorm scales zero every logit
+            jp = j_jitter_params(jp)
+        out[arch] = (jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                           t_cfg, device="cpu"))
+    return out
+
+
 @pytest.mark.parametrize("mode", ["kv_int8", "w8_kv8"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_quantized_speculative_engine_matches_reference(arch, mode):
+def test_quantized_speculative_engine_matches_reference(weights, arch, mode):
     j_cfg, t_cfg = _configs(arch)
-    jp = j_init_params(jax.random.PRNGKey(0), j_cfg)
-    if arch == "gpt2":           # zero LayerNorm scales zero every logit
-        jp = j_jitter_params(jp)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), t_cfg, device="cpu")
+    jp, tp = weights[arch]
     prompts = _burst(t_cfg.vocab_size)
     kw = dict(batch_slots=2, max_len=512, speculative=True, draft_len=4,
               quant=mode)
