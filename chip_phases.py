@@ -150,11 +150,18 @@ parent.  Phases:
              bursts (page sizes, chunks, layouts, adaptive decode block,
              contiguous); ``python -m repro_torch.launch.serve``
              in-process.
+  serve_telemetry, obs_demo
+             those phases of ``chip_smoke.py``: llama3-8b's chunked burst
+             at ``SERVE_LAYERS`` with telemetry off and on (tokens,
+             launches, events, trace, histograms; the trace goes to
+             ``--out``); ``python -m repro_torch.obs --demo`` in-process
+             (its files under ``--out``/obs_demo).
 
 The card's name and power limit (nvidia-smi) come first.  ``--ptxas
 FILE`` writes nvcc's resource report (``-Xptxas -v``: registers, shared
-memory, spills per kernel) of the sources built to FILE.  A source the
-tree does not have is not built for it.  The phases of
+memory, spills per kernel) of the sources built to FILE; ``--out DIR``
+(default ``build/chip_phases/``) holds the files a phase writes.  A
+source the tree does not have is not built for it.  The phases of
 the tree's own ``chip_smoke.py`` are used (``ffn_hashes``, ``moe`` and
 ``moe_probe`` take their shapes and inputs from this checkout's), so a
 phase that an older tree lacks (norm, xent) runs only on trees that have
@@ -236,6 +243,10 @@ SOURCES.update(dict.fromkeys(("serve_contiguous", "serve_surface"),
                              SERVE_SOURCES))
 SOURCES["serve_launcher"] = SERVE_SOURCES + ["paged_attention_64",
                                              "row_norm"]
+SOURCES["serve_telemetry"] = SERVE_SOURCES
+# gpt2's speculative path: K5, K6, K2, K8 at head dim 64, the row norm.
+SOURCES["obs_demo"] = ["block_matmul", "streamed_ffn", "flash_mma",
+                       "flash_attention", "paged_attention_64", "row_norm"]
 
 
 def emit(obj) -> None:
@@ -730,6 +741,9 @@ def main() -> int:
                     help="checkout whose repro_torch and chip_smoke run")
     ap.add_argument("--ptxas", default=None,
                     help="file for nvcc's -Xptxas -v report of the build")
+    ap.add_argument("--out", default=os.path.join(HERE, "build",
+                                                  "chip_phases"),
+                    help="directory for the files a phase writes")
     ap.add_argument("phases", nargs="+")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
@@ -884,6 +898,12 @@ def main() -> int:
             cs.serve_surface(torch, timer)
         elif phase == "serve_launcher":
             cs.serve_launcher(torch)
+        elif phase == "serve_telemetry":
+            os.makedirs(args.out, exist_ok=True)
+            cs.serve_telemetry(torch, args.out)
+        elif phase == "obs_demo":
+            os.makedirs(args.out, exist_ok=True)
+            cs.obs_demo(torch, args.out)
         elif phase == "hubert_train":
             from repro_torch.configs import get_config
             cfg = dataclasses.replace(get_config(cs.HUBERT),

@@ -304,6 +304,22 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               llama3-8b ``--fused --layers 8`` paged, ``--contiguous`` and
               ``--page-size 32``, and gpt2 ``--fused`` at full size; exit
               code 0, the two ``[serve]`` lines, launches exact;
+   serve_telemetry — llama3-8b at 8 layers, bf16, the chunked burst
+              through an engine with telemetry off and one with it on
+              (``repro_torch.obs``), same weights, after a warm-up: tokens
+              bit-equal, each engine's launches exactly the chunked
+              path's, the off recorder empty, the request-lifecycle and
+              dispatch event counts equal to the requests and the
+              engine's counters, the Chrome trace valid with the engine
+              and slot lanes, the histograms' percentiles ordered
+              (required); the event count and trace bytes, TTFT and TPOT
+              p50/p90/p99 from the registry's histograms beside the exact
+              medians from the request stamps, the dispatch walls' p50
+              and p99, and the on/off wall and TPOT ratio (reported);
+   obs_demo — ``python -m repro_torch.obs --demo`` in-process (gpt2 at
+              full width, 2 layers, chunked + speculative, telemetry on
+              and off): exit code 0, its three files written, launches
+              exactly the speculative gpt2 path's;
 9. train_fused_vs_eager — the four models at full width cut to 4 layers
               (gemma3-4b 6, weights jittered), float32, B = 2, S = 256:
               the kernel plan's ``forward_train``
@@ -3390,14 +3406,16 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
     _sync(torch, device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    before = dict(eng.metrics)
     K.reset_launches()
     t0 = time.perf_counter()
     reqs = eng.generate(prompts, max_new_tokens=new)
     _sync(torch, device)
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
-    burst_metrics = {k: eng.metrics[k] - before[k] for k in COUNTER_NAMES}
+    # The burst's window (``generate`` opens it), read before the solo
+    # request.
+    window = eng.snapshot("last_generate")
+    burst_metrics = {k: int(window[k]) for k in COUNTER_NAMES}
     solo = eng.generate([prompts[0]], max_new_tokens=new)[0].out_tokens
     generated = sum(len(r.out_tokens) for r in reqs)
     ttft = [r.ttft_s for r in reqs]
@@ -3600,16 +3618,15 @@ def spec_serve(torch, cfg, params, expect, *, init_s, max_len,
     _sync(torch, device)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    before = dict(eng.metrics)
     K.reset_launches()
     t0 = time.perf_counter()
     reqs = eng.generate(prompts, max_new_tokens=new)
     _sync(torch, device)
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
-    m = eng.metrics
-    burst_metrics = {k: m[k] - before[k] for k in COUNTER_NAMES}
-    kv_peak = m["kv_bytes_peak"]
+    window = eng.snapshot("last_generate")
+    burst_metrics = {k: int(window[k]) for k in COUNTER_NAMES}
+    kv_peak = window["kv_bytes_peak"]
     mem_peak = (torch.cuda.max_memory_allocated() if device == "cuda"
                 else None)
     del eng
@@ -4085,6 +4102,179 @@ def serve_launcher(torch, device="cuda"):
     if bad:
         raise AssertionError("serve_launcher: " + "; ".join(bad))
     return out
+
+
+# --------------------------------------------------------------------- #
+# Telemetry: the event recorder, the typed registry and its exporters
+# --------------------------------------------------------------------- #
+
+TELEMETRY_HISTOGRAMS = ("ttft_s", "tpot_s", "queue_wait_s",
+                        "chunk_latency_s", "decode_dispatch_s")
+
+
+def _finite(x):
+    """A JSON-safe number: ``None`` for an empty histogram's ``nan``."""
+    return x if isinstance(x, (int, float)) and math.isfinite(x) else None
+
+
+def serve_telemetry(torch, out_dir, device="cuda", serve_row=None):
+    """llama3-8b at full width, ``SERVE_LAYERS`` deep, bf16, seed-2
+    weights: ``serve``'s chunked burst through an engine with telemetry
+    off, then one with it on, each after a warm-up (the recorder cleared
+    after it).  Telemetry is a pure observer: equal tokens and launches,
+    and with ``serve_row`` (the ``serve`` phase's row of the same burst)
+    the off engine's launches and first tokens equal that row's.  Writes
+    the on engine's Chrome trace to ``out_dir``."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.obs import (DISPATCH_DECODE, DISPATCH_PREFILL_CHUNK,
+                                 REQ_ADMITTED, REQ_FINISHED, REQ_FIRST_TOKEN,
+                                 REQ_QUEUED, chrome_trace,
+                                 validate_chrome_trace)
+    from repro_torch.serving import ServingEngine
+    new = 32
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              use_fused_kernels=True,
+                              num_layers=SERVE_LAYERS["llama3-8b"])
+    params = _weights(torch, cfg, 2, jitter=False, device=device)
+    lengths, prompts = _serve_prompts(cfg.vocab_size, 37, 1000)
+    runs = {}
+    for on in (False, True):
+        eng = ServingEngine(cfg, params, batch_slots=4, max_len=2048,
+                            page_size=16, prefill_chunk=128, chunked=True,
+                            telemetry=on, device=device)
+        eng.generate([prompts[2][:8]], max_new_tokens=2)   # warm-up
+        _sync(torch, device)
+        eng.obs.clear()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        reqs = eng.generate(prompts, max_new_tokens=new)
+        _sync(torch, device)
+        runs[on] = {"reqs": reqs, "wall": time.perf_counter() - t0,
+                    "launches": {k: n for k, n in K.launch_counts().items()
+                                 if n},
+                    "window": eng.snapshot("last_generate"),
+                    "recorded": len(eng.obs.events)}
+        if not on:
+            off_inert = eng.obs.events == () and not eng.obs.enabled
+            del eng
+            _free(torch, device)
+    off, on = runs[False], runs[True]
+    win = on["window"]
+    trace = chrome_trace(eng.obs.events)
+    text = json.dumps(trace)
+    with open(os.path.join(out_dir, "serve_telemetry_trace.json"),
+              "w") as fh:
+        fh.write(text)
+    lanes = {e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M"}
+    tokens_equal = ([r.out_tokens for r in on["reqs"]]
+                    == [r.out_tokens for r in off["reqs"]])
+    tpot = {k: statistics.mean(r.tpot_s for r in runs[k]["reqs"])
+            for k in (False, True)}
+    row = {"phase": "serve_telemetry", "config": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "prompt_lengths": lengths, "new_tokens": new, "slots": 4,
+           "page_size": eng.kv.page_size, "prefill_chunk": eng.chunk,
+           "tokens_equal": tokens_equal,
+           "launches_off": off["launches"], "launches_on": on["launches"],
+           "events": len(eng.obs.events), "events_dropped": eng.obs.dropped,
+           "trace_bytes": len(text), "trace_lanes": sorted(lanes),
+           "wall_off_s": off["wall"], "wall_on_s": on["wall"],
+           "wall_ratio": on["wall"] / off["wall"],
+           "tpot_mean_off_ms": 1e3 * tpot[False],
+           "tpot_mean_on_ms": 1e3 * tpot[True],
+           "tpot_ratio": tpot[True] / tpot[False],
+           "first_tokens": off["reqs"][0].out_tokens[:8],
+           "ttft_median_s": statistics.median(r.ttft_s for r in on["reqs"]),
+           "tpot_median_s": statistics.median(r.tpot_s for r in on["reqs"]),
+           "counters": {k: int(win[k]) for k in (
+               "prefills", "prefill_chunks", "dispatches", "generated",
+               "prefix_hit_pages", "prompt_pages")}}
+    for h in TELEMETRY_HISTOGRAMS + ("prefill_dispatch_s",):
+        for q in ("count", "p50", "p90", "p99"):
+            row[f"{h}_{q}"] = _finite(win[f"{h}_{q}"])
+    emit(row)
+    problems = []
+    if not tokens_equal:
+        problems.append("tokens differ with telemetry on")
+    for key in ("launches_off", "launches_on"):
+        if set(row[key]) != LLAMA_PATH:
+            problems.append(f"{key}: {sorted(row[key])}")
+    if row["launches_off"] != row["launches_on"]:
+        problems.append("launch counts differ with telemetry on")
+    if serve_row is not None and (
+            {k: n for k, n in serve_row["launches"].items() if n}
+            != row["launches_off"]
+            or serve_row["first_tokens"] != row["first_tokens"]):
+        problems.append("the off engine's launches or first tokens differ "
+                        "from the serve phase's")
+    if not off_inert or off["recorded"]:
+        problems.append("the off recorder holds events")
+    n = len(prompts)
+    for name in (REQ_QUEUED, REQ_ADMITTED, REQ_FIRST_TOKEN, REQ_FINISHED):
+        if eng.obs.count(name) != n:
+            problems.append(f"{name}: {eng.obs.count(name)} events")
+    if eng.obs.count(DISPATCH_PREFILL_CHUNK) != win["prefill_chunks"]:
+        problems.append("prefill-chunk events != prefill_chunks")
+    if eng.obs.count(DISPATCH_DECODE) != win["dispatches"]:
+        problems.append("decode events != dispatches")
+    errs = validate_chrome_trace(trace)
+    if errs:
+        problems.append(f"trace invalid: {errs[:3]}")
+    if not {"engine", "slot0", "slot1", "slot2", "slot3"} <= lanes:
+        problems.append(f"trace lanes {sorted(lanes)}")
+    for h in TELEMETRY_HISTOGRAMS:
+        p = [win[f"{h}_p{q}"] for q in (50, 90, 99)]
+        if not (win[f"{h}_count"] > 0 and p[0] <= p[1] <= p[2]):
+            problems.append(f"{h}: count {win[f'{h}_count']}, "
+                            f"percentiles {p}")
+    del eng, params
+    _free(torch, device)
+    if problems:
+        raise AssertionError("serve_telemetry: " + "; ".join(problems))
+    return row
+
+
+def obs_demo(torch, out_dir, device="cuda"):
+    """``repro_torch.obs.__main__.main(["--demo", "--out", ...])``
+    in-process on the card: exit code 0, ``trace.json``, ``events.jsonl``
+    and ``metrics.prom`` written, launches exactly the speculative gpt2
+    path's."""
+    import contextlib
+    import io
+    from repro_torch import kernels as K
+    from repro_torch.obs.__main__ import main as obs_main
+    out = os.path.join(out_dir, "obs_demo")
+    buf = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_main(["--demo", "--out", out])
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    launches = {k: n for k, n in K.launch_counts().items() if n}
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    files = {f: os.path.getsize(os.path.join(out, f))
+             for f in ("trace.json", "events.jsonl", "metrics.prom")
+             if os.path.exists(os.path.join(out, f))}
+    row = {"phase": "obs_demo", "rc": rc, "seconds": seconds,
+           "files": files, "launches": launches}
+    emit(row)
+    _free(torch, device)
+    bad = []
+    if rc != 0:
+        bad.append(f"rc {rc}: {[ln for ln in lines if 'FAIL' in ln]}")
+    if len(files) != 3:
+        bad.append(f"files written: {sorted(files)}")
+    if set(launches) != SPEC_PATHS["gpt2"]:
+        bad.append(f"launched {sorted(launches)}, expected "
+                   f"{sorted(SPEC_PATHS['gpt2'])}")
+    if bad:
+        raise AssertionError("obs_demo: " + "; ".join(bad))
+    return row
 
 
 # --------------------------------------------------------------------- #
@@ -5369,6 +5559,10 @@ def main(argv=None) -> int:
     results["serve_contiguous"] = serve_contiguous(torch)
     results["serve_surface"] = serve_surface(torch, timer)
     results["serve_launcher"] = serve_launcher(torch)
+    results["serve_telemetry"] = serve_telemetry(
+        torch, out_dir,
+        serve_row=results["full_depth"]["llama3-8b"]["serve"]["chunked"])
+    results["obs_demo"] = obs_demo(torch, out_dir)
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}

@@ -69,10 +69,31 @@ Requests carry lifecycle stamps on the engine's clock: ``ttft_s``,
 stamps exist; a request rejected at admission has a finite ``latency_s``
 and a ``nan`` ``ttft_s``.
 
-Left for later slices: telemetry (the typed metric registry and its
-histograms; ``metrics`` is a plain dict of the reference's counters and
-gauges), ``snapshot()``, trace probes, autotuning, plan verification and
-meshes.
+Telemetry (DESIGN.md §17, ``repro_torch.obs``): ``telemetry=`` is
+None/False (the inert ``NULL_RECORDER``), True (a fresh ``Recorder``) or a
+``Recorder``; ``clock=`` injects the clock that both the recorder and the
+request stamps read.  The engine, its allocator and its prefix cache emit
+the reference's request-lifecycle, dispatch, page and prefix events, each
+site behind ``obs.enabled``.  Every number lives in a typed ``Registry``
+(``self.registry``: counters, gauges, infos and the latency histograms
+``ttft_s``, ``tpot_s``, ``queue_wait_s``, ``chunk_latency_s``,
+``prefill_dispatch_s``, ``decode_dispatch_s``, ``verify_dispatch_s``);
+``self.metrics`` is its live read-only lifetime view and
+``snapshot("lifetime" | "last_generate")`` materializes either view, the
+window opening at the top of each ``generate``.  Telemetry adds no
+synchronization: a dispatch span ends at the read-back that already syncs
+(whole-prompt prefill, the final chunk, decode blocks, verify), or right
+after the launch for a chunk that is not the prompt's last.  That chunk's
+span opens before its inputs are copied to the card, and a blocking copy
+from pageable host memory waits for the stream: the span holds the device
+work still queued (the previous chunk's) as well as the enqueue, and does
+not tell the two apart.
+
+Left for later slices: autotuning, plan verification and meshes (their
+metrics are registered and hold what the reference's hold with them off).
+The reference's trace probes (``prefill_traces``, ``decode_traces``,
+``verify_traces``) count jit programs built; the port builds no per-shape
+programs, so they stay 0 and no ``trace.*`` event is emitted.
 """
 
 from __future__ import annotations
@@ -93,26 +114,66 @@ from ..models.model import (decode_step, prefill, prefill_chunk,
                             supports_speculative, verify_step)
 from ..models.params import (cache_leaf_kind, has_kv_pools, init_cache,
                              kv_seq_axis, quantize_weights)
+from ..obs import (DISPATCH_DECODE, DISPATCH_PREFILL, DISPATCH_PREFILL_CHUNK,
+                   DISPATCH_VERIFY, REQ_ADMITTED, REQ_FINISHED,
+                   REQ_FIRST_TOKEN, REQ_PREFILL_CHUNK, REQ_QUEUED,
+                   REQ_REJECTED, SCHED_BUDGET, TRACK_ENGINE, TRACK_SCHED,
+                   MetricsView, Registry, resolve_recorder, slot_track)
 from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
 Tree = Any
 
-# Counters (accumulate over the engine's life), as the reference registers
-# them (``engine.py:590-612``).
-COUNTER_NAMES = (
-    "generated", "ticks", "scan_ticks", "dispatches", "prefills",
-    "prefill_chunks", "rejected", "prefix_hit_pages", "prompt_pages",
-    "cow_copies", "prefix_bootstraps", "prefix_evictions", "draft_tokens",
-    "accepted_tokens", "spec_tokens", "verify_dispatches", "rollbacks",
-    "rollback_pages")
-# Gauges (point in time) and lifetime rates.
-GAUGE_NAMES = ("kv_bytes_peak", "pages_in_use", "prefix_cached_pages",
-               "kv_bytes_cached", "prefix_hit_rate", "accept_rate",
-               "dispatches_per_token", "kv_itemsize_effective", "paged",
-               "chunked", "prefill_chunk", "page_size", "decode_block",
-               "decode_block_last", "kv_bytes_reserved")
-METRIC_NAMES = COUNTER_NAMES + GAUGE_NAMES
+# Counters (accumulate over the engine's life), in the order and with the
+# help strings the reference registers them (``engine.py:590-616``).  The
+# trace probes and the tuner's counters are registered so that the key sets
+# are equal, and stay 0: the port builds no per-shape programs and has no
+# autotuner yet.
+COUNTERS = (
+    ("dispatches", "decode+verify dispatches (not prefill)"),
+    ("ticks", "useful decode scan ticks (max per dispatch)"),
+    ("scan_ticks", "total decode scan ticks incl. wasted tail"),
+    ("generated", "tokens delivered to requests"),
+    ("prefills", "prompt prefills completed (incl. final chunk)"),
+    ("prefill_chunks", "chunked-prefill dispatches"),
+    ("rejected", "requests failed at admission or allocation"),
+    ("prefill_traces", "prefill programs BUILT (trace probe; 0: the port "
+                       "builds no per-shape programs)"),
+    ("decode_traces", "decode programs BUILT (trace probe; 0: the port "
+                      "builds no per-shape programs)"),
+    ("verify_traces", "verify programs BUILT (trace probe; 0: the port "
+                      "builds no per-shape programs)"),
+    ("prefix_hit_pages", "prompt pages served from prefix cache"),
+    ("prompt_pages", "prompt pages needed by admitted requests"),
+    ("cow_copies", "copy-on-write page copies"),
+    ("prefix_bootstraps", "fully-cached prompts decode-bootstrapped"),
+    ("prefix_evictions", "pages evicted from the prefix cache"),
+    ("draft_tokens", "speculative draft tokens proposed"),
+    ("accepted_tokens", "draft tokens accepted by verify"),
+    ("spec_tokens", "tokens delivered by speculative dispatches"),
+    ("verify_dispatches", "speculative verify dispatches"),
+    ("rollbacks", "KV extent rollbacks after rejected drafts"),
+    ("rollback_pages", "pages freed by rollbacks"),
+    ("tune_hits", "tune-table lookups served"),
+    ("tune_misses", "tune-table lookups missed"),
+    ("tune_measured", "tuner measurement dispatches"),
+    ("tune_pruned", "tuner candidates pruned by lint"),
+)
+# The counters the port's engine moves.
+COUNTER_NAMES = tuple(n for n, _ in COUNTERS
+                      if not n.endswith("_traces") and not
+                      n.startswith("tune_"))
+# Latency distributions: request-level TTFT / TPOT / queue wait, and the
+# wall of each dispatch kind.
+HISTOGRAMS = (
+    ("ttft_s", "time to first token"),
+    ("tpot_s", "time per output token after the first"),
+    ("queue_wait_s", "submit-to-admission wait"),
+    ("chunk_latency_s", "prefill-chunk dispatch wall"),
+    ("prefill_dispatch_s", "whole-prompt prefill dispatch wall"),
+    ("decode_dispatch_s", "decode-block dispatch wall"),
+    ("verify_dispatch_s", "verify dispatch wall"),
+)
 ADMISSION = ("fifo", "sjf", "prefix")
 
 
@@ -214,7 +275,8 @@ class ServingEngine:
                  prefix_bootstrap: bool = False, admission: str = "fifo",
                  adaptive_decode_block: bool = False,
                  speculative: bool = False, draft_len: int = 4,
-                 quant: Optional[str] = None, device: DeviceLike = None):
+                 quant: Optional[str] = None, telemetry=None, clock=None,
+                 device: DeviceLike = None):
         # ``quant`` replaces the config's quant mode for this engine
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
         if quant is not None and quant != cfg.quant:
@@ -255,7 +317,12 @@ class ServingEngine:
         self.slots = batch_slots
         self.max_len = max_len
         self.decode_block = max(1, decode_block)
-        self.clock = time.perf_counter
+        # One timebase: the recorder's spans and the request stamps read
+        # the same clock (``engine.py:295-302``).
+        self.obs = resolve_recorder(telemetry, clock=clock)
+        self.clock = (clock if clock is not None
+                      else (self.obs.clock if self.obs.enabled
+                            else time.perf_counter))
         # EMA of the per-dispatch useful-tick fraction: the prefill
         # budget's and the adaptive decode block's pressure signal (1.0 =
         # every tick useful).
@@ -296,7 +363,8 @@ class ServingEngine:
         self.kv: Optional[PagedKVCache] = None
         if paged:
             self.kv = PagedKVCache(cfg, slots=batch_slots, max_len=max_len,
-                                   page_size=page_size, device=self.device)
+                                   page_size=page_size, device=self.device,
+                                   obs=self.obs)
             self.cache = self.kv.init_cache()
         else:
             self.cache = init_cache(cfg, batch_slots, max_len,
@@ -328,7 +396,8 @@ class ServingEngine:
         self.prefix: Optional[PrefixCache] = None
         if prefix_cache:
             self.prefix = PrefixCache(self.kv, chunk=self.chunk,
-                                      bootstrap=prefix_bootstrap)
+                                      bootstrap=prefix_bootstrap,
+                                      obs=self.obs)
         # Pending copy-on-write per slot: the logical page whose next
         # write must swap in a private copy.
         self._cow: List[Optional[int]] = [None] * batch_slots
@@ -337,27 +406,95 @@ class ServingEngine:
         self.kv_bytes_reserved = sum(
             t.numel() * t.element_size() for name, t in self.cache.items()
             if cache_leaf_kind(name) in ("kv", "scale"))
-        self.metrics: Dict[str, Any] = {name: 0 for name in METRIC_NAMES}
-        self.metrics.update(
-            quant=cfg.quant, paged=int(self.paged),
-            chunked=int(self.chunked), prefill_chunk=self.chunk,
-            page_size=self.kv.page_size if self.kv is not None else 0,
-            decode_block=self.decode_block,
-            decode_block_last=self.decode_block,
-            kv_bytes_reserved=self.kv_bytes_reserved,
-            kv_itemsize_effective=(
-                self.kv.kv_itemsize_effective if self.kv is not None
-                else (2.0 if cfg.dtype == "bfloat16" else 4.0)))
+        # Typed metric registry (DESIGN.md §17), declared in the
+        # reference's order (``engine.py:590-667``); ``metrics`` is its live
+        # read-only lifetime view.
+        reg = self.registry = Registry()
+        for name, help in COUNTERS:
+            reg.counter(name, help)
+        reg.gauge("decode_block", value=self.decode_block)
+        reg.gauge("paged", value=int(self.paged))
+        reg.gauge("chunked", value=int(self.chunked))
+        reg.gauge("prefill_chunk", value=self.chunk)
+        reg.gauge("page_size",
+                  value=self.kv.page_size if self.kv is not None else 0)
+        reg.gauge("kv_bytes_reserved", value=self.kv_bytes_reserved)
+        reg.gauge("kv_bytes_peak")
+        reg.gauge("kv_bytes_cached")
+        reg.info("quant", value=cfg.quant)
+        # No plan verifier yet: the reference's value with verify="off".
+        reg.gauge("verified")
+        reg.gauge("kv_itemsize_effective", value=(
+            self.kv.kv_itemsize_effective if self.kv is not None
+            else (2.0 if cfg.dtype == "bfloat16" else 4.0)))
+        reg.gauge("sched_budget")
+        # No meshes yet: one device, unsharded pools.
+        reg.gauge("sharded")
+        reg.gauge("kv_shards", value=1)
+        reg.gauge("prefix_enabled", value=int(self.prefix is not None))
+        reg.gauge("prefix_hit_rate")
+        reg.gauge("prefix_cached_pages")
+        reg.gauge("pages_in_use")
+        reg.gauge("decode_block_last", value=self.decode_block)
+        reg.gauge("speculative", value=int(self.speculative))
+        reg.gauge("draft_len",
+                  value=self.draft_len if self.speculative else 0)
+        reg.gauge("accept_rate")
+        reg.gauge("dispatches_per_token")
+        # No autotuner yet: the plan's latencies are the analytic model's.
+        reg.info("plan_source", value="analytic")
+        reg.gauge("autotuned")
+        reg.info("tune_table", value="")
+        reg.gauge("tune_entries")
+        for name, help in HISTOGRAMS:
+            reg.histogram(name, help)
+        self.metrics = MetricsView(reg)
+
+    def _sync_counter(self, name: str, total: float) -> None:
+        """Catch a lifetime counter up to a total kept elsewhere (the
+        prefix cache's evictions); the delta lands in the current
+        ``last_generate`` window."""
+        c = self.registry[name]
+        d = total - c.value()
+        if d > 0:
+            c.inc(d)
+
+    def snapshot(self, view: str = "lifetime") -> Dict[str, Any]:
+        """Materialized metrics for ``view`` (``"lifetime"`` |
+        ``"last_generate"``).  The lifetime view equals
+        ``dict(self.metrics)``; the windowed view recomputes the derived
+        rates from the window's counters (the stored gauges are lifetime
+        rates)."""
+        out = self.registry.snapshot(view)
+        if view == "last_generate":
+            reg = self.registry
+            hits = reg["prefix_hit_pages"].value(view)
+            out["prefix_hit_rate"] = (
+                hits / max(reg["prompt_pages"].value(view), 1))
+            out["accept_rate"] = (
+                reg["accepted_tokens"].value(view)
+                / max(reg["draft_tokens"].value(view), 1))
+            out["dispatches_per_token"] = (
+                reg["verify_dispatches"].value(view)
+                / max(reg["spec_tokens"].value(view), 1))
+        return out
 
     # -------------------------------------------------------------- API
     @torch.no_grad()
     def generate(self, prompts: List[np.ndarray],
                  max_new_tokens: int = 16) -> List[Request]:
         """Serve a list of prompts (any mix of lengths) to completion."""
+        self.registry.mark()        # open the ``last_generate`` window
         reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
                         max_new_tokens=max_new_tokens,
                         submitted_at=self.clock())
                 for i, p in enumerate(prompts)]
+        if self.obs.enabled:
+            for r in reqs:
+                self.obs.instant(REQ_QUEUED, track=TRACK_SCHED,
+                                 ts=r.submitted_at, rid=r.rid,
+                                 plen=int(r.prompt.shape[0])
+                                 if r.prompt.ndim >= 1 else 0)
         pending = deque(reqs)
         active: List[Optional[Request]] = [None] * self.slots
         decoding = [False] * self.slots     # False: idle or mid-prefill
@@ -389,25 +526,28 @@ class ServingEngine:
                 progressed = True
             if not progressed:
                 break
-        m = self.metrics
+        reg = self.registry
         if self.kv is not None:
-            m["kv_bytes_peak"] = max(m["kv_bytes_peak"],
-                                     self.kv.peak_bytes_in_use)
-            m["pages_in_use"] = self.kv.pages_in_use
+            reg["kv_bytes_peak"].max(self.kv.peak_bytes_in_use)
+            reg["pages_in_use"].set(self.kv.pages_in_use)
         else:
-            m["kv_bytes_peak"] = self.kv_bytes_reserved
+            reg["kv_bytes_peak"].set(self.kv_bytes_reserved)
         if self.prefix is not None:
-            # Lifetime rate: hit pages over every prompt page admitted.
-            m["prefix_hit_rate"] = (m["prefix_hit_pages"]
-                                    / max(m["prompt_pages"], 1))
-            m["prefix_evictions"] = self.prefix.evictions
-            m["prefix_cached_pages"] = self.kv.pages_cached
-            m["kv_bytes_cached"] = self.kv.bytes_cached
+            # Lifetime rate: hit pages over every prompt page admitted;
+            # ``snapshot("last_generate")`` recomputes it per window.
+            reg["prefix_hit_rate"].set(
+                reg["prefix_hit_pages"].value()
+                / max(reg["prompt_pages"].value(), 1))
+            self._sync_counter("prefix_evictions", self.prefix.evictions)
+            reg["prefix_cached_pages"].set(self.kv.pages_cached)
+            reg["kv_bytes_cached"].set(self.kv.bytes_cached)
         if self.speculative:
-            m["accept_rate"] = (m["accepted_tokens"]
-                                / max(m["draft_tokens"], 1))
-            m["dispatches_per_token"] = (m["verify_dispatches"]
-                                         / max(m["spec_tokens"], 1))
+            reg["accept_rate"].set(
+                reg["accepted_tokens"].value()
+                / max(reg["draft_tokens"].value(), 1))
+            reg["dispatches_per_token"].set(
+                reg["verify_dispatches"].value()
+                / max(reg["spec_tokens"].value(), 1))
         return reqs
 
     # ------------------------------------------------------- scheduling
@@ -418,12 +558,20 @@ class ServingEngine:
         waiting = sum(1 for s in range(self.slots)
                       if active[s] is not None and not decoding[s])
         if not waiting:
+            self.registry["sched_budget"].set(0)
             return 0
         backlog = sum(1 for s in range(self.slots)
                       if active[s] is not None and decoding[s])
         slack = (1.0 - self.decode_eff) * backlog
         share = min(float(self.slots), waiting + slack)
-        return int(self.chunk * max(1.0, share))
+        budget = int(self.chunk * max(1.0, share))
+        self.registry["sched_budget"].set(budget)
+        if self.obs.enabled:
+            self.obs.instant(SCHED_BUDGET, track=TRACK_SCHED,
+                             budget=budget, waiting=waiting,
+                             backlog=backlog,
+                             decode_eff=round(self.decode_eff, 4))
+        return budget
 
     def _next_request(self, pending, scores) -> Request:
         """Pop the next request per the admission policy (``:839``):
@@ -471,9 +619,13 @@ class ServingEngine:
                     r.error = err
                     r.done = True
                     r.finished_at = self.clock()
-                    self.metrics["rejected"] += 1
+                    self.registry["rejected"].inc()
+                    if self.obs.enabled:
+                        self.obs.instant(REQ_REJECTED, track=TRACK_SCHED,
+                                         ts=r.finished_at, rid=r.rid,
+                                         error=err)
                     continue
-                r.admitted_at = self.clock()
+                self._stamp_admitted(r, s)
                 if self.chunked:
                     r.prefill_pos = 0
                     self._cow[s] = None
@@ -491,6 +643,25 @@ class ServingEngine:
                     active[s] = r
                     decoding[s] = True
 
+    def _stamp_admitted(self, r: Request, slot: int) -> None:
+        """The request takes a slot: stamp ``admitted_at``, observe the
+        queue wait, emit the lifecycle instant (``engine.py:919``)."""
+        r.admitted_at = self.clock()
+        self.registry["queue_wait_s"].observe(r.queue_wait_s)
+        if self.obs.enabled:
+            self.obs.instant(REQ_ADMITTED, track=slot_track(slot),
+                             ts=r.admitted_at, rid=r.rid, slot=slot)
+
+    def _stamp_first_token(self, r: Request, slot: int) -> None:
+        """The first output token exists: stamp it, observe TTFT, emit the
+        lifecycle instant (``engine.py:928``)."""
+        r.first_token_at = self.clock()
+        self.registry["ttft_s"].observe(r.ttft_s)
+        if self.obs.enabled:
+            self.obs.instant(REQ_FIRST_TOKEN, track=slot_track(slot),
+                             ts=r.first_token_at, rid=r.rid,
+                             ttft_s=round(r.ttft_s, 6))
+
     def _admit_prefix(self, slot: int, r: Request, active, decoding, pos,
                       tok) -> None:
         """Chunked admission through the prefix walk (``engine.py:939``):
@@ -501,8 +672,8 @@ class ServingEngine:
         hit = self.prefix.claim(slot, r.prompt)
         r.prefill_pos = hit.prefill_start
         self._cow[slot] = hit.cow
-        self.metrics["prefix_hit_pages"] += hit.hit_pages
-        self.metrics["prompt_pages"] += hit.prompt_pages
+        self.registry["prefix_hit_pages"].inc(hit.hit_pages)
+        self.registry["prompt_pages"].inc(hit.prompt_pages)
         active[slot] = r
         if not hit.full:
             decoding[slot] = False
@@ -513,8 +684,8 @@ class ServingEngine:
         decoding[slot] = True
         pos[slot] = plen - 1
         tok[slot, 0] = int(r.prompt[-1])
-        self.metrics["prefix_bootstraps"] += 1
-        self.metrics["prefills"] += 1
+        self.registry["prefix_bootstraps"].inc()
+        self.registry["prefills"].inc()
 
     def _admit(self, slot: int, r: Request, pos, tok) -> None:
         """Whole-prompt prefill at the request's own length into the slot's
@@ -522,6 +693,7 @@ class ServingEngine:
         emits the first token."""
         plen = int(r.prompt.shape[0])
         dev = self.device
+        t0 = self.clock()
         logits, fresh = prefill(self.params, self.cfg,
                                 torch.as_tensor(r.prompt, device=dev)[None],
                                 plan=self.plan)
@@ -533,13 +705,21 @@ class ServingEngine:
             place_prefill(self.cache, fresh, pages,
                           layout=self.cfg.kv_cache_layout, slot=slot)
         t = int(logits[0, 0].argmax())              # reads back: syncs
+        dt = self.clock() - t0       # device + host wall (the read-back)
+        self.registry["prefill_dispatch_s"].observe(dt)
+        if self.obs.enabled:
+            self.obs.complete(DISPATCH_PREFILL, t0, dt,
+                              track=TRACK_ENGINE, slot=slot, rid=r.rid,
+                              tokens=plen)
+            self.obs.complete("prefill", t0, dt, track=slot_track(slot),
+                              rid=r.rid, tokens=plen)
         r.out_tokens.append(t)
-        r.first_token_at = self.clock()
+        self._stamp_first_token(r, slot)
         r.prefill_pos = plen
         pos[slot] = plen
         tok[slot, 0] = t
-        self.metrics["prefills"] += 1
-        self.metrics["generated"] += 1
+        self.registry["prefills"].inc()
+        self.registry["generated"].inc()
 
     def _dispatch_chunk(self, slot: int, r: Request, active, decoding,
                         pos, tok) -> None:
@@ -554,37 +734,54 @@ class ServingEngine:
             off, caught = self.prefix.extend_claim(slot, r.prompt, off)
             if caught:
                 r.prefill_pos = off
-                self.metrics["prefix_hit_pages"] += caught
+                self.registry["prefix_hit_pages"].inc(caught)
         try:
             self.kv.ensure(slot, min(off + c, self.max_len))
         except RuntimeError as e:
             r.failed = True
             r.error = str(e)
-            self.metrics["rejected"] += 1
+            self.registry["rejected"].inc()
             self._retire(slot, r, active, decoding, pos, tok)
             return
         row = self.kv.table_row(slot)
         toks, cpages, last = stage_chunk(r.prompt, off, c, row,
                                          self.kv.page_size)
         dev = self.device
+        t0 = self.clock()
         next_tok, _, _ = prefill_chunk(
             self.params, self.cfg, torch.as_tensor(toks, device=dev)[None],
             self.cache, torch.as_tensor(row, device=dev),
             torch.as_tensor(cpages, device=dev), off, last, plan=self.plan)
+        final = off + c >= plen
+        if final:
+            t = int(next_tok[0, 0])                 # reads back: syncs
+        # The final chunk's wall is device + host (its read-back); an
+        # earlier chunk's ends at the launch, with no sync added, but its
+        # input copies above wait for the device work still queued.
+        dt = self.clock() - t0
+        self.registry["chunk_latency_s"].observe(dt)
+        if self.obs.enabled:
+            ci = off // c
+            self.obs.complete(DISPATCH_PREFILL_CHUNK, t0, dt,
+                              track=TRACK_ENGINE, slot=slot, rid=r.rid,
+                              chunk=ci, off=off)
+            self.obs.complete("prefill_chunk", t0, dt,
+                              track=slot_track(slot), rid=r.rid, chunk=ci)
+            self.obs.instant(REQ_PREFILL_CHUNK, track=slot_track(slot),
+                             rid=r.rid, chunk=ci, off=off)
         r.prefill_pos = min(off + c, plen)
-        self.metrics["prefill_chunks"] += 1
-        if r.prefill_pos < plen:
+        self.registry["prefill_chunks"].inc()
+        if not final:
             return                                  # more chunks to go
         if self.prefix is not None:
             self.prefix.insert(slot, r.prompt)
-        t = int(next_tok[0, 0])                     # reads back: syncs
         r.out_tokens.append(t)
-        r.first_token_at = self.clock()
+        self._stamp_first_token(r, slot)
         pos[slot] = plen
         tok[slot, 0] = t
         decoding[slot] = True
-        self.metrics["prefills"] += 1
-        self.metrics["generated"] += 1
+        self.registry["prefills"].inc()
+        self.registry["generated"].inc()
         if (len(r.out_tokens) >= r.max_new_tokens
                 or pos[slot] >= self.max_len):
             self._retire(slot, r, active, decoding, pos, tok)
@@ -593,6 +790,13 @@ class ServingEngine:
                 tok) -> None:
         r.done = True
         r.finished_at = self.clock()
+        if not r.failed:
+            # A failed or single-token request's nan TPOT never lands.
+            self.registry["tpot_s"].observe(r.tpot_s)
+        if self.obs.enabled:
+            self.obs.instant(REQ_FINISHED, track=slot_track(slot),
+                             ts=r.finished_at, rid=r.rid,
+                             tokens=len(r.out_tokens), failed=r.failed)
         active[slot] = None
         decoding[slot] = False
         pos[slot] = 0
@@ -619,14 +823,14 @@ class ServingEngine:
                 if self._cow[s] is not None:
                     cow_src[s], cow_dst[s] = self.kv.cow_page(s, self._cow[s])
                     self._cow[s] = None
-                    self.metrics["cow_copies"] += 1
+                    self.registry["cow_copies"].inc()
                     # The slot's reference moved off the shared src page.
                     self.prefix.page_released(int(cow_src[s]))
                 self.kv.ensure(s, min(int(pos[s]) + width(s), self.max_len))
             except RuntimeError as e:
                 r.failed = True
                 r.error = str(e)
-                self.metrics["rejected"] += 1
+                self.registry["rejected"].inc()
                 self._retire(s, r, active, decoding, pos, tok)
                 cow_src[s] = cow_dst[s] = NULL_PAGE
         return cow_src, cow_dst
@@ -667,7 +871,7 @@ class ServingEngine:
         runnable = [s for s in range(self.slots)
                     if active[s] is not None and decoding[s]]
         block = self._decode_block_size(len(runnable))
-        self.metrics["decode_block_last"] = block
+        self.registry["decode_block_last"].set(block)
         dev = self.device
         if self.kv is not None:
             # Allocate only what each request's remaining budget can read
@@ -681,6 +885,7 @@ class ServingEngine:
                         if active[s] is not None and decoding[s]]
             if not runnable:
                 return
+            t0 = self.clock()
             self._copy_on_write(cow_src, cow_dst)
             dpos = np.full(self.slots, self.kv.extent, np.int32)
             dlen = np.zeros(self.slots, np.int32)
@@ -692,6 +897,7 @@ class ServingEngine:
             # Contiguous: every slot steps at its own position; an idle
             # slot writes into its own rows, which the next admission's
             # placement overwrites (``engine.py:1198-1202``).
+            t0 = self.clock()
             dpos = dlen = pos.copy()
             table = None
         tok_d = torch.as_tensor(tok, device=dev)
@@ -706,6 +912,14 @@ class ServingEngine:
             pos_d = pos_d + 1
             len_d = len_d + 1
         toks_np = torch.stack(steps).cpu().numpy()   # [block, slots]: syncs
+        dt = self.clock() - t0       # device + host block wall (read-back)
+        self.registry["decode_dispatch_s"].observe(dt)
+        if self.obs.enabled:
+            self.obs.complete(DISPATCH_DECODE, t0, dt, track=TRACK_ENGINE,
+                              block=block, slots=len(runnable))
+            for s in runnable:
+                self.obs.complete("decode", t0, dt, track=slot_track(s),
+                                  rid=active[s].rid, block=block)
         useful = 0
         for s in runnable:
             r = active[s]
@@ -713,19 +927,19 @@ class ServingEngine:
                     self.max_len - int(pos[s]))
             r.out_tokens.extend(int(t) for t in toks_np[:h, s])
             if r.out_tokens and r.first_token_at <= 0.0:
-                r.first_token_at = self.clock()     # bootstrap admission
+                self._stamp_first_token(r, s)       # bootstrap admission
             useful = max(useful, h)
-            self.metrics["generated"] += h
+            self.registry["generated"].inc(h)
             pos[s] = min(int(pos[s]) + block, self.max_len)
             tok[s, 0] = toks_np[-1, s]
             if (len(r.out_tokens) >= r.max_new_tokens
                     or pos[s] >= self.max_len):
                 self._retire(s, r, active, decoding, pos, tok)
-        self.metrics["dispatches"] += 1
-        self.metrics["ticks"] += useful
-        self.metrics["scan_ticks"] += block
+        self.registry["dispatches"].inc()
+        self.registry["ticks"].inc(useful)
+        self.registry["scan_ticks"].inc(block)
         if self.kv is not None:
-            self.metrics["pages_in_use"] = self.kv.pages_in_use
+            self.registry["pages_in_use"].set(self.kv.pages_in_use)
         self.decode_eff = 0.5 * self.decode_eff + 0.5 * useful / block
 
     # ------------------------------------------------ speculative decode
@@ -780,6 +994,7 @@ class ServingEngine:
                     if active[s] is not None and decoding[s]]
         if not runnable:
             return
+        t0 = self.clock()
         self._copy_on_write(cow_src, cow_dst)
         toks = np.zeros((self.slots, w), np.int32)
         dpos = np.full(self.slots, self.kv.extent, np.int32)
@@ -797,9 +1012,18 @@ class ServingEngine:
             torch.as_tensor(dlen, device=dev), page_table=self.kv.page_table,
             plan=self.plan)
         g = greedy.cpu().numpy()                     # [slots, W]: syncs
+        dt = self.clock() - t0
+        reg = self.registry
+        reg["verify_dispatch_s"].observe(dt)
+        if self.obs.enabled:
+            self.obs.complete(DISPATCH_VERIFY, t0, dt, track=TRACK_ENGINE,
+                              window=w, slots=len(runnable))
+            for s in runnable:
+                self.obs.complete("verify", t0, dt, track=slot_track(s),
+                                  rid=active[s].rid, window=w,
+                                  drafts=len(drafts[s]))
         useful = 0
         filled = 0
-        m = self.metrics
         for s in runnable:
             r = active[s]
             d = drafts[s]
@@ -813,11 +1037,11 @@ class ServingEngine:
             delivered = a + 1
             r.out_tokens.extend(int(g[s, i]) for i in range(delivered))
             if r.first_token_at <= 0.0:
-                r.first_token_at = self.clock()     # bootstrap admission
-            m["generated"] += delivered
-            m["spec_tokens"] += delivered
-            m["draft_tokens"] += len(d)
-            m["accepted_tokens"] += min(a, len(d))
+                self._stamp_first_token(r, s)       # bootstrap admission
+            reg["generated"].inc(delivered)
+            reg["spec_tokens"].inc(delivered)
+            reg["draft_tokens"].inc(len(d))
+            reg["accepted_tokens"].inc(min(a, len(d)))
             useful = max(useful, delivered)
             filled += delivered
             pos[s] = int(pos[s]) + delivered
@@ -826,18 +1050,18 @@ class ServingEngine:
             # rows: return them (exclusive by construction; checked).
             dropped = self.kv.rollback_extent(s, int(pos[s]))
             if dropped:
-                m["rollbacks"] += 1
-                m["rollback_pages"] += dropped
+                reg["rollbacks"].inc()
+                reg["rollback_pages"].inc(dropped)
             if self._debug_check_pages:
                 self.kv.assert_page_accounting()
             if (len(r.out_tokens) >= r.max_new_tokens
                     or pos[s] >= self.max_len):
                 self._retire(s, r, active, decoding, pos, tok)
-        m["dispatches"] += 1
-        m["verify_dispatches"] += 1
-        m["ticks"] += useful
-        m["scan_ticks"] += w
-        m["pages_in_use"] = self.kv.pages_in_use
+        reg["dispatches"].inc()
+        reg["verify_dispatches"].inc()
+        reg["ticks"].inc(useful)
+        reg["scan_ticks"].inc(w)
+        reg["pages_in_use"].set(self.kv.pages_in_use)
         # Accepted tokens per verify row: a rejected row is wasted
         # capacity, as a wasted decode tick is.
         self.decode_eff = (0.5 * self.decode_eff

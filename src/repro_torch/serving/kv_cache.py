@@ -54,6 +54,8 @@ from ..kernels.common import DeviceLike, cdiv, resolve_device
 from ..kernels.ref import code_view
 from ..models.params import (CacheDef, attn_cache_defs, cache_leaf_kind,
                              state_cache_defs)
+from ..obs import (NULL_RECORDER, PAGE_ALLOC, PAGE_COW, PAGE_EVICT,
+                   PAGE_FREE, PAGE_ROLLBACK, TRACK_KV)
 
 NULL_PAGE = 0
 
@@ -421,10 +423,15 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
-                 page_size: int = 16, device: DeviceLike = None):
+                 page_size: int = 16, device: DeviceLike = None,
+                 obs=NULL_RECORDER):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.cfg = cfg
+        # Telemetry recorder (``obs/events.py``): page lifecycle instants on
+        # the "kv" track, each site behind ``obs.enabled`` so the disabled
+        # path builds no argument dict.
+        self.obs = obs
         self.device = resolve_device(device)
         self.slots = slots
         self.max_len = max_len
@@ -550,13 +557,20 @@ class PagedKVCache:
             if self.evictor is None or not self.evictor():
                 raise RuntimeError(
                     f"KV page pool exhausted ({self.num_pages - 1} pages)")
-        return self._free.pop()
+        page = self._free.pop()
+        if self.obs.enabled:
+            self.obs.instant(PAGE_ALLOC, track=TRACK_KV, page=page,
+                             free=len(self._free))
+        return page
 
     def free_page(self, page: int) -> None:
         if self._refs[page] != 0 or page == NULL_PAGE:
             raise RuntimeError(f"page {page} cannot be freed "
                                f"(refs {int(self._refs[page])})")
         self._free.append(page)
+        if self.obs.enabled:
+            self.obs.instant(PAGE_FREE, track=TRACK_KV, page=page,
+                             free=len(self._free))
 
     def ensure(self, slot: int, length: int) -> np.ndarray:
         """Allocate pages so ``slot`` can hold ``length`` tokens; returns
@@ -610,6 +624,9 @@ class PagedKVCache:
         self._owned[slot][logical] = dst
         self._table[slot, logical] = dst
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        if self.obs.enabled:
+            self.obs.instant(PAGE_COW, track=TRACK_KV, slot=slot,
+                             src=src, dst=dst, logical=logical)
         return src, dst
 
     def rollback_extent(self, slot: int, length: int) -> int:
@@ -635,6 +652,9 @@ class PagedKVCache:
             self._table[slot, len(owned)] = NULL_PAGE
             self._deref(page)
             dropped += 1
+        if dropped and self.obs.enabled:
+            self.obs.instant(PAGE_ROLLBACK, track=TRACK_KV, slot=slot,
+                             pages=dropped, length=length)
         return dropped
 
     # ------------------------------------------------- tree page custody
@@ -649,6 +669,8 @@ class PagedKVCache:
             raise RuntimeError(f"page {page} is not a cached page "
                                f"(refs {int(self._refs[page])})")
         self._tree.discard(page)
+        if self.obs.enabled:
+            self.obs.instant(PAGE_EVICT, track=TRACK_KV, page=page)
         self.free_page(page)
 
     def disown(self, page: int) -> None:

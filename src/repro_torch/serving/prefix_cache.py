@@ -42,6 +42,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..kernels.common import cdiv
+from ..obs import (NULL_RECORDER, PREFIX_CLAIM, PREFIX_EVICT, PREFIX_INSERT,
+                   TRACK_PREFIX)
 from .kv_cache import NULL_PAGE, PagedKVCache
 
 
@@ -85,7 +87,7 @@ class PrefixCache:
     (the tree registers itself as the allocator's ``evictor``)."""
 
     def __init__(self, kv: PagedKVCache, *, chunk: Optional[int] = None,
-                 bootstrap: bool = False):
+                 bootstrap: bool = False, obs=NULL_RECORDER):
         if chunk is None:
             chunk = kv.page_size
         if chunk % kv.page_size != 0:
@@ -93,6 +95,8 @@ class PrefixCache:
                 f"chunk {chunk} is not a multiple of page_size "
                 f"{kv.page_size}")
         self.kv = kv
+        # Telemetry recorder: claim/insert/evict instants on "prefix".
+        self.obs = obs
         self.chunk = chunk
         self.bootstrap = bootstrap
         self.root = _Node(None, NULL_PAGE, None)
@@ -218,6 +222,10 @@ class PrefixCache:
             self.kv.adopt_shared(slot, node.page)
             self._stamp(node)
             self._held[slot][node] = None
+        if self.obs.enabled:
+            self.obs.instant(PREFIX_CLAIM, track=TRACK_PREFIX, slot=slot,
+                             hit_pages=len(claim_nodes),
+                             prefill_start=prefill_start, full=full_hit)
         return PrefixHit(prefill_start=prefill_start,
                          hit_pages=len(claim_nodes),
                          prompt_pages=cdiv(plen, ps), cow=cow,
@@ -273,6 +281,9 @@ class PrefixCache:
             if child.page == row[i]:
                 self._held[slot][child] = None
             node = child
+        if self.obs.enabled:
+            self.obs.instant(PREFIX_INSERT, track=TRACK_PREFIX, slot=slot,
+                             created=created, pages=full)
         return created
 
     # ---------------------------------------------------------- custody
@@ -343,6 +354,9 @@ class PrefixCache:
                 self.kv.disown(n.page)
             self.nodes -= 1
         self.evictions += freed
+        if self.obs.enabled:
+            self.obs.instant(PREFIX_EVICT, track=TRACK_PREFIX,
+                             freed=freed, nodes=self.nodes)
         return freed
 
     def _stamp(self, node: _Node) -> None:

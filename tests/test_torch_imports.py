@@ -44,7 +44,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs.gemma3_4b",
             "repro_torch.configs.hubert_xlarge",
             "repro_torch.kernels.stream_converter",
-            "repro_torch.runtime.simulator"} <= set(modules)
+            "repro_torch.runtime.simulator",
+            "repro_torch.obs", "repro_torch.obs.events",
+            "repro_torch.obs.metrics", "repro_torch.obs.export",
+            "repro_torch.obs.__main__"} <= set(modules)
     assert {f"repro_torch.core.{m}" for m in (
         "affine", "itensor", "converter", "graph", "token_model",
         "fifo_sizing", "fusion", "platforms", "tiling", "trace", "dse",
