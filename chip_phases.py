@@ -128,8 +128,9 @@ parent.  Phases:
   hubert_fused_vs_eager, hubert_encode
              those phases of ``chip_smoke.py``;
   hubert_train
-             hubert-xlarge at full width and depth: ``chip_smoke.train``'s
-             3 steps, the step-2 checkpoint and the replay of step 3;
+             hubert-xlarge at full width cut to ``HUBERT_TRAIN_LAYERS``
+             (``chip_smoke.hubert_train``): 3 steps, the step-2
+             checkpoint and the replay of step 3;
   train_kernel_cases
              the training paths' kernel rows (``chip_smoke.train_cases``:
              llama3-8b's, gpt2's and gemma3-4b's at a step's tokens, the
@@ -150,6 +151,15 @@ parent.  Phases:
              bursts (page sizes, chunks, layouts, adaptive decode block,
              contiguous); ``python -m repro_torch.launch.serve``
              in-process.
+  serve_pages, plan_verify
+             those phases of ``chip_smoke.py``: gpt2's bursts over the
+             compiler's 10-token pages and 130-token chunks at ``max_len``
+             1000 beside 16 and 128 at 1024 (the kernel rows over the new
+             granules, tokens, launches, a seeded plan refused); every
+             registry config's H100 plans (and the plans the phases run
+             before it in the same call built) verified for the card, and
+             each stage's kernels' shared memory profiled against the
+             lint's count (it builds every source);
   serve_telemetry, obs_demo
              those phases of ``chip_smoke.py``: llama3-8b's chunked burst
              at ``SERVE_LAYERS`` with telemetry off and on (tokens,
@@ -244,6 +254,12 @@ SOURCES.update(dict.fromkeys(("serve_contiguous", "serve_surface"),
 SOURCES["serve_launcher"] = SERVE_SOURCES + ["paged_attention_64",
                                              "row_norm"]
 SOURCES["serve_telemetry"] = SERVE_SOURCES
+# gpt2's paths at head dim 64 and llama3-8b's attention at 128 (the kernel
+# rows over 10-token pages), zamba2's SSD scan (the seeded plan);
+# plan_verify, absent here, builds every source.
+SOURCES["serve_pages"] = ["block_matmul", "streamed_ffn", "flash_mma",
+                          "flash_attention", "paged_attention",
+                          "paged_attention_64", "row_norm", "mamba2_scan"]
 # gpt2's speculative path: K5, K6, K2, K8 at head dim 64, the row norm.
 SOURCES["obs_demo"] = ["block_matmul", "streamed_ffn", "flash_mma",
                        "flash_attention", "paged_attention_64", "row_norm"]
@@ -783,6 +799,8 @@ def main() -> int:
             with open(args.ptxas, "w") as fh:
                 for n, log in sorted(_build.BUILD_LOG.items()):
                     fh.write(f"== {n}\n{log}\n")
+    if hasattr(cs, "record_plan_builds"):
+        cs.record_plan_builds()
     timer = cs.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(2020)
     randn = cs._randn(torch, gen, torch.bfloat16, "cuda")
@@ -898,6 +916,12 @@ def main() -> int:
             cs.serve_surface(torch, timer)
         elif phase == "serve_launcher":
             cs.serve_launcher(torch)
+        elif phase == "serve_pages":
+            cs.serve_pages(torch, timer)
+        elif phase == "plan_verify":
+            os.makedirs(args.out, exist_ok=True)
+            cs.plan_smem(torch, args.out)
+            cs.plan_verify(torch, args.out)
         elif phase == "serve_telemetry":
             os.makedirs(args.out, exist_ok=True)
             cs.serve_telemetry(torch, args.out)
@@ -905,12 +929,7 @@ def main() -> int:
             os.makedirs(args.out, exist_ok=True)
             cs.obs_demo(torch, args.out)
         elif phase == "hubert_train":
-            from repro_torch.configs import get_config
-            cfg = dataclasses.replace(get_config(cs.HUBERT),
-                                      use_fused_kernels=True)
-            cs.train(torch, cfg, cs.HUBERT, steps=3, ckpt_every=2,
-                     replay_from=2, lr=cs.HUBERT_LR, jitter=True,
-                     note="full width and depth")
+            cs.hubert_train(torch)
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

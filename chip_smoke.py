@@ -8,6 +8,14 @@ Phases, one JSON line each (numbers measured in this run, on this card):
 
 1. device   — the card's name and power limit (nvidia-smi), then the build
               of every CUDA kernel with nvcc for sm_90a from ``csrc/``;
+   plan_smem — every registry config at full width in each quant mode its
+              path has, bf16 and float32, planned by the compiler for the
+              H100 at 4 slots and a 130-row chunk over 1000 positions and
+              over 2048: for each distinct set of Hopper kernels a stage
+              of those plans launches, one launch at the plan's shapes
+              under ``torch.profiler``, each kernel's shared memory
+              (static + dynamic) equal to the lint's count and the
+              largest to ``smem_estimate`` (required);
 2. kernel   — each kernel against its plain PyTorch version at the main
               paths' shapes (llama3-8b and gpt2: the projections, FFNs and
               their int8 twins at a prefill chunk, decode and a verify
@@ -304,6 +312,18 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               llama3-8b ``--fused --layers 8`` paged, ``--contiguous`` and
               ``--page-size 32``, and gpt2 ``--fused`` at full size; exit
               code 0, the two ``[serve]`` lines, launches exact;
+   serve_pages — the compiler's granules at ``max_len`` 1000: the kernel
+              rows over 10-token pages (K1, K9a beside 16-token pages; K8,
+              K9b) and 130-row chunks (K2, K9c) at gpt2's and llama3-8b's
+              widths against their plain versions, K1's bits over 10-,
+              15- and 16-token pages (reported); gpt2 at full width cut to
+              6 layers, chunked, plain, speculative and kv_int8, in
+              float32 and bf16 at 1000 (10-token pages, 130-token chunks)
+              and 1024 (16, 128): launches exact, the plan verified, the
+              float32 plain and speculative tokens equal across the two
+              (required; kv_int8 and bf16 reported); an engine handed a
+              plan with an over-budget SSD tile refused before any launch,
+              and built with ``verify="off"`` (required);
    serve_telemetry — llama3-8b at 8 layers, bf16, the chunked burst
               through an engine with telemetry off and one with it on
               (``repro_torch.obs``), same weights, after a warm-up: tokens
@@ -345,8 +365,9 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               layers (B = 2, S = 2048, lr 3e-5) for 3 steps, no
               checkpoint; qwen3-0.6b and qwen2-vl-2b (on the pipeline's
               patch embeddings and M-RoPE positions) at full width and
-              depth likewise; hubert-xlarge at full width and depth on
-              the pipeline's frame embeddings, weights jittered (lr
+              depth likewise; hubert-xlarge at full width cut to 12
+              layers (``HUBERT_TRAIN_LAYERS``) on the pipeline's frame
+              embeddings, weights jittered (lr
               1e-4), with a checkpoint at step 2 and a trainer resuming
               there to replay step 3; gemma3-4b at full width cut to 6
               layers (``GEMMA_TRAIN_LAYERS``: five local, one global; B =
@@ -357,6 +378,10 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               each, no checkpoint.  Losses finite and falling,
               launches the plan's; step time, tokens/s, peak memory and
               checkpoint seconds reported;
+   plan_verify — every plan the run built (``record_plan_builds``: one
+              DSE per new config and shape, its host milliseconds
+              reported) and the plans of ``plan_smem``, verified for the
+              card (``verify_plan(device="cuda")``, clean: required);
 11. kernels — one line listing every kernel, once per model and path
               (serving, encode, training or compile) that runs it, with
               its check results and that path's own launch count (a
@@ -678,6 +703,10 @@ HUBERT_CLIPS, HUBERT_FRAMES = 8, 1000
 HUBERT_PATH = {"block_matmul": 3, "streamed_mlp": 1,
                "flash_attention_static": 1}
 HUBERT_LR = 1e-4          # the training phase's AdamW rate
+# hubert-xlarge trains at 12 of its 48 layers: at full depth its
+# checkpoint snapshot, write and restore took 45 of the phase's 57 s in a
+# 1058 s run of this script on an H100 (the encode keeps full depth).
+HUBERT_TRAIN_LAYERS = 12
 
 
 def hubert_launches(layers: int) -> dict:
@@ -999,15 +1028,15 @@ def _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev,
 
 
 def _verify_case(torch, K, ref, randn, isz, gen, hq, hkv, hd, maxp, dev,
-                 code=None):
+                 code=None, ps=16):
     """Speculative verify: 4 slots, a 5-row window at offsets 1000, 517,
-    37 and 0, ``maxp`` 16-token pages of capacity each (with ``code`` over
-    code pools, K9b).  The bytes are the live pages' K/V (through each
-    slot's deepest row) plus q and out, as the decode kernel's; the
+    37 and 0, ``maxp`` ``ps``-token pages of capacity each (with ``code``
+    over code pools, K9b).  The bytes are the live pages' K/V (through
+    each slot's deepest row) plus q and out, as the decode kernel's; the
     operations count each row's own extent."""
-    b, ps, w = SLOTS, 16, WINDOW
+    b, w = SLOTS, WINDOW
     kp, vp, sc, table, per_elem = _paged_pools(torch, randn, gen, b, maxp,
-                                               hkv, hd, code, dev)
+                                               hkv, hd, code, dev, ps)
     offs = [1000, 517, 37, 0]
     q_off = torch.tensor(offs, dtype=torch.int32, device=dev)
     qv = randn(b, w, hq, hd)
@@ -5162,6 +5191,24 @@ def train_w8_ste_phase(torch):
         for m, n in (("llama3-8b", 4), (GEMMA, GEMMA_TRAIN_LAYERS))}
 
 
+def hubert_train(torch):
+    """hubert-xlarge at full width cut to ``HUBERT_TRAIN_LAYERS``, bf16
+    over float32 masters, weights jittered: 3 steps on the pipeline's
+    frame embeddings (2 x 2048), a checkpoint at step 2 and a trainer
+    resuming there to replay step 3."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(HUBERT),
+                              num_layers=HUBERT_TRAIN_LAYERS,
+                              use_fused_kernels=True)
+    return train(
+        torch, cfg, HUBERT, steps=3, ckpt_every=2, replay_from=2,
+        lr=HUBERT_LR, jitter=True,
+        note=f"full width cut to {HUBERT_TRAIN_LAYERS} of its 48 layers "
+             "on the pipeline's frame embeddings, weights jittered; a "
+             "checkpoint at step 2 and a trainer resuming there to replay "
+             "step 3")
+
+
 def gemma_train(torch, quant="none"):
     """gemma3-4b at full width cut to ``GEMMA_TRAIN_LAYERS``, bf16 over
     float32 masters: 3 steps on 2 x 2048 tokens, lr 3e-5, no
@@ -5431,6 +5478,566 @@ def compile_path(torch, timer, device="cuda"):
 
 # --------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------- #
+# The compiler's plans on the card: 10-token pages, the static verifier
+# --------------------------------------------------------------------- #
+
+# ``serve_pages``: gpt2 at full width cut to ``PAGES_LAYERS``, chunked, at
+# ``max_len`` 1000, where the compiler's plan streams 10-token pages and
+# 130-token chunks (K1 / K8 / K9a / K9b over 10-token pages, K2 / K9c on
+# 130-row chunks), beside the same burst at 1024 (16-token pages,
+# 128-token chunks).  The prompts cross chunk and page edges.
+PAGES_LAYERS = 6
+PAGES_MAX_LEN, PAGES_REF_LEN = 1000, 1024
+PAGES_LENGTHS = (975, 131, 130, 261, 37, 10, 11, 600)
+PAGES_NEW = 16
+PAGES_ENGINES = {"plain": {}, "speculative": dict(speculative=True,
+                                                  draft_len=4),
+                 "kv_int8": dict(quant="kv_int8")}
+
+
+def gpt2_launches(layers: int, prefills: int, steps: int, verifies: int = 0,
+                  quant: str = "none") -> dict:
+    """Every kernel's exact launches in a gpt2 burst of ``prefills``
+    prompt chunks, ``steps`` decode steps and ``verifies`` verify
+    dispatches: per layer and call ln1 and ln2 through the row-norm
+    kernel, q, k, v and the o-projection through block_matmul, the MLP
+    through streamed_mlp; attention once per layer in a chunk (K2), a
+    decode step (K1) and a verify dispatch (K8); the final LayerNorm and
+    the LM head (row_norm, block_matmul) once per call.  Under a KV mode
+    the attention kernels read codes (K9c, K9a, K9b)."""
+    prefills, steps, verifies = int(prefills), int(steps), int(verifies)
+    calls = prefills + steps + verifies
+    kv8 = quant in ("kv_int8", "kv_fp8", "w8_kv8")
+    q = "_q" if kv8 else ""
+    out = {"block_matmul": (4 * layers + 1) * calls,
+           "row_norm": (2 * layers + 1) * calls,
+           "streamed_mlp": layers * calls,
+           f"flash_attention{q}": layers * prefills,
+           f"paged_attention{q}": layers * steps,
+           f"paged_verify_attention{q}": layers * verifies}
+    return {k: n for k, n in out.items() if n}
+
+
+def pages_kernel_cases(torch, K, ref, dtype, gen, dev="cuda"):
+    """The kernels over the compiler's new granules, at gpt2's widths (16
+    heads of 64) and llama3-8b's (32 over 8 heads of 128): K1 and K9a
+    over 10-token pages (4 slots of 1000, 517, 37 and 0 tokens) beside
+    16-token pages, K8 and K9b over 10-token pages, K2 and K9c on a
+    130-row chunk at offset 870 (1000 positions live in a 1008-position
+    gathered extent, whole 16-position scale pages for the codes); tagged
+    ``pages_10``."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    randn = _randn(torch, gen, dtype, dev)
+    cases = []
+    for model, (hq, hkv, hd) in (("gpt2", (16, 16, 64)),
+                                 ("llama3-8b", (32, 8, 128))):
+        for ps in (10, 16):
+            c = _paged_case(torch, K, ref, randn, isz, gen, hq, hkv, hd,
+                            -(-1000 // ps), dev, ps=ps)
+            cases.append(dict(c, model=model,
+                              path="pages_10" if ps == 10 else None))
+        for code in (None, "int8"):
+            if code is not None:
+                cases.append(dict(_paged_case(
+                    torch, K, ref, randn, isz, gen, hq, hkv, hd, 100, dev,
+                    code=code, ps=10), model=model, path="pages_10"))
+            cases.append(dict(_verify_case(
+                torch, K, ref, randn, isz, gen, hq, hkv, hd, 101, dev,
+                code=code, ps=10), model=model, path="pages_10"))
+            cases.append(dict(_flash_case(
+                torch, K, ref, randn, isz,
+                "flash_attention" if code is None else "flash_attention_q",
+                hq, hkv, hd, 130, 1008, 870, dev, code), model=model,
+                path="pages_10"))
+    return cases
+
+
+def _page_bits(torch):
+    """K1 over the same K/V in 10-, 15- and 16-token pages, bit for bit
+    (reported: the float32 token equality below rests on it)."""
+    from repro_torch import kernels as K
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(78)
+        randn = _randn(torch, gen, dtype, "cuda")
+        b, s = 4, 1200
+        lengths = torch.tensor([1000, 517, 37, 0], dtype=torch.int32,
+                               device="cuda")
+        kseq, vseq = randn(b, s, 16, 64), randn(b, s, 16, 64)
+        qd = randn(b, 1, 16, 64)
+        got = {}
+        for ps in (10, 15, 16):
+            def pool(seq):
+                body = seq.reshape(b * (s // ps), ps, 16, 64)
+                return torch.cat([torch.zeros_like(body[:1]), body])
+            table = (torch.arange(b * (s // ps), device="cuda",
+                                  dtype=torch.int32).reshape(b, -1) + 1)
+            got[ps] = K.paged_decode_attention(qd, pool(kseq), pool(vseq),
+                                               table, lengths)
+        out[str(dtype).split(".")[-1]] = {
+            ps: bool(torch.equal(got[ps], got[16])) for ps in (10, 15)}
+    return out
+
+
+def _seeded_plan_refusal(torch, device="cuda"):
+    """An engine handed a plan with an over-budget tile: zamba2-2.7b at
+    full width (1 layer), float32, whose plan asks the SSD scan for
+    256-row chunks at 4096 tokens (a float32 block of 480 KB).  Strict,
+    it raises ``PlanVerificationError`` (``smem-exceeded``) before any
+    allocation or launch; with ``verify="off"`` the same plan builds an
+    engine, and its first prefill is refused by the kernel's wrapper with
+    the bytes the lint counted, still before any launch."""
+    from repro_torch import kernels as K
+    from repro_torch.analysis import PlanVerificationError, smem_estimate
+    from repro_torch.configs import get_config
+    from repro_torch.core.stream_plan import KernelChoice, build_stream_plan
+    import repro_torch.serving.engine as E
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=1,
+                              dtype="float32", use_fused_kernels=True)
+    plan = build_stream_plan(cfg, tokens=4096, kv_len=4096)
+    bad_choice = KernelChoice("mamba2_scan", (("chunk", 256),))
+    bad = plan.with_stage("mamba", "mixer", bad_choice)
+    need = smem_estimate(cfg, bad, "mixer", bad_choice)
+    params = _weights(torch, cfg, 3, jitter=False, device=device)
+    real = E.resolve_plan
+    E.resolve_plan = lambda *a, **k: bad
+    K.reset_launches()
+    row = {"phase": "serve_pages_seeded_plan", "config": cfg.name,
+           "layers": 1, "dtype": cfg.dtype, "chunk": 256,
+           "smem_estimate": need}
+    try:
+        try:
+            E.ServingEngine(cfg, params, batch_slots=2, max_len=4096,
+                            device=device)
+            row["strict"] = "built"
+        except PlanVerificationError as e:
+            row["strict"] = sorted({d.code for d in e.diagnostics
+                                    if d.severity == "error"})
+        row["strict_launches"] = sum(K.launch_counts().values())
+        eng = E.ServingEngine(cfg, params, batch_slots=2, max_len=4096,
+                              device=device, verify="off")
+        row["off_built"] = eng.plan.verified is None
+        try:
+            eng.generate([np.arange(512, dtype=np.int32) % 100],
+                         max_new_tokens=2)
+            row["off_prefill"] = "served"
+        except ValueError as e:
+            row["off_prefill"] = str(e)
+        row["off_scan_launches"] = K.launch_counts()["mamba2_scan"]
+    finally:
+        E.resolve_plan = real
+    emit(row)
+    del params
+    _free(torch, device)
+    ok = (row["strict"] == ["smem-exceeded"] and row["strict_launches"] == 0
+          and row["off_built"] and str(need) in row["off_prefill"]
+          and row["off_scan_launches"] == 0)
+    return row, ok
+
+
+def serve_pages(torch, timer, device="cuda"):
+    """``pages_kernel_cases`` against the plain versions (bf16 and f32),
+    ``_page_bits``, then gpt2 at full width cut to ``PAGES_LAYERS``,
+    chunked, through ``PAGES_ENGINES`` at ``max_len`` 1000 (the plan's
+    10-token pages and 130-token chunks) and 1024 (16 and 128), in float32
+    and bfloat16: launches exact at both (``gpt2_launches``), the page
+    size and chunk the plan's; in float32 the plain and speculative
+    tokens equal across the two (required; kv_int8 reported: each page's
+    scale covers other positions at another page size); bf16 reported.
+    Then ``_seeded_plan_refusal`` (required)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine
+    out = {"kernel_rows": check_kernels(torch, timer, (pages_kernel_cases,),
+                                        phase="pages_kernel_cases")}
+    out["bits"] = _page_bits(torch)
+    emit({"phase": "serve_pages_bits", "equal_to_ps16": out["bits"]})
+    bad, bursts, equal = [], {}, {}
+    prompts = burst(np.random.default_rng(4), get_config("gpt2").vocab_size,
+                    PAGES_LENGTHS)
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("gpt2"),
+                                  num_layers=PAGES_LAYERS, dtype=dname,
+                                  use_fused_kernels=True)
+        params = _weights(torch, cfg, 4, jitter=True, device=device)
+        for name, kw in PAGES_ENGINES.items():
+            toks = {}
+            for max_len in (PAGES_MAX_LEN, PAGES_REF_LEN):
+                eng = ServingEngine(cfg, params, batch_slots=SLOTS,
+                                    max_len=max_len, device=device, **kw)
+                K.reset_launches()
+                t0 = time.perf_counter()
+                reqs = eng.generate(prompts, max_new_tokens=PAGES_NEW)
+                _sync(torch, device)
+                wall = time.perf_counter() - t0
+                m = eng.metrics
+                got = {k: n for k, n in K.launch_counts().items() if n}
+                want = gpt2_launches(
+                    PAGES_LAYERS, m["prefill_chunks"],
+                    0 if eng.speculative else m["scan_ticks"],
+                    m["verify_dispatches"], eng.cfg.quant)
+                toks[max_len] = [r.out_tokens for r in reqs]
+                key = f"{dname}/{name}/{max_len}"
+                row = {"phase": "serve_pages", "engine": name,
+                       "dtype": dname, "layers": PAGES_LAYERS,
+                       "max_len": max_len, "page_size": m["page_size"],
+                       "prefill_chunk": m["prefill_chunk"],
+                       "verified": m["verified"], "wall_s": wall,
+                       "launches": got, "expected": want,
+                       "exact": got == want,
+                       **{k: m[k] for k in ("prefill_chunks", "scan_ticks",
+                                            "verify_dispatches",
+                                            "accepted_tokens",
+                                            "prefix_hit_pages")}}
+                emit(row)
+                bursts[key] = row
+                want_geom = ((10, 130) if max_len == PAGES_MAX_LEN
+                             else (16, 128))
+                if (m["page_size"], m["prefill_chunk"]) != want_geom:
+                    bad.append(f"{key}: page size {m['page_size']}, chunk "
+                               f"{m['prefill_chunk']}")
+                if got != want:
+                    bad.append(f"{key}: launched {got}, expected {want}")
+                if m["verified"] != 1:
+                    bad.append(f"{key}: the plan did not verify")
+                if any(r.failed or len(r.out_tokens) != PAGES_NEW
+                       for r in reqs):
+                    bad.append(f"{key}: a request failed or fell short")
+                del eng
+            same = toks[PAGES_MAX_LEN] == toks[PAGES_REF_LEN]
+            equal[f"{dname}/{name}"] = {
+                "equal": same, "first_divergence": [
+                    _first_divergence(a, b) for a, b in
+                    zip(toks[PAGES_MAX_LEN], toks[PAGES_REF_LEN])]}
+            if dname == "float32" and name != "kv_int8" and not same:
+                bad.append(f"float32 {name}: 10-token pages gave other "
+                           "tokens than 16-token pages")
+        del params
+        _free(torch, device)
+    emit({"phase": "serve_pages_tokens", "equal": equal})
+    out["seeded_plan"], ok = _seeded_plan_refusal(torch, device)
+    if not ok:
+        bad.append("the seeded plan was not refused as expected")
+    if bad:
+        raise AssertionError("serve_pages: " + "; ".join(bad))
+    out.update(bursts=bursts, tokens=equal)
+    return out
+
+
+# ``plan_verify``: every registry config at full width, in each quant mode
+# whose path it has, in bf16 and float32 (the float32 cuts' kernels), at
+# these (tokens, kv_len) beside the shapes the run's own phases resolved: 4
+# slots over the new 1000-position extent and a 130-row chunk of it, and
+# over 2048 positions.
+PLAN_SHAPES = ((4, 1000), (130, 1000), (4, 2048), (128, 2048))
+# (config, plan, host seconds) of every ``build_stream_plan`` the run's
+# ``plan_for`` makes, one per new (config, tokens, kv_len):
+# ``record_plan_builds``.
+PLAN_BUILDS: list = []
+
+
+def record_plan_builds() -> None:
+    """Time each plan the model entry points and engines build from here
+    on (``plan_for`` calls ``build_stream_plan`` once per new shape)."""
+    from repro_torch.core import stream_plan
+    build = stream_plan.build_stream_plan
+    if getattr(build, "recorded", False):
+        return
+
+    def timed(cfg, **kw):
+        t0 = time.perf_counter()
+        plan = build(cfg, **kw)
+        PLAN_BUILDS.append((cfg, plan, time.perf_counter() - t0))
+        return plan
+    timed.recorded = True
+    stream_plan.build_stream_plan = timed
+
+
+def _plan_quants(cfg):
+    """The quant modes whose serving path the config has."""
+    from repro_torch.models.params import has_kv_pools
+    if cfg.encoder_only or not has_kv_pools(cfg):
+        return ("none",)
+    return ("none", "kv_int8", "w8_kv8")
+
+
+def _stage_call(torch, cfg, plan, kind, stage, choice, device="cuda"):
+    """One call of the stage's kernel wrapper at the plan's shapes
+    (``tokens`` rows; 4 slots at most for decode and verify, over
+    ``kv_len`` positions; the widest verify window), on random inputs:
+    for ``flash_attention`` the static branch over the plan's rows, then
+    (where the config prefills in chunks) the offset branch over
+    ``kv_len`` positions and, under KV quantization, its twin over codes."""
+    from repro_torch import kernels as K
+    from repro_torch.models.model import _chunk_of, supports_chunked_prefill
+    from repro_torch.models.params import compute_dtype, padded_vocab
+    from repro_torch.serving.kv_cache import kv_quant_dtype
+    dt = compute_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(5)
+    randn = _randn(torch, gen, dt, device)
+    t, impl = max(1, plan.tokens), choice.implementation
+    d, hd = cfg.d_model, cfg.head_dim_
+    w8 = bool(choice.block("w8"))
+    code = kv_quant_dtype(cfg.kv_quant)
+
+    def codes(x):
+        if code == torch.int8:
+            return (x.float() * 64).round().clamp(-127, 127).to(code)
+        return x.float().to(code)
+    if impl in ("rmsnorm_matmul", "block_matmul"):
+        x, w, s = randn(t, d), randn(d, cfg.q_dim), randn(d)
+        if impl == "block_matmul":
+            return lambda: K.block_matmul(x, w)
+        if w8:
+            (wq, ws), = _w8(torch, w)
+            return lambda: K.rmsnorm_matmul_w8(x, s, wq, w_scale=ws)
+        return lambda: K.rmsnorm_matmul(x, s, w)
+    if impl in ("streamed_ffn", "streamed_mlp"):
+        f, act = cfg.d_ff, cfg.activation
+        x = randn(t, d)
+        norm = randn(d) if choice.block("fuse_norm") else None
+        ws = ([randn(d, f)] if impl == "streamed_ffn" else []) + [
+            randn(d, f), randn(f, d)]
+        if w8:
+            qs = _w8(torch, *ws)
+            names = ("wg", "wu", "wd")[-len(qs):]
+            scales = {f"{n}_scale": s for n, (_, s) in zip(names, qs)}
+            fn = (K.streamed_ffn_w8 if impl == "streamed_ffn"
+                  else K.streamed_mlp_w8)
+            return lambda: fn(x, *(c for c, _ in qs), activation=act,
+                              norm_scale=norm, **scales)
+        fn = K.streamed_ffn if impl == "streamed_ffn" else K.streamed_mlp
+        return lambda: fn(x, *ws, activation=act, norm_scale=norm)
+    if impl == "moe_experts":
+        e, f = cfg.num_experts, cfg.d_ff
+        x = randn(t, d)
+        top = torch.randn(t, e, generator=gen, device=device).topk(
+            cfg.top_k, dim=-1)
+        gates = torch.zeros(t, e, device=device).scatter_(
+            1, top.indices, torch.softmax(top.values, -1)).to(dt)
+        wg, wu, wd = randn(e, d, f), randn(e, d, f), randn(e, f, d)
+        return lambda: K.moe_experts(x, gates, wg, wu, wd,
+                                     activation=cfg.activation)
+    if impl == "mamba2_scan":
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x, b, c = randn(1, t, h, p), randn(1, t, n), randn(1, t, n)
+        dtt = (torch.rand(1, t, h, generator=gen, device=device)
+               * 0.1).to(dt)
+        a_log = torch.zeros(h, device=device, dtype=dt)
+        dsk = torch.ones(h, device=device, dtype=dt)
+        q = _chunk_of(t, choice.block("chunk", 128) or 128)
+        return lambda: K.mamba2_ssd(x, dtt, a_log, b, c, dsk, chunk=q)
+    if impl == "rwkv6_wkv":
+        h, n = cfg.rwkv_heads, cfg.rwkv_head_dim
+        r, k, v = randn(1, t, h, n), randn(1, t, h, n), randn(1, t, h, n)
+        w = -torch.rand(1, t, h, n, generator=gen, device=device) * 0.5
+        u = randn(h, n)
+        q = _chunk_of(t, choice.block("chunk", 64) or 64)
+        return lambda: K.wkv6(r, k, v, w, u, chunk=q)
+    if impl == "streamed_xent":
+        hid, head = randn(t, d), randn(d, padded_vocab(cfg.vocab_size))
+        labels = torch.randint(0, cfg.vocab_size, (t,), generator=gen,
+                               device=device, dtype=torch.int32)
+        return lambda: K.streamed_xent_parts(hid, head, labels,
+                                             vocab_size=cfg.vocab_size)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    g = hq // hkv
+    window = cfg.sliding_window if kind == "local_attn" else 0
+    kv = max(plan.kv_len, t)
+    if impl == "flash_attention":
+        q = randn(hq, t, hd)
+        k, v = randn(hkv, kv, hd), randn(hkv, kv, hd)
+        kt, vt = k[:, :t].contiguous(), v[:, :t].contiguous()
+        calls = [lambda: K.flash_attention_static(
+            q, kt, vt, kv_group=g, causal=cfg.causal, window=window)]
+        if supports_chunked_prefill(cfg):
+            calls.append(lambda: K.flash_attention_2d(
+                q, k, v, q_offset=kv - t, kv_len=kv, kv_group=g,
+                window=window))
+            if code is not None:
+                kc, vc = codes(k), codes(v)
+                sc = torch.full((hkv, kv), 0.01, device=device)
+                calls.append(lambda: K.flash_attention_2d_q(
+                    q, kc, vc, k_scale=sc, v_scale=sc, q_offset=kv - t,
+                    kv_len=kv, kv_group=g, window=window))
+        return lambda: [c() for c in calls]
+    # decode_attn / verify_attn over the paged pools
+    b, ps = min(t, SLOTS), choice.block("page_size", 16)
+    maxp = -(-kv // ps)
+    kp, vp = randn(1 + b * maxp, ps, hkv, hd), randn(1 + b * maxp, ps, hkv,
+                                                     hd)
+    table = (torch.arange(b * maxp, device=device, dtype=torch.int32)
+             .reshape(b, maxp) + 1)
+    sc = {}
+    if code is not None:
+        kp, vp = codes(kp), codes(vp)
+        s = torch.full((1 + b * maxp, hkv), 0.01, device=device)
+        sc = dict(k_scale=s, v_scale=s)
+    if impl == "paged_attention":
+        qd = randn(b, 1, hq, hd)
+        lengths = torch.full((b,), kv, dtype=torch.int32, device=device)
+        fn = K.paged_decode_attention_q if sc else K.paged_decode_attention
+        return lambda: fn(qd, kp, vp, table, lengths, window=window, **sc)
+    w = plan.verify_window(plan.decode_page_size())
+    qv = randn(b, w, hq, hd)
+    q_off = torch.full((b,), max(0, kv - w), dtype=torch.int32,
+                       device=device)
+    fn = K.paged_verify_attention_q if sc else K.paged_verify_attention
+    return lambda: fn(qv, kp, vp, table, q_off, window=window, **sc)
+
+
+def _kernels_smem(torch, calls, path, reps=3, sessions=6):
+    """For each of ``calls`` (a maker of a call), the call once to warm up,
+    then ``reps`` times under a ``torch.profiler`` session of its own:
+    ([(kernel key, shared memory per block)] of the kernels the profiled
+    calls launched, from the trace's kernel events ("shared memory":
+    static + dynamic), PyTorch's own kernels left out; sessions run).  A
+    session can lose kernel events (on an H100, a decode call's window
+    kernel alone, or every event of three sessions in a row): each call
+    runs ``reps`` times between pauses, and a session in which no kernel,
+    or some kernel a number of times not a multiple of ``reps``, was
+    recorded is run again, up to ``sessions`` times.  What the last
+    session recorded is what is compared."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.common import kernel_key
+    out = []
+    for make in calls:
+        fn = make()
+        fn()
+        torch.cuda.synchronize()
+        for tries in range(1, sessions + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.01)
+                for _ in range(reps):
+                    fn()
+                    torch.cuda.synchronize()
+                time.sleep(0.01)
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh).get("traceEvents", [])
+            os.remove(path)
+            seen = [(kernel_key(e["name"]),
+                     e.get("args", {}).get("shared memory"))
+                    for e in events if e.get("cat") == "kernel"
+                    and "at::" not in e["name"]]
+            got = sorted(set(seen))
+            counts = Counter(k for k, _ in seen)
+            if got and all(n % reps == 0 for n in counts.values()):
+                break
+            time.sleep(0.05)
+        del fn
+        out.append((got, tries))
+    return out
+
+
+def _sweep_cases():
+    """(config, tokens, kv_len) of every registry config at full width in
+    each quant mode its path has (``_plan_quants``), bf16 and float32, at
+    ``PLAN_SHAPES``."""
+    from repro_torch.configs import ARCHS, get_config
+    out = []
+    for arch in sorted(ARCHS):
+        base = get_config(arch)
+        for quant in _plan_quants(base):
+            for dtype in ("bfloat16", "float32"):
+                cfg = dataclasses.replace(base, quant=quant, dtype=dtype,
+                                          use_fused_kernels=True)
+                out += [(cfg, t, kv) for t, kv in PLAN_SHAPES]
+    return out
+
+
+def plan_smem(torch, out_dir, device="cuda"):
+    """For every Hopper kernel (name and bytes) a stage of the plans of
+    ``_sweep_cases`` launches, one launch at that plan's shapes (``_stage_call``) under
+    ``torch.profiler``: each kernel's shared memory (static + dynamic)
+    equals the lint's count (``kernel_lint.stage_kernels``) and the
+    largest equals ``smem_estimate`` (required).  Run first, in a fresh
+    process: run after the serving and training phases' profiles, most
+    of these sessions recorded no kernel at all."""
+    from repro_torch.analysis import smem_estimate
+    from repro_torch.analysis.kernel_lint import stage_kernels
+    from repro_torch.core.stream_plan import plan_for
+    # One launch per distinct set of (kernel, bytes) a stage asks.
+    todo, sigs = [], set()
+    for cfg, tokens, kv_len in _sweep_cases():
+        plan = plan_for(cfg, tokens, kv_len)
+        for kind, stage, choice in plan.stage_choices():
+            want = stage_kernels(cfg, plan, stage, choice)
+            sig = tuple(sorted((want or {}).items()))
+            if want and sig not in sigs:
+                sigs.add(sig)
+                todo.append((cfg, plan, kind, stage, choice, want))
+    got_all = _kernels_smem(torch, [
+        (lambda a=a: _stage_call(torch, *a[:5], device)) for a in todo],
+        os.path.join(out_dir, "smem_trace.json"))
+    _free(torch, device)
+    bad, checked, rows = [], {}, []
+    for (cfg, plan, kind, stage, choice, want), (got, tries) in zip(
+            todo, got_all):
+        est = smem_estimate(cfg, plan, stage, choice)
+        ok = (bool(got) and all(k in want and want[k] == v for k, v in got)
+              and max(v for _, v in got) == est)
+        r = {"phase": "plan_smem", "config": cfg.name, "quant": cfg.quant,
+             "dtype": cfg.dtype, "stage": f"{kind}.{stage}",
+             "impl": choice.implementation, "tokens": plan.tokens,
+             "kv_len": plan.kv_len, "smem_estimate": est,
+             "profiled": got, "expected": want,
+             "profiler_sessions": tries, "ok": ok}
+        emit(r)
+        rows.append(r)
+        if ok:
+            checked.update(dict(got))
+        else:
+            bad.append(f"{cfg.name} {kind}.{stage}: profiled {got} in "
+                       f"{tries} sessions, expected {want}")
+    emit({"phase": "plan_smem_done", "kernels_checked": len(checked),
+          "stage_launches": len(rows), "ok": not bad})
+    if bad:
+        raise AssertionError("plan_smem: " + "; ".join(bad))
+    return rows
+
+
+def plan_verify(torch, out_dir, device="cuda"):
+    """Every plan this run built (``PLAN_BUILDS``) and the plans of
+    ``_sweep_cases`` verify clean for the card
+    (``verify_plan(device="cuda")``, required); reports each build's host
+    milliseconds (one new shape: one DSE)."""
+    from repro_torch.analysis import clean, verify_plan
+    from repro_torch.core.stream_plan import plan_for
+    record_plan_builds()
+    built = {(cfg, plan.tokens, plan.kv_len) for cfg, plan, _ in PLAN_BUILDS}
+    for cfg, tokens, kv_len in _sweep_cases():
+        if (cfg, tokens, kv_len or tokens) not in built:
+            plan_for(cfg, tokens, kv_len)        # recorded as it builds
+    bad = []
+    for cfg, plan, _ in PLAN_BUILDS:
+        diags = verify_plan(plan, cfg, slots=SLOTS, max_len=plan.kv_len,
+                            device="cuda")
+        if not clean(diags):
+            bad.append(f"{cfg.name}/{cfg.quant}/{cfg.dtype}/{plan.tokens}x"
+                       f"{plan.kv_len}: " + "; ".join(
+                           str(d) for d in diags if d.severity != "info"))
+    builds = {}
+    for cfg, plan, sec in PLAN_BUILDS:
+        builds.setdefault(cfg.name, []).append(
+            [cfg.quant, cfg.dtype, cfg.num_layers, plan.tokens, plan.kv_len,
+             round(sec * 1e3, 3)])
+    ms = sorted(sec * 1e3 for *_, sec in PLAN_BUILDS)
+    row = {"phase": "plan_verify", "plans_verified": len(PLAN_BUILDS),
+           "build_ms_min": ms[0], "build_ms_median": statistics.median(ms),
+           "build_ms_max": ms[-1], "build_s_total": sum(ms) / 1e3,
+           "unclean": bad}
+    emit(row)
+    for name, rows in builds.items():
+        emit({"phase": "plan_verify_build_ms", "config": name,
+              "quant_dtype_layers_tokens_kv_ms": rows})
+    if bad:
+        raise AssertionError("plan_verify: " + "; ".join(bad))
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -5476,6 +6083,8 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     llama, gpt2 = get_config("llama3-8b"), get_config("gpt2")
     results = {"device": smi, "name": name, "build": build}
+    record_plan_builds()
+    results["plan_smem"] = plan_smem(torch, out_dir)
     timer = Timer(torch)
     rows = check_kernels(torch, timer)
     results["kernel_checks"] = rows
@@ -5559,6 +6168,7 @@ def main(argv=None) -> int:
     results["serve_contiguous"] = serve_contiguous(torch)
     results["serve_surface"] = serve_surface(torch, timer)
     results["serve_launcher"] = serve_launcher(torch)
+    results["serve_pages"] = serve_pages(torch, timer)
     results["serve_telemetry"] = serve_telemetry(
         torch, out_dir,
         serve_row=results["full_depth"]["llama3-8b"]["serve"]["chunked"])
@@ -5614,16 +6224,10 @@ def main(argv=None) -> int:
                  "Qwen checkpoints to the reference)"
                  + ("; the pipeline's patch embeddings and M-RoPE "
                     "positions" if m == QWEN2VL else ""))
-    results["train"][HUBERT] = train(
-        torch, dataclasses.replace(get_config(HUBERT),
-                                   use_fused_kernels=True),
-        HUBERT, steps=3, ckpt_every=2, replay_from=2, lr=HUBERT_LR,
-        jitter=True,
-        note="full width and depth (48 layers) on the pipeline's frame "
-             "embeddings, weights jittered; a checkpoint at step 2 and a "
-             "trainer resuming there to replay step 3")
+    results["train"][HUBERT] = hubert_train(torch)
     results["train"][GEMMA] = gemma_train(torch)
     results["train_w8"] = quant_train(torch)
+    results["plan_verify"] = plan_verify(torch, out_dir)
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []
@@ -5644,6 +6248,12 @@ def main(argv=None) -> int:
         paths.append(("llama3-8b", path,
                       results["serve_surface"]["bursts"][path]["launches"]))
     rows = rows + results["serve_surface"]["kernel_rows"]
+    for engine, path in (("plain", "pages_10"),
+                         ("speculative", "pages_10_speculative"),
+                         ("kv_int8", "quant_pages_10")):
+        paths.append(("gpt2", path, results["serve_pages"]["bursts"][
+            f"bfloat16/{engine}/{PAGES_MAX_LEN}"]["launches"]))
+    rows = rows + results["serve_pages"]["kernel_rows"]
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))

@@ -1,7 +1,8 @@
 """StreamTensor core of the port: the itensor type system, Algorithm 1,
 fusion, FIFO sizing, the tiling DSE, partition, allocation and lowering
-(copies of the reference's ``repro.core``), and the StreamPlan records
-with their fixed ``plan_for`` table."""
+(copies of the reference's ``repro.core``), the ``H100`` platform the
+port targets, and ``build_stream_plan`` / ``plan_for``, which turn the
+compiler's decisions into the plan the model runs."""
 
 from .affine import AffineMap
 from .allocation import AllocationResult, Buffer, MemoryTier, allocate
@@ -9,7 +10,8 @@ from .dma import DmaPlan, dma_seconds, plan_dma
 from .dse import DSEResult, TrialResult, evaluate_trial, explore
 from .lowering import CompiledDataflow, compile_model, lower_groups
 from .partition import PartitionResult, partition
-from .platforms import PLATFORMS, TPU_V5E, U55C, Platform, get_platform
+from .platforms import (H100, PLATFORMS, TPU_V5E, U55C, Platform,
+                        get_platform)
 from .tiling import (LinalgOpSpec, LoopDim, OperandSpec, TiledKernel,
                      TilingDecision, TilingSpace, tile_op)
 from .trace import block_flops, trace_block, trace_lm_head
@@ -21,7 +23,7 @@ from .graph import DataflowGraph, KernelNode, KernelTiming
 from .itensor import (ITensorType, col_major, fig5_b, fig5_c,
                       itensor_from_tiling, row_major)
 from .stream_plan import (EAGER, STAGES, KernelChoice, LayerPlan, StreamPlan,
-                          plan_for)
+                          build_stream_plan, plan_for)
 from .token_model import (EqualizationStrategy, max_tokens_exact,
                           max_tokens_paper, simulate_fifo_occupancy)
 
@@ -38,9 +40,10 @@ __all__ = [
     "DSEResult", "TrialResult", "evaluate_trial", "explore",
     "CompiledDataflow", "compile_model", "lower_groups",
     "PartitionResult", "partition",
-    "PLATFORMS", "TPU_V5E", "U55C", "Platform", "get_platform",
+    "H100", "PLATFORMS", "TPU_V5E", "U55C", "Platform", "get_platform",
     "LinalgOpSpec", "LoopDim", "OperandSpec", "TiledKernel",
     "TilingDecision", "TilingSpace", "tile_op",
     "block_flops", "trace_block", "trace_lm_head",
-    "EAGER", "STAGES", "KernelChoice", "LayerPlan", "StreamPlan", "plan_for",
+    "EAGER", "STAGES", "KernelChoice", "LayerPlan", "StreamPlan",
+    "build_stream_plan", "plan_for",
 ]

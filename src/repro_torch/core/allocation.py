@@ -4,8 +4,10 @@ The paper places each buffer in LUTRAM, BRAM, or URAM "prioritized by size".
 We reproduce that policy generically over a platform's tier table.  A copy
 of the reference's ``repro.core.allocation``: ``TPU_TIERS`` is the
 reference's TPU hierarchy (SMEM / VMEM / HBM-spill), kept verbatim so that
-``compile_model`` places buffers as the reference does; it describes no
-Hopper card.  Inputs are the buffers the
+``compile_model`` places buffers as the reference does for its four
+platforms.  ``H100_TIERS`` is the Hopper card's hierarchy (a block's shared
+memory, the L2, HBM), over which ``compile_model`` allocates for ``H100``.
+Inputs are the buffers the
 rest of the compiler produced: converter ping-pong windows (Alg. 1), FIFO
 backing stores (LP sizing), DMA staging buffers, and kernel accumulators.
 """
@@ -37,6 +39,14 @@ TPU_TIERS = (
     MemoryTier("SMEM", 1 * 2**20, word_bytes=4, max_buffer_bytes=16384),
     MemoryTier("VMEM", 128 * 2**20, word_bytes=4096),
     MemoryTier("HBM", 16 * 2**30, word_bytes=4096),
+)
+
+# H100 SXM5: the shared memory one block may opt into (the kernels' tiles
+# and rings, 16-byte copies), the 50 MiB L2 (128-byte lines), 80 GB of HBM.
+H100_TIERS = (
+    MemoryTier("SMEM", 232_448, word_bytes=16, max_buffer_bytes=232_448),
+    MemoryTier("L2", 50 * 2**20, word_bytes=128),
+    MemoryTier("HBM", 80 * 2**30, word_bytes=4096),
 )
 
 

@@ -26,14 +26,15 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from ..configs.base import ModelConfig
-from .allocation import AllocationResult, TPU_TIERS, allocate, buffers_from_plan
+from .allocation import (H100_TIERS, AllocationResult, TPU_TIERS, allocate,
+                         buffers_from_plan)
 from .dse import (CostSource, DSEResult, TrialResult, evaluate_trial,
                   explore, modeled_latency_s)
 from .fifo_sizing import FifoPlan
 from .fusion import FusionPlan, fusion_memory_report
 from .graph import DataflowGraph
 from .partition import PartitionResult, partition
-from .platforms import Platform, TPU_V5E
+from .platforms import H100, Platform, TPU_V5E
 from .trace import trace_block
 
 # ---------------------------------------------------------------------- #
@@ -198,7 +199,9 @@ def compile_model(cfg: ModelConfig, *, tokens: int,
 
     t0 = time.perf_counter()
     bufs = buffers_from_plan(trial.graph, trial.fusion, trial.fifo)
-    alloc = allocate(bufs, TPU_TIERS)
+    # The Hopper card allocates over its own tiers; the reference's four
+    # platforms over the TPU tiers, as the reference does for every one.
+    alloc = allocate(bufs, H100_TIERS if platform == H100 else TPU_TIERS)
     stages["allocation"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

@@ -6,7 +6,9 @@ descriptions, verbatim: the paper's Table 6 platforms and the reference's
 TPU v5e constants (197 TFLOP/s bf16, 819 GB/s HBM, 128 MiB VMEM, ~50
 GB/s/link ICI).  They are inputs of the analytic compiler, kept so that
 ``compile_model`` here decides what the reference decides; none of them
-describes the Hopper card the port's kernels run on.
+describes the Hopper card the port's kernels run on.  ``H100`` does: it is
+the port's target (``build_stream_plan``'s default), with the card's
+constants and their sources beside them.
 
 The platform object is the single source of truth for:
   * roofline terms (compute / memory / collective seconds),
@@ -171,8 +173,32 @@ TPU_V5E = Platform(
     thermal_power_w=200.0,
 )
 
+# The card the port's kernels run on: NVIDIA H100 SXM5 80 GB (sm_90a).
+_H100_SMS = 132                 # streaming multiprocessors
+_H100_TC_MACS = 4 * 512         # bf16 MACs per cycle per SM: 4 tensor
+                                # cores x 512 dense (989e12 / 2 / 132 SMs
+                                # at the 1830 MHz the rate is quoted at)
+H100 = Platform(
+    name="NVIDIA-H100",
+    freq_hz=1.98e9,           # nvidia-smi --query-gpu=clocks.max.sm: 1980 MHz
+    peak_flops=989e12,        # dense bf16 tensor cores, H100 SXM5 data sheet
+    peak_int8_ops=1979e12,    # dense int8 tensor cores, same sheet
+    hbm_bw=3.35e12,           # HBM3, same sheet
+    link_bw=50e9,             # one NVLink 4 link (900 GB/s over 18, each
+                              # way); unused on one card
+    onchip_bytes=50 * 2**20,  # L2, the whole chip's on-chip tier (as
+                              # A100 counts its 40 MiB L2)
+    smem_bytes=232_448,       # shared memory one block may opt into
+    dma_ports=_H100_SMS,      # every SM streams from HBM on its own
+                              # (cp.async / TMA per SM)
+    compute_lanes=_H100_TC_MACS,  # one block runs on one SM: the unit an
+                                  # unroll factor multiplies
+    thermal_power_w=700.0,    # SXM5 board power limit
+)
+
 PLATFORMS: Dict[str, Platform] = {
     "u55c": U55C, "a100": A100, "2080ti": RTX2080TI, "tpu_v5e": TPU_V5E,
+    "h100": H100,
 }
 
 

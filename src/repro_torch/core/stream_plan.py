@@ -1,65 +1,115 @@
-"""StreamPlan records: which kernel serves each stage, with block hints.
+"""StreamPlan: the compiler-to-runtime bridge (DSE decisions drive execution).
 
-Copies ``KernelChoice`` / ``LayerPlan`` / ``StreamPlan`` from
-``repro.core.stream_plan`` (the fields the port reads) and adds
-``plan_for``, which returns the plan the reference compiler (trace ->
-tiling DSE -> fusion -> lowering) selects for the five ported families:
-dense RMSNorm/GQA/SwiGLU/RoPE (llama3-8b; also the Qwen stacks, with
-the QKV bias, qk-norm or M-RoPE), its MoE variant (granite-moe),
-dense LayerNorm/MHA/GELU-MLP with learned positions (gpt2), the
-Mamba2 hybrid with a shared RMSNorm/GELU-GLU/RoPE attention block
-(zamba2; one ``LayerPlan`` per layer kind), and the attention-free RWKV6
-stack (rwkv6-7b: only the wkv mixer runs a kernel).  The
-reference selects the same kernels and blocks for each family's config
-and its reduced config at every token count, and at every KV length that
-is a multiple of the 16-token page
-(the engine asks for ``max_len``); a test pins this table to the reference
-``plan_for``.
-Under a weight-quantizing config (``w8``, ``w8_kv8``) the
-``rmsnorm_matmul`` and ``streamed_ffn`` / ``streamed_mlp`` stages carry the
-reference's ``("w8", 1)`` block flag (``stream_plan.py:363-368``,
-``:401-402``), which dispatches their int8 kernel twins; ``block_matmul``,
-``moe_experts``, ``mamba2_scan`` and ``rwkv6_wkv`` never do, so gpt2's
-projections, the MoE experts and the Mamba2 and RWKV6 mixers stay at full
-precision (an RWKV6 plan is the same under ``w8``).  KV quantization
-changes no choice: the pools' dtype selects the attention twins.
-The plan's ``lm_head`` stage (final norm + LM head + loss, training only)
-is ``streamed_xent`` for every family, with the reference's blocks at
-every token count.
-The compiler that makes the reference's choices (``compile_model`` in
-``lowering.py``) is in this package; ``build_stream_plan``, which turns it
-into a plan, and a Hopper ``Platform`` for it replace this table later.
+A copy of the reference's ``repro.core.stream_plan`` with the port's
+kernels behind it.  Everything upstream of this module is analysis:
+``trace.py`` turns a ``ModelConfig`` block into structured ops,
+``tiling.py``/``dse.py`` explore tile sizes and unroll with fusion
+feedback, ``fusion.py`` groups kernels under the on-chip budget, and
+``lowering.py`` names a kernel module per fusion group.
+``build_stream_plan`` runs that pipeline for a ``Platform`` (``H100`` by
+default, the card the port's kernels run on) and emits, per layer kind
+(attn / local_attn / mamba / rwkv / ...), the kernel choice and block
+sizes the model runs; ``models/model.py`` resolves it at every entry
+point and dispatches the stages it marks fused to the Hopper kernels of
+``repro_torch.kernels``.  ``plan_for`` is that build, cached.
+
+Stage mapping (as the reference's):
+
+  * ``qkv``: ln1 + Q/K/V projections.  ``rmsnorm_matmul`` when the fusion
+    pass put ``ln1`` and ``q_proj`` in one group and the norm is RMSNorm;
+    ``block_matmul`` when only the projections fused; eager otherwise.
+  * ``attention``: the composite attention op, ``flash_attention`` when its
+    group lowered to a kernel pattern.
+  * ``decode_attn`` / ``verify_attn``: single-token and speculative-window
+    attention over the paged KV cache (``paged_attention`` /
+    ``verify_attention``) whenever attention fused; their page size is
+    the raw DSE tile of the attention op's KV dim (pages are streaming
+    granules: no 128 floor).
+  * ``ffn``: ln2 + MLP, ``streamed_ffn`` (gated) / ``streamed_mlp``
+    (ungated) / ``moe_experts``; the norm folds into the kernel when fusion
+    grouped it with the projections and the norm is RMSNorm.
+  * ``mixer``: ``mamba2_scan`` / ``rwkv6_wkv`` for the SSM families.
+  * ``lm_head``: final norm + LM head + loss through ``streamed_xent``
+    (training).
+
+Under a weight-quantizing config (``w8``, ``w8_kv8``) the ``rmsnorm_matmul``
+and ``streamed_ffn`` / ``streamed_mlp`` stages carry the ``("w8", 1)`` flag
+that dispatches their int8 twins; KV quantization changes no choice (the
+pools' dtype selects the attention twins).
+
+Block sizes are ``max(dse_tile, 128)``, the reference's floor, so that a
+plan compares field for field with the reference's; they are hints: each
+Hopper kernel picks its own tiles from the shapes (``kernels/common.py``'s
+plan functions).  The page size, the prefill chunk (``block_q`` rounded up
+to pages) and the mixers' chunks are what the runtime takes from the plan.
+
+Not ported yet: ``mesh=`` (the per-stage sharding claims need
+``distributed/sharding.spec_for``) and ``tune=`` / ``tune_table=`` (the
+autotuner); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 from ..configs.base import ModelConfig
+from .dse import evaluate_trial
+from .graph import DataflowGraph
+from .lowering import CompiledDataflow, compile_model, lower_groups
+from .partition import partition
+from .platforms import H100, Platform
+from .trace import trace_lm_head
+
+LANE = 128      # block-size floor of the reference's plans (its lane width)
 
 Blocks = Tuple[Tuple[str, int], ...]
+# (grid_dim, mesh_axis_or_group) claims: a single axis name or a tuple of
+# names.
+Sharding = Tuple[Tuple[str, object], ...]
 
 
 @dataclass(frozen=True)
 class KernelChoice:
-    """One stage's implementation plus its block-size hints."""
+    """One stage's implementation, its block-size targets and the mesh axes
+    its block grid shards over (empty: one device).
+
+    ``source`` records where the blocks came from: ``"analytic"`` (the
+    DSE's modeled objective) or ``"measured"`` (an autotuner's timings).
+    """
     implementation: str          # kernel name in repro_torch.kernels, or "eager"
     blocks: Blocks = ()
+    sharding: Sharding = ()
+    source: str = "analytic"     # "analytic" | "measured"
 
     @property
     def fused(self) -> bool:
         return self.implementation != "eager"
 
     @property
-    def kw(self) -> Dict[str, int]:
-        """Block hints as wrapper keyword arguments."""
-        return dict(self.blocks)
+    def kw(self) -> Dict[str, object]:
+        """Block sizes (plus the sharding claim) as wrapper kwargs."""
+        d: Dict[str, object] = dict(self.blocks)
+        if self.sharding:
+            d["shard"] = self.sharding
+        return d
+
+    def block(self, name: str, default: int = 0) -> int:
+        """One named block-size target (``default`` when absent): the
+        accessor the static checks (``analysis/``) read."""
+        return int(dict(self.blocks).get(name, default))
+
+    def claim(self, dim: str):
+        """Mesh axis (or axis group) claimed for ``dim``; None when the
+        dim is unclaimed (replicated)."""
+        return dict(self.sharding).get(dim)
 
 
 EAGER = KernelChoice("eager")
 
-# The main-path stages the port runs, in pipeline order.
+# Stage slots every LayerPlan carries, in pipeline order: the order the
+# itensor pass walks producer/consumer pairs in.
 STAGES = ("qkv", "attention", "decode_attn", "verify_attn", "ffn", "mixer")
 
 
@@ -71,10 +121,15 @@ class LayerPlan:
     attention: KernelChoice = EAGER    # chunk / whole-prompt attention
     decode_attn: KernelChoice = EAGER  # single-token paged attention
     verify_attn: KernelChoice = EAGER  # W-token speculative verify window
-    ffn: KernelChoice = EAGER          # (ln2 +) MLP
+    ffn: KernelChoice = EAGER          # (ln2 +) MLP / MoE
     mixer: KernelChoice = EAGER        # the Mamba2 SSD scan / RWKV6 wkv
 
+    @property
+    def any_fused(self) -> bool:
+        return any(c.fused for _, c in self.stages())
+
     def stages(self):
+        """Yield ``(stage_name, KernelChoice)`` in pipeline order."""
         for name in STAGES:
             yield name, getattr(self, name)
 
@@ -85,9 +140,23 @@ class StreamPlan:
     arch: str
     tokens: int
     kv_len: int
-    layers: Tuple[Tuple[str, LayerPlan], ...]
+    platform: str
+    default_tile_size: int
+    overall_unroll_size: int
+    layers: Tuple[Tuple[str, LayerPlan], ...]   # kind -> plan
     quant: str = "none"          # the config's quant mode
     lm_head: KernelChoice = EAGER  # final norm + LM head + loss (training)
+    modeled_latency_s: float = 0.0
+    fusion_groups: int = 0
+    implementations: Tuple[str, ...] = ()
+    mesh_axes: Tuple[Tuple[str, int], ...] = ()   # mesh the plan targets
+    # The static verifier's record (``analysis.verify_plan``): None when
+    # never verified; the engine attaches it with ``with_verification``.
+    verified: Optional[bool] = None
+    diagnostics: Tuple[str, ...] = ()
+    # Plan-level cost provenance: "analytic" (the DSE's model), "measured"
+    # or "hybrid" (an autotuner's).
+    cost_source: str = "analytic"
 
     def layer(self, kind: str) -> LayerPlan:
         for k, lp in self.layers:
@@ -96,7 +165,7 @@ class StreamPlan:
         return LayerPlan(kind=kind)
 
     def decode_page_size(self, default: int = 16) -> int:
-        """KV page size: the page size the plan's paged-attention choice
+        """KV page size: the DSE tile the plan's paged-attention choice
         carries, or ``default`` when no layer plans a paged decode stage."""
         for _, lp in self.layers:
             if lp.decode_attn.fused:
@@ -121,156 +190,297 @@ class StreamPlan:
         ps = max(1, int(page_size))
         return max(1, -(-int(base) // ps)) * ps
 
+    def stage_choices(self):
+        """Yield every stage's ``(owner, stage_name, KernelChoice)``: layer
+        stages, then the LM head (``owner`` the layer kind, or "final")."""
+        for kind, lp in self.layers:
+            for stage, choice in lp.stages():
+                yield kind, stage, choice
+        yield "final", "lm_head", self.lm_head
 
-# The reference compiler's selection for the dense RMSNorm / GQA / SwiGLU
-# family (repro.core.stream_plan.plan_for on llama3-8b and llama3-8b
-# reduced, tokens in {4, 64, 128, 512}, kv_len in {256, 2048, 4096}; the
-# same stage for stage on the Qwen stacks, whose QKV bias, qk-norm and
-# M-RoPE stay eager ops beside the kernels: qwen3-0.6b, qwen1.5-0.5b and
-# qwen2-vl-2b, full and reduced, tokens 4 to 4096; and for both of
-# gemma3-4b's kinds, ``local_attn`` and ``global_attn``, full and reduced,
-# tokens 1 to 2048, the GELU-GLU with the norm folded in).
-_DENSE_RMSNORM_GLU = LayerPlan(
-    kind="attn",
-    qkv=KernelChoice("rmsnorm_matmul", (("block_t", 128), ("block_n", 128))),
-    attention=KernelChoice("flash_attention",
-                           (("block_q", 128), ("block_kv", 128))),
-    decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
-    verify_attn=KernelChoice("verify_attention", (("page_size", 16),)),
-    ffn=KernelChoice("streamed_ffn",
-                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 1))),
-)
+    def with_verification(self, verified: bool,
+                          diagnostics: Tuple[str, ...]) -> "StreamPlan":
+        """Copy of the plan carrying a verification verdict."""
+        return replace(self, verified=bool(verified),
+                       diagnostics=tuple(diagnostics))
 
-# ... and for the dense LayerNorm / MHA / GELU-MLP / learned-position
-# family (gpt2 and gpt2 reduced, same token counts; kv_len in {256, 1024,
-# 2048}; the same for hubert-xlarge's non-causal encoder, full and reduced,
-# tokens 128 to 4096): the norms stay eager, so the projections and the
-# MLP run the plain tiled kernels.
-_DENSE_LAYERNORM_MLP = LayerPlan(
-    kind="attn",
-    qkv=KernelChoice("block_matmul", (("block_t", 128), ("block_n", 128))),
-    attention=KernelChoice("flash_attention",
-                           (("block_q", 128), ("block_kv", 128))),
-    decode_attn=KernelChoice("paged_attention", (("page_size", 16),)),
-    verify_attn=KernelChoice("verify_attention", (("page_size", 16),)),
-    ffn=KernelChoice("streamed_mlp",
-                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 0))),
-)
+    def with_stage(self, owner: str, stage: str,
+                   choice: KernelChoice) -> "StreamPlan":
+        """Copy of the plan with one stage's choice replaced (``owner`` the
+        layer kind, or "final" for the LM head), addressing the pairs
+        ``stage_choices`` yields."""
+        if owner == "final" and stage == "lm_head":
+            return replace(self, lm_head=choice)
+        if stage not in STAGES:
+            raise ValueError(f"unknown stage {stage!r} (have {STAGES})")
+        if not any(k == owner for k, _ in self.layers):
+            raise ValueError(f"plan has no layer kind {owner!r}")
+        layers = tuple(
+            (k, replace(lp, **{stage: choice}) if k == owner else lp)
+            for k, lp in self.layers)
+        return replace(self, layers=layers)
 
-
-# ... and for the MoE RMSNorm / GQA / SwiGLU-experts / RoPE family
-# (granite-moe-1b-a400m, granite-moe-3b-a800m and their reduced configs,
-# tokens in {4, 20, 128, 2048}, kv_len 2048): llama3's attention stages,
-# the experts through ``moe_experts`` with ln2 eager in front (the
-# reference applies it, then calls ``fused_moe_ffn``).
-_MOE_RMSNORM_GLU = LayerPlan(
-    kind="attn",
-    qkv=_DENSE_RMSNORM_GLU.qkv,
-    attention=_DENSE_RMSNORM_GLU.attention,
-    decode_attn=_DENSE_RMSNORM_GLU.decode_attn,
-    verify_attn=_DENSE_RMSNORM_GLU.verify_attn,
-    ffn=KernelChoice("moe_experts", (("block_t", 128),)),
-)
-
-
-# ... and for the Mamba2 hybrid (zamba2-2.7b and its reduced config,
-# tokens in {4, 20, 128, 1000, 2048}): every layer's SSD scan through
-# ``mamba2_scan`` (chunk 128; the model cuts it to a divisor of the
-# sequence), and the shared block after every ``shared_attn_every``-th
-# layer through llama3's attention kernels and ``streamed_ffn`` with ln2
-# in front (GELU-GLU, the norm not folded).  The Mamba2 projections stay
-# plain matmuls.
-_MAMBA2_SCAN = KernelChoice("mamba2_scan", (("chunk", 128),))
-_MAMBA = LayerPlan(kind="mamba", mixer=_MAMBA2_SCAN)
-_MAMBA_SHARED_ATTN = replace(
-    _DENSE_RMSNORM_GLU, kind="mamba+shared_attn",
-    ffn=KernelChoice("streamed_ffn",
-                     (("block_t", 128), ("block_f", 128), ("fuse_norm", 0))),
-    mixer=_MAMBA2_SCAN)
+    def summary(self) -> Dict[str, object]:
+        return {
+            "arch": self.arch,
+            "quant": self.quant,
+            "tokens": self.tokens,
+            "kv_len": self.kv_len,
+            "tile": self.default_tile_size,
+            "unroll": self.overall_unroll_size,
+            "fusion_groups": self.fusion_groups,
+            "modeled_latency_s": self.modeled_latency_s,
+            "mesh": dict(self.mesh_axes),
+            "stages": {
+                kind: {stage: choice.implementation
+                       for stage, choice in lp.stages()}
+                for kind, lp in self.layers
+            },
+            "sharding": {
+                kind: {stage: dict(choice.sharding)
+                       for stage, choice in lp.stages() if choice.sharding}
+                for kind, lp in self.layers
+            },
+            "lm_head": self.lm_head.implementation,
+            "lm_head_sharding": dict(self.lm_head.sharding),
+            "verified": self.verified,
+            "diagnostics": list(self.diagnostics),
+            "plan_source": self.cost_source,
+            "stage_sources": {
+                f"{kind}.{stage}": choice.source
+                for kind, stage, choice in self.stage_choices()
+                if choice.fused and choice.source != "analytic"
+            },
+        }
 
 
-# ... and for the attention-free RWKV6 stack (rwkv6-7b and its reduced
-# config, tokens 1 to 4096, with and without ``w8``): the wkv recurrence
-# through ``rwkv6_wkv`` (chunk 64; the model cuts it to a divisor of the
-# sequence), every other stage eager (time-mix and channel-mix products
-# stay plain matmuls, the LayerNorms PyTorch's).
-_RWKV = LayerPlan(kind="rwkv",
-                  mixer=KernelChoice("rwkv6_wkv", (("chunk", 64),)))
+# --------------------------------------------------------------------- #
+# Builder
+# --------------------------------------------------------------------- #
+
+def _tile(graph: DataflowGraph, kernel: str, dim: str,
+          default: int = LANE) -> int:
+    """The DSE tile of ``kernel``'s ``dim``, floored at ``LANE``."""
+    try:
+        dec = graph.kernel(kernel).tags["decision"]
+    except KeyError:
+        return default
+    return max(int(dec.tile_sizes.get(dim, default)), LANE)
 
 
-# The training loss of every family (the reference's ``lm_head`` choice
-# at token counts 64..8192, full and reduced configs).
-_STREAMED_XENT = KernelChoice("streamed_xent",
-                              (("block_t", 128), ("block_v", 512)))
+def _raw_tile(graph: DataflowGraph, kernel: str, dim: str,
+              default: int = 16) -> int:
+    """The DSE tile without the floor: for streaming granules (the KV page
+    size) rather than block operands."""
+    try:
+        dec = graph.kernel(kernel).tags["decision"]
+    except KeyError:
+        return default
+    return int(dec.tile_sizes.get(dim, default))
 
 
-def _family_plan(cfg: ModelConfig) -> Optional[Dict[str, LayerPlan]]:
-    """The ported family ``cfg`` belongs to (its plan per layer kind), or
-    None."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    if kinds == {"rwkv"}:
-        return {"rwkv": _RWKV} if cfg.norm == "layernorm" else None
-    if kinds <= {"mamba", "mamba+shared_attn"}:
-        if (cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope"
-                and cfg.activation == "gelu" and not cfg.is_moe):
-            return {"mamba": _MAMBA, "mamba+shared_attn": _MAMBA_SHARED_ATTN}
-        return None
-    if cfg.encoder_only or not cfg.causal:
-        # hubert: a non-causal LayerNorm/MLP encoder takes gpt2's plan
-        # (attention through the static flash kernel, non-causal).
-        if (kinds == {"attn"} and cfg.norm == "layernorm"
-                and not cfg.gated_ffn and cfg.rope == "none"
-                and not cfg.is_moe):
-            return {"attn": _DENSE_LAYERNORM_MLP}
-        return None
-    if kinds == {"local_attn", "global_attn"}:
-        # gemma3: both kinds take the dense plan (the window rides on each
-        # layer's attention call, not on its plan).
-        if (cfg.norm == "rmsnorm" and cfg.gated_ffn and cfg.rope == "rope"
-                and not cfg.is_moe):
-            return {k: replace(_DENSE_RMSNORM_GLU, kind=k)
-                    for k in ("local_attn", "global_attn")}
-        return None
-    if kinds != {"attn"}:
-        return None
-    if (cfg.norm == "rmsnorm" and cfg.gated_ffn
-            and cfg.rope in ("rope", "mrope")):
-        return {"attn": (_MOE_RMSNORM_GLU if cfg.is_moe
-                         else _DENSE_RMSNORM_GLU)}
-    if (cfg.norm == "layernorm" and not cfg.gated_ffn and cfg.rope == "none"
-            and not cfg.is_moe):
-        return {"attn": _DENSE_LAYERNORM_MLP}
-    return None
+def _group_impl(compiled: CompiledDataflow, kernel: str) -> str:
+    """Implementation of the fusion group holding ``kernel``;
+    "xla_fusion" when unfused or absent from the graph."""
+    for g in compiled.lowered:
+        if kernel in g.kernels:
+            return g.implementation
+    return "xla_fusion"
 
 
-def _with_w8(lp: LayerPlan) -> LayerPlan:
-    """The ``("w8", 1)`` flag on the stages with an int8 twin."""
-    w8 = (("w8", 1),)
-    if lp.ffn.implementation in ("streamed_ffn", "streamed_mlp"):
-        lp = replace(lp, ffn=replace(lp.ffn, blocks=lp.ffn.blocks + w8))
-    if lp.qkv.implementation == "rmsnorm_matmul":
-        lp = replace(lp, qkv=replace(lp.qkv, blocks=lp.qkv.blocks + w8))
-    return lp
+def _same_group(compiled: CompiledDataflow, a: str, b: str) -> bool:
+    for g in compiled.lowered:
+        if a in g.kernels:
+            return b in g.kernels
+    return False
+
+
+def _layer_plan(cfg: ModelConfig, compiled: CompiledDataflow, kind: str,
+                base: str) -> LayerPlan:
+    """Map one compiled block graph onto stage-level kernel choices.
+
+    A stage goes fused only when the fusion pass put its anchor kernel in a
+    group that lowered to a kernel pattern (not ``xla_fusion``): the
+    compiler, not the runtime, decides what streams.
+    """
+    g = compiled.trial.graph
+    assert g is not None
+
+    def fused_at(anchor: str) -> bool:
+        return _group_impl(compiled, anchor) != "xla_fusion"
+
+    qkv = attention = decode_attn = verify_attn = ffn = mixer = EAGER
+
+    if kind in ("attn", "local_attn", "global_attn", "mamba+shared_attn"):
+        ab = f"{base}.shared" if kind == "mamba+shared_attn" else base
+        if fused_at(f"{ab}.q_proj"):
+            # The shared block's pre-attention norm is traced as
+            # "<base>.shared.ln"; attention blocks use "<base>.ln1".
+            ln = f"{ab}.ln" if kind == "mamba+shared_attn" else f"{ab}.ln1"
+            norm_fused = (cfg.norm == "rmsnorm"
+                          and _same_group(compiled, ln, f"{ab}.q_proj"))
+            impl = "rmsnorm_matmul" if norm_fused else "block_matmul"
+            blocks: Blocks = (
+                ("block_t", _tile(g, f"{ab}.q_proj", "t")),
+                ("block_n", _tile(g, f"{ab}.q_proj", "dq")),
+            )
+            # Weight-only int8: only rmsnorm_matmul has a w8 twin;
+            # block_matmul (the LayerNorm configs) stays full precision.
+            if cfg.weight_quant and impl == "rmsnorm_matmul":
+                blocks += (("w8", 1),)
+            qkv = KernelChoice(impl, blocks)
+        if fused_at(f"{ab}.attention"):
+            attention = KernelChoice("flash_attention", (
+                ("block_q", _tile(g, f"{ab}.attention", "t")),
+                ("block_kv", _tile(g, f"{ab}.attention", "s")),
+            ))
+            # The decode and verify twins of the same fusion decision
+            # stream the paged KV cache; the KV-dim tile is the page size.
+            decode_attn = KernelChoice("paged_attention", (
+                ("page_size", _raw_tile(g, f"{ab}.attention", "s")),
+            ))
+            verify_attn = KernelChoice("verify_attention", (
+                ("page_size", _raw_tile(g, f"{ab}.attention", "s")),
+            ))
+        mb = f"{ab}.moe" if cfg.is_moe else f"{ab}.mlp"
+        if cfg.is_moe and cfg.gated_ffn and fused_at(f"{mb}.experts"):
+            ffn = KernelChoice("moe_experts", (
+                ("block_t", _tile(g, f"{mb}.experts", "t")),
+            ))
+        elif not cfg.is_moe and fused_at(f"{mb}.up_proj"):
+            norm_fused = (cfg.norm == "rmsnorm" and _same_group(
+                compiled, f"{ab}.ln2", f"{mb}.up_proj"))
+            impl = "streamed_ffn" if cfg.gated_ffn else "streamed_mlp"
+            fblocks: Blocks = (
+                ("block_t", _tile(g, f"{mb}.up_proj", "t")),
+                ("block_f", _tile(g, f"{mb}.up_proj", "f")),
+                ("fuse_norm", int(norm_fused)),
+            )
+            if cfg.weight_quant:
+                fblocks += (("w8", 1),)
+            ffn = KernelChoice(impl, fblocks)
+
+    if kind in ("mamba", "mamba+shared_attn"):
+        if fused_at(f"{base}.ssm_scan"):
+            mixer = KernelChoice("mamba2_scan", (
+                ("chunk", _tile(g, f"{base}.ssm_scan", "t")),
+            ))
+
+    if kind == "rwkv":
+        if fused_at(f"{base}.wkv"):
+            mixer = KernelChoice("rwkv6_wkv", (
+                ("chunk", min(64, _tile(g, f"{base}.wkv", "t"))),
+            ))
+
+    return LayerPlan(kind=kind, qkv=qkv, attention=attention,
+                     decode_attn=decode_attn, verify_attn=verify_attn,
+                     ffn=ffn, mixer=mixer)
+
+
+def build_stream_plan(cfg: ModelConfig, *, tokens: int,
+                      kv_len: Optional[int] = None,
+                      platform: Platform = H100,
+                      dse_budget: int = 8,
+                      mesh=None, tune=None, tune_table=None,
+                      cost_source=None) -> StreamPlan:
+    """Run the StreamTensor pipeline over every distinct layer kind of
+    ``cfg`` for ``platform`` and collapse the result into a plan.
+
+    The DSE explores the tiling space once, on the first layer kind (the
+    paper's hyperparameters are global); the other kinds and the LM head
+    are compiled as single trials with the winning parameters.
+    ``cost_source=`` (a ``dse.CostSource``) goes to the DSE objective.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_stream_plan(mesh=...): the per-stage sharding claims "
+            "need distributed/sharding.spec_for, not ported yet (ROADMAP "
+            "queue 1 item 10)")
+    if (tune is not None and tune is not False) or tune_table is not None:
+        raise NotImplementedError(
+            "build_stream_plan(tune=/tune_table=): the autotuner is not "
+            "ported yet (ROADMAP queue 1 item 7)")
+    kinds: Dict[str, int] = {}
+    for i in range(cfg.num_layers):
+        kinds.setdefault(cfg.layer_kind(i), i)
+
+    layers = []
+    first = True
+    tile, unroll = None, None
+    latency = 0.0
+    groups = 0
+    impls: Tuple[str, ...] = ()
+    for kind, idx in kinds.items():
+        compiled = compile_model(
+            cfg, tokens=tokens, kv_len=kv_len, platform=platform,
+            layer_index=idx,
+            dse_budget=dse_budget if first else 1,
+            default_tile_size=None if first else tile,
+            overall_unroll_size=None if first else unroll,
+            cost_source=cost_source)
+        if first:
+            tile = compiled.trial.params["default_tile_size"]
+            unroll = compiled.trial.params["overall_unroll_size"]
+            first = False
+        latency += compiled.trial.latency_s
+        groups += compiled.fusion.num_groups
+        impls += tuple(lg.implementation for lg in compiled.lowered)
+        layers.append((kind, _layer_plan(cfg, compiled, kind,
+                                         base=f"L{idx}")))
+
+    # LM head: norm + head matmul + loss.  The loss consumer is not part of
+    # the block trace, so the streamed-xent choice is made here; its blocks
+    # come from the head matmul's tiling decision.
+    head_trial = evaluate_trial(trace_lm_head(cfg, tokens), platform,
+                                tile or LANE, unroll or 64,
+                                keep_artifacts=True,
+                                cost_source=cost_source)
+    assert head_trial.graph is not None and head_trial.fusion is not None
+    head_lowered = lower_groups(head_trial.graph, head_trial.fusion,
+                                partition(head_trial.graph, 1))
+    head_fused = any(lg.implementation != "xla_fusion"
+                     for lg in head_lowered
+                     if "final.lm_head" in lg.kernels)
+    lm_head = EAGER
+    if head_fused:
+        lm_head = KernelChoice("streamed_xent", (
+            ("block_t", _tile(head_trial.graph, "final.lm_head", "t")),
+            ("block_v", max(_tile(head_trial.graph, "final.lm_head", "v"),
+                            512)),
+        ))
+    latency += head_trial.latency_s
+    groups += head_trial.fusion.num_groups
+    impls += tuple(lg.implementation for lg in head_lowered)
+
+    return StreamPlan(
+        arch=cfg.name, tokens=tokens, kv_len=kv_len or tokens,
+        platform=platform.name,
+        default_tile_size=tile or LANE, overall_unroll_size=unroll or 64,
+        layers=tuple(layers), quant=cfg.quant, lm_head=lm_head,
+        modeled_latency_s=latency, fusion_groups=groups,
+        implementations=impls)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_for_base(cfg: ModelConfig, tokens: int,
+                   kv_len: Optional[int] = None) -> StreamPlan:
+    return build_stream_plan(cfg, tokens=tokens, kv_len=kv_len,
+                             platform=H100)
 
 
 def plan_for(cfg: ModelConfig, tokens: int,
              kv_len: Optional[int] = None) -> Optional[StreamPlan]:
-    """The plan for ``cfg`` at ``tokens`` tokens over ``kv_len`` cached
-    positions, or None when ``cfg.use_fused_kernels`` is off (eager)."""
+    """The plan the model entry points run: ``build_stream_plan`` for the
+    H100 at ``tokens`` tokens over ``kv_len`` cached positions, cached on
+    the (frozen) config and the shape; None when ``cfg.use_fused_kernels``
+    is off (the eager plan).  A new shape costs one DSE on the host
+    (tens of milliseconds) until the cache holds it."""
     if not cfg.use_fused_kernels:
         return None
-    family = _family_plan(cfg)
-    if family is None:
-        raise NotImplementedError(
-            f"the port has no plan for {cfg.name!r} yet: only dense "
-            "RMSNorm/GQA/SwiGLU with RoPE or M-RoPE (with or without the "
-            "QKV bias and qk-norm; its MoE variant; and its interleaved "
-            "local/global sliding-window variant), LayerNorm/"
-            "MHA/GELU-MLP/learned-position (causal, or its non-causal "
-            "encoder), Mamba2-hybrid and RWKV6 stacks are ported")
-    if cfg.weight_quant:           # K12, K13 and K14 have no w8 twin
-        family = {k: _with_w8(lp) for k, lp in family.items()}
-    return StreamPlan(arch=cfg.name, tokens=int(tokens),
-                      kv_len=int(kv_len or tokens),
-                      layers=tuple(family.items()), quant=cfg.quant,
-                      lm_head=_STREAMED_XENT)
+    return _plan_for_base(cfg, int(tokens),
+                          None if kv_len is None else int(kv_len))
+
+
+# Cache management passthrough (tests clear plan caches between configs).
+plan_for.cache_clear = _plan_for_base.cache_clear    # type: ignore[attr-defined]
+plan_for.cache_info = _plan_for_base.cache_info      # type: ignore[attr-defined]

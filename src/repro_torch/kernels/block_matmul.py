@@ -17,8 +17,9 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build, ref
-from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
-                     kernel_path, mma_plan, sm_count, split_plan)
+from .common import (MMA_BN, MMA_CFG, cdiv, check_cuda_operands,
+                     check_launch, gemm_smem, kernel_path, mma_class,
+                     mma_plan, sm_count, split_plan, tiled_smem)
 
 # Per device, the split-K workspace of the tensor-core kernel: float32
 # partials [splits, M, N] and one int32 arrival counter per output tile,
@@ -27,6 +28,16 @@ from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
 # grows to the largest split seen (a split runs only while the output tiles
 # fill less than a wave, so partials stay under ~17 MB).
 _WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def smem_bytes(m: int, dtype: torch.dtype) -> dict:
+    """{kernel: static + dynamic shared memory per block} of a call at
+    ``m`` rows: bf16 ``block_mma_kernel`` in its tile class (the GEMM's
+    ring, 16 bytes of static arrival flag), float32 the tiled kernel."""
+    if dtype == torch.bfloat16:
+        bm, _ = mma_class(m)
+        return {f"block_mma_kernel<{MMA_CFG[bm]} >": 16 + gemm_smem(bm)}
+    return tiled_smem(m)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,6 +15,11 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+# Shared memory one block may opt into on the H100 (227 KB), and the
+# card's streaming multiprocessors: the static checks plan for these (a
+# wrapper reads its card's SM count).
+MAX_SMEM = 232_448
+HOPPER_SMS = 132
 # The quantized kernels' code types and their entry-point suffixes.
 CODE_DTYPES = {torch.int8: "i8", torch.float8_e4m3fn: "fp8"}
 
@@ -73,6 +78,15 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def kernel_key(name: str) -> str:
+    """A kernel's name as a profiler reports it, without the return type,
+    the namespaces and the parameter list: the key of the ``smem_bytes``
+    tables (``rmsnorm_mma_kernel<MmaCfg<16, 64, 1, 4, 4>, 1>``)."""
+    name = name.replace("(anonymous namespace)::", "").replace("repro::", "")
+    name = name.removeprefix("void ")
+    return name.split("(", 1)[0].strip()
+
+
 # Mirrors the tile shapes of csrc/tiled_matmul.cuh (K3, K10a, K11 and K5
 # in float32).
 _MATMUL_BK = 32
@@ -83,6 +97,21 @@ _MATMUL_TILES = {True: (8, 128), False: (64, 64)}
 # verify dispatch (slots x W rows) then gives each row the bits a decode
 # step (slots rows) gives it, which exact acceptance needs.
 ROW_INVARIANT_T = 64
+
+
+def tiled_smem(t: int, w8: bool = False, norm: bool = False):
+    """{kernel: shared memory} of csrc/tiled_matmul.cuh's float32 kernel at
+    ``t`` rows (static arrays: the x and W tiles, the norm's rstd rows),
+    and of the split sum after it (none)."""
+    small = t <= _MATMUL_SMALL_T
+    bt, bn = _MATMUL_TILES[small]
+    tm, tn = (1, 4) if small else (4, 4)
+    w = "signed char" if w8 else "float"
+    nbytes = 4 * (_MATMUL_BK * (bt + 1) + _MATMUL_BK * bn
+                  + (bt if norm else 0))
+    return {f"tiled_matmul_kernel<float, {w}, {str(norm).lower()}, {bt}, "
+            f"{bn}, {tm}, {tn}>": round_up(nbytes, 16),
+            "split_reduce_kernel<float>": 0}
 
 
 def split_plan(t: int, d: int, n: int, sms: int):
@@ -106,6 +135,29 @@ def split_plan(t: int, d: int, n: int, sms: int):
 # BM, BK); BN is 128 in every class.
 MMA_CLASSES = ((16, 16, 64), (ROW_INVARIANT_T, 64, 64), (None, 128, 64))
 MMA_BN = 128
+# Each class's template name (MmaCfg<BM, BK, WM, WN, ST>) and ring stages.
+MMA_CFG = {16: "MmaCfg<16, 64, 1, 4, 4>", 64: "MmaCfg<64, 64, 2, 2, 4>",
+           128: "MmaCfg<128, 64, 2, 4, 3>"}
+_MMA_STAGES = {16: 4, 64: 4, 128: 3}
+
+
+def mma_class(m: int):
+    """(BM, BK) of the tensor-core GEMM's tile class at ``m`` rows."""
+    return next((bm, bk) for top, bm, bk in MMA_CLASSES
+                if top is None or m <= top)
+
+
+def gemm_smem(bm: int, norm: bool = False, w8: bool = False) -> int:
+    """Dynamic shared memory of csrc/mma_gemm.cuh's GEMM in the ``bm``-row
+    class (``GemmLayout``): the ring's A, B (bf16, or int8 codes at a
+    128-element stride) and, with the norm, scale stages; the int8 twin's
+    bf16 conversion of a B tile and lo plane of an A tile."""
+    bk = 64
+    a = bm * (bk + 8) * 2
+    b = bk * MMA_BN if w8 else bk * (MMA_BN + 8) * 2
+    s = bk * 2 if norm else 0
+    ring = _MMA_STAGES[bm] * (a + b + s)
+    return ring + ((bk * (MMA_BN + 8) * 2 + a) if w8 else 0)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -167,6 +219,46 @@ def ffn_plan(t: int, d: int, f: int, sms: int):
     want = max(1, min(cdiv(2 * sms, out_tiles), tiles // 4, f // (4 * t)))
     f_per_split = cdiv(tiles, want) * FFN_BF
     return 1, f_per_split, cdiv(f, f_per_split)
+
+
+# csrc/ffn_mma.cuh's tile classes, (BT, NW, BN2, BK2, ST, BK1): the fused
+# launch up to 16 and 64 rows, the two passes, and K12's fused class above
+# 8 rows.
+FFN_TILES = {"decode": (16, 8, 512, 32, 5, 64),
+             "verify": (64, 8, 256, 64, 4, 64),
+             "pass": (64, 4, 128, 64, 4, 64),
+             "moe16": (16, 8, 256, 32, 5, 32)}
+FFN_FUSED, FFN_UP, FFN_DOWN = 0, 1, 2
+
+
+def ffn_tile_name(tile: str) -> str:
+    return "TileCfg<{}, {}, {}, {}, {}, {}>".format(*FFN_TILES[tile])
+
+
+def ffn_mma_smem(tile: str, w8: bool, mode: int, glu: bool,
+                 f_per_split: int = 0) -> int:
+    """Dynamic shared memory of csrc/ffn_mma.cuh's body (``Layout``): a
+    ring of stages (phase 1: the x tile and the Wg / Wu tiles; phase 2:
+    DOWN's h tiles and the Wd tile), 128-byte aligned; the int8 twins'
+    bf16 conversion buffer; the fused mode's h slice of ``f_per_split``
+    columns."""
+    bt, nw, bn2, bk2, st, bk1 = FFN_TILES[tile]
+    planes, esz = (2, 1) if w8 else (1, 2)
+    bf1 = 16 * nw
+    ldf, ldn = bf1 + 8, bn2 + 8
+    wldf, wldn = (bf1, bn2) if w8 else (ldf, ldn)
+    mats = 2 if glu else 1
+    p1 = (bt * (bk1 + 8) * 2 + mats * bk1 * wldf * esz
+          if mode != FFN_DOWN else 0)
+    p2 = ((planes * bt * (bk2 + 8) * 2 if mode == FFN_DOWN else 0)
+          + bk2 * wldn * esz if mode != FFN_UP else 0)
+    stage = round_up(max(p1, p2), 128)
+    conv = 0
+    if w8:
+        conv = max(mats * bk1 * ldf * 2 if mode != FFN_DOWN else 0,
+                   bk2 * ldn * 2 if mode != FFN_UP else 0)
+    h = planes * bt * (f_per_split + 8) * 2 if mode == FFN_FUSED else 0
+    return st * stage + conv + h
 
 
 # Mirrors csrc/moe_experts.cu's bf16 launches (K12): up to 64 rows each

@@ -40,6 +40,56 @@ from .common import (CODE_DTYPES, aligned16, check_cuda_operands,
 HEAD_DIMS = (64, 128, 320)     # the CUDA kernel's head dims (offset branch)
 STATIC_HEAD_DIMS = (64, 80, 128, 320)    # ... the static branch's (K7)
 CODE_HEAD_DIMS = (64, 128, 320)    # ... the offset branch's over codes (K9c)
+BRANCH_HEAD_DIMS = {"offset": HEAD_DIMS, "static": STATIC_HEAD_DIMS,
+                    "offset_q": CODE_HEAD_DIMS}
+# The code types' template names in csrc/flash_mma.cu's instances.
+_CODE_NAMES = {torch.int8: "signed char",
+               torch.float8_e4m3fn: "__nv_fp8_e4m3"}
+
+
+def cuda_refusal(branch: str, d: int, causal: bool = True,
+                 window: int = 0) -> Optional[str]:
+    """Why the CUDA build refuses a case of ``branch`` ("offset",
+    "static" or "offset_q"), or None when it runs it: head dims
+    ``BRANCH_HEAD_DIMS[branch]``, causal with or without a window, and
+    for the static branch non-causal without one.  The wrapper raises
+    with it; the static checks report it (``analysis/kernel_lint.py``)."""
+    dims = BRANCH_HEAD_DIMS[branch]
+    non_causal = branch == "static"
+    if (d not in dims or window < 0
+            or (not causal and (not non_causal or window))):
+        return ("the CUDA kernel runs causal attention with or without a "
+                "window"
+                + (", or non-causal attention without one,"
+                   if non_causal else "")
+                + f" at head dims {dims}; got head dim {d}, causal "
+                f"{causal}, window {window}")
+    return None
+
+
+def smem_bytes(d: int, dtype: torch.dtype,
+               code: Optional[torch.dtype] = None) -> dict:
+    """{kernel: shared memory per block} of a launch at head dim ``d``
+    (``code``: the K/V code type of the offset branch over codes, K9c).
+    bf16 (``csrc/flash_mma.cu``, ``smem_bytes<D, C>``): the Q tile and
+    two stages of K and V tiles, rows of D + 8 bf16; over codes the key
+    groups' converted bf16 tiles, two stages of every group's codes and
+    scales.  float32 (``csrc/flash_attention.cu``): the Q tile, the K
+    tile at a D + 1 stride and the V tile.  No static arrays; a windowed
+    K9c launch has its own instance name with the same bytes."""
+    ld = d + 8
+    if dtype == torch.bfloat16:
+        if code is None:
+            return {f"flash_mma_kernel<{d}>": (64 + 4 * 64) * ld * 2}
+        groups = 2 if d <= 128 else 1
+        nbytes = ((64 + 2 * groups * 64) * ld * 2 + 4 * groups * 64 * d
+                  + 4 * groups * 64 * 4)
+        name = _CODE_NAMES[code]
+        return {f"flash_mma_q_kernel<{d}, {name}>": nbytes,
+                f"flash_mma_q_window_kernel<{d}, {name}>": nbytes}
+    c = "float" if code is None else _CODE_NAMES[code]
+    return {f"flash_offset_kernel<float, {c}, {d}>":
+            4 * (16 * d + 32 * (d + 1) + 32 * d)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,25 +122,17 @@ def _check(name: str, q, k, v, kv_group: int) -> None:
 
 def _check_cuda(name: str, q, k, v, causal: bool, window: int,
                 code: Optional[torch.dtype] = None, scales=(),
-                head_dims=HEAD_DIMS, non_causal: bool = False) -> None:
+                branch: str = "offset") -> None:
     """``code``: the K/V dtype, q's unless K/V hold codes (with their
-    ``scales``); ``head_dims``: the ones this entry point takes;
-    ``non_causal``: it also takes non-causal attention without a window
-    (the static branch)."""
+    ``scales``); ``branch``: the entry point's (``cuda_refusal``)."""
     check_cuda_operands(name, q.dtype, q, k, v, *scales)
     code = q.dtype if code is None else code
     if k.dtype != code or v.dtype != code:
         raise TypeError(f"{name}: k and v must be {code}; got {k.dtype}, "
                         f"{v.dtype}")
-    d = q.shape[-1]
-    if (d not in head_dims or window < 0
-            or (not causal and (not non_causal or window))):
-        raise ValueError(f"{name}: the CUDA kernel runs causal attention "
-                         "with or without a window"
-                         + (", or non-causal attention without one,"
-                            if non_causal else "")
-                         + f" at head dims {head_dims}; got head dim {d}, "
-                         f"causal {causal}, window {window}")
+    why = cuda_refusal(branch, q.shape[-1], causal, window)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
 
 
 def flash_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,7 +197,7 @@ def flash_attention_static(q: torch.Tensor, k: torch.Tensor,
             q, k, v, kv_len=kv_len, kv_group=kv_group, scale=scale,
             causal=causal, window=window, block_kv=block_kv)
     _check_cuda("flash_attention_static", q, k, v, causal, window,
-                head_dims=STATIC_HEAD_DIMS, non_causal=True)
+                branch="static")
     if q.dtype == torch.bfloat16:
         q, k, v = aligned16(q), aligned16(k), aligned16(v)
     out = torch.empty_like(q)
@@ -197,7 +239,7 @@ def flash_attention_2d_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError("flash_attention_2d_q: K/V must be int8 or "
                         f"float8_e4m3fn codes, got {k.dtype}")
     _check_cuda("flash_attention_2d_q", q, k, v, causal, window, k.dtype,
-                (k_scale, v_scale), head_dims=CODE_HEAD_DIMS)
+                (k_scale, v_scale), branch="offset_q")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("flash_attention_2d_q: scales must be float32")
     if q.dtype == torch.bfloat16:

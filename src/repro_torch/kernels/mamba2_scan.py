@@ -19,24 +19,59 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build, ref
-from .common import (aligned16, check_cuda_operands, check_launch,
-                     kernel_path, ssd_plan)
+from .common import (MAX_SMEM, aligned16, check_cuda_operands,
+                     check_launch, kernel_path, ssd_plan)
 
-# Shared memory one block may use on Hopper (227 KB).
-MAX_SMEM = 232_448
 # (P, N) of the bf16 kernels (zamba2's head dim and state).
 SEG_PN = (64, 64)
 
 
-def smem_bytes(q: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one float32 block (csrc/mamba2_scan.cu):
-    the chunk's x [Q, P], B and C [Q, N + 1], the masked (C B^T) o L [Q,
-    Q], the state [P, N + 1] and three [Q] vectors, all float32."""
-    return 4 * (q * p + 2 * q * (n + 1) + q * q + p * (n + 1) + 3 * q)
+def smem_bytes(q: int, p: int, n: int,
+               dtype: torch.dtype = torch.float32) -> dict:
+    """{kernel: shared memory per block} of a call in chunks of ``q`` rows.
+    float32 (dynamic, csrc/mamba2_scan.cu): the chunk's x [Q, P], B and C
+    [Q, N + 1], the masked (C B^T) o L [Q, Q], the state [P, N + 1] and
+    three [Q] vectors, all float32.  bf16 (static, whatever Q): a
+    64-row segment's x, B and B' hi / lo (or B, C and the carried state's
+    hi / lo planes) at a row stride of 72 bf16, and its per-row scalars;
+    the carry across segments takes none."""
+    if dtype != torch.bfloat16:
+        return {"mamba2_ssd_kernel<float>":
+                4 * (q * p + 2 * q * (n + 1) + q * q + p * (n + 1) + 3 * q)}
+    seg = 64
+    lx, lb = p + 8, n + 8
+    return {f"ssd_seg_state_kernel<{p}, {n}>":
+            2 * (seg * lx + 2 * seg * lb) + 4 * 3 * seg,
+            f"ssd_seg_out_kernel<{p}, {n}>":
+            2 * (seg * lx + 2 * seg * lb + 2 * p * lb) + 4 * 2 * seg,
+            f"ssd_seg_carry_kernel<{p * n}>": 0}
+
+
+def case_refusal(p: int, n: int, dtype: torch.dtype) -> Optional[str]:
+    """Why the CUDA build has no kernel for (P, N) in ``dtype``, or None:
+    the bf16 kernels take (P, N) = ``SEG_PN``."""
+    if dtype == torch.bfloat16 and (p, n) != SEG_PN:
+        return f"the bf16 kernel takes (P, N) = {SEG_PN}; got ({p}, {n})"
+    return None
+
+
+def cuda_refusal(q: int, p: int, n: int, dtype: torch.dtype
+                 ) -> Optional[str]:
+    """Why the CUDA build refuses a call, or None: ``case_refusal``, or a
+    float32 block of ``q``-row chunks past ``MAX_SMEM``."""
+    why = case_refusal(p, n, dtype)
+    if why is not None or dtype == torch.bfloat16:
+        return why
+    need = max(smem_bytes(q, p, n).values())
+    if need > MAX_SMEM:
+        return (f"chunk {q} with P {p}, N {n} needs {need} bytes of shared "
+                "memory")
+    return None
 
 
 def workspace_numel(bsz: int, h: int, p: int, n: int, nseg: int) -> int:
@@ -79,12 +114,9 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if any(t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError("mamba2_ssd: x, dt, b and c must share a dtype")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and (p, n) != SEG_PN:
-        raise ValueError(f"mamba2_ssd: the bf16 kernel takes (P, N) = "
-                         f"{SEG_PN}; got ({p}, {n})")
-    if not bf16 and smem_bytes(q, p, n) > MAX_SMEM:
-        raise ValueError(f"mamba2_ssd: chunk {q} with P {p}, N {n} needs "
-                         f"{smem_bytes(q, p, n)} bytes of shared memory")
+    why = cuda_refusal(q, p, n, x.dtype)
+    if why is not None:
+        raise ValueError(f"mamba2_ssd: {why}")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

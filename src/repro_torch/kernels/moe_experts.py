@@ -22,14 +22,62 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from . import _build, ref
-from .common import (FFN_BF, check_cuda_operands, check_launch, kernel_path,
-                     moe_plan, round_up)
+from .common import (FFN_BF, FFN_DOWN, FFN_FUSED, FFN_UP, MOE_BF,
+                     check_cuda_operands, check_launch, ffn_mma_smem,
+                     ffn_tile_name, kernel_path, moe_plan, round_up)
 
 _ACTS = ("silu", "gelu")          # the plain version's
+_CUDA_ACTS = ("silu",)            # the CUDA kernels'
+
+
+def cuda_refusal(activation: str) -> Optional[str]:
+    """Why the CUDA build refuses the experts' activation, or None."""
+    if activation in _CUDA_ACTS:
+        return None
+    return f"the CUDA kernel runs SiLU; got activation {activation!r}"
+
+
+def smem_bytes(t: int, d: int, f: int, dtype: torch.dtype) -> dict:
+    """{kernel: static + dynamic shared memory per block} of a call at
+    ``t`` rows (``moe_plan``), static arrays rounded to 128 bytes (the
+    source's ring alignment).  bf16: the route (above 64 rows), the
+    tensor-core body (``ffn_mma_smem``; static: the tile's token rows,
+    the fused mode's two kept-token counts and arrival flag), the combine
+    (each token's kept experts and gates).  float32: the route, the
+    CUDA-core phase-1 and phase-2 tiles, the combine."""
+    t8, t16 = t <= 8, t <= 16
+    bf16 = dtype == torch.bfloat16
+    tname = "__nv_bfloat16" if bf16 else "float"
+    vec = 4 if d % 4 == 0 else 1
+    out = {f"moe_combine_kernel<{tname}, {vec}>":
+           round_up(4 * 256 + 4 * 256 + 4, 128)}
+    if bf16 and moe_plan(t, f)[0] == 0:
+        tile = "decode" if t8 else "moe16"
+        out[f"moe_mma_kernel<{ffn_tile_name(tile)}, {FFN_FUSED}>"] = (
+            round_up(4 * 16 + 8 + 4, 128)
+            + ffn_mma_smem(tile, False, FFN_FUSED, True, MOE_BF))
+        return out
+    out[f"moe_route_kernel<{tname}>"] = round_up(4 * 8, 128)
+    if bf16:
+        for mode in (FFN_UP, FFN_DOWN):
+            out[f"moe_mma_kernel<{ffn_tile_name('pass')}, {mode}>"] = (
+                round_up(4 * 64, 128)
+                + ffn_mma_smem("pass", False, mode, True, 0))
+        return out
+    bk = 16
+    (bt, bf, tm, tn), (bt2, bn, tm2, tn2) = (
+        ((8, 128, 1, 4), (8, 64, 1, 2)) if t16
+        else ((64, 64, 4, 4), (64, 64, 4, 4)))
+    out[f"moe_h_kernel<{bt}, {bf}, {tm}, {tn}>"] = round_up(
+        4 * (bk * (bt + 1) + 2 * bk * bf + bt), 128)
+    out[f"moe_out_kernel<{bt2}, {bn}, {tm2}, {tn2}>"] = round_up(
+        4 * (bk * (bt2 + 1) + bk * bn + bt2), 128)
+    return out
 _ALIGN = 256                      # bytes between the workspace's parts
 def workspace_layout(t: int, d: int, f: int, e: int, dtype: torch.dtype,
                      mode: int, splits: int):
@@ -86,9 +134,9 @@ def moe_experts(x: torch.Tensor, gates: torch.Tensor, wg: torch.Tensor,
         raise ValueError(f"moe_experts: unknown activation {activation!r}")
     if kernel_path(x) == "plain":
         return ref.moe_experts(x, gates, wg, wu, wd, activation=activation)
-    if activation != "silu":
-        raise ValueError("moe_experts: the CUDA kernel runs SiLU; got "
-                         f"activation {activation!r}")
+    why = cuda_refusal(activation)
+    if why is not None:
+        raise ValueError(f"moe_experts: {why}")
     ops = [x, gates, wg, wu, wd]
     check_cuda_operands("moe_experts", x.dtype, *ops)
     if any(o.dtype != x.dtype for o in ops):

@@ -39,6 +39,58 @@ HEAD_DIMS = (64, 128, 320)     # the CUDA kernel's head dims (verify)
 DECODE_HEAD_DIMS = (64, 80, 128, 320)    # ... and decode's (K1, K9a)
 MAX_ROWS = 64             # window rows x query heads per KV head it holds
 MAX_ROWS_320 = 32         # ... at head dim 320 (registers; codes too)
+_NWARP = 4                # warps per block (csrc/paged_attention.cuh)
+_CH = 32                  # positions per K/V tile
+# Template names of the element types in the kernel's instances.
+_TYPE_NAMES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
+               torch.int8: "signed char",
+               torch.float8_e4m3fn: "__nv_fp8_e4m3"}
+
+
+def cuda_refusal(d: int, rows: int, verify: bool) -> Optional[str]:
+    """Why the CUDA build refuses a call at head dim ``d`` with ``rows``
+    window rows x query heads per KV head (decode: the heads alone), or
+    None when it runs it.  The wrappers raise with it; the static checks
+    report it (``analysis/kernel_lint.py``)."""
+    dims = HEAD_DIMS if verify else DECODE_HEAD_DIMS
+    max_rows = MAX_ROWS_320 if d == 320 else MAX_ROWS
+    if d not in dims or rows > max_rows:
+        return (f"the CUDA kernel runs head dims {dims}, up to {max_rows} "
+                "window rows x query heads per KV head, any window; got "
+                f"head dim {d}, {rows} rows")
+    return None
+
+
+def rows_per_warp(rows: int) -> int:
+    """The kernel instance's rows per warp: the fewest of 1, 2, 4, 8, 16
+    that hold a block's ``rows`` (``paged_attention.cuh::launch_d``)."""
+    return next(r for r in (1, 2, 4, 8, 16) if rows <= _NWARP * r)
+
+
+def smem_bytes(d: int, rows: int, dtype: torch.dtype,
+               code: Optional[torch.dtype] = None) -> dict:
+    """{kernel: shared memory per block} of a call at head dim ``d`` with
+    ``rows`` rows per block (``cuda_refusal``), q in ``dtype`` and pools of
+    ``code`` (None: q's dtype), as ``paged_attention.cuh::smem_bytes``:
+    the K/V ring (4 stages of 32-position tiles, 2 where 4 would pass
+    168 KB; rows at an odd 16-byte stride), q and p rows, each position's
+    page offset and scales.  No static arrays; the fold of the
+    partitions takes none.  The page size does not enter.  Empty for a
+    block of more rows than any instance holds (the wrapper refuses it)."""
+    if rows > (MAX_ROWS_320 if d == 320 else MAX_ROWS):
+        return {}
+    pool = code or dtype
+    csize = torch.tensor([], dtype=pool).element_size()
+    rv = d // (16 // csize)
+    tile = _CH * (rv | 1) * 16
+    stages = 4 if 8 * tile <= 168 * 1024 else 2
+    rpw = rows_per_warp(rows)
+    block_rows = _NWARP * rpw
+    nbytes = (stages * 2 * tile + 4 * block_rows * d + 4 * block_rows * _CH
+              + 8 * PAGED_PART + 2 * 4 * PAGED_PART)
+    t, c = _TYPE_NAMES[dtype], _TYPE_NAMES[pool]
+    return {f"paged_window_kernel<{t}, {c}, {d}, {rpw}>": nbytes,
+            f"paged_combine_kernel<{t}, {d}>": 0}
 
 
 # Each head dim's instances build in a library of their own, so that the
@@ -84,12 +136,13 @@ def _check_shapes(name, q, k_pool, v_pool, page_table, base) -> None:
 
 
 def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
-            window: int, scale: float, k_scale=None, v_scale=None,
-            head_dims=HEAD_DIMS) -> torch.Tensor:
+            window: int, scale: float, k_scale=None,
+            v_scale=None) -> torch.Tensor:
     """Launch the window kernel: row w of slot b sees ``base[b] + w +
     extra`` positions (the last ``window`` of them when ``window`` > 0).
-    With ``k_scale``/``v_scale`` the pools hold codes; ``head_dims`` are
-    the ones this entry point takes."""
+    With ``k_scale``/``v_scale`` the pools hold codes; ``extra`` 1 is the
+    verify entry point (``cuda_refusal``)."""
+    verify = bool(extra)
     quant = k_scale is not None
     scales = (k_scale, v_scale) if quant else ()
     check_cuda_operands(name, q.dtype, q, k_pool, v_pool, page_table, base,
@@ -113,12 +166,9 @@ def _launch(name, q, k_pool, v_pool, page_table, base, *, extra: int,
     b, w, hq, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     g = hq // hkv
-    max_rows = MAX_ROWS_320 if d == 320 else MAX_ROWS
-    if d not in head_dims or w * g > max_rows or window < 0:
-        raise ValueError(f"{name}: the CUDA kernel runs head dims "
-                         f"{head_dims}, up to {max_rows} window rows x query "
-                         "heads per KV head, any window; got head dim "
-                         f"{d}, {w} x {g} rows, window {window}")
+    why = cuda_refusal(d, w * g, verify)
+    if why is not None or window < 0:
+        raise ValueError(f"{name}: {why or f'window {window}'}")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel copies pool rows in 16-byte "
                          "vectors; the pools must start at 16-byte aligned "
@@ -158,8 +208,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                           lengths, window=window,
                                           scale=scale)
     out = _launch("paged_decode_attention", q, k_pool, v_pool, page_table,
-                  lengths, extra=0, window=window, scale=scale,
-                  head_dims=DECODE_HEAD_DIMS)
+                  lengths, extra=0, window=window, scale=scale)
     paged_decode_attention.launches += 1
     return out
 
@@ -217,8 +266,7 @@ def paged_decode_attention_q(q: torch.Tensor, k_pool: torch.Tensor,
                                           v_scale=v_scale)
     out = _launch("paged_decode_attention_q", q, k_pool, v_pool, page_table,
                   lengths, extra=0, window=window, scale=scale,
-                  k_scale=k_scale, v_scale=v_scale,
-                  head_dims=DECODE_HEAD_DIMS)
+                  k_scale=k_scale, v_scale=v_scale)
     paged_decode_attention_q.launches += 1
     return out
 

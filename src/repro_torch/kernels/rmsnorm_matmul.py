@@ -18,9 +18,29 @@ import torch
 
 from . import _build, ref
 from .block_matmul import _workspace
-from .common import (MMA_BN, ROW_INVARIANT_T, cdiv, check_cuda_operands,
-                     check_launch, kernel_path, mma_plan, sm_count,
-                     split_plan)
+from .common import (MMA_BN, MMA_CFG, ROW_INVARIANT_T, cdiv,
+                     check_cuda_operands, check_launch, gemm_smem,
+                     kernel_path, mma_class, mma_plan, round_up, sm_count,
+                     split_plan, tiled_smem)
+
+
+def smem_bytes(t: int, dtype: torch.dtype, w8: bool = False) -> dict:
+    """{kernel: static + dynamic shared memory per block} of a call at
+    ``t`` rows (K3, or K10a with ``w8``).  bf16: ``rmsnorm_mma_kernel`` in
+    its tile class, the GEMM's ring (``gemm_smem``) beside its static
+    rstd rows, the classes up to 64 rows' per-warp sums and the arrival
+    flag; above 64 rows the row pass first (none).  float32: the tiled
+    kernel with the norm."""
+    if dtype != torch.bfloat16:
+        return tiled_smem(t, w8=w8, norm=True)
+    bm, _ = mma_class(t)
+    warps = {16: 4, 64: 4, 128: 8}[bm]
+    static = 4 * bm + (4 * warps * bm if bm <= ROW_INVARIANT_T else 0) + 4
+    out = {f"rmsnorm_mma_kernel<{MMA_CFG[bm]}, {2 if w8 else 1}>":
+           round_up(static, 16) + gemm_smem(bm, norm=True, w8=w8)}
+    if t > ROW_INVARIANT_T:
+        out["rmsnorm_rstd_kernel"] = 0
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -31,6 +32,36 @@ from .common import (aligned16, check_cuda_operands, check_launch,
 
 # Head sizes the CUDA kernels are built for.
 HEAD_SIZES = (16, 32, 64, 128)
+
+
+def cuda_refusal(n: int) -> Optional[str]:
+    """Why the CUDA build refuses head size ``n``, or None."""
+    if n in HEAD_SIZES:
+        return None
+    return f"head size {n}; the CUDA kernel runs {HEAD_SIZES}"
+
+
+def smem_bytes(n: int, dtype: torch.dtype) -> dict:
+    """{kernel: shared memory per block} of a call at head size ``n``.
+    float32 (static): 2048 / N tokens of r, k and w staged per pass, and
+    their 16 state columns of v.  bf16 (dynamic, ``walk_smem``): a
+    three-slot ring of 16-token sub-blocks (r for the outputs, k, v at a
+    row stride of N + 8, w in float32), the hi + lo planes of k o P (and
+    r o P) and, for the outputs, of the scores, then u and the decay; the
+    carry across segments takes none."""
+    if dtype != torch.bfloat16:
+        tt = 2048 // n
+        return {f"wkv6_kernel<float, {n}>": 4 * (3 * tt * n + tt * 16)}
+    sub, ring, ldv, la = 16, 3, n + 8, 16 + 8
+
+    def walk(out: bool) -> int:
+        slot = ((sub * n * 2 if out else 0) + sub * n * 2 + sub * ldv * 2
+                + sub * n * 4)
+        return (ring * slot + (4 if out else 2) * sub * ldv * 2
+                + (2 * sub * la * 2 if out else 0) + 2 * n * 4)
+    return {f"wkv_seg_state_kernel<{n}>": walk(False),
+            f"wkv_seg_out_kernel<{n}>": walk(True),
+            f"wkv_seg_carry_kernel<{n}>": 0}
 
 
 def workspace_numel(bsz: int, h: int, n: int, nseg: int) -> int:
@@ -74,9 +105,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{r.dtype}, {k.dtype}, {v.dtype})")
     if w.dtype != torch.float32:
         raise TypeError(f"wkv6: the decay w must be float32, got {w.dtype}")
-    if n not in HEAD_SIZES:
-        raise ValueError(f"wkv6: head size {n}; the CUDA kernel runs "
-                         f"{HEAD_SIZES}")
+    why = cuda_refusal(n)
+    if why is not None:
+        raise ValueError(f"wkv6: {why}")
     y = torch.empty_like(r)
     state = torch.empty((bsz, h, n, n), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream

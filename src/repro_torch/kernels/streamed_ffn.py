@@ -29,9 +29,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import _build, ref
-from .common import (FFN_BF, FFN_BN, FFN_BT, ROW_INVARIANT_T, cdiv,
-                     check_cuda_operands, check_launch, ffn_plan,
-                     kernel_path, round_up, sm_count)
+from .common import (FFN_BF, FFN_BN, FFN_BT, FFN_DOWN, FFN_FUSED, FFN_TILES,
+                     FFN_UP, HOPPER_SMS, ROW_INVARIANT_T, cdiv,
+                     check_cuda_operands, check_launch, ffn_mma_smem,
+                     ffn_plan, ffn_tile_name, kernel_path, round_up,
+                     sm_count)
 
 # Tile classes of the float32 kernel in csrc/streamed_ffn.cu: (largest T,
 # BF).  Up to ROW_INVARIANT_T rows every class has BF = 64, so each output
@@ -60,6 +62,73 @@ _F32_OPERANDS = {
 }
 # The kinds with the norm folded in (their float32 entry points take eps).
 _NORM_KINDS = ("ffn", "ffn_gelu_norm", "ffn_w8", "ffn_gelu_norm_w8")
+
+
+# The float32 kernel's instances per tile class: (BT, BF, TM1, TN1, BN2,
+# TM2, TN2) of csrc/streamed_ffn.cuh.
+_F32_INSTANCES = ((8, 64, 1, 2, 128, 1, 4), (32, 64, 2, 4, 128, 2, 8),
+                  (64, 128, 4, 8, 128, 4, 8))
+
+
+def cuda_refusal(gated: bool, activation: str, norm: bool) -> Optional[str]:
+    """Why the CUDA build refuses an FFN, or None when it runs it: the GLU
+    with SiLU and the norm folded in or with GELU, the ungated MLP with
+    GELU and no norm.  The wrappers raise with it; the static checks
+    report it (``analysis/kernel_lint.py``)."""
+    if gated:
+        if (activation, norm) in (("silu", True), ("gelu", False),
+                                  ("gelu", True)):
+            return None
+        return ("the CUDA kernel runs SiLU with the norm folded in or "
+                f"GELU; got activation {activation!r}"
+                + (", a norm_scale" if norm else ", no norm_scale"))
+    if activation == "gelu" and not norm:
+        return None
+    return ("the CUDA kernel runs the ungated MLP with GELU and no folded "
+            f"norm; got activation {activation!r}, norm {norm}")
+
+
+def smem_bytes(t: int, d: int, f: int, dtype: torch.dtype, *,
+               gated: bool, norm: bool, silu: bool, w8: bool = False,
+               sms: int = HOPPER_SMS) -> dict:
+    """{kernel: static + dynamic shared memory per block} of a call at
+    ``t`` rows (``ffn_plan`` on ``sms`` SMs picks the mode and, fused, the
+    h slice's width).  bf16: ``ffn_mma_kernel`` (``ffn_mma_smem``), beside
+    its static arrays, the rstd rows of a folded norm and the arrival flag
+    (rounded to 128 bytes, the ring's alignment): one fused launch up to
+    64 rows, else the norm's row pass, UP and DOWN.  float32: the
+    CUDA-core kernel's static tiles (the staging buffer, the rstd rows, the
+    h tile), then the split sum."""
+    def b(flag) -> str:                 # a template's bool argument
+        return str(bool(flag)).lower()
+    if dtype != torch.bfloat16:
+        bt, bf, *rest = _F32_INSTANCES[tile_class(t)]
+        stage = max(8 * (bt + 1) + 2 * 8 * bf, 8 * rest[2])
+        static = 4 * (stage + (bt if norm else 0) + bf * bt)
+        w = "signed char" if w8 else "float"
+        inst = ", ".join(str(v) for v in (bt, bf, *rest))
+        return {f"streamed_ffn_kernel<float, {w}, {b(gated)}, {b(norm)}, "
+                f"{b(silu)}, {inst}>": round_up(static, 128),
+                "split_reduce_kernel<float>": 0}
+    mode, f_per_split, _ = ffn_plan(t, d, f, sms)
+
+    def entry(tile, kmode, glu, knorm, ksilu, fps=0):
+        bt = FFN_TILES[tile][0]
+        static = (4 * bt if knorm else 0) + (4 if kmode != FFN_UP else 0)
+        name = (f"ffn_mma_kernel<{ffn_tile_name(tile)}, {b(w8)}, {kmode}, "
+                f"{b(glu)}, {b(knorm)}, {b(ksilu)}>")
+        return name, (round_up(static, 128)
+                      + ffn_mma_smem(tile, w8, kmode, glu, fps))
+
+    if mode == 0:
+        tile = "decode" if t <= FFN_TILES["decode"][0] else "verify"
+        return dict([entry(tile, FFN_FUSED, gated, norm, silu,
+                           f_per_split)])
+    out = dict([entry("pass", FFN_UP, gated, False, silu),
+                entry("pass", FFN_DOWN, False, False, False)])
+    if norm:
+        out["rms_rows_kernel"] = 0
+    return out
 
 
 def tile_class(t: int) -> int:
@@ -119,15 +188,13 @@ def _glu_kind(name: str, activation: str, norm_scale,
     """The GLU entry point for an activation and norm setting: SiLU with
     the norm folded in, GELU with or without it; the card refuses the
     rest."""
+    why = cuda_refusal(True, activation, norm_scale is not None)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     kind = {("silu", True): "ffn", ("gelu", False): "ffn_gelu",
-            ("gelu", True): "ffn_gelu_norm"}.get(
-                (activation, norm_scale is not None))
-    if kind is not None:
-        return kind + "_w8" if w8 else kind
-    raise ValueError(f"{name}: the CUDA kernel runs SiLU with the norm "
-                     f"folded in or GELU; got activation {activation!r}"
-                     + (", a norm_scale" if norm_scale is not None
-                        else ", no norm_scale"))
+            ("gelu", True): "ffn_gelu_norm"}[
+                (activation, norm_scale is not None)]
+    return kind + "_w8" if w8 else kind
 
 
 def _run(kind: str, name: str, x, d: int, f: int, eps: float = 0.0,
@@ -223,11 +290,9 @@ def streamed_mlp(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
     if kernel_path(x) == "plain":
         return ref.streamed_mlp(x, wu, wd, activation=activation,
                                 norm_scale=norm_scale, norm_eps=norm_eps)
-    if activation != "gelu" or norm_scale is not None:
-        raise ValueError("streamed_mlp: the CUDA kernel runs GELU without a "
-                         f"folded norm; got activation {activation!r}"
-                         + (", a norm_scale" if norm_scale is not None
-                            else ""))
+    why = cuda_refusal(False, activation, norm_scale is not None)
+    if why is not None:
+        raise ValueError(f"streamed_mlp: {why}")
     check_cuda_operands("streamed_mlp", x.dtype, x, wu, wd)
     if wu.dtype != x.dtype or wd.dtype != x.dtype:
         raise TypeError("streamed_mlp: operands must share the x dtype")
@@ -307,11 +372,9 @@ def streamed_mlp_w8(x: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
         return ref.streamed_mlp_w8(x, wu, wd, wu_scale=wu_scale,
                                    wd_scale=wd_scale, activation=activation,
                                    norm_scale=norm_scale, norm_eps=norm_eps)
-    if activation != "gelu" or norm_scale is not None:
-        raise ValueError("streamed_mlp_w8: the CUDA kernel runs GELU without "
-                         f"a folded norm; got activation {activation!r}"
-                         + (", a norm_scale" if norm_scale is not None
-                            else ""))
+    why = cuda_refusal(False, activation, norm_scale is not None)
+    if why is not None:
+        raise ValueError(f"streamed_mlp_w8: {why}")
     _check_w8("streamed_mlp_w8", x, (wu, wd), (wu_scale, wd_scale))
     out = _run("mlp_w8", "streamed_mlp_w8", x, d, f, wu=wu, us=wu_scale,
                wd=wd, ds=wd_scale)

@@ -21,12 +21,26 @@ import torch
 
 from . import _build, ref
 from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
-                     kernel_path, sm_count)
+                     gemm_smem, kernel_path, sm_count)
 
 # Mirrors the tile shapes of csrc/streamed_xent.cu: float32 64 x 64 (token
 # x vocab), bfloat16 128 x 128 (the Large class of mma_gemm.cuh).
 _BT, _BN = 64, 64
 MMA_BT = 128
+
+
+def smem_bytes(dtype: torch.dtype) -> dict:
+    """{kernel: static + dynamic shared memory per block} of a call (the
+    same at every shape).  bf16: ``xent_mma_kernel`` runs mma_gemm.cuh's
+    128-row class (``gemm_smem``) beside its static per-warp row maxima,
+    sums, gold logits and labels; float32: the CUDA-core kernel's x and W
+    tiles.  The merge of the vocab splits takes none."""
+    if dtype == torch.bfloat16:
+        static = 4 * (2 * MMA_BT * 4 + 2 * MMA_BT)
+        return {"xent_mma_kernel": static + gemm_smem(MMA_BT),
+                "xent_merge_kernel": 0}
+    return {"xent_parts_kernel": 4 * (32 * (_BT + 1) + 32 * _BN),
+            "xent_merge_kernel": 0}
 
 
 @functools.lru_cache(maxsize=None)

@@ -35,6 +35,91 @@ Params = Dict[str, Any]
 W8Weight = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
+# --------------------------------------------------------------------- #
+# Dispatch effect signatures (static analysis, ``analysis/effects.py``)
+# --------------------------------------------------------------------- #
+# Declarative read/write effects of the serving engine's dispatches over
+# the cache they update, as the reference declares them
+# (``repro/models/layers.py:79-135``): the facts the alias checker verifies
+# without running anything.  One entry per dispatch; ops in program order.
+# The port runs no donated jit programs: "donated" reads as "written in
+# place", and a read of such a buffer's pre-dispatch contents after an
+# in-place write to it is the same bug.  Op fields:
+#
+#   reads          buffers read wherever they currently are;
+#   reads_initial  buffers whose pre-dispatch state the op needs;
+#   writes         buffers the op updates in place;
+#   page_indexed   the write scatters through the page table: it must set
+#                  null_routed (dead rows land on ``kv_cache.NULL_PAGE``)
+#                  and, under a KV quant mode, updates_scales (the
+#                  per-page scale rows move with the codes);
+#   cow            copy-on-write: pool page ``src`` duplicated onto ``dst``
+#                  before any scatter; ``fresh_dst`` declares that dst is a
+#                  freshly allocated private page.
+#
+# The declarations follow serving/engine.py (``_admit``,
+# ``_dispatch_chunk``, ``_decode_block``, ``_speculative_block``) and
+# models/model.py.  Every op order is the reference's but one:
+# ``prefill_chunk`` has no copy-on-write step.  The reference's chunk
+# program carries one, always fed NULL pages by its engine; the port's
+# engine makes each pending copy in ``_copy_on_write`` before the next
+# decode or verify dispatch, and ``prefill_chunk`` takes no such operands.
+DISPATCH_EFFECTS: Dict[str, Dict[str, Any]] = {
+    "prefill": {
+        "donated": ("slot_cache",),
+        "ops": (
+            {"name": "model_prefill", "reads": ("params", "tokens"),
+             "writes": ("fresh",)},
+            # ``kv_cache.place_prefill``: the slot's own pages only.
+            {"name": "place_prefill", "reads": ("fresh", "pages"),
+             "writes": ("slot_cache",), "page_indexed": True,
+             "null_routed": True, "updates_scales": True},
+        ),
+    },
+    "prefill_chunk": {
+        "donated": ("slot_cache",),
+        "ops": (
+            {"name": "chunk_scatter",
+             "reads": ("params", "tokens", "table_row", "chunk_pages",
+                       "slot_cache"),
+             "writes": ("slot_cache",), "page_indexed": True,
+             "null_routed": True, "updates_scales": True},
+        ),
+    },
+    "decode": {
+        "donated": ("cache",),
+        "ops": (
+            # ``ServingEngine._copy_on_write`` before the block's steps.
+            {"name": "cow_copy",
+             "reads_initial": ("cache",), "writes": ("cache",),
+             "page_indexed": True, "null_routed": True,
+             "updates_scales": True,
+             "cow": {"src": "cow_src", "dst": "cow_dst",
+                     "fresh_dst": True}},
+            {"name": "decode_scan",
+             "reads": ("params", "tok", "cache", "table"),
+             "writes": ("cache",), "page_indexed": True,
+             "null_routed": True, "updates_scales": True},
+        ),
+    },
+    "verify": {
+        "donated": ("cache",),
+        "ops": (
+            {"name": "cow_copy",
+             "reads_initial": ("cache",), "writes": ("cache",),
+             "page_indexed": True, "null_routed": True,
+             "updates_scales": True,
+             "cow": {"src": "cow_src", "dst": "cow_dst",
+                     "fresh_dst": True}},
+            {"name": "verify_window",
+             "reads": ("params", "toks", "cache", "table"),
+             "writes": ("cache",), "page_indexed": True,
+             "null_routed": True, "updates_scales": True},
+        ),
+    },
+}
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()

@@ -89,8 +89,12 @@ from pageable host memory waits for the stream: the span holds the device
 work still queued (the previous chunk's) as well as the enqueue, and does
 not tell the two apart.
 
-Left for later slices: autotuning, plan verification and meshes (their
-metrics are registered and hold what the reference's hold with them off).
+Before anything is allocated, the engine verifies its plan statically
+(``verify=``, else ``REPRO_VERIFY``, else ``"strict"``: the reference's
+hook, ``analysis.verify_plan`` for the engine's device); the ``verified``
+gauge and ``plan.summary()`` record the outcome.  Left for later slices:
+autotuning and meshes (their metrics are registered and hold what the
+reference's hold with them off).
 The reference's trace probes (``prefill_traces``, ``decode_traces``,
 ``verify_traces``) count jit programs built; the port builds no per-shape
 programs, so they stay 0 and no ``trace.*`` event is emitted.
@@ -98,7 +102,9 @@ programs, so they stay 0 and no ``trace.*`` event is emitted.
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
@@ -106,6 +112,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis import PlanVerificationError, verify_plan
+from ..analysis import errors as diag_errors
 from ..configs.base import ModelConfig
 from ..kernels.common import DeviceLike, cdiv, resolve_device
 from ..kernels.ref import code_view
@@ -276,6 +284,7 @@ class ServingEngine:
                  adaptive_decode_block: bool = False,
                  speculative: bool = False, draft_len: int = 4,
                  quant: Optional[str] = None, telemetry=None, clock=None,
+                 verify: Optional[str] = None,
                  device: DeviceLike = None):
         # ``quant`` replaces the config's quant mode for this engine
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
@@ -312,8 +321,6 @@ class ServingEngine:
         self.chunked = bool(chunked)
         self.device = resolve_device(device)
         self.cfg = cfg
-        # The plan's w8 stages read int8 codes quantized here, once.
-        self.params = quantize_weights(cfg, params)
         self.slots = batch_slots
         self.max_len = max_len
         self.decode_block = max(1, decode_block)
@@ -333,6 +340,34 @@ class ServingEngine:
         if page_size is None:
             page_size = (self.plan.decode_page_size(16)
                          if self.plan is not None else 16)
+        # Static verification (``engine.py:337-365``): the stream verifier
+        # runs over the plan, the pool schema and the dispatch effect
+        # signatures, for this engine's device, before anything is
+        # allocated or launched.  "strict" (the default) refuses a plan
+        # with error diagnostics, "warn" reports them and goes on, "off"
+        # skips; the plan records the outcome.
+        vmode = (verify if verify is not None
+                 else os.environ.get("REPRO_VERIFY", "strict"))
+        if vmode not in ("strict", "warn", "off"):
+            raise ValueError(f"unknown verify mode {vmode!r} "
+                             "(strict | warn | off)")
+        self.verify_mode = vmode
+        if vmode != "off" and self.plan is not None:
+            diags = verify_plan(
+                self.plan, cfg, slots=batch_slots if paged else None,
+                max_len=max_len if paged else None,
+                page_size=min(page_size, max_len) if paged else None,
+                device=self.device.type)
+            errs = diag_errors(diags)
+            self.plan = self.plan.with_verification(
+                not errs, tuple(str(d) for d in diags))
+            if errs:
+                if vmode == "strict":
+                    raise PlanVerificationError(diags)
+                warnings.warn("StreamPlan failed static verification: "
+                              + "; ".join(str(d) for d in errs))
+        # The plan's w8 stages read int8 codes quantized here, once.
+        self.params = quantize_weights(cfg, params)
 
         # Self-speculative decoding: the plan clamps the verify window to
         # its KV page granule (``engine.py:379-408``).
@@ -422,8 +457,8 @@ class ServingEngine:
         reg.gauge("kv_bytes_peak")
         reg.gauge("kv_bytes_cached")
         reg.info("quant", value=cfg.quant)
-        # No plan verifier yet: the reference's value with verify="off".
-        reg.gauge("verified")
+        reg.gauge("verified", value=int(bool(self.plan.verified))
+                  if self.plan is not None else 0)
         reg.gauge("kv_itemsize_effective", value=(
             self.kv.kv_itemsize_effective if self.kv is not None
             else (2.0 if cfg.dtype == "bfloat16" else 4.0)))
@@ -441,8 +476,10 @@ class ServingEngine:
                   value=self.draft_len if self.speculative else 0)
         reg.gauge("accept_rate")
         reg.gauge("dispatches_per_token")
-        # No autotuner yet: the plan's latencies are the analytic model's.
-        reg.info("plan_source", value="analytic")
+        # No autotuner yet: the plan's provenance is the DSE's.
+        reg.info("plan_source",
+                 value=(self.plan.cost_source if self.plan is not None
+                        else "analytic"))
         reg.gauge("autotuned")
         reg.info("tune_table", value="")
         reg.gauge("tune_entries")

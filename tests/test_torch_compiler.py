@@ -44,6 +44,18 @@ from repro_torch.core import fifo_sizing as p_fifo
 from repro_torch.core import trace as p_trace
 from repro_torch.runtime import simulate_dataflow
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCHS = ("llama3-8b", "gpt2", "granite-moe-1b-a400m", "granite-moe-3b-a800m",
          "zamba2-2.7b", "rwkv6-7b", "hubert-xlarge")
 
@@ -193,11 +205,13 @@ def test_platform_and_tier_tables_match_reference():
     from repro.core import platforms as j_platforms
     from repro_torch.core import allocation as p_alloc
     from repro_torch.core import platforms as p_platforms
-    assert _norm(p_platforms.PLATFORMS) == _norm(j_platforms.PLATFORMS)
+    # The reference's four platforms verbatim; the port adds its H100.
+    mine = dict(p_platforms.PLATFORMS)
+    assert mine.pop("h100") is p_platforms.H100
+    assert _norm(mine) == _norm(j_platforms.PLATFORMS)
     assert _norm(p_alloc.TPU_TIERS) == _norm(j_alloc.TPU_TIERS)
     assert _norm(p_alloc.U55C_TIERS) == _norm(j_alloc.U55C_TIERS)
-    assert set(P.__all__) == (set(J.__all__) - {"build_stream_plan"}) | \
-        {"EAGER", "STAGES"}
+    assert set(P.__all__) == set(J.__all__) | {"EAGER", "STAGES", "H100"}
 
 
 # ---------------------------------------------------------- simulator

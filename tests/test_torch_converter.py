@@ -41,6 +41,18 @@ from repro_torch.core import itensor as I
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import stream_converter as sc_mod
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FUNCS = ("infer_converter", "shared_prefix_length", "fusion_verdict",
          "min_buffer_tiles_sim", "conversion_cost_bytes")
 

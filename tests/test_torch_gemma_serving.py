@@ -18,6 +18,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import init_params as j_init_params
@@ -26,6 +27,18 @@ from repro.serving.accuracy import jitter_params as j_jitter_params
 from repro_torch.configs import get_config
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import ServingEngine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ARCH = "gemma3-4b"
 BURST = (150, 40, 300, 9)

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.models import decode_step as j_decode_step
 from repro.models import init_params as j_init_params
 from repro.models import prefill as j_prefill
@@ -36,6 +36,18 @@ from repro_torch.models.layers import layer_norm
 from repro_torch.serving import PagedKVCache, ServingEngine
 from repro_torch.serving import kv_cache as tkv
 from repro_torch.serving.accuracy import jitter_params
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 BURST = (5, 200, 37, 130, 64, 17)

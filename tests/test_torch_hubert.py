@@ -42,7 +42,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.kernels import flash_attention_2d as j_flash_2d
 from repro.models import forward_hidden as j_forward_hidden
 from repro.models import init_params as j_init_params
@@ -54,6 +54,18 @@ from repro_torch.kernels import _build
 from repro_torch.models import (forward_hidden, init_params, model_defs,
                                 params_from_numpy, params_to_numpy)
 from repro_torch.models.params import tree_leaves
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ARCH = "hubert-xlarge"
 REL = 1e-5

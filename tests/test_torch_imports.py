@@ -51,7 +51,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {f"repro_torch.core.{m}" for m in (
         "affine", "itensor", "converter", "graph", "token_model",
         "fifo_sizing", "fusion", "platforms", "tiling", "trace", "dse",
-        "partition", "allocation", "dma", "lowering")} <= set(modules)
+        "partition", "allocation", "dma", "lowering",
+        "stream_plan")} <= set(modules)
+    assert {f"repro_torch.analysis.{m}" for m in (
+        "diagnostics", "itensor_check", "effects", "sharding_check",
+        "kernel_lint", "verify")} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"mods = {modules!r}\n"

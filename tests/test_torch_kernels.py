@@ -26,6 +26,18 @@ from repro_torch import kernels as K
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import pick_block, resolve_device
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

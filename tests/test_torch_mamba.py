@@ -16,7 +16,7 @@
   each plain version against its Pallas kernel; on the card route the
   wrappers take them (and K13) to the launch and still refuse head dim 80
   for K2 and K8.
-* The config, the plan pinned to ``repro.core.stream_plan.plan_for``
+* The config, the plan pinned to the reference compiler on H100
   (both layer kinds and the loss, full and reduced, 4 to 2048 tokens,
   with and without ``w8_kv8``), the cache schema, and the parameter
   bridge with the ``shared`` block in both directions.
@@ -33,7 +33,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.kernels import flash_attention_2d as j_flash_2d
 from repro.kernels import paged_decode_attention as j_paged_decode
 from repro.kernels import streamed_ffn as j_streamed_ffn
@@ -51,6 +51,18 @@ from repro_torch.models.layers import quantize_channelwise
 from repro_torch.models.params import (attn_pool_indices, quantize_weights,
                                        tree_leaves)
 from repro_torch.serving.kv_cache import paged_cache_defs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 ARCH = "zamba2-2.7b"
@@ -339,10 +351,6 @@ def test_config_matches_reference():
                                                                       80)
 
 
-def _without_page_size(blocks):
-    return tuple(b for b in blocks if b[0] != "page_size")
-
-
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
 def test_plan_for_matches_reference(reduced):
     base, j_base = get_config(ARCH), j_get_config(ARCH)
@@ -360,17 +368,12 @@ def test_plan_for_matches_reference(reduced):
                 lp, rlp = mine.layer(kind), want.layer(kind)
                 for stage in STAGES:
                     got, exp = getattr(lp, stage), getattr(rlp, stage)
-                    # The page size stays 16 (the port's known
-                    # difference: the reference's DSE picks 64 for the
-                    # reduced config at 2048 tokens).
-                    assert (got.implementation,
-                            _without_page_size(got.blocks)) == (
-                        exp.implementation,
-                        _without_page_size(exp.blocks)), (kind, stage,
+                    assert (got.implementation, got.blocks) == (
+                        exp.implementation, exp.blocks), (kind, stage,
                                                           tokens, quant)
             assert (mine.lm_head.implementation, mine.lm_head.blocks) == (
                 want.lm_head.implementation, want.lm_head.blocks)
-            assert mine.decode_page_size() == 16
+            assert mine.decode_page_size() == want.decode_page_size()
 
 
 def test_cache_schema_pools_only_the_shared_applications():

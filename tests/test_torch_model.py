@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.models import decode_step as j_decode_step
 from repro.models import init_params as j_init_params
 from repro.models import prefill_chunk as j_prefill_chunk
@@ -26,6 +26,18 @@ from repro_torch.core.stream_plan import STAGES, plan_for
 from repro_torch.models import (decode_step, init_params, model_defs,
                                 params_from_numpy, prefill_chunk)
 from repro_torch.serving.kv_cache import PagedKVCache, stage_chunk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 
@@ -182,19 +194,46 @@ def test_plan_for_matches_reference(arch):
     assert plan_for(base, 4, 256) is None          # eager config
 
 
-def test_plan_for_refuses_unported_family():
-    """Families still unported: a non-causal encoder with a gated FFN
-    (hubert's ungated one is ported), a gated FFN under LayerNorm, an
-    ungated MLP under RMSNorm."""
-    llama = get_config("llama3-8b").reduced()
-    gpt2 = get_config("gpt2").reduced()
-    for base, change in ((gpt2, dict(encoder_only=True, causal=False,
-                                     gated_ffn=True)),
-                         (gpt2, dict(gated_ffn=True)),
-                         (llama, dict(gated_ffn=False))):
+# Families the fixed plan table refused, which the compiler now plans:
+# a non-causal encoder with a gated FFN (hubert's ungated one is served),
+# a gated FFN under LayerNorm, an ungated MLP under RMSNorm.
+OFF_REGISTRY = {
+    "gpt2-encoder-glu": ("gpt2", dict(encoder_only=True, causal=False,
+                                      gated_ffn=True)),
+    "gpt2-glu": ("gpt2", dict(gated_ffn=True)),
+    "llama3-mlp": ("llama3-8b", dict(gated_ffn=False)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OFF_REGISTRY))
+def test_unregistered_family_gets_reference_plan(name):
+    """Each gets the reference compiler's plan (on H100's constants);
+    verified for the card at full width, its cases the CUDA builds refuse
+    are ``unsupported-case`` errors and nothing else is (the ungated MLP
+    with SiLU and the norm folded in is refused), and on the CPU, where
+    the plain versions run, it verifies clean."""
+    from repro_torch.analysis import errors, verify_plan
+    arch, change = OFF_REGISTRY[name]
+    for reduced in (True, False):
+        base, j_base = get_config(arch), j_get_config(arch)
+        if reduced:
+            base, j_base = base.reduced(), j_base.reduced()
         cfg = dataclasses.replace(base, use_fused_kernels=True, **change)
-        with pytest.raises(NotImplementedError):
-            plan_for(cfg, 4, 256)
+        j_cfg = dataclasses.replace(j_base, use_fused_kernels=True, **change)
+        mine, ref = plan_for(cfg, 4, 256), j_plan_for(j_cfg, 4, 256)
+        assert mine.summary() == ref.summary()
+        for kind, lp in mine.layers:
+            for stage in STAGES:
+                got, want = getattr(lp, stage), getattr(ref.layer(kind),
+                                                        stage)
+                assert (got.implementation, got.blocks) == (
+                    want.implementation, want.blocks), (kind, stage)
+        assert not errors(verify_plan(mine, cfg, device="cpu"))
+        if not reduced:
+            errs = errors(verify_plan(mine, cfg, device="cuda"))
+            refused = ({"attn.ffn"} if name == "llama3-mlp" else set())
+            assert {d.stage for d in errs} == refused
+            assert all(d.code == "unsupported-case" for d in errs)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

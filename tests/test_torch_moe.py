@@ -12,7 +12,7 @@
   at relative 1e-6 (the two frameworks' float32 ``exp`` differ by an ulp,
   so the softmax cannot match bit for bit).
 * The configs, the MoE parameter leaves through the numpy bridge (both
-  ways, bit for bit), and the plan pinned to the reference ``plan_for``.
+  ways, bit for bit), and the plan pinned to the reference compiler on H100.
 * ``prefill``, ``prefill_chunk``, ``decode_step`` and ``verify_step``
   logits against ``repro.models`` at relative 1e-5, both granite configs
   reduced, kernel and eager plans.
@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.kernels.moe_experts import moe_experts_pallas
 from repro.models import decode_step as j_decode_step
 from repro.models import init_params as j_init_params
@@ -49,6 +49,18 @@ from repro_torch.models import (decode_step, layers as L, model_defs,
 from repro_torch.models.params import tree_leaves
 from repro_torch.serving import PagedKVCache
 from repro_torch.serving.kv_cache import stage_chunk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 ARCHS = ("granite-moe-1b-a400m", "granite-moe-3b-a800m")

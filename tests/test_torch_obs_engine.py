@@ -86,8 +86,10 @@ def runs():
     ref = JServingEngine(j_cfg, jp, verify="off", telemetry=True,
                          clock=JManualClock(tick=1e-4), **KW)
     want = ref.generate([p.copy() for p in prompts], max_new_tokens=NEW)
+    # Both engines skip the plan verifier (``verified`` 0 on both sides);
+    # test_torch_analysis.py holds the strict engines' gauges equal.
     eng = ServingEngine(t_cfg, tp, device="cpu", telemetry=True,
-                        clock=ManualClock(tick=1e-4), **KW)
+                        clock=ManualClock(tick=1e-4), verify="off", **KW)
     got = eng.generate([p.copy() for p in prompts], max_new_tokens=NEW)
     off = ServingEngine(t_cfg, tp, device="cpu", **KW)
     got_off = off.generate([p.copy() for p in prompts], max_new_tokens=NEW)

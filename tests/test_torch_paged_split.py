@@ -28,6 +28,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import PAGED_PART, cdiv, paged_plan
 from test_torch_tensorcore import _FakeLib
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pa_mod = importlib.import_module("repro_torch.kernels.paged_attention")
 P = PAGED_PART
 CH = 32              # the kernel's tile: one position per lane

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.kernels import flash_attention_2d as j_flash_2d
 from repro.kernels import paged_decode_attention as j_paged_decode
 from repro.kernels import paged_verify_attention as j_paged_verify
@@ -57,6 +57,18 @@ from repro_torch.models.params import (dequantize_weights, quantize_weights,
 from repro_torch.serving import PagedKVCache, ServingEngine
 from repro_torch.serving import kv_cache as tkv
 from repro_torch.serving.kv_cache import stage_chunk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 ARCHS = ("llama3-8b", "gpt2")

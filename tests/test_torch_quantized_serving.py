@@ -15,6 +15,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import init_params as j_init_params
@@ -25,6 +26,18 @@ from repro_torch.configs import get_config
 from repro_torch.models import params_from_numpy
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.accuracy import run_accuracy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ARCHS = ("llama3-8b", "gpt2")
 

@@ -38,7 +38,7 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import ShapeConfig as JShapeConfig
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.distributed.optimizer import AdamWConfig as JAdamWConfig
 from repro.distributed.optimizer import init_opt_state as j_init_opt_state
 from repro.launch.mesh import make_host_mesh

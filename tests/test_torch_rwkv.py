@@ -13,7 +13,7 @@
 * On the card route the wrapper takes bf16 and f32 r/k/v with f32 w to
   the launch and refuses a bf16 decay, mixed r/k/v dtypes and a head
   size its build lacks.
-* The config, the plan pinned to ``repro.core.stream_plan.plan_for``
+* The config, the plan pinned to the reference compiler on H100
   (full and reduced, 1 to 4096 tokens, with and without ``w8``), the
   state-cache schema (wkv float32, the shifts bfloat16 under float32, no
   K/V pools), and the parameter bridge in both directions.
@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
-from repro.core.stream_plan import plan_for as j_plan_for
+from test_torch_stream_plan import j_plan_for  # the reference on H100
 from repro.kernels.rwkv6_wkv import wkv6_pallas
 from repro.models import init_params as j_init_params
 from repro.models import layers as JL
@@ -44,6 +44,18 @@ from repro_torch.models import (init_params, model_defs, params_from_numpy,
 from repro_torch.models.params import (has_kv_pools, quantize_weights,
                                        state_cache_defs, tree_leaves)
 from repro_torch.serving.kv_cache import PagedKVCache, paged_cache_defs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REL = 1e-5
 ARCH = "rwkv6-7b"

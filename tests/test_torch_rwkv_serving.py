@@ -44,6 +44,18 @@ from repro_torch.serving import PagedKVCache, ServingEngine
 from repro_torch.serving import accuracy as taccuracy
 from repro_torch.serving import kv_cache as tkv
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-5
 ARCH = "rwkv6-7b"
 STATE = ("wkv", "tm_shift", "cm_shift")

@@ -22,6 +22,18 @@ from repro_torch.models import params_from_numpy
 from repro_torch.serving import NULL_PAGE, PagedKVCache, ServingEngine
 from repro_torch.serving import kv_cache as tkv
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BURST = (5, 200, 37, 130, 64, 17)
 
 

@@ -40,6 +40,18 @@ from repro_torch.serving import NULL_PAGE, PagedKVCache, ServingEngine
 from repro_torch.serving import kv_cache as tkv
 from repro_torch.serving.kv_cache import stage_chunk
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-5
 ARCHS = ("llama3-8b", "gpt2")
 # Counters the JAX engine's registry and the port's metrics must agree on.

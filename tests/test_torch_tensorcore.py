@@ -34,6 +34,18 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.common import (MMA_BN, ROW_INVARIANT_T, cdiv,
                                        mma_plan)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 # The wrapper modules (the package exports functions of the same names).
 bm_mod = importlib.import_module("repro_torch.kernels.block_matmul")

@@ -20,6 +20,18 @@ from repro_torch.kernels.common import (FFN_BF, FFN_BN, FFN_BT,
                                        FFN_FUSED_BF, ROW_INVARIANT_T, cdiv,
                                        ffn_plan, round_up)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ffn_mod = importlib.import_module("repro_torch.kernels.streamed_ffn")
 # (D, F, gated) of each path's FFN: llama3-8b (K4, K10b), gpt2's MLP (K6,
 # K10c) and zamba2-2.7b's shared block (K4, K10b with GELU).

@@ -33,6 +33,18 @@ from repro_torch.serving import kv_cache as tkv
 
 from test_torch_tensorcore import _FakeLib, _global_functions, _own_kernels
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")
 BF16, F32 = torch.bfloat16, torch.float32
 FP8 = torch.float8_e4m3fn

@@ -38,6 +38,18 @@ from repro_torch.models.layers import quantize_channelwise
 from test_torch_tensorcore import (_FakeLib, _global_functions,
                                    _own_kernels)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 bm_mod = importlib.import_module("repro_torch.kernels.block_matmul")
 k3_mod = importlib.import_module("repro_torch.kernels.rmsnorm_matmul")
 xent_mod = importlib.import_module("repro_torch.kernels.streamed_xent")

@@ -15,6 +15,17 @@ from repro.kernels import flash_attention_2d as j_flash_2d
 from repro_torch.kernels import ref
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq", [1, 37, 64, 128])
 @pytest.mark.parametrize("q_offset", [0, 63, 64, 65, 896])

@@ -32,6 +32,18 @@ from repro_torch.kernels.common import SSD_SEG, cdiv, ssd_plan
 
 from test_torch_tensorcore import _FakeLib, _global_functions, _own_kernels
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ssd_mod = importlib.import_module("repro_torch.kernels.mamba2_scan")
 BF16, F32 = torch.bfloat16, torch.float32
 REL = 1e-5

@@ -59,6 +59,18 @@ from repro_torch.models.params import map_tree, tree_leaves
 from repro_torch.train import (Trainer, TrainerConfig, latest_checkpoint,
                                restore_checkpoint)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-5
 
 

@@ -21,6 +21,18 @@ from repro_torch import kernels as K
 from repro_torch.kernels.streamed_xent import vocab_split
 from repro_torch.models import layers as L
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-5
 
 

@@ -48,6 +48,18 @@ from repro_torch.models import (forward_train, params_from_numpy,
 from repro_torch.models.params import map_tree, tree_leaves
 from repro_torch.train import Trainer, TrainerConfig, latest_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module (restored after), so that the
+    test workers running beside one another do not oversubscribe the
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = "zamba2-2.7b"
 B, S = 2, 32
 # Kernel-wrapper calls per forward on the kernel plan: K13 in every
