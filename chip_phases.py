@@ -160,6 +160,11 @@ parent.  Phases:
              before it in the same call built) verified for the card, and
              each stage's kernels' shared memory profiled against the
              lint's count (it builds every source);
+  tune_roundtrip, tune_serve
+             those phases of ``chip_smoke.py``: the autotuner's round
+             trip on gpt2 at full size (bf16 and float32), and
+             llama3-8b's tuning pass and chunked burst untuned and tuned
+             at ``SERVE_LAYERS``;
   serve_telemetry, obs_demo
              those phases of ``chip_smoke.py``: llama3-8b's chunked burst
              at ``SERVE_LAYERS`` with telemetry off and on (tokens,
@@ -263,6 +268,9 @@ SOURCES["serve_pages"] = ["block_matmul", "streamed_ffn", "flash_mma",
 # gpt2's speculative path: K5, K6, K2, K8 at head dim 64, the row norm.
 SOURCES["obs_demo"] = ["block_matmul", "streamed_ffn", "flash_mma",
                        "flash_attention", "paged_attention_64", "row_norm"]
+# The tuner's drivers time the LM-head loss (K11) beside the serving path.
+SOURCES["tune_roundtrip"] = SOURCES["obs_demo"] + ["streamed_xent"]
+SOURCES["tune_serve"] = SERVE_SOURCES + ["streamed_xent"]
 
 
 def emit(obj) -> None:
@@ -928,6 +936,10 @@ def main() -> int:
         elif phase == "obs_demo":
             os.makedirs(args.out, exist_ok=True)
             cs.obs_demo(torch, args.out)
+        elif phase == "tune_roundtrip":
+            cs.tune_roundtrip(torch)
+        elif phase == "tune_serve":
+            cs.tune_serve(torch, timer)
         elif phase == "hubert_train":
             cs.hubert_train(torch)
         else:

@@ -340,6 +340,26 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               full width, 2 layers, chunked + speculative, telemetry on
               and off): exit code 0, its three files written, launches
               exactly the speculative gpt2 path's;
+   tune_roundtrip — ``python -m repro_torch.tuning``'s round trip on
+              gpt2 at full width and depth (jittered), bf16 and float32, 4
+              slots over 1024 positions: the first engine start tunes
+              (the card's lint prunes, CUDA events time the five driver
+              families) and writes a table stamped with the card's
+              fingerprint, the second makes zero measurements, resolves an
+              equal plan and decodes equal tokens; the driver families'
+              entries ``measured``, the paged ones ``analytic``; float32
+              tokens equal to the untuned engine's; two candidates of each
+              driver stage that the card signature collapses give
+              bit-equal outputs (all required);
+   tune_serve — llama3-8b at 8 layers, bf16: the tuning pass over the
+              engine's plan (host seconds, the card memory it adds, each
+              measured latency beside the same call timed as ``kernel``
+              times and that phase's row), then the chunked burst untuned
+              and tuned: every driver stage timed once, the plan
+              ``hybrid``, the tuned burst's launches exact for its page
+              size and chunk, its tokens equal to the untuned burst's or
+              each differing request traced to the granules (required);
+              TTFT and TPOT of both (reported);
 9. train_fused_vs_eager — the four models at full width cut to 4 layers
               (gemma3-4b 6, weights jittered), float32, B = 2, S = 256:
               the kernel plan's ``forward_train``
@@ -3416,14 +3436,16 @@ def admission_fused_vs_eager(torch, cfg, *, jitter, phase, expect,
 
 def serve(torch, cfg, params, expect, *, init_s, chunked=True,
           phase="serve", device="cuda", max_len=2048, lo=37, hi=1000,
-          new=32, profile=False, lengths=None, engine_kw=None):
+          new=32, profile=False, lengths=None, engine_kw=None,
+          keep_tokens=False):
     """A mixed burst of 8 prompts through the engine with the kernel plan;
     the kernels in ``expect`` must each launch, and no other.  ``profile``:
     the burst once more, through a fresh engine, under ``torch.profiler``
     (device ms by stage, idle share of its wall).  ``lengths``: the
     prompts' lengths (default: ``lo``, ``hi`` and 6 drawn between).
     ``engine_kw``: more engine arguments (``paged=False``: the contiguous
-    slot cache)."""
+    slot cache).  ``keep_tokens``: the row keeps every request's tokens
+    (``tokens``)."""
     from repro_torch import kernels as K
     from repro_torch.models.params import cache_leaf_kind, weight_bytes
     from repro_torch.serving import ServingEngine
@@ -3478,6 +3500,8 @@ def serve(torch, cfg, params, expect, *, init_s, chunked=True,
            "solo_repeats_burst": solo == reqs[0].out_tokens,
            "first_tokens": reqs[0].out_tokens[:8]}
     emit(row)
+    if keep_tokens:
+        row["tokens"] = [r.out_tokens for r in reqs]
     problems = []
     for name, c in counts.items():
         if (c > 0) != (name in expect):
@@ -5725,6 +5749,305 @@ def serve_pages(torch, timer, device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------- #
+# The autotuner: the round trip on gpt2 at full size, llama3-8b's chunked
+# burst under a tuned plan
+# --------------------------------------------------------------------- #
+
+# The round trip's gpt2 burst: ``serve_pages``'s prompts (across chunk and
+# page edges) at ``max_len`` 1024.
+TUNE_LENGTHS = PAGES_LENGTHS
+TUNE_MAX_LEN = 1024
+TUNE_NEW = 16
+TUNE_DIR = os.path.join(ROOT, "build", "tune")
+
+
+def _tune_path(name: str) -> str:
+    """A fresh table file under ``build/tune/`` (any old one removed)."""
+    os.makedirs(TUNE_DIR, exist_ok=True)
+    path = os.path.join(TUNE_DIR, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _table_sources(path: str) -> dict:
+    """({kernel family: sorted sources of its entries}, backend) of a
+    table file."""
+    with open(path) as fh:
+        raw = json.load(fh)
+    out: dict = {}
+    for key, e in raw["entries"].items():
+        out.setdefault(key.split("|")[0], set()).add(e["source"])
+    return {k: sorted(v) for k, v in out.items()}, raw["backend"]
+
+
+def _collapsed_bits(torch, cfg, plan, device="cuda"):
+    """For each stage of a driver family: its choice and the lattice point
+    with every hint-only block (a name outside the family's
+    ``CARD_BLOCKS``) moved to another lattice value, which the card
+    signature collapses onto the choice, each through the tuner's driver
+    on the same seeded operands: {stage: (blocks, other blocks, outputs
+    bit-equal)}.  Equal bits are what the declaration claims."""
+    from repro_torch.tuning import card_blocks
+    from repro_torch.tuning.autotune import _signature, _tune_spaces
+    from repro_torch.tuning.measure import DRIVEN, _driver
+    dev = torch.device(device)
+    out = {}
+    for kind, stage, choice in plan.stage_choices():
+        if (not choice.fused
+                or choice.implementation not in DRIVEN):
+            continue
+        space = _tune_spaces()[choice.implementation]
+        keep = card_blocks(choice.implementation, cfg.dtype)
+        other = dataclasses.replace(choice, blocks=tuple(
+            (n, next(x for x in sorted(space[n]) if x != v)
+             if n in space and n not in keep else v)
+            for n, v in choice.blocks))
+        if (_signature(cfg, plan, stage, other, "cuda")
+                != _signature(cfg, plan, stage, choice, "cuda")):
+            raise AssertionError(f"{kind}.{stage}: {other.blocks} does not "
+                                 f"collapse onto {choice.blocks}")
+        a = _driver(cfg, plan, stage, choice, dev)()
+        b = _driver(cfg, plan, stage, other, dev)()
+        _sync(torch, device)
+        out[f"{kind}.{stage}"] = {
+            "blocks": [list(choice.blocks), list(other.blocks)],
+            "equal": bool(torch.equal(a, b))}
+        del a, b
+    return out
+
+
+def tune_roundtrip(torch, device="cuda"):
+    """``python -m repro_torch.tuning``'s round trip on gpt2 at full width
+    and depth (24 layers, jittered seed-5 weights), bf16 and float32: 4
+    slots, ``max_len`` 1024, ``TUNE_LENGTHS`` prompts, ``TUNE_NEW`` new
+    tokens.  Required: the first start tunes and writes a table stamped
+    with the card's fingerprint, whose driver families' entries are
+    ``measured`` and paged entries ``analytic``; the second start makes
+    zero measurements and resolves an equal plan and equal tokens; in
+    float32 the tuned tokens equal the untuned engine's (bf16: reported);
+    for each driver family two candidates the card signature collapses
+    give bit-equal outputs (``_collapsed_bits``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.stream_plan import plan_for
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tuning import backend_fingerprint
+    from repro_torch.tuning.__main__ import round_trip
+    from repro_torch.tuning.measure import DRIVEN
+    fp = backend_fingerprint(device)
+    out, bad = {"backend": fp}, []
+    prompts = burst(np.random.default_rng(5), get_config("gpt2").vocab_size,
+                    TUNE_LENGTHS)
+    for dname in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("gpt2"), dtype=dname,
+                                  use_fused_kernels=True)
+        params = _weights(torch, cfg, 5, jitter=True, device=device)
+        path = _tune_path(f"gpt2-{dname}.json")
+        t0 = time.perf_counter()
+        stats, failures = round_trip(
+            cfg, params, prompts, path=path, device=device, slots=SLOTS,
+            max_len=TUNE_MAX_LEN, new_tokens=TUNE_NEW)
+        wall = time.perf_counter() - t0
+        sources, backend = _table_sources(path)
+        plan_for.cache_clear()
+        base = ServingEngine(cfg, params, batch_slots=SLOTS,
+                             max_len=TUNE_MAX_LEN, device=device)
+        untuned = [r.out_tokens for r in base.generate(
+            [p.copy() for p in prompts], max_new_tokens=TUNE_NEW)]
+        geometry = (base.metrics["page_size"], base.metrics["prefill_chunk"])
+        del base
+        bits = _collapsed_bits(torch, cfg, plan_for(cfg, SLOTS,
+                                                    TUNE_MAX_LEN), device)
+        same = stats["tokens"] == untuned
+        row = {"phase": "tune_roundtrip", "config": cfg.name,
+               "layers": cfg.num_layers, "dtype": dname, "wall_s": wall,
+               **{k: v for k, v in stats.items() if k != "tokens"},
+               "table_backend": backend, "entry_sources": sources,
+               "untuned_geometry": list(geometry),
+               "tuned_equals_untuned": same,
+               "first_divergence": [_first_divergence(a, b) for a, b in
+                                    zip(stats["tokens"], untuned)],
+               "collapsed_bits": bits}
+        emit(row)
+        out[dname] = row
+        bad += [f"{dname}: {f}" for f in failures]
+        if backend != fp:
+            bad.append(f"{dname}: table backend {backend!r}, not {fp!r}")
+        for fam, srcs in sources.items():
+            want = ["measured"] if fam in DRIVEN else ["analytic"]
+            if srcs != want:
+                bad.append(f"{dname}: {fam} entries {srcs}, expected {want}")
+        if not set(DRIVEN) & set(sources):
+            bad.append(f"{dname}: no driver family was timed")
+        if dname == "float32" and not same:
+            bad.append("float32: tuned tokens differ from the untuned "
+                       "engine's")
+        for st, b in bits.items():
+            if not b["equal"]:
+                bad.append(f"{dname} {st}: collapsed candidates differ")
+        del params
+        _free(torch, device)
+    if bad:
+        raise AssertionError("tune_roundtrip: " + "; ".join(bad))
+    return out
+
+
+def _kernel_row_ms(rows, name, shape):
+    """The ``kernel`` phase's bf16 llama3-8b time of ``name`` at ``shape``
+    (its shape label), or None where it has no such row."""
+    for r in rows or ():
+        if (r["name"] == name and r["model"] == "llama3-8b"
+                and r["dtype"] == "bfloat16" and r["shape"] == shape):
+            return r["ms"]
+    return None
+
+
+def tune_serve(torch, timer, rows=None, device="cuda"):
+    """llama3-8b at full width, ``SERVE_LAYERS`` deep, bf16, seed-2 weights:
+    the tuning pass over the engine's plan (4 slots over 2048 positions)
+    into a fresh table (host seconds, the card memory it adds at its
+    peak; each measured latency beside the same call timed as the
+    ``kernel`` phase times (L2 flushed) and that phase's row at the same
+    shape, from ``rows``), then ``serve``'s chunked burst untuned and
+    under ``autotune=`` that tuner.  Required: every driver stage timed
+    once and ``measured``, the plan ``hybrid``; the tuned burst launches
+    exactly its path's kernels (``qwen_launches`` from its chunks and
+    decode ticks), in as many chunks as the tuned chunk cuts the prompts
+    into, over the tuned page size; its bf16 tokens equal the untuned
+    burst's, or every differing request equals the untuned plan served at
+    the tuned page size and chunk (its cause: the granules)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.stream_plan import plan_for
+    from repro_torch.tuning import Tuner, make_key
+    from repro_torch.tuning.autotune import _shape_ctx
+    from repro_torch.tuning.measure import DRIVEN, _driver
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              use_fused_kernels=True,
+                              num_layers=SERVE_LAYERS["llama3-8b"])
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    params = _weights(torch, cfg, 2, jitter=False, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    max_len = 2048
+    tuner = Tuner(_tune_path("llama3-8b.json"), device=device)
+    base = plan_for(cfg, SLOTS, max_len)
+    _sync(torch, device)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    tuned = tuner.tune_plan(cfg, base)
+    _sync(torch, device)
+    tune_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0 if cuda else None
+    bad, latencies = [], []
+    for kind, stage, choice in tuned.stage_choices():
+        if not choice.fused or stage == "verify_attn":
+            continue
+        key = make_key(choice.implementation, shape=_shape_ctx(cfg, tuned),
+                       dtype=cfg.dtype, quant=cfg.quant,
+                       mesh_axes=tuned.mesh_axes, blocks=choice.blocks)
+        entry = tuner.table.entries[key]
+        fam = choice.implementation
+        same = sum(1 for k in tuner.table.entries
+                   if k.split("|")[0] == fam)
+        lat = {"stage": f"{kind}.{stage}", "kernel": fam,
+               "blocks": list(choice.blocks), "source": choice.source,
+               "tuned_ms": entry.latency_s * 1e3, "entries": same}
+        if fam in DRIVEN:
+            fn = _driver(cfg, tuned, stage, choice, torch.device(device))
+            lat["kernel_phase_ms"] = timer(fn)
+            t, d = tuned.tokens, cfg.d_model
+            label = {"rmsnorm_matmul": f"T={t},D={d},N="
+                     f"{min(cfg.q_dim, cfg.kv_dim)}",
+                     "streamed_ffn": f"T={t},D={d},F={cfg.d_ff}"}.get(fam)
+            lat["kernel_row_ms"] = _kernel_row_ms(rows, fam, label)
+            del fn
+            if choice.source != "measured" or same != 1:
+                bad.append(f"{kind}.{stage}: {same} entries, source "
+                           f"{choice.source}")
+        latencies.append(lat)
+    _free(torch, device)
+    row = {"phase": "tune_serve_pass", "config": cfg.name,
+           "layers": layers, "tokens": tuned.tokens,
+           "kv_len": tuned.kv_len, "host_s": tune_s,
+           "peak_card_bytes": peak, "candidates": tuner.stats.candidates,
+           "pruned": tuner.stats.pruned, "measured": tuner.stats.measured,
+           "plan_source": tuned.cost_source,
+           "page_size": tuned.decode_page_size(),
+           "base_page_size": base.decode_page_size(),
+           "latencies": latencies}
+    emit(row)
+    if tuned.cost_source != "hybrid":
+        bad.append(f"plan source {tuned.cost_source}, expected hybrid")
+    out = {"pass": row}
+    out["untuned"] = serve(torch, cfg, params, LLAMA_PATH, init_s=init_s,
+                           device=device, max_len=max_len, hi=1000,
+                           phase="tune_serve_untuned", keep_tokens=True)
+    _free(torch, device)
+    out["tuned"] = serve(torch, cfg, params, LLAMA_PATH, init_s=init_s,
+                         device=device, max_len=max_len, hi=1000,
+                         phase="tune_serve", keep_tokens=True,
+                         engine_kw={"autotune": tuner})
+    _free(torch, device)
+    r = out["tuned"]
+    ps, chunk = r["page_size"], r["prefill_chunk"]
+    if ps != tuned.decode_page_size():
+        bad.append(f"page size {ps}, the tuned plan's "
+                   f"{tuned.decode_page_size()}")
+    if chunk != min(tuned.prefill_chunk_size(ps), max_len):
+        bad.append(f"chunk {chunk} is not the tuned plan's")
+    m = r["metrics"]
+    chunks = sum(-(-n // chunk) for n in r["prompt_lengths"])
+    if m["prefix_hit_pages"] == 0 and m["prefill_chunks"] != chunks:
+        bad.append(f"{m['prefill_chunks']} chunks, the tuned chunk cuts "
+                   f"{chunks}")
+    got = {k: n for k, n in r["launches"].items() if n}
+    want = qwen_launches(layers, m["prefill_chunks"], m["scan_ticks"],
+                         whole=False)
+    if got != want:
+        bad.append(f"launched {got}, expected {want}")
+    differ = [i for i, (a, b) in enumerate(zip(r["tokens"],
+                                               out["untuned"]["tokens"]))
+              if a != b]
+    causes = {}
+    if differ:
+        geo = serve(torch, cfg, params, LLAMA_PATH, init_s=init_s,
+                    device=device, max_len=max_len, hi=1000,
+                    phase="tune_serve_geometry", keep_tokens=True,
+                    engine_kw={"page_size": ps, "prefill_chunk": chunk})
+        _free(torch, device)
+        for i in differ:
+            causes[i] = {
+                "first_divergence": _first_divergence(
+                    r["tokens"][i], out["untuned"]["tokens"][i]),
+                "cause": ("the tuned page size and chunk: the untuned plan "
+                          "at them gives the tuned tokens"
+                          if geo["tokens"][i] == r["tokens"][i]
+                          else "unexplained")}
+        bad += [f"request {i}: tuned tokens differ, cause unexplained"
+                for i, c in causes.items() if c["cause"] == "unexplained"]
+    summary = {"phase": "tune_serve_tokens", "tokens_equal": not differ,
+               "differing": causes,
+               "ttft_p50_s": [out["untuned"]["ttft_p50_s"],
+                              r["ttft_p50_s"]],
+               "tpot_mean_ms": [out["untuned"]["tpot_mean_ms"],
+                                r["tpot_mean_ms"]],
+               "geometry": [[out["untuned"]["page_size"],
+                             out["untuned"]["prefill_chunk"]], [ps, chunk]],
+               "launches_exact": got == want}
+    emit(summary)
+    out["tokens"] = summary
+    del params
+    _free(torch, device)
+    if bad:
+        raise AssertionError("tune_serve: " + "; ".join(bad))
+    return out
+
+
 # ``plan_verify``: every registry config at full width, in each quant mode
 # whose path it has, in bf16 and float32 (the float32 cuts' kernels), at
 # these (tokens, kv_len) beside the shapes the run's own phases resolved: 4
@@ -6173,6 +6496,9 @@ def main(argv=None) -> int:
         torch, out_dir,
         serve_row=results["full_depth"]["llama3-8b"]["serve"]["chunked"])
     results["obs_demo"] = obs_demo(torch, out_dir)
+    results["tune_roundtrip"] = tune_roundtrip(torch)
+    results["tune_serve"] = tune_serve(torch, timer,
+                                       rows=results["kernel_checks"])
     results["train_fused_vs_eager"] = {
         m: train_fused_vs_eager(torch, small[m], m, jitter=jit)
         for m, (_, jit, _, _) in models.items()}
@@ -6254,6 +6580,8 @@ def main(argv=None) -> int:
         paths.append(("gpt2", path, results["serve_pages"]["bursts"][
             f"bfloat16/{engine}/{PAGES_MAX_LEN}"]["launches"]))
     rows = rows + results["serve_pages"]["kernel_rows"]
+    paths.append(("llama3-8b", "tuned_chunked",
+                  results["tune_serve"]["tuned"]["launches"]))
     for quant, r in results["zamba_serve"].items():
         paths.append((ZAMBA, "whole_prompt" if quant == "none"
                       else "quant_whole_prompt", r["launches"]))

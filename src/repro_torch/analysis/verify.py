@@ -18,8 +18,10 @@ on ``"cuda"`` the kernel lint also reports the cases a CUDA build refuses
 (``unsupported-case``); on ``"cpu"`` the plain versions run every case.
 Exit status is non-zero when any config produces an error or warning
 diagnostic: shipped plans must verify clean (info-level notes are fine).
-The port builds no mesh and has no autotuner yet: ``--mesh`` other than 1
-and ``--tuned`` are refused (ROADMAP queue 1 items 10 and 7).
+``--tuned`` autotunes every plan first (an in-memory table, the tuner on
+``--device``: CUDA-event timings on the card, the analytic surrogate on
+the CPU).  The port builds no mesh yet: ``--mesh`` other than 1 is
+refused (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -137,8 +139,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="verify the full-size configs instead of the "
                          "reduced smoke variants")
     ap.add_argument("--tuned", action="store_true",
-                    help="autotune every plan first (refused: ROADMAP "
-                         "queue 1 item 7 brings the autotuner)")
+                    help="autotune every plan (in-memory hybrid table, "
+                         "the tuner on --device) before verifying: checks "
+                         "that tuned plans also pass the verifier")
     ap.add_argument("--device", choices=DEVICES, default=None,
                     help="where the plans run: 'cuda' also reports the "
                          "cases the CUDA builds refuse (default: cuda "
@@ -150,9 +153,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     if [m.strip() for m in args.mesh.split(",") if m.strip()] != ["1"]:
         ap.error("--mesh: the port builds no mesh yet (ROADMAP queue 1 "
                  "item 10); verify one device with --mesh 1")
-    if args.tuned:
-        ap.error("--tuned: the port has no autotuner yet (ROADMAP queue 1 "
-                 "item 7)")
     device = args.device or ("cuda" if args.full else "cpu")
 
     import dataclasses
@@ -171,11 +171,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         for quant in quants:
             cfg = dataclasses.replace(base, quant=quant,
                                       use_fused_kernels=True)
+            tuner = None
+            if args.tuned:
+                from ..tuning import Tuner
+                tuner = Tuner(device=device)
             plan = build_stream_plan(cfg, tokens=args.tokens,
-                                     kv_len=args.kv_len)
+                                     kv_len=args.kv_len, tune=tuner)
             diags = verify_plan(plan, cfg, slots=args.slots,
                                 max_len=args.kv_len, device=device)
             tag = f"{name:<22} quant={quant:<8} device={device}"
+            if args.tuned:
+                tag += " tuned"
             if clean(diags):
                 print(f"OK    {tag}  ({len(diags)} info)")
                 shown = diags if args.verbose else []

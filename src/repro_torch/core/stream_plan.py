@@ -43,9 +43,11 @@ Hopper kernel picks its own tiles from the shapes (``kernels/common.py``'s
 plan functions).  The page size, the prefill chunk (``block_q`` rounded up
 to pages) and the mixers' chunks are what the runtime takes from the plan.
 
+``tune=`` / ``tune_table=`` run the autotuner (``repro_torch.tuning``)
+over the built plan, and ``plan_for`` post-processes its cached plan
+through the tuner a ``use_tuner`` context installed, as the reference's.
 Not ported yet: ``mesh=`` (the per-stage sharding claims need
-``distributed/sharding.spec_for``) and ``tune=`` / ``tune_table=`` (the
-autotuner); both raise ``NotImplementedError``.
+``distributed/sharding.spec_for``), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -390,16 +392,15 @@ def build_stream_plan(cfg: ModelConfig, *, tokens: int,
     paper's hyperparameters are global); the other kinds and the LM head
     are compiled as single trials with the winning parameters.
     ``cost_source=`` (a ``dse.CostSource``) goes to the DSE objective.
+    ``tune=`` (a ``tuning.Tuner``, or True: an in-memory one on the card)
+    or ``tune_table=`` (an ``autotune=`` spec, ``tuning.resolve_tuner``)
+    tunes the plan's blocks, page size and chunks for ``platform``.
     """
     if mesh is not None:
         raise NotImplementedError(
             "build_stream_plan(mesh=...): the per-stage sharding claims "
             "need distributed/sharding.spec_for, not ported yet (ROADMAP "
             "queue 1 item 10)")
-    if (tune is not None and tune is not False) or tune_table is not None:
-        raise NotImplementedError(
-            "build_stream_plan(tune=/tune_table=): the autotuner is not "
-            "ported yet (ROADMAP queue 1 item 7)")
     kinds: Dict[str, int] = {}
     for i in range(cfg.num_layers):
         kinds.setdefault(cfg.layer_kind(i), i)
@@ -452,13 +453,27 @@ def build_stream_plan(cfg: ModelConfig, *, tokens: int,
     groups += head_trial.fusion.num_groups
     impls += tuple(lg.implementation for lg in head_lowered)
 
-    return StreamPlan(
+    plan = StreamPlan(
         arch=cfg.name, tokens=tokens, kv_len=kv_len or tokens,
         platform=platform.name,
         default_tile_size=tile or LANE, overall_unroll_size=unroll or 64,
         layers=tuple(layers), quant=cfg.quant, lm_head=lm_head,
         modeled_latency_s=latency, fusion_groups=groups,
         implementations=impls)
+
+    if (tune is not None and tune is not False) or tune_table is not None:
+        # Lazy: core stays importable without the tuning package (which
+        # imports analysis, which imports core).
+        from ..tuning.autotune import Tuner, resolve_tuner
+        if isinstance(tune, Tuner):
+            tuner: Optional[Tuner] = tune
+        elif tune_table is not None:
+            tuner = resolve_tuner(tune_table, cfg)
+        else:
+            tuner = Tuner()         # in-memory, hybrid-fill, on the card
+        if tuner is not None:
+            plan = tuner.tune_plan(cfg, plan, platform=platform)
+    return plan
 
 
 @functools.lru_cache(maxsize=64)
@@ -474,11 +489,22 @@ def plan_for(cfg: ModelConfig, tokens: int,
     H100 at ``tokens`` tokens over ``kv_len`` cached positions, cached on
     the (frozen) config and the shape; None when ``cfg.use_fused_kernels``
     is off (the eager plan).  A new shape costs one DSE on the host
-    (tens of milliseconds) until the cache holds it."""
+    (tens of milliseconds) until the cache holds it.
+
+    When a ``tuning.Tuner`` is active (``ServingEngine(autotune=...)``
+    enters ``use_tuner`` around its plan resolution and dispatches), the
+    cached plan is post-processed through the tuner OUTSIDE the lru
+    cache: a tuned plan is memoized per tuner, never served to an untuned
+    caller."""
     if not cfg.use_fused_kernels:
         return None
-    return _plan_for_base(cfg, int(tokens),
+    plan = _plan_for_base(cfg, int(tokens),
                           None if kv_len is None else int(kv_len))
+    from ..tuning.autotune import active_tuner      # lazy: no core cycle
+    tuner = active_tuner()
+    if tuner is not None:
+        plan = tuner.tune_plan(cfg, plan)
+    return plan
 
 
 # Cache management passthrough (tests clear plan caches between configs).

@@ -21,6 +21,13 @@ from .common import (MMA_BN, MMA_CFG, cdiv, check_cuda_operands,
                      check_launch, gemm_smem, kernel_path, mma_class,
                      mma_plan, sm_count, split_plan, tiled_smem)
 
+# The autotuner's candidate lattice (``tuning/autotune.py``), the
+# reference's (``repro/kernels/block_matmul.py:26``) in KernelChoice block
+# names.  ``CARD_BLOCKS``: which of those names change what the card runs,
+# per compute dtype.  None: the wrapper takes no block, ``mma_plan`` (bf16)
+# and ``split_plan`` (float32) pick the tiles from the shapes and the SMs.
+TUNE_SPACE = {"block_t": (128, 256, 512), "block_n": (128, 256, 512)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
 # Per device, the split-K workspace of the tensor-core kernel: float32
 # partials [splits, M, N] and one int32 arrival counter per output tile,
 # all 0 between launches (the last block on a tile resets its own).  Calls

@@ -42,6 +42,14 @@ STATIC_HEAD_DIMS = (64, 80, 128, 320)    # ... the static branch's (K7)
 CODE_HEAD_DIMS = (64, 128, 320)    # ... the offset branch's over codes (K9c)
 BRANCH_HEAD_DIMS = {"offset": HEAD_DIMS, "static": STATIC_HEAD_DIMS,
                     "offset_q": CODE_HEAD_DIMS}
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/flash_attention.py:28``).  ``CARD_BLOCKS``: the names
+# that change what the card runs, per compute dtype.  ``block_q`` sets the
+# engine's prefill chunk (``StreamPlan.prefill_chunk_size`` rounds it up to
+# whole pages), and so the rows each K2 launch takes; ``block_kv`` reaches
+# only the plain versions' KV walk, the CUDA kernels pick their own tiles.
+TUNE_SPACE = {"block_q": (128, 256, 512), "block_kv": (128, 256, 512)}
+CARD_BLOCKS = {"bfloat16": ("block_q",), "float32": ("block_q",)}
 # The code types' template names in csrc/flash_mma.cu's instances.
 _CODE_NAMES = {torch.int8: "signed char",
                torch.float8_e4m3fn: "__nv_fp8_e4m3"}

@@ -29,6 +29,13 @@ from .common import (MAX_SMEM, aligned16, check_cuda_operands,
 
 # (P, N) of the bf16 kernels (zamba2's head dim and state).
 SEG_PN = (64, 64)
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/mamba2_scan.py:31``).  ``CARD_BLOCKS``: the names that
+# change what the card runs, per compute dtype.  The float32 kernel walks
+# the caller's chunks; the bf16 scan's segments come from ``ssd_plan``
+# alone.
+TUNE_SPACE = {"chunk": (64, 128, 256)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ("chunk",)}
 
 
 def smem_bytes(q: int, p: int, n: int,

@@ -33,6 +33,12 @@ from .common import (FFN_BF, FFN_DOWN, FFN_FUSED, FFN_UP, MOE_BF,
 
 _ACTS = ("silu", "gelu")          # the plain version's
 _CUDA_ACTS = ("silu",)            # the CUDA kernels'
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/moe_experts.py:26``).  ``CARD_BLOCKS``: the names that
+# change what the card runs, per compute dtype.  None: the wrapper takes no
+# block (``models/layers.py`` drops ``block_t``), ``moe_plan`` decides.
+TUNE_SPACE = {"block_t": (128, 256, 512)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
 
 
 def cuda_refusal(activation: str) -> Optional[str]:

@@ -41,6 +41,13 @@ MAX_ROWS = 64             # window rows x query heads per KV head it holds
 MAX_ROWS_320 = 32         # ... at head dim 320 (registers; codes too)
 _NWARP = 4                # warps per block (csrc/paged_attention.cuh)
 _CH = 32                  # positions per K/V tile
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/paged_attention.py:56``): page sizes are stream granules.
+# ``CARD_BLOCKS``: the names that change what the card runs, per compute
+# dtype.  The page size sets the pool geometry every launch walks
+# (``StreamPlan.decode_page_size``); verify inherits decode's.
+TUNE_SPACE = {"page_size": (8, 16, 32, 64)}
+CARD_BLOCKS = {"bfloat16": ("page_size",), "float32": ("page_size",)}
 # Template names of the element types in the kernel's instances.
 _TYPE_NAMES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16",
                torch.int8: "signed char",

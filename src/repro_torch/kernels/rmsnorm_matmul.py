@@ -23,6 +23,12 @@ from .common import (MMA_BN, MMA_CFG, ROW_INVARIANT_T, cdiv,
                      kernel_path, mma_class, mma_plan, round_up, sm_count,
                      split_plan, tiled_smem)
 
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/rmsnorm_matmul.py:25``).  ``CARD_BLOCKS``: the names that
+# change what the card runs, per compute dtype.  None: the wrappers take no
+# block, K5's ``mma_plan`` (bf16) and ``split_plan`` (float32) decide.
+TUNE_SPACE = {"block_t": (128, 256, 512), "block_n": (128, 256, 512)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
 
 def smem_bytes(t: int, dtype: torch.dtype, w8: bool = False) -> dict:
     """{kernel: static + dynamic shared memory per block} of a call at

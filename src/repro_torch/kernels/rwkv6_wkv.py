@@ -32,6 +32,13 @@ from .common import (aligned16, check_cuda_operands, check_launch,
 
 # Head sizes the CUDA kernels are built for.
 HEAD_SIZES = (16, 32, 64, 128)
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/rwkv6_wkv.py:30``).  ``CARD_BLOCKS``: the names that
+# change what the card runs, per compute dtype.  None: ``chunk`` is only
+# checked to divide S; the float32 kernel walks every token, the bf16 scan
+# takes its segments from ``wkv_plan``.
+TUNE_SPACE = {"chunk": (16, 32, 64)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
 
 
 def cuda_refusal(n: int) -> Optional[str]:

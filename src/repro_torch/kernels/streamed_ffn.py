@@ -35,6 +35,14 @@ from .common import (FFN_BF, FFN_BN, FFN_BT, FFN_DOWN, FFN_FUSED, FFN_TILES,
                      ffn_plan, ffn_tile_name, kernel_path, round_up,
                      sm_count)
 
+# The autotuner's candidate lattice for ``streamed_ffn`` and
+# ``streamed_mlp``, the reference's (``repro/kernels/streamed_ffn.py:39``).
+# ``CARD_BLOCKS``: the names that change what the card runs, per compute
+# dtype.  None: the wrappers take no block, ``ffn_plan`` (bf16) and the
+# float32 tile classes (``_TILES``, by T) decide.
+TUNE_SPACE = {"block_t": (128, 256, 512), "block_f": (128, 256, 512)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
+
 # Tile classes of the float32 kernel in csrc/streamed_ffn.cu: (largest T,
 # BF).  Up to ROW_INVARIANT_T rows every class has BF = 64, so each output
 # row sums the same F partials in the same order at any T there.

@@ -27,6 +27,13 @@ from .common import (MMA_BN, cdiv, check_cuda_operands, check_launch,
 # x vocab), bfloat16 128 x 128 (the Large class of mma_gemm.cuh).
 _BT, _BN = 64, 64
 MMA_BT = 128
+# The autotuner's candidate lattice, the reference's
+# (``repro/kernels/streamed_xent.py:30``).  ``CARD_BLOCKS``: the names that
+# change what the card runs, per compute dtype.  None: the wrapper takes no
+# block (``models/layers.py`` drops ``block_t``/``block_v``),
+# ``xent_mma_plan`` (bf16) and ``vocab_split`` (float32) decide.
+TUNE_SPACE = {"block_t": (128, 256), "block_v": (512, 1024, 2048)}
+CARD_BLOCKS = {"bfloat16": (), "float32": ()}
 
 
 def smem_bytes(dtype: torch.dtype) -> dict:

@@ -92,9 +92,13 @@ not tell the two apart.
 Before anything is allocated, the engine verifies its plan statically
 (``verify=``, else ``REPRO_VERIFY``, else ``"strict"``: the reference's
 hook, ``analysis.verify_plan`` for the engine's device); the ``verified``
-gauge and ``plan.summary()`` record the outcome.  Left for later slices:
-autotuning and meshes (their metrics are registered and hold what the
-reference's hold with them off).
+gauge and ``plan.summary()`` record the outcome.  ``autotune=`` (None,
+True, a table path, a ``TuneTable`` or a ``Tuner``: ``tuning.resolve_tuner``
+on the engine's device) tunes the plan before it is verified; the tuned
+plan's page size and prefill chunk are what the pools and the chunker use,
+and the tuner's counters and gauges are synced as in the reference
+(``engine.py:680-687``).  Left for a later slice: meshes (their metrics are
+registered and hold what the reference's hold with them off).
 The reference's trace probes (``prefill_traces``, ``decode_traces``,
 ``verify_traces``) count jit programs built; the port builds no per-shape
 programs, so they stay 0 and no ``trace.*`` event is emitted.
@@ -127,6 +131,7 @@ from ..obs import (DISPATCH_DECODE, DISPATCH_PREFILL, DISPATCH_PREFILL_CHUNK,
                    REQ_FIRST_TOKEN, REQ_PREFILL_CHUNK, REQ_QUEUED,
                    REQ_REJECTED, SCHED_BUDGET, TRACK_ENGINE, TRACK_SCHED,
                    MetricsView, Registry, resolve_recorder, slot_track)
+from ..tuning.autotune import resolve_tuner, use_tuner
 from .kv_cache import NULL_PAGE, PagedKVCache, place_prefill, stage_chunk
 from .prefix_cache import PrefixCache
 
@@ -134,9 +139,8 @@ Tree = Any
 
 # Counters (accumulate over the engine's life), in the order and with the
 # help strings the reference registers them (``engine.py:590-616``).  The
-# trace probes and the tuner's counters are registered so that the key sets
-# are equal, and stay 0: the port builds no per-shape programs and has no
-# autotuner yet.
+# trace probes are registered so that the key sets are equal, and stay 0:
+# the port builds no per-shape programs.
 COUNTERS = (
     ("dispatches", "decode+verify dispatches (not prefill)"),
     ("ticks", "useful decode scan ticks (max per dispatch)"),
@@ -168,9 +172,7 @@ COUNTERS = (
     ("tune_pruned", "tuner candidates pruned by lint"),
 )
 # The counters the port's engine moves.
-COUNTER_NAMES = tuple(n for n, _ in COUNTERS
-                      if not n.endswith("_traces") and not
-                      n.startswith("tune_"))
+COUNTER_NAMES = tuple(n for n, _ in COUNTERS if not n.endswith("_traces"))
 # Latency distributions: request-level TTFT / TPOT / queue wait, and the
 # wall of each dispatch kind.
 HISTOGRAMS = (
@@ -284,7 +286,7 @@ class ServingEngine:
                  adaptive_decode_block: bool = False,
                  speculative: bool = False, draft_len: int = 4,
                  quant: Optional[str] = None, telemetry=None, clock=None,
-                 verify: Optional[str] = None,
+                 verify: Optional[str] = None, autotune=None,
                  device: DeviceLike = None):
         # ``quant`` replaces the config's quant mode for this engine
         # (``engine.py:256-267``); the plan and the pool dtypes follow it.
@@ -334,9 +336,18 @@ class ServingEngine:
         # budget's and the adaptive decode block's pressure signal (1.0 =
         # every tick useful).
         self.decode_eff = 1.0
+        # Measured-latency autotuning (``engine.py:307-321``): the tuner is
+        # installed (``use_tuner``) around the plan resolution and every
+        # dispatch; a warm table resolves the plan with zero measurements.
+        self.tuner = resolve_tuner(autotune, cfg, device=self.device)
+        if self.tuner is not None:
+            self.tuner.obs = self.obs
+            for d in self.tuner.table.diagnostics:
+                warnings.warn(f"autotune table degraded: {d}")
         # One plan drives both stream granules: the KV page size and the
         # prefill chunk (a whole number of pages).  None when eager.
-        self.plan = resolve_plan(cfg, batch_slots, kv_len=max_len)
+        with use_tuner(self.tuner):
+            self.plan = resolve_plan(cfg, batch_slots, kv_len=max_len)
         if page_size is None:
             page_size = (self.plan.decode_page_size(16)
                          if self.plan is not None else 16)
@@ -476,16 +487,31 @@ class ServingEngine:
                   value=self.draft_len if self.speculative else 0)
         reg.gauge("accept_rate")
         reg.gauge("dispatches_per_token")
-        # No autotuner yet: the plan's provenance is the DSE's.
+        # Plan provenance: where the plan's kernel latencies came from, and
+        # what the tuner did to get them.
         reg.info("plan_source",
                  value=(self.plan.cost_source if self.plan is not None
                         else "analytic"))
-        reg.gauge("autotuned")
-        reg.info("tune_table", value="")
+        reg.gauge("autotuned", value=int(self.tuner is not None))
+        reg.info("tune_table",
+                 value=(self.tuner.table.path or ""
+                        if self.tuner is not None else ""))
         reg.gauge("tune_entries")
         for name, help in HISTOGRAMS:
             reg.histogram(name, help)
         self.metrics = MetricsView(reg)
+        self._refresh_tune_metrics()
+
+    def _refresh_tune_metrics(self) -> None:
+        if self.tuner is None:
+            return
+        self._sync_counter("tune_hits", self.tuner.table.hits)
+        self._sync_counter("tune_misses", self.tuner.table.misses)
+        self._sync_counter("tune_measured", self.tuner.stats.measured)
+        self._sync_counter("tune_pruned", self.tuner.stats.pruned)
+        self.registry["tune_entries"].set(len(self.tuner.table))
+        if self.plan is not None:
+            self.registry["plan_source"].set(self.plan.cost_source)
 
     def _sync_counter(self, name: str, total: float) -> None:
         """Catch a lifetime counter up to a total kept elsewhere (the
@@ -538,31 +564,36 @@ class ServingEngine:
         pos = np.zeros(self.slots, np.int32)        # == per-slot length
         tok = np.zeros((self.slots, 1), np.int32)
 
-        while pending or any(r is not None for r in active):
-            self._admit_pending(pending, active, decoding, pos, tok)
-            if not any(r is not None for r in active):
-                break
-            progressed = False
-            if self.chunked:
-                budget = self._prefill_budget(active, decoding)
-                for s in range(self.slots):
-                    r = active[s]
-                    if r is None or decoding[s]:
-                        continue
-                    if progressed and budget < self.chunk:
-                        break       # budget spent; the rest wait a pass
-                    self._dispatch_chunk(s, r, active, decoding, pos, tok)
-                    budget -= self.chunk
+        # The dispatches pass ``self.plan``; the tuner is held (as the
+        # reference's ``_mesh_ctx``) so that a plan resolved inside is the
+        # tuned one.
+        with use_tuner(self.tuner):
+            while pending or any(r is not None for r in active):
+                self._admit_pending(pending, active, decoding, pos, tok)
+                if not any(r is not None for r in active):
+                    break
+                progressed = False
+                if self.chunked:
+                    budget = self._prefill_budget(active, decoding)
+                    for s in range(self.slots):
+                        r = active[s]
+                        if r is None or decoding[s]:
+                            continue
+                        if progressed and budget < self.chunk:
+                            break   # budget spent; the rest wait a pass
+                        self._dispatch_chunk(s, r, active, decoding, pos,
+                                             tok)
+                        budget -= self.chunk
+                        progressed = True
+                if any(active[s] is not None and decoding[s]
+                       for s in range(self.slots)):
+                    if self.speculative:
+                        self._speculative_block(active, decoding, pos, tok)
+                    else:
+                        self._decode_block(active, decoding, pos, tok)
                     progressed = True
-            if any(active[s] is not None and decoding[s]
-                   for s in range(self.slots)):
-                if self.speculative:
-                    self._speculative_block(active, decoding, pos, tok)
-                else:
-                    self._decode_block(active, decoding, pos, tok)
-                progressed = True
-            if not progressed:
-                break
+                if not progressed:
+                    break
         reg = self.registry
         if self.kv is not None:
             reg["kv_bytes_peak"].max(self.kv.peak_bytes_in_use)
@@ -585,6 +616,7 @@ class ServingEngine:
             reg["dispatches_per_token"].set(
                 reg["verify_dispatches"].value()
                 / max(reg["spec_tokens"].value(), 1))
+        self._refresh_tune_metrics()
         return reqs
 
     # ------------------------------------------------------- scheduling

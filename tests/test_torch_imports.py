@@ -47,7 +47,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.runtime.simulator",
             "repro_torch.obs", "repro_torch.obs.events",
             "repro_torch.obs.metrics", "repro_torch.obs.export",
-            "repro_torch.obs.__main__"} <= set(modules)
+            "repro_torch.obs.__main__", "repro_torch.tuning",
+            "repro_torch.tuning.table", "repro_torch.tuning.measure",
+            "repro_torch.tuning.autotune",
+            "repro_torch.tuning.__main__"} <= set(modules)
     assert {f"repro_torch.core.{m}" for m in (
         "affine", "itensor", "converter", "graph", "token_model",
         "fifo_sizing", "fusion", "platforms", "tiling", "trace", "dse",

@@ -11,7 +11,9 @@ reference's, on the CPU.
   a KV length (a sample: each config a few shapes on ``H100``, one on
   each of the other platforms).
 * ``plan_for`` is that build on ``H100``, cached; None for an eager
-  config; ``mesh=`` and ``tune=`` raise, naming the ROADMAP items.
+  config; ``mesh=`` raises, naming the ROADMAP item; ``tune=`` and
+  ``tune_table=`` tune the plan (``tests/test_torch_tuning.py`` holds the
+  tuned plans to the reference's).
 * ``H100``: its constants, its tiers under ``compile_model``, and the
   ``StreamPlan`` methods (``summary``, ``stage_choices``, ``with_stage``,
   ``with_verification``) as the reference's.
@@ -170,10 +172,34 @@ def test_unported_arguments_raise():
     cfg, _ = _configs("llama3-8b", True, "none")
     with pytest.raises(NotImplementedError, match="item 10"):
         build_stream_plan(cfg, tokens=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_stream_plan(cfg, tokens=4, tune=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_stream_plan(cfg, tokens=4, tune_table="table.json")
+
+
+def test_tune_tunes_the_plan():
+    """``tune=`` (a CPU tuner here) rewrites the plan's granules: the
+    paged stages move to the surrogate's 64-token pages; ``tune=False``
+    and ``tune=None`` leave the plan as built."""
+    from repro_torch.tuning import Tuner
+    cfg, _ = _configs("llama3-8b", True, "none")
+    base = build_stream_plan(cfg, tokens=4, kv_len=1000)
+    for off in (None, False):
+        assert build_stream_plan(cfg, tokens=4, kv_len=1000,
+                                 tune=off) == base
+    tuner = Tuner(device="cpu")
+    tuned = build_stream_plan(cfg, tokens=4, kv_len=1000, tune=tuner)
+    assert tuner.stats.stages > 0 and tuned != base
+    assert base.decode_page_size() == 10 and tuned.decode_page_size() == 64
+
+
+def test_tune_table_tunes_the_plan(tmp_path):
+    """``tune_table=`` takes an ``autotune=`` spec: a CPU table is scored
+    and written through."""
+    from repro_torch.tuning import TuneTable, backend_fingerprint
+    cfg, _ = _configs("gpt2", True, "none")
+    table = TuneTable(path=str(tmp_path / "t.json"),
+                      backend=backend_fingerprint("cpu"))
+    tuned = build_stream_plan(cfg, tokens=4, kv_len=1000, tune_table=table)
+    assert len(table) > 0 and (tmp_path / "t.json").exists()
+    assert tuned.decode_page_size() == 64
 
 
 def test_h100_platform_and_tiers():
