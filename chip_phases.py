@@ -171,6 +171,16 @@ parent.  Phases:
              launches, events, trace, histograms; the trace goes to
              ``--out``); ``python -m repro_torch.obs --demo`` in-process
              (its files under ``--out``/obs_demo).
+  dryrun, examples
+             those phases of ``chip_smoke.py``: ``python -m
+             repro_torch.launch.dryrun --all`` in-process (every cell's
+             plan clean for the CUDA builds; the records under
+             ``--out``/dryrun), the argument bytes against the card's
+             allocator and one decode step of the sizing cell (the
+             training peak's ratio needs ``chip_smoke.py``'s ``train``
+             phase and is not measured here); each ``examples/torch_*.py``
+             in-process (its OK line, its launches, the quickstart's K4
+             and K7 within ``TOL``).
 
 The card's name and power limit (nvidia-smi) come first.  ``--ptxas
 FILE`` writes nvcc's resource report (``-Xptxas -v``: registers, shared
@@ -271,6 +281,9 @@ SOURCES["obs_demo"] = ["block_matmul", "streamed_ffn", "flash_mma",
 # The tuner's drivers time the LM-head loss (K11) beside the serving path.
 SOURCES["tune_roundtrip"] = SOURCES["obs_demo"] + ["streamed_xent"]
 SOURCES["tune_serve"] = SERVE_SOURCES + ["streamed_xent"]
+# The dry-run launches nothing; the quickstart K4 and K7 in float32.
+SOURCES["dryrun"] = []
+SOURCES["examples"] = ["streamed_ffn", "flash_attention"]
 
 
 def emit(obj) -> None:
@@ -942,6 +955,12 @@ def main() -> int:
             cs.tune_serve(torch, timer)
         elif phase == "hubert_train":
             cs.hubert_train(torch)
+        elif phase == "dryrun":
+            os.makedirs(args.out, exist_ok=True)
+            cs.dryrun_phase(torch, args.out)
+        elif phase == "examples":
+            os.makedirs(args.out, exist_ok=True)
+            cs.examples_phase(torch, args.out)
         else:
             raise SystemExit(f"chip_phases: unknown phase {phase}")
         emit({"phase": f"{phase}_done", "seconds": time.perf_counter() - t1})

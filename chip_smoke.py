@@ -402,6 +402,27 @@ Phases, one JSON line each (numbers measured in this run, on this card):
               DSE per new config and shape, its host milliseconds
               reported) and the plans of ``plan_smem``, verified for the
               card (``verify_plan(device="cuda")``, clean: required);
+   dryrun, dryrun_sizing — ``python -m repro_torch.launch.dryrun --all``
+              in-process: every (arch x shape) cell's H100 plan verified
+              for the card and clean, its step counted op by op (FLOPs,
+              bytes, the peak of live intermediates) and its roofline
+              terms and ``fits`` printed (exit code 0 and every plan
+              clean: required); then llama3-8b at full width,
+              ``SERVE_LAYERS`` deep: its float32 parameters and a
+              contiguous cache of 4 slots x 2048 positions must grow
+              ``memory_allocated`` by the dry-run's bytes, up to 512
+              bytes a tensor (required), one decode step of that cell
+              (``trace_cell``) runs on them beside its predicted peak, and
+              the predicted peak of the 2-layer llama3 training step
+              stands beside the ``train`` phase's measured
+              ``max_memory_allocated`` (reported);
+   examples — each ``examples/torch_*.py`` in-process with its defaults
+              (``torch_train_lm`` 20 steps, checkpointing into an emptied
+              ``<out>/examples/train_lm``): its OK line printed, launches
+              exactly its path's (the quickstart K4 and K7 once each; the
+              reduced configs of serve_lm and train_lm run the eager
+              plan), the quickstart's float32 K4 and K7 within ``TOL`` of
+              their plain versions (all required);
 11. kernels — one line listing every kernel, once per model and path
               (serving, encode, training or compile) that runs it, with
               its check results and that path's own launch count (a
@@ -430,9 +451,11 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12                 # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,         # dense tensor-core bf16
-              "float32": 67e12}           # float32 outside the tensor cores
+# The card's peaks and the per-kernel bound have one home, the port's
+# roofline (the H100's data-sheet rates, ``core/platforms.py``).
+sys.path.append(os.path.join(ROOT, "src"))
+from repro_torch.launch.roofline import (HBM_BYTES_PER_S,  # noqa: E402
+                                         PEAK_FLOPS, bound)
 # Max |kernel - plain| over max |plain|.  float32: the two sum in different
 # orders (up to 14336-long dot products); bfloat16: on top of that an
 # intermediate rounded to bf16 (normalised x, h, p) may land one bf16 ulp
@@ -867,13 +890,6 @@ class Timer:
             events.append((e0, e1))
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # --------------------------------------------------------------------- #
@@ -6361,6 +6377,212 @@ def plan_verify(torch, out_dir, device="cuda"):
     return row
 
 
+# --------------------------------------------------------------------- #
+# The launch layer and the examples
+# --------------------------------------------------------------------- #
+
+DRYRUN_SIZING = ("llama3-8b", 4, 2048)    # arch, slots, positions (decode)
+# Each example's arguments on the card (its defaults; train_lm capped to
+# the steps that still show its loss falling) and the kernels its path
+# launches: the reduced configs run the eager plan, as the reference's
+# registry configs do (their head dims are not cases of the CUDA builds).
+EXAMPLES = {
+    "torch_quickstart": ([], {"streamed_ffn": 1,
+                              "flash_attention_static": 1}),
+    "torch_dataflow_explorer": ([], {}),
+    "torch_serve_lm": ([], {}),
+    "torch_train_lm": (["--steps", "20"], {}),
+}
+
+
+def _allocated_growth(torch, make):
+    """(result of ``make()``, the growth of ``memory_allocated``)."""
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    out = make()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - m0
+
+
+def dryrun_phase(torch, out_dir, train_row=None, device="cuda"):
+    """``python -m repro_torch.launch.dryrun --all`` in-process on the
+    card's machine: exit code 0, every cell's plan clean for the CUDA
+    builds (all required), each cell's terms, bytes and ``fits`` printed.
+    Then the argument bytes against the card: llama3-8b at full width,
+    ``SERVE_LAYERS`` deep, its float32 parameters and a contiguous cache
+    of ``DRYRUN_SIZING``'s decode cell allocated on the card must grow
+    ``memory_allocated`` by the dry-run's bytes, up to the allocator's
+    512-byte rounding per tensor (required); one step of that cell
+    (``trace_cell``'s function) runs on them, its peak beside the
+    predicted one, and the predicted peak of the 2-layer llama3 training
+    step beside ``train_row``'s measured ``max_memory_allocated``
+    (reported)."""
+    import contextlib
+    import glob
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.steps import trace_cell
+    from repro_torch.launch.dryrun import main as dryrun_main
+    from repro_torch.launch.op_analysis import count_cell, storage_bytes
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.params import tree_leaves
+    out = os.path.join(out_dir, "dryrun")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun_main(["--all", "--out", out])
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    cells = {}
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(path) as fh:
+            rec = json.load(fh)
+        r = rec.get("roofline", {})
+        cells[os.path.basename(path)[:-5]] = {
+            "plan_clean": rec.get("plan", {}).get("clean"),
+            "error": rec.get("error"),
+            "flops": rec.get("cost", {}).get("flops"),
+            "eager_bytes": rec.get("cost", {}).get("bytes_accessed"),
+            "compute_s": r.get("compute_s"), "memory_s": r.get("memory_s"),
+            "bound": r.get("bound"),
+            "argument_bytes": rec.get("memory", {}).get("argument_bytes"),
+            "temp_bytes": rec.get("memory", {}).get("temp_bytes"),
+            "fits": rec.get("memory", {}).get("fits"),
+            "analyze_s": rec.get("analyze_s")}
+    skips = [ln for ln in lines if ln.startswith("[dryrun] SKIP")]
+    row = {"phase": "dryrun", "rc": rc, "seconds": seconds,
+           "cells": cells, "skips": skips}
+    emit(row)
+    bad = []
+    if rc != 0:
+        bad.append(f"rc {rc}")
+    unclean = [t for t, c in cells.items() if not c["plan_clean"]]
+    if unclean or len(cells) != sum(1 for ln in lines
+                                    if ln.startswith("[dryrun] ")
+                                    and " mesh=1 " in ln):
+        bad.append(f"cells not clean for the CUDA builds: {unclean}")
+
+    # The argument bytes against the card's allocator.
+    arch, slots, positions = DRYRUN_SIZING
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=SERVE_LAYERS[arch])
+    shape = ShapeConfig("decode_sizing", positions, slots, "decode")
+    fn, (p_meta, tok, c_meta, pos, lengths) = trace_cell(cfg, shape,
+                                                         device=device)
+    want = {"params": storage_bytes(p_meta), "cache": storage_bytes(c_meta)}
+    leaves = {"params": len(tree_leaves(p_meta)), "cache": len(c_meta)}
+    gen = torch.Generator(device=device).manual_seed(5)
+    params, grew_p = _allocated_growth(torch, lambda: init_params(
+        cfg, gen, device=device, dtype=torch.float32))
+    cache, grew_c = _allocated_growth(
+        torch, lambda: init_cache(cfg, slots, positions, device=device))
+    grew = {"params": grew_p, "cache": grew_c}
+    sizing = {k: {"predicted": want[k], "allocated": grew[k],
+                  "tensors": leaves[k]} for k in want}
+    for k, v in sizing.items():
+        if not 0 <= v["allocated"] - v["predicted"] <= 512 * v["tensors"]:
+            bad.append(f"{k}: allocated {v['allocated']} B against the "
+                       f"dry-run's {v['predicted']} B")
+    count, memory = count_cell(cfg, shape)
+    tokens = torch.randint(1, cfg.vocab_size, (slots, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nt, cache = fn(params, tokens, cache, torch.tensor(positions // 2),
+                   torch.full((slots,), positions // 2, dtype=torch.int32))
+    torch.cuda.synchronize()
+    step = {"predicted_temp_bytes": count.temp_bytes,
+            "measured_peak_over_arguments":
+                torch.cuda.max_memory_allocated() - base,
+            "next_tokens": nt.flatten().tolist()}
+    del params, cache, nt
+    _free(torch, device)
+    train = {"config": "llama3-8b, 2 layers, kernel plan",
+             "measured_max_memory_allocated": None}
+    if train_row is not None:
+        tcfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2)
+        b, s = TRAIN_SHAPES["llama3-8b"]
+        tcount, tmem = count_cell(tcfg, ShapeConfig("train", s, b, "train"))
+        predicted = tmem["argument_bytes"] + tcount.temp_bytes
+        train.update(predicted_peak_bytes=predicted,
+                     predicted_temp_bytes=tcount.temp_bytes,
+                     measured_max_memory_allocated=train_row[
+                         "device_mem_peak"],
+                     ratio=predicted / train_row["device_mem_peak"])
+    sizing_row = {"phase": "dryrun_sizing", "config": cfg.name,
+                  "layers": cfg.num_layers, "slots": slots,
+                  "positions": positions, "bytes": sizing,
+                  "decode_step": step, "train_step": train}
+    emit(sizing_row)
+    row.update(sizing=sizing_row)
+    if bad:
+        raise AssertionError("dryrun: " + "; ".join(bad))
+    return row
+
+
+def examples_phase(torch, out_dir, device="cuda"):
+    """Each ``examples/torch_*.py``'s ``main`` in-process on the card with
+    ``EXAMPLES``' arguments: its ``... OK`` line printed, launches exactly
+    its path's, and the quickstart's K4 and K7 within ``TOL`` of their
+    plain versions (float32), all required; seconds and outputs
+    reported.  ``torch_train_lm`` checkpoints into a directory under
+    ``out_dir`` that is emptied first, so it never resumes from a run
+    left in the checkout."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    from repro_torch import kernels as K
+    out, bad = {}, []
+    for name, (argv, expect) in EXAMPLES.items():
+        if name == "torch_train_lm":
+            ckpt = os.path.join(out_dir, "examples", "train_lm")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv = argv + ["--ckpt", ckpt]
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        _sync(torch, device)
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in K.launch_counts().items() if n}
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(ln, flush=True)
+        ok_line = name.removeprefix("torch_") + " OK"
+        row = {"phase": "examples", "example": name, "argv": argv,
+               "seconds": seconds, "launches": launches,
+               "ok_line": ok_line in lines}
+        if name == "torch_quickstart":
+            row.update(res)
+            for k in ("streamed_ffn_err", "flash_attention_err"):
+                if not res[k] <= TOL["float32"]:
+                    bad.append(f"{name}: {k} {res[k]:.3e}")
+        elif name == "torch_serve_lm":
+            row["ttft_ms"] = [r.ttft_s * 1e3 for r in res]
+            row["tokens"] = sum(len(r.out_tokens) for r in res)
+        elif name == "torch_train_lm":
+            row["losses"] = res
+        emit(row)
+        out[name] = row
+        if ok_line not in lines:
+            bad.append(f"{name}: no {ok_line!r} line")
+        if launches != expect:
+            bad.append(f"{name}: launched {launches}, expected {expect}")
+        _free(torch, device)
+    if bad:
+        raise AssertionError("examples: " + "; ".join(bad))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
@@ -6554,6 +6776,9 @@ def main(argv=None) -> int:
     results["train"][GEMMA] = gemma_train(torch)
     results["train_w8"] = quant_train(torch)
     results["plan_verify"] = plan_verify(torch, out_dir)
+    results["dryrun"] = dryrun_phase(torch, out_dir,
+                                     train_row=results["train"]["llama3-8b"])
+    results["examples"] = examples_phase(torch, out_dir)
     # One entry per kernel, model, head dim and serving path that runs it;
     # launches are that path's burst's own counters, reset just before it.
     paths = []

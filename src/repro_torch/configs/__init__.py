@@ -1,17 +1,21 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: ``--arch <id>`` resolution and the
+dry-run's cell matrix (``repro/configs/__init__.py``).
 
-Holds the configurations the port runs so far (hubert-xlarge, an
-encoder, is encoded and trained, not served); the other reference
-architectures join with their slices.
+``ARCHS`` holds the eleven registry configs; ``ASSIGNED_ARCHS`` the ten
+dry-run archs in the reference's order (gpt2, the paper's own model, is
+a benchmark, not a dry-run cell); ``cells()`` enumerates every runnable
+(arch x shape) cell and ``skipped_cells()`` the skips with their reasons.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator, Tuple
 
-from .base import ModelConfig
+from .base import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
+                   ModelConfig, ShapeConfig, shapes_for, skipped_shapes_for)
 from .gemma3_4b import CONFIG as GEMMA3_4B
 from .gpt2 import CONFIG as GPT2
+from .gpt2 import PAPER_GEMMA, PAPER_LLAMA, PAPER_QWEN
 from .granite_moe_1b import CONFIG as GRANITE_MOE_1B
 from .granite_moe_3b import CONFIG as GRANITE_MOE_3B
 from .hubert_xlarge import CONFIG as HUBERT_XLARGE
@@ -36,6 +40,20 @@ ARCHS: Dict[str, ModelConfig] = {
     "zamba2-2.7b": ZAMBA2_2P7B,
 }
 
+PAPER_MODELS: Dict[str, ModelConfig] = {
+    "gpt2": GPT2,
+    "paper-qwen": PAPER_QWEN,
+    "paper-llama": PAPER_LLAMA,
+    "paper-gemma": PAPER_GEMMA,
+}
+
+# The reference's registry order (``repro/configs/__init__.py:28``), gpt2
+# left out: ``cells()`` walks the archs in this order.
+ASSIGNED_ARCHS: Tuple[str, ...] = (
+    "zamba2-2.7b", "qwen2-vl-2b", "qwen1.5-0.5b", "gemma3-4b", "qwen3-0.6b",
+    "llama3-8b", "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+    "hubert-xlarge", "rwkv6-7b")
+
 
 def get_config(arch: str) -> ModelConfig:
     try:
@@ -44,4 +62,28 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config"]
+def get_shape(name: str) -> ShapeConfig:
+    return ALL_SHAPES[name]
+
+
+def cells() -> Iterator[Tuple[ModelConfig, ShapeConfig]]:
+    """Every runnable (arch x shape) dry-run cell."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = ARCHS[arch]
+        for shape in shapes_for(cfg):
+            yield cfg, shape
+
+
+def skipped_cells() -> Iterator[Tuple[str, str, str]]:
+    """(arch, shape, reason) for documented skips."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = ARCHS[arch]
+        for shape, reason in skipped_shapes_for(cfg):
+            yield arch, shape, reason
+
+
+__all__ = [
+    "ARCHS", "ASSIGNED_ARCHS", "PAPER_MODELS", "ModelConfig", "ShapeConfig",
+    "get_config", "get_shape", "cells", "skipped_cells", "shapes_for",
+    "ALL_SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+]

@@ -1,17 +1,17 @@
 """Architecture configuration dataclass (copy of ``repro.configs.base``).
 
-Only what the port's slices read is kept: the ``ModelConfig`` fields, the
-derived head/width accessors (the Mamba2 and RWKV6 widths included), the
-layer-pattern helpers and ``reduced()``, and ``ShapeConfig``
-(``configs/base.py:250``), the training batch shape.  Field names
-and defaults match the reference so a config converts between the two
-packages field by field.
+The ``ModelConfig`` fields, the derived head/width accessors (the Mamba2
+and RWKV6 widths included), the layer-pattern helpers, the parameter
+counts that ``launch.roofline.model_flops`` reads and ``reduced()``;
+``ShapeConfig`` and the dry-run's four shape cells with their per-arch
+skips (``configs/base.py:250-303``).  Field names and defaults match the
+reference so a config converts between the two packages field by field.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 DENSE, MOE, HYBRID, SSM, VLM, AUDIO = (
     "dense", "moe", "hybrid", "ssm", "vlm", "audio")
@@ -138,6 +138,64 @@ class ModelConfig:
         period = (self.shared_attn_every or self.global_attn_every or 1)
         return tuple(self.layer_kind(i) for i in range(period))
 
+    # ----------------------------------------------------------- counting
+    def param_count(self) -> int:
+        """Total parameters (embedding included once if tied)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        total = emb + d  # final norm
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            if kind in ("attn", "local_attn", "global_attn"):
+                total += self._attn_params() + self._ffn_params() + 2 * d
+            elif kind == "rwkv":
+                total += self._rwkv_params() + 2 * d
+            elif kind.startswith("mamba"):
+                total += self._mamba_params() + d
+        if self.shared_attn_every:
+            total += self._attn_params() + self._ffn_params() + 2 * d
+        return int(total)
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.qkv_bias:
+            p += self.q_dim + 2 * self.kv_dim
+        if self.qk_norm:
+            p += 2 * self.head_dim_
+        return p
+
+    def _ffn_params(self) -> int:
+        d = self.d_model
+        if self.is_moe:
+            route = d * self.num_experts
+            expert = 3 * d * self.d_ff
+            return route + self.num_experts * expert
+        gates = 3 if self.gated_ffn else 2
+        return gates * d * self.d_ff
+
+    def _mamba_params(self) -> int:
+        d, di = self.d_model, self.d_inner
+        h, n = self.ssm_heads, self.ssm_state
+        in_proj = d * (2 * di + 2 * h * n + h)   # x, z, B, C, dt
+        conv = self.conv_width * (di + 2 * h * n)
+        out = di * d
+        return in_proj + conv + out + 2 * h      # A, D
+
+    def _rwkv_params(self) -> int:
+        d, f = self.d_model, self.d_ff
+        tm = 6 * d * d + 6 * d                   # r k v g w o (+ mixes)
+        cm = 2 * d * f + 2 * d
+        return tm + cm
+
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (for 6*N_active*D FLOPs)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        inactive = (self.num_experts - self.top_k) * 3 * d * f
+        return int(self.param_count() - self.num_layers * inactive)
+
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU tests (same rule as the
         reference, so ``reduced()`` names the same shapes in both)."""
@@ -175,3 +233,46 @@ class ShapeConfig:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def shapes_for(cfg: ModelConfig) -> List[ShapeConfig]:
+    """The runnable shape cells for an arch:
+
+    * encoder-only archs have no decode step -> drop decode/long shapes;
+    * ``long_500k`` needs sub-quadratic attention -> only SSM / hybrid /
+      sliding-window archs run it (gemma3's 5:1 local:global qualifies:
+      local layers are O(w), and decode against the global KV is O(S)).
+    """
+    out = [TRAIN_4K, PREFILL_32K]
+    if cfg.encoder_only:
+        return out
+    out.append(DECODE_32K)
+    sub_quadratic = (cfg.family in (SSM, HYBRID)) or cfg.sliding_window > 0
+    if sub_quadratic:
+        out.append(LONG_500K)
+    return out
+
+
+def skipped_shapes_for(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(shape, reason) pairs for the dry-run report."""
+    have = {s.name for s in shapes_for(cfg)}
+    out = []
+    for name in ALL_SHAPES:
+        if name in have:
+            continue
+        if cfg.encoder_only:
+            out.append((name, "encoder-only arch: no decode step"))
+        else:
+            out.append((name, "pure full-attention arch: no sub-quadratic "
+                              "path for 500k decode"))
+    return out

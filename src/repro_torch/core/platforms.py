@@ -196,6 +196,10 @@ H100 = Platform(
     thermal_power_w=700.0,    # SXM5 board power limit
 )
 
+# float32 outside the tensor cores (the CUDA cores' FMA rate), H100 SXM5
+# data sheet: the port's float32 kernels stay off the tensor cores.
+H100_FP32_FLOPS = 67e12
+
 PLATFORMS: Dict[str, Platform] = {
     "u55c": U55C, "a100": A100, "2080ti": RTX2080TI, "tpu_v5e": TPU_V5E,
     "h100": H100,

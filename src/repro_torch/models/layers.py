@@ -24,6 +24,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import kernels as K
 from ..kernels.ref import NEG_INF, act, wkv6, xent_nll_mean
@@ -245,11 +246,15 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset: int = 0,
                         window: int = 0, chunk_size: int = 1024,
                         kv_len: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        remat_chunk: bool = False) -> torch.Tensor:
     """Chunked online-softmax attention (``layers.py:313``).
 
     q [B, Sq, Hq, D]; k/v [B, Skv, Hkv, D]; query i at position
     ``q_offset + i``; keys at or past ``kv_len`` masked -> [B, Sq, Hq, D].
+    ``remat_chunk`` recomputes each chunk's scores in the backward
+    (``torch.utils.checkpoint`` per chunk, the reference's
+    ``jax.checkpoint(step)``, ``layers.py:385``) instead of keeping them.
     """
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -269,9 +274,8 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
                       device=q.device)
-    for ci in range(nc):
-        kb = k[:, ci * c:(ci + 1) * c]
-        vb = v[:, ci * c:(ci + 1) * c]
+
+    def step(m, l, acc, kb, vb, ci):
         kv_pos = ci * c + torch.arange(c, device=q.device)
         s = torch.einsum("bqhgd,bchd->bhgqc", qg, kb.float())
         if causal:
@@ -288,19 +292,28 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bhgqc,bchd->bhgqd", p.to(vb.dtype).float(),
                           vb.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return m_new, l, acc * corr[..., None] + pv
+
+    for ci in range(nc):
+        kb = k[:, ci * c:(ci + 1) * c]
+        vb = v[:, ci * c:(ci + 1) * c]
+        if remat_chunk and torch.is_grad_enabled():
+            m, l, acc = checkpoint(step, m, l, acc, kb, vb, ci,
+                                   use_reentrant=False)
+        else:
+            m, l, acc = step(m, l, acc, kb, vb, ci)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int) -> torch.Tensor:
+                    window: int, remat_chunk: bool = False) -> torch.Tensor:
     """Sliding-window attention over whole sequences (``layers.py:392``):
     ``streaming_attention`` with chunks of ``max(128, min(window, Skv))``
     keys."""
     return streaming_attention(q, k, v, causal=True, window=window,
-                               chunk_size=max(128, min(window, k.shape[1])))
+                               chunk_size=max(128, min(window, k.shape[1])),
+                               remat_chunk=remat_chunk)
 
 
 def _cache_scores(qg: torch.Tensor, k_cache: torch.Tensor,

@@ -311,9 +311,11 @@ def _attn_block_full(cfg: ModelConfig, p: Tree, x: torch.Tensor,
         o = L.fused_attention(q, k, v, causal=cfg.causal, window=window,
                               block_kv=choice.kw["block_kv"])
     elif window:
-        o = L.local_attention(q, k, v, window=window)
+        o = L.local_attention(q, k, v, window=window,
+                              remat_chunk=cfg.remat_attn_chunk)
     else:
-        o = L.streaming_attention(q, k, v, causal=cfg.causal)
+        o = L.streaming_attention(q, k, v, causal=cfg.causal,
+                                  remat_chunk=cfg.remat_attn_chunk)
     x = x + _out_proj(o.reshape(b, s, hq * hd), ap["wo"], lplan, train)
     return x + _ffn_block(cfg, p["mlp"], x, p["ln2"], lplan, train), k, v
 

@@ -524,3 +524,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             **state_cache_defs(cfg, batch)}
     return {name: torch.zeros(cd.shape, dtype=cd.dtype, device=dev)
             for name, cd in defs.items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    """The parameter tree as float32 tensors on the ``meta`` device: the
+    reference's ``abstract_params`` (``params.py:261``, float32 master
+    leaves), shapes and dtypes without storage."""
+    return map_tree(lambda pd: torch.empty(pd.shape, dtype=torch.float32,
+                                           device="meta"), model_defs(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int,
+                   max_len: int) -> Dict[str, torch.Tensor]:
+    """``init_cache``'s leaves on the ``meta`` device (the reference's
+    ``abstract_cache``, ``params.py:402``)."""
+    defs = {**attn_cache_defs(cfg, batch, max_len),
+            **state_cache_defs(cfg, batch)}
+    return {name: torch.empty(cd.shape, dtype=cd.dtype, device="meta")
+            for name, cd in defs.items()}

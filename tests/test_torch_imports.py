@@ -50,7 +50,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.obs.__main__", "repro_torch.tuning",
             "repro_torch.tuning.table", "repro_torch.tuning.measure",
             "repro_torch.tuning.autotune",
-            "repro_torch.tuning.__main__"} <= set(modules)
+            "repro_torch.tuning.__main__", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline", "repro_torch.launch.op_analysis",
+            "repro_torch.launch.dryrun"} <= set(modules)
     assert {f"repro_torch.core.{m}" for m in (
         "affine", "itensor", "converter", "graph", "token_model",
         "fifo_sizing", "fusion", "platforms", "tiling", "trace", "dse",
